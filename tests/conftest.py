@@ -100,6 +100,8 @@ def pytest_addoption(parser):
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: backend-sweep / long-running tier (needs --runslow)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (skips without one)")
 
 
 def pytest_collection_modifyitems(config, items):
