@@ -5,21 +5,33 @@
 
 Phases (any failure raises and the script exits non-zero):
 
-1. build the hand-written CUDA kernel from ``src/repro_torch/.../csrc``;
-2. hold the kernel against its plain PyTorch version on the card at the
+1. build both hand-written CUDA kernels from ``src/repro_torch/.../csrc``,
+   one ``nvcc`` per source, started together;
+2. K1 (f32 moments) against its plain PyTorch version on the card at the
    three LLaMA-60M bucket shapes (and one FIRST-mode-sized leaf): limiter
-   with a zero and a non-zero history, a clipping case, weight decay; and
-   require two runs from equal inputs to be bitwise equal;
-3. small-input check: a few steps of llama-60m-smoke (f32) from the same
-   parameters and batches on the card and on the CPU give the same losses;
-4. the main path: ``repro_torch.launch.train.main`` trains full-width
-   llama-60m with GWT-2 for 20 steps; the kernel's launch count must be
-   exactly 3 per step, the losses finite and the last logged one below the
+   with a zero and a non-zero history, a clipping case, weight decay; two
+   runs from equal inputs must be bitwise equal;
+3. K2 (blocked-int8 moments) the same way, plus a shape whose leaves end in
+   a partial quantization block: parameters, codes and scales bitwise
+   equal to the plain version, the norm within 2 f32 spacings;
+4. small-input check: a few steps of llama-60m-smoke, f32 and int8 state,
+   from the same parameters and batches on the card and on the CPU give
+   the same losses;
+5. the f32 main path: ``repro_torch.launch.train.main`` trains full-width
+   llama-60m with GWT-2 for 20 steps; K1 must launch exactly 3 times per
+   step (K2 never), the losses be finite and the last logged one below the
    first;
-5. time the kernel per launch (CUDA events) beside its bound and the plain
-   version's time;
-6. profile a few full-width steps: optimizer update vs the rest, device
-   busy share, top kernels.
+6. the int8 main path: the same with ``--state-codec int8``; K2 must
+   launch 3 times per step (K1 never); the state must be the JAX
+   package's 48,273,508 bytes;
+7. resume on the card: full width, int8, train 20 steps checkpointing at
+   10, resume a fresh run from step 10; the result must be bitwise equal
+   to the 20 straight steps of phase 6 (parameters, codes, scales, norms);
+8. time each kernel per launch (CUDA events) beside its bound and its
+   plain version's time, and the int8 path's generic decode/encode of the
+   embedding's moments;
+9. profile a few full-width steps of each path: ``optimizer.update`` vs the
+   rest, device busy share, top kernels.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -31,8 +43,10 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -41,10 +55,12 @@ sys.path.insert(0, os.path.join(REPO, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM (NVIDIA data sheet): HBM3 bandwidth and f32 rate outside the
-# tensor cores, the peaks a bound is taken against
+# H100 SXM (NVIDIA data sheet and Hopper white paper): HBM3 bandwidth, the
+# f32 and int32 rates outside the tensor cores, the peaks a bound is taken
+# against
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 33.5e12
 
 # the three GWT buckets of llama-60m after row merging, and the leaves each
 # stands for; plus a FIRST-mode-sized leaf (a (8, 1376, 514) weight, whose
@@ -53,7 +69,14 @@ MAIN_SHAPES = [("mixer wq/wk/wv/wo", (4, 4096, 512)),
                ("ffn w_gate/w_up", (2, 4096, 1376)),
                ("ffn w_down", (1, 11008, 512))]
 FIRST_SHAPE = ("FIRST-mode (8,1376,514) leaf", (1, 4112, 1376))
+# 37 * 86 = 3182 coefficients per leaf: 49.7 blocks of 64
+PARTIAL_SHAPE = ("partial last block", (3, 37, 344))
 LEVEL = 2
+QBLOCK = 64
+STEPS = 20
+MAIN_ARGS = ["--arch", "llama-60m", "--steps", str(STEPS), "--batch", "16",
+             "--seq", "256", "--log-every", "5", "--seed", "0"]
+STATE_BYTES_INT8 = 48_273_508   # the JAX package's engine.state_bytes
 
 # (case, use_limiter, prev_norm, weight decay coefficient)
 CASES = [("limiter, prev 0", True, 0.0, 0.0),
@@ -71,6 +94,10 @@ CASES = [("limiter, prev 0", True, 0.0, 0.0),
 TOL_MV_F32_SPACINGS = 2
 TOL_NORM_F32_SPACINGS = 64
 TOL_P_BF16_SPACINGS = 1
+# K2 rounds like its plain version at every step, and codes and scales are
+# exact functions of bitwise-equal f32 moments: p, codes and scales must be
+# bitwise equal; only the norm's summation order differs
+TOL_NORM_Q8_F32_SPACINGS = 2
 
 
 def spacings(got: torch.Tensor, want: torch.Tensor, mant_bits: int) -> float:
@@ -155,9 +182,79 @@ def check_kernel(kernel, ops, ref, dev):
     return worst_abs
 
 
+def make_q8_inputs(shape, seed, dev):
+    """K1's inputs with the moments encoded by the port's codec."""
+    from repro_torch.optim import codec
+    g, p, mm, vv = make_inputs(shape, seed, dev)
+    L = shape[0]
+    ids = torch.arange(L, device=dev)
+    (qm, sm), (qv, sv) = (codec.quant_blocks(a.reshape(L, -1), ids + salt)
+                          for a, salt in ((mm, 101), (vv, 202)))
+    return g, p, qm.reshape(mm.shape), sm, qv.reshape(vv.shape), sv
+
+
+def q8_salts(L, dev, step=3):
+    from repro_torch.optim import codec
+    key = codec.make_key(0, dev)
+    ids = torch.arange(L, device=dev)
+    return [codec.slot_salt(key, torch.tensor(step, device=dev), s, ids)
+            for s in (0, 1)]
+
+
+def check_kernel_q8(kernel, ops, ref, dev):
+    """Phase 3.  Returns the worst absolute error over p, codes, scales."""
+    worst_abs = 0.0
+    step_size = torch.tensor(1e-3, device=dev)
+    for label, shape in MAIN_SHAPES + [FIRST_SHAPE, PARTIAL_SHAPE]:
+        L, m, n = shape
+        bm = ops.q8_row_block(m, n, LEVEL, QBLOCK) or m
+        salts = q8_salts(L, dev)
+        for ci, (case, use_lim, prev, wd) in enumerate(CASES):
+            inputs = make_q8_inputs(shape, 1000 * ci + n, dev)
+            pn = torch.full((L,), prev, device=dev)
+            wd_coef = torch.tensor(wd, device=dev)
+            kw = dict(level=LEVEL, block=QBLOCK, gamma=1.01,
+                      use_limiter=use_lim, weight_decay=wd != 0)
+            want = ref.gwt_adam_fused_q8(*inputs, *salts, pn, step_size,
+                                         wd_coef, bm=bm, **kw)
+            runs = [kernel.gwt_adam_fused_q8(
+                *(t.clone() for t in inputs),
+                *(s.to(torch.uint32) for s in salts), pn, step_size,
+                wd_coef, **kw) for _ in range(2)]
+            torch.cuda.synchronize()
+            for a, b in zip(*runs):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"K2 {label} / {case}: two kernel "
+                                         "runs differ")
+            got = runs[0]
+            names = ("p", "qm", "sm", "qv", "sv")
+            differ = {k: int((a != b).sum())
+                      for k, a, b in zip(names, got[:5], want[:5])}
+            norm_err = spacings(got[5], want[5], 23)
+            print(f"K2 {label} {shape} {case}: elements differing from the "
+                  f"plain version {differ}; norm {norm_err:.3g} f32 "
+                  f"spacings; bitwise repeat ok")
+            if any(differ.values()) or norm_err > TOL_NORM_Q8_F32_SPACINGS:
+                raise AssertionError(f"K2 {label} / {case}: kernel disagrees "
+                                     f"with the plain version: {differ}, "
+                                     f"norm {norm_err}")
+            if use_lim and prev == 1.0 and not torch.allclose(
+                    got[5], torch.full_like(got[5], 1.01)):
+                raise AssertionError(f"K2 {label}: clipping case did not "
+                                     f"clip ({got[5].tolist()})")
+            for a, b in zip(got[:5], want[:5]):
+                worst_abs = max(worst_abs, (a.double() - b.double()).abs()
+                                .max().item())
+    print(f"K2 vs plain: p, codes and scales bitwise, norm <= "
+          f"{TOL_NORM_Q8_F32_SPACINGS} f32 spacings; worst |err| over p, "
+          f"codes, scales = {worst_abs:.3g}")
+    return worst_abs
+
+
 def check_small_training(dev):
-    """Phase 3: llama-60m-smoke (f32), same parameters and batches on the
-    card and on the CPU; per-step losses within 1e-4 relative."""
+    """Phase 4: llama-60m-smoke, f32 and int8 state, same parameters and
+    batches on the card and on the CPU; per-step losses within 1e-4
+    relative."""
     from repro_torch import configs
     from repro_torch.core.gwt import gwt
     from repro_torch.data.pipeline import SyntheticLM
@@ -169,23 +266,24 @@ def check_small_training(dev):
     base = lm.init(cfg, torch.Generator().manual_seed(0), "cpu").tree()
     paths, leaves = flatten_with_paths(base)
     data = SyntheticLM(cfg.vocab, 32, 4, seed=0)
-    losses = {}
-    for device in ("cpu", "cuda"):
-        tree = lm.LM(cfg, unflatten(paths, [l.detach().to(device).clone()
-                                            for l in leaves])).tree()
-        opt = gwt(warmup_cosine(0.01, 4))
-        state = opt.init(tree)
-        step = lm.make_train_step(cfg, opt)
-        out = []
-        for i in range(4):
-            b = {k: torch.from_numpy(v).to(device)
-                 for k, v in data.batch(i).items()}
-            tree, state, met = step(tree, state, b)
-            out.append(met["loss"])
-        losses[device] = torch.stack(out).cpu().numpy()
-    print(f"smoke f32 losses cpu={losses['cpu'].tolist()} "
-          f"cuda={losses['cuda'].tolist()}")
-    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    for codec in ("f32", "int8"):
+        losses = {}
+        for device in ("cpu", "cuda"):
+            tree = lm.LM(cfg, unflatten(paths, [l.detach().to(device).clone()
+                                                for l in leaves])).tree()
+            opt = gwt(warmup_cosine(0.01, 4), state_codec=codec)
+            state = opt.init(tree)
+            step = lm.make_train_step(cfg, opt)
+            out = []
+            for i in range(4):
+                b = {k: torch.from_numpy(v).to(device)
+                     for k, v in data.batch(i).items()}
+                tree, state, met = step(tree, state, b)
+                out.append(met["loss"])
+            losses[device] = torch.stack(out).cpu().numpy()
+        print(f"smoke {codec} losses cpu={losses['cpu'].tolist()} "
+              f"cuda={losses['cuda'].tolist()}")
+        np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
 
 
 def time_ms(fn, iters):
@@ -248,8 +346,90 @@ def time_kernel(kernel, ops, ref, dev):
     return rows
 
 
-def profile_step(dev, steps=4):
-    """Phase 6: where a full-width step's time goes.  First without the
+def bound_q8(shape, esize=2):
+    """Least time for one K2 launch.  Bytes: read g; read and write p; read
+    and write both moments' int8 codes and their f32 scales; read prev_norm,
+    the salts and the two scalars, write new_norm.  Operations: K1's f32
+    work plus dequantization (2) and requantization (~9 per moment) in f32,
+    and the rounding hash (~10 int32 operations per moment), each type over
+    its own rate."""
+    L, m, n = shape
+    N, NA, B = L * m * n, L * m * (n >> LEVEL), 1 << LEVEL
+    nb = L * -(-(m * (n >> LEVEL)) // QBLOCK)
+    nbytes = 3 * N * esize + 2 * 2 * NA + 2 * 2 * nb * 4 + 4 * L * 4 + 8
+    f32_ops = NA * (2 * (4 * B - 4) + 11 + (B - 1) + 2 + 2 * 9) + N * 5
+    int_ops = NA * 2 * 10
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = f32_ops / F32_OPS_PER_S + int_ops / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations", nbytes
+
+
+def time_kernel_q8(kernel, ops, ref, dev):
+    rows = []
+    for label, shape in MAIN_SHAPES:
+        L, m, n = shape
+        inputs = make_q8_inputs(shape, 7, dev)
+        salts = q8_salts(L, dev)
+        usalts = [s.to(torch.uint32) for s in salts]
+        pn = torch.full((L,), 1e9, device=dev)
+        ss, wd = torch.tensor(1e-3, device=dev), torch.tensor(0.0,
+                                                              device=dev)
+        kw = dict(level=LEVEL, block=QBLOCK, gamma=1.01, use_limiter=True,
+                  weight_decay=False)
+        bm = ops.q8_row_block(m, n, LEVEL, QBLOCK) or m
+        plain = lambda: ref.gwt_adam_fused_q8(*inputs, *salts, pn, ss, wd,
+                                              bm=bm, **kw)
+        kern = lambda: kernel.gwt_adam_fused_q8(*inputs, *usalts, pn, ss,
+                                                wd, **kw)
+        # plain, kernel, kernel, plain: compare only inside one call
+        t_plain = [time_ms(plain, 5)]
+        t_kern = [time_ms(kern, 50), time_ms(kern, 50)]
+        t_plain.append(time_ms(plain, 5))
+        b_ms, b_by, nbytes = bound_q8(shape)
+        row = {"bucket": label, "shape": list(shape),
+               "ms": min(t_kern), "plain_ms": min(t_plain),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+        print(f"K2 time {label} {shape}: kernel {row['ms']:.4f} ms "
+              f"(runs {t_kern}), plain {row['plain_ms']:.4f} ms "
+              f"(runs {t_plain}), bound {b_ms:.4f} ms by {b_by} "
+              f"({nbytes / 1e6:.2f} MB), {b_ms / row['ms']:.1%} of bound")
+        rows.append(row)
+    return rows
+
+
+def time_generic_wrap(dev):
+    """The int8 path runs plain Adam on the 32000 x 512 embedding through
+    the engine's generic decode -> update -> encode: time the decode and
+    the encode (with the rounding hash) of its two moments, per step."""
+    from repro_torch.optim import codec
+    gen = torch.Generator(device=dev).manual_seed(3)
+    shape = (1, 32000, 512)
+    moments = [torch.randn(shape, generator=gen, device=dev) * 1e-3,
+               torch.rand(shape, generator=gen, device=dev) * 1e-6]
+    key = codec.make_key(0, dev)
+    step = torch.tensor(5, dtype=torch.int32, device=dev)
+    cdc = codec.get_codec("int8")
+    enc = [cdc.encode(x, codec.slot_salt(key, step, i, 0))
+           for i, x in enumerate(moments)]
+
+    def decode():
+        for e in enc:
+            cdc.decode(e)
+
+    def encode():
+        for i, x in enumerate(moments):
+            cdc.encode(x, codec.slot_salt(key, step, i, 0))
+
+    t_dec = min(time_ms(decode, 5), time_ms(decode, 5))
+    t_enc = min(time_ms(encode, 5), time_ms(encode, 5))
+    print(f"generic int8 wrap of the embedding's m and v (2 x 16.4 M): "
+          f"decode {t_dec:.3f} ms, encode {t_enc:.3f} ms per step")
+    return t_dec, t_enc
+
+
+def profile_step(dev, codec, steps=4):
+    """Phase 9: where a full-width step's time goes.  First without the
     profiler: step time and ``optimizer.update``'s share (CUDA events around
     it).  Then under ``torch.profiler``: device kernel time per step (kernel
     durations; the profiler slows the host, not the kernels), launches per
@@ -265,7 +445,7 @@ def profile_step(dev, steps=4):
     cfg = configs.get_config("llama-60m")
     tree = lm.init(cfg, torch.Generator(device=dev).manual_seed(1),
                    dev).tree()
-    opt = gwt(warmup_cosine(0.01, 100))
+    opt = gwt(warmup_cosine(0.01, 100), state_codec=codec)
     state = opt.init(tree)
     marks = []
 
@@ -304,7 +484,7 @@ def profile_step(dev, steps=4):
     kernel_us = [e.time_range.elapsed_us() for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(kernel_us) / 1e3 / steps
-    print(f"profile: step {step_ms:.2f} ms, optimizer.update "
+    print(f"profile {codec}: step {step_ms:.2f} ms, optimizer.update "
           f"{opt_ms:.2f} ms, rest of the step (data to model grads) "
           f"{step_ms - opt_ms:.2f} ms; device kernels {busy_ms:.2f} ms/step "
           f"= {busy_ms / step_ms:.1%} of the unprofiled step "
@@ -317,6 +497,90 @@ def profile_step(dev, steps=4):
     for e in ops:
         print(f"  {dev_time(e) / 1e3 / steps:8.3f} ms/step device "
               f"{e.count // steps:5d} calls/step  {e.key[:70]}")
+    return {"step_ms": step_ms, "update_ms": opt_ms,
+            "device_busy_ms": busy_ms}
+
+
+def run_main_path(train, kernel, codec, extra=()):
+    """Phases 5 and 6: the launcher at full width, launch counts set to 0
+    just before and read just after."""
+    torch.cuda.reset_peak_memory_stats()
+    kernel.launches = kernel.launches_q8 = 0
+    t0 = time.perf_counter()
+    res = train.main(MAIN_ARGS + ["--state-codec", codec, *extra])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"K1": kernel.launches, "K2": kernel.launches_q8}
+    peak = torch.cuda.max_memory_allocated()
+    logged = [res.losses[i] for i in range(4, len(res.losses), 5)]
+    print(f"main path {codec}: {STEPS} steps in {wall:.2f} s; logged losses "
+          f"{logged}; launches {counts}; step {res.step_ms:.2f} ms; "
+          f"{16 * 256 / (res.step_ms / 1e3):.0f} tokens/s; peak memory "
+          f"{peak / 2**20:.1f} MiB")
+    mine, other = ("K1", "K2") if codec == "f32" else ("K2", "K1")
+    if counts[mine] != 3 * STEPS or counts[other] != 0:
+        raise AssertionError(f"{codec} path launched {counts} in {STEPS} "
+                             f"steps, want {mine}={3 * STEPS}, {other}=0")
+    if not np.all(np.isfinite(res.losses)):
+        raise AssertionError(f"non-finite losses {res.losses}")
+    if not logged[-1] < logged[0]:
+        raise AssertionError(f"loss did not fall: {logged}")
+    from repro_torch.optim.base import flatten_with_paths
+    for name, t in zip(*flatten_with_paths(res.params)):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"non-finite parameter {name}")
+    return res, counts[mine], peak
+
+
+def assert_bitwise(a, b, what):
+    from repro_torch.optim.base import flatten_with_paths
+    pa, la = flatten_with_paths(a)
+    pb, lb = flatten_with_paths(b)
+    if pa != pb:
+        raise AssertionError(f"{what}: different leaves")
+    for path, x, y in zip(pa, la, lb):
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            raise AssertionError(f"{what}: {path} differs")
+
+
+def check_resume(train, straight):
+    """Phase 7: 20 int8 steps checkpointing at 10, then a fresh run resumed
+    from step 10, against phase 6's 20 straight steps, bitwise."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ckpt = ["--state-codec", "int8", "--ckpt-dir", tmp,
+                "--ckpt-every", "10"]
+        first = train.main(MAIN_ARGS + ckpt)
+        assert_bitwise(first.params, straight.params, "checkpointed run")
+        shutil.rmtree(os.path.join(tmp, f"step_{STEPS:09d}"))
+        resumed = train.main(MAIN_ARGS + ckpt + ["--resume"])
+        if resumed.start_step != 10 or \
+                first.losses[10:] != resumed.losses:
+            raise AssertionError(f"resume from {resumed.start_step}: losses "
+                                 f"{resumed.losses} vs {first.losses[10:]}")
+        assert_bitwise(resumed.params, straight.params, "resumed params")
+        assert_bitwise(resumed.opt_state, straight.opt_state,
+                       "resumed optimizer state")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"resume: 10 steps + checkpoint + resume + 10 steps == {STEPS} "
+          f"straight steps, bitwise (params, codes, scales, norms)")
+
+
+def kernel_entry(name, source, replaces, launches, max_abs_err, rows,
+                 **extra):
+    """One kernel's line: one step's worth, the three bucket launches
+    summed."""
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/gwt_adam/csrc/" + source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_abs_err,
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                       for r in rows) else "operations",
+            "library_ms": None, "per_launch": rows, **extra}
 
 
 def main() -> int:
@@ -326,7 +590,7 @@ def main() -> int:
         return 2
     from repro_torch.kernels.gwt_adam import kernel, ops, ref
     from repro_torch.launch import train
-    from repro_torch.optim.base import flatten_with_paths
+    from repro_torch.optim.engine import state_bytes
 
     dev = torch.device("cuda")
     card = smi()
@@ -334,56 +598,43 @@ def main() -> int:
           f"cuda {torch.version.cuda}; card: {card}")
 
     t0 = time.perf_counter()
-    lib = kernel.build(verbose=True)
+    libs = kernel.build_all(verbose=True)
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
-          f"{os.path.relpath(lib, REPO)}")
+          f"{[os.path.relpath(p, REPO) for p in libs.values()]}")
 
-    worst_abs = check_kernel(kernel, ops, ref, dev)
+    err_k1 = check_kernel(kernel, ops, ref, dev)
+    err_k2 = check_kernel_q8(kernel, ops, ref, dev)
     check_small_training(dev)
 
-    steps = 20
-    torch.cuda.reset_peak_memory_stats()
-    kernel.launches = 0
-    t0 = time.perf_counter()
-    res = train.main(["--arch", "llama-60m", "--steps", str(steps),
-                      "--batch", "16", "--seq", "256", "--log-every", "5",
-                      "--seed", "0"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = kernel.launches
-    peak = torch.cuda.max_memory_allocated()
-    logged = [res.losses[i] for i in range(4, steps, 5)]
-    print(f"main path: {steps} steps in {wall:.2f} s; logged losses "
-          f"{logged}; K1 launches {launches}; step {res.step_ms:.2f} ms; "
-          f"{16 * 256 / (res.step_ms / 1e3):.0f} tokens/s; peak memory "
-          f"{peak / 2**20:.1f} MiB")
-    if launches != 3 * steps:
-        raise AssertionError(f"K1 launched {launches} times in {steps} "
-                             f"steps, want {3 * steps}")
-    if not np.all(np.isfinite(res.losses)):
-        raise AssertionError(f"non-finite losses {res.losses}")
-    if not logged[-1] < logged[0]:
-        raise AssertionError(f"loss did not fall: {logged}")
-    for name, t in zip(*flatten_with_paths(res.params)):
-        if not torch.isfinite(t).all():
-            raise AssertionError(f"non-finite parameter {name}")
+    res32, launches_k1, peak32 = run_main_path(train, kernel, "f32")
+    res8, launches_k2, peak8 = run_main_path(train, kernel, "int8")
+    mib8 = state_bytes(res8.opt_state)
+    mib32 = state_bytes(res32.opt_state)
+    print(f"optimizer state: f32 {mib32} B = {mib32 / 2**20:.2f} MiB, int8 "
+          f"{mib8} B = {mib8 / 2**20:.2f} MiB")
+    if mib8 != STATE_BYTES_INT8:
+        raise AssertionError(f"int8 state is {mib8} bytes, the JAX package "
+                             f"counts {STATE_BYTES_INT8}")
+    check_resume(train, res8)
 
-    rows = time_kernel(kernel, ops, ref, dev)
-    profile_step(dev)
-    entry = {"name": "gwt_adam_fused", "route": "cuda",
-             "source": "src/repro_torch/kernels/gwt_adam/csrc/"
-                       "gwt_adam_fused.cu",
-             "replaces": "src/repro/kernels/gwt_adam/kernel.py:404",
-             "launches": launches, "max_abs_err": worst_abs,
-             # one step's worth: the three bucket launches summed
-             "ms": sum(r["ms"] for r in rows),
-             "plain_ms": sum(r["plain_ms"] for r in rows),
-             "bound_ms": sum(r["bound_ms"] for r in rows),
-             "bound_by": "bytes" if all(r["bound_by"] == "bytes"
-                                        for r in rows) else "operations",
-             "library_ms": None, "per_launch": rows,
-             "step_ms": res.step_ms, "peak_mib": peak / 2**20}
-    print(json.dumps({"kernels": [entry]}))
+    rows_k1 = time_kernel(kernel, ops, ref, dev)
+    rows_k2 = time_kernel_q8(kernel, ops, ref, dev)
+    wrap_dec, wrap_enc = time_generic_wrap(dev)
+    prof32 = profile_step(dev, "f32")
+    prof8 = profile_step(dev, "int8")
+    entries = [
+        kernel_entry("gwt_adam_fused", "gwt_adam_fused.cu",
+                     "src/repro/kernels/gwt_adam/kernel.py:404",
+                     launches_k1, err_k1, rows_k1, step_ms=res32.step_ms,
+                     peak_mib=peak32 / 2**20, profile=prof32),
+        kernel_entry("gwt_adam_fused_q8", "gwt_adam_fused_q8.cu",
+                     "src/repro/kernels/gwt_adam/kernel.py:554",
+                     launches_k2, err_k2, rows_k2, step_ms=res8.step_ms,
+                     peak_mib=peak8 / 2**20, state_bytes=mib8,
+                     profile=prof8, embedding_wrap_ms={
+                         "decode": wrap_dec, "encode": wrap_enc}),
+    ]
+    print(json.dumps({"kernels": entries}))
     print(smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

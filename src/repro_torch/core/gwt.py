@@ -1,6 +1,6 @@
 """GWT — Gradient Wavelet Transform optimizer, the paper's Algorithm 1
-(counterpart of ``repro/core/gwt.py``: Haar wavelet, Adam host, f32 state,
-fused write).
+(counterpart of ``repro/core/gwt.py``: Haar wavelet, Adam host, f32 or
+blocked-int8 state, fused write).
 
 Per eligible weight with transform-axis width divisible by ``2^l``::
 
@@ -14,7 +14,10 @@ Per eligible weight with transform-axis width divisible by ``2^l``::
 
 Ineligible leaves (embeddings, norms, 1-D) run plain Adam at the base lr.
 Same-shaped eligible leaves form one ``(L, m, n)`` bucket, and each bucket
-is one ``kernels.gwt_adam.ops.fused_write_update`` call.
+is one ``kernels.gwt_adam.ops.fused_write_update`` call, or with
+``state_codec="int8"`` one ``fused_write_update_q8`` call, which dequantizes
+and requantizes the moments inside the launch.  The plain-Adam leaves run
+the engine's generic decode -> update -> encode under int8.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 
 from repro_torch.core import haar, limiter
 from repro_torch.kernels.gwt_adam import ops as gwt_ops
-from repro_torch.optim import engine, hosts as hosts_lib
+from repro_torch.optim import codec as codec_lib, engine, hosts as hosts_lib
 from repro_torch.optim.base import Optimizer, default_eligible
 from repro_torch.optim.schedules import Schedule, constant
 
@@ -56,10 +59,13 @@ def gwt(lr: Schedule | float,
         gamma: float = limiter.DEFAULT_GAMMA,
         use_limiter: bool = True,
         eligible: Optional[Callable[[str, torch.Tensor], bool]] = None,
-        weight_decay: float = 0.0) -> Optimizer:
-    """Build the GWT optimizer (Haar wavelet, Adam host, f32 moments)."""
+        weight_decay: float = 0.0,
+        state_codec="f32") -> Optimizer:
+    """Build the GWT optimizer (Haar wavelet, Adam host).  ``state_codec``
+    ('f32' | 'int8') stores the Adam moments raw or blocked-int8."""
     if isinstance(lr, (int, float)):
         lr = constant(lr)
+    cdc = codec_lib.get_codec(state_codec)
     h = hosts_lib.adam(B1, B2, EPS)
     elig = eligible or default_eligible
 
@@ -71,14 +77,14 @@ def gwt(lr: Schedule | float,
         return new_p.to(p.dtype)
 
     # -- plain rule: Adam on the full tensor --------------------------------
-    def plain_update(g, p, state, step):
+    def plain_update(g, p, state, step, leaf_id=0):
         delta, _, lr_mult, hstate = h.update(g, state["host"], step)
         return _apply(p, delta, lr(step), lr_mult, 1.0), {"host": hstate}
 
     plain_rule = engine.LeafRule(
         kind=_Mode.PLAIN,
         init=lambda p: {"host": h.init(p.shape, p.device)},
-        update=plain_update)
+        update=plain_update, slots={"host": h.slots})
 
     # -- GWT rules: DHT along axis -1 (LAST) or -2 (FIRST) ------------------
     def make_gwt_rule(mode: str) -> engine.LeafRule:
@@ -92,7 +98,7 @@ def gwt(lr: Schedule | float,
                     "prev_norm": torch.zeros((), dtype=torch.float32,
                                              device=p.device)}
 
-        def update(g, p, state, step):
+        def update(g, p, state, step, leaf_id=0):
             # the staged per-leaf path: DWT, host, inverse, then limiter and
             # apply outside any kernel
             gt = g.transpose(-1, -2) if swap else g
@@ -111,7 +117,7 @@ def gwt(lr: Schedule | float,
                     g_tilde, state["prev_norm"], gamma)
             return _apply(p, g_tilde, lr(step), lr_mult, alpha), out
 
-        def vector_update(g_stk, p_stk, state, step):
+        def vector_update(g_stk, p_stk, state, step, leaf_ids):
             # one fused-write call for the whole (L, m, n) bucket; FIRST-mode
             # leaves go in as contiguous transposed copies
             gt = g_stk.transpose(-1, -2).contiguous() if swap else g_stk
@@ -125,10 +131,31 @@ def gwt(lr: Schedule | float,
                 new_p = new_p.transpose(-1, -2)
             return new_p, {"host": hstate, "prev_norm": new_norm}
 
-        return engine.LeafRule(kind=mode, init=init, update=update,
-                               vector_update=vector_update)
+        def vector_update_q8(g_stk, p_stk, state, step, leaf_ids, codec_key):
+            # codec-native: the launch dequantizes the blocked moments,
+            # updates, requantizes with the (m=0, v=1) slot salts of
+            # codec.map_slots and writes the parameters
+            gt = g_stk.transpose(-1, -2).contiguous() if swap else g_stk
+            pt = p_stk.transpose(-1, -2).contiguous() if swap else p_stk
+            new_p, new_norm, hstate = gwt_ops.fused_write_update_q8(
+                gt, pt, state["host"], step, codec_key, leaf_ids,
+                state["prev_norm"], lr_t=lr(step), alpha=alpha,
+                weight_decay=weight_decay, gamma=gamma,
+                use_limiter=use_limiter, level=level, block=cdc.block,
+                b1=B1, b2=B2, eps=EPS)
+            if swap:
+                new_p = new_p.transpose(-1, -2)
+            return new_p, {"host": hstate, "prev_norm": new_norm}
+
+        quant = not cdc.passthrough
+        return engine.LeafRule(
+            kind=mode, init=init, update=update,
+            vector_update=vector_update_q8 if quant else vector_update,
+            slots={"host": h.slots, "prev_norm": False},
+            codec_native=quant)
 
     rules = {_Mode.PLAIN: plain_rule, _Mode.LAST: make_gwt_rule(_Mode.LAST),
              _Mode.FIRST: make_gwt_rule(_Mode.FIRST)}
     return engine.build(
-        lambda path, leaf: rules[_leaf_mode(path, leaf, level, elig)])
+        lambda path, leaf: rules[_leaf_mode(path, leaf, level, elig)],
+        codec=cdc)

@@ -1,8 +1,9 @@
-"""Carry parameters and optimizer state from the JAX package into the port.
+"""Carry parameters and optimizer state between the JAX package and the
+port.
 
-Both functions take a flat ``{path: ndarray}`` dict keyed by the JAX
+Both directions use a flat ``{path: ndarray}`` dict keyed by the JAX
 flatten paths (``"layers/b0/mixer/wq"``,
-``"buckets/gwt_last__layers.b0.mixer.wk/host/m"``).  A bf16 leaf arrives
+``"buckets/gwt_last__layers.b0.mixer.wk/host/m/q"``).  A bf16 leaf arrives
 either as float32 (every bf16 value is exact in float32) or as its raw bits
 viewed as ``uint16``; ``ml_dtypes`` is not needed.
 """
@@ -14,19 +15,17 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import from_numpy
 from repro_torch.models import lm
 from repro_torch.optim.base import flatten_with_paths, unflatten
 
 
 def _tensor(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
     a = np.asarray(a)
-    if a.dtype == np.uint16:
-        if dtype != torch.bfloat16:
-            raise ValueError(f"uint16 bits are bf16, not {dtype}")
-        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(np.array(a, copy=True)).to(dtype)
-    return t.to(device)
+    if a.dtype == np.uint16 and dtype != torch.bfloat16:
+        raise ValueError(f"uint16 bits are bf16, not {dtype}")
+    return from_numpy(a, "bfloat16" if a.dtype == np.uint16 else
+                      str(a.dtype), dtype, device)
 
 
 def params_from_numpy(cfg, arrays: Mapping[str, np.ndarray],
@@ -48,10 +47,25 @@ def params_from_numpy(cfg, arrays: Mapping[str, np.ndarray],
     return lm.LM(cfg, unflatten(paths, out))
 
 
+# optimizer-state leaves keep their integer dtypes: int8 moment codes, the
+# uint32 codec key, the int32 step; every other leaf is f32
+_STATE_DTYPES = {np.dtype(np.int8): torch.int8,
+                 np.dtype(np.uint32): torch.uint32,
+                 np.dtype(np.int32): torch.int32}
+
+
 def state_from_numpy(arrays: Mapping[str, np.ndarray],
                      device) -> Dict[str, object]:
-    """The optimizer state: ``step`` int32, every other leaf f32."""
+    """The optimizer state from its flat ``{path: ndarray}`` export."""
     paths = sorted(arrays)
-    leaves = [_tensor(arrays[p], torch.int32 if p == "step"
-                      else torch.float32, device) for p in paths]
+    leaves = [_tensor(arrays[p], _STATE_DTYPES.get(np.asarray(arrays[p])
+                                                   .dtype, torch.float32),
+                      device) for p in paths]
     return unflatten(paths, leaves)
+
+
+def state_to_numpy(state) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`state_from_numpy`: ``{path: ndarray}`` in each
+    leaf's own dtype."""
+    paths, leaves = flatten_with_paths(state)
+    return {p: t.detach().cpu().numpy() for p, t in zip(paths, leaves)}

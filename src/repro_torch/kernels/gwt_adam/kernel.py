@@ -1,15 +1,21 @@
-"""Build, binding and launch of the hand-written CUDA fused-write kernel
-(``csrc/gwt_adam_fused.cu``), counterpart of the TPU kernel
-``gwt_adam_tile_fused`` in ``repro/kernels/gwt_adam/kernel.py``.
+"""Build, binding and launch of the hand-written CUDA fused-write kernels:
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+* ``gwt_adam_fused`` (``csrc/gwt_adam_fused.cu``, f32 moments), counterpart
+  of the TPU kernel ``gwt_adam_tile_fused`` in
+  ``repro/kernels/gwt_adam/kernel.py``;
+* ``gwt_adam_fused_q8`` (``csrc/gwt_adam_fused_q8.cu``, blocked-int8
+  moments), counterpart of ``gwt_adam_tile_fused_q8`` there.
+
+Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface on first use, and bound with ``ctypes``.  The
-library goes to ``build/torch_kernels/`` at the repository root, named by
-the hash of its source, so an edited source is rebuilt.  Nothing is
-compiled when this module is imported.
+libraries go to ``build/torch_kernels/`` at the repository root, named by
+the hash of their sources (the shared header included), so an edited source
+is rebuilt.  :func:`build_all` starts one ``nvcc`` per source at once.
+Nothing is compiled when this module is imported.
 
-``launches`` counts calls of :func:`gwt_adam_fused` that launched the
-kernel; nothing else changes it.
+``launches`` counts calls of :func:`gwt_adam_fused` that launched its
+kernel and ``launches_q8`` those of :func:`gwt_adam_fused_q8`; nothing else
+changes them.
 """
 
 from __future__ import annotations
@@ -21,18 +27,22 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "gwt_adam_fused.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+HEADER = CSRC / "gwt_adam_common.cuh"
+SOURCES = {"gwt_adam_fused": CSRC / "gwt_adam_fused.cu",
+           "gwt_adam_fused_q8": CSRC / "gwt_adam_fused_q8.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 launches = 0
+launches_q8 = 0
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -44,47 +54,78 @@ def _nvcc() -> str:
     if os.path.exists(default):
         return default
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       f"{SOURCE.name}")
+                       "the kernels in " + str(CSRC))
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the kernel library if it is not built yet; returns its path.
-    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"libgwt_adam_fused_{digest}.so"
-    if out.exists() and not verbose:
+def _target(name: str) -> Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes()
+                            + HEADER.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build_all(names=tuple(SOURCES), verbose: bool = False) -> Dict[str, Path]:
+    """Compile the libraries of ``names`` that are not built yet, one
+    ``nvcc`` process per source, all started together; returns their
+    paths.  ``verbose`` adds ``-Xptxas -v`` and prints each report."""
+    out = {name: _target(name) for name in names}
+    todo = [n for n in names if verbose or not out[n].exists()]
+    if not todo:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, str(SOURCE)]
+    jobs = []
     try:
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-        if verbose:
-            print(r.stderr, end="")
-        os.replace(tmp, out)
+        for name in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [_nvcc(), *NVCC_FLAGS,
+                   *(["-Xptxas", "-v"] if verbose else []), "-o", tmp,
+                   str(SOURCES[name])]
+            jobs.append((name, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = []
+        for name, tmp, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{SOURCES[name].name} ({proc.returncode}):\n"
+                              f"{err}")
+            else:
+                if verbose:
+                    print(f"{SOURCES[name].name}:\n{err}", end="")
+                os.replace(tmp, out[name])
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        for _, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
     return out
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+def _load(name: str) -> ctypes.CDLL:
+    if name not in _libs:
+        lib = ctypes.CDLL(str(build_all((name,))[name]))
         vp, ll, f, i = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
                         ctypes.c_int)
-        lib.gwt_adam_fused.argtypes = [i, i, vp, vp, vp, vp, vp, vp, vp, vp,
-                                       vp, ll, ll, f, f, f, f, f, f, i, i, vp]
-        lib.gwt_adam_fused.restype = i
-        lib.gwt_adam_fused_chunk.argtypes = []
-        lib.gwt_adam_fused_chunk.restype = i
-        _lib = lib
-    return _lib
+        fn = getattr(lib, name)
+        if name == "gwt_adam_fused":
+            fn.argtypes = [i, i, vp, vp, vp, vp, vp, vp, vp, vp, vp, ll, ll,
+                           f, f, f, f, f, f, i, i, vp]
+            lib.gwt_adam_fused_chunk.argtypes = []
+            lib.gwt_adam_fused_chunk.restype = i
+        else:
+            fn.argtypes = [i, i, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                           vp, vp, ll, ll, f, f, f, f, f, f, i, i, vp]
+            for extra in ("gwt_adam_fused_q8_chunk",
+                          "gwt_adam_fused_q8_qblock"):
+                getattr(lib, extra).argtypes = []
+                getattr(lib, extra).restype = i
+        fn.restype = i
+        _libs[name] = lib
+    return _libs[name]
 
 
 def _check(name: str, t: torch.Tensor, device: torch.device,
@@ -98,6 +139,29 @@ def _check(name: str, t: torch.Tensor, device: torch.device,
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+def _check_bucket(g: torch.Tensor, level: int) -> Tuple[int, int, int, int]:
+    """Common checks of both kernels; returns ``(L, rows, n, na)``."""
+    if g.ndim != 3:
+        raise ValueError(f"g must be (L, rows, n), got {tuple(g.shape)}")
+    if not 1 <= level <= 4:
+        raise ValueError(f"level {level} outside the kernel's 1..4")
+    L, rows, n = g.shape
+    if n % (1 << level):
+        raise ValueError(f"n={n} not divisible by 2^{level}")
+    if g.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got "
+                         f"{g.device}")
+    if g.dtype not in _DTYPES:
+        raise ValueError(f"unsupported dtype {g.dtype}")
+    return L, rows, n, rows * (n >> level)
+
+
+def _check_scalars(device, L, prev_norm, step_size, wd_coef) -> None:
+    _check("prev_norm", prev_norm, device, torch.float32, (L,))
+    _check("step_size", step_size, device, torch.float32, ())
+    _check("wd_coef", wd_coef, device, torch.float32, ())
 
 
 def gwt_adam_fused(g: torch.Tensor, p: torch.Tensor, m: torch.Tensor,
@@ -114,27 +178,14 @@ def gwt_adam_fused(g: torch.Tensor, p: torch.Tensor, m: torch.Tensor,
     in place.  Returns ``(p, m, v, new_norm)``; raises on any input the
     kernel does not take and on a failed launch."""
     global launches
-    if g.ndim != 3:
-        raise ValueError(f"g must be (L, rows, n), got {tuple(g.shape)}")
-    if not 1 <= level <= 4:
-        raise ValueError(f"level {level} outside the kernel's 1..4")
-    L, rows, n = g.shape
-    if n % (1 << level):
-        raise ValueError(f"n={n} not divisible by 2^{level}")
+    L, rows, n, na = _check_bucket(g, level)
     device = g.device
-    if device.type != "cuda":
-        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {device}")
-    if g.dtype not in _DTYPES:
-        raise ValueError(f"unsupported dtype {g.dtype}")
-    na = rows * (n >> level)
     _check("g", g, device, g.dtype, (L, rows, n))
     _check("p", p, device, g.dtype, (L, rows, n))
     _check("m", m, device, torch.float32, (L, rows, n >> level))
     _check("v", v, device, torch.float32, (L, rows, n >> level))
-    _check("prev_norm", prev_norm, device, torch.float32, (L,))
-    _check("step_size", step_size, device, torch.float32, ())
-    _check("wd_coef", wd_coef, device, torch.float32, ())
-    lib = _load()
+    _check_scalars(device, L, prev_norm, step_size, wd_coef)
+    lib = _load("gwt_adam_fused")
     chunk = lib.gwt_adam_fused_chunk()
     partials = torch.empty((L, -(-na // chunk)), dtype=torch.float32,
                            device=device)
@@ -150,3 +201,54 @@ def gwt_adam_fused(g: torch.Tensor, p: torch.Tensor, m: torch.Tensor,
         raise RuntimeError(f"gwt_adam_fused launch failed: CUDA error {err}")
     launches += 1
     return p, m, v, new_norm
+
+
+def gwt_adam_fused_q8(g: torch.Tensor, p: torch.Tensor, qm: torch.Tensor,
+                      sm: torch.Tensor, qv: torch.Tensor, sv: torch.Tensor,
+                      salt_m: torch.Tensor, salt_v: torch.Tensor,
+                      prev_norm: torch.Tensor, step_size: torch.Tensor,
+                      wd_coef: torch.Tensor, *, level: int, block: int,
+                      gamma: float, use_limiter: bool, weight_decay: bool,
+                      b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6):
+    """Fused-write update of an ``(L, rows, n)`` bucket over blocked-int8
+    moments on the card.
+
+    ``qm``, ``qv``: int8 ``(L, rows, n >> level)``; ``sm``, ``sv``: f32
+    ``(L, ceil(rows * (n >> level) / block))``; ``salt_m``, ``salt_v``:
+    uint32 ``(L,)``; the rest as for :func:`gwt_adam_fused`.  ``p`` and the
+    codes and scales are updated in place.  Returns ``(p, qm, sm, qv, sv,
+    new_norm)``; raises on any input the kernel does not take and on a
+    failed launch."""
+    global launches_q8
+    L, rows, n, na = _check_bucket(g, level)
+    device = g.device
+    lib = _load("gwt_adam_fused_q8")
+    if block != lib.gwt_adam_fused_q8_qblock():
+        raise ValueError(f"the kernel quantizes in blocks of "
+                         f"{lib.gwt_adam_fused_q8_qblock()}, not {block}")
+    nb = -(-na // block)
+    _check("g", g, device, g.dtype, (L, rows, n))
+    _check("p", p, device, g.dtype, (L, rows, n))
+    for name, q, s in (("m", qm, sm), ("v", qv, sv)):
+        _check(f"q{name}", q, device, torch.int8, (L, rows, n >> level))
+        _check(f"s{name}", s, device, torch.float32, (L, nb))
+    _check("salt_m", salt_m, device, torch.uint32, (L,))
+    _check("salt_v", salt_v, device, torch.uint32, (L,))
+    _check_scalars(device, L, prev_norm, step_size, wd_coef)
+    chunk = lib.gwt_adam_fused_q8_chunk()
+    partials = torch.empty((L, -(-na // chunk)), dtype=torch.float32,
+                           device=device)
+    new_norm = torch.empty((L,), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.gwt_adam_fused_q8(
+        _DTYPES[g.dtype], level, g.data_ptr(), p.data_ptr(), qm.data_ptr(),
+        sm.data_ptr(), qv.data_ptr(), sv.data_ptr(), salt_m.data_ptr(),
+        salt_v.data_ptr(), prev_norm.data_ptr(), new_norm.data_ptr(),
+        partials.data_ptr(), step_size.data_ptr(), wd_coef.data_ptr(),
+        L, na, gamma, b1, 1 - b1, b2, 1 - b2, eps, int(use_limiter),
+        int(weight_decay), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"gwt_adam_fused_q8 launch failed: CUDA error {err}")
+    launches_q8 += 1
+    return p, qm, sm, qv, sv, new_norm

@@ -1,5 +1,4 @@
-"""Leaf plan + bucketed execution (counterpart of ``repro/optim/engine.py``,
-f32 state only).
+"""Leaf plan + bucketed execution (counterpart of ``repro/optim/engine.py``).
 
 1. **LeafPlan** — every '/'-joined leaf path gets a :class:`LeafRule` from
    the optimizer's ``assign`` function.
@@ -7,13 +6,22 @@ f32 state only).
    dtype)`` are grouped and named ``"<kind>__<first path, / → .>"``, so the
    names equal the JAX package's.
 3. **Execution** — one ``vector_update`` call over the stacked ``(L, ...)``
-   bucket when the rule has one (the fused GWT-Adam kernel), else the
+   bucket when the rule has one (the fused GWT-Adam kernels), else the
    rule's per-leaf ``update`` in flatten order.
 
 State layout::
 
     {"step": int32 scalar tensor,
+     ["codec_key": uint32 scalar tensor,]      # quantizing codecs only
      "buckets": {"<kind>__<path>": <per-leaf state stacked on a leading axis>}}
+
+**State codec** (``optim/codec.py``): rules mark their moment slots
+(``LeafRule.slots``) and :func:`build` takes a ``codec``.  With ``int8`` the
+slots are stored encoded: a ``codec_native`` rule's ``vector_update`` gets
+the encoded bucket whole (the fused q8 kernel requantizes inside its
+launch); any other rule runs decode -> ``update`` -> encode per leaf,
+salted with that leaf's flatten index.  The ``f32`` codec skips all of it.
+:func:`transcode` re-encodes a state between codecs.
 
 ``update`` writes the new parameter values into the parameter tensors in
 place.  Stacking a bucket copies its gradients and parameters into one
@@ -26,6 +34,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.optim import codec as codec_lib
 from repro_torch.optim.base import Optimizer, flatten_with_paths, tree_map
 
 
@@ -35,10 +44,15 @@ class LeafRule(NamedTuple):
     * ``kind`` — rule family name; the bucket-name prefix.
     * ``init(leaf) -> state`` — per-leaf state (a dict of tensors) from a
       tensor (a ``meta`` tensor gives a ``meta`` state).
-    * ``update(g, p, state, step) -> (new_p, new_state)`` — one leaf.
+    * ``update(g, p, state, step, leaf_id=0) -> (new_p, new_state)`` — one
+      leaf; ``leaf_id`` is its flatten-order index.
     * ``sig`` — extra static signature that must also match to bucket.
-    * ``vector_update(g_stk, p_stk, state_stk, step) -> (new_p_stk,
-      new_state_stk)`` — optional, over the whole stacked bucket.
+    * ``vector_update(g_stk, p_stk, state_stk, step, leaf_ids[, codec_key])
+      -> (new_p_stk, new_state_stk)`` — optional, over the whole stacked
+      bucket; ``codec_key`` is passed when the rule is ``codec_native``.
+    * ``slots`` — bool tree mirroring the per-leaf state: True marks a
+      moment slot the codec stores encoded; ``None``: no slots.
+    * ``codec_native`` — ``vector_update`` takes the encoded slots itself.
     """
 
     kind: str
@@ -46,6 +60,8 @@ class LeafRule(NamedTuple):
     update: Callable[..., Tuple[torch.Tensor, Any]]
     sig: Tuple = ()
     vector_update: Optional[Callable[..., Tuple[torch.Tensor, Any]]] = None
+    slots: Any = None
+    codec_native: bool = False
 
 
 class Bucket(NamedTuple):
@@ -92,13 +108,27 @@ def _slice_state(state: Dict[str, Any], j: int) -> Dict[str, Any]:
     return tree_map(lambda a: a[j], state)
 
 
+def _leaf_ids(b: Bucket, device) -> torch.Tensor:
+    return torch.tensor(b.indices, dtype=torch.int32, device=device)
+
+
+def _recode_stacked(fn, st, lids):
+    """Apply ``fn(leaf_state, leaf_id)`` to each leaf of a stacked bucket
+    state and stack the results again."""
+    return _stack_states([fn(_slice_state(st, j), lids[j])
+                          for j in range(lids.shape[0])])
+
+
 class Engine:
     """Plan companion of an engine-built :class:`Optimizer`.  The plan
     depends only on paths, shapes and dtypes, so it is cached per
     structure."""
 
-    def __init__(self, assign: Callable[[str, Any], LeafRule]):
+    def __init__(self, assign: Callable[[str, Any], LeafRule], codec="f32",
+                 codec_seed: int = 0):
         self.assign = assign
+        self.codec = codec_lib.get_codec(codec)
+        self.codec_seed = codec_seed
         self._plans: Dict[tuple, LeafPlan] = {}
 
     def plan(self, params) -> LeafPlan:
@@ -109,51 +139,116 @@ class Engine:
             self._plans[key] = build_plan(self.assign, params)
         return self._plans[key]
 
+    def codec_key(self, device=None) -> Optional[torch.Tensor]:
+        """The uint32 rounding key ``init`` stores in
+        ``opt_state["codec_key"]`` (None for passthrough codecs)."""
+        if self.codec.passthrough:
+            return None
+        return codec_lib.make_key(self.codec_seed, device)
 
-def build(assign: Callable[[str, Any], LeafRule]) -> Optimizer:
-    """Build an :class:`Optimizer` from a leaf-rule assignment."""
-    eng = Engine(assign)
+
+def build(assign: Callable[[str, Any], LeafRule], codec="f32",
+          codec_seed: int = 0) -> Optimizer:
+    """Build an :class:`Optimizer` from a leaf-rule assignment.  ``codec``
+    (name or instance) stores the rules' moment slots; ``codec_seed``
+    derives the stochastic-rounding key carried in the state."""
+    eng = Engine(assign, codec=codec, codec_seed=codec_seed)
+    cdc = eng.codec
+    quant = not cdc.passthrough
 
     def init(params):
         plan = eng.plan(params)
         _, leaves = flatten_with_paths(params)
-        buckets = {b.name: _stack_states([b.rule.init(leaves[i])
+
+        def leaf_init(rule, leaf):
+            st = rule.init(leaf)
+            return codec_lib.tree_init(cdc, rule.slots, st) if quant else st
+
+        device = leaves[0].device
+        buckets = {b.name: _stack_states([leaf_init(b.rule, leaves[i])
                                           for i in b.indices])
                    for b in plan.buckets}
-        return {"step": torch.zeros((), dtype=torch.int32,
-                                    device=leaves[0].device),
-                "buckets": buckets}
+        out = {"step": torch.zeros((), dtype=torch.int32, device=device),
+               "buckets": buckets}
+        if quant:
+            out["codec_key"] = eng.codec_key(device)
+        return out
 
     @torch.no_grad()
     def update(grads, state, params):
         step = state["step"]
+        key = state.get("codec_key")
         plan = eng.plan(params)
         _, gleaves = flatten_with_paths(grads)
         _, pleaves = flatten_with_paths(params)
         new_buckets = {}
         for b in plan.buckets:
             st = state["buckets"][b.name]
-            if b.rule.vector_update is not None:
+            rule = b.rule
+            coded = quant and rule.slots is not None
+            lids = _leaf_ids(b, step.device)
+            if rule.vector_update is not None and (
+                    rule.codec_native or not coded):
                 g_stk = torch.stack([gleaves[i] for i in b.indices])
                 p_stk = torch.stack([pleaves[i] for i in b.indices])
-                np_stk, ns = b.rule.vector_update(g_stk, p_stk, st, step)
+                extra = (key,) if coded else ()
+                np_stk, ns = rule.vector_update(g_stk, p_stk, st, step,
+                                                lids, *extra)
                 for j, i in enumerate(b.indices):
                     pleaves[i].copy_(np_stk[j])
             else:
                 per_leaf = []
                 for j, i in enumerate(b.indices):
-                    new_p, ns_j = b.rule.update(gleaves[i], pleaves[i],
-                                                _slice_state(st, j), step)
+                    s = _slice_state(st, j)
+                    if coded:
+                        s = codec_lib.tree_decode(cdc, rule.slots, s)
+                    new_p, ns_j = rule.update(gleaves[i], pleaves[i], s,
+                                              step, lids[j])
+                    if coded:
+                        ns_j = codec_lib.tree_encode(cdc, rule.slots, ns_j,
+                                                     key, step, lids[j])
                     pleaves[i].copy_(new_p)
                     per_leaf.append(ns_j)
                 ns = _stack_states(per_leaf)
             new_buckets[b.name] = ns
-        return params, {"step": step + 1, "buckets": new_buckets}
+        out = {"step": step + 1, "buckets": new_buckets}
+        if quant:
+            out["codec_key"] = key
+        return params, out
 
     return Optimizer(init, update, engine=eng)
 
 
+@torch.no_grad()
+def transcode(state, params, src: Optimizer, dst: Optimizer):
+    """Re-encode an optimizer state between codecs (a resume across a
+    ``--state-codec`` change): decode every slot with ``src``'s codec and
+    encode it with ``dst``'s, salted with the saved step.  Both optimizers
+    must share the rule assignment; only the codec differs."""
+    eng_s, eng_d = src.engine, dst.engine
+    plan = eng_s.plan(params)
+    step = state["step"]
+    key = eng_d.codec_key(step.device)
+    new_buckets = {}
+    for b in plan.buckets:
+        st = state["buckets"][b.name]
+        slots = b.rule.slots
+        if slots is not None and not eng_s.codec.passthrough:
+            st = _recode_stacked(lambda s, lid: codec_lib.tree_decode(
+                eng_s.codec, slots, s), st, _leaf_ids(b, step.device))
+        if slots is not None and not eng_d.codec.passthrough:
+            st = _recode_stacked(lambda s, lid: codec_lib.tree_encode(
+                eng_d.codec, slots, s, key, step, lid), st,
+                _leaf_ids(b, step.device))
+        new_buckets[b.name] = st
+    out = {"step": step, "buckets": new_buckets}
+    if key is not None:
+        out["codec_key"] = key
+    return out
+
+
 def state_bytes(state) -> int:
-    """Exact optimizer-state bytes: the sum over every state tensor."""
+    """Exact optimizer-state bytes: the sum over every state tensor, each
+    at its stored dtype (int8 codes, f32 scales, the uint32 key)."""
     return sum(t.numel() * t.element_size()
                for t in flatten_with_paths(state)[1])

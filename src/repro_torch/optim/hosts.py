@@ -4,7 +4,8 @@
     host.init(shape, device)       -> state dict shaped like the input
     host.update(g, state, step)    -> (precond_update, detail_scale, lr_mult, state)
 
-States are f32; math is f32.
+States are f32; math is f32.  The state codec may store the slots encoded;
+the engine decodes them before ``update`` sees them.
 """
 
 from __future__ import annotations
@@ -19,6 +20,9 @@ class Host(NamedTuple):
     update: Callable[..., Tuple[torch.Tensor, Optional[torch.Tensor],
                                 torch.Tensor, Any]]
     name: str = "host"
+    # bool tree over the state: True marks a moment slot the state codec
+    # stores encoded (see ``optim/codec.py``)
+    slots: Any = None
 
 
 def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6) -> Host:
@@ -36,4 +40,4 @@ def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6) -> Host:
         lr_mult = torch.sqrt(1 - b2 ** t) / (1 - b1 ** t)
         return precond, 1.0 / denom, lr_mult, {"m": m, "v": v}
 
-    return Host(init, update, "adam")
+    return Host(init, update, "adam", slots={"m": True, "v": True})

@@ -1,4 +1,4 @@
-"""Card-only tests of the port's CUDA kernel (marker ``cuda``).  They skip
+"""Card-only tests of the port's CUDA kernels (marker ``cuda``).  They skip
 without an NVIDIA card.  The file imports neither JAX nor the JAX package,
 so it also runs where those are not installed:
 
@@ -10,6 +10,9 @@ points and neither contracts FMAs, so m and v must agree within 2 f32
 spacings (bitwise in practice); the per-leaf norm is summed in another
 order (64 f32 spacings allowed), which can move a written p element by one
 bf16 spacing through ``bf16(scale)`` (2 f32 spacings with f32 parameters).
+The q8 kernel rounds like its plain version at every step (codes and scales
+are exact functions of bitwise-equal f32 moments), so its codes, scales
+and parameters must be bitwise equal, the norm again within 64 spacings.
 """
 
 import math
@@ -18,6 +21,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.gwt_adam import kernel, ops, ref
+from repro_torch.optim import codec
 
 
 def _spacings(got, want, mant_bits):
@@ -105,3 +109,82 @@ def test_kernel_refuses_what_it_does_not_take():
             lr_t=scalars[1], alpha=0.25, weight_decay=0.0, gamma=1.01,
             use_limiter=True, level=2)
     assert kernel.launches == before
+
+
+def _q8_inputs(dev, L=3, m=40, n=344, dtype=torch.bfloat16, seed=5):
+    """A bucket whose leaves end in a partial quantization block
+    (40 * 86 = 3440 coefficients = 53.75 blocks of 64)."""
+    g, p, mm, vv = _inputs(dev, L, m, n, dtype, seed)
+    enc = [codec.quant_blocks(a.reshape(L, -1), torch.arange(L, device=dev)
+                              + salt) for a, salt in ((mm, 1), (vv, 2))]
+    (qm, sm), (qv, sv) = enc
+    return (g, p, qm.reshape(mm.shape), sm, qv.reshape(vv.shape), sv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_q8_kernel_matches_plain_version(dtype):
+    dev = _card()
+    g, p, qm, sm, qv, sv = _q8_inputs(dev, dtype=dtype)
+    key = codec.make_key(0, dev)
+    step = torch.tensor(4, dtype=torch.int32, device=dev)
+    ids = torch.arange(3, device=dev)
+    salts = [codec.slot_salt(key, step, s, ids) for s in (0, 1)]
+    scalars = (torch.tensor([1e-3, 0.0, 1e9], device=dev),
+               torch.tensor(0.01, device=dev), torch.tensor(1e-4, device=dev))
+    args = dict(level=2, block=64, gamma=1.01, use_limiter=True,
+                weight_decay=True)
+    want = ref.gwt_adam_fused_q8(g, p, qm, sm, qv, sv, *salts, *scalars,
+                                 bm=40, **args)
+    outs = [kernel.gwt_adam_fused_q8(
+        g.clone(), p.clone(), qm.clone(), sm.clone(), qv.clone(),
+        sv.clone(), *(s.to(torch.uint32) for s in salts), *scalars, **args)
+        for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    for a, b in zip(outs[0][:5], want[:5]):
+        assert torch.equal(a, b)
+    assert _spacings(outs[0][5], want[5], 23) <= 64
+
+
+@pytest.mark.cuda
+def test_q8_entry_point_launches_the_kernel_in_place():
+    dev = _card()
+    g, p, qm, sm, qv, sv = _q8_inputs(dev)
+    state = {"m": {"q": qm, "scale": sm}, "v": {"q": qv, "scale": sv}}
+    q0 = qm.clone()
+    before, before_f32 = kernel.launches_q8, kernel.launches
+    new_p, new_norm, st = ops.fused_write_update_q8(
+        g, p, state, torch.tensor(0, dtype=torch.int32, device=dev),
+        codec.make_key(0, dev), torch.arange(3, device=dev),
+        torch.zeros(3, device=dev), lr_t=torch.tensor(0.01, device=dev),
+        alpha=0.25, weight_decay=0.0, gamma=1.01, use_limiter=True, level=2)
+    torch.cuda.synchronize()
+    assert kernel.launches_q8 == before + 1 and kernel.launches == before_f32
+    assert new_p.data_ptr() == p.data_ptr()
+    assert st["m"]["q"].data_ptr() == qm.data_ptr()
+    assert st["v"]["scale"].data_ptr() == sv.data_ptr()
+    assert not torch.equal(qm, q0) and torch.isfinite(new_norm).all()
+
+
+@pytest.mark.cuda
+def test_q8_kernel_refuses_what_it_does_not_take():
+    dev = _card()
+    g, p, qm, sm, qv, sv = _q8_inputs(dev)
+    salts = (torch.zeros(3, dtype=torch.uint32, device=dev),) * 2
+    scalars = (torch.zeros(3, device=dev), torch.tensor(0.01, device=dev),
+               torch.tensor(0.0, device=dev))
+    kw = dict(level=2, gamma=1.01, use_limiter=True, weight_decay=False)
+    before = kernel.launches_q8
+    with pytest.raises(ValueError, match="blocks of 64"):
+        kernel.gwt_adam_fused_q8(g, p, qm, sm, qv, sv, *salts, *scalars,
+                                 block=32, **kw)
+    with pytest.raises(ValueError, match="shape"):
+        kernel.gwt_adam_fused_q8(g, p, qm, sm[:, :-1].contiguous(), qv, sv,
+                                 *salts, *scalars, block=64, **kw)
+    with pytest.raises(ValueError, match="dtype"):
+        kernel.gwt_adam_fused_q8(g, p, qm, sm, qv, sv,
+                                 *(s.to(torch.int32) for s in salts),
+                                 *scalars, block=64, **kw)
+    assert kernel.launches_q8 == before
