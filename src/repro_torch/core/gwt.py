@@ -77,7 +77,7 @@ def gwt(lr: Schedule | float,
         return new_p.to(p.dtype)
 
     # -- plain rule: Adam on the full tensor --------------------------------
-    def plain_update(g, p, state, step, leaf_id=0):
+    def plain_update(g, p, state, step):
         delta, _, lr_mult, hstate = h.update(g, state["host"], step)
         return _apply(p, delta, lr(step), lr_mult, 1.0), {"host": hstate}
 
@@ -98,7 +98,7 @@ def gwt(lr: Schedule | float,
                     "prev_norm": torch.zeros((), dtype=torch.float32,
                                              device=p.device)}
 
-        def update(g, p, state, step, leaf_id=0):
+        def update(g, p, state, step):
             # the staged per-leaf path: DWT, host, inverse, then limiter and
             # apply outside any kernel
             gt = g.transpose(-1, -2) if swap else g
@@ -117,7 +117,7 @@ def gwt(lr: Schedule | float,
                     g_tilde, state["prev_norm"], gamma)
             return _apply(p, g_tilde, lr(step), lr_mult, alpha), out
 
-        def vector_update(g_stk, p_stk, state, step, leaf_ids):
+        def vector_update(g_stk, p_stk, state, step):
             # one fused-write call for the whole (L, m, n) bucket; FIRST-mode
             # leaves go in as contiguous transposed copies
             gt = g_stk.transpose(-1, -2).contiguous() if swap else g_stk
@@ -131,18 +131,17 @@ def gwt(lr: Schedule | float,
                 new_p = new_p.transpose(-1, -2)
             return new_p, {"host": hstate, "prev_norm": new_norm}
 
-        def vector_update_q8(g_stk, p_stk, state, step, leaf_ids, codec_key):
+        def vector_update_q8(g_stk, p_stk, state, step, salts):
             # codec-native: the launch dequantizes the blocked moments,
             # updates, requantizes with the (m=0, v=1) slot salts of
             # codec.map_slots and writes the parameters
             gt = g_stk.transpose(-1, -2).contiguous() if swap else g_stk
             pt = p_stk.transpose(-1, -2).contiguous() if swap else p_stk
             new_p, new_norm, hstate = gwt_ops.fused_write_update_q8(
-                gt, pt, state["host"], step, codec_key, leaf_ids,
-                state["prev_norm"], lr_t=lr(step), alpha=alpha,
-                weight_decay=weight_decay, gamma=gamma,
-                use_limiter=use_limiter, level=level, block=cdc.block,
-                b1=B1, b2=B2, eps=EPS)
+                gt, pt, state["host"], step, salts, state["prev_norm"],
+                lr_t=lr(step), alpha=alpha, weight_decay=weight_decay,
+                gamma=gamma, use_limiter=use_limiter, level=level,
+                block=cdc.block, b1=B1, b2=B2, eps=EPS)
             if swap:
                 new_p = new_p.transpose(-1, -2)
             return new_p, {"host": hstate, "prev_norm": new_norm}

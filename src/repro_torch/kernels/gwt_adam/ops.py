@@ -21,7 +21,6 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.gwt_adam import kernel, ref
-from repro_torch.optim import codec
 
 
 def _step_scalars(step: torch.Tensor, lr_t: torch.Tensor, alpha: float,
@@ -111,8 +110,8 @@ def fused_write_update(g: torch.Tensor, p: torch.Tensor, state: dict,
 
 
 def fused_write_update_q8(g: torch.Tensor, p: torch.Tensor, state: dict,
-                          step: torch.Tensor, key: torch.Tensor,
-                          leaf_ids: torch.Tensor, prev_norm: torch.Tensor, *,
+                          step: torch.Tensor, salts: torch.Tensor,
+                          prev_norm: torch.Tensor, *,
                           lr_t: torch.Tensor, alpha: float,
                           weight_decay: float, gamma: float,
                           use_limiter: bool, level: int, block: int = 64,
@@ -120,9 +119,10 @@ def fused_write_update_q8(g: torch.Tensor, p: torch.Tensor, state: dict,
                           eps: float = 1e-6):
     """One bucket over blocked-int8 moments.  ``state`` is the encoded
     layout ``{"m": {"q", "scale"}, "v": {"q", "scale"}}`` with ``q`` int8
-    ``(L, ..., n >> level)`` and ``scale`` f32 ``(L, nb)``; ``key`` is
-    ``opt_state["codec_key"]`` and ``leaf_ids`` the bucket's flatten-order
-    leaf indices, which salt the rounding (m is slot 0, v slot 1).  Returns
+    ``(L, ..., n >> level)`` and ``scale`` f32 ``(L, nb)``; ``salts``
+    (integer ``(2, L)``, uint32 values) salt the rounding: row 0 is
+    ``codec.slot_salt(key, step, 0, leaf_ids)`` for m, row 1 the same with
+    slot 1 for v.  Returns
     ``(new_p, new_norm, new_state)`` in the encoded layout; on CUDA the
     returned ``new_p``, codes and scales are the input tensors, updated in
     place."""
@@ -134,20 +134,19 @@ def fused_write_update_q8(g: torch.Tensor, p: torch.Tensor, state: dict,
                                        b1, b2)
     g3, p3, qm3, qv3 = _rows(g), _rows(p), _rows(qm), _rows(qv)
     L, mm, nn = g3.shape
-    salt_m = codec.slot_salt(key, step, 0, leaf_ids).reshape(L)
-    salt_v = codec.slot_salt(key, step, 1, leaf_ids).reshape(L)
     kw = dict(level=level, block=block, gamma=gamma,
               use_limiter=use_limiter, weight_decay=weight_decay != 0,
               b1=b1, b2=b2, eps=eps)
     if g.is_cuda:
+        s32 = salts.to(torch.uint32)
         new_p, qm2, sm2, qv2, sv2, new_norm = kernel.gwt_adam_fused_q8(
-            g3, p3, qm3, sm, qv3, sv, salt_m.to(torch.uint32),
-            salt_v.to(torch.uint32), prev_norm, step_size, wd_coef, **kw)
+            g3, p3, qm3, sm, qv3, sv, s32[0], s32[1], prev_norm, step_size,
+            wd_coef, **kw)
     else:
         bm = q8_row_block(mm, nn, level, block)
         new_p, qm2, sm2, qv2, sv2, new_norm = ref.gwt_adam_fused_q8(
-            g3, p3, qm3, sm, qv3, sv, salt_m, salt_v, prev_norm, step_size,
-            wd_coef, bm=mm if bm is None else bm, **kw)
+            g3, p3, qm3, sm, qv3, sv, salts[0], salts[1], prev_norm,
+            step_size, wd_coef, bm=mm if bm is None else bm, **kw)
     return (new_p.reshape(p.shape), new_norm,
             {"m": {"q": qm2.reshape(qm.shape), "scale": sm2},
              "v": {"q": qv2.reshape(qv.shape), "scale": sv2}})

@@ -166,8 +166,7 @@ def main(argv=None) -> TrainResult:
 
     train_step = lm.make_train_step(cfg, optimizer, accum_steps=args.accum)
     loop = TrainLoop(train_step, source, device=device, ckpt=ckpt,
-                     ckpt_every=args.ckpt_every, log_every=args.log_every,
-                     save_final=ckpt is not None)
+                     ckpt_every=args.ckpt_every, log_every=args.log_every)
     params, opt_state, losses = loop.run(params, opt_state, start_step=start,
                                          num_steps=args.steps)
     if losses:

@@ -15,8 +15,11 @@ torch has no right shift for ``uint32`` on the CPU, so the hash runs in
 ``int64`` holding values in ``[0, 2^32)``.  A product of two such values
 does not fit in ``int64``; :func:`_mul32` multiplies by 16-bit halves so
 every intermediate stays below ``2^49`` and the low 32 bits are exact.
-Everything stays on the tensors' device: ``step`` is a device tensor, so
-computing a salt needs no host sync.
+Everything stays on the tensors' device, and a plain-int operand (a slot
+index, a step given as an int) is hashed on the host, so computing a salt
+creates no device tensor and needs no host sync.  :func:`slot_salt`
+broadcasts, so the engine computes every salt of a step, for all slots
+and leaves, as one ``(slots, leaves)`` table.
 """
 
 from __future__ import annotations
@@ -60,7 +63,10 @@ def _fmix(h: torch.Tensor) -> torch.Tensor:
 
 
 def _fold(h: torch.Tensor, x) -> torch.Tensor:
-    return _fmix(h ^ _mul32(_u32(x, h.device), _GOLD))
+    """``fmix(h ^ x * GOLD)``; an int ``x`` is multiplied on the host."""
+    if isinstance(x, torch.Tensor):
+        return _fmix(h ^ _mul32(_u32(x), _GOLD))
+    return _fmix(h ^ (((x & _MASK) * _GOLD) & _MASK))
 
 
 def make_key(seed: int, device=None) -> torch.Tensor:
@@ -69,9 +75,9 @@ def make_key(seed: int, device=None) -> torch.Tensor:
     return h.to(torch.uint32)
 
 
-def slot_salt(key, step, slot: int, leaf_id) -> torch.Tensor:
-    """Per-(key, step, slot, leaf) salt, elementwise over ``leaf_id``;
-    uint32 values held in int64."""
+def slot_salt(key, step, slot, leaf_id) -> torch.Tensor:
+    """Per-(key, step, slot, leaf) salt, broadcast over ``slot`` and
+    ``leaf_id`` (ints or integer tensors); uint32 values held in int64."""
     k = _u32(key)
     return _fold(_fold(_fold(k, step), slot), leaf_id)
 
@@ -124,7 +130,9 @@ def quant_blocks(x: torch.Tensor, salt, block: int = DEFAULT_BLOCK,
         raise ValueError(f"rounding {rounding!r}: expected 'stochastic' "
                          "or 'nearest'")
     q = torch.clamp(q, -127.0, 127.0).to(torch.int8)
-    q = q.reshape(*q.shape[:-2], -1)[..., :size]
+    # contiguous: a partial last block leaves a strided slice, and the CUDA
+    # kernel updates stored codes in place
+    q = q.reshape(*q.shape[:-2], -1)[..., :size].contiguous()
     return q, scale
 
 
@@ -201,8 +209,7 @@ class BlockedInt8Codec:
         return blocked_dequant(enc["q"], enc["scale"], self.block)
 
 
-CODECS = {"f32": F32Codec, "int8": BlockedInt8Codec,
-          "blocked_int8": BlockedInt8Codec}
+CODECS = {"f32": F32Codec, "int8": BlockedInt8Codec}
 
 
 def get_codec(codec) -> Any:
@@ -253,9 +260,18 @@ def tree_decode(codec, mask, state):
     return map_slots(mask, state, lambda i, s: codec.decode(s))
 
 
-def tree_encode(codec, mask, state, key, step, leaf_id):
+def tree_encode(codec, mask, state, salts):
+    """Encode each slot ``i`` with ``salts[i]``: the leaf's column of the
+    step's :func:`slot_salt` table."""
     if codec.passthrough or mask is None:
         return state
-    return map_slots(
-        mask, state,
-        lambda i, s: codec.encode(s, slot_salt(key, step, i, leaf_id)))
+    return map_slots(mask, state, lambda i, s: codec.encode(s, salts[i]))
+
+
+def num_slots(mask) -> int:
+    """The number of True leaves of a slots mask."""
+    if mask is True:
+        return 1
+    if isinstance(mask, dict):
+        return sum(num_slots(m) for m in mask.values())
+    return 0

@@ -19,8 +19,12 @@ State layout::
 (``LeafRule.slots``) and :func:`build` takes a ``codec``.  With ``int8`` the
 slots are stored encoded: a ``codec_native`` rule's ``vector_update`` gets
 the encoded bucket whole (the fused q8 kernel requantizes inside its
-launch); any other rule runs decode -> ``update`` -> encode per leaf,
-salted with that leaf's flatten index.  The ``f32`` codec skips all of it.
+launch); any other rule runs decode -> ``update`` -> encode per leaf.  The
+rounding salts of a step, ``slot_salt(key, step, slot, leaf)`` for every
+slot and flatten-order leaf index, are one ``(slots, leaves)`` table made
+in one vector op from index tensors cached per plan, so the update creates
+no tensor from host data.  A codec-native rule gets its bucket's columns,
+a per-leaf encode its leaf's column.  The ``f32`` codec skips all of it.
 :func:`transcode` re-encodes a state between codecs.
 
 ``update`` writes the new parameter values into the parameter tensors in
@@ -44,12 +48,13 @@ class LeafRule(NamedTuple):
     * ``kind`` — rule family name; the bucket-name prefix.
     * ``init(leaf) -> state`` — per-leaf state (a dict of tensors) from a
       tensor (a ``meta`` tensor gives a ``meta`` state).
-    * ``update(g, p, state, step, leaf_id=0) -> (new_p, new_state)`` — one
-      leaf; ``leaf_id`` is its flatten-order index.
+    * ``update(g, p, state, step) -> (new_p, new_state)`` — one leaf.
     * ``sig`` — extra static signature that must also match to bucket.
-    * ``vector_update(g_stk, p_stk, state_stk, step, leaf_ids[, codec_key])
+    * ``vector_update(g_stk, p_stk, state_stk, step[, salts])
       -> (new_p_stk, new_state_stk)`` — optional, over the whole stacked
-      bucket; ``codec_key`` is passed when the rule is ``codec_native``.
+      bucket; ``salts`` (int64 ``(slots, L)``, uint32 values: the bucket's
+      columns of the step's salt table) is passed when the rule is
+      ``codec_native``.
     * ``slots`` — bool tree mirroring the per-leaf state: True marks a
       moment slot the codec stores encoded; ``None``: no slots.
     * ``codec_native`` — ``vector_update`` takes the encoded slots itself.
@@ -108,15 +113,11 @@ def _slice_state(state: Dict[str, Any], j: int) -> Dict[str, Any]:
     return tree_map(lambda a: a[j], state)
 
 
-def _leaf_ids(b: Bucket, device) -> torch.Tensor:
-    return torch.tensor(b.indices, dtype=torch.int32, device=device)
-
-
-def _recode_stacked(fn, st, lids):
-    """Apply ``fn(leaf_state, leaf_id)`` to each leaf of a stacked bucket
+def _recode_stacked(fn, st, b: Bucket):
+    """Apply ``fn(leaf_state, leaf_index)`` to each leaf of a stacked bucket
     state and stack the results again."""
-    return _stack_states([fn(_slice_state(st, j), lids[j])
-                          for j in range(lids.shape[0])])
+    return _stack_states([fn(_slice_state(st, j), i)
+                          for j, i in enumerate(b.indices)])
 
 
 class Engine:
@@ -130,6 +131,7 @@ class Engine:
         self.codec = codec_lib.get_codec(codec)
         self.codec_seed = codec_seed
         self._plans: Dict[tuple, LeafPlan] = {}
+        self._salt_ids: Dict[tuple, tuple] = {}
 
     def plan(self, params) -> LeafPlan:
         paths, leaves = flatten_with_paths(params)
@@ -145,6 +147,24 @@ class Engine:
         if self.codec.passthrough:
             return None
         return codec_lib.make_key(self.codec_seed, device)
+
+    def salts(self, plan: LeafPlan, key: torch.Tensor, step: torch.Tensor):
+        """The step's salt table ``(slots, leaves)`` and each bucket's leaf
+        columns (device index tensors).  The index tensors are built on a
+        plan's first step on a device and reused, so later steps only
+        launch the hash."""
+        ck = (id(plan), str(step.device))   # plans live in self._plans
+        if ck not in self._salt_ids:
+            dev = step.device
+            n_slots = max((codec_lib.num_slots(b.rule.slots)
+                           for b in plan.buckets), default=0)
+            n_leaves = 1 + max(i for b in plan.buckets for i in b.indices)
+            cols = {b.name: torch.tensor(b.indices, dtype=torch.int64,
+                                         device=dev) for b in plan.buckets}
+            self._salt_ids[ck] = (torch.arange(n_slots, device=dev)[:, None],
+                                  torch.arange(n_leaves, device=dev), cols)
+        slot_ids, leaf_ids, cols = self._salt_ids[ck]
+        return codec_lib.slot_salt(key, step, slot_ids, leaf_ids), cols
 
 
 def build(assign: Callable[[str, Any], LeafRule], codec="f32",
@@ -181,19 +201,21 @@ def build(assign: Callable[[str, Any], LeafRule], codec="f32",
         plan = eng.plan(params)
         _, gleaves = flatten_with_paths(grads)
         _, pleaves = flatten_with_paths(params)
+        if quant:
+            salts, cols = eng.salts(plan, key, step)
         new_buckets = {}
         for b in plan.buckets:
             st = state["buckets"][b.name]
             rule = b.rule
             coded = quant and rule.slots is not None
-            lids = _leaf_ids(b, step.device)
             if rule.vector_update is not None and (
                     rule.codec_native or not coded):
                 g_stk = torch.stack([gleaves[i] for i in b.indices])
                 p_stk = torch.stack([pleaves[i] for i in b.indices])
-                extra = (key,) if coded else ()
+                extra = (salts.index_select(1, cols[b.name]),) \
+                    if coded else ()
                 np_stk, ns = rule.vector_update(g_stk, p_stk, st, step,
-                                                lids, *extra)
+                                                *extra)
                 for j, i in enumerate(b.indices):
                     pleaves[i].copy_(np_stk[j])
             else:
@@ -203,10 +225,10 @@ def build(assign: Callable[[str, Any], LeafRule], codec="f32",
                     if coded:
                         s = codec_lib.tree_decode(cdc, rule.slots, s)
                     new_p, ns_j = rule.update(gleaves[i], pleaves[i], s,
-                                              step, lids[j])
+                                              step)
                     if coded:
                         ns_j = codec_lib.tree_encode(cdc, rule.slots, ns_j,
-                                                     key, step, lids[j])
+                                                     salts[:, i])
                     pleaves[i].copy_(new_p)
                     per_leaf.append(ns_j)
                 ns = _stack_states(per_leaf)
@@ -229,17 +251,18 @@ def transcode(state, params, src: Optimizer, dst: Optimizer):
     plan = eng_s.plan(params)
     step = state["step"]
     key = eng_d.codec_key(step.device)
+    if key is not None:
+        salts, _ = eng_d.salts(eng_d.plan(params), key, step)
     new_buckets = {}
     for b in plan.buckets:
         st = state["buckets"][b.name]
         slots = b.rule.slots
         if slots is not None and not eng_s.codec.passthrough:
-            st = _recode_stacked(lambda s, lid: codec_lib.tree_decode(
-                eng_s.codec, slots, s), st, _leaf_ids(b, step.device))
+            st = _recode_stacked(lambda s, i: codec_lib.tree_decode(
+                eng_s.codec, slots, s), st, b)
         if slots is not None and not eng_d.codec.passthrough:
-            st = _recode_stacked(lambda s, lid: codec_lib.tree_encode(
-                eng_d.codec, slots, s, key, step, lid), st,
-                _leaf_ids(b, step.device))
+            st = _recode_stacked(lambda s, i: codec_lib.tree_encode(
+                eng_d.codec, slots, s, salts[:, i]), st, b)
         new_buckets[b.name] = st
     out = {"step": step, "buckets": new_buckets}
     if key is not None:

@@ -9,8 +9,9 @@ stops, logs and saves at the same steps as an uninterrupted one.  Each
 step's loss stays on the device; the host fetches the pending losses once
 per ``log_every`` boundary (and at the end).
 
-Checkpoints: every ``ckpt_every`` steps (asynchronous write of a host copy),
-and at the end when ``save_final``.  SIGTERM or SIGINT during ``run`` sets a
+Checkpoints, with a checkpoint manager: every ``ckpt_every`` steps
+(asynchronous write of a host copy), and at the end of a run that was not
+preempted.  SIGTERM or SIGINT during ``run`` sets a
 flag; at the next chunk boundary the loop saves blocking and stops, and the
 run can be resumed from that step.
 """
@@ -24,6 +25,7 @@ from typing import Callable, List, Optional
 import torch
 
 MAX_CHUNK = 16   # the JAX loop's default chunk length
+SIGNALS = (signal.SIGTERM, signal.SIGINT)
 
 
 class PreemptionHandler:
@@ -31,8 +33,7 @@ class PreemptionHandler:
     is a no-op outside the main thread, where Python delivers no
     signals."""
 
-    def __init__(self, signals=(signal.SIGTERM, signal.SIGINT)):
-        self.signals = signals
+    def __init__(self):
         self.requested = False
         self._orig = {}
 
@@ -40,7 +41,7 @@ class PreemptionHandler:
         self.requested = True
 
     def install(self):
-        for s in self.signals:
+        for s in SIGNALS:
             try:
                 self._orig[s] = signal.signal(s, self._on_signal)
             except ValueError:  # not the main thread
@@ -55,8 +56,7 @@ class PreemptionHandler:
 class TrainLoop:
     def __init__(self, train_step, data_source, *, device, ckpt=None,
                  ckpt_every: int = 100, log_every: int = 10,
-                 log: Callable[[str], None] = print,
-                 save_final: bool = False):
+                 log: Callable[[str], None] = print):
         self.train_step = train_step
         self.data = data_source
         self.device = torch.device(device)
@@ -64,7 +64,6 @@ class TrainLoop:
         self.ckpt_every = ckpt_every
         self.log_every = log_every
         self.log = log
-        self.save_final = save_final
         self.preempt = PreemptionHandler()
         # Seconds per step measured between the first and the last loss
         # fetch (each fetch waits for the card), i.e. without the first
@@ -145,7 +144,7 @@ class TrainLoop:
             self.preempt.restore()
         flush(step)
         if self.ckpt is not None:
-            if self.save_final and not preempted and last_saved != step:
+            if not preempted and last_saved != step:
                 self._save(step, params, opt_state, blocking=True)
             self.ckpt.wait()
         if len(fetches) >= 2 and fetches[-1][0] > fetches[0][0]:

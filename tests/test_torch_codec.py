@@ -40,6 +40,19 @@ def test_slot_salt_is_bitwise(step, slot):
     assert int(codec.slot_salt(key, step, slot, 5)) == int(_u32(want1))
 
 
+def test_salt_table_is_bitwise():
+    """The engine's per-step table: one broadcast call over (slot, leaf)
+    equals the JAX package's salts slot by slot."""
+    key, jkey = codec.make_key(3), jcodec.make_key(3)
+    ids = np.arange(11, dtype=np.int32)
+    got = codec.slot_salt(key, torch.tensor(6, dtype=torch.int32),
+                          torch.arange(2)[:, None], torch.from_numpy(ids))
+    assert got.shape == (2, 11)
+    for slot in (0, 1):
+        want = jcodec.slot_salt(jkey, jnp.int32(6), slot, jnp.asarray(ids))
+        np.testing.assert_array_equal(got[slot].numpy(), _u32(want))
+
+
 def test_uniform01_is_bitwise():
     rng = np.random.RandomState(3)
     idx = rng.randint(0, 2**31 - 1, size=4096).astype(np.int64)
@@ -71,6 +84,14 @@ def test_blocked_quant_and_dequant_are_bitwise(shape, rounding):
     np.testing.assert_array_equal(
         codec.blocked_dequant(q, s).numpy(),
         np.asarray(jcodec.blocked_dequant(jq, js)))
+
+
+def test_codes_of_a_partial_last_block_are_contiguous():
+    """Stored codes are updated in place by the CUDA kernel, so rows that
+    end in a partial block must not come back as a strided slice."""
+    q, s = codec.quant_blocks(torch.randn(3, 100), torch.arange(3))
+    assert q.shape == (3, 100) and q.is_contiguous()
+    assert s.shape == (3, 2)
 
 
 def test_all_zero_block_encodes_exactly():

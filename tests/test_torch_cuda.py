@@ -155,9 +155,12 @@ def test_q8_entry_point_launches_the_kernel_in_place():
     state = {"m": {"q": qm, "scale": sm}, "v": {"q": qv, "scale": sv}}
     q0 = qm.clone()
     before, before_f32 = kernel.launches_q8, kernel.launches
+    step = torch.tensor(0, dtype=torch.int32, device=dev)
+    salts = codec.slot_salt(codec.make_key(0, dev), step,
+                            torch.arange(2, device=dev)[:, None],
+                            torch.arange(3, device=dev))
     new_p, new_norm, st = ops.fused_write_update_q8(
-        g, p, state, torch.tensor(0, dtype=torch.int32, device=dev),
-        codec.make_key(0, dev), torch.arange(3, device=dev),
+        g, p, state, step, salts,
         torch.zeros(3, device=dev), lr_t=torch.tensor(0.01, device=dev),
         alpha=0.25, weight_decay=0.0, gamma=1.01, use_limiter=True, level=2)
     torch.cuda.synchronize()

@@ -93,10 +93,12 @@ def _run_both(shape, level, dtype, case, impl, seed=0):
     tdt = getattr(torch, dtype)
     tst = {k: {kk: to_torch(vv) for kk, vv in d.items()}
            for k, d in st.items()}
+    step = torch.tensor(5, dtype=torch.int32)
+    salts = codec.slot_salt(codec.make_key(0), step,
+                            torch.arange(2)[:, None], torch.from_numpy(lids))
     got = ops.fused_write_update_q8(
-        to_torch(g, tdt), to_torch(p, tdt), tst,
-        torch.tensor(5, dtype=torch.int32), codec.make_key(0),
-        torch.from_numpy(lids), to_torch(pn), lr_t=torch.tensor(0.01), **kw)
+        to_torch(g, tdt), to_torch(p, tdt), tst, step, salts, to_torch(pn),
+        lr_t=torch.tensor(0.01), **kw)
     return got, want
 
 
@@ -158,7 +160,7 @@ def test_cpu_tensors_never_reach_the_q8_kernel():
            for k, d in st.items()}
     ops.fused_write_update_q8(
         to_torch(g), to_torch(p), tst, torch.tensor(0, dtype=torch.int32),
-        codec.make_key(0), torch.tensor([0]), torch.zeros(1),
+        torch.zeros((2, 1), dtype=torch.int64), torch.zeros(1),
         lr_t=torch.tensor(0.01), alpha=0.25, weight_decay=0.0, gamma=1.01,
         use_limiter=True, level=2)
     assert kernel.launches_q8 == before
@@ -232,6 +234,35 @@ def test_gwt_int8_matches_reference():
         assert spacings(t, jpf[path]) <= 32, path
 
 
+@pytest.mark.parametrize("state_codec", ["f32", "int8"])
+def test_update_makes_no_tensor_from_host_data(state_codec, monkeypatch):
+    """After a plan's first step, an update builds no tensor from host
+    data on the step's device: on a card each such tensor is a blocking
+    copy that drains the stream.  The salts come from index tensors cached
+    per plan and host-int hash operands.  (A host-only constant, built
+    without a device, stays allowed.)"""
+    flat = _smoke_tree()
+    opt = gwt(lr=warmup_cosine(0.01, 10), state_codec=state_codec)
+    tp = unflatten(list(flat), [to_torch(v) for v in flat.values()])
+    g = unflatten(list(flat), [to_torch(v * 0.1) for v in flat.values()])
+    st = opt.init(tp)
+    tp, st = opt.update(g, st, tp)
+
+    def guard(fn):
+        def call(*a, **k):
+            if k.get("device") is not None:
+                raise AssertionError("tensor built from host data on the "
+                                     "step's device")
+            return fn(*a, **k)
+        return call
+
+    for name in ("tensor", "as_tensor"):
+        monkeypatch.setattr(torch, name, guard(getattr(torch, name)))
+    tp, st = opt.update(g, st, tp)
+    monkeypatch.undo()
+    assert int(st["step"]) == 2
+
+
 def test_full_width_int8_layout_matches_reference():
     """llama-60m at full width on the meta device: bucket names, every
     encoded state leaf's shape and dtype, the codec key and the state
@@ -260,6 +291,57 @@ def test_full_width_int8_layout_matches_reference():
         == 48_273_508
 
 
+def test_int8_optimizer_on_the_same_gradients_tracks_reference():
+    """The witness for the loop test below: llama-60m-smoke, int8 state,
+    6 steps in which both optimizers get the JAX model's gradients along
+    the JAX run.  With equal gradients the port stays with the reference
+    for all 6 steps: per step at most ``MAX_CODES_OFF_BY_ONE`` codes differ,
+    all by 1 (measured: 0-1 of 14,656 over seeds 0-5), scales within 16
+    f32 spacings (measured: 4), parameters within 64 (measured: 51, set at
+    the first clipped step and flat after), and the port's loss at its
+    parameters within 2e-5 of JAX's at its own on every step (measured:
+    3.8e-6 here, at most 7.6e-6 over seeds 0-5).  So the loop test's later
+    drift comes from the two models' gradients, not from the optimizer
+    (``tests/torch_int8_drift.py`` prints these readings per seed)."""
+    steps = 6
+    jcfg, tcfg = jconfigs.get_smoke("llama-60m"), configs.get_smoke(
+        "llama-60m")
+    jp, model = port_model(jcfg, tcfg, seed=0)
+    tp = model.tree()
+    jopt = jax_gwt(lr=jax_warmup_cosine(0.01, steps), impl="jnp",
+                   state_codec="int8")
+    topt = gwt(lr=warmup_cosine(0.01, steps), state_codec="int8")
+    js, ts = jopt.init(jp), topt.init(tp)
+    value_grad = jax.jit(jax.value_and_grad(
+        lambda p, b: jlm.loss_fn(jcfg, p, b)))
+    jupd = jax.jit(jopt.update)
+    data = JaxSyntheticLM(64, 16, 4, 0)
+    for k in range(steps):
+        batch = data.batch(k)
+        jloss, g = value_grad(jp, {n: jnp.asarray(v)
+                                   for n, v in batch.items()})
+        with torch.no_grad():
+            tloss = lm.loss_fn(tcfg, tp, {n: torch.from_numpy(v)
+                                          for n, v in batch.items()})
+        assert abs(float(tloss) - float(jloss)) <= 2e-5, k
+        gf = flat_numpy(g)
+        jp, js = jupd(g, js, jp)
+        tp, ts = topt.update(unflatten(list(gf), [to_torch(v)
+                                                  for v in gf.values()]),
+                             ts, tp)
+        jflat, tflat = flat_numpy(js), dict(zip(*flatten_with_paths(ts)))
+        off = 0
+        for path, want in jflat.items():
+            if path.endswith("/q"):
+                off += _codes_close(tflat[path], want)
+            elif path.endswith("/scale"):
+                assert spacings(tflat[path], want) <= 16, (k, path)
+        assert off <= MAX_CODES_OFF_BY_ONE, k
+        jpf = flat_numpy(jp)
+        for path, t in zip(*flatten_with_paths(tp)):
+            assert spacings(t, jpf[path]) <= 64, (k, path)
+
+
 def test_int8_train_loop_tracks_reference_losses():
     """llama-60m-smoke, int8 state, 6 steps from the same parameters and
     batches, against the JAX loop.
@@ -274,7 +356,13 @@ def test_int8_train_loop_tracks_reference_losses():
     are held to 1e-3 (measured: 4.2e-4).  The JAX package's own two int8
     paths (staged ``impl="jnp"`` and fused ``impl="interpret"``) differ by
     3.8e-5 at step 5, so 2e-5 there is not a property of the reference
-    either."""
+    either.  The witness above shows the optimizer itself within 2e-5 for
+    all 6 steps on equal gradients.  Over seeds 0-5
+    (``tests/torch_int8_drift.py``): the two models' gradients differ by
+    3.9e-7 to 1.05e-6 of each leaf's largest element; the JAX run against
+    itself with each step's gradients times ``1 + 4e-7 * N(0, 1)`` moves
+    steps 4-6 by 2.1e-5 to 8.4e-3, and the port against JAX moves them by
+    7.6e-6 to 1.1e-2.  The 1e-3 limit is read on seed 0 only."""
     from repro_torch.runtime.fault_tolerance import TrainLoop
     steps = 6
     jcfg, tcfg = jconfigs.get_smoke("llama-60m"), configs.get_smoke(

@@ -1,7 +1,7 @@
 """Import boundary of the port: no module of ``repro_torch`` and no part of
-``chip_smoke.py`` imports JAX or the JAX package, and ``triton``, where it
-is used, is imported only inside a function, so every module imports
-where triton is not installed."""
+``chip_smoke.py`` or ``tools/step_time.py`` imports JAX or the JAX
+package, and ``triton``, where it is used, is imported only inside a
+function, so every module imports where triton is not installed."""
 
 import ast
 import os
@@ -14,7 +14,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "tools", "step_time.py")]
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -52,7 +53,7 @@ def test_port_imports_no_jax(path):
 
 def test_the_walk_sees_the_package():
     names = {os.path.basename(p) for p in _sources()}
-    assert {"chip_smoke.py", "gwt.py", "kernel.py", "train.py", "codec.py",
+    assert {"chip_smoke.py", "step_time.py", "gwt.py", "kernel.py", "train.py", "codec.py",
             "manager.py", "fault_tolerance.py", "interop.py"} <= names
 
 
