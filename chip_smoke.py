@@ -5,8 +5,9 @@
 
 Phases (any failure raises and the script exits non-zero):
 
-1. build both hand-written CUDA kernels from ``src/repro_torch/.../csrc``,
-   one ``nvcc`` per source, started together;
+1. build every hand-written CUDA kernel from ``src/repro_torch/.../csrc``
+   (K1, K2, and K3/K6/K7 in one source), one ``nvcc`` per source, started
+   together;
 2. K1 (f32 moments) against its plain PyTorch version on the card at the
    three LLaMA-60M bucket shapes (and one FIRST-mode-sized leaf): limiter
    with a zero and a non-zero history, a clipping case, weight decay; two
@@ -31,7 +32,21 @@ Phases (any failure raises and the script exits non-zero):
    plain version's time, and the int8 path's generic decode/encode of the
    embedding's moments;
 9. profile a few full-width steps of each path: ``optimizer.update`` vs the
-   rest, device busy share, top kernels.
+   rest, device busy share, top kernels;
+10. K3 (``haar_dwt_fwd_q``), K6 (``haar_dwt_fwd``) and K7 (``haar_dwt_inv``)
+    against their plain versions on the card, bitwise, at the flattened
+    LLaMA-60M leaf shapes and an odd-row shape, levels 1-3, every wire dtype;
+    the fp8 inputs reach past 464 and +-inf, so the NaN-on-overflow rule is
+    exercised; two runs must be bitwise equal;
+11. the compressed data-parallel path: the launcher with ``--dp-reduce
+    compressed`` (bf16 details, 20 steps) under a one-rank NCCL process
+    group, so the gradient gather runs on the card; K3 and K7 must launch
+    10 times per step and K1 3 times, the wire bytes be the JAX package's
+    208,449,536 against 333,516,800, the losses finite and falling; then a
+    shorter run with fp8 details and error feedback (K7 20 times per step:
+    the residue's reconstruction too);
+12. time K3, K6 and K7 per launch beside their bounds and plain versions,
+    and profile the data-parallel step beside the plain f32 step.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -44,6 +59,7 @@ import json
 import math
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -77,6 +93,23 @@ STEPS = 20
 MAIN_ARGS = ["--arch", "llama-60m", "--steps", str(STEPS), "--batch", "16",
              "--seq", "256", "--log-every", "5", "--seed", "0"]
 STATE_BYTES_INT8 = 48_273_508   # the JAX package's engine.state_bytes
+# the compressible leaves of llama-60m as the reduction flattens them for
+# K3 and K7, with their counts (10 launches per step); plus one odd-row shape
+DP_SHAPES = [((32000, 512), 1), ((11008, 512), 1), ((4096, 1376), 2),
+             ((4096, 512), 4), ((8, 512), 2)]
+ODD_SHAPE = (37, 344)
+# tree_wire_bytes of llama-60m in the JAX package: compressed with bf16
+# details, and the exact f32 reduction
+WIRE_BF16, WIRE_EXACT = 208_449_536, 333_516_800
+DP_EF_STEPS = 10
+# cycles the card spins before each timed DWT launch (about 0.5 ms at the
+# H100's clock), longer than the host takes to queue the launch
+SPIN_CYCLES = 1_000_000
+# float8_e4m3fn codes the JAX package gives (ml_dtypes, no saturation)
+FP8_EDGES = [(448.0, 0x7E), (464.0, 0x7E), (464.03125, 0x7F), (465.0, 0x7F),
+             (-465.0, 0xFF), (480.0, 0x7F), (1e30, 0x7F),
+             (math.inf, 0x7F), (-math.inf, 0xFF), (math.nan, 0x7F),
+             (-0.0, 0x80), (2.0 ** -9, 0x01), (2.0 ** -10, 0x00)]
 
 # (case, use_limiter, prev_norm, weight decay coefficient)
 CASES = [("limiter, prev 0", True, 0.0, 0.0),
@@ -428,7 +461,7 @@ def time_generic_wrap(dev):
     return t_dec, t_enc
 
 
-def profile_step(dev, codec, steps=4):
+def profile_step(dev, codec, steps=4, dp_reduce=None):
     """Phase 9: where a full-width step's time goes.  First without the
     profiler: step time and ``optimizer.update``'s share (CUDA events around
     it).  Then under ``torch.profiler``: device kernel time per step (kernel
@@ -457,7 +490,8 @@ def profile_step(dev, codec, steps=4):
         marks.append((a, b))
         return out
 
-    step = lm.make_train_step(cfg, opt._replace(update=timed_update))
+    step = lm.make_train_step(cfg, opt._replace(update=timed_update),
+                              dp_reduce=dp_reduce)
     data = SyntheticLM(cfg.vocab, 256, 16, seed=1)
     batches = [{k: torch.from_numpy(v).to(dev)
                 for k, v in data.batch(i).items()}
@@ -484,8 +518,8 @@ def profile_step(dev, codec, steps=4):
     kernel_us = [e.time_range.elapsed_us() for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(kernel_us) / 1e3 / steps
-    print(f"profile {codec}: step {step_ms:.2f} ms, optimizer.update "
-          f"{opt_ms:.2f} ms, rest of the step (data to model grads) "
+    print(f"profile {codec} dp_reduce={dp_reduce}: step {step_ms:.2f} ms, "
+          f"optimizer.update {opt_ms:.2f} ms, rest of the step (data to model grads) "
           f"{step_ms - opt_ms:.2f} ms; device kernels {busy_ms:.2f} ms/step "
           f"= {busy_ms / step_ms:.1%} of the unprofiled step "
           f"({1 - busy_ms / step_ms:.1%} idle); {len(kernel_us) // steps} "
@@ -501,16 +535,18 @@ def profile_step(dev, codec, steps=4):
             "device_busy_ms": busy_ms}
 
 
-def run_main_path(train, kernel, codec, extra=()):
+def run_main_path(train, kernel, hk, codec, extra=()):
     """Phases 5 and 6: the launcher at full width, launch counts set to 0
     just before and read just after."""
     torch.cuda.reset_peak_memory_stats()
     kernel.launches = kernel.launches_q8 = 0
+    hk.launches_fwd = hk.launches_fwd_q = hk.launches_inv = 0
     t0 = time.perf_counter()
     res = train.main(MAIN_ARGS + ["--state-codec", codec, *extra])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {"K1": kernel.launches, "K2": kernel.launches_q8}
+    haar = hk.launches_fwd + hk.launches_fwd_q + hk.launches_inv
     peak = torch.cuda.max_memory_allocated()
     logged = [res.losses[i] for i in range(4, len(res.losses), 5)]
     print(f"main path {codec}: {STEPS} steps in {wall:.2f} s; logged losses "
@@ -518,9 +554,10 @@ def run_main_path(train, kernel, codec, extra=()):
           f"{16 * 256 / (res.step_ms / 1e3):.0f} tokens/s; peak memory "
           f"{peak / 2**20:.1f} MiB")
     mine, other = ("K1", "K2") if codec == "f32" else ("K2", "K1")
-    if counts[mine] != 3 * STEPS or counts[other] != 0:
-        raise AssertionError(f"{codec} path launched {counts} in {STEPS} "
-                             f"steps, want {mine}={3 * STEPS}, {other}=0")
+    if counts[mine] != 3 * STEPS or counts[other] != 0 or haar:
+        raise AssertionError(f"{codec} path launched {counts} and {haar} "
+                             f"DWT kernels in {STEPS} steps, want "
+                             f"{mine}={3 * STEPS}, {other}=0, no DWT")
     if not np.all(np.isfinite(res.losses)):
         raise AssertionError(f"non-finite losses {res.losses}")
     if not logged[-1] < logged[0]:
@@ -567,12 +604,277 @@ def check_resume(train, straight):
           f"straight steps, bitwise (params, codes, scales, norms)")
 
 
+def raw_bits(t):
+    """A tensor's bit pattern as an integer tensor of its item size."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+        t.element_size()])
+
+
+def haar_input(shape, seed, dev, scale, edges):
+    """f32 gradient-like input.  With ``edges`` row 0 carries values past
+    the fp8 range and +-inf, each in its own level-3 group of 8 columns, so
+    no butterfly meets inf - inf."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn(*shape, generator=gen, device=dev) * scale
+    if not edges:
+        return g
+    cols = [0, 8, 16, 24, 32, 40, 48, 56][:shape[1] // 8]
+    edge = [464.0, 465.0, -465.0, 1e30, math.inf, 480.0, -1000.0, -math.inf]
+    g[0, cols] = torch.tensor(edge[:len(cols)], device=dev)
+    return g
+
+
+def check_bands(what, got_runs, want):
+    """Kernel bands against the plain version's: bitwise (NaN codes
+    included), and the two kernel runs bitwise."""
+    for a, b in zip(*got_runs):
+        if not torch.equal(raw_bits(a), raw_bits(b)):
+            raise AssertionError(f"{what}: two kernel runs differ")
+    for i, (a, b) in enumerate(zip(got_runs[0], want)):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{what} band {i}: {a.dtype} {a.shape} vs "
+                                 f"plain {b.dtype} {b.shape}")
+        differ = int((raw_bits(a) != raw_bits(b)).sum())
+        if differ:
+            raise AssertionError(f"{what} band {i}: {differ} of {a.numel()} "
+                                 f"elements differ from the plain version")
+
+
+def check_fp8_rule(hk, dev):
+    """The plain fp8 cast gives the JAX package's codes on the edge values,
+    and K3's fp8 details equal it on a dense sweep across the 448/464
+    boundary, NaN and +-inf."""
+    from repro_torch.kernels.haar_dwt import ref as href
+    vals = torch.tensor([v for v, _ in FP8_EDGES], device=dev)
+    codes = href.to_wire(vals, torch.float8_e4m3fn).view(torch.uint8)
+    want = [c for _, c in FP8_EDGES]
+    if codes.tolist() != want:
+        raise AssertionError(f"plain fp8 codes {codes.tolist()} != JAX's "
+                             f"{want}")
+    # level 1 on pairs (e, 0): D_1 = e * f32(1/sqrt 2) sweeps 424..495
+    e = torch.linspace(600.0, 700.0, 4094, device=dev)
+    e = torch.cat([e, torch.tensor([math.nan, math.inf], device=dev)])
+    g = torch.stack([e, torch.zeros_like(e)], -1).reshape(2, -1)
+    g = torch.cat([g, -g])
+    got = hk.haar_dwt_fwd_q(g, 1, torch.float8_e4m3fn)
+    check_bands("K3 fp8 sweep", [got, got],
+                href.haar_dwt_fwd_q(g, 1, torch.float8_e4m3fn))
+    nan = int((got[1].view(torch.uint8) & 0x7F == 0x7F).sum())
+    print(f"fp8 rule: edge codes = JAX's {[hex(c) for c in want]}; K3 sweep "
+          f"across 448/464 bitwise with the plain cast ({nan} NaN codes of "
+          f"{got[1].numel()})")
+
+
+def check_haar(hk, dev):
+    """Phase 10: K3, K6, K7 against their plain versions, bitwise.  Returns
+    the worst absolute error, 0 (any difference raises)."""
+    from repro_torch.kernels.haar_dwt import ref as href
+    check_fp8_rule(hk, dev)
+    wires = (torch.bfloat16, torch.float16, torch.float8_e4m3fn)
+    n_checks = 0
+    for shape in [s for s, _ in DP_SHAPES] + [ODD_SHAPE]:
+        for level in (1, 2, 3):
+            for wire in wires:
+                scale = 200.0 if wire == torch.float8_e4m3fn else 1.0
+                g = haar_input(shape, level + shape[0], dev, scale, True)
+                want = href.haar_dwt_fwd_q(g, level, wire)
+                runs = [hk.haar_dwt_fwd_q(g, level, wire) for _ in range(2)]
+                check_bands(f"K3 {shape} l={level} {wire}", runs, want)
+                n_checks += 1
+            for dtype in (torch.float32, torch.bfloat16):
+                g = haar_input(shape, 7 + level, dev, 1.0, False).to(dtype)
+                want = href.haar_dwt_fwd(g, level)
+                runs = [hk.haar_dwt_fwd(g, level) for _ in range(2)]
+                check_bands(f"K6 {shape} l={level} {dtype}", runs, want)
+                bands = runs[0]
+                want = [href.haar_dwt_inv(bands[0], bands[1:])]
+                runs = [[hk.haar_dwt_inv(bands[0], bands[1:])]
+                        for _ in range(2)]
+                check_bands(f"K7 {shape} l={level} {dtype}", runs, want)
+                n_checks += 2
+    torch.cuda.synchronize()
+    print(f"K3/K6/K7 vs plain: {n_checks} cases bitwise (every band, NaN "
+          f"codes included), two runs bitwise")
+    return 0.0
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_dp_path(train, kernel, hk, extra, steps):
+    """Phase 11: the launcher with --dp-reduce under a one-rank NCCL
+    process group; launch counts set to 0 just before and read just
+    after."""
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    args = [a if a != str(STEPS) else str(steps) for a in MAIN_ARGS]
+    try:
+        kernel.launches = kernel.launches_q8 = 0
+        hk.launches_fwd = hk.launches_fwd_q = hk.launches_inv = 0
+        t0 = time.perf_counter()
+        res = train.main(args + ["--dp-reduce", "compressed", *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"K1": kernel.launches, "K2": kernel.launches_q8,
+                  "K3": hk.launches_fwd_q, "K6": hk.launches_fwd,
+                  "K7": hk.launches_inv}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    ef = "--dp-error-feedback" in extra
+    want = {"K1": 3 * steps, "K2": 0, "K3": 10 * steps, "K6": 0,
+            "K7": (20 if ef else 10) * steps}
+    logged = [res.losses[i] for i in range(4, len(res.losses), 5)]
+    print(f"dp path {extra}: {steps} steps in {wall:.2f} s; logged losses "
+          f"{logged}; launches {counts}; step {res.step_ms:.2f} ms; wire "
+          f"bytes {res.wire_bytes}")
+    if counts != want:
+        raise AssertionError(f"dp path launched {counts}, want {want}")
+    if not np.all(np.isfinite(res.losses)) or not logged[-1] < logged[0]:
+        raise AssertionError(f"dp path losses {res.losses}")
+    if not extra and res.wire_bytes != (WIRE_BF16, WIRE_EXACT):
+        raise AssertionError(f"wire bytes {res.wire_bytes}, the JAX package "
+                             f"counts {(WIRE_BF16, WIRE_EXACT)}")
+    from repro_torch.optim.base import flatten_with_paths
+    for name, t in zip(*flatten_with_paths(res.params)):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"non-finite parameter {name}")
+    return res, counts
+
+
+def bound_haar(kind, shape, level=LEVEL, wire_bytes=2):
+    """Least time for one launch at ``shape``: bytes over HBM bandwidth
+    (each input read once, each output written once) against the
+    butterflies' f32 operations (2 per element of each level's input)."""
+    m, n = shape
+    N = m * n
+    if kind == "K3":      # f32 in, A_l f32, details in the wire dtype
+        nbytes = 4 * N + 4 * (N >> level) + wire_bytes * (N - (N >> level))
+    elif kind == "K6":    # bf16 in, bands in bf16
+        nbytes = 2 * N + 2 * N
+    else:                 # K7: f32 bands in, f32 out
+        nbytes = 4 * N + 4 * N
+    ops = sum(2 * (N >> k) for k in range(level))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations", nbytes
+
+
+def device_ms(fn, iters, launches, flush):
+    """Device time per call of ``fn``, one kernel launch, from CUDA events
+    recorded just before and just after each of ``iters`` calls.  Before
+    each call ``flush`` (a tensor larger than the 50 MB L2 cache) is
+    overwritten, so the call reads its inputs from device memory, as the
+    step's first touch of a gradient does; then the card spins for
+    ``SPIN_CYCLES``, so the call's launch is queued behind the start event
+    before that event fires and the span between the events holds the
+    kernel's device time and none of the host's.  ``launches()`` reads the
+    wrapper's launch counter: it must rise by exactly ``iters``."""
+    fn()
+    torch.cuda.synchronize()
+    spans = []
+    before = launches()
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start, stop = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+        start.record()
+        fn()
+        stop.record()
+        spans.append((start, stop))
+    torch.cuda.synchronize()
+    if launches() - before != iters:
+        raise AssertionError(f"{launches() - before} kernel launches in "
+                             f"{iters} timed calls")
+    return sum(a.elapsed_time(b) for a, b in spans) / iters
+
+
+def time_haar(hk, dev):
+    """Phase 12: per launch at each leaf shape (level 2): the kernel's
+    device time (CUDA events around each launch, L2 flushed before it) and its time per
+    call back to back (CUDA events: the host's wrapper time when the host
+    is slower than the card, and inputs warm in L2 when they fit) vs the
+    plain version vs the bound; one step's worth is the count-weighted
+    sum."""
+    from repro_torch.kernels.haar_dwt import ref as href
+    cases = {
+        "K3 bf16": (lambda g: hk.haar_dwt_fwd_q(g, LEVEL, torch.bfloat16),
+                    lambda g: href.haar_dwt_fwd_q(g, LEVEL, torch.bfloat16),
+                    torch.float32, "K3", 2),
+        "K3 fp8": (lambda g: hk.haar_dwt_fwd_q(g, LEVEL,
+                                               torch.float8_e4m3fn),
+                   lambda g: href.haar_dwt_fwd_q(g, LEVEL,
+                                                 torch.float8_e4m3fn),
+                   torch.float32, "K3", 1),
+        "K6 bf16": (lambda g: hk.haar_dwt_fwd(g, LEVEL),
+                    lambda g: href.haar_dwt_fwd(g, LEVEL),
+                    torch.bfloat16, "K6", 2),
+        "K7 f32": (lambda b: hk.haar_dwt_inv(b[0], b[1:]),
+                   lambda b: href.haar_dwt_inv(b[0], b[1:]),
+                   torch.float32, "K7", 4),
+    }
+    rows = {name: [] for name in cases}
+    flush = torch.empty(64 << 20, device=dev)   # 256 MB
+    for shape, count in DP_SHAPES:
+        g32 = torch.randn(*shape, device=dev)
+        for name, (kern, plain, dtype, kind, wb) in cases.items():
+            x = g32.to(dtype)
+            if kind == "K7":
+                x = list(href.haar_dwt_fwd(g32, LEVEL))
+            counter = {"K3": lambda: hk.launches_fwd_q,
+                       "K6": lambda: hk.launches_fwd,
+                       "K7": lambda: hk.launches_inv}[kind]
+            t_plain = [time_ms(lambda: plain(x), 5)]
+            t_call = [time_ms(lambda: kern(x), 50), time_ms(lambda: kern(x),
+                                                             50)]
+            t_dev = [device_ms(lambda: kern(x), 20, counter, flush)
+                     for _ in range(2)]
+            t_plain.append(time_ms(lambda: plain(x), 5))
+            b_ms, b_by, nbytes = bound_haar(kind, shape, wire_bytes=wb)
+            row = {"shape": list(shape), "per_step": count,
+                   "ms": min(t_dev), "call_ms": min(t_call),
+                   "plain_ms": min(t_plain), "bound_ms": b_ms,
+                   "bound_by": b_by, "bytes": nbytes}
+            print(f"{name} time {shape}: kernel {row['ms']:.4f} ms on the "
+                  f"device (runs {t_dev}), {row['call_ms']:.4f} ms per call "
+                  f"(runs {t_call}), plain {row['plain_ms']:.4f} ms, bound "
+                  f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.2f} MB), "
+                  f"{b_ms / row['ms']:.1%} of bound")
+            rows[name].append(row)
+    return rows
+
+
+def haar_entry(name, replaces, launches, max_abs_err, rows, **extra):
+    """One step's worth of a DWT kernel: each shape's time times its launches
+    per step."""
+    def step(key):
+        return sum(r[key] * r["per_step"] for r in rows)
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/haar_dwt/csrc/haar_dwt.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_abs_err,
+            "ms": step("ms"), "call_ms": step("call_ms"),
+            "plain_ms": step("plain_ms"), "bound_ms": step("bound_ms"),
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                       for r in rows) else "operations",
+            "library_ms": None, "per_launch": rows, **extra}
+
+
 def kernel_entry(name, source, replaces, launches, max_abs_err, rows,
                  **extra):
-    """One kernel's line: one step's worth, the three bucket launches
+    """One kernel's line: one step's worth, the launches of one step
     summed."""
     return {"name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/gwt_adam/csrc/" + source,
+            "source": "src/repro_torch/kernels/" + source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max_abs_err,
             "ms": sum(r["ms"] for r in rows),
@@ -588,7 +890,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA "
               "card only", file=sys.stderr)
         return 2
+    from repro_torch.kernels import build
     from repro_torch.kernels.gwt_adam import kernel, ops, ref
+    from repro_torch.kernels.haar_dwt import kernel as hk
     from repro_torch.launch import train
     from repro_torch.optim.engine import state_bytes
 
@@ -598,16 +902,17 @@ def main() -> int:
           f"cuda {torch.version.cuda}; card: {card}")
 
     t0 = time.perf_counter()
-    libs = kernel.build_all(verbose=True)
+    libs = build.build_all(verbose=True)
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           f"{[os.path.relpath(p, REPO) for p in libs.values()]}")
 
     err_k1 = check_kernel(kernel, ops, ref, dev)
     err_k2 = check_kernel_q8(kernel, ops, ref, dev)
+    err_haar = check_haar(hk, dev)
     check_small_training(dev)
 
-    res32, launches_k1, peak32 = run_main_path(train, kernel, "f32")
-    res8, launches_k2, peak8 = run_main_path(train, kernel, "int8")
+    res32, launches_k1, peak32 = run_main_path(train, kernel, hk, "f32")
+    res8, launches_k2, peak8 = run_main_path(train, kernel, hk, "int8")
     mib8 = state_bytes(res8.opt_state)
     mib32 = state_bytes(res32.opt_state)
     print(f"optimizer state: f32 {mib32} B = {mib32 / 2**20:.2f} MiB, int8 "
@@ -616,23 +921,43 @@ def main() -> int:
         raise AssertionError(f"int8 state is {mib8} bytes, the JAX package "
                              f"counts {STATE_BYTES_INT8}")
     check_resume(train, res8)
+    res_dp, dp_counts = run_dp_path(train, kernel, hk, [], STEPS)
+    res_ef, ef_counts = run_dp_path(
+        train, kernel, hk, ["--dp-detail-dtype", "float8_e4m3fn",
+                            "--dp-error-feedback"], DP_EF_STEPS)
 
     rows_k1 = time_kernel(kernel, ops, ref, dev)
     rows_k2 = time_kernel_q8(kernel, ops, ref, dev)
+    rows_haar = time_haar(hk, dev)
     wrap_dec, wrap_enc = time_generic_wrap(dev)
     prof32 = profile_step(dev, "f32")
     prof8 = profile_step(dev, "int8")
+    prof_dp = profile_step(dev, "f32", dp_reduce="compressed")
+    print(f"dp step vs plain step (same call): launcher {res_dp.step_ms:.2f} "
+          f"vs {res32.step_ms:.2f} ms; profiled {prof_dp['step_ms']:.2f} vs "
+          f"{prof32['step_ms']:.2f} ms")
     entries = [
-        kernel_entry("gwt_adam_fused", "gwt_adam_fused.cu",
+        kernel_entry("gwt_adam_fused", "gwt_adam/csrc/gwt_adam_fused.cu",
                      "src/repro/kernels/gwt_adam/kernel.py:404",
                      launches_k1, err_k1, rows_k1, step_ms=res32.step_ms,
                      peak_mib=peak32 / 2**20, profile=prof32),
-        kernel_entry("gwt_adam_fused_q8", "gwt_adam_fused_q8.cu",
+        kernel_entry("gwt_adam_fused_q8",
+                     "gwt_adam/csrc/gwt_adam_fused_q8.cu",
                      "src/repro/kernels/gwt_adam/kernel.py:554",
                      launches_k2, err_k2, rows_k2, step_ms=res8.step_ms,
                      peak_mib=peak8 / 2**20, state_bytes=mib8,
                      profile=prof8, embedding_wrap_ms={
                          "decode": wrap_dec, "encode": wrap_enc}),
+        haar_entry("haar_dwt_fwd_q",
+                   "src/repro/kernels/haar_dwt/kernel.py:124",
+                   dp_counts["K3"], err_haar, rows_haar["K3 bf16"],
+                   fp8_per_launch=rows_haar["K3 fp8"], step_ms=res_dp.step_ms,
+                   wire_bytes=res_dp.wire_bytes, profile=prof_dp,
+                   ef_fp8_launches=ef_counts),
+        haar_entry("haar_dwt_fwd", "src/repro/kernels/haar_dwt/kernel.py:93",
+                   dp_counts["K6"], err_haar, rows_haar["K6 bf16"]),
+        haar_entry("haar_dwt_inv", "src/repro/kernels/haar_dwt/kernel.py:144",
+                   dp_counts["K7"], err_haar, rows_haar["K7 f32"]),
     ]
     print(json.dumps({"kernels": entries}))
     print(smi())

@@ -6,12 +6,8 @@
 * ``gwt_adam_fused_q8`` (``csrc/gwt_adam_fused_q8.cu``, blocked-int8
   moments), counterpart of ``gwt_adam_tile_fused_q8`` there.
 
-Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface on first use, and bound with ``ctypes``.  The
-libraries go to ``build/torch_kernels/`` at the repository root, named by
-the hash of their sources (the shared header included), so an edited source
-is rebuilt.  :func:`build_all` starts one ``nvcc`` per source at once.
-Nothing is compiled when this module is imported.
+Both are built and loaded by ``repro_torch.kernels.build`` (nvcc for
+``sm_90a``, a plain C interface bound with ``ctypes``).
 
 ``launches`` counts calls of :func:`gwt_adam_fused` that launched its
 kernel and ``launches_q8`` those of :func:`gwt_adam_fused_q8`; nothing else
@@ -21,111 +17,42 @@ changes them.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-HEADER = CSRC / "gwt_adam_common.cuh"
-SOURCES = {"gwt_adam_fused": CSRC / "gwt_adam_fused.cu",
-           "gwt_adam_fused_q8": CSRC / "gwt_adam_fused_q8.cu"}
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+from repro_torch.kernels import build
 
 launches = 0
 launches_q8 = 0
 
-_libs: Dict[str, ctypes.CDLL] = {}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the kernels in " + str(CSRC))
+_VP, _LL, _F, _I = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
+                   ctypes.c_int)
 
 
-def _target(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()
-                            + HEADER.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+def _declare(fn, argtypes, extras=()) -> None:
+    fn.argtypes, fn.restype = argtypes, _I
+    for extra in extras:
+        extra.argtypes, extra.restype = [], _I
 
 
-def build_all(names=tuple(SOURCES), verbose: bool = False) -> Dict[str, Path]:
-    """Compile the libraries of ``names`` that are not built yet, one
-    ``nvcc`` process per source, all started together; returns their
-    paths.  ``verbose`` adds ``-Xptxas -v`` and prints each report."""
-    out = {name: _target(name) for name in names}
-    todo = [n for n in names if verbose or not out[n].exists()]
-    if not todo:
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    try:
-        for name in todo:
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS,
-                   *(["-Xptxas", "-v"] if verbose else []), "-o", tmp,
-                   str(SOURCES[name])]
-            jobs.append((name, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                text=True)))
-        failed = []
-        for name, tmp, proc in jobs:
-            _, err = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"{SOURCES[name].name} ({proc.returncode}):\n"
-                              f"{err}")
-            else:
-                if verbose:
-                    print(f"{SOURCES[name].name}:\n{err}", end="")
-                os.replace(tmp, out[name])
-        if failed:
-            raise RuntimeError("nvcc failed: " + "\n".join(failed))
-    finally:
-        for _, tmp, proc in jobs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            if os.path.exists(tmp):
-                os.remove(tmp)
-    return out
+_DECLARE = {
+    "gwt_adam_fused": lambda lib: _declare(
+        lib.gwt_adam_fused,
+        [_I, _I] + [_VP] * 9 + [_LL, _LL] + [_F] * 6 + [_I, _I, _VP],
+        (lib.gwt_adam_fused_chunk,)),
+    "gwt_adam_fused_q8": lambda lib: _declare(
+        lib.gwt_adam_fused_q8,
+        [_I, _I] + [_VP] * 13 + [_LL, _LL] + [_F] * 6 + [_I, _I, _VP],
+        (lib.gwt_adam_fused_q8_chunk, lib.gwt_adam_fused_q8_qblock)),
+}
 
 
 def _load(name: str) -> ctypes.CDLL:
-    if name not in _libs:
-        lib = ctypes.CDLL(str(build_all((name,))[name]))
-        vp, ll, f, i = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
-                        ctypes.c_int)
-        fn = getattr(lib, name)
-        if name == "gwt_adam_fused":
-            fn.argtypes = [i, i, vp, vp, vp, vp, vp, vp, vp, vp, vp, ll, ll,
-                           f, f, f, f, f, f, i, i, vp]
-            lib.gwt_adam_fused_chunk.argtypes = []
-            lib.gwt_adam_fused_chunk.restype = i
-        else:
-            fn.argtypes = [i, i, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                           vp, vp, ll, ll, f, f, f, f, f, f, i, i, vp]
-            for extra in ("gwt_adam_fused_q8_chunk",
-                          "gwt_adam_fused_q8_qblock"):
-                getattr(lib, extra).argtypes = []
-                getattr(lib, extra).restype = i
-        fn.restype = i
-        _libs[name] = lib
-    return _libs[name]
+    return build.load(name, _DECLARE[name])
 
 
 def _check(name: str, t: torch.Tensor, device: torch.device,

@@ -7,6 +7,18 @@
 Runs on CUDA unless ``--device cpu`` is given; without a card and without
 ``--device cpu`` it raises instead of falling back to the CPU.
 
+Data parallel (the JAX package's ``--dp-reduce`` path)::
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch llama-60m \
+        --dp-reduce compressed --dp-level 2 [--dp-detail-dtype bfloat16] \
+        [--dp-error-feedback]
+
+Each rank takes its contiguous rows of the global batch; the gradients are
+reduced by ``distributed.compression`` over NCCL (gloo with ``--device
+cpu``).  Without ``torchrun`` the run is one rank, and ``--dp-reduce`` still
+splits, narrows and reconstructs every gradient.  Only rank 0 logs and
+writes checkpoints.
+
 Fault tolerance: with ``--ckpt-dir`` the loop checkpoints every
 ``--ckpt-every`` steps and at the end, in the JAX package's format;
 SIGTERM -> checkpoint at the next chunk boundary -> clean exit; a restart
@@ -18,7 +30,8 @@ under the other ``--state-codec`` is transcoded on resume.
 from __future__ import annotations
 
 import argparse
-from typing import Any, List, NamedTuple, Optional
+import os
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -27,9 +40,11 @@ from repro_torch.checkpoint.manager import CheckpointManager, \
     StructureMismatch
 from repro_torch.core.gwt import gwt
 from repro_torch.data.pipeline import make_source
+from repro_torch.distributed import compression
+from repro_torch.launch.mesh import DPContext, init_dp
 from repro_torch.models import lm
 from repro_torch.optim import engine
-from repro_torch.optim.base import tree_map
+from repro_torch.optim.base import flatten_with_paths, tree_map
 from repro_torch.optim.schedules import warmup_cosine
 from repro_torch.runtime.fault_tolerance import TrainLoop
 
@@ -40,6 +55,9 @@ class TrainResult(NamedTuple):
     losses: List[float]
     step_ms: Optional[float]   # steady-state wall time per step
     start_step: int = 0        # the step the run resumed from
+    # per-rank gradient-reduction bytes per step with --dp-reduce, and the
+    # exact f32 reduction's (compression.tree_wire_bytes)
+    wire_bytes: Optional[Tuple[int, int]] = None
 
 
 def resolve_device(name: str) -> torch.device:
@@ -55,11 +73,29 @@ def _meta(tree):
     return tree_map(lambda t: torch.empty_like(t, device="meta"), tree)
 
 
+def _check_ef_world(ckpt: CheckpointManager, ef, world: int) -> None:
+    """The residues come first in flatten order; a checkpoint whose first
+    leaves are residues of another rank count cannot be resumed."""
+    want = [tuple(e.shape[1:]) for e in flatten_with_paths(ef)[1]]
+    saved = [tuple(l["shape"]) for l in ckpt.manifest()["leaves"]]
+    saved = saved[:len(want)]
+    if len(saved) == len(want) and all(
+            s[1:] == w for s, w in zip(saved, want)) \
+            and saved[0][0] != world:
+        raise StructureMismatch(
+            f"checkpoint in {ckpt.dir} holds error-feedback residues of "
+            f"{saved[0][0]} data-parallel ranks; this run has {world}")
+
+
 def resume(ckpt: CheckpointManager, params, opt_state, make_optimizer,
-           codec: str, data_meta: dict, device, log=print):
+           codec: str, data_meta: dict, device, log=print,
+           dp: Optional[DPContext] = None):
     """Restore ``{"params", "opt"}`` from the latest checkpoint.  A state
     saved under another codec is restored in its own layout and transcoded
-    to ``codec``.  Returns ``(params, opt_state, step)``."""
+    to ``codec``.  With error feedback (``opt_state = {"opt", "dp_ef"}``)
+    the checkpoint holds every rank's residues, ``(D, *shape)``, and this
+    rank takes its own row; another rank count raises
+    :class:`StructureMismatch`.  Returns ``(params, opt_state, step)``."""
     saved_data = ckpt.saved_run().get("data")
     if saved_data is not None:
         for k in ("kind", "corpus_hash", "order_seed"):
@@ -69,10 +105,29 @@ def resume(ckpt: CheckpointManager, params, opt_state, make_optimizer,
                     f"was trained with data {k}={saved_data[k]!r}, this run "
                     f"has {data_meta.get(k)!r}; refusing to continue on a "
                     f"different data stream")
+    rank, world = (0, 1) if dp is None else (dp.rank, dp.world)
+    inner, ef = compression.split_ef(opt_state)
+    if ef is not None:
+        _check_ef_world(ckpt, ef, world)
+
+    def like(opt):
+        if ef is None:
+            return opt
+        return {"opt": opt, "dp_ef": tree_map(
+            lambda e: torch.empty((world, *e.shape[1:]), device="meta"),
+            ef)}
+
+    def own_row(opt):
+        if ef is None:
+            return opt
+        return {"opt": opt["opt"], "dp_ef": tree_map(
+            lambda e: e[rank:rank + 1].contiguous(), opt["dp_ef"])}
+
     try:
         state, start = ckpt.restore(None, {"params": params,
-                                           "opt": opt_state})
-        return state["params"], state["opt"], start
+                                           "opt": like(inner)},
+                                    device=device)
+        return state["params"], own_row(state["opt"]), start
     except StructureMismatch as e:
         saved_codec = ckpt.saved_run().get("state_codec", "f32")
         if "'leaves'" in ckpt.manifest().get("treedef", ""):
@@ -83,17 +138,20 @@ def resume(ckpt: CheckpointManager, params, opt_state, make_optimizer,
         if saved_codec == codec:
             raise StructureMismatch(
                 f"checkpoint in {ckpt.dir} does not match this run's "
-                f"optimizer state; did --optimizer/--level or the model "
-                f"config change since it was saved? ({e})") from e
+                f"optimizer state; did --optimizer/--level, --dp-reduce or "
+                f"the model config change since it was saved? ({e})") from e
     saved_opt = make_optimizer(saved_codec)
-    like = saved_opt.init(_meta(params))
-    state, start = ckpt.restore(None, {"params": params, "opt": like},
-                                device=device)
+    state, start = ckpt.restore(
+        None, {"params": params, "opt": like(saved_opt.init(_meta(params)))},
+        device=device)
+    saved_inner, _ = compression.split_ef(state["opt"])
     new_opt = make_optimizer(codec)
-    opt_state = engine.transcode(state["opt"], state["params"], saved_opt,
+    converted = engine.transcode(saved_inner, state["params"], saved_opt,
                                  new_opt)
+    if ef is not None:
+        converted = {"opt": converted, "dp_ef": state["opt"]["dp_ef"]}
     log(f"transcoded optimizer state {saved_codec} -> {codec}")
-    return state["params"], opt_state, start
+    return state["params"], own_row(converted), start
 
 
 def main(argv=None) -> TrainResult:
@@ -121,9 +179,52 @@ def main(argv=None) -> TrainResult:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
+    ap.add_argument("--dp-reduce", default="none",
+                    choices=["none", "exact", "compressed"],
+                    help="data-parallel gradient reduction over the ranks "
+                         "of torchrun (one rank without it): 'exact' = f32 "
+                         "sum, 'compressed' = wavelet split (f32 "
+                         "approximation band, --dp-detail-dtype details)")
+    ap.add_argument("--dp-level", type=int, default=2,
+                    help="wavelet levels for --dp-reduce compressed "
+                         "(wire bytes ~ 1/2^l f32 + (1-1/2^l) detail)")
+    ap.add_argument("--dp-detail-dtype", default="bfloat16",
+                    choices=list(compression.WIRE_DTYPES),
+                    help="detail-band wire dtype for --dp-reduce compressed")
+    ap.add_argument("--dp-error-feedback", action="store_true",
+                    help="with --dp-reduce compressed: keep each rank's "
+                         "quantization residue and add it back before the "
+                         "next reduction")
+    ap.add_argument("--shard-params", default="none",
+                    choices=["auto", "none"],
+                    help="'none' (the only layout of the port): parameters "
+                         "and optimizer state replicated on every rank")
     args = ap.parse_args(argv)
+    if args.shard_params == "auto":
+        ap.error("--shard-params auto (the JAX package's FSDP layout) is "
+                 "not ported; use --shard-params none")
+    try:
+        dp_spec = compression.DPReduceSpec.parse(
+            args.dp_reduce, args.dp_level, args.dp_detail_dtype,
+            error_feedback=args.dp_error_feedback)
+    except ValueError as e:
+        ap.error(str(e))
+    if dp_spec is None and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        ap.error("a run of several ranks needs --dp-reduce exact or "
+                 "compressed")
 
     device = resolve_device(args.device)
+    dp = init_dp(device) if dp_spec is not None else None
+    try:
+        return _train(args, dp_spec, dp, device if dp is None else dp.device)
+    finally:
+        if dp is not None:
+            dp.close()
+
+
+def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
+    rank0 = dp is None or dp.rank == 0
+    log = print if rank0 else (lambda s: None)
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get_config(args.arch))
     generator = torch.Generator(device=device).manual_seed(args.seed)
@@ -144,11 +245,21 @@ def main(argv=None) -> TrainResult:
     # f32 Adam keeps m and v per parameter plus the int32 step
     mem_bytes = engine.state_bytes(opt_state)
     adam_f32_bytes = 8 * n_params + 4
-    print(f"arch={cfg.name} params={n_params/1e6:.1f}M "
-          f"optimizer={args.optimizer} codec={args.state_codec} "
-          f"opt_state={mem_bytes/2**20:.2f}MiB "
-          f"({adam_f32_bytes/max(mem_bytes, 1):.1f}x smaller than "
-          f"full-Adam f32 {adam_f32_bytes/2**20:.2f}MiB)")
+    log(f"arch={cfg.name} params={n_params/1e6:.1f}M "
+        f"optimizer={args.optimizer} codec={args.state_codec} "
+        f"opt_state={mem_bytes/2**20:.2f}MiB "
+        f"({adam_f32_bytes/max(mem_bytes, 1):.1f}x smaller than "
+        f"full-Adam f32 {adam_f32_bytes/2**20:.2f}MiB)")
+    wire = None
+    if dp_spec is not None:
+        wire = (compression.tree_wire_bytes(params, dp_spec),
+                compression.tree_wire_bytes(params, None))
+        log(f"dp_reduce={args.dp_reduce} dp={dp.world} "
+            f"wire={wire[0]/2**20:.1f}MiB/step vs exact "
+            f"{wire[1]/2**20:.1f}MiB ({wire[1]/wire[0]:.2f}x)")
+        if dp_spec.error_feedback:
+            opt_state = {"opt": opt_state,
+                         "dp_ef": compression.ef_init(params)}
 
     # data provenance, stamped into every manifest: a resume on another
     # data stream fails instead of training on
@@ -160,21 +271,23 @@ def main(argv=None) -> TrainResult:
     if args.resume and ckpt is not None and ckpt.latest_step() is not None:
         params, opt_state, start = resume(
             ckpt, params, opt_state, make_optimizer, args.state_codec,
-            data_meta, device)
+            data_meta, device, log=log, dp=dp)
         params = lm.LM(cfg, params).tree()
-        print(f"resumed from step {start}")
+        log(f"resumed from step {start}")
 
-    train_step = lm.make_train_step(cfg, optimizer, accum_steps=args.accum)
+    train_step = lm.make_train_step(cfg, optimizer, accum_steps=args.accum,
+                                    dp_reduce=dp_spec, dp=dp)
     loop = TrainLoop(train_step, source, device=device, ckpt=ckpt,
-                     ckpt_every=args.ckpt_every, log_every=args.log_every)
+                     ckpt_every=args.ckpt_every, log_every=args.log_every,
+                     log=log, dp=dp)
     params, opt_state, losses = loop.run(params, opt_state, start_step=start,
                                          num_steps=args.steps)
     if losses:
         k = max(1, len(losses) // 10)
-        print(f"final loss (mean of last {k}): {sum(losses[-k:]) / k:.4f}")
+        log(f"final loss (mean of last {k}): {sum(losses[-k:]) / k:.4f}")
     step_ms = None if loop.steady_step_s is None \
         else loop.steady_step_s * 1e3
-    return TrainResult(params, opt_state, losses, step_ms, start)
+    return TrainResult(params, opt_state, losses, step_ms, start, wire)
 
 
 if __name__ == "__main__":

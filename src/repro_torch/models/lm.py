@@ -16,6 +16,7 @@ from typing import Any, Dict, Mapping, Optional
 import torch
 from torch import nn
 
+from repro_torch.distributed import compression
 from repro_torch.models import blocks, rope as rope_lib
 from repro_torch.models.layers import (Builder, cross_entropy, embed_apply,
                                        embed_init, logits_apply, rms_norm)
@@ -115,26 +116,125 @@ def microbatch_split(batch: Dict[str, torch.Tensor], accum: int
     return out
 
 
-def make_train_step(cfg, optimizer, accum_steps: int = 1):
+def contiguous_microbatches(batch: Dict[str, torch.Tensor], accum: int
+                            ) -> Dict[str, torch.Tensor]:
+    """``(B, ...) -> (accum, B/accum, ...)`` in contiguous row blocks, the
+    split of the JAX package's sharded step: logical shard ``s`` holds rows
+    ``[s·B/S, (s+1)·B/S)`` whether ``s`` is a rank, a microbatch or both."""
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % accum:
+            raise ValueError(f"local batch {v.shape[0]} not divisible by "
+                             f"accum_steps={accum}")
+        out[k] = v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
+    return out
+
+
+def _accumulate(cfg, params, leaves, micro, accum_steps):
+    """f32 gradient sums and the loss sum over the microbatches."""
+    gsum = [torch.zeros(l.shape, dtype=torch.float32, device=l.device)
+            for l in leaves]
+    lsum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for a in range(accum_steps):
+        mb = {k: v[a] for k, v in micro.items()}
+        loss = loss_fn(cfg, params, mb)
+        grads = torch.autograd.grad(loss, leaves)
+        for s, g in zip(gsum, grads):
+            s.add_(g.float())
+        lsum = lsum + loss.detach()
+    return gsum, lsum
+
+
+def make_sharded_train_step(cfg, optimizer, *, dp, dp_reduce,
+                            accum_steps: int = 1):
+    """Data-parallel train step over the ranks of ``dp`` (a
+    ``launch.mesh.DPContext``; None is one rank), counterpart of the JAX
+    package's ``make_sharded_train_step``.
+
+    Rank ``r`` of ``D`` takes the contiguous rows ``[r·B/D, (r+1)·B/D)`` of
+    the global batch and splits them into contiguous microbatches.  Its f32
+    gradient means are reduced leaf by leaf, in flatten order, by
+    ``distributed.compression`` (exact f32 or wavelet-compressed; with error
+    feedback when ``dp_reduce.error_feedback``), then cast to ``cfg.dtype``
+    for ``optimizer.update``.  The returned loss is the mean over ranks.
+
+    With error feedback the state is ``{"opt": <optimizer state>, "dp_ef":
+    <residues>}``, each residue leaf ``(1, *param_shape)`` f32: this rank's
+    row of the reference's ``(D, *param_shape)``.
+
+    Numerics: the gradient is the mean over ``D × accum_steps`` contiguous
+    shards, summed shard by shard in order, so in the exact mode ``D`` ranks
+    with accum 1 equal one rank with accum ``D`` bitwise."""
+    if isinstance(dp_reduce, str):
+        dp_reduce = compression.DPReduceSpec.parse(dp_reduce)
+    if dp_reduce is None:
+        raise ValueError("dp_reduce None/'none' is the plain step: call "
+                         "make_train_step")
+    ef_on = dp_reduce.error_feedback and not dp_reduce.exact
+    level, wire = dp_reduce.level, dp_reduce.detail_dtype
+    rank, world = (0, 1) if dp is None else (dp.rank, dp.world)
+
+    def train_step(params, opt_state, batch):
+        if ef_on:
+            opt_state, ef = compression.split_ef(opt_state)
+            if ef is None:
+                raise ValueError(
+                    "error-feedback train step expects opt_state = "
+                    "{'opt': <optimizer state>, 'dp_ef': "
+                    "compression.ef_init(params)}")
+        rows = next(iter(batch.values())).shape[0]
+        if rows % world:
+            raise ValueError(f"global batch {rows} not divisible by "
+                             f"{world} ranks")
+        per = rows // world
+        local = {k: v[rank * per:(rank + 1) * per] for k, v in batch.items()}
+        paths, leaves = flatten_with_paths(params)
+        gsum, lsum = _accumulate(cfg, params, leaves,
+                                 contiguous_microbatches(local, accum_steps),
+                                 accum_steps)
+        loss = compression.exact_mean(lsum / accum_steps, dp)
+        if ef_on:
+            pairs = [compression.compressed_mean_ef(s / accum_steps, e[0], dp,
+                                                    level, wire)
+                     for s, e in zip(gsum, flatten_with_paths(ef)[1])]
+            means = [mean for mean, _ in pairs]
+            new_ef = [err[None] for _, err in pairs]
+        else:
+            means = [compression.compressed_mean(s / accum_steps, dp, level,
+                                                 wire) for s in gsum]
+        grads = unflatten(paths, [m.to(cfg.torch_dtype) for m in means])
+        params, opt_state = optimizer.update(grads, opt_state, params)
+        if ef_on:
+            opt_state = {"opt": opt_state, "dp_ef": unflatten(paths, new_ef)}
+        return params, opt_state, {"loss": loss}
+
+    return train_step
+
+
+def make_train_step(cfg, optimizer, accum_steps: int = 1, dp_reduce=None,
+                    dp=None):
     """Gradient-accumulated train step ``(params, opt_state, batch) ->
     (params, opt_state, {"loss": f32 scalar on the device})``.
 
     Gradients are summed in f32 over the microbatches, divided by
     ``accum_steps`` and cast to ``cfg.dtype`` before the update, as the JAX
-    step does.  The optimizer writes the parameters in place."""
+    step does.  The optimizer writes the parameters in place.
+
+    ``dp_reduce`` (a ``distributed.compression.DPReduceSpec`` or ``'exact'``
+    / ``'compressed'``) routes to :func:`make_sharded_train_step` over
+    ``dp`` (a ``launch.mesh.DPContext``; None is one rank)."""
+    if isinstance(dp_reduce, str):
+        dp_reduce = compression.DPReduceSpec.parse(dp_reduce)  # 'none': None
+    if dp_reduce is not None:
+        return make_sharded_train_step(cfg, optimizer, dp=dp,
+                                       dp_reduce=dp_reduce,
+                                       accum_steps=accum_steps)
+
     def train_step(params, opt_state, batch):
         paths, leaves = flatten_with_paths(params)
-        micro = microbatch_split(batch, accum_steps)
-        gsum = [torch.zeros(l.shape, dtype=torch.float32, device=l.device)
-                for l in leaves]
-        lsum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-        for a in range(accum_steps):
-            mb = {k: v[a] for k, v in micro.items()}
-            loss = loss_fn(cfg, params, mb)
-            grads = torch.autograd.grad(loss, leaves)
-            for s, g in zip(gsum, grads):
-                s.add_(g.float())
-            lsum = lsum + loss.detach()
+        gsum, lsum = _accumulate(cfg, params, leaves,
+                                 microbatch_split(batch, accum_steps),
+                                 accum_steps)
         grads = unflatten(paths, [(s / accum_steps).to(cfg.torch_dtype)
                                   for s in gsum])
         params, opt_state = optimizer.update(grads, opt_state, params)

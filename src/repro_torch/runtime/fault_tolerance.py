@@ -14,6 +14,11 @@ Checkpoints, with a checkpoint manager: every ``ckpt_every`` steps
 preempted.  SIGTERM or SIGINT during ``run`` sets a
 flag; at the next chunk boundary the loop saves blocking and stops, and the
 run can be resumed from that step.
+
+Data parallel (``dp``, a ``launch.mesh.DPContext`` of several ranks): the
+ranks agree on a preemption at each chunk boundary (stopping if any rank was
+signalled), every rank takes part in gathering the error-feedback residues
+into the checkpoint's ``(D, *shape)`` leaves, and only rank 0 writes.
 """
 
 from __future__ import annotations
@@ -23,6 +28,9 @@ import time
 from typing import Callable, List, Optional
 
 import torch
+
+from repro_torch.distributed import compression
+from repro_torch.optim.base import tree_map
 
 MAX_CHUNK = 16   # the JAX loop's default chunk length
 SIGNALS = (signal.SIGTERM, signal.SIGINT)
@@ -56,7 +64,7 @@ class PreemptionHandler:
 class TrainLoop:
     def __init__(self, train_step, data_source, *, device, ckpt=None,
                  ckpt_every: int = 100, log_every: int = 10,
-                 log: Callable[[str], None] = print):
+                 log: Callable[[str], None] = print, dp=None):
         self.train_step = train_step
         self.data = data_source
         self.device = torch.device(device)
@@ -64,6 +72,7 @@ class TrainLoop:
         self.ckpt_every = ckpt_every
         self.log_every = log_every
         self.log = log
+        self.dp = dp
         self.preempt = PreemptionHandler()
         # Seconds per step measured between the first and the last loss
         # fetch (each fetch waits for the card), i.e. without the first
@@ -97,8 +106,18 @@ class TrainLoop:
                 for k, v in batch.items()}
 
     def _save(self, step, params, opt_state, blocking=False):
-        self.ckpt.save(step, {"params": params, "opt": opt_state},
-                       blocking=blocking)
+        inner, ef = compression.split_ef(opt_state)
+        if ef is not None and self.dp is not None and self.dp.world > 1:
+            opt_state = {"opt": inner,
+                         "dp_ef": tree_map(self.dp.gather_rows, ef)}
+        if self.dp is None or self.dp.rank == 0:
+            self.ckpt.save(step, {"params": params, "opt": opt_state},
+                           blocking=blocking)
+
+    def _preempted(self) -> bool:
+        if self.dp is None:
+            return self.preempt.requested
+        return self.dp.any(self.preempt.requested)
 
     def run(self, params, opt_state, *, start_step: int = 0,
             num_steps: int = 100):
@@ -133,7 +152,7 @@ class TrainLoop:
                         and step % self.ckpt_every == 0:
                     self._save(step, params, opt_state)
                     last_saved = step
-                if self.preempt.requested:
+                if self._preempted():
                     preempted = True
                     flush(step)
                     self.log(f"[preempt] checkpoint@{step} and exit")

@@ -13,6 +13,8 @@ bf16 spacing through ``bf16(scale)`` (2 f32 spacings with f32 parameters).
 The q8 kernel rounds like its plain version at every step (codes and scales
 are exact functions of bitwise-equal f32 moments), so its codes, scales
 and parameters must be bitwise equal, the norm again within 64 spacings.
+The Haar DWT kernels (K3, K6, K7) round where their plain versions round:
+bitwise, NaN codes of the fp8 wire included.
 """
 
 import math
@@ -21,6 +23,9 @@ import pytest
 import torch
 
 from repro_torch.kernels.gwt_adam import kernel, ops, ref
+from repro_torch.kernels.haar_dwt import kernel as haar_kernel
+from repro_torch.kernels.haar_dwt import ops as haar_ops
+from repro_torch.kernels.haar_dwt import ref as haar_ref
 from repro_torch.optim import codec
 
 
@@ -191,3 +196,68 @@ def test_q8_kernel_refuses_what_it_does_not_take():
                                  *(s.to(torch.int32) for s in salts),
                                  *scalars, block=64, **kw)
     assert kernel.launches_q8 == before
+
+
+def _bits(t):
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+        t.element_size()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", [torch.bfloat16, torch.float16,
+                                  torch.float8_e4m3fn])
+@pytest.mark.parametrize("level", [1, 2, 3])
+def test_dwt_wire_kernel_matches_plain_version(level, wire):
+    """K3 bitwise, fp8 details past 464 and +-inf included; an unaligned
+    input (a row offset of 4 bytes) takes the scalar loads."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(level)
+    g = torch.randn(38, 344, generator=gen, device=dev) * 300
+    g[1, [0, 8, 16]] = torch.tensor([1e30, float("inf"), -float("inf")],
+                                    device=dev)
+    for x in (g[1:], g.reshape(-1)[1:1 + 37 * 344].reshape(37, 344)):
+        want = haar_ref.haar_dwt_fwd_q(x, level, wire)
+        got = haar_kernel.haar_dwt_fwd_q(x, level, wire)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dwt_and_inverse_kernels_match_plain_versions(dtype):
+    dev = _card()
+    g = torch.randn(37, 344, device=dev).to(dtype)
+    for level in (1, 2, 3):
+        bands = haar_kernel.haar_dwt_fwd(g, level)
+        for a, b in zip(bands, haar_ref.haar_dwt_fwd(g, level)):
+            assert torch.equal(_bits(a), _bits(b))
+        inv = haar_kernel.haar_dwt_inv(bands[0], bands[1:])
+        assert torch.equal(_bits(inv),
+                           _bits(haar_ref.haar_dwt_inv(bands[0], bands[1:])))
+
+
+@pytest.mark.cuda
+def test_dwt_entry_points_count_launches_and_refuse():
+    dev = _card()
+    g = torch.randn(8, 64, device=dev)
+    before = (haar_kernel.launches_fwd, haar_kernel.launches_fwd_q,
+              haar_kernel.launches_inv)
+    a, *ds = haar_ops.dwt_wire(g, 2, torch.bfloat16)
+    haar_ops.idwt(a, [d.float() for d in ds])
+    haar_ops.dwt(g, 2)
+    assert (haar_kernel.launches_fwd, haar_kernel.launches_fwd_q,
+            haar_kernel.launches_inv) == tuple(b + 1 for b in before)
+    with pytest.raises(ValueError, match="contiguous"):
+        haar_ops.dwt(g.t(), 2)
+    with pytest.raises(ValueError, match="divisible"):
+        haar_ops.dwt_wire(g[:, :62].contiguous(), 2, torch.bfloat16)
+    with pytest.raises(ValueError, match="float32"):
+        haar_ops.dwt_wire(g.half(), 2, torch.bfloat16)
+    with pytest.raises(ValueError, match="dtype"):
+        haar_ops.dwt(g.half(), 2)
+    with pytest.raises(ValueError, match="level"):
+        haar_ops.dwt(g, 7)
+    with pytest.raises(ValueError, match="detail 0"):
+        haar_ops.idwt(a, [d for d in ds])
+    assert haar_kernel.launches_fwd_q == before[1] + 1

@@ -54,7 +54,8 @@ def test_port_imports_no_jax(path):
 def test_the_walk_sees_the_package():
     names = {os.path.basename(p) for p in _sources()}
     assert {"chip_smoke.py", "step_time.py", "gwt.py", "kernel.py", "train.py", "codec.py",
-            "manager.py", "fault_tolerance.py", "interop.py"} <= names
+            "manager.py", "fault_tolerance.py", "interop.py", "build.py",
+            "compression.py", "mesh.py", "ops.py", "ref.py"} <= names
 
 
 def test_the_check_catches_what_it_forbids():
