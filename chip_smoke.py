@@ -6,8 +6,8 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. build every hand-written CUDA kernel from ``src/repro_torch/.../csrc``
-   (K1, K2, and K3/K6/K7 in one source), one ``nvcc`` per source, started
-   together;
+   (K1, K2, K4/K5 in one source, and K3/K6/K7 in one source), one ``nvcc``
+   per source, started together;
 2. K1 (f32 moments) against its plain PyTorch version on the card at the
    three LLaMA-60M bucket shapes (and one FIRST-mode-sized leaf): limiter
    with a zero and a non-zero history, a clipping case, weight decay; two
@@ -46,7 +46,26 @@ Phases (any failure raises and the script exits non-zero):
     shorter run with fp8 details and error feedback (K7 20 times per step:
     the residue's reconstruction too);
 12. time K3, K6 and K7 per launch beside their bounds and plain versions,
-    and profile the data-parallel step beside the plain f32 step.
+    and profile the data-parallel step beside the plain f32 step;
+13. K4 (``gwt_adam_tile``) and K5 (``gwt_adam_tile_q8``) against their plain
+    versions at the staged path's leaf shapes and an odd one, levels 1-3,
+    f32 and bf16 gradients: G̃, m', v' (K5: G̃, codes, scales) bitwise, the
+    ‖G̃‖² partials within ``TOL_SSQ_F32_SPACINGS``, two runs bitwise;
+14. the staged path, ``gwt(fused_write=False)``, at full width through the
+    ``TrainLoop``, f32 and int8, 20 steps each: K4 must launch 140 times
+    (7 leaves x 20 steps), K1, K2 and K5 never, the loss fall and stay
+    within ``TOL_STAGED_LOSS`` of the fused path's in the same call; the
+    unrolled engine (``bucketed=False``) equal to the bucketed staged path,
+    bitwise, over 3 full-width steps;
+15. peak device memory of one ``optimizer.update``, fused write against
+    staged, at full width and on the JAX benchmark's 4 x 256 x 2048 f32
+    bucket;
+16. the launcher's other choices at full width, 20 steps each (``--optimizer
+    adam``, ``adam_mini``, ``muon``, ``sgd``; ``gwt --host adam_mini``,
+    ``--host muon``): losses finite and falling, no GWT kernel launched,
+    state bytes, step time and peak memory printed;
+17. time K4 and K5 per launch beside their bounds and plain versions, and
+    profile the staged step beside the fused one.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -284,6 +303,94 @@ def check_kernel_q8(kernel, ops, ref, dev):
     return worst_abs
 
 
+# the leaves the staged path passes K4 at llama-60m, with their count per
+# step (7 launches), and one odd shape
+TILE_SHAPES = [("mixer wq/wk/wv/wo", (8, 512, 512), 4),
+               ("ffn w_gate/w_up", (8, 512, 1376), 2),
+               ("ffn w_down", (8, 1376, 512), 1)]
+TILE_ODD = ("odd rows", (1, 37, 344), 0)
+# K4/K5 against their plain versions: G̃, m', v' (K5: G̃, codes, scales)
+# bitwise.  The ‖G̃‖² partials, summed in f64, against the plain version's
+# one torch.sum per leaf: both add 2^18 - 2^22 positive f32 terms in trees
+# of different shape (the kernel: 32 terms in order per thread, then a
+# warp tree and the 8 warps in order), whose worst-case relative errors
+# reach ~50 units of 2^-24 each; random rounding keeps them near a few
+# spacings (measured up to 2.05 at (8, 512, 512), level 2).
+TOL_SSQ_F32_SPACINGS = 16
+
+
+def tile_inputs(shape, level, dtype, seed, dev):
+    L, m, n = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = (torch.randn(L, m, n, generator=gen, device=dev) * 0.01).to(dtype)
+    mm = torch.randn(L, m, n >> level, generator=gen, device=dev) * 1e-3
+    vv = torch.rand(L, m, n >> level, generator=gen, device=dev) * 1e-6
+    return g, mm, vv
+
+
+def tile_q8_inputs(shape, level, dtype, seed, dev):
+    """K4's inputs with the moments encoded by the port's codec, and the
+    step's salts as K5 takes them."""
+    from repro_torch.optim import codec
+    g, mm, vv = tile_inputs(shape, level, dtype, seed, dev)
+    L = shape[0]
+    ids = torch.arange(L, device=dev)
+    (qm, sm), (qv, sv) = (codec.quant_blocks(a.reshape(L, -1), ids + salt)
+                          for a, salt in ((mm, 101), (vv, 202)))
+    return (g, qm.reshape(mm.shape), sm, qv.reshape(vv.shape), sv), \
+        q8_salts(L, dev)
+
+
+def check_ssq(what, partials, want):
+    got = partials.double().sum(-1)
+    err = spacings(got, want, 23)
+    if err > TOL_SSQ_F32_SPACINGS:
+        raise AssertionError(f"{what}: partial ‖G̃‖² sums {err:.3g} f32 "
+                             f"spacings from the plain version's")
+    return err
+
+
+def check_tile(kernel, ref, dev):
+    """K4 (and K5) against their plain versions on the card at the staged
+    path's leaf shapes and an odd one, levels 1-3, f32 and bf16 gradients:
+    G̃, m', v' (K5: G̃, codes, scales) bitwise, the partials' sums within
+    ``TOL_SSQ_F32_SPACINGS``, two runs bitwise.  Returns the worst
+    absolute error over the bitwise outputs (0) and the worst ssq spacing
+    for each kernel."""
+    worst = {"K4": 0.0, "K5": 0.0}
+    n = 0
+    for label, shape, _ in TILE_SHAPES + [TILE_ODD]:
+        for level in (1, 2, 3):
+            for dtype in (torch.float32, torch.bfloat16):
+                seed = 17 * level + shape[-1] + (dtype == torch.bfloat16)
+                what = f"{label} {shape} l={level} {dtype}"
+                g, mm, vv = tile_inputs(shape, level, dtype, seed, dev)
+                kw = dict(level=level)
+                want = ref.gwt_adam_tile(g, mm, vv, **kw)
+                runs = [kernel.gwt_adam_tile(g, mm, vv, **kw)
+                        for _ in range(2)]
+                torch.cuda.synchronize()
+                check_bands(f"K4 {what}", runs, want[:3] + (runs[0][3],))
+                worst["K4"] = max(worst["K4"], check_ssq(
+                    f"K4 {what}", runs[0][3], want[3]))
+                args, salts = tile_q8_inputs(shape, level, dtype, seed, dev)
+                kw = dict(level=level, block=QBLOCK)
+                want = ref.gwt_adam_tile_q8(*args, *salts, **kw)
+                usalts = [s.to(torch.uint32) for s in salts]
+                runs = [kernel.gwt_adam_tile_q8(*args, *usalts, **kw)
+                        for _ in range(2)]
+                torch.cuda.synchronize()
+                check_bands(f"K5 {what}", runs, want[:5] + (runs[0][5],))
+                worst["K5"] = max(worst["K5"], check_ssq(
+                    f"K5 {what}", runs[0][5], want[5]))
+                n += 1
+    print(f"K4/K5 vs plain: {n} cases each, G̃, m', v' (K5: G̃, codes, "
+          f"scales) bitwise, two runs bitwise; partial ‖G̃‖² sums within "
+          f"{worst['K4']:.3g} (K4) and {worst['K5']:.3g} (K5) f32 spacings "
+          f"(<= {TOL_SSQ_F32_SPACINGS})")
+    return worst
+
+
 def check_small_training(dev):
     """Phase 4: llama-60m-smoke, f32 and int8 state, same parameters and
     batches on the card and on the CPU; per-step losses within 1e-4
@@ -461,7 +568,7 @@ def time_generic_wrap(dev):
     return t_dec, t_enc
 
 
-def profile_step(dev, codec, steps=4, dp_reduce=None):
+def profile_step(dev, codec, steps=4, dp_reduce=None, fused_write=True):
     """Phase 9: where a full-width step's time goes.  First without the
     profiler: step time and ``optimizer.update``'s share (CUDA events around
     it).  Then under ``torch.profiler``: device kernel time per step (kernel
@@ -478,7 +585,8 @@ def profile_step(dev, codec, steps=4, dp_reduce=None):
     cfg = configs.get_config("llama-60m")
     tree = lm.init(cfg, torch.Generator(device=dev).manual_seed(1),
                    dev).tree()
-    opt = gwt(warmup_cosine(0.01, 100), state_codec=codec)
+    opt = gwt(warmup_cosine(0.01, 100), state_codec=codec,
+              fused_write=fused_write)
     state = opt.init(tree)
     marks = []
 
@@ -518,7 +626,8 @@ def profile_step(dev, codec, steps=4, dp_reduce=None):
     kernel_us = [e.time_range.elapsed_us() for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(kernel_us) / 1e3 / steps
-    print(f"profile {codec} dp_reduce={dp_reduce}: step {step_ms:.2f} ms, "
+    print(f"profile {codec} dp_reduce={dp_reduce} fused_write="
+          f"{fused_write}: step {step_ms:.2f} ms, "
           f"optimizer.update {opt_ms:.2f} ms, rest of the step (data to model grads) "
           f"{step_ms - opt_ms:.2f} ms; device kernels {busy_ms:.2f} ms/step "
           f"= {busy_ms / step_ms:.1%} of the unprofiled step "
@@ -535,18 +644,31 @@ def profile_step(dev, codec, steps=4, dp_reduce=None):
             "device_busy_ms": busy_ms}
 
 
+def reset_counts(kernel, hk):
+    kernel.launches = kernel.launches_q8 = 0
+    kernel.launches_tile = kernel.launches_tile_q8 = 0
+    hk.launches_fwd = hk.launches_fwd_q = hk.launches_inv = 0
+
+
+def all_counts(kernel, hk):
+    return {"K1": kernel.launches, "K2": kernel.launches_q8,
+            "K3": hk.launches_fwd_q, "K4": kernel.launches_tile,
+            "K5": kernel.launches_tile_q8, "K6": hk.launches_fwd,
+            "K7": hk.launches_inv}
+
+
 def run_main_path(train, kernel, hk, codec, extra=()):
     """Phases 5 and 6: the launcher at full width, launch counts set to 0
     just before and read just after."""
     torch.cuda.reset_peak_memory_stats()
-    kernel.launches = kernel.launches_q8 = 0
-    hk.launches_fwd = hk.launches_fwd_q = hk.launches_inv = 0
+    reset_counts(kernel, hk)
     t0 = time.perf_counter()
     res = train.main(MAIN_ARGS + ["--state-codec", codec, *extra])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {"K1": kernel.launches, "K2": kernel.launches_q8}
-    haar = hk.launches_fwd + hk.launches_fwd_q + hk.launches_inv
+    haar = hk.launches_fwd + hk.launches_fwd_q + hk.launches_inv \
+        + kernel.launches_tile + kernel.launches_tile_q8
     peak = torch.cuda.max_memory_allocated()
     logged = [res.losses[i] for i in range(4, len(res.losses), 5)]
     print(f"main path {codec}: {STEPS} steps in {wall:.2f} s; logged losses "
@@ -556,8 +678,9 @@ def run_main_path(train, kernel, hk, codec, extra=()):
     mine, other = ("K1", "K2") if codec == "f32" else ("K2", "K1")
     if counts[mine] != 3 * STEPS or counts[other] != 0 or haar:
         raise AssertionError(f"{codec} path launched {counts} and {haar} "
-                             f"DWT kernels in {STEPS} steps, want "
-                             f"{mine}={3 * STEPS}, {other}=0, no DWT")
+                             f"DWT and staged kernels in {STEPS} steps, "
+                             f"want {mine}={3 * STEPS}, {other}=0, none "
+                             f"of those")
     if not np.all(np.isfinite(res.losses)):
         raise AssertionError(f"non-finite losses {res.losses}")
     if not logged[-1] < logged[0]:
@@ -714,15 +837,12 @@ def run_dp_path(train, kernel, hk, extra, steps):
     os.environ.update(env)
     args = [a if a != str(STEPS) else str(steps) for a in MAIN_ARGS]
     try:
-        kernel.launches = kernel.launches_q8 = 0
-        hk.launches_fwd = hk.launches_fwd_q = hk.launches_inv = 0
+        reset_counts(kernel, hk)
         t0 = time.perf_counter()
         res = train.main(args + ["--dp-reduce", "compressed", *extra])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {"K1": kernel.launches, "K2": kernel.launches_q8,
-                  "K3": hk.launches_fwd_q, "K6": hk.launches_fwd,
-                  "K7": hk.launches_inv}
+        counts = all_counts(kernel, hk)
     finally:
         for k, v in saved.items():
             if v is None:
@@ -730,8 +850,8 @@ def run_dp_path(train, kernel, hk, extra, steps):
             else:
                 os.environ[k] = v
     ef = "--dp-error-feedback" in extra
-    want = {"K1": 3 * steps, "K2": 0, "K3": 10 * steps, "K6": 0,
-            "K7": (20 if ef else 10) * steps}
+    want = {"K1": 3 * steps, "K2": 0, "K3": 10 * steps, "K4": 0, "K5": 0,
+            "K6": 0, "K7": (20 if ef else 10) * steps}
     logged = [res.losses[i] for i in range(4, len(res.losses), 5)]
     print(f"dp path {extra}: {steps} steps in {wall:.2f} s; logged losses "
           f"{logged}; launches {counts}; step {res.step_ms:.2f} ms; wire "
@@ -853,13 +973,284 @@ def time_haar(hk, dev):
     return rows
 
 
+def staged_loop(opt, steps, seed=0):
+    """llama-60m at full width through the ``TrainLoop`` with ``opt``, from
+    the launcher's parameters and batches (seed 0, batch 16 x seq 256):
+    what ``train.main`` runs, with an optimizer the launcher does not
+    offer.  Returns ``(params, state, losses, step_ms)``."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import make_source
+    from repro_torch.models import lm
+    from repro_torch.runtime.fault_tolerance import TrainLoop
+    dev = torch.device("cuda")
+    cfg = configs.get_config("llama-60m")
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                     dev).tree()
+    state = opt.init(params)
+    loop = TrainLoop(lm.make_train_step(cfg, opt),
+                     make_source("synthetic", cfg.vocab, 256, 16, seed=seed),
+                     device=dev, log_every=5, log=lambda line: None)
+    params, state, losses = loop.run(params, state, num_steps=steps)
+    torch.cuda.synchronize()
+    step_ms = None if loop.steady_step_s is None \
+        else loop.steady_step_s * 1e3
+    return params, state, losses, step_ms
+
+
+def gwt_opt(steps, **kw):
+    from repro_torch.core.gwt import gwt
+    from repro_torch.optim.schedules import warmup_cosine
+    return gwt(warmup_cosine(0.01, steps), level=LEVEL, alpha=0.25, **kw)
+
+
+# The staged path against the fused path of the same call, loss by loss.
+# Both round G̃ to bf16 before the limiter (the fused kernels as their
+# plain versions do); they differ in the order the per-leaf norm is summed
+# (K1's block tree against torch.linalg.vector_norm), so a limiter scale
+# can land one f32 spacing apart and bf16(scale) one bf16 spacing apart
+# on a clipped step, which moves every element of that leaf's update by
+# up to 2^-8 of itself; 20 steps carry that into the loss.  int8 adds
+# stochastic requantization, where a one-spacing moment change flips a
+# code.
+TOL_STAGED_LOSS = {"f32": 5e-3, "int8": 5e-2}
+
+
+def run_staged_path(kernel, hk, codec, fused):
+    """The staged path, ``gwt(fused_write=False)``, at full width for
+    ``STEPS`` steps, counts set to 0 just before and read just after: K4
+    must launch once per GWT leaf per step (7 x 20 = 140), K1, K2 and K5
+    never; the loss must fall and stay within ``TOL_STAGED_LOSS`` of the
+    fused path's run ``fused`` (same parameters and batches)."""
+    opt = gwt_opt(STEPS, fused_write=False, state_codec=codec)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernel, hk)
+    t0 = time.perf_counter()
+    params, state, losses, step_ms = staged_loop(opt, STEPS)
+    wall = time.perf_counter() - t0
+    counts = all_counts(kernel, hk)
+    peak = torch.cuda.max_memory_allocated() - base
+    logged = [losses[i] for i in range(4, len(losses), 5)]
+    gap = max(abs(a - b) for a, b in zip(losses, fused.losses))
+    print(f"staged path {codec}: {STEPS} steps in {wall:.2f} s; logged "
+          f"losses {logged}; launches {counts}; step {step_ms:.2f} ms "
+          f"(fused path {fused.step_ms:.2f} ms); peak memory of the run "
+          f"{peak / 2**20:.1f} MiB above what earlier phases hold; max "
+          f"|loss - fused path's| {gap:.3g} (<= {TOL_STAGED_LOSS[codec]})")
+    want = {"K1": 0, "K2": 0, "K3": 0, "K4": 7 * STEPS, "K5": 0, "K6": 0,
+            "K7": 0}
+    if counts != want:
+        raise AssertionError(f"staged {codec} path launched {counts}, "
+                             f"want {want}")
+    if not np.all(np.isfinite(losses)) or not logged[-1] < logged[0]:
+        raise AssertionError(f"staged {codec} losses {losses}")
+    if gap > TOL_STAGED_LOSS[codec]:
+        raise AssertionError(f"staged {codec} losses {losses} vs fused "
+                             f"{fused.losses}")
+    return {"losses": losses, "step_ms": step_ms, "peak_mib": peak / 2**20,
+            "launches": counts, "max_loss_gap": gap}, params, state
+
+
+def check_unrolled(steps=3):
+    """The unrolled engine, ``gwt(bucketed=False)`` (every leaf through its
+    rule's ``update``), a few full-width steps from the same parameters and
+    batches as the bucketed staged path: parameters and state bitwise."""
+    a = staged_loop(gwt_opt(steps, fused_write=False), steps)
+    b = staged_loop(gwt_opt(steps, bucketed=False), steps)
+    assert_bitwise(a[0], b[0], "unrolled vs bucketed staged params")
+    assert_bitwise(a[1], b[1], "unrolled vs bucketed staged state")
+    if a[2] != b[2]:
+        raise AssertionError(f"unrolled losses {b[2]} vs staged {a[2]}")
+    print(f"unrolled engine (bucketed=False): {steps} full-width steps "
+          f"bitwise equal to the bucketed staged path (params, state, "
+          f"losses {a[2]})")
+
+
+def update_peak(opt, params, grads):
+    """Bytes allocated at the peak of one ``opt.update`` (after a first
+    update, so plans and salt tables exist), and that peak above what was
+    allocated just before the call."""
+    state = opt.init(params)
+    params, state = opt.update(grads, state, params)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    opt.update(grads, state, params)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return peak, peak - before
+
+
+def check_update_memory(dev):
+    """Peak device memory of one ``optimizer.update``, fused write against
+    the staged path: llama-60m at full width (bf16), and the JAX
+    benchmark's bucket, 4 f32 leaves of 256 x 2048 at level 2 (its
+    ``staged`` model charges the staged path with p and prev_norm held
+    across the G̃ boundary; XLA's CPU buffer assignment gave 25,690,544 B
+    against 35,651,636 B, 0.72x).  Returns a dict of the readings."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.optim.base import tree_map
+    out = {}
+    cfg = configs.get_config("llama-60m")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    trees = {"llama-60m": lm.init(cfg, gen, dev).tree(),
+             "bucket 4x256x2048 f32": {
+                 f"w{i}": torch.randn(256, 2048, generator=gen, device=dev)
+                 for i in range(4)}}
+    for name, params in trees.items():
+        row = {}
+        for flow, kw in (("fused", {}), ("staged", {"fused_write": False})):
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            copy = tree_map(torch.clone, params)
+            ggen = torch.Generator(device=dev).manual_seed(7)
+            grads = tree_map(lambda p: (torch.randn(
+                p.shape, generator=ggen, device=dev) * 1e-2).to(p.dtype),
+                params)
+            peak, extra = update_peak(gwt_opt(100, **kw), copy, grads)
+            row[flow] = {"peak_bytes": peak - base, "extra_bytes": extra}
+            del copy, grads
+        ratio = row["fused"]["peak_bytes"] / row["staged"]["peak_bytes"]
+        ratio_extra = row["fused"]["extra_bytes"] / \
+            row["staged"]["extra_bytes"]
+        print(f"update peak memory {name}: fused {row['fused']} vs staged "
+              f"{row['staged']} bytes (peak: parameters, gradients, state "
+              f"and temporaries of the update; extra: above what was "
+              f"allocated just before it); fused/staged {ratio:.3f} peak, "
+              f"{ratio_extra:.3f} extra; the README's 0.72x is XLA's CPU "
+              f"buffer assignment")
+        row["ratio"], row["ratio_extra"] = ratio, ratio_extra
+        out[name] = row
+    return out
+
+
+# the launcher's other choices: (label, arguments)
+CHOICES = [("adam", ["--optimizer", "adam"]),
+           ("adam_mini", ["--optimizer", "adam_mini"]),
+           ("muon", ["--optimizer", "muon"]),
+           ("sgd", ["--optimizer", "sgd"]),
+           ("gwt --host adam_mini", ["--optimizer", "gwt", "--host",
+                                     "adam_mini"]),
+           ("gwt --host muon", ["--optimizer", "gwt", "--host", "muon"])]
+
+
+def run_choices(train, kernel, hk):
+    """Each of the launcher's other choices at full width for ``STEPS``
+    steps, f32 matmuls (TF32 stays off): losses finite and falling, and no
+    GWT kernel launched (none of these hosts runs the Adam kernels).  Peak
+    memory is the run's own, above what earlier phases still hold.
+    Returns ``{label: readings}``."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on; Newton-Schulz must run "
+                             "in f32")
+    from repro_torch.optim.engine import state_bytes
+    out = {}
+    for label, args in CHOICES:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernel, hk)
+        res = train.main(MAIN_ARGS + args)
+        torch.cuda.synchronize()
+        counts = all_counts(kernel, hk)
+        peak = torch.cuda.max_memory_allocated() - base
+        logged = [res.losses[i] for i in range(4, len(res.losses), 5)]
+        row = {"state_bytes": state_bytes(res.opt_state),
+               "step_ms": res.step_ms, "peak_mib": peak / 2**20,
+               "losses": logged}
+        print(f"launcher {label}: logged losses {logged}; state "
+              f"{row['state_bytes']} B = {row['state_bytes'] / 2**20:.2f} "
+              f"MiB; step {res.step_ms:.2f} ms; peak {row['peak_mib']:.1f} "
+              f"MiB; launches {counts}")
+        if any(counts.values()):
+            raise AssertionError(f"{label} launched {counts}")
+        if not np.all(np.isfinite(res.losses)) or not logged[-1] < logged[0]:
+            raise AssertionError(f"{label} losses {res.losses}")
+        out[label] = row
+    return out
+
+
+def bound_tile(shape, level=LEVEL, esize=2, q8=False):
+    """Least time for one K4 (``q8``: K5) launch on ``shape``.  Bytes: read
+    g, write G̃ (``esize`` each), read and write m and v (f32; K5: int8
+    codes and one f32 scale per 64), the partials (and K5's salts).
+    Operations: K1's per-coefficient f32 work without the write, the
+    rounding and squaring of G̃, and K5's dequantization, requantization
+    (f32) and rounding hash (int32), each type over its own rate."""
+    L, m, n = shape
+    N, NA, B = L * m * n, L * m * (n >> level), 1 << level
+    parts = L * -(-(m * (n >> level)) // 2048)
+    f32_ops = NA * (2 * (4 * B - 4) + 11 + (B - 1)) + N * 3
+    int_ops = 0
+    if q8:
+        nb = L * -(-(m * (n >> level)) // QBLOCK)
+        nbytes = 2 * N * esize + 2 * 2 * NA + 2 * 2 * nb * 4 + 2 * L * 4 \
+            + parts * 4
+        f32_ops += NA * (2 + 2 * 9)
+        int_ops = NA * 2 * 10
+    else:
+        nbytes = 2 * N * esize + 4 * NA * 4 + parts * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = f32_ops / F32_OPS_PER_S + int_ops / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations", nbytes
+
+
+def time_tile(kernel, ref, dev):
+    """K4 and K5 per launch at the staged path's leaf shapes (level 2, bf16
+    gradients): device time (CUDA events around each launch, L2 flushed
+    before it), time per call back to back, the plain version's, the
+    bound.  Returns ``{"K4": rows, "K5": rows}``."""
+    rows = {"K4": [], "K5": []}
+    flush = torch.empty(64 << 20, device=dev)   # 256 MB
+    for label, shape, count in TILE_SHAPES:
+        g, mm, vv = tile_inputs(shape, LEVEL, torch.bfloat16, 3, dev)
+        args, salts = tile_q8_inputs(shape, LEVEL, torch.bfloat16, 3, dev)
+        usalts = [s.to(torch.uint32) for s in salts]
+        cases = {
+            "K4": (lambda: kernel.gwt_adam_tile(g, mm, vv, level=LEVEL),
+                   lambda: ref.gwt_adam_tile(g, mm, vv, level=LEVEL),
+                   lambda: kernel.launches_tile, False),
+            "K5": (lambda: kernel.gwt_adam_tile_q8(
+                       *args, *usalts, level=LEVEL, block=QBLOCK),
+                   lambda: ref.gwt_adam_tile_q8(*args, *salts, level=LEVEL,
+                                                block=QBLOCK),
+                   lambda: kernel.launches_tile_q8, True)}
+        for name, (kern, plain, counter, q8) in cases.items():
+            t_plain = [time_ms(plain, 5)]
+            t_call = [time_ms(kern, 50), time_ms(kern, 50)]
+            t_dev = [device_ms(kern, 20, counter, flush) for _ in range(2)]
+            t_plain.append(time_ms(plain, 5))
+            b_ms, b_by, nbytes = bound_tile(shape, q8=q8)
+            row = {"leaf": label, "shape": list(shape), "per_step": count,
+                   "ms": min(t_dev), "call_ms": min(t_call),
+                   "plain_ms": min(t_plain), "bound_ms": b_ms,
+                   "bound_by": b_by, "bytes": nbytes}
+            print(f"{name} time {label} {shape}: kernel {row['ms']:.4f} ms "
+                  f"on the device (runs {t_dev}), {row['call_ms']:.4f} ms "
+                  f"per call (runs {t_call}), plain {row['plain_ms']:.4f} "
+                  f"ms, bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.2f} "
+                  f"MB), {b_ms / row['ms']:.1%} of bound")
+            rows[name].append(row)
+    return rows
+
+
 def haar_entry(name, replaces, launches, max_abs_err, rows, **extra):
-    """One step's worth of a DWT kernel: each shape's time times its launches
-    per step."""
+    return step_entry(name, "haar_dwt/csrc/haar_dwt.cu", replaces, launches,
+                      max_abs_err, rows, **extra)
+
+
+def step_entry(name, source, replaces, launches, max_abs_err, rows,
+               **extra):
+    """One step's worth of a kernel launched per leaf: each shape's time
+    times its launches per step."""
     def step(key):
         return sum(r[key] * r["per_step"] for r in rows)
     return {"name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/haar_dwt/csrc/haar_dwt.cu",
+            "source": "src/repro_torch/kernels/" + source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max_abs_err,
             "ms": step("ms"), "call_ms": step("call_ms"),
@@ -909,6 +1300,7 @@ def main() -> int:
     err_k1 = check_kernel(kernel, ops, ref, dev)
     err_k2 = check_kernel_q8(kernel, ops, ref, dev)
     err_haar = check_haar(hk, dev)
+    tile_ssq = check_tile(kernel, ref, dev)
     check_small_training(dev)
 
     res32, launches_k1, peak32 = run_main_path(train, kernel, hk, "f32")
@@ -926,6 +1318,12 @@ def main() -> int:
         train, kernel, hk, ["--dp-detail-dtype", "float8_e4m3fn",
                             "--dp-error-feedback"], DP_EF_STEPS)
 
+    staged32, _, _ = run_staged_path(kernel, hk, "f32", res32)
+    staged8, _, _ = run_staged_path(kernel, hk, "int8", res8)
+    check_unrolled()
+    memory = check_update_memory(dev)
+    choices = run_choices(train, kernel, hk)
+
     rows_k1 = time_kernel(kernel, ops, ref, dev)
     rows_k2 = time_kernel_q8(kernel, ops, ref, dev)
     rows_haar = time_haar(hk, dev)
@@ -933,6 +1331,15 @@ def main() -> int:
     prof32 = profile_step(dev, "f32")
     prof8 = profile_step(dev, "int8")
     prof_dp = profile_step(dev, "f32", dp_reduce="compressed")
+    rows_tile = time_tile(kernel, ref, dev)
+    prof_staged = profile_step(dev, "f32", fused_write=False)
+    print(f"staged step vs fused step (same call): launcher-equivalent "
+          f"loop {staged32['step_ms']:.2f} vs {res32.step_ms:.2f} ms; "
+          f"profiled {prof_staged['step_ms']:.2f} vs "
+          f"{prof32['step_ms']:.2f} ms, update {prof_staged['update_ms']:.2f} "
+          f"vs {prof32['update_ms']:.2f} ms, device "
+          f"{prof_staged['device_busy_ms']:.2f} vs "
+          f"{prof32['device_busy_ms']:.2f} ms")
     print(f"dp step vs plain step (same call): launcher {res_dp.step_ms:.2f} "
           f"vs {res32.step_ms:.2f} ms; profiled {prof_dp['step_ms']:.2f} vs "
           f"{prof32['step_ms']:.2f} ms")
@@ -958,6 +1365,16 @@ def main() -> int:
                    dp_counts["K6"], err_haar, rows_haar["K6 bf16"]),
         haar_entry("haar_dwt_inv", "src/repro/kernels/haar_dwt/kernel.py:144",
                    dp_counts["K7"], err_haar, rows_haar["K7 f32"]),
+        step_entry("gwt_adam_tile", "gwt_adam/csrc/gwt_adam_tile.cu",
+                   "src/repro/kernels/gwt_adam/kernel.py:261",
+                   staged32["launches"]["K4"], 0.0, rows_tile["K4"],
+                   ssq_f32_spacings=tile_ssq["K4"], staged_f32=staged32,
+                   staged_int8=staged8, profile=prof_staged,
+                   update_memory=memory, launcher_choices=choices),
+        step_entry("gwt_adam_tile_q8", "gwt_adam/csrc/gwt_adam_tile.cu",
+                   "src/repro/kernels/gwt_adam/kernel.py:214",
+                   staged32["launches"]["K5"], 0.0, rows_tile["K5"],
+                   ssq_f32_spacings=tile_ssq["K5"]),
     ]
     print(json.dumps({"kernels": entries}))
     print(smi())

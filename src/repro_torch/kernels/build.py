@@ -31,7 +31,11 @@ SOURCES: Dict[str, Tuple[Path, Tuple[Path, ...]]] = {
     "gwt_adam_fused": (_GWT / "gwt_adam_fused.cu",
                        (_GWT / "gwt_adam_common.cuh",)),
     "gwt_adam_fused_q8": (_GWT / "gwt_adam_fused_q8.cu",
-                          (_GWT / "gwt_adam_common.cuh",)),
+                          (_GWT / "gwt_adam_common.cuh",
+                           _GWT / "gwt_adam_q8.cuh")),
+    "gwt_adam_tile": (_GWT / "gwt_adam_tile.cu",
+                      (_GWT / "gwt_adam_common.cuh",
+                       _GWT / "gwt_adam_q8.cuh")),
     "haar_dwt": (_HAAR / "haar_dwt.cu", ()),
 }
 

@@ -1,17 +1,22 @@
-"""Build, binding and launch of the hand-written CUDA fused-write kernels:
+"""Build, binding and launch of the hand-written CUDA GWT-Adam kernels,
+counterparts of the TPU kernels of ``repro/kernels/gwt_adam/kernel.py``:
 
-* ``gwt_adam_fused`` (``csrc/gwt_adam_fused.cu``, f32 moments), counterpart
-  of the TPU kernel ``gwt_adam_tile_fused`` in
-  ``repro/kernels/gwt_adam/kernel.py``;
-* ``gwt_adam_fused_q8`` (``csrc/gwt_adam_fused_q8.cu``, blocked-int8
-  moments), counterpart of ``gwt_adam_tile_fused_q8`` there.
+* ``gwt_adam_fused`` (K1, ``csrc/gwt_adam_fused.cu``, f32 moments):
+  ``gwt_adam_tile_fused`` there, the fused write;
+* ``gwt_adam_fused_q8`` (K2, ``csrc/gwt_adam_fused_q8.cu``, blocked-int8
+  moments): ``gwt_adam_tile_fused_q8``;
+* ``gwt_adam_tile`` (K4, ``csrc/gwt_adam_tile.cu``, f32 moments):
+  ``gwt_adam_tile``, the staged update that returns G̃;
+* ``gwt_adam_tile_q8`` (K5, the same source, blocked-int8 moments):
+  ``gwt_adam_tile_q8``.
 
-Both are built and loaded by ``repro_torch.kernels.build`` (nvcc for
+All are built and loaded by ``repro_torch.kernels.build`` (nvcc for
 ``sm_90a``, a plain C interface bound with ``ctypes``).
 
-``launches`` counts calls of :func:`gwt_adam_fused` that launched its
-kernel and ``launches_q8`` those of :func:`gwt_adam_fused_q8`; nothing else
-changes them.
+``launches``, ``launches_q8``, ``launches_tile`` and ``launches_tile_q8``
+count the calls of :func:`gwt_adam_fused`, :func:`gwt_adam_fused_q8`,
+:func:`gwt_adam_tile` and :func:`gwt_adam_tile_q8` that launched their
+kernel; nothing else changes them.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ from repro_torch.kernels import build
 
 launches = 0
 launches_q8 = 0
+launches_tile = 0
+launches_tile_q8 = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -39,6 +46,14 @@ def _declare(fn, argtypes, extras=()) -> None:
         extra.argtypes, extra.restype = [], _I
 
 
+def _declare_tile(lib) -> None:
+    _declare(lib.gwt_adam_tile,
+             [_I, _I] + [_VP] * 7 + [_LL, _LL] + [_F] * 5 + [_VP],
+             (lib.gwt_adam_tile_chunk, lib.gwt_adam_tile_qblock))
+    _declare(lib.gwt_adam_tile_q8,
+             [_I, _I] + [_VP] * 13 + [_LL, _LL] + [_F] * 5 + [_VP])
+
+
 _DECLARE = {
     "gwt_adam_fused": lambda lib: _declare(
         lib.gwt_adam_fused,
@@ -48,6 +63,7 @@ _DECLARE = {
         lib.gwt_adam_fused_q8,
         [_I, _I] + [_VP] * 13 + [_LL, _LL] + [_F] * 6 + [_I, _I, _VP],
         (lib.gwt_adam_fused_q8_chunk, lib.gwt_adam_fused_q8_qblock)),
+    "gwt_adam_tile": _declare_tile,
 }
 
 
@@ -179,3 +195,83 @@ def gwt_adam_fused_q8(g: torch.Tensor, p: torch.Tensor, qm: torch.Tensor,
             f"gwt_adam_fused_q8 launch failed: CUDA error {err}")
     launches_q8 += 1
     return p, qm, sm, qv, sv, new_norm
+
+
+def _partials(lib, L: int, na: int, device) -> torch.Tensor:
+    chunk = lib.gwt_adam_tile_chunk()
+    return torch.empty((L, -(-na // chunk)), dtype=torch.float32,
+                       device=device)
+
+
+def gwt_adam_tile(g: torch.Tensor, m: torch.Tensor, v: torch.Tensor, *,
+                  level: int, b1: float = 0.9, b2: float = 0.999,
+                  eps: float = 1e-6):
+    """Staged update of an ``(L, rows, n)`` stack on the card (K4).
+
+    ``g``: f32 or bf16; ``m``, ``v``: f32 ``(L, rows, n >> level)``.
+    Returns new tensors ``(G̃ in g's dtype, m', v', partials)``:
+    ``partials`` is f32 ``(L, S)``, leaf ``l``'s ``‖G̃‖²`` of the rounded G̃
+    in ``S`` fixed-order pieces (their sum is the leaf's).  Raises on any
+    input the kernel does not take and on a failed launch."""
+    global launches_tile
+    L, rows, n, na = _check_bucket(g, level)
+    device = g.device
+    _check("g", g, device, g.dtype, (L, rows, n))
+    _check("m", m, device, torch.float32, (L, rows, n >> level))
+    _check("v", v, device, torch.float32, (L, rows, n >> level))
+    lib = _load("gwt_adam_tile")
+    gt, m_out, v_out = (torch.empty_like(t) for t in (g, m, v))
+    partials = _partials(lib, L, na, device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.gwt_adam_tile(
+        _DTYPES[g.dtype], level, g.data_ptr(), m.data_ptr(), v.data_ptr(),
+        gt.data_ptr(), m_out.data_ptr(), v_out.data_ptr(),
+        partials.data_ptr(), L, na, b1, 1 - b1, b2, 1 - b2, eps, stream)
+    if err != 0:
+        raise RuntimeError(f"gwt_adam_tile launch failed: CUDA error {err}")
+    launches_tile += 1
+    return gt, m_out, v_out, partials
+
+
+def gwt_adam_tile_q8(g: torch.Tensor, qm: torch.Tensor, sm: torch.Tensor,
+                     qv: torch.Tensor, sv: torch.Tensor,
+                     salt_m: torch.Tensor, salt_v: torch.Tensor, *,
+                     level: int, block: int, b1: float = 0.9,
+                     b2: float = 0.999, eps: float = 1e-6):
+    """Staged update of an ``(L, rows, n)`` stack over blocked-int8
+    moments on the card (K5).
+
+    ``qm``, ``qv``: int8 ``(L, rows, n >> level)``; ``sm``, ``sv``: f32
+    ``(L, ceil(rows * (n >> level) / block))``; ``salt_m``, ``salt_v``:
+    uint32 ``(L,)``.  Returns new tensors ``(G̃, qm', sm', qv', sv',
+    partials)``, ``partials`` as for :func:`gwt_adam_tile`; raises on any
+    input the kernel does not take and on a failed launch."""
+    global launches_tile_q8
+    L, rows, n, na = _check_bucket(g, level)
+    device = g.device
+    lib = _load("gwt_adam_tile")
+    if block != lib.gwt_adam_tile_qblock():
+        raise ValueError(f"the kernel quantizes in blocks of "
+                         f"{lib.gwt_adam_tile_qblock()}, not {block}")
+    nb = -(-na // block)
+    _check("g", g, device, g.dtype, (L, rows, n))
+    for name, q, s in (("m", qm, sm), ("v", qv, sv)):
+        _check(f"q{name}", q, device, torch.int8, (L, rows, n >> level))
+        _check(f"s{name}", s, device, torch.float32, (L, nb))
+    _check("salt_m", salt_m, device, torch.uint32, (L,))
+    _check("salt_v", salt_v, device, torch.uint32, (L,))
+    gt, qm_out, sm_out, qv_out, sv_out = (
+        torch.empty_like(t) for t in (g, qm, sm, qv, sv))
+    partials = _partials(lib, L, na, device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.gwt_adam_tile_q8(
+        _DTYPES[g.dtype], level, g.data_ptr(), qm.data_ptr(), sm.data_ptr(),
+        qv.data_ptr(), sv.data_ptr(), salt_m.data_ptr(), salt_v.data_ptr(),
+        gt.data_ptr(), qm_out.data_ptr(), sm_out.data_ptr(),
+        qv_out.data_ptr(), sv_out.data_ptr(), partials.data_ptr(), L, na, b1,
+        1 - b1, b2, 1 - b2, eps, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"gwt_adam_tile_q8 launch failed: CUDA error {err}")
+    launches_tile_q8 += 1
+    return gt, qm_out, sm_out, qv_out, sv_out, partials

@@ -2,7 +2,14 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama-60m \
         --optimizer gwt --level 2 --steps 200 --batch 16 --seq 256 \
-        [--state-codec int8] [--ckpt-dir D --ckpt-every N --resume]
+        [--host adam|adam_mini|muon] [--state-codec int8] \
+        [--ckpt-dir D --ckpt-every N --resume]
+
+``--optimizer`` is ``gwt`` (with ``--host``, ``--level``, ``--alpha``) or
+one of the full-rank baselines ``adam``, ``adam_mini``, ``muon``, ``sgd``;
+every choice runs under a warmup-cosine schedule peaking at ``--lr`` and
+takes ``--state-codec`` and ``--resume``.  The JAX package's low-rank
+families are not ported yet.
 
 Runs on CUDA unless ``--device cpu`` is given; without a card and without
 ``--device cpu`` it raises instead of falling back to the CPU.
@@ -35,10 +42,9 @@ from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch import configs
+from repro_torch import configs, optim
 from repro_torch.checkpoint.manager import CheckpointManager, \
     StructureMismatch
-from repro_torch.core.gwt import gwt
 from repro_torch.data.pipeline import make_source
 from repro_torch.distributed import compression
 from repro_torch.launch.mesh import DPContext, init_dp
@@ -47,6 +53,10 @@ from repro_torch.optim import engine
 from repro_torch.optim.base import flatten_with_paths, tree_map
 from repro_torch.optim.schedules import warmup_cosine
 from repro_torch.runtime.fault_tolerance import TrainLoop
+
+
+def make_optimizer(name: str, lr: float, steps: int, **kw) -> optim.Optimizer:
+    return optim.make(name, lr=warmup_cosine(lr, steps), **kw)
 
 
 class TrainResult(NamedTuple):
@@ -87,7 +97,7 @@ def _check_ef_world(ckpt: CheckpointManager, ef, world: int) -> None:
             f"{saved[0][0]} data-parallel ranks; this run has {world}")
 
 
-def resume(ckpt: CheckpointManager, params, opt_state, make_optimizer,
+def resume(ckpt: CheckpointManager, params, opt_state, build_optimizer,
            codec: str, data_meta: dict, device, log=print,
            dp: Optional[DPContext] = None):
     """Restore ``{"params", "opt"}`` from the latest checkpoint.  A state
@@ -95,7 +105,9 @@ def resume(ckpt: CheckpointManager, params, opt_state, make_optimizer,
     to ``codec``.  With error feedback (``opt_state = {"opt", "dp_ef"}``)
     the checkpoint holds every rank's residues, ``(D, *shape)``, and this
     rank takes its own row; another rank count raises
-    :class:`StructureMismatch`.  Returns ``(params, opt_state, step)``."""
+    :class:`StructureMismatch`.  ``build_optimizer(codec)`` builds this
+    run's optimizer under a codec.  Returns ``(params, opt_state,
+    step)``."""
     saved_data = ckpt.saved_run().get("data")
     if saved_data is not None:
         for k in ("kind", "corpus_hash", "order_seed"):
@@ -138,14 +150,15 @@ def resume(ckpt: CheckpointManager, params, opt_state, make_optimizer,
         if saved_codec == codec:
             raise StructureMismatch(
                 f"checkpoint in {ckpt.dir} does not match this run's "
-                f"optimizer state; did --optimizer/--level, --dp-reduce or "
-                f"the model config change since it was saved? ({e})") from e
-    saved_opt = make_optimizer(saved_codec)
+                f"optimizer state; did --optimizer/--level/--host, "
+                f"--dp-reduce or the model config change since it was "
+                f"saved? ({e})") from e
+    saved_opt = build_optimizer(saved_codec)
     state, start = ckpt.restore(
         None, {"params": params, "opt": like(saved_opt.init(_meta(params)))},
         device=device)
     saved_inner, _ = compression.split_ef(state["opt"])
-    new_opt = make_optimizer(codec)
+    new_opt = build_optimizer(codec)
     converted = engine.transcode(saved_inner, state["params"], saved_opt,
                                  new_opt)
     if ef is not None:
@@ -159,8 +172,13 @@ def main(argv=None) -> TrainResult:
     ap.add_argument("--arch", default="llama-60m")
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config for --arch")
-    ap.add_argument("--optimizer", default="gwt", choices=["gwt"])
+    ap.add_argument("--optimizer", default="gwt",
+                    choices=list(optim.REGISTRY))
     ap.add_argument("--level", type=int, default=2)
+    ap.add_argument("--host", default="adam",
+                    choices=["adam", "adam_mini", "muon"],
+                    help="the host optimizer GWT runs on the approximation "
+                         "band (--optimizer gwt)")
     ap.add_argument("--state-codec", default="f32", choices=["f32", "int8"],
                     help="optimizer-state substrate: 'f32' raw moments, "
                          "'int8' blocked 8-bit moments (one absmax scale per "
@@ -235,14 +253,17 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
     source = make_source("synthetic", cfg.vocab, args.seq, args.batch,
                          seed=args.seed)
 
-    def make_optimizer(codec: str):
-        return gwt(warmup_cosine(args.lr, args.steps), level=args.level,
-                   alpha=args.alpha, state_codec=codec)
+    def build_optimizer(codec: str):
+        kw = {"state_codec": codec}
+        if args.optimizer == "gwt":
+            kw.update(level=args.level, alpha=args.alpha, host=args.host)
+        return make_optimizer(args.optimizer, args.lr, args.steps, **kw)
 
-    optimizer = make_optimizer(args.state_codec)
+    optimizer = build_optimizer(args.state_codec)
     opt_state = optimizer.init(params)
 
-    # f32 Adam keeps m and v per parameter plus the int32 step
+    # exact bytes of this optimizer's state; f32 Adam keeps m and v per
+    # parameter plus the int32 step
     mem_bytes = engine.state_bytes(opt_state)
     adam_f32_bytes = 8 * n_params + 4
     log(f"arch={cfg.name} params={n_params/1e6:.1f}M "
@@ -270,7 +291,7 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
     start = 0
     if args.resume and ckpt is not None and ckpt.latest_step() is not None:
         params, opt_state, start = resume(
-            ckpt, params, opt_state, make_optimizer, args.state_codec,
+            ckpt, params, opt_state, build_optimizer, args.state_codec,
             data_meta, device, log=log, dp=dp)
         params = lm.LM(cfg, params).tree()
         log(f"resumed from step {start}")

@@ -58,11 +58,12 @@ def unflatten(paths: List[str], leaves: List[Any]) -> Dict[str, Any]:
     return out
 
 
-def tree_map(fn, tree: Mapping, *rest: Mapping) -> Dict[str, Any]:
-    """Apply ``fn`` leaf-wise over dict trees of the same structure."""
-    return {k: (tree_map(fn, v, *(r[k] for r in rest))
-                if isinstance(v, Mapping)
-                else fn(v, *(r[k] for r in rest)))
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` leaf-wise over dict trees of the same structure; a tree
+    that is a bare leaf (SGD's per-leaf state) is ``fn`` of it."""
+    if not isinstance(tree, Mapping):
+        return fn(tree, *rest)
+    return {k: tree_map(fn, v, *(r[k] for r in rest))
             for k, v in tree.items()}
 
 

@@ -7,7 +7,10 @@
    names equal the JAX package's.
 3. **Execution** — one ``vector_update`` call over the stacked ``(L, ...)``
    bucket when the rule has one (the fused GWT-Adam kernels), else the
-   rule's per-leaf ``update`` in flatten order.
+   rule's per-leaf ``update`` in flatten order.  ``build(bucketed=False)``
+   is the unrolled per-leaf reference: every leaf runs ``update``, even
+   where the rule has a ``vector_update``, and the state keeps the
+   bucketed layout.
 
 State layout::
 
@@ -48,11 +51,13 @@ class LeafRule(NamedTuple):
     * ``kind`` — rule family name; the bucket-name prefix.
     * ``init(leaf) -> state`` — per-leaf state (a dict of tensors) from a
       tensor (a ``meta`` tensor gives a ``meta`` state).
-    * ``update(g, p, state, step) -> (new_p, new_state)`` — one leaf.
+    * ``update(g, p, state, step) -> (new_p, new_state)`` — one leaf; the
+      only path of an unrolled engine (``build(bucketed=False)``) and of
+      a rule without ``vector_update``.
     * ``sig`` — extra static signature that must also match to bucket.
     * ``vector_update(g_stk, p_stk, state_stk, step[, salts])
       -> (new_p_stk, new_state_stk)`` — optional, over the whole stacked
-      bucket; ``salts`` (int64 ``(slots, L)``, uint32 values: the bucket's
+      bucket, used by a bucketed engine; ``salts`` (int64 ``(slots, L)``, uint32 values: the bucket's
       columns of the step's salt table) is passed when the rule is
       ``codec_native``.
     * ``slots`` — bool tree mirroring the per-leaf state: True marks a
@@ -125,9 +130,10 @@ class Engine:
     depends only on paths, shapes and dtypes, so it is cached per
     structure."""
 
-    def __init__(self, assign: Callable[[str, Any], LeafRule], codec="f32",
-                 codec_seed: int = 0):
+    def __init__(self, assign: Callable[[str, Any], LeafRule],
+                 bucketed: bool = True, codec="f32", codec_seed: int = 0):
         self.assign = assign
+        self.bucketed = bucketed
         self.codec = codec_lib.get_codec(codec)
         self.codec_seed = codec_seed
         self._plans: Dict[tuple, LeafPlan] = {}
@@ -167,12 +173,14 @@ class Engine:
         return codec_lib.slot_salt(key, step, slot_ids, leaf_ids), cols
 
 
-def build(assign: Callable[[str, Any], LeafRule], codec="f32",
-          codec_seed: int = 0) -> Optimizer:
-    """Build an :class:`Optimizer` from a leaf-rule assignment.  ``codec``
-    (name or instance) stores the rules' moment slots; ``codec_seed``
-    derives the stochastic-rounding key carried in the state."""
-    eng = Engine(assign, codec=codec, codec_seed=codec_seed)
+def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
+          codec="f32", codec_seed: int = 0) -> Optimizer:
+    """Build an :class:`Optimizer` from a leaf-rule assignment.
+    ``bucketed=False`` runs every leaf through its rule's ``update`` (the
+    unrolled reference; same state layout).  ``codec`` (name or instance)
+    stores the rules' moment slots; ``codec_seed`` derives the
+    stochastic-rounding key carried in the state."""
+    eng = Engine(assign, bucketed, codec=codec, codec_seed=codec_seed)
     cdc = eng.codec
     quant = not cdc.passthrough
 
@@ -208,7 +216,7 @@ def build(assign: Callable[[str, Any], LeafRule], codec="f32",
             st = state["buckets"][b.name]
             rule = b.rule
             coded = quant and rule.slots is not None
-            if rule.vector_update is not None and (
+            if bucketed and rule.vector_update is not None and (
                     rule.codec_native or not coded):
                 g_stk = torch.stack([gleaves[i] for i in b.indices])
                 p_stk = torch.stack([pleaves[i] for i in b.indices])

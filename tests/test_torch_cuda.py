@@ -13,8 +13,12 @@ bf16 spacing through ``bf16(scale)`` (2 f32 spacings with f32 parameters).
 The q8 kernel rounds like its plain version at every step (codes and scales
 are exact functions of bitwise-equal f32 moments), so its codes, scales
 and parameters must be bitwise equal, the norm again within 64 spacings.
-The Haar DWT kernels (K3, K6, K7) round where their plain versions round:
-bitwise, NaN codes of the fp8 wire included.
+The staged kernels K4 and K5 round as their plain versions do: G̃, m', v',
+codes and scales bitwise; their ‖G̃‖² partials, summed, within 16 f32
+spacings of the plain version's one sum (another order of positive terms;
+``chip_smoke.py`` states the reasoning).  The Haar DWT kernels (K3, K6,
+K7) round where their plain versions round: bitwise, NaN codes of the fp8
+wire included.
 """
 
 import math
@@ -196,6 +200,118 @@ def test_q8_kernel_refuses_what_it_does_not_take():
                                  *(s.to(torch.int32) for s in salts),
                                  *scalars, block=64, **kw)
     assert kernel.launches_q8 == before
+
+
+def _tile_inputs(dev, level=2, L=3, m=40, n=344, dtype=torch.bfloat16,
+                 seed=7):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    na = n >> level
+    return ((torch.randn(L, m, n, generator=gen, device=dev) * 0.01)
+            .to(dtype),
+            torch.randn(L, m, na, generator=gen, device=dev) * 1e-3,
+            torch.rand(L, m, na, generator=gen, device=dev) * 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_tile_kernels_match_plain_versions(dtype, level):
+    """K4 and K5: G̃, m', v' (K5: G̃, codes, scales) bitwise, two runs
+    bitwise, the ‖G̃‖² partials' sums within 16 f32 spacings of the plain
+    version's sum (another summation order of positive terms)."""
+    dev = _card()
+    g, mm, vv = _tile_inputs(dev, level, dtype=dtype)
+    want = ref.gwt_adam_tile(g, mm, vv, level=level)
+    outs = [kernel.gwt_adam_tile(g, mm, vv, level=level) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    for a, b in zip(outs[0][:3], want[:3]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert _spacings(outs[0][3].double().sum(-1), want[3], 23) <= 16
+    enc = [codec.quant_blocks(a.reshape(3, -1), torch.arange(3, device=dev)
+                              + salt) for a, salt in ((mm, 1), (vv, 2))]
+    args = (g, enc[0][0].reshape(mm.shape), enc[0][1],
+            enc[1][0].reshape(vv.shape), enc[1][1])
+    key = codec.make_key(0, dev)
+    step = torch.tensor(4, dtype=torch.int32, device=dev)
+    salts = [codec.slot_salt(key, step, s, torch.arange(3, device=dev))
+             for s in (0, 1)]
+    want = ref.gwt_adam_tile_q8(*args, *salts, level=level, block=64)
+    outs = [kernel.gwt_adam_tile_q8(*args, *(s.to(torch.uint32)
+                                             for s in salts),
+                                    level=level, block=64)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    for a, b in zip(outs[0][:5], want[:5]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert _spacings(outs[0][5].double().sum(-1), want[5], 23) <= 16
+
+
+@pytest.mark.cuda
+def test_staged_entry_points_launch_the_tile_kernels():
+    """``ops.fused_update`` launches K4 once and returns new tensors, a
+    FIRST-mode (transposed) gradient included; ``ops.fused_update_q8``
+    launches K5 once; the staged optimizer launches K4 once per GWT leaf
+    and neither fused-write kernel."""
+    dev = _card()
+    g, mm, vv = _tile_inputs(dev)
+    step = torch.tensor(0, dtype=torch.int32, device=dev)
+    before = kernel.launches_tile
+    gt, _, st = ops.fused_update(g, {"m": mm, "v": vv}, step, level=2)
+    gt_t, _, _ = ops.fused_update(g.transpose(-1, -2).contiguous()
+                                  .transpose(-1, -2), {"m": mm, "v": vv},
+                                  step, level=2)
+    torch.cuda.synchronize()
+    assert kernel.launches_tile == before + 2
+    assert torch.equal(gt, gt_t) and st["m"].data_ptr() != mm.data_ptr()
+    q, sc = codec.quant_blocks(mm.reshape(3, -1), 0)
+    enc = {"q": q.reshape(mm.shape), "scale": sc}
+    salts = torch.zeros((2, 3), dtype=torch.int64, device=dev)
+    before = kernel.launches_tile_q8
+    ops.fused_update_q8(g, {"m": enc, "v": enc}, step, salts, level=2)
+    torch.cuda.synchronize()
+    assert kernel.launches_tile_q8 == before + 1
+
+    from repro_torch.core.gwt import gwt
+    params = {"a": {"w1": torch.randn(2, 64, 32, device=dev),
+                    "w2": torch.randn(64, 32, device=dev)},
+              "norm": torch.ones(32, device=dev)}
+    grads = {"a": {k: v * 0.1 for k, v in params["a"].items()},
+             "norm": torch.ones(32, device=dev)}
+    for kw in ({"fused_write": False}, {"bucketed": False}):
+        opt = gwt(lr=0.01, **kw)
+        counts = (kernel.launches, kernel.launches_tile)
+        opt.update(grads, opt.init(params), params)
+        torch.cuda.synchronize()
+        assert (kernel.launches, kernel.launches_tile) == \
+            (counts[0], counts[1] + 2), kw
+
+
+@pytest.mark.cuda
+def test_tile_kernels_refuse_what_they_do_not_take():
+    dev = _card()
+    g, mm, vv = _tile_inputs(dev)
+    before = (kernel.launches_tile, kernel.launches_tile_q8)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel.gwt_adam_tile(g.transpose(1, 2).contiguous().transpose(1, 2),
+                             mm, vv, level=2)
+    with pytest.raises(ValueError, match="dtype"):
+        kernel.gwt_adam_tile(g, mm.half(), vv, level=2)
+    with pytest.raises(ValueError, match="level"):
+        kernel.gwt_adam_tile(g, mm, vv, level=5)
+    q, sc = codec.quant_blocks(mm.reshape(3, -1), 0)
+    q = q.reshape(mm.shape)
+    salt = torch.zeros(3, dtype=torch.uint32, device=dev)
+    with pytest.raises(ValueError, match="blocks of 64"):
+        kernel.gwt_adam_tile_q8(g, q, sc, q, sc, salt, salt, level=2,
+                                block=32)
+    with pytest.raises(ValueError, match="shape"):
+        kernel.gwt_adam_tile_q8(g, q, sc[:, :-1].contiguous(), q, sc, salt,
+                                salt, level=2, block=64)
+    assert (kernel.launches_tile, kernel.launches_tile_q8) == before
 
 
 def _bits(t):
