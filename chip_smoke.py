@@ -7,30 +7,37 @@ Phases (any failure raises and the script exits non-zero):
 
 1. build every hand-written CUDA kernel from ``src/repro_torch/.../csrc``
    (K1, K2, K4/K5 in one source, and K3/K6/K7 in one source), one ``nvcc``
-   per source, started together;
-2. K1 (f32 moments) against its plain PyTorch version on the card at the
-   three LLaMA-60M bucket shapes (and one FIRST-mode-sized leaf): limiter
-   with a zero and a non-zero history, a clipping case, weight decay; two
-   runs from equal inputs must be bitwise equal;
-3. K2 (blocked-int8 moments) the same way, plus a shape whose leaves end in
-   a partial quantization block: parameters, codes and scales bitwise
-   equal to the plain version, the norm within 2 f32 spacings;
+   per source, started together, printing ``-Xptxas -v``; print K1's and
+   K2's one-pass plans (registers, shared memory, co-resident blocks, chunk
+   slots) at the main buckets;
+2. K1 (f32 moments) at the three LLaMA-60M bucket shapes, a FIRST-mode-sized
+   leaf and a shape whose leaves end in a ragged chunk, levels 1-3, bf16 and
+   f32 parameters, in every CASE (limiter with a zero and a non-zero
+   history, a clipping case, weight decay, limiter off): the entry takes
+   the design the capacity rule names (one pass where the bucket's G̃ fits
+   on chip, else two; f32 (2, 4096, 1376) is beyond it and the one-pass
+   entry refuses it), its two runs are bitwise equal, the one pass equals
+   the two-pass kernel bitwise on p, m, v and the norm, and both are within
+   the ``TOL_*`` constants of the plain PyTorch version;
+3. K2 (blocked-int8 moments) the same way; against the plain version the
+   codes and scales bitwise, p bitwise with bf16 parameters;
 4. small-input check: a few steps of llama-60m-smoke, f32 and int8 state,
    from the same parameters and batches on the card and on the CPU give
    the same losses;
 5. the f32 main path: ``repro_torch.launch.train.main`` trains full-width
    llama-60m with GWT-2 for 20 steps; K1 must launch exactly 3 times per
-   step (K2 never), the losses be finite and the last logged one below the
-   first;
+   step, all through the one-pass design (K2 never), the losses be finite
+   and the last logged one below the first;
 6. the int8 main path: the same with ``--state-codec int8``; K2 must
-   launch 3 times per step (K1 never); the state must be the JAX
-   package's 48,273,508 bytes;
+   launch 3 times per step through the one-pass design (K1 never); the
+   state must be the JAX package's 48,273,508 bytes;
 7. resume on the card: full width, int8, train 20 steps checkpointing at
    10, resume a fresh run from step 10; the result must be bitwise equal
    to the 20 straight steps of phase 6 (parameters, codes, scales, norms);
-8. time each kernel per launch (CUDA events) beside its bound and its
-   plain version's time, and the int8 path's generic decode/encode of the
-   embedding's moments;
+8. time K1 and K2 per launch at the main buckets, both designs in the same
+   call: device time (CUDA events around each launch, L2 flushed before
+   it), time per call back to back, the plain version's, the bound; and
+   the int8 path's generic decode/encode of the embedding's moments;
 9. profile a few full-width steps of each path: ``optimizer.update`` vs the
    rest, device busy share, top kernels;
 10. K3 (``haar_dwt_fwd_q``), K6 (``haar_dwt_fwd``) and K7 (``haar_dwt_inv``)
@@ -41,7 +48,7 @@ Phases (any failure raises and the script exits non-zero):
 11. the compressed data-parallel path: the launcher with ``--dp-reduce
     compressed`` (bf16 details, 20 steps) under a one-rank NCCL process
     group, so the gradient gather runs on the card; K3 and K7 must launch
-    10 times per step and K1 3 times, the wire bytes be the JAX package's
+    10 times per step and K1 3 times (one pass), the wire bytes be the JAX package's
     208,449,536 against 333,516,800, the losses finite and falling; then a
     shorter run with fp8 details and error feedback (K7 20 times per step:
     the residue's reconstruction too);
@@ -147,8 +154,10 @@ TOL_MV_F32_SPACINGS = 2
 TOL_NORM_F32_SPACINGS = 64
 TOL_P_BF16_SPACINGS = 1
 # K2 rounds like its plain version at every step, and codes and scales are
-# exact functions of bitwise-equal f32 moments: p, codes and scales must be
-# bitwise equal; only the norm's summation order differs
+# exact functions of bitwise-equal f32 moments: p (bf16 parameters), codes
+# and scales must be bitwise equal; only the norm's summation order differs
+# (held here at level 2 in bf16; at other levels and with f32 parameters to
+# K1's rules, phase 3 says why)
 TOL_NORM_Q8_F32_SPACINGS = 2
 
 
@@ -168,76 +177,21 @@ def smi() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def make_inputs(shape, seed, dev):
+def make_inputs(shape, seed, dev, level=LEVEL, dtype=torch.bfloat16):
     L, m, n = shape
     gen = torch.Generator(device=dev).manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=gen, device=dev)
-    g = (r(L, m, n) * 0.01).to(torch.bfloat16)
-    p = (r(L, m, n) * 0.02).to(torch.bfloat16)
-    mm = r(L, m, n >> LEVEL) * 1e-3
-    vv = torch.rand(L, m, n >> LEVEL, generator=gen, device=dev) * 1e-6
+    g = (r(L, m, n) * 0.01).to(dtype)
+    p = (r(L, m, n) * 0.02).to(dtype)
+    mm = r(L, m, n >> level) * 1e-3
+    vv = torch.rand(L, m, n >> level, generator=gen, device=dev) * 1e-6
     return g, p, mm, vv
 
 
-def check_kernel(kernel, ops, ref, dev):
-    """Phase 2.  Returns the worst absolute error over p, m and v."""
-    worst_abs = 0.0
-    step_size = torch.tensor(1e-3, device=dev)
-    for label, shape in MAIN_SHAPES + [FIRST_SHAPE]:
-        L, m, n = shape
-        bm = ops.fused_row_block(m, n, LEVEL)
-        for ci, (case, use_lim, prev, wd) in enumerate(CASES):
-            g, p, mm, vv = make_inputs(shape, 1000 * ci + n, dev)
-            pn = torch.full((L,), prev, device=dev)
-            wd_coef = torch.tensor(wd, device=dev)
-            kw = dict(level=LEVEL, gamma=1.01, use_limiter=use_lim,
-                      weight_decay=wd != 0)
-            want = ref.gwt_adam_fused(g, p, mm, vv, pn, step_size, wd_coef,
-                                      bm=bm, **kw)
-            runs = []
-            for _ in range(2):
-                args = (g.clone(), p.clone(), mm.clone(), vv.clone())
-                runs.append(kernel.gwt_adam_fused(*args, pn, step_size,
-                                                  wd_coef, **kw))
-            torch.cuda.synchronize()
-            for a, b in zip(*runs):
-                if not torch.equal(a, b):
-                    raise AssertionError(f"{label} / {case}: two kernel "
-                                         "runs differ")
-            got = runs[0]
-            err = {"p": spacings(got[0], want[0], 7),
-                   "m": spacings(got[1], want[1], 23),
-                   "v": spacings(got[2], want[2], 23),
-                   "norm": spacings(got[3], want[3], 23)}
-            n_p = int((got[0] != want[0]).sum())
-            print(f"K1 {label} {shape} {case}: spacings p={err['p']:.3g} "
-                  f"(bf16; {n_p} of {got[0].numel()} elements differ) "
-                  f"m={err['m']:.3g} v={err['v']:.3g} norm={err['norm']:.3g} "
-                  f"(f32); bitwise repeat ok")
-            if err["m"] > TOL_MV_F32_SPACINGS or \
-                    err["v"] > TOL_MV_F32_SPACINGS or \
-                    err["norm"] > TOL_NORM_F32_SPACINGS or \
-                    err["p"] > TOL_P_BF16_SPACINGS:
-                raise AssertionError(f"{label} / {case}: kernel disagrees "
-                                     f"with the plain version: {err}")
-            if use_lim and prev == 1.0 and not torch.allclose(
-                    got[3], torch.full_like(got[3], 1.01)):
-                raise AssertionError(f"{label}: clipping case did not clip "
-                                     f"({got[3].tolist()})")
-            for a, b in zip(got[:3], want[:3]):
-                worst_abs = max(worst_abs, (a.double() - b.double()).abs()
-                                .max().item())
-    print(f"K1 vs plain: tolerances m,v <= {TOL_MV_F32_SPACINGS} f32, "
-          f"norm <= {TOL_NORM_F32_SPACINGS} f32, p <= "
-          f"{TOL_P_BF16_SPACINGS} bf16 spacings at the largest magnitude; "
-          f"worst |err| over p,m,v = {worst_abs:.3g}")
-    return worst_abs
-
-
-def make_q8_inputs(shape, seed, dev):
+def make_q8_inputs(shape, seed, dev, level=LEVEL, dtype=torch.bfloat16):
     """K1's inputs with the moments encoded by the port's codec."""
     from repro_torch.optim import codec
-    g, p, mm, vv = make_inputs(shape, seed, dev)
+    g, p, mm, vv = make_inputs(shape, seed, dev, level, dtype)
     L = shape[0]
     ids = torch.arange(L, device=dev)
     (qm, sm), (qv, sv) = (codec.quant_blocks(a.reshape(L, -1), ids + salt)
@@ -253,54 +207,256 @@ def q8_salts(L, dev, step=3):
             for s in (0, 1)]
 
 
-def check_kernel_q8(kernel, ops, ref, dev):
-    """Phase 3.  Returns the worst absolute error over p, codes, scales."""
+# Phases 2-3 hold K1 and K2 at every shape, level and dtype below, in every
+# CASE: the entry's design (one pass where the bucket fits, else two) must
+# be the one the capacity rule names, two runs bitwise equal, the one-pass
+# result bitwise equal to the two-pass kernel's, and both within the TOL_*
+# constants of the plain version.
+FUSED_SHAPES = MAIN_SHAPES + [FIRST_SHAPE, PARTIAL_SHAPE]
+FUSED_LEVELS = (1, 2, 3)
+FUSED_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def seed(case, n, level):
+    """Inputs of a phase 2-3 case: at level 2 the seeds earlier runs
+    used."""
+    return 1000 * case + n + 7 * (level - LEVEL)
+
+
+def check_designs(kernel, name, label, shape, level, dtype, runs, two,
+                  counts, one_pass):
+    """The entry took the design the capacity rule names (its design
+    counters moved by ``counts``), its two runs are bitwise equal, and, on
+    a bucket that fits, they equal the two-pass kernel's bitwise."""
+    what = f"{name} {label} {shape} l={level} {dtype}"
+    if counts != ((2, 0) if one_pass else (0, 2)):
+        raise AssertionError(f"{what}: design counters moved by {counts}, "
+                             f"the capacity rule says "
+                             f"{'one' if one_pass else 'two'} pass(es)")
+    for a, b in zip(*runs):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: two kernel runs differ")
+    for a, b in zip(runs[0], two):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: one pass differs from two "
+                                 f"passes in {int((a != b).sum())} of "
+                                 f"{a.numel()} elements")
+
+
+def refuses_one_pass(fn, what):
+    try:
+        fn()
+    except ValueError as err:
+        if "does not fit" not in str(err):
+            raise
+        return
+    raise AssertionError(f"{what}: the one-pass entry took a bucket beyond "
+                         f"capacity")
+
+
+def check_kernel(kernel, ops, ref, dev):
+    """Phase 2: K1 at FUSED_SHAPES x FUSED_LEVELS x FUSED_DTYPES x CASES.
+    Returns the worst absolute error over p, m and v against the plain
+    version, and how many buckets took each design."""
     worst_abs = 0.0
+    taken = {"one": 0, "two": 0}
     step_size = torch.tensor(1e-3, device=dev)
-    for label, shape in MAIN_SHAPES + [FIRST_SHAPE, PARTIAL_SHAPE]:
+    for label, shape in FUSED_SHAPES:
         L, m, n = shape
-        bm = ops.q8_row_block(m, n, LEVEL, QBLOCK) or m
+        for level in FUSED_LEVELS:
+            bm = ops.fused_row_block(m, n, level)
+            for dtype in FUSED_DTYPES:
+                one = kernel.one_pass_plan("gwt_adam_fused", shape, dtype,
+                                           level)["grid"] > 0
+                taken["one" if one else "two"] += 1
+                p_bits = 7 if dtype == torch.bfloat16 else 23
+                p_tol = TOL_P_BF16_SPACINGS if dtype == torch.bfloat16 \
+                    else TOL_MV_F32_SPACINGS
+                worst = {"p": 0.0, "m": 0.0, "v": 0.0, "norm": 0.0}
+                for ci, (case, use_lim, prev, wd) in enumerate(CASES):
+                    g, p, mm, vv = make_inputs(shape, seed(ci, n, level),
+                                               dev, level, dtype)
+                    pn = torch.full((L,), prev, device=dev)
+                    wd_coef = torch.tensor(wd, device=dev)
+                    kw = dict(level=level, gamma=1.01, use_limiter=use_lim,
+                              weight_decay=wd != 0)
+                    want = ref.gwt_adam_fused(g, p, mm, vv, pn, step_size,
+                                              wd_coef, bm=bm, **kw)
+                    args = lambda: (g.clone(), p.clone(), mm.clone(),
+                                    vv.clone(), pn, step_size, wd_coef)
+                    before = (kernel.launches_one_pass,
+                              kernel.launches_two_pass)
+                    runs = [kernel.gwt_adam_fused(*args(), **kw)
+                            for _ in range(2)]
+                    counts = (kernel.launches_one_pass - before[0],
+                              kernel.launches_two_pass - before[1])
+                    two = kernel.gwt_adam_fused_two_pass(*args(), **kw)
+                    torch.cuda.synchronize()
+                    check_designs(kernel, "K1", label, shape, level, dtype,
+                                  runs, two, counts, one)
+                    got = runs[0]
+                    err = {"p": spacings(got[0], want[0], p_bits),
+                           "m": spacings(got[1], want[1], 23),
+                           "v": spacings(got[2], want[2], 23),
+                           "norm": spacings(got[3], want[3], 23)}
+                    if err["m"] > TOL_MV_F32_SPACINGS or \
+                            err["v"] > TOL_MV_F32_SPACINGS or \
+                            err["norm"] > TOL_NORM_F32_SPACINGS or \
+                            err["p"] > p_tol:
+                        raise AssertionError(
+                            f"K1 {label} {shape} l={level} {dtype} / {case}: "
+                            f"kernel disagrees with the plain version: {err}")
+                    if use_lim and prev == 1.0 and not torch.allclose(
+                            got[3], torch.full_like(got[3], 1.01)):
+                        raise AssertionError(f"{label}: clipping case did "
+                                             f"not clip ({got[3].tolist()})")
+                    worst = {k: max(worst[k], err[k]) for k in worst}
+                    for a, b in zip(got[:3], want[:3]):
+                        worst_abs = max(worst_abs, (a.double() - b.double())
+                                        .abs().max().item())
+                if not one:
+                    refuses_one_pass(lambda: kernel.gwt_adam_fused_one_pass(
+                        *args(), **kw), f"K1 {label} {shape} {dtype}")
+                print(f"K1 {label} {shape} l={level} {dtype}: "
+                      f"{'one' if one else 'two'}-pass design, {len(CASES)} "
+                      f"cases; worst spacings vs plain p={worst['p']:.3g} "
+                      f"({'bf16' if p_bits == 7 else 'f32'}) m={worst['m']:.3g}"
+                      f" v={worst['v']:.3g} norm={worst['norm']:.3g} (f32); "
+                      f"two runs bitwise; "
+                      + ("bitwise equal to the two-pass kernel" if one else
+                         "beyond one-pass capacity: the one-pass entry "
+                         "refuses it"))
+    print(f"K1 vs plain: tolerances m,v <= {TOL_MV_F32_SPACINGS} f32, "
+          f"norm <= {TOL_NORM_F32_SPACINGS} f32, p <= "
+          f"{TOL_P_BF16_SPACINGS} bf16 (bf16 params) or "
+          f"{TOL_MV_F32_SPACINGS} f32 (f32 params) spacings at the largest "
+          f"magnitude; worst |err| over p,m,v = {worst_abs:.3g}; buckets by "
+          f"design {taken}")
+    return worst_abs, taken
+
+
+def check_kernel_q8(kernel, ops, ref, dev):
+    """Phase 3: K2 as phase 2 holds K1: codes and scales bitwise to the
+    plain version; p bitwise with bf16 parameters, within
+    ``TOL_MV_F32_SPACINGS`` with f32 ones; the norm within
+    ``TOL_NORM_Q8_F32_SPACINGS`` at level 2 in bf16, within
+    ``TOL_NORM_F32_SPACINGS`` otherwise.  Returns the worst absolute error
+    over p, codes and scales, and how many buckets took each design."""
+    worst_abs = worst_norm = 0.0
+    taken = {"one": 0, "two": 0}
+    step_size = torch.tensor(1e-3, device=dev)
+    for label, shape in FUSED_SHAPES:
+        L, m, n = shape
         salts = q8_salts(L, dev)
-        for ci, (case, use_lim, prev, wd) in enumerate(CASES):
-            inputs = make_q8_inputs(shape, 1000 * ci + n, dev)
-            pn = torch.full((L,), prev, device=dev)
-            wd_coef = torch.tensor(wd, device=dev)
-            kw = dict(level=LEVEL, block=QBLOCK, gamma=1.01,
-                      use_limiter=use_lim, weight_decay=wd != 0)
-            want = ref.gwt_adam_fused_q8(*inputs, *salts, pn, step_size,
-                                         wd_coef, bm=bm, **kw)
-            runs = [kernel.gwt_adam_fused_q8(
-                *(t.clone() for t in inputs),
-                *(s.to(torch.uint32) for s in salts), pn, step_size,
-                wd_coef, **kw) for _ in range(2)]
-            torch.cuda.synchronize()
-            for a, b in zip(*runs):
-                if not torch.equal(a, b):
-                    raise AssertionError(f"K2 {label} / {case}: two kernel "
-                                         "runs differ")
-            got = runs[0]
-            names = ("p", "qm", "sm", "qv", "sv")
-            differ = {k: int((a != b).sum())
-                      for k, a, b in zip(names, got[:5], want[:5])}
-            norm_err = spacings(got[5], want[5], 23)
-            print(f"K2 {label} {shape} {case}: elements differing from the "
-                  f"plain version {differ}; norm {norm_err:.3g} f32 "
-                  f"spacings; bitwise repeat ok")
-            if any(differ.values()) or norm_err > TOL_NORM_Q8_F32_SPACINGS:
-                raise AssertionError(f"K2 {label} / {case}: kernel disagrees "
-                                     f"with the plain version: {differ}, "
-                                     f"norm {norm_err}")
-            if use_lim and prev == 1.0 and not torch.allclose(
-                    got[5], torch.full_like(got[5], 1.01)):
-                raise AssertionError(f"K2 {label}: clipping case did not "
-                                     f"clip ({got[5].tolist()})")
-            for a, b in zip(got[:5], want[:5]):
-                worst_abs = max(worst_abs, (a.double() - b.double()).abs()
-                                .max().item())
-    print(f"K2 vs plain: p, codes and scales bitwise, norm <= "
-          f"{TOL_NORM_Q8_F32_SPACINGS} f32 spacings; worst |err| over p, "
-          f"codes, scales = {worst_abs:.3g}")
-    return worst_abs
+        usalts = [s.to(torch.uint32) for s in salts]
+        for level in FUSED_LEVELS:
+            bm = ops.q8_row_block(m, n, level, QBLOCK) or m
+            for dtype in FUSED_DTYPES:
+                one = kernel.one_pass_plan("gwt_adam_fused_q8", shape, dtype,
+                                           level)["grid"] > 0
+                taken["one" if one else "two"] += 1
+                # K2's own norm rule where it was measured (level 2, bf16),
+                # K1's at the other levels and with f32 parameters: both
+                # sum the same squares in another order than the plain
+                # version.  With f32 parameters the limiter scale is not
+                # rounded to bf16, so a scale one f32 spacing apart moves
+                # p by up to a spacing: p is held as K1's f32 p is.
+                norm_tol = TOL_NORM_Q8_F32_SPACINGS if (
+                    level == LEVEL and dtype == torch.bfloat16) \
+                    else TOL_NORM_F32_SPACINGS
+                p_bits = 7 if dtype == torch.bfloat16 else 23
+                p_tol = 0 if dtype == torch.bfloat16 else TOL_MV_F32_SPACINGS
+                norm_worst = p_worst = 0.0
+                for ci, (case, use_lim, prev, wd) in enumerate(CASES):
+                    inputs = make_q8_inputs(shape, seed(ci, n, level), dev,
+                                            level, dtype)
+                    pn = torch.full((L,), prev, device=dev)
+                    wd_coef = torch.tensor(wd, device=dev)
+                    kw = dict(level=level, block=QBLOCK, gamma=1.01,
+                              use_limiter=use_lim, weight_decay=wd != 0)
+                    want = ref.gwt_adam_fused_q8(*inputs, *salts, pn,
+                                                 step_size, wd_coef, bm=bm,
+                                                 **kw)
+                    args = lambda: (*(t.clone() for t in inputs), *usalts,
+                                    pn, step_size, wd_coef)
+                    before = (kernel.launches_q8_one_pass,
+                              kernel.launches_q8_two_pass)
+                    runs = [kernel.gwt_adam_fused_q8(*args(), **kw)
+                            for _ in range(2)]
+                    counts = (kernel.launches_q8_one_pass - before[0],
+                              kernel.launches_q8_two_pass - before[1])
+                    two = kernel.gwt_adam_fused_q8_two_pass(*args(), **kw)
+                    torch.cuda.synchronize()
+                    check_designs(kernel, "K2", label, shape, level, dtype,
+                                  runs, two, counts, one)
+                    got = runs[0]
+                    names = ("qm", "sm", "qv", "sv")
+                    differ = {k: int((a != b).sum())
+                              for k, a, b in zip(names, got[1:5], want[1:5])}
+                    p_err = spacings(got[0], want[0], p_bits)
+                    if dtype == torch.bfloat16:
+                        differ["p"] = int((got[0] != want[0]).sum())
+                    norm_err = spacings(got[5], want[5], 23)
+                    if any(differ.values()) or p_err > p_tol or \
+                            norm_err > norm_tol:
+                        raise AssertionError(
+                            f"K2 {label} {shape} l={level} {dtype} / {case}: "
+                            f"kernel disagrees with the plain version: "
+                            f"{differ}, p {p_err} spacings, norm "
+                            f"{norm_err}")
+                    if use_lim and prev == 1.0 and not torch.allclose(
+                            got[5], torch.full_like(got[5], 1.01)):
+                        raise AssertionError(f"K2 {label}: clipping case did "
+                                             f"not clip ({got[5].tolist()})")
+                    norm_worst = max(norm_worst, norm_err)
+                    p_worst = max(p_worst, p_err)
+                    for a, b in zip(got[:5], want[:5]):
+                        worst_abs = max(worst_abs, (a.double() - b.double())
+                                        .abs().max().item())
+                if not one:
+                    refuses_one_pass(
+                        lambda: kernel.gwt_adam_fused_q8_one_pass(*args(),
+                                                                  **kw),
+                        f"K2 {label} {shape} {dtype}")
+                worst_norm = max(worst_norm, norm_worst)
+                print(f"K2 {label} {shape} l={level} {dtype}: "
+                      f"{'one' if one else 'two'}-pass design, {len(CASES)} "
+                      f"cases; codes, scales bitwise equal to the plain "
+                      f"version, p {p_worst:.3g} "
+                      f"{'bf16' if p_bits == 7 else 'f32'} spacings, norm "
+                      f"{norm_worst:.3g} f32 spacings (<= {norm_tol}); "
+                      f"two runs bitwise; "
+                      + ("bitwise equal to the two-pass kernel" if one else
+                         "beyond one-pass capacity: the one-pass entry "
+                         "refuses it"))
+    print(f"K2 vs plain: codes and scales bitwise, p bitwise (bf16 params) "
+          f"or <= {TOL_MV_F32_SPACINGS} f32 spacings (f32 params), norm <= "
+          f"{TOL_NORM_Q8_F32_SPACINGS} f32 spacings at level {LEVEL} in bf16 "
+          f"and <= {TOL_NORM_F32_SPACINGS} otherwise (worst {worst_norm:.3g});"
+          f" worst |err| over p, codes, scales = {worst_abs:.3g}; buckets by "
+          f"design {taken}")
+    return worst_abs, taken
+
+
+def print_plans(kernel):
+    """Phase 1: each one-pass kernel's registers, spill bytes and shared
+    memory, and at the main path's buckets its blocks per SM, slots (chunk
+    capacity) per block and grid."""
+    for name in ("gwt_adam_fused", "gwt_adam_fused_q8"):
+        for label, shape in MAIN_SHAPES + [FIRST_SHAPE]:
+            for dtype in FUSED_DTYPES:
+                plan = kernel.one_pass_plan(name, shape, dtype, LEVEL)
+                print(f"one-pass plan {name} {shape} {dtype} l={LEVEL}: "
+                      f"{plan['regs']} registers/thread, "
+                      f"{plan['local_bytes']} B local (spills), "
+                      f"{plan['static_smem']} B static shared, at most "
+                      f"{plan['max_dyn_smem']} B dynamic shared per block, "
+                      f"{plan['sms']} SMs; {plan['blocks_per_sm']} "
+                      f"co-resident blocks/SM x {plan['slots']} chunk slots "
+                      f"of {kernel.CHUNK * (1 << LEVEL) * dtype.itemsize} B "
+                      f"= {plan['smem']} B per block, grid {plan['grid']}"
+                      + ("" if plan["grid"] else " (two-pass: beyond "
+                         "capacity)"))
 
 
 # the leaves the staged path passes K4 at llama-60m, with their count per
@@ -456,36 +612,6 @@ def bound(shape, esize=2):
         else "operations", nbytes
 
 
-def time_kernel(kernel, ops, ref, dev):
-    rows = []
-    for label, shape in MAIN_SHAPES:
-        L, m, n = shape
-        g, p, mm, vv = make_inputs(shape, 7, dev)
-        pn = torch.full((L,), 1e9, device=dev)
-        ss, wd = torch.tensor(1e-3, device=dev), torch.tensor(0.0,
-                                                              device=dev)
-        kw = dict(level=LEVEL, gamma=1.01, use_limiter=True,
-                  weight_decay=False)
-        bm = ops.fused_row_block(m, n, LEVEL)
-        plain = lambda: ref.gwt_adam_fused(g, p, mm, vv, pn, ss, wd, bm=bm,
-                                           **kw)
-        kern = lambda: kernel.gwt_adam_fused(g, p, mm, vv, pn, ss, wd, **kw)
-        # plain, kernel, kernel, plain: compare only inside one call
-        t_plain = [time_ms(plain, 5)]
-        t_kern = [time_ms(kern, 50), time_ms(kern, 50)]
-        t_plain.append(time_ms(plain, 5))
-        b_ms, b_by, nbytes = bound(shape)
-        row = {"bucket": label, "shape": list(shape),
-               "ms": min(t_kern), "plain_ms": min(t_plain),
-               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
-        print(f"K1 time {label} {shape}: kernel {row['ms']:.4f} ms "
-              f"(runs {t_kern}), plain {row['plain_ms']:.4f} ms "
-              f"(runs {t_plain}), bound {b_ms:.4f} ms by {b_by} "
-              f"({nbytes / 1e6:.1f} MB), {b_ms / row['ms']:.1%} of bound")
-        rows.append(row)
-    return rows
-
-
 def bound_q8(shape, esize=2):
     """Least time for one K2 launch.  Bytes: read g; read and write p; read
     and write both moments' int8 codes and their f32 scales; read prev_norm,
@@ -505,35 +631,68 @@ def bound_q8(shape, esize=2):
         else "operations", nbytes
 
 
-def time_kernel_q8(kernel, ops, ref, dev):
+def time_fused(kernel, ops, ref, dev, q8):
+    """Phase 8: K1 (``q8``: K2) per launch at the main path's buckets, both
+    designs in the same call: device time (CUDA events around each launch,
+    L2 flushed before it; order one, two, two, one), time per call back to
+    back (host included), the plain version's, the bound.  Returns one row
+    per bucket."""
     rows = []
+    flush = torch.empty(64 << 20, device=dev)   # 256 MB
+    name = "K2" if q8 else "K1"
     for label, shape in MAIN_SHAPES:
         L, m, n = shape
-        inputs = make_q8_inputs(shape, 7, dev)
-        salts = q8_salts(L, dev)
-        usalts = [s.to(torch.uint32) for s in salts]
         pn = torch.full((L,), 1e9, device=dev)
         ss, wd = torch.tensor(1e-3, device=dev), torch.tensor(0.0,
                                                               device=dev)
-        kw = dict(level=LEVEL, block=QBLOCK, gamma=1.01, use_limiter=True,
+        kw = dict(level=LEVEL, gamma=1.01, use_limiter=True,
                   weight_decay=False)
-        bm = ops.q8_row_block(m, n, LEVEL, QBLOCK) or m
-        plain = lambda: ref.gwt_adam_fused_q8(*inputs, *salts, pn, ss, wd,
-                                              bm=bm, **kw)
-        kern = lambda: kernel.gwt_adam_fused_q8(*inputs, *usalts, pn, ss,
-                                                wd, **kw)
-        # plain, kernel, kernel, plain: compare only inside one call
+        if q8:
+            inputs = make_q8_inputs(shape, 7, dev)
+            salts = q8_salts(L, dev)
+            args = (*inputs, *(s.to(torch.uint32) for s in salts), pn, ss,
+                    wd)
+            bm = ops.q8_row_block(m, n, LEVEL, QBLOCK) or m
+            kw["block"] = QBLOCK
+            plain = lambda: ref.gwt_adam_fused_q8(
+                *inputs, *salts, pn, ss, wd, bm=bm, **kw)
+            entry = {"one": kernel.gwt_adam_fused_q8_one_pass,
+                     "two": kernel.gwt_adam_fused_q8_two_pass}
+            counter = {"one": lambda: kernel.launches_q8_one_pass,
+                       "two": lambda: kernel.launches_q8_two_pass}
+            b_ms, b_by, nbytes = bound_q8(shape)
+        else:
+            g, p, mm, vv = make_inputs(shape, 7, dev)
+            args = (g, p, mm, vv, pn, ss, wd)
+            bm = ops.fused_row_block(m, n, LEVEL)
+            plain = lambda: ref.gwt_adam_fused(g, p, mm, vv, pn, ss, wd,
+                                               bm=bm, **kw)
+            entry = {"one": kernel.gwt_adam_fused_one_pass,
+                     "two": kernel.gwt_adam_fused_two_pass}
+            counter = {"one": lambda: kernel.launches_one_pass,
+                       "two": lambda: kernel.launches_two_pass}
+            b_ms, b_by, nbytes = bound(shape)
+        call = {d: (lambda d=d: entry[d](*args, **kw)) for d in entry}
         t_plain = [time_ms(plain, 5)]
-        t_kern = [time_ms(kern, 50), time_ms(kern, 50)]
+        t_dev = {"one": [], "two": []}
+        for d in ("one", "two", "two", "one"):
+            t_dev[d].append(device_ms(call[d], 20, counter[d], flush))
+        t_call = {d: [time_ms(call[d], 50)] for d in ("one", "two")}
         t_plain.append(time_ms(plain, 5))
-        b_ms, b_by, nbytes = bound_q8(shape)
-        row = {"bucket": label, "shape": list(shape),
-               "ms": min(t_kern), "plain_ms": min(t_plain),
-               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
-        print(f"K2 time {label} {shape}: kernel {row['ms']:.4f} ms "
-              f"(runs {t_kern}), plain {row['plain_ms']:.4f} ms "
-              f"(runs {t_plain}), bound {b_ms:.4f} ms by {b_by} "
-              f"({nbytes / 1e6:.2f} MB), {b_ms / row['ms']:.1%} of bound")
+        row = {"bucket": label, "shape": list(shape), "per_step": 1,
+               "ms": min(t_dev["one"]), "two_pass_ms": min(t_dev["two"]),
+               "call_ms": min(t_call["one"]),
+               "two_pass_call_ms": min(t_call["two"]),
+               "plain_ms": min(t_plain), "bound_ms": b_ms, "bound_by": b_by,
+               "bytes": nbytes}
+        print(f"{name} time {label} {shape}: one pass {row['ms']:.4f} ms on "
+              f"the device (runs {t_dev['one']}, {b_ms / row['ms']:.1%} of "
+              f"bound), two passes {row['two_pass_ms']:.4f} ms (runs "
+              f"{t_dev['two']}, {b_ms / row['two_pass_ms']:.1%}); per call "
+              f"back to back {row['call_ms']:.4f} / "
+              f"{row['two_pass_call_ms']:.4f} ms; plain "
+              f"{row['plain_ms']:.4f} ms (runs {t_plain}); bound "
+              f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.2f} MB)")
         rows.append(row)
     return rows
 
@@ -646,15 +805,28 @@ def profile_step(dev, codec, steps=4, dp_reduce=None, fused_write=True):
 
 def reset_counts(kernel, hk):
     kernel.launches = kernel.launches_q8 = 0
+    kernel.launches_one_pass = kernel.launches_two_pass = 0
+    kernel.launches_q8_one_pass = kernel.launches_q8_two_pass = 0
     kernel.launches_tile = kernel.launches_tile_q8 = 0
     hk.launches_fwd = hk.launches_fwd_q = hk.launches_inv = 0
 
 
 def all_counts(kernel, hk):
+    """Every wrapper's launch count; K1 and K2 also by design."""
     return {"K1": kernel.launches, "K2": kernel.launches_q8,
+            "K1 one-pass": kernel.launches_one_pass,
+            "K1 two-pass": kernel.launches_two_pass,
+            "K2 one-pass": kernel.launches_q8_one_pass,
+            "K2 two-pass": kernel.launches_q8_two_pass,
             "K3": hk.launches_fwd_q, "K4": kernel.launches_tile,
             "K5": kernel.launches_tile_q8, "K6": hk.launches_fwd,
             "K7": hk.launches_inv}
+
+
+def fused_counts(k1=0, k2=0):
+    """K1's and K2's counters when every bucket took the one-pass design."""
+    return {"K1": k1, "K2": k2, "K1 one-pass": k1, "K1 two-pass": 0,
+            "K2 one-pass": k2, "K2 two-pass": 0}
 
 
 def run_main_path(train, kernel, hk, codec, extra=()):
@@ -666,21 +838,19 @@ def run_main_path(train, kernel, hk, codec, extra=()):
     res = train.main(MAIN_ARGS + ["--state-codec", codec, *extra])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"K1": kernel.launches, "K2": kernel.launches_q8}
-    haar = hk.launches_fwd + hk.launches_fwd_q + hk.launches_inv \
-        + kernel.launches_tile + kernel.launches_tile_q8
+    counts = all_counts(kernel, hk)
     peak = torch.cuda.max_memory_allocated()
     logged = [res.losses[i] for i in range(4, len(res.losses), 5)]
     print(f"main path {codec}: {STEPS} steps in {wall:.2f} s; logged losses "
           f"{logged}; launches {counts}; step {res.step_ms:.2f} ms; "
           f"{16 * 256 / (res.step_ms / 1e3):.0f} tokens/s; peak memory "
           f"{peak / 2**20:.1f} MiB")
-    mine, other = ("K1", "K2") if codec == "f32" else ("K2", "K1")
-    if counts[mine] != 3 * STEPS or counts[other] != 0 or haar:
-        raise AssertionError(f"{codec} path launched {counts} and {haar} "
-                             f"DWT and staged kernels in {STEPS} steps, "
-                             f"want {mine}={3 * STEPS}, {other}=0, none "
-                             f"of those")
+    mine = "K1" if codec == "f32" else "K2"
+    want = {k: 0 for k in counts}
+    want.update(fused_counts(**{mine.lower(): 3 * STEPS}))
+    if counts != want:
+        raise AssertionError(f"{codec} path launched {counts} in {STEPS} "
+                             f"steps, want {want}")
     if not np.all(np.isfinite(res.losses)):
         raise AssertionError(f"non-finite losses {res.losses}")
     if not logged[-1] < logged[0]:
@@ -850,8 +1020,8 @@ def run_dp_path(train, kernel, hk, extra, steps):
             else:
                 os.environ[k] = v
     ef = "--dp-error-feedback" in extra
-    want = {"K1": 3 * steps, "K2": 0, "K3": 10 * steps, "K4": 0, "K5": 0,
-            "K6": 0, "K7": (20 if ef else 10) * steps}
+    want = {**fused_counts(k1=3 * steps), "K3": 10 * steps, "K4": 0,
+            "K5": 0, "K6": 0, "K7": (20 if ef else 10) * steps}
     logged = [res.losses[i] for i in range(4, len(res.losses), 5)]
     print(f"dp path {extra}: {steps} steps in {wall:.2f} s; logged losses "
           f"{logged}; launches {counts}; step {res.step_ms:.2f} ms; wire "
@@ -1038,7 +1208,7 @@ def run_staged_path(kernel, hk, codec, fused):
           f"(fused path {fused.step_ms:.2f} ms); peak memory of the run "
           f"{peak / 2**20:.1f} MiB above what earlier phases hold; max "
           f"|loss - fused path's| {gap:.3g} (<= {TOL_STAGED_LOSS[codec]})")
-    want = {"K1": 0, "K2": 0, "K3": 0, "K4": 7 * STEPS, "K5": 0, "K6": 0,
+    want = {**fused_counts(), "K3": 0, "K4": 7 * STEPS, "K5": 0, "K6": 0,
             "K7": 0}
     if counts != want:
         raise AssertionError(f"staged {codec} path launched {counts}, "
@@ -1260,20 +1430,14 @@ def step_entry(name, source, replaces, launches, max_abs_err, rows,
             "library_ms": None, "per_launch": rows, **extra}
 
 
-def kernel_entry(name, source, replaces, launches, max_abs_err, rows,
-                 **extra):
-    """One kernel's line: one step's worth, the launches of one step
-    summed."""
-    return {"name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/" + source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": max_abs_err,
-            "ms": sum(r["ms"] for r in rows),
-            "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": sum(r["bound_ms"] for r in rows),
-            "bound_by": "bytes" if all(r["bound_by"] == "bytes"
-                                       for r in rows) else "operations",
-            "library_ms": None, "per_launch": rows, **extra}
+def fused_entry(name, source, replaces, launches, max_abs_err, rows,
+                **extra):
+    """K1's or K2's line: one step's worth of the one-pass design (``ms``,
+    ``call_ms``) beside the two-pass design's, timed in the same call."""
+    return step_entry(name, source, replaces, launches, max_abs_err, rows,
+                      two_pass_ms=sum(r["two_pass_ms"] for r in rows),
+                      two_pass_call_ms=sum(r["two_pass_call_ms"]
+                                           for r in rows), **extra)
 
 
 def main() -> int:
@@ -1296,9 +1460,10 @@ def main() -> int:
     libs = build.build_all(verbose=True)
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           f"{[os.path.relpath(p, REPO) for p in libs.values()]}")
+    print_plans(kernel)
 
-    err_k1 = check_kernel(kernel, ops, ref, dev)
-    err_k2 = check_kernel_q8(kernel, ops, ref, dev)
+    err_k1, designs_k1 = check_kernel(kernel, ops, ref, dev)
+    err_k2, designs_k2 = check_kernel_q8(kernel, ops, ref, dev)
     err_haar = check_haar(hk, dev)
     tile_ssq = check_tile(kernel, ref, dev)
     check_small_training(dev)
@@ -1324,8 +1489,8 @@ def main() -> int:
     memory = check_update_memory(dev)
     choices = run_choices(train, kernel, hk)
 
-    rows_k1 = time_kernel(kernel, ops, ref, dev)
-    rows_k2 = time_kernel_q8(kernel, ops, ref, dev)
+    rows_k1 = time_fused(kernel, ops, ref, dev, q8=False)
+    rows_k2 = time_fused(kernel, ops, ref, dev, q8=True)
     rows_haar = time_haar(hk, dev)
     wrap_dec, wrap_enc = time_generic_wrap(dev)
     prof32 = profile_step(dev, "f32")
@@ -1344,17 +1509,19 @@ def main() -> int:
           f"vs {res32.step_ms:.2f} ms; profiled {prof_dp['step_ms']:.2f} vs "
           f"{prof32['step_ms']:.2f} ms")
     entries = [
-        kernel_entry("gwt_adam_fused", "gwt_adam/csrc/gwt_adam_fused.cu",
-                     "src/repro/kernels/gwt_adam/kernel.py:404",
-                     launches_k1, err_k1, rows_k1, step_ms=res32.step_ms,
-                     peak_mib=peak32 / 2**20, profile=prof32),
-        kernel_entry("gwt_adam_fused_q8",
-                     "gwt_adam/csrc/gwt_adam_fused_q8.cu",
-                     "src/repro/kernels/gwt_adam/kernel.py:554",
-                     launches_k2, err_k2, rows_k2, step_ms=res8.step_ms,
-                     peak_mib=peak8 / 2**20, state_bytes=mib8,
-                     profile=prof8, embedding_wrap_ms={
-                         "decode": wrap_dec, "encode": wrap_enc}),
+        fused_entry("gwt_adam_fused", "gwt_adam/csrc/gwt_adam_fused.cu",
+                    "src/repro/kernels/gwt_adam/kernel.py:404",
+                    launches_k1, err_k1, rows_k1, step_ms=res32.step_ms,
+                    peak_mib=peak32 / 2**20, profile=prof32,
+                    phase_2_buckets_by_design=designs_k1),
+        fused_entry("gwt_adam_fused_q8",
+                    "gwt_adam/csrc/gwt_adam_fused_q8.cu",
+                    "src/repro/kernels/gwt_adam/kernel.py:554",
+                    launches_k2, err_k2, rows_k2, step_ms=res8.step_ms,
+                    peak_mib=peak8 / 2**20, state_bytes=mib8,
+                    profile=prof8, phase_3_buckets_by_design=designs_k2,
+                    embedding_wrap_ms={
+                        "decode": wrap_dec, "encode": wrap_enc}),
         haar_entry("haar_dwt_fwd_q",
                    "src/repro/kernels/haar_dwt/kernel.py:124",
                    dp_counts["K3"], err_haar, rows_haar["K3 bf16"],

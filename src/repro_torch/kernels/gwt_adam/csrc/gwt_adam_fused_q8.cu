@@ -1,5 +1,5 @@
-// Fused-write GWT-Adam update over blocked-int8 moments, for one (L, N)
-// bucket of same-shaped leaves: dequantize m and v (q * scale of the
+// Fused-write GWT-Adam update over blocked-int8 moments (K2), for one
+// (L, N) bucket of same-shaped leaves: dequantize m and v (q * scale of the
 // coefficient's 64-element block) -> level-l Haar DWT along rows -> Adam on
 // the A_l band -> A~ = m/(sqrt(v)+eps), details scaled by the same
 // 1/(sqrt(v)+eps) -> inverse DWT -> G~ rounded to the parameter type ->
@@ -8,42 +8,62 @@
 // are written in place.
 //
 // Replaces the TPU kernel gwt_adam_tile_fused_q8 (body _body_fused_q8) of
-// src/repro/kernels/gwt_adam/kernel.py.
+// src/repro/kernels/gwt_adam/kernel.py (pallas_call at line 554).
 //
-// Bound on an H100: as for the f32 kernel, O(30) f32 operations per
-// gradient element against a handful of bytes, so memory bounds it.  It must
-// read g (2 bytes in bf16), read and write p (2 + 2), read and write the
-// int8 codes of m and v (1 byte each way per moment, once per 2^l gradient
-// elements) and their f32 scales (one per 64 codes): 7.06 bytes per gradient
-// element at level 2, against 10 for f32 moments.
+// Bound on an H100: as for K1, O(30) f32 operations per gradient element
+// against a handful of bytes, so memory bounds it.  It must read g (2 bytes
+// in bf16), read and write p (2 + 2), read and write the int8 codes of m
+// and v (1 byte each way per moment, once per 2^l gradient elements) and
+// their f32 scales (one per 64 codes): 7.06 bytes per gradient element at
+// level 2, against 10 for f32 moments.
 //
-// Design: the f32 kernel's (gwt_adam_fused.cu), with the moment format
-// changed.
-//  * One thread per A_l coefficient over the leaf's flat coefficient index
-//    j (coefficient j covers gradient elements [j*2^l, (j+1)*2^l)); a norm
-//    pass writes one partial per (leaf, block of coefficients), the write
-//    pass sums its leaf's partials in a fixed order and recomputes.
-//  * A quantization block is 64 consecutive flat coefficients of one leaf,
-//    numbered from 0 at every leaf, so it needs no row arithmetic where it
-//    straddles rows (n>>l = 344).  A CUDA block takes 2048 coefficients in
-//    8 rounds of 256, so each round holds 4 whole quantization blocks, each
-//    on two warps.  The absmax is a max (exact, order-free) by a warp
+// Two designs, as for K1 (gwt_adam_fused.cu), chosen per bucket by the
+// caller before the launch (kernel.py: one_pass_fits, the same capacity
+// rule: ceil(L*S / SMs) * 2048 * 2^l * sizeof(T) bytes of G~ per SM):
+//
+//  * One pass (gwt_adam_fused_q8_one_pass; gwt_adam_common.cuh describes
+//    the design): one cooperative launch reading every input once, 7.06
+//    bytes per element at level 2.  A thread takes two adjacent
+//    coefficients, so a warp holds exactly one 64-coefficient quantization
+//    block (32 lanes x 2): the absmax is warp shuffles only (warp_absmax),
+//    with no shared-memory exchange and no block barrier, and 1/scale is
+//    one __fdiv_rn per block and moment (quant_inv), the same bits as the
+//    two-pass kernel's division per coefficient.  The codes are 2-byte
+//    loads and stores, the scales one per warp.
+//  * Two passes (gwt_adam_fused_q8; below), for buckets whose G~ does not
+//    fit on chip: a norm pass writes one partial per (leaf, chunk of 2048
+//    coefficients), the write pass sums its leaf's partials in a fixed
+//    order and recomputes, about 9.6 bytes per element.  A chunk is 8
+//    rounds of 256 threads, one coefficient each, so each round holds 4
+//    whole quantization blocks, each on two warps: the absmax is a warp
 //    shuffle tree and one exchange between the two warps through shared
-//    memory.  A leaf whose coefficient count is not a multiple of 64 ends in
-//    a partial block: the absent coefficients count as 0, which leaves the
-//    absmax of the present ones.
+//    memory (pair_absmax, two barriers a round).
+//
+// Common to both:
+//  * One A_l coefficient's chain per thread over the leaf's flat
+//    coefficient index j (coefficient j covers gradient elements
+//    [j*2^l, (j+1)*2^l)).  A quantization block is 64 consecutive flat
+//    coefficients of one leaf, numbered from 0 at every leaf, so it needs
+//    no row arithmetic where it straddles rows (n>>l = 344).  A leaf whose
+//    coefficient count is not a multiple of 64 ends in a partial block: the
+//    absent coefficients count as 0, which leaves the absmax of the present
+//    ones.  Chunks are 2048 coefficients, so a CUDA block owns whole
+//    quantization blocks.
 //  * Stochastic rounding: u = uniform01(salt, j), the murmur3 hash of
 //    optim/codec.py in native uint32 arithmetic; the bits depend only on
-//    (salt, j), so the write pass rounds as the plain version does.  The
-//    salts (one per leaf and moment) are computed on the device by the codec
+//    (salt, j), so both designs round as the plain version does.  The salts
+//    (one per leaf and moment) are computed on the device by the codec
 //    module and passed in.
-//  * In place: every thread of a quantization block reads its scale before
-//    the block's first barrier, and the one thread that writes the new scale
-//    does so after it.  CUDA blocks own disjoint quantization blocks.
+//  * In place: every lane of a quantization block reads its scale before
+//    the absmax (the one-pass kernel copies a chunk's codes and scales into
+//    shared memory before it writes any), and the one lane that writes the
+//    new scale does so after.
 //  * Rounding: the helpers of gwt_adam_common.cuh (_rn intrinsics, IEEE
 //    sqrt and division); scale = absmax * f32(1/127), inv = 1/scale by
 //    __fdiv_rn, y = x*inv, q = floor(y) + (u < y - floor(y)) clipped to
-//    +-127 — term for term the codec's blocked_quant.
+//    +-127 -- term for term the codec's blocked_quant.  Both designs write
+//    the same (L, S) partials in the same order, so p, codes, scales and
+//    the new norms are bitwise equal between them.
 
 #include "gwt_adam_common.cuh"
 #include "gwt_adam_q8.cuh"
@@ -136,6 +156,124 @@ write_pass(const T* __restrict__ g, T* __restrict__ p,
   }
 }
 
+// Blocked-int8 moments for the one-pass kernel: a warp is one quantization
+// block.
+struct Q8Moments {
+  signed char* qm;
+  float* sm;
+  signed char* qv;
+  float* sv;
+  const unsigned* salt_m;
+  const unsigned* salt_v;
+  long long nb;  // scales per leaf
+  // a chunk's codes of m and v, then its scales of m and v, each staged at
+  // its source's offset within 16 bytes (stage_bytes)
+  static constexpr int kCodeBytes = kChunk + 16;
+  static constexpr int kScaleBytes = kChunk / kQBlock * 4 + 16;
+  static constexpr int kRingBytes = 2 * kCodeBytes + 2 * kScaleBytes;
+  static_assert(kRingBytes % 16 == 0, "ring entries stay 16-byte aligned");
+  struct Chunk {
+    const signed char *cm, *cv;  // staged codes
+    const float *sm, *sv;        // staged scales
+    signed char *qm, *qv;        // the chunk's codes in device memory
+    float *om, *ov;              // and its scales
+    unsigned salt_m, salt_v, j0;
+  };
+  struct Regs {};
+  __device__ __forceinline__ void stage(unsigned char* e, long long leaf,
+                                        long long na, long long j0,
+                                        int n) const {
+    const long long q0 = leaf * nb + j0 / kQBlock;
+    const int nq = (n + kQBlock - 1) / kQBlock;
+    stage_bytes(e, reinterpret_cast<const unsigned char*>(qm + leaf * na + j0),
+                n);
+    stage_bytes(e + kCodeBytes,
+                reinterpret_cast<const unsigned char*>(qv + leaf * na + j0),
+                n);
+    stage_bytes(e + 2 * kCodeBytes,
+                reinterpret_cast<const unsigned char*>(sm + q0), 4 * nq);
+    stage_bytes(e + 2 * kCodeBytes + kScaleBytes,
+                reinterpret_cast<const unsigned char*>(sv + q0), 4 * nq);
+  }
+  __device__ __forceinline__ Chunk chunk(const unsigned char* e,
+                                         long long leaf, long long na,
+                                         long long j0) const {
+    signed char* cqm = qm + leaf * na + j0;
+    signed char* cqv = qv + leaf * na + j0;
+    float* csm = sm + leaf * nb + j0 / kQBlock;
+    float* csv = sv + leaf * nb + j0 / kQBlock;
+    return {staged<signed char>(e, cqm),
+            staged<signed char>(e + kCodeBytes, cqv),
+            staged<float>(e + 2 * kCodeBytes, csm),
+            staged<float>(e + 2 * kCodeBytes + kScaleBytes, csv),
+            cqm, cqv, csm, csv, salt_m[leaf], salt_v[leaf],
+            static_cast<unsigned>(j0)};
+  }
+  __device__ __forceinline__ void load(const Chunk&, int, bool, bool,
+                                       Regs&) const {}
+  template <int LEVEL>
+  __device__ __forceinline__ void update(const Chunk& ck, int cl, int n,
+                                         bool v0, bool v1,
+                                         float (&x)[2 << LEVEL], Regs&,
+                                         const Coeffs& c) const {
+    static_assert(kQBlock == 64 && kChunk % kQBlock == 0,
+                  "a warp of two-coefficient lanes is one quantization block");
+    constexpr int B = 1 << LEVEL;
+    const int lane = threadIdx.x & 31;
+    const int cw = cl - 2 * lane;  // the quantization block's first
+    const int qi = cw / kQBlock;
+    float scm = 0.0f, scv = 0.0f;
+    if (cw < n) {
+      scm = ck.sm[qi];
+      scv = ck.sv[qi];
+    }
+    float m2[2] = {0.0f, 0.0f}, v2[2] = {0.0f, 0.0f};
+    if (v0) {
+      m2[0] = __fmul_rn(static_cast<float>(ck.cm[cl]), scm);
+      v2[0] = __fmul_rn(static_cast<float>(ck.cv[cl]), scv);
+      dht_adam<LEVEL>(coeff<B>(x, 0), m2[0], v2[0], c);
+      if (v1) {
+        m2[1] = __fmul_rn(static_cast<float>(ck.cm[cl + 1]), scm);
+        v2[1] = __fmul_rn(static_cast<float>(ck.cv[cl + 1]), scv);
+        dht_adam<LEVEL>(coeff<B>(x, 1), m2[1], v2[1], c);
+      }
+    }
+    float am = fmaxf(v0 ? fabsf(m2[0]) : 0.0f, v1 ? fabsf(m2[1]) : 0.0f);
+    float av = fmaxf(v0 ? fabsf(v2[0]) : 0.0f, v1 ? fabsf(v2[1]) : 0.0f);
+    warp_absmax(am, av);
+    const float nsm = quant_scale(am), nsv = quant_scale(av);
+    const float im = quant_inv(nsm), iv = quant_inv(nsv);
+    if (v0) {
+      // the codec's rounding index: the leaf-flat coefficient index, uint32
+      const unsigned j = ck.j0 + static_cast<unsigned>(cl);
+      signed char cm[2], cv[2];
+      cm[0] = quant_with(m2[0], im, ck.salt_m, j);
+      cv[0] = quant_with(v2[0], iv, ck.salt_v, j);
+      if (v1) {
+        cm[1] = quant_with(m2[1], im, ck.salt_m, j + 1u);
+        cv[1] = quant_with(v2[1], iv, ck.salt_v, j + 1u);
+      }
+      store_codes(ck.qm + cl, cm, v1);
+      store_codes(ck.qv + cl, cv, v1);
+    }
+    if (lane == 0 && cw < n) {
+      ck.om[qi] = nsm;
+      ck.ov[qi] = nsv;
+    }
+  }
+
+  __device__ __forceinline__ static void store_codes(signed char* q,
+                                                     const signed char (&e)[2],
+                                                     bool v1) {
+    if (v1 && aligned(q, 2)) {
+      *reinterpret_cast<char2*>(q) = make_char2(e[0], e[1]);
+    } else {
+      q[0] = e[0];
+      if (v1) q[1] = e[1];
+    }
+  }
+};
+
 template <typename T>
 cudaError_t launch(int level, const void* g, void* p, signed char* qm,
                    float* sm, signed char* qv, float* sv,
@@ -160,6 +298,24 @@ cudaError_t launch(int level, const void* g, void* p, signed char* qm,
         salt_v, prev_norm, new_norm, partials, step_size, wd_coef, na, nb, c,
         gamma, use_limiter, weight_decay);
     return cudaGetLastError();
+  });
+}
+
+template <typename T>
+cudaError_t launch_one(int level, const OnePassArgs<T>& a,
+                       const Q8Moments& mo, cudaStream_t stream) {
+  return with_level(level, [&](auto lv) {
+    return launch_one_pass<T, decltype(lv)::value>(a, mo, stream);
+  });
+}
+
+template <typename T>
+cudaError_t plan_one(int level, long long total, int* out) {
+  return with_level(level, [&](auto lv) {
+    constexpr int LEVEL = decltype(lv)::value;
+    return export_plan(one_pass_kernel<T, LEVEL, Q8Moments>(),
+                       one_pass_slot<T, LEVEL>(), one_pass_ring<Q8Moments>(), total,
+                       out);
   });
 }
 
@@ -196,6 +352,52 @@ int gwt_adam_fused_q8(int dtype, int level, const void* g, void* p,
                                  prev_norm, new_norm, partials, step_size,
                                  wd_coef, L, na, c, gamma, use_limiter,
                                  weight_decay, s);
+  return cudaErrorInvalidValue;
+}
+
+// The one-pass design, same arguments.  The caller has checked that the
+// bucket fits (one_pass_fits); otherwise the plan fails with
+// cudaErrorInvalidConfiguration before anything is launched.  A refused
+// cooperative launch returns its error.
+int gwt_adam_fused_q8_one_pass(int dtype, int level, const void* g, void* p,
+                               signed char* qm, float* sm, signed char* qv,
+                               float* sv, const unsigned* salt_m,
+                               const unsigned* salt_v,
+                               const float* prev_norm, float* new_norm,
+                               float* partials, const float* step_size,
+                               const float* wd_coef, long long L,
+                               long long na, float gamma, float b1, float c1,
+                               float b2, float c2, float eps,
+                               int use_limiter, int weight_decay,
+                               void* stream) {
+  const Coeffs c{b1, c1, b2, c2, eps};
+  const long long S = (na + kChunk - 1) / kChunk;
+  const Q8Moments mo{qm, sm, qv, sv, salt_m, salt_v,
+                     (na + kQBlock - 1) / kQBlock};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    const OnePassArgs<float> a{static_cast<const float*>(g),
+                               static_cast<float*>(p), partials, prev_norm,
+                               new_norm, step_size, wd_coef, na, S, L * S, 0, c,
+                               gamma, use_limiter, weight_decay};
+    return launch_one<float>(level, a, mo, s);
+  }
+  if (dtype == 1) {
+    const OnePassArgs<__nv_bfloat16> a{
+        static_cast<const __nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(p),
+        partials, prev_norm, new_norm, step_size, wd_coef, na, S, L * S, 0, c,
+        gamma, use_limiter, weight_decay};
+    return launch_one<__nv_bfloat16>(level, a, mo, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The one-pass plan of an (L, na) bucket, as gwt_adam_fused_one_pass_plan.
+int gwt_adam_fused_q8_one_pass_plan(int dtype, int level, long long L,
+                                    long long na, int* out) {
+  const long long total = L * ((na + kChunk - 1) / kChunk);
+  if (dtype == 0) return plan_one<float>(level, total, out);
+  if (dtype == 1) return plan_one<__nv_bfloat16>(level, total, out);
   return cudaErrorInvalidValue;
 }
 

@@ -13,6 +13,11 @@ bf16 spacing through ``bf16(scale)`` (2 f32 spacings with f32 parameters).
 The q8 kernel rounds like its plain version at every step (codes and scales
 are exact functions of bitwise-equal f32 moments), so its codes, scales
 and parameters must be bitwise equal, the norm again within 64 spacings.
+K1's and K2's one-pass design must equal their two-pass kernels bitwise
+on every output; against the plain version the rules above hold, except
+that K2's p with f32 parameters is held within 2 f32 spacings as K1's is
+(the limiter scale is not rounded to bf16 there, so a norm summed in
+another order moves p by a spacing).
 The staged kernels K4 and K5 round as their plain versions do: G̃, m', v',
 codes and scales bitwise; their ‖G̃‖² partials, summed, within 16 f32
 spacings of the plain version's one sum (another order of positive terms;
@@ -200,6 +205,138 @@ def test_q8_kernel_refuses_what_it_does_not_take():
                                  *(s.to(torch.int32) for s in salts),
                                  *scalars, block=64, **kw)
     assert kernel.launches_q8 == before
+
+
+# K1's and K2's one-pass design against their two-pass kernels (bitwise)
+# and their plain versions (the tolerances above), at small shapes: a
+# ragged last chunk (37 rows of 344 >> l coefficients: 3182 at level 2,
+# chunks of 2048), and leaves whose bases break 16-byte alignment (5 rows
+# of 9 coefficients: 45 a leaf, so leaf 1's g starts 45 * 2^l * 2 bytes
+# in, and its m, p and codes at odd coefficient offsets).
+def _design_shape(kind, level):
+    return (3, 37, 344) if kind == "ragged" else (3, 5, 9 << level)
+
+
+def _design_inputs(dev, shape, level, dtype, seed=11):
+    L, m, n = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    return ((r(L, m, n) * 0.01).to(dtype), (r(L, m, n) * 0.02).to(dtype),
+            r(L, m, n >> level) * 1e-3,
+            torch.rand(L, m, n >> level, generator=gen, device=dev) * 1e-6)
+
+
+def _design_scalars(dev):
+    # per-leaf histories: clipping, first step, not clipping
+    return (torch.tensor([1e-3, 0.0, 1e9], device=dev),
+            torch.tensor(0.01, device=dev), torch.tensor(1e-4, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_limiter", [True, False])
+@pytest.mark.parametrize("kind", ["ragged", "unaligned"])
+@pytest.mark.parametrize("level", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_one_pass_matches_two_pass_and_plain(dtype, level, kind,
+                                             use_limiter):
+    dev = _card()
+    shape = _design_shape(kind, level)
+    L, m, n = shape
+    g, p, mm, vv = _design_inputs(dev, shape, level, dtype)
+    scalars = _design_scalars(dev)
+    args = dict(level=level, gamma=1.01, use_limiter=use_limiter,
+                weight_decay=True)
+    want = ref.gwt_adam_fused(g, p, mm, vv, *scalars,
+                              bm=ops.fused_row_block(m, n, level), **args)
+    fresh = lambda: (g.clone(), p.clone(), mm.clone(), vv.clone(), *scalars)
+    before = (kernel.launches_one_pass, kernel.launches_two_pass)
+    one = [kernel.gwt_adam_fused(*fresh(), **args) for _ in range(2)]
+    assert (kernel.launches_one_pass - before[0],
+            kernel.launches_two_pass - before[1]) == (2, 0)
+    two = kernel.gwt_adam_fused_two_pass(*fresh(), **args)
+    torch.cuda.synchronize()
+    for a, b, c in zip(*one, two):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    got = one[0]
+    if dtype == torch.bfloat16:
+        assert _spacings(got[0], want[0], 7) <= 1
+    else:
+        assert _spacings(got[0], want[0], 23) <= 2
+    assert _spacings(got[1], want[1], 23) <= 2
+    assert _spacings(got[2], want[2], 23) <= 2
+    assert _spacings(got[3], want[3], 23) <= 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_limiter", [True, False])
+@pytest.mark.parametrize("kind", ["ragged", "unaligned"])
+@pytest.mark.parametrize("level", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_q8_one_pass_matches_two_pass_and_plain(dtype, level, kind,
+                                                use_limiter):
+    """K2: codes and scales bitwise to the plain version, p bitwise with
+    bf16 parameters (bf16(scale) absorbs a norm summed in another order),
+    within 2 f32 spacings with f32 ones."""
+    dev = _card()
+    shape = _design_shape(kind, level)
+    L, m, n = shape
+    g, p, mm, vv = _design_inputs(dev, shape, level, dtype)
+    (qm, sm), (qv, sv) = (
+        codec.quant_blocks(a.reshape(L, -1), torch.arange(L, device=dev)
+                           + salt) for a, salt in ((mm, 1), (vv, 2)))
+    inputs = (g, p, qm.reshape(mm.shape), sm, qv.reshape(vv.shape), sv)
+    key = codec.make_key(0, dev)
+    step = torch.tensor(4, dtype=torch.int32, device=dev)
+    salts = [codec.slot_salt(key, step, s, torch.arange(L, device=dev))
+             for s in (0, 1)]
+    scalars = _design_scalars(dev)
+    args = dict(level=level, block=64, gamma=1.01, use_limiter=use_limiter,
+                weight_decay=True)
+    bm = ops.q8_row_block(m, n, level, 64) or m
+    want = ref.gwt_adam_fused_q8(*inputs, *salts, *scalars, bm=bm, **args)
+    fresh = lambda: (*(t.clone() for t in inputs),
+                     *(s.to(torch.uint32) for s in salts), *scalars)
+    before = (kernel.launches_q8_one_pass, kernel.launches_q8_two_pass)
+    one = [kernel.gwt_adam_fused_q8(*fresh(), **args) for _ in range(2)]
+    assert (kernel.launches_q8_one_pass - before[0],
+            kernel.launches_q8_two_pass - before[1]) == (2, 0)
+    two = kernel.gwt_adam_fused_q8_two_pass(*fresh(), **args)
+    torch.cuda.synchronize()
+    for a, b, c in zip(*one, two):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    got = one[0]
+    for a, b in zip(got[1:5], want[1:5]):
+        assert torch.equal(a, b)
+    if dtype == torch.bfloat16:
+        assert torch.equal(got[0], want[0])
+    else:
+        assert _spacings(got[0], want[0], 23) <= 2
+    assert _spacings(got[5], want[5], 23) <= 64
+
+
+@pytest.mark.cuda
+def test_bucket_beyond_capacity_takes_two_passes():
+    """f32 parameters of the (2, 4096, 1376) bucket do not fit the one-pass
+    design: the entry launches the two-pass kernel, the one-pass entry
+    refuses, and the card's plan agrees with the rule."""
+    dev = _card()
+    shape = (2, 4096, 1376)
+    plan = kernel.one_pass_plan("gwt_adam_fused", shape, torch.float32, 2)
+    assert plan["grid"] == 0 and not kernel.one_pass_fits(
+        shape, torch.float32, 2, plan["sms"], plan["max_dyn_smem"])
+    assert kernel.one_pass_plan("gwt_adam_fused", shape, torch.bfloat16,
+                                2)["grid"] > 0
+    g, p, mm, vv = _design_inputs(dev, shape, 2, torch.float32)
+    scalars = (torch.zeros(2, device=dev), torch.tensor(0.01, device=dev),
+               torch.tensor(0.0, device=dev))
+    args = dict(level=2, gamma=1.01, use_limiter=True, weight_decay=False)
+    before = (kernel.launches_one_pass, kernel.launches_two_pass)
+    kernel.gwt_adam_fused(g, p, mm, vv, *scalars, **args)
+    torch.cuda.synchronize()
+    assert (kernel.launches_one_pass - before[0],
+            kernel.launches_two_pass - before[1]) == (0, 1)
+    with pytest.raises(ValueError, match="does not fit"):
+        kernel.gwt_adam_fused_one_pass(g, p, mm, vv, *scalars, **args)
 
 
 def _tile_inputs(dev, level=2, L=3, m=40, n=344, dtype=torch.bfloat16,
