@@ -6,21 +6,23 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. build every hand-written CUDA kernel from ``src/repro_torch/.../csrc``
-   (K1, K2, K4/K5 in one source, and K3/K6/K7 in one source), one ``nvcc``
-   per source, started together, printing ``-Xptxas -v``; print K1's and
+   (K1, K2, K4/K5 in one source, and K3/K6/K7 in one source; and the
+   parent's K4/K5 where phase 17 has them), one ``nvcc`` per source,
+   started together, printing ``-Xptxas -v``; print K1's and
    K2's one-pass plans (registers, shared memory, co-resident blocks, chunk
    slots) at the main buckets;
 2. K1 (f32 moments) at the three LLaMA-60M bucket shapes, a FIRST-mode-sized
    leaf and a shape whose leaves end in a ragged chunk, levels 1-3, bf16 and
    f32 parameters, in every CASE (limiter with a zero and a non-zero
-   history, a clipping case, weight decay, limiter off): the entry takes
-   the design the capacity rule names (one pass where the bucket's G̃ fits
-   on chip, else two; f32 (2, 4096, 1376) is beyond it and the one-pass
-   entry refuses it), its two runs are bitwise equal, the one pass equals
-   the two-pass kernel bitwise on p, m, v and the norm, and both are within
-   the ``TOL_*`` constants of the plain PyTorch version;
-3. K2 (blocked-int8 moments) the same way; against the plain version the
-   codes and scales bitwise, p bitwise with bf16 parameters;
+   history, a clipping case, weight decay, limiter off), each at two seed
+   sets (the seeds earlier runs used, and new ones): the entry takes the
+   design the capacity rule names (one pass where the bucket's G̃ fits on
+   chip, else two; f32 (2, 4096, 1376) is beyond it and the one-pass entry
+   refuses it), its two runs are bitwise equal, the one pass equals the
+   two-pass kernel bitwise, and p, m, v and the norm are bitwise equal to
+   the plain PyTorch version, which sums ‖G̃‖² in the kernels' order;
+3. K2 (blocked-int8 moments) the same way: p, codes, scales and the norm
+   bitwise equal to the plain version;
 4. small-input check: a few steps of llama-60m-smoke, f32 and int8 state,
    from the same parameters and batches on the card and on the CPU give
    the same losses;
@@ -55,9 +57,11 @@ Phases (any failure raises and the script exits non-zero):
 12. time K3, K6 and K7 per launch beside their bounds and plain versions,
     and profile the data-parallel step beside the plain f32 step;
 13. K4 (``gwt_adam_tile``) and K5 (``gwt_adam_tile_q8``) against their plain
-    versions at the staged path's leaf shapes and an odd one, levels 1-3,
-    f32 and bf16 gradients: G̃, m', v' (K5: G̃, codes, scales) bitwise, the
-    ‖G̃‖² partials within ``TOL_SSQ_F32_SPACINGS``, two runs bitwise;
+    versions at the staged path's leaf shapes, odd rows, and an L = 3 stack
+    with an odd coefficient count per leaf (unaligned leaf bases, a ragged
+    chunk, a partial quantization block), levels 1-3, f32 and bf16
+    gradients, both seed sets: G̃, m', v' (K5: G̃, codes, scales) and the
+    ‖G̃‖² partials (``ref.chunk_ssq``) bitwise, two runs bitwise;
 14. the staged path, ``gwt(fused_write=False)``, at full width through the
     ``TrainLoop``, f32 and int8, 20 steps each: K4 must launch 140 times
     (7 leaves x 20 steps), K1, K2 and K5 never, the loss fall and stay
@@ -71,8 +75,11 @@ Phases (any failure raises and the script exits non-zero):
     adam``, ``adam_mini``, ``muon``, ``sgd``; ``gwt --host adam_mini``,
     ``--host muon``): losses finite and falling, no GWT kernel launched,
     state bytes, step time and peak memory printed;
-17. time K4 and K5 per launch beside their bounds and plain versions, and
-    profile the staged step beside the fused one.
+17. time K4 and K5 per launch beside their bounds, their plain versions, a
+    ``copy_`` of the same bytes and, where ``tools/parent_kernels.py``
+    wrote the parent revision's sources into ``build/parent_kernels/``, the
+    parent's K4 and K5 (built in phase 1, timed in turns with the current
+    ones), and profile the staged step beside the fused one.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -81,6 +88,7 @@ exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -90,6 +98,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "src"))
@@ -144,32 +153,6 @@ CASES = [("limiter, prev 0", True, 0.0, 0.0),
          ("weight decay", True, 1e9, 1e-4),
          ("limiter off", False, 0.0, 0.0)]
 
-# Tolerances of the kernel against the plain version on the card.  Both
-# round at the same points and neither contracts FMAs, so m and v agree
-# bitwise and G̃ agrees bitwise before the limiter; the per-leaf norm is
-# summed in another order (kernel: per-block tree; plain: per-stripe
-# torch.sum), so the norm may differ by a few f32 spacings, and through
-# bf16(scale) a written p element by one bf16 spacing of |p|.
-TOL_MV_F32_SPACINGS = 2
-TOL_NORM_F32_SPACINGS = 64
-TOL_P_BF16_SPACINGS = 1
-# K2 rounds like its plain version at every step, and codes and scales are
-# exact functions of bitwise-equal f32 moments: p (bf16 parameters), codes
-# and scales must be bitwise equal; only the norm's summation order differs
-# (held here at level 2 in bf16; at other levels and with f32 parameters to
-# K1's rules, phase 3 says why)
-TOL_NORM_Q8_F32_SPACINGS = 2
-
-
-def spacings(got: torch.Tensor, want: torch.Tensor, mant_bits: int) -> float:
-    """max |got - want| in units of the last place of max |want|."""
-    diff = (got.double() - want.double()).abs().max().item()
-    top = want.double().abs().max().item()
-    if top == 0:
-        return 0.0 if diff == 0 else math.inf
-    return diff / 2.0 ** (math.floor(math.log2(top)) - mant_bits)
-
-
 def smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -208,19 +191,23 @@ def q8_salts(L, dev, step=3):
 
 
 # Phases 2-3 hold K1 and K2 at every shape, level and dtype below, in every
-# CASE: the entry's design (one pass where the bucket fits, else two) must
-# be the one the capacity rule names, two runs bitwise equal, the one-pass
-# result bitwise equal to the two-pass kernel's, and both within the TOL_*
-# constants of the plain version.
+# CASE, at both seed sets: the entry's design (one pass where the bucket
+# fits, else two) must be the one the capacity rule names, two runs bitwise
+# equal, the one-pass result bitwise equal to the two-pass kernel's, and
+# every output bitwise equal to the plain version's, the norm included (the
+# plain version sums ‖G̃‖² in the kernels' order: ref.chunk_ssq,
+# ref.leaf_norm).
 FUSED_SHAPES = MAIN_SHAPES + [FIRST_SHAPE, PARTIAL_SHAPE]
 FUSED_LEVELS = (1, 2, 3)
 FUSED_DTYPES = (torch.bfloat16, torch.float32)
+# 0: the seeds earlier runs used (at level 2); 1: seeds no earlier run used,
+# so a pass that depends on the seed shows
+SEED_SETS = (0, 1)
 
 
-def seed(case, n, level):
-    """Inputs of a phase 2-3 case: at level 2 the seeds earlier runs
-    used."""
-    return 1000 * case + n + 7 * (level - LEVEL)
+def seed(case, n, level, seed_set):
+    """Inputs of a phase 2-3 case."""
+    return 1000 * case + n + 7 * (level - LEVEL) + 1_000_003 * seed_set
 
 
 def check_designs(kernel, name, label, shape, level, dtype, runs, two,
@@ -254,188 +241,95 @@ def refuses_one_pass(fn, what):
                          f"capacity")
 
 
-def check_kernel(kernel, ops, ref, dev):
-    """Phase 2: K1 at FUSED_SHAPES x FUSED_LEVELS x FUSED_DTYPES x CASES.
-    Returns the worst absolute error over p, m and v against the plain
-    version, and how many buckets took each design."""
-    worst_abs = 0.0
+def check_fused(kernel, ref, dev, q8):
+    """Phases 2 (K1) and 3 (``q8``: K2) at FUSED_SHAPES x FUSED_LEVELS x
+    FUSED_DTYPES x CASES x SEED_SETS: p, m, v and the norm (K2: p, codes,
+    scales and the norm) bitwise equal to the plain version, two runs
+    bitwise, the designs as ``check_designs`` holds them.  Returns the
+    worst absolute error over the outputs (0) and how many buckets took
+    each design."""
+    name = "K2" if q8 else "K1"
+    lib = "gwt_adam_fused_q8" if q8 else "gwt_adam_fused"
+    counter = ((lambda: (kernel.launches_q8_one_pass,
+                         kernel.launches_q8_two_pass)) if q8 else
+               (lambda: (kernel.launches_one_pass,
+                         kernel.launches_two_pass)))
+    outputs = ("p", "qm", "sm", "qv", "sv", "norm") if q8 \
+        else ("p", "m", "v", "norm")
     taken = {"one": 0, "two": 0}
     step_size = torch.tensor(1e-3, device=dev)
-    for label, shape in FUSED_SHAPES:
-        L, m, n = shape
-        for level in FUSED_LEVELS:
-            bm = ops.fused_row_block(m, n, level)
-            for dtype in FUSED_DTYPES:
-                one = kernel.one_pass_plan("gwt_adam_fused", shape, dtype,
-                                           level)["grid"] > 0
-                taken["one" if one else "two"] += 1
-                p_bits = 7 if dtype == torch.bfloat16 else 23
-                p_tol = TOL_P_BF16_SPACINGS if dtype == torch.bfloat16 \
-                    else TOL_MV_F32_SPACINGS
-                worst = {"p": 0.0, "m": 0.0, "v": 0.0, "norm": 0.0}
-                for ci, (case, use_lim, prev, wd) in enumerate(CASES):
-                    g, p, mm, vv = make_inputs(shape, seed(ci, n, level),
-                                               dev, level, dtype)
-                    pn = torch.full((L,), prev, device=dev)
-                    wd_coef = torch.tensor(wd, device=dev)
-                    kw = dict(level=level, gamma=1.01, use_limiter=use_lim,
-                              weight_decay=wd != 0)
-                    want = ref.gwt_adam_fused(g, p, mm, vv, pn, step_size,
-                                              wd_coef, bm=bm, **kw)
-                    args = lambda: (g.clone(), p.clone(), mm.clone(),
-                                    vv.clone(), pn, step_size, wd_coef)
-                    before = (kernel.launches_one_pass,
-                              kernel.launches_two_pass)
-                    runs = [kernel.gwt_adam_fused(*args(), **kw)
-                            for _ in range(2)]
-                    counts = (kernel.launches_one_pass - before[0],
-                              kernel.launches_two_pass - before[1])
-                    two = kernel.gwt_adam_fused_two_pass(*args(), **kw)
-                    torch.cuda.synchronize()
-                    check_designs(kernel, "K1", label, shape, level, dtype,
-                                  runs, two, counts, one)
-                    got = runs[0]
-                    err = {"p": spacings(got[0], want[0], p_bits),
-                           "m": spacings(got[1], want[1], 23),
-                           "v": spacings(got[2], want[2], 23),
-                           "norm": spacings(got[3], want[3], 23)}
-                    if err["m"] > TOL_MV_F32_SPACINGS or \
-                            err["v"] > TOL_MV_F32_SPACINGS or \
-                            err["norm"] > TOL_NORM_F32_SPACINGS or \
-                            err["p"] > p_tol:
-                        raise AssertionError(
-                            f"K1 {label} {shape} l={level} {dtype} / {case}: "
-                            f"kernel disagrees with the plain version: {err}")
-                    if use_lim and prev == 1.0 and not torch.allclose(
-                            got[3], torch.full_like(got[3], 1.01)):
-                        raise AssertionError(f"{label}: clipping case did "
-                                             f"not clip ({got[3].tolist()})")
-                    worst = {k: max(worst[k], err[k]) for k in worst}
-                    for a, b in zip(got[:3], want[:3]):
-                        worst_abs = max(worst_abs, (a.double() - b.double())
-                                        .abs().max().item())
-                if not one:
-                    refuses_one_pass(lambda: kernel.gwt_adam_fused_one_pass(
-                        *args(), **kw), f"K1 {label} {shape} {dtype}")
-                print(f"K1 {label} {shape} l={level} {dtype}: "
-                      f"{'one' if one else 'two'}-pass design, {len(CASES)} "
-                      f"cases; worst spacings vs plain p={worst['p']:.3g} "
-                      f"({'bf16' if p_bits == 7 else 'f32'}) m={worst['m']:.3g}"
-                      f" v={worst['v']:.3g} norm={worst['norm']:.3g} (f32); "
-                      f"two runs bitwise; "
-                      + ("bitwise equal to the two-pass kernel" if one else
-                         "beyond one-pass capacity: the one-pass entry "
-                         "refuses it"))
-    print(f"K1 vs plain: tolerances m,v <= {TOL_MV_F32_SPACINGS} f32, "
-          f"norm <= {TOL_NORM_F32_SPACINGS} f32, p <= "
-          f"{TOL_P_BF16_SPACINGS} bf16 (bf16 params) or "
-          f"{TOL_MV_F32_SPACINGS} f32 (f32 params) spacings at the largest "
-          f"magnitude; worst |err| over p,m,v = {worst_abs:.3g}; buckets by "
-          f"design {taken}")
-    return worst_abs, taken
-
-
-def check_kernel_q8(kernel, ops, ref, dev):
-    """Phase 3: K2 as phase 2 holds K1: codes and scales bitwise to the
-    plain version; p bitwise with bf16 parameters, within
-    ``TOL_MV_F32_SPACINGS`` with f32 ones; the norm within
-    ``TOL_NORM_Q8_F32_SPACINGS`` at level 2 in bf16, within
-    ``TOL_NORM_F32_SPACINGS`` otherwise.  Returns the worst absolute error
-    over p, codes and scales, and how many buckets took each design."""
-    worst_abs = worst_norm = 0.0
-    taken = {"one": 0, "two": 0}
-    step_size = torch.tensor(1e-3, device=dev)
+    cases = 0
     for label, shape in FUSED_SHAPES:
         L, m, n = shape
         salts = q8_salts(L, dev)
         usalts = [s.to(torch.uint32) for s in salts]
         for level in FUSED_LEVELS:
-            bm = ops.q8_row_block(m, n, level, QBLOCK) or m
             for dtype in FUSED_DTYPES:
-                one = kernel.one_pass_plan("gwt_adam_fused_q8", shape, dtype,
+                one = kernel.one_pass_plan(lib, shape, dtype,
                                            level)["grid"] > 0
                 taken["one" if one else "two"] += 1
-                # K2's own norm rule where it was measured (level 2, bf16),
-                # K1's at the other levels and with f32 parameters: both
-                # sum the same squares in another order than the plain
-                # version.  With f32 parameters the limiter scale is not
-                # rounded to bf16, so a scale one f32 spacing apart moves
-                # p by up to a spacing: p is held as K1's f32 p is.
-                norm_tol = TOL_NORM_Q8_F32_SPACINGS if (
-                    level == LEVEL and dtype == torch.bfloat16) \
-                    else TOL_NORM_F32_SPACINGS
-                p_bits = 7 if dtype == torch.bfloat16 else 23
-                p_tol = 0 if dtype == torch.bfloat16 else TOL_MV_F32_SPACINGS
-                norm_worst = p_worst = 0.0
-                for ci, (case, use_lim, prev, wd) in enumerate(CASES):
-                    inputs = make_q8_inputs(shape, seed(ci, n, level), dev,
-                                            level, dtype)
-                    pn = torch.full((L,), prev, device=dev)
-                    wd_coef = torch.tensor(wd, device=dev)
-                    kw = dict(level=level, block=QBLOCK, gamma=1.01,
-                              use_limiter=use_lim, weight_decay=wd != 0)
-                    want = ref.gwt_adam_fused_q8(*inputs, *salts, pn,
-                                                 step_size, wd_coef, bm=bm,
-                                                 **kw)
-                    args = lambda: (*(t.clone() for t in inputs), *usalts,
-                                    pn, step_size, wd_coef)
-                    before = (kernel.launches_q8_one_pass,
-                              kernel.launches_q8_two_pass)
-                    runs = [kernel.gwt_adam_fused_q8(*args(), **kw)
-                            for _ in range(2)]
-                    counts = (kernel.launches_q8_one_pass - before[0],
-                              kernel.launches_q8_two_pass - before[1])
-                    two = kernel.gwt_adam_fused_q8_two_pass(*args(), **kw)
-                    torch.cuda.synchronize()
-                    check_designs(kernel, "K2", label, shape, level, dtype,
-                                  runs, two, counts, one)
-                    got = runs[0]
-                    names = ("qm", "sm", "qv", "sv")
-                    differ = {k: int((a != b).sum())
-                              for k, a, b in zip(names, got[1:5], want[1:5])}
-                    p_err = spacings(got[0], want[0], p_bits)
-                    if dtype == torch.bfloat16:
-                        differ["p"] = int((got[0] != want[0]).sum())
-                    norm_err = spacings(got[5], want[5], 23)
-                    if any(differ.values()) or p_err > p_tol or \
-                            norm_err > norm_tol:
-                        raise AssertionError(
-                            f"K2 {label} {shape} l={level} {dtype} / {case}: "
-                            f"kernel disagrees with the plain version: "
-                            f"{differ}, p {p_err} spacings, norm "
-                            f"{norm_err}")
-                    if use_lim and prev == 1.0 and not torch.allclose(
-                            got[5], torch.full_like(got[5], 1.01)):
-                        raise AssertionError(f"K2 {label}: clipping case did "
-                                             f"not clip ({got[5].tolist()})")
-                    norm_worst = max(norm_worst, norm_err)
-                    p_worst = max(p_worst, p_err)
-                    for a, b in zip(got[:5], want[:5]):
-                        worst_abs = max(worst_abs, (a.double() - b.double())
-                                        .abs().max().item())
+                for seed_set in SEED_SETS:
+                    for ci, (case, use_lim, prev, wd) in enumerate(CASES):
+                        sd = seed(ci, n, level, seed_set)
+                        pn = torch.full((L,), prev, device=dev)
+                        wd_coef = torch.tensor(wd, device=dev)
+                        kw = dict(level=level, gamma=1.01,
+                                  use_limiter=use_lim, weight_decay=wd != 0)
+                        if q8:
+                            inputs = make_q8_inputs(shape, sd, dev, level,
+                                                    dtype)
+                            kw["block"] = QBLOCK
+                            want = ref.gwt_adam_fused_q8(
+                                *inputs, *salts, pn, step_size, wd_coef,
+                                **kw)
+                            args = lambda: (*(t.clone() for t in inputs),
+                                            *usalts, pn, step_size, wd_coef)
+                            entry = kernel.gwt_adam_fused_q8
+                            entries = (kernel.gwt_adam_fused_q8_two_pass,
+                                       kernel.gwt_adam_fused_q8_one_pass)
+                        else:
+                            inputs = make_inputs(shape, sd, dev, level,
+                                                 dtype)
+                            want = ref.gwt_adam_fused(
+                                *inputs, pn, step_size, wd_coef, **kw)
+                            args = lambda: (*(t.clone() for t in inputs),
+                                            pn, step_size, wd_coef)
+                            entry = kernel.gwt_adam_fused
+                            entries = (kernel.gwt_adam_fused_two_pass,
+                                       kernel.gwt_adam_fused_one_pass)
+                        before = counter()
+                        runs = [entry(*args(), **kw) for _ in range(2)]
+                        after = counter()
+                        two = entries[0](*args(), **kw)
+                        torch.cuda.synchronize()
+                        check_designs(kernel, name, label, shape, level,
+                                      dtype, runs, two,
+                                      (after[0] - before[0],
+                                       after[1] - before[1]), one)
+                        check_bands(f"{name} {label} {shape} l={level} "
+                                    f"{dtype} / {case} / seed set "
+                                    f"{seed_set}", runs, want, outputs)
+                        if use_lim and prev == 1.0 and not torch.allclose(
+                                runs[0][-1], torch.full_like(runs[0][-1],
+                                                             1.01)):
+                            raise AssertionError(
+                                f"{name} {label}: clipping case did not "
+                                f"clip ({runs[0][-1].tolist()})")
+                        cases += 1
                 if not one:
-                    refuses_one_pass(
-                        lambda: kernel.gwt_adam_fused_q8_one_pass(*args(),
-                                                                  **kw),
-                        f"K2 {label} {shape} {dtype}")
-                worst_norm = max(worst_norm, norm_worst)
-                print(f"K2 {label} {shape} l={level} {dtype}: "
+                    refuses_one_pass(lambda: entries[1](*args(), **kw),
+                                     f"{name} {label} {shape} {dtype}")
+                print(f"{name} {label} {shape} l={level} {dtype}: "
                       f"{'one' if one else 'two'}-pass design, {len(CASES)} "
-                      f"cases; codes, scales bitwise equal to the plain "
-                      f"version, p {p_worst:.3g} "
-                      f"{'bf16' if p_bits == 7 else 'f32'} spacings, norm "
-                      f"{norm_worst:.3g} f32 spacings (<= {norm_tol}); "
-                      f"two runs bitwise; "
+                      f"cases x {len(SEED_SETS)} seed sets; "
+                      f"{', '.join(outputs)} bitwise equal to the plain "
+                      f"version; two runs bitwise; "
                       + ("bitwise equal to the two-pass kernel" if one else
                          "beyond one-pass capacity: the one-pass entry "
                          "refuses it"))
-    print(f"K2 vs plain: codes and scales bitwise, p bitwise (bf16 params) "
-          f"or <= {TOL_MV_F32_SPACINGS} f32 spacings (f32 params), norm <= "
-          f"{TOL_NORM_Q8_F32_SPACINGS} f32 spacings at level {LEVEL} in bf16 "
-          f"and <= {TOL_NORM_F32_SPACINGS} otherwise (worst {worst_norm:.3g});"
-          f" worst |err| over p, codes, scales = {worst_abs:.3g}; buckets by "
-          f"design {taken}")
-    return worst_abs, taken
+    print(f"{name} vs plain: {cases} cases, {', '.join(outputs)} bitwise; "
+          f"buckets by design {taken}")
+    return 0.0, taken
 
 
 def print_plans(kernel):
@@ -465,14 +359,10 @@ TILE_SHAPES = [("mixer wq/wk/wv/wo", (8, 512, 512), 4),
                ("ffn w_gate/w_up", (8, 512, 1376), 2),
                ("ffn w_down", (8, 1376, 512), 1)]
 TILE_ODD = ("odd rows", (1, 37, 344), 0)
-# K4/K5 against their plain versions: G̃, m', v' (K5: G̃, codes, scales)
-# bitwise.  The ‖G̃‖² partials, summed in f64, against the plain version's
-# one torch.sum per leaf: both add 2^18 - 2^22 positive f32 terms in trees
-# of different shape (the kernel: 32 terms in order per thread, then a
-# warp tree and the 8 warps in order), whose worst-case relative errors
-# reach ~50 units of 2^-24 each; random rounding keeps them near a few
-# spacings (measured up to 2.05 at (8, 512, 512), level 2).
-TOL_SSQ_F32_SPACINGS = 16
+# (3, 101, 43 << l): 101 * 43 = 4343 coefficients per leaf at every level,
+# odd, so the leaves after the first start unaligned; two whole chunks and
+# a ragged third; 67 quantization blocks and a partial one of 55
+TILE_ODD_NA = ("odd coefficients per leaf", 3, 101, 43)
 
 
 def tile_inputs(shape, level, dtype, seed, dev):
@@ -497,54 +387,52 @@ def tile_q8_inputs(shape, level, dtype, seed, dev):
         q8_salts(L, dev)
 
 
-def check_ssq(what, partials, want):
-    got = partials.double().sum(-1)
-    err = spacings(got, want, 23)
-    if err > TOL_SSQ_F32_SPACINGS:
-        raise AssertionError(f"{what}: partial ‖G̃‖² sums {err:.3g} f32 "
-                             f"spacings from the plain version's")
-    return err
+def tile_cases():
+    """Phase 13's (label, shape, level): the staged path's leaves, the odd
+    rows and the odd coefficient counts, levels 1-3."""
+    for level in (1, 2, 3):
+        for label, shape, _ in TILE_SHAPES + [TILE_ODD]:
+            yield label, shape, level
+        label, L, m, a = TILE_ODD_NA
+        yield label, (L, m, a << level), level
 
 
 def check_tile(kernel, ref, dev):
-    """K4 (and K5) against their plain versions on the card at the staged
-    path's leaf shapes and an odd one, levels 1-3, f32 and bf16 gradients:
-    G̃, m', v' (K5: G̃, codes, scales) bitwise, the partials' sums within
-    ``TOL_SSQ_F32_SPACINGS``, two runs bitwise.  Returns the worst
-    absolute error over the bitwise outputs (0) and the worst ssq spacing
-    for each kernel."""
-    worst = {"K4": 0.0, "K5": 0.0}
+    """Phase 13: K4 and K5 against their plain versions on the card at
+    ``tile_cases()``, f32 and bf16 gradients, both seed sets: G̃, m', v'
+    (K5: G̃, codes, scales) and the ‖G̃‖² partials (``ref.chunk_ssq`` of
+    the plain G̃) bitwise, two runs bitwise.  Returns the number of cases
+    each kernel ran."""
     n = 0
-    for label, shape, _ in TILE_SHAPES + [TILE_ODD]:
-        for level in (1, 2, 3):
-            for dtype in (torch.float32, torch.bfloat16):
-                seed = 17 * level + shape[-1] + (dtype == torch.bfloat16)
-                what = f"{label} {shape} l={level} {dtype}"
-                g, mm, vv = tile_inputs(shape, level, dtype, seed, dev)
-                kw = dict(level=level)
-                want = ref.gwt_adam_tile(g, mm, vv, **kw)
-                runs = [kernel.gwt_adam_tile(g, mm, vv, **kw)
+    for label, shape, level in tile_cases():
+        for dtype in (torch.float32, torch.bfloat16):
+            for seed_set in SEED_SETS:
+                sd = 17 * level + shape[-1] + (dtype == torch.bfloat16) \
+                    + 1_000_003 * seed_set
+                what = f"{label} {shape} l={level} {dtype} / seed set " \
+                    f"{seed_set}"
+                g, mm, vv = tile_inputs(shape, level, dtype, sd, dev)
+                want = ref.gwt_adam_tile(g, mm, vv, level=level)
+                runs = [kernel.gwt_adam_tile(g, mm, vv, level=level)
                         for _ in range(2)]
                 torch.cuda.synchronize()
-                check_bands(f"K4 {what}", runs, want[:3] + (runs[0][3],))
-                worst["K4"] = max(worst["K4"], check_ssq(
-                    f"K4 {what}", runs[0][3], want[3]))
-                args, salts = tile_q8_inputs(shape, level, dtype, seed, dev)
+                check_bands(f"K4 {what}", runs,
+                            want[:3] + (ref.chunk_ssq(want[0], level),),
+                            ("G̃", "m'", "v'", "partials"))
+                args, salts = tile_q8_inputs(shape, level, dtype, sd, dev)
                 kw = dict(level=level, block=QBLOCK)
                 want = ref.gwt_adam_tile_q8(*args, *salts, **kw)
                 usalts = [s.to(torch.uint32) for s in salts]
                 runs = [kernel.gwt_adam_tile_q8(*args, *usalts, **kw)
                         for _ in range(2)]
                 torch.cuda.synchronize()
-                check_bands(f"K5 {what}", runs, want[:5] + (runs[0][5],))
-                worst["K5"] = max(worst["K5"], check_ssq(
-                    f"K5 {what}", runs[0][5], want[5]))
+                check_bands(f"K5 {what}", runs,
+                            want[:5] + (ref.chunk_ssq(want[0], level),),
+                            ("G̃", "qm'", "sm'", "qv'", "sv'", "partials"))
                 n += 1
     print(f"K4/K5 vs plain: {n} cases each, G̃, m', v' (K5: G̃, codes, "
-          f"scales) bitwise, two runs bitwise; partial ‖G̃‖² sums within "
-          f"{worst['K4']:.3g} (K4) and {worst['K5']:.3g} (K5) f32 spacings "
-          f"(<= {TOL_SSQ_F32_SPACINGS})")
-    return worst
+          f"scales) and the ‖G̃‖² partials bitwise, two runs bitwise")
+    return n
 
 
 def check_small_training(dev):
@@ -631,7 +519,7 @@ def bound_q8(shape, esize=2):
         else "operations", nbytes
 
 
-def time_fused(kernel, ops, ref, dev, q8):
+def time_fused(kernel, ref, dev, q8):
     """Phase 8: K1 (``q8``: K2) per launch at the main path's buckets, both
     designs in the same call: device time (CUDA events around each launch,
     L2 flushed before it; order one, two, two, one), time per call back to
@@ -641,7 +529,7 @@ def time_fused(kernel, ops, ref, dev, q8):
     flush = torch.empty(64 << 20, device=dev)   # 256 MB
     name = "K2" if q8 else "K1"
     for label, shape in MAIN_SHAPES:
-        L, m, n = shape
+        L = shape[0]
         pn = torch.full((L,), 1e9, device=dev)
         ss, wd = torch.tensor(1e-3, device=dev), torch.tensor(0.0,
                                                               device=dev)
@@ -652,10 +540,9 @@ def time_fused(kernel, ops, ref, dev, q8):
             salts = q8_salts(L, dev)
             args = (*inputs, *(s.to(torch.uint32) for s in salts), pn, ss,
                     wd)
-            bm = ops.q8_row_block(m, n, LEVEL, QBLOCK) or m
             kw["block"] = QBLOCK
             plain = lambda: ref.gwt_adam_fused_q8(
-                *inputs, *salts, pn, ss, wd, bm=bm, **kw)
+                *inputs, *salts, pn, ss, wd, **kw)
             entry = {"one": kernel.gwt_adam_fused_q8_one_pass,
                      "two": kernel.gwt_adam_fused_q8_two_pass}
             counter = {"one": lambda: kernel.launches_q8_one_pass,
@@ -664,9 +551,8 @@ def time_fused(kernel, ops, ref, dev, q8):
         else:
             g, p, mm, vv = make_inputs(shape, 7, dev)
             args = (g, p, mm, vv, pn, ss, wd)
-            bm = ops.fused_row_block(m, n, LEVEL)
             plain = lambda: ref.gwt_adam_fused(g, p, mm, vv, pn, ss, wd,
-                                               bm=bm, **kw)
+                                               **kw)
             entry = {"one": kernel.gwt_adam_fused_one_pass,
                      "two": kernel.gwt_adam_fused_two_pass}
             counter = {"one": lambda: kernel.launches_one_pass,
@@ -917,20 +803,27 @@ def haar_input(shape, seed, dev, scale, edges):
     return g
 
 
-def check_bands(what, got_runs, want):
-    """Kernel bands against the plain version's: bitwise (NaN codes
-    included), and the two kernel runs bitwise."""
+def check_bands(what, got_runs, want, names=None):
+    """A kernel's outputs (bands, moments, norms, ...; ``names``, else
+    numbered) against the plain version's: bitwise (NaN codes included),
+    and the two kernel runs bitwise."""
     for a, b in zip(*got_runs):
         if not torch.equal(raw_bits(a), raw_bits(b)):
             raise AssertionError(f"{what}: two kernel runs differ")
-    for i, (a, b) in enumerate(zip(got_runs[0], want)):
+    names = names or [f"band {i}" for i in range(len(want))]
+    if len(got_runs[0]) != len(want) or len(names) != len(want):
+        raise AssertionError(f"{what}: {len(got_runs[0])} outputs, plain "
+                             f"{len(want)}")
+    for name, a, b in zip(names, got_runs[0], want):
         if a.dtype != b.dtype or a.shape != b.shape:
-            raise AssertionError(f"{what} band {i}: {a.dtype} {a.shape} vs "
+            raise AssertionError(f"{what} {name}: {a.dtype} {a.shape} vs "
                                  f"plain {b.dtype} {b.shape}")
         differ = int((raw_bits(a) != raw_bits(b)).sum())
         if differ:
-            raise AssertionError(f"{what} band {i}: {differ} of {a.numel()} "
-                                 f"elements differ from the plain version")
+            worst = (a.double() - b.double()).abs().max().item()
+            raise AssertionError(f"{what} {name}: {differ} of {a.numel()} "
+                                 f"elements differ from the plain version "
+                                 f"(max |diff| {worst:.3g})")
 
 
 def check_fp8_rule(hk, dev):
@@ -1369,11 +1262,64 @@ def bound_tile(shape, level=LEVEL, esize=2, q8=False):
         else "operations", nbytes
 
 
-def time_tile(kernel, ref, dev):
-    """K4 and K5 per launch at the staged path's leaf shapes (level 2, bf16
-    gradients): device time (CUDA events around each launch, L2 flushed
-    before it), time per call back to back, the plain version's, the
-    bound.  Returns ``{"K4": rows, "K5": rows}``."""
+# the parent revision's GWT-Adam sources, written by
+# tools/parent_kernels.py before a chip call; phase 17 times its K4/K5
+# beside the kernels as built.  A checkout without them (no git history to
+# take them from) skips that comparison.
+PARENT_DIR = Path(REPO) / "build" / "parent_kernels"
+PARENT_LIB = "gwt_adam_tile@parent"
+
+
+def register_parent(build, lib="gwt_adam_tile") -> bool:
+    """Adds the parent's library ``lib`` to ``build.SOURCES`` as
+    ``lib@parent`` (phase 1 then builds it with the others); False where
+    tools/parent_kernels.py has not written the sources."""
+    src, headers = build.SOURCES[lib]
+    if not (PARENT_DIR / src.name).exists():
+        return False
+    build.SOURCES[f"{lib}@parent"] = (PARENT_DIR / src.name, tuple(
+        PARENT_DIR / h.name for h in headers))
+    return True
+
+
+@contextlib.contextmanager
+def tile_library(kernel, build, name):
+    """Inside, the K4/K5 wrappers launch library ``name``'s kernels (the
+    same C interface)."""
+    saved = build._libs.get("gwt_adam_tile")
+    build._libs["gwt_adam_tile"] = build.load(name, kernel._declare_tile)
+    try:
+        yield
+    finally:
+        build._libs["gwt_adam_tile"] = saved
+
+
+def copy_ms(nbytes: int, flush: torch.Tensor, dev) -> float:
+    """Device time of one ``copy_`` that reads and writes ``nbytes`` in all,
+    timed as ``device_ms`` times a kernel (L2 flushed before each of 20)."""
+    a = torch.empty(nbytes // 8, device=dev)
+    b = torch.empty_like(a)
+    spans = []
+    for _ in range(20):
+        flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        b.copy_(a)
+        e1.record()
+        spans.append((e0, e1))
+    torch.cuda.synchronize()
+    return sum(x.elapsed_time(y) for x, y in spans) / len(spans)
+
+
+def time_tile(kernel, ref, build, dev, parent):
+    """Phase 17: K4 and K5 per launch at the staged path's leaf shapes
+    (level 2, bf16 gradients): device time (CUDA events around each launch,
+    L2 flushed before it) of the kernels as built and, if ``parent``, of
+    the parent revision's in the same call, in turns (built, parent,
+    parent, built); one ``copy_`` of the bytes the bound counts; time per
+    call back to back; the plain version's; the bound.  Returns ``{"K4":
+    rows, "K5": rows}``."""
     rows = {"K4": [], "K5": []}
     flush = torch.empty(64 << 20, device=dev)   # 256 MB
     for label, shape, count in TILE_SHAPES:
@@ -1392,20 +1338,46 @@ def time_tile(kernel, ref, dev):
         for name, (kern, plain, counter, q8) in cases.items():
             t_plain = [time_ms(plain, 5)]
             t_call = [time_ms(kern, 50), time_ms(kern, 50)]
-            t_dev = [device_ms(kern, 20, counter, flush) for _ in range(2)]
+            t_dev, t_parent = [], []
+            for which in (("built", "parent", "parent", "built") if parent
+                          else ("built", "built")):
+                if which == "built":
+                    t_dev.append(device_ms(kern, 20, counter, flush))
+                else:
+                    with tile_library(kernel, build, PARENT_LIB):
+                        t_parent.append(device_ms(kern, 20, counter, flush))
             t_plain.append(time_ms(plain, 5))
             b_ms, b_by, nbytes = bound_tile(shape, q8=q8)
+            t_copy = [copy_ms(nbytes, flush, dev) for _ in range(2)]
             row = {"leaf": label, "shape": list(shape), "per_step": count,
                    "ms": min(t_dev), "call_ms": min(t_call),
-                   "plain_ms": min(t_plain), "bound_ms": b_ms,
-                   "bound_by": b_by, "bytes": nbytes}
+                   "parent_ms": min(t_parent) if parent else None,
+                   "copy_ms": min(t_copy), "plain_ms": min(t_plain),
+                   "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
             print(f"{name} time {label} {shape}: kernel {row['ms']:.4f} ms "
-                  f"on the device (runs {t_dev}), {row['call_ms']:.4f} ms "
-                  f"per call (runs {t_call}), plain {row['plain_ms']:.4f} "
-                  f"ms, bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.2f} "
-                  f"MB), {b_ms / row['ms']:.1%} of bound")
+                  f"on the device (runs {t_dev}), {b_ms / row['ms']:.1%} of "
+                  f"bound; parent's "
+                  + (f"{row['parent_ms']:.4f} ms (runs {t_parent})" if parent
+                     else "not built (tools/parent_kernels.py not run)")
+                  + f"; copy_ of the same bytes {row['copy_ms']:.4f} ms; "
+                  f"{row['call_ms']:.4f} ms per call (runs {t_call}), plain "
+                  f"{row['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+                  f"({nbytes / 1e6:.2f} MB)")
             rows[name].append(row)
     return rows
+
+
+def tile_entry(name, launches, rows, **extra):
+    """K4's or K5's line: one step's worth, with the parent's design and
+    the same-byte copy timed in the same call."""
+    parent = None if rows[0]["parent_ms"] is None else \
+        sum(r["parent_ms"] * r["per_step"] for r in rows)
+    return step_entry(name, "gwt_adam/csrc/gwt_adam_tile.cu",
+                      "src/repro/kernels/gwt_adam/kernel.py:"
+                      + ("214" if name.endswith("q8") else "261"),
+                      launches, 0.0, rows, parent_ms=parent,
+                      copy_ms=sum(r["copy_ms"] * r["per_step"] for r in rows),
+                      **extra)
 
 
 def haar_entry(name, replaces, launches, max_abs_err, rows, **extra):
@@ -1446,7 +1418,7 @@ def main() -> int:
               "card only", file=sys.stderr)
         return 2
     from repro_torch.kernels import build
-    from repro_torch.kernels.gwt_adam import kernel, ops, ref
+    from repro_torch.kernels.gwt_adam import kernel, ref
     from repro_torch.kernels.haar_dwt import kernel as hk
     from repro_torch.launch import train
     from repro_torch.optim.engine import state_bytes
@@ -1457,15 +1429,19 @@ def main() -> int:
           f"cuda {torch.version.cuda}; card: {card}")
 
     t0 = time.perf_counter()
+    parent = register_parent(build)
+    if parent:
+        print(f"parent K4/K5 for phase 17: revision "
+              f"{(PARENT_DIR / 'REVISION').read_text().strip()}")
     libs = build.build_all(verbose=True)
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           f"{[os.path.relpath(p, REPO) for p in libs.values()]}")
     print_plans(kernel)
 
-    err_k1, designs_k1 = check_kernel(kernel, ops, ref, dev)
-    err_k2, designs_k2 = check_kernel_q8(kernel, ops, ref, dev)
+    err_k1, designs_k1 = check_fused(kernel, ref, dev, q8=False)
+    err_k2, designs_k2 = check_fused(kernel, ref, dev, q8=True)
     err_haar = check_haar(hk, dev)
-    tile_ssq = check_tile(kernel, ref, dev)
+    tile_cases_run = check_tile(kernel, ref, dev)
     check_small_training(dev)
 
     res32, launches_k1, peak32 = run_main_path(train, kernel, hk, "f32")
@@ -1489,14 +1465,14 @@ def main() -> int:
     memory = check_update_memory(dev)
     choices = run_choices(train, kernel, hk)
 
-    rows_k1 = time_fused(kernel, ops, ref, dev, q8=False)
-    rows_k2 = time_fused(kernel, ops, ref, dev, q8=True)
+    rows_k1 = time_fused(kernel, ref, dev, q8=False)
+    rows_k2 = time_fused(kernel, ref, dev, q8=True)
     rows_haar = time_haar(hk, dev)
     wrap_dec, wrap_enc = time_generic_wrap(dev)
     prof32 = profile_step(dev, "f32")
     prof8 = profile_step(dev, "int8")
     prof_dp = profile_step(dev, "f32", dp_reduce="compressed")
-    rows_tile = time_tile(kernel, ref, dev)
+    rows_tile = time_tile(kernel, ref, build, dev, parent)
     prof_staged = profile_step(dev, "f32", fused_write=False)
     print(f"staged step vs fused step (same call): launcher-equivalent "
           f"loop {staged32['step_ms']:.2f} vs {res32.step_ms:.2f} ms; "
@@ -1532,16 +1508,13 @@ def main() -> int:
                    dp_counts["K6"], err_haar, rows_haar["K6 bf16"]),
         haar_entry("haar_dwt_inv", "src/repro/kernels/haar_dwt/kernel.py:144",
                    dp_counts["K7"], err_haar, rows_haar["K7 f32"]),
-        step_entry("gwt_adam_tile", "gwt_adam/csrc/gwt_adam_tile.cu",
-                   "src/repro/kernels/gwt_adam/kernel.py:261",
-                   staged32["launches"]["K4"], 0.0, rows_tile["K4"],
-                   ssq_f32_spacings=tile_ssq["K4"], staged_f32=staged32,
-                   staged_int8=staged8, profile=prof_staged,
-                   update_memory=memory, launcher_choices=choices),
-        step_entry("gwt_adam_tile_q8", "gwt_adam/csrc/gwt_adam_tile.cu",
-                   "src/repro/kernels/gwt_adam/kernel.py:214",
-                   staged32["launches"]["K5"], 0.0, rows_tile["K5"],
-                   ssq_f32_spacings=tile_ssq["K5"]),
+        tile_entry("gwt_adam_tile", staged32["launches"]["K4"],
+                   rows_tile["K4"], phase_13_cases=tile_cases_run,
+                   staged_f32=staged32, staged_int8=staged8,
+                   profile=prof_staged, update_memory=memory,
+                   launcher_choices=choices),
+        tile_entry("gwt_adam_tile_q8", staged32["launches"]["K5"],
+                   rows_tile["K5"], phase_13_cases=tile_cases_run),
     ]
     print(json.dumps({"kernels": entries}))
     print(smi())

@@ -117,6 +117,27 @@ __device__ __forceinline__ float block_sum(float acc) {
   return total;
 }
 
+// A chunk's ||G~||^2 partial from its n rounded G~ coefficients of B values
+// in shared memory: thread t adds coefficients t + 256k (k = 0..7), each
+// one's B squares in order, then block_sum; the order of sum_sq in the
+// two-pass kernels, which the plain version's chunk_ssq repeats.  Every
+// thread calls it, after a barrier that makes the whole chunk visible; the
+// result is valid in thread 0.
+template <typename T, int B>
+__device__ __forceinline__ float chunk_partial(const T* slot, int n) {
+  float acc = 0.0f;
+  for (int k = 0; k < kPerThread; ++k) {
+    const int cc = threadIdx.x + k * kThreads;
+    if (cc >= n) break;
+#pragma unroll
+    for (int e = 0; e < B; ++e) {
+      const float r = to_f32(slot[cc * B + e]);
+      acc = __fadd_rn(acc, __fmul_rn(r, r));
+    }
+  }
+  return block_sum(acc);
+}
+
 // The limiter scale of leaf `leaf`, the same in every block that asks: the
 // first warp sums the leaf's S partials in a fixed order (lane-strided,
 // then a fixed shuffle tree).  If `write_norm`, it writes the leaf's new
@@ -363,6 +384,12 @@ __device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {
                : "memory");
 }
 
+__device__ __forceinline__ void cp_async8(unsigned dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async4(unsigned dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
                "l"(src)
@@ -376,6 +403,56 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until at most n of the thread's cp.async groups are pending (n a
+// constant after unrolling, 0..3).
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    default: cp_async_wait<3>(); break;
+  }
+}
+
+// The thread copies BYTES (a multiple of 4) from src (4-byte aligned) to the
+// shared address dst (aligned as BYTES allows) with the widest cp.async
+// src's alignment allows.
+template <int BYTES>
+__device__ __forceinline__ void copy_async(unsigned dst, const void* src) {
+  static_assert(BYTES % 4 == 0, "whole 4-byte words");
+  const unsigned char* s = static_cast<const unsigned char*>(src);
+  if constexpr (BYTES % 16 == 0) {
+    if (aligned(src, 16)) {
+#pragma unroll
+      for (int i = 0; i < BYTES; i += 16) cp_async16(dst + i, s + i);
+      return;
+    }
+  }
+  if constexpr (BYTES % 8 == 0) {
+    if (aligned(src, 8)) {
+#pragma unroll
+      for (int i = 0; i < BYTES; i += 8) cp_async8(dst + i, s + i);
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < BYTES; i += 4) cp_async4(dst + i, s + i);
+}
+
+// A thread's pair of coefficients (B values each; the second only if v1)
+// from device memory to its place in a shared slot, by cp.async.
+template <typename T, int B>
+__device__ __forceinline__ void copy_pair_async(T* dst, const T* src,
+                                                bool v1) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  constexpr int kOne = B * static_cast<int>(sizeof(T));
+  if (v1) {
+    copy_async<2 * kOne>(d, src);
+  } else {
+    copy_async<kOne>(d, src);
+  }
 }
 
 // The block copies `bytes` (a multiple of 4) from src (4-byte aligned) to
@@ -468,6 +545,50 @@ __device__ __forceinline__ void load_pair_raw(const T* src, T (&e)[2 * B],
   }
 }
 
+// f32 moments, two coefficients a thread (the one-pass K1 and K4): 8-byte
+// loads of the pair's m and v into registers ahead of the compute, 8-byte
+// stores of the new ones to m_out, v_out (K1 passes m and v themselves: in
+// place).
+struct F32Moments {
+  const float* m;
+  const float* v;
+  float* m_out;
+  float* v_out;
+  static constexpr int kRingBytes = 0;
+  struct Chunk {
+    const float *m, *v;
+    float *mo, *vo;
+  };
+  struct Regs {
+    float m[2], v[2];
+  };
+  __device__ __forceinline__ void stage(unsigned char*, long long, long long,
+                                        long long, int) const {}
+  __device__ __forceinline__ Chunk chunk(const unsigned char*, long long leaf,
+                                         long long na, long long j0) const {
+    const long long off = leaf * na + j0;
+    return {m + off, v + off, m_out + off, v_out + off};
+  }
+  __device__ __forceinline__ void load(const Chunk& ck, int cl, bool v0,
+                                       bool v1, Regs& r) const {
+    if (!v0) return;
+    load2(ck.m + cl, r.m, v1);
+    load2(ck.v + cl, r.v, v1);
+  }
+  template <int LEVEL>
+  __device__ __forceinline__ void update(const Chunk& ck, int cl, int,
+                                         bool v0, bool v1,
+                                         float (&x)[2 << LEVEL], Regs& r,
+                                         const Coeffs& c) const {
+    constexpr int B = 1 << LEVEL;
+    if (!v0) return;
+    dht_adam<LEVEL>(coeff<B>(x, 0), r.m[0], r.v[0], c);
+    if (v1) dht_adam<LEVEL>(coeff<B>(x, 1), r.m[1], r.v[1], c);
+    store2(ck.mo + cl, r.m, v1);
+    store2(ck.vo + cl, r.v, v1);
+  }
+};
+
 // Mo, the moments' format, provides
 //   struct Chunk;  // a chunk's moment pointers (K2: its salts, its stage)
 //   struct Regs;   // one pair's moments loaded ahead (K1)
@@ -482,13 +603,16 @@ __device__ __forceinline__ void load_pair_raw(const T* src, T (&e)[2 * B],
 //       int n, bool v0, bool v1, float (&x)[2 << LEVEL], Regs& r,
 //       const Coeffs& c) const;
 // stage copies what chunk [j0, j0 + n) of a leaf needs into the ring entry
-// e, together with the chunk's g (K2: its codes and scales); chunk makes
-// the chunk's state once, so a round's addresses are 32-bit offsets cl
-// (chunk-local coefficient index) from its bases; load reads the moments
-// of coefficients cl (if v0) and cl + 1 (if v1) into registers before the
-// block waits for the chunk (K1); update runs dht_adam on each and writes
-// the new moments.  All 32 lanes of a warp call update together (K2's
-// absmax is a warp shuffle).
+// e, together with the chunk's g (K2, K5: its codes and scales); chunk
+// makes the chunk's state once, so a round's addresses are 32-bit offsets
+// cl (chunk-local coefficient index) from its bases; load reads the
+// moments of coefficients cl (if v0) and cl + 1 (if v1) into registers
+// before the block waits for the chunk (K1, K4); update runs dht_adam on
+// each and writes the new moments to the outputs (K1, K2: the inputs, in
+// place; K4, K5: their own buffers).  All 32 lanes of a warp call update
+// together (K2's and K5's absmax is a warp shuffle).  F32Moments here and
+// Q8Moments (gwt_adam_q8.cuh) serve the one-pass kernel below and the
+// staged kernels of gwt_adam_tile.cu alike.
 template <typename T, int LEVEL, class Mo>
 __global__ void __launch_bounds__(kThreads)
 one_pass(const OnePassArgs<T> a, const Mo mo) {
@@ -582,17 +706,7 @@ one_pass(const OnePassArgs<T> a, const Mo mo) {
     }
     if (a.use_limiter) {
       __syncthreads();
-      float acc = 0.0f;
-      for (int k = 0; k < kPerThread; ++k) {
-        const int cc = t + k * kThreads;
-        if (cc >= n) break;
-#pragma unroll
-        for (int e = 0; e < B; ++e) {
-          const float r = to_f32(gt[cc * B + e]);
-          acc = __fadd_rn(acc, __fmul_rn(r, r));
-        }
-      }
-      const float total = block_sum(acc);
+      const float total = chunk_partial<T, B>(gt, n);
       if (t == 0) a.partials[leaf * a.S + s] = total;
     } else {
       __syncthreads();  // the next stage overwrites this chunk's ring entry

@@ -114,44 +114,6 @@ write_pass(const T* __restrict__ g, T* __restrict__ p, float* __restrict__ m,
   }
 }
 
-// f32 moments for the one-pass kernel: 8-byte loads and stores of the
-// pair's m and v.
-struct F32Moments {
-  float* m;
-  float* v;
-  static constexpr int kRingBytes = 0;
-  struct Chunk {
-    float *m, *v;
-  };
-  struct Regs {
-    float m[2], v[2];
-  };
-  __device__ __forceinline__ void stage(unsigned char*, long long, long long,
-                                        long long, int) const {}
-  __device__ __forceinline__ Chunk chunk(const unsigned char*, long long leaf,
-                                         long long na, long long j0) const {
-    return {m + leaf * na + j0, v + leaf * na + j0};
-  }
-  __device__ __forceinline__ void load(const Chunk& ck, int cl, bool v0,
-                                       bool v1, Regs& r) const {
-    if (!v0) return;
-    load2(ck.m + cl, r.m, v1);
-    load2(ck.v + cl, r.v, v1);
-  }
-  template <int LEVEL>
-  __device__ __forceinline__ void update(const Chunk& ck, int cl, int,
-                                         bool v0, bool v1,
-                                         float (&x)[2 << LEVEL], Regs& r,
-                                         const Coeffs& c) const {
-    constexpr int B = 1 << LEVEL;
-    if (!v0) return;
-    dht_adam<LEVEL>(coeff<B>(x, 0), r.m[0], r.v[0], c);
-    if (v1) dht_adam<LEVEL>(coeff<B>(x, 1), r.m[1], r.v[1], c);
-    store2(ck.m + cl, r.m, v1);
-    store2(ck.v + cl, r.v, v1);
-  }
-};
-
 template <typename T>
 cudaError_t launch(int level, const void* g, void* p, float* m, float* v,
                    const float* prev_norm, float* new_norm, float* partials,
@@ -180,8 +142,8 @@ template <typename T>
 cudaError_t launch_one(int level, const OnePassArgs<T>& a, float* m,
                        float* v, cudaStream_t stream) {
   return with_level(level, [&](auto lv) {
-    return launch_one_pass<T, decltype(lv)::value>(a, F32Moments{m, v},
-                                                   stream);
+    return launch_one_pass<T, decltype(lv)::value>(
+        a, F32Moments{m, v, m, v}, stream);
   });
 }
 

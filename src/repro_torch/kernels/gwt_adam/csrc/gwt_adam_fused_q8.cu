@@ -156,124 +156,6 @@ write_pass(const T* __restrict__ g, T* __restrict__ p,
   }
 }
 
-// Blocked-int8 moments for the one-pass kernel: a warp is one quantization
-// block.
-struct Q8Moments {
-  signed char* qm;
-  float* sm;
-  signed char* qv;
-  float* sv;
-  const unsigned* salt_m;
-  const unsigned* salt_v;
-  long long nb;  // scales per leaf
-  // a chunk's codes of m and v, then its scales of m and v, each staged at
-  // its source's offset within 16 bytes (stage_bytes)
-  static constexpr int kCodeBytes = kChunk + 16;
-  static constexpr int kScaleBytes = kChunk / kQBlock * 4 + 16;
-  static constexpr int kRingBytes = 2 * kCodeBytes + 2 * kScaleBytes;
-  static_assert(kRingBytes % 16 == 0, "ring entries stay 16-byte aligned");
-  struct Chunk {
-    const signed char *cm, *cv;  // staged codes
-    const float *sm, *sv;        // staged scales
-    signed char *qm, *qv;        // the chunk's codes in device memory
-    float *om, *ov;              // and its scales
-    unsigned salt_m, salt_v, j0;
-  };
-  struct Regs {};
-  __device__ __forceinline__ void stage(unsigned char* e, long long leaf,
-                                        long long na, long long j0,
-                                        int n) const {
-    const long long q0 = leaf * nb + j0 / kQBlock;
-    const int nq = (n + kQBlock - 1) / kQBlock;
-    stage_bytes(e, reinterpret_cast<const unsigned char*>(qm + leaf * na + j0),
-                n);
-    stage_bytes(e + kCodeBytes,
-                reinterpret_cast<const unsigned char*>(qv + leaf * na + j0),
-                n);
-    stage_bytes(e + 2 * kCodeBytes,
-                reinterpret_cast<const unsigned char*>(sm + q0), 4 * nq);
-    stage_bytes(e + 2 * kCodeBytes + kScaleBytes,
-                reinterpret_cast<const unsigned char*>(sv + q0), 4 * nq);
-  }
-  __device__ __forceinline__ Chunk chunk(const unsigned char* e,
-                                         long long leaf, long long na,
-                                         long long j0) const {
-    signed char* cqm = qm + leaf * na + j0;
-    signed char* cqv = qv + leaf * na + j0;
-    float* csm = sm + leaf * nb + j0 / kQBlock;
-    float* csv = sv + leaf * nb + j0 / kQBlock;
-    return {staged<signed char>(e, cqm),
-            staged<signed char>(e + kCodeBytes, cqv),
-            staged<float>(e + 2 * kCodeBytes, csm),
-            staged<float>(e + 2 * kCodeBytes + kScaleBytes, csv),
-            cqm, cqv, csm, csv, salt_m[leaf], salt_v[leaf],
-            static_cast<unsigned>(j0)};
-  }
-  __device__ __forceinline__ void load(const Chunk&, int, bool, bool,
-                                       Regs&) const {}
-  template <int LEVEL>
-  __device__ __forceinline__ void update(const Chunk& ck, int cl, int n,
-                                         bool v0, bool v1,
-                                         float (&x)[2 << LEVEL], Regs&,
-                                         const Coeffs& c) const {
-    static_assert(kQBlock == 64 && kChunk % kQBlock == 0,
-                  "a warp of two-coefficient lanes is one quantization block");
-    constexpr int B = 1 << LEVEL;
-    const int lane = threadIdx.x & 31;
-    const int cw = cl - 2 * lane;  // the quantization block's first
-    const int qi = cw / kQBlock;
-    float scm = 0.0f, scv = 0.0f;
-    if (cw < n) {
-      scm = ck.sm[qi];
-      scv = ck.sv[qi];
-    }
-    float m2[2] = {0.0f, 0.0f}, v2[2] = {0.0f, 0.0f};
-    if (v0) {
-      m2[0] = __fmul_rn(static_cast<float>(ck.cm[cl]), scm);
-      v2[0] = __fmul_rn(static_cast<float>(ck.cv[cl]), scv);
-      dht_adam<LEVEL>(coeff<B>(x, 0), m2[0], v2[0], c);
-      if (v1) {
-        m2[1] = __fmul_rn(static_cast<float>(ck.cm[cl + 1]), scm);
-        v2[1] = __fmul_rn(static_cast<float>(ck.cv[cl + 1]), scv);
-        dht_adam<LEVEL>(coeff<B>(x, 1), m2[1], v2[1], c);
-      }
-    }
-    float am = fmaxf(v0 ? fabsf(m2[0]) : 0.0f, v1 ? fabsf(m2[1]) : 0.0f);
-    float av = fmaxf(v0 ? fabsf(v2[0]) : 0.0f, v1 ? fabsf(v2[1]) : 0.0f);
-    warp_absmax(am, av);
-    const float nsm = quant_scale(am), nsv = quant_scale(av);
-    const float im = quant_inv(nsm), iv = quant_inv(nsv);
-    if (v0) {
-      // the codec's rounding index: the leaf-flat coefficient index, uint32
-      const unsigned j = ck.j0 + static_cast<unsigned>(cl);
-      signed char cm[2], cv[2];
-      cm[0] = quant_with(m2[0], im, ck.salt_m, j);
-      cv[0] = quant_with(v2[0], iv, ck.salt_v, j);
-      if (v1) {
-        cm[1] = quant_with(m2[1], im, ck.salt_m, j + 1u);
-        cv[1] = quant_with(v2[1], iv, ck.salt_v, j + 1u);
-      }
-      store_codes(ck.qm + cl, cm, v1);
-      store_codes(ck.qv + cl, cv, v1);
-    }
-    if (lane == 0 && cw < n) {
-      ck.om[qi] = nsm;
-      ck.ov[qi] = nsv;
-    }
-  }
-
-  __device__ __forceinline__ static void store_codes(signed char* q,
-                                                     const signed char (&e)[2],
-                                                     bool v1) {
-    if (v1 && aligned(q, 2)) {
-      *reinterpret_cast<char2*>(q) = make_char2(e[0], e[1]);
-    } else {
-      q[0] = e[0];
-      if (v1) q[1] = e[1];
-    }
-  }
-};
-
 template <typename T>
 cudaError_t launch(int level, const void* g, void* p, signed char* qm,
                    float* sm, signed char* qv, float* sv,
@@ -372,7 +254,7 @@ int gwt_adam_fused_q8_one_pass(int dtype, int level, const void* g, void* p,
                                void* stream) {
   const Coeffs c{b1, c1, b2, c2, eps};
   const long long S = (na + kChunk - 1) / kChunk;
-  const Q8Moments mo{qm, sm, qv, sv, salt_m, salt_v,
+  const Q8Moments mo{qm, sm, qv, sv, salt_m, salt_v, qm, sm, qv, sv,
                      (na + kQBlock - 1) / kQBlock};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {

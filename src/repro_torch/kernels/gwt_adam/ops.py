@@ -21,9 +21,6 @@ cannot tile has no counterpart here.
 
 from __future__ import annotations
 
-import math
-from typing import Optional
-
 import torch
 
 from repro_torch.kernels.gwt_adam import kernel, ref
@@ -103,36 +100,6 @@ def fused_update_q8(g: torch.Tensor, state: dict, step: torch.Tensor,
              "v": {"q": qv2.reshape(qv.shape), "scale": sv2}})
 
 
-def fused_row_block(m: int, n: int, level: int) -> int:
-    """Row-stripe height of the plain version's norm: the JAX package's
-    ``kernel.fused_row_block``, so both packages sum the norm alike."""
-    row_bytes = (4 + 4 / (1 << level)) * n * 4
-    bm = 8 if m % 8 == 0 else m
-    while bm * 2 <= min(m, 1024) and m % (bm * 2) == 0 \
-            and (bm * 2) * row_bytes <= 4 * 1024 * 1024:
-        bm *= 2
-    return bm
-
-
-def q8_row_block(m: int, n: int, level: int, block: int) -> Optional[int]:
-    """Row-stripe height of the q8 plain version's norm: the JAX package's
-    ``kernel.q8_row_block`` (None where the TPU kernel cannot tile the
-    shape and the JAX package sums the norm over all rows at once)."""
-    na = n >> level
-    if na == 0 or (m * na) % block != 0:
-        return None
-    step = block // math.gcd(na, block)
-    best = None
-    for bm in range(step, m + 1, step):
-        if m % bm:
-            continue
-        if 4 * bm * n * 4 <= 4 * 1024 * 1024 or best is None:
-            best = bm
-        else:
-            break
-    return best
-
-
 def _contiguous(**tensors) -> None:
     for name, t in tensors.items():
         if not t.is_contiguous():
@@ -156,7 +123,6 @@ def fused_write_update(g: torch.Tensor, p: torch.Tensor, state: dict,
     step_size, wd_coef = _step_scalars(step, lr_t, alpha, weight_decay,
                                        b1, b2)
     g3, p3, m3, v3 = _rows(g), _rows(p), _rows(m_st), _rows(v_st)
-    _, mm, nn = g3.shape
     kw = dict(level=level, gamma=gamma, use_limiter=use_limiter,
               weight_decay=weight_decay != 0, b1=b1, b2=b2, eps=eps)
     if g.is_cuda:
@@ -164,8 +130,7 @@ def fused_write_update(g: torch.Tensor, p: torch.Tensor, state: dict,
             g3, p3, m3, v3, prev_norm, step_size, wd_coef, **kw)
     else:
         new_p, m, v, new_norm = ref.gwt_adam_fused(
-            g3, p3, m3, v3, prev_norm, step_size, wd_coef,
-            bm=fused_row_block(mm, nn, level), **kw)
+            g3, p3, m3, v3, prev_norm, step_size, wd_coef, **kw)
     return (new_p.reshape(p.shape), new_norm,
             {"m": m.reshape(m_st.shape), "v": v.reshape(v_st.shape)})
 
@@ -194,7 +159,6 @@ def fused_write_update_q8(g: torch.Tensor, p: torch.Tensor, state: dict,
     step_size, wd_coef = _step_scalars(step, lr_t, alpha, weight_decay,
                                        b1, b2)
     g3, p3, qm3, qv3 = _rows(g), _rows(p), _rows(qm), _rows(qv)
-    L, mm, nn = g3.shape
     kw = dict(level=level, block=block, gamma=gamma,
               use_limiter=use_limiter, weight_decay=weight_decay != 0,
               b1=b1, b2=b2, eps=eps)
@@ -204,10 +168,9 @@ def fused_write_update_q8(g: torch.Tensor, p: torch.Tensor, state: dict,
             g3, p3, qm3, sm, qv3, sv, s32[0], s32[1], prev_norm, step_size,
             wd_coef, **kw)
     else:
-        bm = q8_row_block(mm, nn, level, block)
         new_p, qm2, sm2, qv2, sv2, new_norm = ref.gwt_adam_fused_q8(
             g3, p3, qm3, sm, qv3, sv, salts[0], salts[1], prev_norm,
-            step_size, wd_coef, bm=mm if bm is None else bm, **kw)
+            step_size, wd_coef, **kw)
     return (new_p.reshape(p.shape), new_norm,
             {"m": {"q": qm2.reshape(qm.shape), "scale": sm2},
              "v": {"q": qv2.reshape(qv.shape), "scale": sv2}})

@@ -10,9 +10,10 @@ crosses a rounding threshold (``u < frac(y)``, or the block's absmax) a
 code moves by exactly 1; such codes are counted and at most
 ``MAX_CODES_OFF_BY_ONE`` of the ~10^4 codes of a case may differ, all by 1.
 Scales (absmax / 127) are held to 2 f32 spacings.  Parameters follow the
-f32 update's rule (``test_torch_gwt_adam.py``): 4 f32 spacings in f32, one
-bf16 spacing in bf16; the limiter norm 4 f32 spacings in f32 and 64 in
-bf16.
+f32 update's rule (``test_torch_gwt_adam.py``): 4 f32 spacings in f32
+(measured 0.5), one bf16 spacing in bf16 (measured 0.25); the limiter
+norm, summed in the kernels' order against the oracle's row stripes, 4
+f32 spacings in f32 (measured 3) and 64 in bf16 (measured 11).
 """
 
 import jax
@@ -143,13 +144,6 @@ def test_fused_write_q8_matches_pallas_interpret(case):
     _check(got, want, "float32", case[0], case[1])
 
 
-def test_q8_row_block_matches_reference():
-    for m, n, level in [(4096, 512, 2), (4096, 1376, 2), (11008, 512, 2),
-                        (16, 344, 2), (3, 20, 2), (24, 64, 1)]:
-        assert ops.q8_row_block(m, n, level, 64) == \
-            jkernel.q8_row_block(m, n, level, 64)
-
-
 def test_cpu_tensors_never_reach_the_q8_kernel():
     """On CPU tensors the entry point takes the plain version and the
     kernel's launch counter stays where it was; the kernel wrapper itself
@@ -195,10 +189,11 @@ def test_gwt_int8_matches_reference():
 
     The limiter norms are sums of squares taken in another order in each
     package, and at the first step G̃ is heavy-tailed (a detail divided by
-    a near-zero ``sqrt(v)``): they differ by up to 81 f32 spacings (128
+    a near-zero ``sqrt(v)``): they differ by up to 11 f32 spacings (128
     allowed).  Through the clipped steps that reaches the parameters as up
-    to 13 spacings after 3 steps (32 allowed); scales and the other f32
-    state stay within 16, and the codes agree as in the fused test."""
+    to 13.25 spacings after 3 steps (32 allowed); scales and the other f32
+    state stay within 16 (measured 3), and the codes agree as in the fused
+    test."""
     flat = _smoke_tree()
     jopt = jax_gwt(lr=jax_warmup_cosine(0.01, 10), impl="jnp",
                    state_codec="int8")

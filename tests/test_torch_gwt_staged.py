@@ -7,8 +7,8 @@ Tolerances.  The plain versions are held bitwise (G̃, m', v', codes,
 scales) to the JAX oracle run op by op (``jax.disable_jit()``): both round
 every operation once, and the port takes the correctly rounded square root
 (``ref._sqrt``).  The JAX oracle's ‖G̃‖² is one XLA reduction, summed in
-another order than torch's: within ``SSQ_RTOL`` = 2e-6 relative (measured:
-1.55e-6).  Against the TPU kernels in Pallas interpret
+another order than the port's, which is the CUDA kernels' (``ref.chunk_ssq``):
+within ``SSQ_RTOL`` = 2e-6 relative (measured: 1.57e-6).  Against the TPU kernels in Pallas interpret
 mode, which XLA compiles with its CPU backend's FMA contraction
 (``a*s + b*s``, ``b1*m + (1-b1)*a``), G̃ and the moments may move by a few
 f32 spacings: 4 allowed (measured 2); bf16 G̃ by one bf16 spacing

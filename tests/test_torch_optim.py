@@ -24,7 +24,7 @@ f32 and bf16.
 Inside the port the unrolled engine (``bucketed=False``) equals the
 bucketed one bitwise for every family whose rules have no
 ``vector_update``.  GWT's default bucket runs the fused write (norm summed
-per row stripe) and its unrolled leaf the staged update (norm by
+in the CUDA kernels' order) and its unrolled leaf the staged update (norm by
 ``torch.linalg.vector_norm``): 4 f32 spacings (measured 1).  The JAX
 package's own adam_mini bucketed-vs-unrolled check is red
 (``test_engine.py::...[adam_mini-kw1]``), so the port's adam_mini is held

@@ -2,6 +2,7 @@
 sources as they are and a copy moving the same bytes.
 
     python tools/fused_variants.py [--variants base,phase_a_only,...]
+                                   [--parent]
 
 Each variant is a set of text edits to ``kernels/gwt_adam/csrc``; its copy
 goes to ``build/fused_variants/<name>/`` and is compiled by
@@ -12,7 +13,9 @@ flushed before it, best of two runs of 20), their registers and
 co-resident blocks per SM, and the device time of one ``copy_`` that reads
 and writes as many bytes as K1's bound counts.  A variant that stops
 before the grid barrier (``phase_a_only``) times phase A alone; its
-parameters are not written, so only its time means anything.
+parameters are not written, so only its time means anything.  With
+``--parent`` the sources ``tools/parent_kernels.py`` wrote are timed too,
+as the variant ``parent``.
 """
 
 from __future__ import annotations
@@ -67,22 +70,6 @@ def make(name: str, edits) -> Path:
     return out
 
 
-def copy_ms(nbytes: int, flush: torch.Tensor, dev) -> float:
-    a = torch.empty(nbytes // 8, device=dev)
-    b = torch.empty_like(a)
-    spans = []
-    for _ in range(20):
-        flush.zero_()
-        torch.cuda._sleep(cs.SPIN_CYCLES)
-        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        e0.record()
-        b.copy_(a)
-        e1.record()
-        spans.append((e0, e1))
-    torch.cuda.synchronize()
-    return sum(x.elapsed_time(y) for x, y in spans) / len(spans)
-
-
 def one_pass_ms(lib: str, shape, flush, dev) -> float:
     L = shape[0]
     pn = torch.full((L,), 1e9, device=dev)
@@ -105,6 +92,9 @@ def one_pass_ms(lib: str, shape, flush, dev) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variants", default=",".join(VARIANTS))
+    ap.add_argument("--parent", action="store_true",
+                    help="also time the sources tools/parent_kernels.py "
+                    "wrote (as the variant 'parent')")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("fused_variants: no CUDA device", file=sys.stderr)
@@ -119,13 +109,17 @@ def main() -> int:
             src, headers = sources[lib]
             build.SOURCES[f"{lib}@{name}"] = (
                 out / src.name, tuple(out / h.name for h in headers))
+    if args.parent:
+        if not all(cs.register_parent(build, lib) for lib in LIBS):
+            raise SystemExit("no parent sources: run tools/parent_kernels.py")
+        names.append("parent")
     build.build_all(tuple(f"{lib}@{n}" for n in names for lib in LIBS))
     flush = torch.empty(64 << 20, device=dev)   # 256 MB, past the L2
     for label, shape in cs.MAIN_SHAPES:
         nbytes = cs.bound(shape)[2]
         print(f"{label} {shape}: bound K1 {cs.bound(shape)[0]:.4f} ms, K2 "
               f"{cs.bound_q8(shape)[0]:.4f} ms; copy of {nbytes / 1e6:.1f} "
-              f"MB (read + write) {copy_ms(nbytes, flush, dev):.4f} ms")
+              f"MB (read + write) {cs.copy_ms(nbytes, flush, dev):.4f} ms")
         for name in names:
             row = []
             for lib in LIBS:
