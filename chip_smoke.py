@@ -7,8 +7,9 @@ Phases (any failure raises and the script exits non-zero):
 
 1. build every hand-written CUDA kernel from ``src/repro_torch/.../csrc``
    (K1, K2, K4/K5 in one source, and K3/K6/K7 in one source; and the
-   parent's K4/K5 where phase 17 has them), one ``nvcc`` per source,
-   started together, printing ``-Xptxas -v``; print K1's and
+   parent's K4/K5 and K3/K6/K7 where ``tools/parent_kernels.py`` wrote
+   them), one ``nvcc`` per source, started together, printing
+   ``-Xptxas -v``; print K1's and
    K2's one-pass plans (registers, shared memory, co-resident blocks, chunk
    slots) at the main buckets;
 2. K1 (f32 moments) at the three LLaMA-60M bucket shapes, a FIRST-mode-sized
@@ -46,16 +47,25 @@ Phases (any failure raises and the script exits non-zero):
     against their plain versions on the card, bitwise, at the flattened
     LLaMA-60M leaf shapes and an odd-row shape, levels 1-3, every wire dtype;
     the fp8 inputs reach past 464 and +-inf, so the NaN-on-overflow rule is
-    exercised; two runs must be bitwise equal;
+    exercised; two runs must be bitwise equal; then K3's and K6's grouped
+    entries over the 10 DP leaves, a mixed group (odd rows, an odd
+    coefficient count, an unaligned leaf base) and 40 leaves (two
+    launches), each leaf bitwise to its plain version, the launch and leaf
+    counters exact;
 11. the compressed data-parallel path: the launcher with ``--dp-reduce
     compressed`` (bf16 details, 20 steps) under a one-rank NCCL process
-    group, so the gradient gather runs on the card; K3 and K7 must launch
-    10 times per step and K1 3 times (one pass), the wire bytes be the JAX package's
-    208,449,536 against 333,516,800, the losses finite and falling; then a
-    shorter run with fp8 details and error feedback (K7 20 times per step:
-    the residue's reconstruction too);
-12. time K3, K6 and K7 per launch beside their bounds and plain versions,
-    and profile the data-parallel step beside the plain f32 step;
+    group, so the gradient gather runs on the card; K3 must launch once per
+    step for all 10 compressible leaves (20 launches, 200 leaves), K7 10
+    times per step and K1 3 times (one pass), the wire bytes be the JAX
+    package's 208,449,536 against 333,516,800, the losses finite and
+    falling; then a shorter run with fp8 details and error feedback (K7 20
+    times per step: the residue's reconstruction too); then one reduction
+    of a full-width gradient grouped and leaf by leaf, bitwise equal, with
+    each one's peak memory;
+12. time K3, K6 and K7 per launch beside their bounds, plain versions and
+    the parent revision's (in turns), K3 and K6 as one grouped launch over
+    the DP group beside ten single launches, the grouped wrapper's host
+    time, and profile the data-parallel step beside the plain f32 step;
 13. K4 (``gwt_adam_tile``) and K5 (``gwt_adam_tile_q8``) against their plain
     versions at the staged path's leaf shapes, odd rows, and an L = 3 stack
     with an odd coefficient count per leaf (unaligned leaf bases, a ragged
@@ -686,7 +696,8 @@ def profile_step(dev, codec, steps=4, dp_reduce=None, fused_write=True):
         print(f"  {dev_time(e) / 1e3 / steps:8.3f} ms/step device "
               f"{e.count // steps:5d} calls/step  {e.key[:70]}")
     return {"step_ms": step_ms, "update_ms": opt_ms,
-            "device_busy_ms": busy_ms}
+            "device_busy_ms": busy_ms,
+            "launches_per_step": len(kernel_us) // steps}
 
 
 def reset_counts(kernel, hk):
@@ -695,10 +706,12 @@ def reset_counts(kernel, hk):
     kernel.launches_q8_one_pass = kernel.launches_q8_two_pass = 0
     kernel.launches_tile = kernel.launches_tile_q8 = 0
     hk.launches_fwd = hk.launches_fwd_q = hk.launches_inv = 0
+    hk.leaves_fwd = hk.leaves_fwd_q = 0
 
 
 def all_counts(kernel, hk):
-    """Every wrapper's launch count; K1 and K2 also by design."""
+    """Every wrapper's launch count; K1 and K2 also by design, K3 and K6
+    also the leaves their grouped launches covered."""
     return {"K1": kernel.launches, "K2": kernel.launches_q8,
             "K1 one-pass": kernel.launches_one_pass,
             "K1 two-pass": kernel.launches_two_pass,
@@ -706,7 +719,8 @@ def all_counts(kernel, hk):
             "K2 two-pass": kernel.launches_q8_two_pass,
             "K3": hk.launches_fwd_q, "K4": kernel.launches_tile,
             "K5": kernel.launches_tile_q8, "K6": hk.launches_fwd,
-            "K7": hk.launches_inv}
+            "K7": hk.launches_inv, "K3 leaves": hk.leaves_fwd_q,
+            "K6 leaves": hk.leaves_fwd}
 
 
 def fused_counts(k1=0, k2=0):
@@ -881,7 +895,88 @@ def check_haar(hk, dev):
     torch.cuda.synchronize()
     print(f"K3/K6/K7 vs plain: {n_checks} cases bitwise (every band, NaN "
           f"codes included), two runs bitwise")
+    check_haar_groups(hk, dev)
     return 0.0
+
+
+def unaligned(x):
+    """A contiguous copy of ``x`` one element past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    buf[1:].copy_(x.reshape(-1))
+    return buf[1:].view(x.shape)
+
+
+def group_cases(level):
+    """(label, leaf shapes, indices of the leaves given unaligned) of phase
+    10's grouped checks at ``level``: the data-parallel group; a mixed group
+    with the odd-row shape, a leaf with an odd coefficient count (101 x 43,
+    whose last tile is partial) given twice, once unaligned, and the
+    smallest DP leaf; and 40 leaves, more than one launch takes."""
+    dp = [shape for shape, count in DP_SHAPES for _ in range(count)]
+    odd = (101, 43 << level)
+    mixed = [ODD_SHAPE, odd, odd, (8, 512)]
+    many = [(1 + i % 5, 8 * (3 + i % 11)) for i in range(40)]
+    return [("DP group", dp, ()), ("mixed", mixed, (2,)),
+            ("40 leaves", many, tuple(range(3, 40, 4)))]
+
+
+def check_haar_groups(hk, dev):
+    """Phase 10, grouped: K3 (bf16, f16, fp8 details) and K6 (bf16, f32)
+    over each of ``group_cases`` at levels 1-3, every band of every leaf
+    bitwise to the per-leaf plain version (the fp8 inputs reach past 464
+    and +-inf), two runs bitwise, and the launch and leaf counters risen by
+    the group's launches and leaves."""
+    from repro_torch.kernels.haar_dwt import ref as href
+    kinds = [("K3", torch.bfloat16), ("K3", torch.float16),
+             ("K3", torch.float8_e4m3fn), ("K6", torch.bfloat16),
+             ("K6", torch.float32)]
+    for name, codes in [("K3 bf16", (0, 0, 1)), ("K3 fp8", (0, 0, 3)),
+                        ("K6 bf16", (1, 1, 1)), ("K6 f32", (0, 0, 0))]:
+        print(f"{name} grouped plan at level {LEVEL}: "
+              f"{hk.fwd_plan(codes, LEVEL, dev)}")
+    n_checks = 0
+    for level in (1, 2, 3):
+        cap = hk.fwd_plan((0, 0, 1), level, dev)["group_leaves"]
+        for label, shapes, odd in group_cases(level):
+            launches = -(-len(shapes) // cap)
+            for name, kind in kinds:
+                k3 = name == "K3"
+                fp8 = kind == torch.float8_e4m3fn
+                gs = [haar_input(shape, 31 * i + level, dev,
+                                 200.0 if fp8 else 1.0, k3)
+                      for i, shape in enumerate(shapes)]
+                if not k3:
+                    gs = [g.to(kind) for g in gs]
+                gs = [unaligned(g) if i in odd else g
+                      for i, g in enumerate(gs)]
+                before = (hk.launches_fwd_q, hk.leaves_fwd_q,
+                          hk.launches_fwd, hk.leaves_fwd)
+                if k3:
+                    runs = [hk.haar_dwt_fwd_q_group(gs, level, kind)
+                            for _ in range(2)]
+                    wants = [href.haar_dwt_fwd_q(g, level, kind) for g in gs]
+                    rise = (2 * launches, 2 * len(gs), 0, 0)
+                else:
+                    runs = [hk.haar_dwt_fwd_group(gs, level)
+                            for _ in range(2)]
+                    wants = [href.haar_dwt_fwd(g, level) for g in gs]
+                    rise = (0, 0, 2 * launches, 2 * len(gs))
+                after = (hk.launches_fwd_q, hk.leaves_fwd_q,
+                         hk.launches_fwd, hk.leaves_fwd)
+                if tuple(a - b for a, b in zip(after, before)) != rise:
+                    raise AssertionError(f"grouped {label}: counters rose "
+                                         f"{before} -> {after}, want {rise}")
+                for i, want in enumerate(wants):
+                    check_bands(f"{name} group {label} leaf {i} "
+                                f"{tuple(gs[i].shape)} l={level} {kind}",
+                                [runs[0][i], runs[1][i]], want)
+                n_checks += 1
+    torch.cuda.synchronize()
+    print(f"K3/K6 grouped vs per-leaf plain: {n_checks} groups bitwise "
+          f"(10 DP leaves, mixed odd rows / odd coefficient count / "
+          f"unaligned base, 40 leaves in {-(-40 // cap)} launches; "
+          f"levels 1-3; K3 bf16/f16/fp8, K6 bf16/f32), two runs "
+          f"bitwise, launch and leaf counters exact")
 
 
 def free_port() -> int:
@@ -890,35 +985,46 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def run_dp_path(train, kernel, hk, extra, steps):
-    """Phase 11: the launcher with --dp-reduce under a one-rank NCCL
-    process group; launch counts set to 0 just before and read just
-    after."""
+@contextlib.contextmanager
+def one_rank_env():
+    """Inside, ``launch.mesh.init_dp`` joins a one-rank NCCL group."""
     env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
            "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port())}
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
-    args = [a if a != str(STEPS) else str(steps) for a in MAIN_ARGS]
     try:
-        reset_counts(kernel, hk)
-        t0 = time.perf_counter()
-        res = train.main(args + ["--dp-reduce", "compressed", *extra])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = all_counts(kernel, hk)
+        yield
     finally:
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def run_dp_path(train, kernel, hk, extra, steps):
+    """Phase 11: the launcher with --dp-reduce under a one-rank NCCL
+    process group; launch counts set to 0 just before and read just
+    after: K3 once a step for all 10 compressible leaves."""
+    args = [a if a != str(STEPS) else str(steps) for a in MAIN_ARGS]
+    with one_rank_env():
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernel, hk)
+        t0 = time.perf_counter()
+        res = train.main(args + ["--dp-reduce", "compressed", *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = all_counts(kernel, hk)
+        peak = torch.cuda.max_memory_allocated()
     ef = "--dp-error-feedback" in extra
-    want = {**fused_counts(k1=3 * steps), "K3": 10 * steps, "K4": 0,
-            "K5": 0, "K6": 0, "K7": (20 if ef else 10) * steps}
+    want = {k: 0 for k in counts}
+    want.update(fused_counts(k1=3 * steps), K3=steps,
+                K7=(20 if ef else 10) * steps)
+    want["K3 leaves"] = 10 * steps
     logged = [res.losses[i] for i in range(4, len(res.losses), 5)]
     print(f"dp path {extra}: {steps} steps in {wall:.2f} s; logged losses "
           f"{logged}; launches {counts}; step {res.step_ms:.2f} ms; wire "
-          f"bytes {res.wire_bytes}")
+          f"bytes {res.wire_bytes}; peak memory {peak / 2**20:.1f} MiB")
     if counts != want:
         raise AssertionError(f"dp path launched {counts}, want {want}")
     if not np.all(np.isfinite(res.losses)) or not logged[-1] < logged[0]:
@@ -930,7 +1036,80 @@ def run_dp_path(train, kernel, hk, extra, steps):
     for name, t in zip(*flatten_with_paths(res.params)):
         if not torch.isfinite(t).all():
             raise AssertionError(f"non-finite parameter {name}")
-    return res, counts
+    return res, counts, peak
+
+
+def check_grouped_reduction(hk, dev):
+    """Phase 11: one reduction of a full-width llama-60m gradient (seed 0
+    parameters, the launcher's first batch) over a one-rank NCCL group,
+    grouped (``compressed_means``: one K3 launch) and leaf by leaf
+    (``compressed_mean``: one K3 launch a leaf): the means bitwise equal,
+    with bf16 details and with fp8 details and error feedback (residues
+    too).  Prints each one's peak ``max_memory_allocated`` above what the
+    gradients and earlier phases hold; returns them."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed import compression as C
+    from repro_torch.launch.mesh import init_dp
+    from repro_torch.models import lm
+    from repro_torch.optim.base import flatten_with_paths
+
+    cfg = configs.get_config("llama-60m")
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                     dev).tree()
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             SyntheticLM(cfg.vocab, 256, 16, seed=0).batch(0).items()}
+    leaves = flatten_with_paths(params)[1]
+    grads, _ = lm._accumulate(cfg, params, leaves,
+                              lm.contiguous_microbatches(batch, 1), 1)
+    del params, leaves, batch
+    gen = torch.Generator(device=dev).manual_seed(3)
+    errs = [torch.randn(g.shape, generator=gen, device=dev) * 1e-4
+            for g in grads]
+    fp8 = torch.float8_e4m3fn
+    ways = {
+        "bf16": (lambda: C.compressed_means(grads, dp, 2, torch.bfloat16),
+                 lambda: [C.compressed_mean(g, dp, 2, torch.bfloat16)
+                          for g in grads]),
+        "fp8+ef": (lambda: C.compressed_means_ef(grads, errs, dp, 2, fp8),
+                   lambda: tuple(map(list, zip(*[
+                       C.compressed_mean_ef(g, e, dp, 2, fp8)
+                       for g, e in zip(grads, errs)])))),
+    }
+    peaks = {}
+    with one_rank_env():
+        dp = init_dp(dev)
+        try:
+            for label, (grouped, per_leaf) in ways.items():
+                got = {}
+                for way, fn in (("grouped", grouped), ("per leaf", per_leaf)):
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    before = hk.launches_fwd_q
+                    got[way] = fn()
+                    torch.cuda.synchronize()
+                    peaks[f"{label} {way}"] = (
+                        torch.cuda.max_memory_allocated() - base) / 2**20
+                    want = 1 if way == "grouped" else 10
+                    if hk.launches_fwd_q - before != want:
+                        raise AssertionError(
+                            f"{label} {way}: {hk.launches_fwd_q - before} "
+                            f"K3 launches, want {want}")
+                flat = lambda x: x if label == "bf16" else x[0] + x[1]
+                for i, (a, b) in enumerate(zip(flat(got["grouped"]),
+                                               flat(got["per leaf"]))):
+                    if not torch.equal(raw_bits(a), raw_bits(b)):
+                        raise AssertionError(f"{label}: grouped and per-leaf "
+                                             f"reductions differ at {i}")
+                del got
+        finally:
+            dp.close()
+    print(f"grouped DP reduction == per-leaf reduction, bitwise, at full "
+          f"width (bf16 means; fp8 means and residues with error "
+          f"feedback); peak MiB above the gradients: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in peaks.items()))
+    return peaks
 
 
 def bound_haar(kind, shape, level=LEVEL, wire_bytes=2):
@@ -981,59 +1160,189 @@ def device_ms(fn, iters, launches, flush):
     return sum(a.elapsed_time(b) for a, b in spans) / iters
 
 
-def time_haar(hk, dev):
-    """Phase 12: per launch at each leaf shape (level 2): the kernel's
-    device time (CUDA events around each launch, L2 flushed before it) and its time per
-    call back to back (CUDA events: the host's wrapper time when the host
-    is slower than the card, and inputs warm in L2 when they fit) vs the
-    plain version vs the bound; one step's worth is the count-weighted
-    sum."""
+class ParentHaar:
+    """The parent revision's K3, K6 and K7 (``haar_dwt@parent``, one leaf
+    a launch), called through that revision's C interface, with its own
+    launch counter."""
+
+    def __init__(self, build, hk):
+        import ctypes
+        self.ctypes, self.hk, self.launches = ctypes, hk, 0
+        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+        def declare(lib):
+            for fn in (lib.haar_dwt_fwd, lib.haar_dwt_fwd_q,
+                       lib.haar_dwt_inv):
+                fn.argtypes = [i, i, vp, vp, vp, ll, i, vp]
+                fn.restype = i
+        self.lib = build.load(PARENT_HAAR, declare)
+
+    def _call(self, fn, *args):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*args, stream)
+        if err:
+            raise RuntimeError(f"parent {fn.__name__}: CUDA error {err}")
+        self.launches += 1
+
+    def _ptrs(self, ts):
+        return (self.ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
+
+    def _fwd(self, fn, code, g, level, a_dtype, d_dtype):
+        m, n = g.shape
+        out = [torch.empty((m, n >> level), dtype=a_dtype, device=g.device)]
+        out += [torch.empty((m, n >> k), dtype=d_dtype, device=g.device)
+                for k in range(level, 0, -1)]
+        self._call(fn, code, level, g.data_ptr(), out[0].data_ptr(),
+                   self._ptrs(out[1:]), out[0].numel(),
+                   int(g.data_ptr() % 16 == 0))
+        return tuple(out)
+
+    def fwd_q(self, g, level, wire):
+        return self._fwd(self.lib.haar_dwt_fwd_q, self.hk._WIRE[wire], g,
+                         level, torch.float32, wire)
+
+    def fwd(self, g, level):
+        return self._fwd(self.lib.haar_dwt_fwd, self.hk._IN[g.dtype], g,
+                         level, g.dtype, g.dtype)
+
+    def inv(self, a, ds):
+        m, na = a.shape
+        out = torch.empty((m, na << len(ds)), dtype=a.dtype, device=a.device)
+        self._call(self.lib.haar_dwt_inv, self.hk._IN[a.dtype], len(ds),
+                   a.data_ptr(), self._ptrs(ds), out.data_ptr(), a.numel(),
+                   int(all(t.data_ptr() % 16 == 0 for t in (a, *ds))))
+        return out
+
+
+def dp_leaves(dev, dtype=torch.float32, seed=0):
+    """The 10 compressible leaves of llama-60m as the reduction hands them
+    to K3 (``DP_SHAPES``, each as often as a step has it), random
+    normal."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(*shape, generator=gen, device=dev).to(dtype)
+            for shape, count in DP_SHAPES for _ in range(count)]
+
+
+def host_us(fn, calls=100):
+    """Host time per call of ``fn`` (the wrapper's Python, checks, ctypes
+    call and launch), the card left to run behind."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def time_haar(hk, dev, parent):
+    """Phase 12 at level 2: per launch at each leaf shape, the kernel's
+    device time (CUDA events around each launch, L2 flushed before it; the
+    parent revision's K3, K6 and K7 in turns with the built ones, built,
+    parent, parent, built, when ``parent``), its time per call back to
+    back (CUDA events: the host's wrapper time when the host is slower than
+    the card, and inputs warm in L2 when they fit), the plain version's,
+    the bound; one step's worth is the count-weighted sum.  Then K3 (bf16
+    and fp8 details) and K6 (bf16) over the whole DP group as one grouped
+    launch: device time, time per call, the wrapper's host time per call
+    against ten single-leaf calls', the plain versions' and the bound (the
+    sum over the leaves).  Returns ``(rows, groups)``."""
+    from repro_torch.kernels import build
     from repro_torch.kernels.haar_dwt import ref as href
+    old = ParentHaar(build, hk) if parent else None
+    fp8 = torch.float8_e4m3fn
+    # name: (kernel, parent's, plain, input dtype, kind, wire bytes, counter)
+    q = lambda w: (lambda g: hk.haar_dwt_fwd_q(g, LEVEL, w),
+                   old and (lambda g: old.fwd_q(g, LEVEL, w)),
+                   lambda g: href.haar_dwt_fwd_q(g, LEVEL, w),
+                   torch.float32, "K3", w.itemsize,
+                   lambda: hk.launches_fwd_q)
     cases = {
-        "K3 bf16": (lambda g: hk.haar_dwt_fwd_q(g, LEVEL, torch.bfloat16),
-                    lambda g: href.haar_dwt_fwd_q(g, LEVEL, torch.bfloat16),
-                    torch.float32, "K3", 2),
-        "K3 fp8": (lambda g: hk.haar_dwt_fwd_q(g, LEVEL,
-                                               torch.float8_e4m3fn),
-                   lambda g: href.haar_dwt_fwd_q(g, LEVEL,
-                                                 torch.float8_e4m3fn),
-                   torch.float32, "K3", 1),
+        "K3 bf16": q(torch.bfloat16),
+        "K3 fp8": q(fp8),
         "K6 bf16": (lambda g: hk.haar_dwt_fwd(g, LEVEL),
+                    old and (lambda g: old.fwd(g, LEVEL)),
                     lambda g: href.haar_dwt_fwd(g, LEVEL),
-                    torch.bfloat16, "K6", 2),
+                    torch.bfloat16, "K6", 2, lambda: hk.launches_fwd),
         "K7 f32": (lambda b: hk.haar_dwt_inv(b[0], b[1:]),
+                   old and (lambda b: old.inv(b[0], b[1:])),
                    lambda b: href.haar_dwt_inv(b[0], b[1:]),
-                   torch.float32, "K7", 4),
+                   torch.float32, "K7", 4, lambda: hk.launches_inv),
     }
     rows = {name: [] for name in cases}
     flush = torch.empty(64 << 20, device=dev)   # 256 MB
     for shape, count in DP_SHAPES:
         g32 = torch.randn(*shape, device=dev)
-        for name, (kern, plain, dtype, kind, wb) in cases.items():
+        for name, (kern, prev, plain, dtype, kind, wb, counter) in \
+                cases.items():
             x = g32.to(dtype)
             if kind == "K7":
                 x = list(href.haar_dwt_fwd(g32, LEVEL))
-            counter = {"K3": lambda: hk.launches_fwd_q,
-                       "K6": lambda: hk.launches_fwd,
-                       "K7": lambda: hk.launches_inv}[kind]
             t_plain = [time_ms(lambda: plain(x), 5)]
             t_call = [time_ms(lambda: kern(x), 50), time_ms(lambda: kern(x),
                                                              50)]
-            t_dev = [device_ms(lambda: kern(x), 20, counter, flush)
-                     for _ in range(2)]
+            t_dev, t_parent = [], []
+            for which in ("built", "parent", "parent", "built") if old \
+                    else ("built", "built"):
+                if which == "built":
+                    t_dev.append(device_ms(lambda: kern(x), 20, counter,
+                                           flush))
+                else:
+                    t_parent.append(device_ms(lambda: prev(x), 20,
+                                              lambda: old.launches, flush))
             t_plain.append(time_ms(lambda: plain(x), 5))
             b_ms, b_by, nbytes = bound_haar(kind, shape, wire_bytes=wb)
             row = {"shape": list(shape), "per_step": count,
                    "ms": min(t_dev), "call_ms": min(t_call),
+                   "parent_ms": min(t_parent) if old else None,
                    "plain_ms": min(t_plain), "bound_ms": b_ms,
                    "bound_by": b_by, "bytes": nbytes}
             print(f"{name} time {shape}: kernel {row['ms']:.4f} ms on the "
-                  f"device (runs {t_dev}), {row['call_ms']:.4f} ms per call "
-                  f"(runs {t_call}), plain {row['plain_ms']:.4f} ms, bound "
-                  f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.2f} MB), "
-                  f"{b_ms / row['ms']:.1%} of bound")
+                  f"device (runs {t_dev}), {b_ms / row['ms']:.1%} of bound; "
+                  f"parent's "
+                  + (f"{row['parent_ms']:.4f} ms (runs {t_parent})" if old
+                     else "not built (tools/parent_kernels.py not run)")
+                  + f"; {row['call_ms']:.4f} ms per call (runs {t_call}), "
+                  f"plain {row['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by "
+                  f"{b_by} ({nbytes / 1e6:.2f} MB)")
             rows[name].append(row)
-    return rows
+    groups = {}
+    for name in ("K3 bf16", "K3 fp8", "K6 bf16"):
+        kern, _, plain, dtype, kind, wb, counter = cases[name]
+        gs = dp_leaves(dev, dtype)
+        if kind == "K3":
+            wire = torch.bfloat16 if wb == 2 else fp8
+            group = lambda: hk.haar_dwt_fwd_q_group(gs, LEVEL, wire)
+        else:
+            group = lambda: hk.haar_dwt_fwd_group(gs, LEVEL)
+        singles = lambda: [kern(g) for g in gs]
+        t_dev = [device_ms(group, 20, counter, flush) for _ in range(2)]
+        t_call = [time_ms(group, 50) for _ in range(2)]
+        t_plain = min(time_ms(lambda: [plain(g) for g in gs], 5)
+                      for _ in range(2))
+        host = [host_us(group), host_us(singles, 20)]
+        step = {k: sum(r[k] * r["per_step"] for r in rows[name])
+                for k in ("ms", "bound_ms", "bytes")}
+        parent_step = sum(r["parent_ms"] * r["per_step"]
+                          for r in rows[name]) if old else None
+        groups[name] = {
+            "ms": min(t_dev), "call_ms": min(t_call), "plain_ms": t_plain,
+            "bound_ms": step["bound_ms"], "bytes": step["bytes"],
+            "ten_launches_ms": step["ms"], "parent_ten_launches_ms":
+            parent_step, "host_us_per_call": host[0],
+            "host_us_ten_single_calls": host[1]}
+        print(f"{name} DP group (10 leaves, one launch): kernel "
+              f"{min(t_dev):.4f} ms on the device (runs {t_dev}), "
+              f"{step['bound_ms'] / min(t_dev):.1%} of its bound "
+              f"{step['bound_ms']:.4f} ms; as 10 single launches "
+              f"{step['ms']:.4f} ms ({step['bound_ms'] / step['ms']:.1%}); "
+              f"parent's 10 launches "
+              + (f"{parent_step:.4f} ms" if old else "not built")
+              + f"; {min(t_call):.4f} ms per call back to back; host "
+              f"{host[0]:.1f} us per grouped call against {host[1]:.1f} us "
+              f"for 10 single calls; plain {t_plain:.4f} ms")
+    return rows, groups
 
 
 def staged_loop(opt, steps, seed=0):
@@ -1101,8 +1410,8 @@ def run_staged_path(kernel, hk, codec, fused):
           f"(fused path {fused.step_ms:.2f} ms); peak memory of the run "
           f"{peak / 2**20:.1f} MiB above what earlier phases hold; max "
           f"|loss - fused path's| {gap:.3g} (<= {TOL_STAGED_LOSS[codec]})")
-    want = {**fused_counts(), "K3": 0, "K4": 7 * STEPS, "K5": 0, "K6": 0,
-            "K7": 0}
+    want = {k: 0 for k in counts}
+    want.update(fused_counts(), K4=7 * STEPS)
     if counts != want:
         raise AssertionError(f"staged {codec} path launched {counts}, "
                              f"want {want}")
@@ -1262,12 +1571,13 @@ def bound_tile(shape, level=LEVEL, esize=2, q8=False):
         else "operations", nbytes
 
 
-# the parent revision's GWT-Adam sources, written by
-# tools/parent_kernels.py before a chip call; phase 17 times its K4/K5
+# the parent revision's kernel sources, written by tools/parent_kernels.py
+# before a chip call; phase 17 times its K4/K5 and phase 12 its K3/K6/K7
 # beside the kernels as built.  A checkout without them (no git history to
-# take them from) skips that comparison.
+# take them from) skips those comparisons.
 PARENT_DIR = Path(REPO) / "build" / "parent_kernels"
 PARENT_LIB = "gwt_adam_tile@parent"
+PARENT_HAAR = "haar_dwt@parent"
 
 
 def register_parent(build, lib="gwt_adam_tile") -> bool:
@@ -1283,15 +1593,20 @@ def register_parent(build, lib="gwt_adam_tile") -> bool:
 
 
 @contextlib.contextmanager
-def tile_library(kernel, build, name):
-    """Inside, the K4/K5 wrappers launch library ``name``'s kernels (the
-    same C interface)."""
-    saved = build._libs.get("gwt_adam_tile")
-    build._libs["gwt_adam_tile"] = build.load(name, kernel._declare_tile)
+def library(build, lib, name, declare):
+    """Inside, the wrappers of library ``lib`` launch library ``name``'s
+    kernels (the same C interface)."""
+    saved = build.load(lib, declare)
+    build._libs[lib] = build.load(name, declare)
     try:
         yield
     finally:
-        build._libs["gwt_adam_tile"] = saved
+        build._libs[lib] = saved
+
+
+def tile_library(kernel, build, name):
+    """Inside, the K4/K5 wrappers launch library ``name``'s kernels."""
+    return library(build, "gwt_adam_tile", name, kernel._declare_tile)
 
 
 def copy_ms(nbytes: int, flush: torch.Tensor, dev) -> float:
@@ -1385,6 +1700,20 @@ def haar_entry(name, replaces, launches, max_abs_err, rows, **extra):
                       max_abs_err, rows, **extra)
 
 
+def group_entry(name, replaces, launches, max_abs_err, rows, group,
+                **extra):
+    """K3's or K6's line: ``ms``, ``call_ms``, ``plain_ms`` and
+    ``bound_ms`` of one grouped launch over the DP group (one step's
+    split), beside the same step as ten single-leaf launches and the
+    parent revision's ten, timed in the same call."""
+    entry = haar_entry(name, replaces, launches, max_abs_err, rows,
+                       **extra)
+    entry.update(ms=group["ms"], call_ms=group["call_ms"],
+                 plain_ms=group["plain_ms"], bound_ms=group["bound_ms"],
+                 group=group)
+    return entry
+
+
 def step_entry(name, source, replaces, launches, max_abs_err, rows,
                **extra):
     """One step's worth of a kernel launched per leaf: each shape's time
@@ -1430,10 +1759,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     parent = register_parent(build)
-    if parent:
-        print(f"parent K4/K5 for phase 17: revision "
+    parent_haar = register_parent(build, "haar_dwt")
+    if parent or parent_haar:
+        print(f"parent kernels (K4/K5 for phase 17: {parent}, K3/K6/K7 for "
+              f"phase 12: {parent_haar}): revision "
               f"{(PARENT_DIR / 'REVISION').read_text().strip()}")
-    libs = build.build_all(verbose=True)
+    libs = build.build_all(tuple(build.SOURCES), verbose=True)
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           f"{[os.path.relpath(p, REPO) for p in libs.values()]}")
     print_plans(kernel)
@@ -1454,10 +1785,11 @@ def main() -> int:
         raise AssertionError(f"int8 state is {mib8} bytes, the JAX package "
                              f"counts {STATE_BYTES_INT8}")
     check_resume(train, res8)
-    res_dp, dp_counts = run_dp_path(train, kernel, hk, [], STEPS)
-    res_ef, ef_counts = run_dp_path(
+    res_dp, dp_counts, peak_dp = run_dp_path(train, kernel, hk, [], STEPS)
+    res_ef, ef_counts, _ = run_dp_path(
         train, kernel, hk, ["--dp-detail-dtype", "float8_e4m3fn",
                             "--dp-error-feedback"], DP_EF_STEPS)
+    reduction_peaks = check_grouped_reduction(hk, dev)
 
     staged32, _, _ = run_staged_path(kernel, hk, "f32", res32)
     staged8, _, _ = run_staged_path(kernel, hk, "int8", res8)
@@ -1467,7 +1799,7 @@ def main() -> int:
 
     rows_k1 = time_fused(kernel, ref, dev, q8=False)
     rows_k2 = time_fused(kernel, ref, dev, q8=True)
-    rows_haar = time_haar(hk, dev)
+    rows_haar, groups_haar = time_haar(hk, dev, parent_haar)
     wrap_dec, wrap_enc = time_generic_wrap(dev)
     prof32 = profile_step(dev, "f32")
     prof8 = profile_step(dev, "int8")
@@ -1483,7 +1815,10 @@ def main() -> int:
           f"{prof32['device_busy_ms']:.2f} ms")
     print(f"dp step vs plain step (same call): launcher {res_dp.step_ms:.2f} "
           f"vs {res32.step_ms:.2f} ms; profiled {prof_dp['step_ms']:.2f} vs "
-          f"{prof32['step_ms']:.2f} ms")
+          f"{prof32['step_ms']:.2f} ms; device {prof_dp['device_busy_ms']:.2f}"
+          f" vs {prof32['device_busy_ms']:.2f} ms; kernel launches per step "
+          f"{prof_dp['launches_per_step']} vs {prof32['launches_per_step']}; "
+          f"peak memory of the DP run {peak_dp / 2**20:.1f} MiB")
     entries = [
         fused_entry("gwt_adam_fused", "gwt_adam/csrc/gwt_adam_fused.cu",
                     "src/repro/kernels/gwt_adam/kernel.py:404",
@@ -1498,16 +1833,25 @@ def main() -> int:
                     profile=prof8, phase_3_buckets_by_design=designs_k2,
                     embedding_wrap_ms={
                         "decode": wrap_dec, "encode": wrap_enc}),
-        haar_entry("haar_dwt_fwd_q",
-                   "src/repro/kernels/haar_dwt/kernel.py:124",
-                   dp_counts["K3"], err_haar, rows_haar["K3 bf16"],
-                   fp8_per_launch=rows_haar["K3 fp8"], step_ms=res_dp.step_ms,
-                   wire_bytes=res_dp.wire_bytes, profile=prof_dp,
-                   ef_fp8_launches=ef_counts),
-        haar_entry("haar_dwt_fwd", "src/repro/kernels/haar_dwt/kernel.py:93",
-                   dp_counts["K6"], err_haar, rows_haar["K6 bf16"]),
+        group_entry("haar_dwt_fwd_q",
+                    "src/repro/kernels/haar_dwt/kernel.py:124",
+                    dp_counts["K3"], err_haar, rows_haar["K3 bf16"],
+                    groups_haar["K3 bf16"],
+                    fp8_per_launch=rows_haar["K3 fp8"],
+                    fp8_group=groups_haar["K3 fp8"],
+                    leaves=dp_counts["K3 leaves"], step_ms=res_dp.step_ms,
+                    wire_bytes=res_dp.wire_bytes, profile=prof_dp,
+                    peak_mib=peak_dp / 2**20,
+                    reduction_peak_mib=reduction_peaks,
+                    ef_fp8_launches=ef_counts),
+        group_entry("haar_dwt_fwd", "src/repro/kernels/haar_dwt/kernel.py:93",
+                    dp_counts["K6"], err_haar, rows_haar["K6 bf16"],
+                    groups_haar["K6 bf16"]),
         haar_entry("haar_dwt_inv", "src/repro/kernels/haar_dwt/kernel.py:144",
-                   dp_counts["K7"], err_haar, rows_haar["K7 f32"]),
+                   dp_counts["K7"], err_haar, rows_haar["K7 f32"],
+                   parent_ms=None if not parent_haar else sum(
+                       r["parent_ms"] * r["per_step"]
+                       for r in rows_haar["K7 f32"])),
         tile_entry("gwt_adam_tile", staged32["launches"]["K4"],
                    rows_tile["K4"], phase_13_cases=tile_cases_run,
                    staged_f32=staged32, staged_int8=staged8,

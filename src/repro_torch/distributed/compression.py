@@ -17,10 +17,12 @@ mode and every wire dtype; an NCCL or gloo all-reduce would round at every
 hop, and gloo has no fp8.  The gather receives ``(D-1)`` payloads per rank;
 :func:`tree_wire_bytes` keeps the reference's ring-all-reduce accounting.
 
-The split runs the K3 kernel (``ops.dwt_wire``) and the reconstruction the
-K7 kernel (``ops.idwt``) on CUDA tensors; CPU tensors take their plain
-versions.  ``level == 0`` or ``detail_dtype=None`` is the exact mode: one
-f32 sum.  Leaves that are not :func:`compressible` always take it.
+The split runs the K3 kernel on CUDA tensors, all compressible leaves of
+a step in one grouped launch (``ops.dwt_wire_group``, from
+:func:`compressed_means`), and the reconstruction the K7 kernel
+(``ops.idwt``) leaf by leaf; CPU tensors take their plain versions.
+``level == 0`` or ``detail_dtype=None`` is the exact mode: one f32 sum.
+Leaves that are not :func:`compressible` always take it.
 """
 
 from __future__ import annotations
@@ -89,15 +91,23 @@ def compressible(shape: Sequence[int], level: int) -> bool:
     return len(shape) >= 2 and level > 0 and shape[-1] % (1 << level) == 0
 
 
+def reduce_terms_group(gs: Sequence[torch.Tensor], level: int,
+                       detail_dtype: torch.dtype
+                       ) -> List[Tuple[torch.Tensor, List[torch.Tensor]]]:
+    """One rank's wire terms of each leaf of ``gs``: ``A_l`` in f32 and the
+    details in ``detail_dtype``, through one grouped K3 launch on the
+    leaves' ``(-1, n)`` rows."""
+    flats = [g.float().reshape(-1, g.shape[-1]).contiguous() for g in gs]
+    return [(bands[0].reshape(*g.shape[:-1], -1),
+             [d.reshape(*g.shape[:-1], -1) for d in bands[1:]])
+            for g, bands in zip(gs, ops.dwt_wire_group(flats, level,
+                                                       detail_dtype))]
+
+
 def reduce_terms(g: torch.Tensor, level: int, detail_dtype: torch.dtype
                  ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """One rank's wire terms: ``A_l`` in f32 and the details in
-    ``detail_dtype``, through the K3 kernel on ``(-1, n)`` rows."""
-    lead = g.shape[:-1]
-    flat = g.float().reshape(-1, g.shape[-1]).contiguous()
-    bands = ops.dwt_wire(flat, level, detail_dtype)
-    return (bands[0].reshape(*lead, -1),
-            [d.reshape(*lead, -1) for d in bands[1:]])
+    """:func:`reduce_terms_group` of one leaf."""
+    return reduce_terms_group([g], level, detail_dtype)[0]
 
 
 def reconstruct(a: torch.Tensor, ds: Sequence[torch.Tensor], n
@@ -160,37 +170,73 @@ def exact_mean(x: torch.Tensor, dp) -> torch.Tensor:
     return _wire_sum([x.float()], dp)[0] / _world(dp)
 
 
+def _compressed(shape, level: int, detail_dtype) -> bool:
+    return detail_dtype is not None and compressible(shape, level)
+
+
+def compressed_means(gs: Sequence[torch.Tensor], dp, level: int = 2,
+                     detail_dtype: Optional[torch.dtype] = torch.bfloat16
+                     ) -> List[torch.Tensor]:
+    """Mean of each leaf of ``gs`` over the ranks of ``dp``: A_l in f32, the
+    details in ``detail_dtype``; ``detail_dtype=None`` or ``level == 0`` is
+    the exact f32 mean, which non-compressible leaves always take.  The
+    compressible leaves are split in one grouped K3 launch; then leaf by
+    leaf, in order, each one's terms are summed over the ranks (one gather
+    a leaf) and reconstructed."""
+    n = _world(dp)
+    terms = iter(reduce_terms_group(
+        [g for g in gs if _compressed(g.shape, level, detail_dtype)], level,
+        detail_dtype))
+    out = []
+    for g in gs:
+        if not _compressed(g.shape, level, detail_dtype):
+            out.append(exact_mean(g, dp))
+            continue
+        a, ds = next(terms)
+        a, *ds = _wire_sum([a, *ds], dp)
+        out.append(reconstruct(a, ds, n))
+    return out
+
+
+def compressed_means_ef(gs: Sequence[torch.Tensor],
+                        errs: Sequence[torch.Tensor], dp, level: int = 2,
+                        detail_dtype: Optional[torch.dtype] = torch.bfloat16
+                        ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """:func:`compressed_means` with error feedback: ``errs[i]`` is this
+    rank's residue of leaf i (its shape, f32).  Returns ``(means,
+    new_errs)``; the exact and non-compressible leaves keep a zero
+    residue."""
+    n = _world(dp)
+    gcs = [g.float() + e for g, e in zip(gs, errs)
+           if _compressed(g.shape, level, detail_dtype)]
+    terms = iter(zip(gcs, reduce_terms_group(gcs, level, detail_dtype)))
+    means, new_errs = [], []
+    for g, err in zip(gs, errs):
+        if not _compressed(g.shape, level, detail_dtype):
+            means.append(exact_mean(g, dp))
+            new_errs.append(torch.zeros_like(err))
+            continue
+        gc, (a, ds) = next(terms)
+        new_errs.append(local_residual(gc, a, ds))
+        a, *ds = _wire_sum([a, *ds], dp)
+        means.append(reconstruct(a, ds, n))
+    return means, new_errs
+
+
 def compressed_mean(g: torch.Tensor, dp, level: int = 2,
                     detail_dtype: Optional[torch.dtype] = torch.bfloat16
                     ) -> torch.Tensor:
-    """Mean of ``g`` over the ranks of ``dp``: A_l in f32, the details in
-    ``detail_dtype``; ``detail_dtype=None`` or ``level == 0`` is the exact
-    f32 mean, which non-compressible leaves always take."""
-    n = _world(dp)
-    if detail_dtype is None or level == 0 or not compressible(g.shape,
-                                                              level):
-        return exact_mean(g, dp)
-    a, ds = reduce_terms(g, level, detail_dtype)
-    a, *ds = _wire_sum([a, *ds], dp)
-    return reconstruct(a, ds, n)
+    """:func:`compressed_means` of one leaf."""
+    return compressed_means([g], dp, level, detail_dtype)[0]
 
 
 def compressed_mean_ef(g: torch.Tensor, err: torch.Tensor, dp,
                        level: int = 2,
                        detail_dtype: Optional[torch.dtype] = torch.bfloat16
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`compressed_mean` with error feedback: ``err`` is this rank's
-    residue (``g``'s shape, f32).  Returns ``(mean, new_err)``; the exact
-    and non-compressible leaves keep a zero residue."""
-    n = _world(dp)
-    if detail_dtype is None or level == 0 or not compressible(g.shape,
-                                                              level):
-        return exact_mean(g, dp), torch.zeros_like(err)
-    gc = g.float() + err
-    a, ds = reduce_terms(gc, level, detail_dtype)
-    new_err = local_residual(gc, a, ds)
-    a, *ds = _wire_sum([a, *ds], dp)
-    return reconstruct(a, ds, n), new_err
+    """:func:`compressed_means_ef` of one leaf: ``(mean, new_err)``."""
+    means, errs = compressed_means_ef([g], [err], dp, level, detail_dtype)
+    return means[0], errs[0]
 
 
 def ef_init(tree):

@@ -153,10 +153,12 @@ def make_sharded_train_step(cfg, optimizer, *, dp, dp_reduce,
 
     Rank ``r`` of ``D`` takes the contiguous rows ``[r·B/D, (r+1)·B/D)`` of
     the global batch and splits them into contiguous microbatches.  Its f32
-    gradient means are reduced leaf by leaf, in flatten order, by
-    ``distributed.compression`` (exact f32 or wavelet-compressed; with error
-    feedback when ``dp_reduce.error_feedback``), then cast to ``cfg.dtype``
-    for ``optimizer.update``.  The returned loss is the mean over ranks.
+    gradient means are reduced by ``distributed.compression.compressed_means``
+    (exact f32 or wavelet-compressed, every compressible leaf split in one
+    grouped launch, then summed over the ranks leaf by leaf in flatten
+    order; with error feedback when ``dp_reduce.error_feedback``), then cast
+    to ``cfg.dtype`` for ``optimizer.update``.  The returned loss is the mean
+    over ranks.
 
     With error feedback the state is ``{"opt": <optimizer state>, "dp_ef":
     <residues>}``, each residue leaf ``(1, *param_shape)`` f32: this rank's
@@ -193,15 +195,14 @@ def make_sharded_train_step(cfg, optimizer, *, dp, dp_reduce,
                                  contiguous_microbatches(local, accum_steps),
                                  accum_steps)
         loss = compression.exact_mean(lsum / accum_steps, dp)
+        gmean = [s / accum_steps for s in gsum]
         if ef_on:
-            pairs = [compression.compressed_mean_ef(s / accum_steps, e[0], dp,
-                                                    level, wire)
-                     for s, e in zip(gsum, flatten_with_paths(ef)[1])]
-            means = [mean for mean, _ in pairs]
-            new_ef = [err[None] for _, err in pairs]
+            means, errs = compression.compressed_means_ef(
+                gmean, [e[0] for e in flatten_with_paths(ef)[1]], dp, level,
+                wire)
+            new_ef = [err[None] for err in errs]
         else:
-            means = [compression.compressed_mean(s / accum_steps, dp, level,
-                                                 wire) for s in gsum]
+            means = compression.compressed_means(gmean, dp, level, wire)
         grads = unflatten(paths, [m.to(cfg.torch_dtype) for m in means])
         params, opt_state = optimizer.update(grads, opt_state, params)
         if ef_on:

@@ -13,7 +13,9 @@ norm, and K4's and K5's outputs and ‖G̃‖² partials are held bitwise, at
 three seeds where a seed could matter.  K1's and K2's one-pass design must
 equal their two-pass kernels bitwise on every output.  The Haar DWT
 kernels (K3, K6, K7) round where their plain versions round: bitwise, NaN
-codes of the fp8 wire included.
+codes of the fp8 wire included; K3's and K6's grouped entries too, leaf by
+leaf (unaligned leaves, ragged last tiles, groups of two launches), and
+the grouped data-parallel reduction equals the per-leaf one.
 """
 
 import pytest
@@ -493,3 +495,92 @@ def test_dwt_entry_points_count_launches_and_refuse():
     with pytest.raises(ValueError, match="detail 0"):
         haar_ops.idwt(a, [d for d in ds])
     assert haar_kernel.launches_fwd_q == before[1] + 1
+
+
+def _group_leaves(dev, level, seed, scale=300.0):
+    """Mixed f32 leaves: odd rows, an odd coefficient count over several
+    tiles (a ragged last tile), the same unaligned (one element past a
+    16-byte boundary), a one-row leaf, and 36 small leaves (40 in all: two
+    launches); the first carries 1e30 and +-inf."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shapes = [(37, 344), (101, 43 << level), (101, 43 << level), (1, 64)]
+    shapes += [(1 + i % 5, 8 * (3 + i % 11)) for i in range(36)]
+    gs = [torch.randn(*s, generator=gen, device=dev) * scale for s in shapes]
+    gs[0][1, [0, 8, 16]] = torch.tensor([1e30, float("inf"),
+                                         -float("inf")], device=dev)
+    buf = torch.empty(gs[2].numel() + 1, device=dev)
+    buf[1:].copy_(gs[2].reshape(-1))
+    gs[2] = buf[1:].view(gs[2].shape)
+    return gs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [1, 2, 3])
+def test_grouped_dwt_kernels_match_plain_versions(level):
+    """K3 (every wire dtype) and K6 (f32, bf16) over one group: every band
+    of every leaf bitwise to the per-leaf plain version, in two launches
+    (40 leaves), counted as such."""
+    dev = _card()
+    gs = _group_leaves(dev, level, level)
+    for wire in (torch.bfloat16, torch.float16, torch.float8_e4m3fn):
+        before = (haar_kernel.launches_fwd_q, haar_kernel.leaves_fwd_q)
+        got = haar_kernel.haar_dwt_fwd_q_group(gs, level, wire)
+        torch.cuda.synchronize()
+        assert (haar_kernel.launches_fwd_q, haar_kernel.leaves_fwd_q) == \
+            (before[0] + 2, before[1] + 40)
+        for g, bands in zip(gs, got):
+            for a, b in zip(bands, haar_ref.haar_dwt_fwd_q(g, level, wire)):
+                assert a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+    for dtype in (torch.float32, torch.bfloat16):
+        xs = [(g / 300).to(dtype) for g in gs]
+        before = (haar_kernel.launches_fwd, haar_kernel.leaves_fwd)
+        got = haar_kernel.haar_dwt_fwd_group(xs, level)
+        torch.cuda.synchronize()
+        assert (haar_kernel.launches_fwd, haar_kernel.leaves_fwd) == \
+            (before[0] + 2, before[1] + 40)
+        for x, bands in zip(xs, got):
+            for a, b in zip(bands, haar_ref.haar_dwt_fwd(x, level)):
+                assert a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ef", [False, True])
+def test_grouped_reduction_matches_per_leaf(ef):
+    """``compressed_means(_ef)`` (one K3 launch for the compressible leaves)
+    bitwise equal to the per-leaf ``compressed_mean(_ef)`` on one rank."""
+    from repro_torch.distributed import compression
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(4)
+    shapes = [(64, 32), (2, 32, 88), (32,), (2, 88, 32), (64, 32)]
+    gs = [torch.randn(*s, generator=gen, device=dev) for s in shapes]
+    errs = [torch.randn(*s, generator=gen, device=dev) * 1e-3
+            for s in shapes]
+    wire = torch.float8_e4m3fn if ef else torch.bfloat16
+    before = (haar_kernel.launches_fwd_q, haar_kernel.leaves_fwd_q)
+    if ef:
+        got = compression.compressed_means_ef(gs, errs, None, 2, wire)
+        want = list(zip(*[compression.compressed_mean_ef(g, e, None, 2, wire)
+                          for g, e in zip(gs, errs)]))
+        pairs = list(zip(got[0] + got[1], list(want[0]) + list(want[1])))
+    else:
+        got = compression.compressed_means(gs, None, 2, wire)
+        pairs = list(zip(got, [compression.compressed_mean(g, None, 2, wire)
+                               for g in gs]))
+    assert (haar_kernel.launches_fwd_q, haar_kernel.leaves_fwd_q) == \
+        (before[0] + 1 + 4, before[1] + 4 + 4)
+    for a, b in pairs:
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+def test_group_entries_refuse_cpu_tensors():
+    dev = _card()
+    g = torch.randn(8, 64, device=dev)
+    before = (haar_kernel.launches_fwd_q, haar_kernel.launches_fwd)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        haar_kernel.haar_dwt_fwd_q_group([g, g.cpu()], 2, torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        haar_kernel.haar_dwt_fwd_group([g.cpu()], 2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        haar_ops.dwt_wire_group([g.cpu(), g], 2, torch.bfloat16)
+    assert (haar_kernel.launches_fwd_q, haar_kernel.launches_fwd) == before

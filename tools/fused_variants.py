@@ -55,10 +55,11 @@ VARIANTS = {
 }
 
 
-def make(name: str, edits) -> Path:
+def make(name: str, edits, csrc: Path = CSRC) -> Path:
+    """A copy of ``csrc`` with ``edits`` in ``build/fused_variants/name``."""
     out = REPO / "build/fused_variants" / name
     shutil.rmtree(out, ignore_errors=True)
-    shutil.copytree(CSRC, out)
+    shutil.copytree(csrc, out)
     for fname, reps in edits.items():
         path = out / fname
         text = path.read_text()
