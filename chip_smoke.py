@@ -89,7 +89,20 @@ Phases (any failure raises and the script exits non-zero):
     ``copy_`` of the same bytes and, where ``tools/parent_kernels.py``
     wrote the parent revision's sources into ``build/parent_kernels/``, the
     parent's K4 and K5 (built in phase 1, timed in turns with the current
-    ones), and profile the staged step beside the fused one.
+    ones), and profile the staged step beside the fused one;
+18. the corpus path: build a byte corpus of ``src/repro/**/*.py`` with
+    ``repro_torch.data.build_corpus`` (printing its hash and split sizes)
+    and train full-width llama-60m GWT-2 on it for 20 steps with
+    ``--data corpus --workers 2 --eval-every 10 --eval-batches 4``: K1
+    must launch exactly 3 times per step, all one-pass, K2 never; the
+    losses be finite and falling; evals at steps 10 and 20, finite and
+    falling.  The same steps with ``--workers 0`` and no eval must give
+    bitwise-equal losses, parameters and state; 10 steps + checkpoint +
+    resume must equal the 20 straight steps bitwise; a resume against a
+    corpus of another hash must be refused.  Prints the step time beside
+    phase 5's synthetic step, the watchdog's dispatch and blocked
+    s/step, and one eval's wall time, with the card's name and power
+    limit.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -99,6 +112,7 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -1442,9 +1456,12 @@ def check_unrolled(steps=3):
 def update_peak(opt, params, grads):
     """Bytes allocated at the peak of one ``opt.update`` (after a first
     update, so plans and salt tables exist), and that peak above what was
-    allocated just before the call."""
+    allocated just before the call.  Garbage is collected first: device
+    tensors in reference cycles that a collection frees during the update
+    would otherwise lower its reading, down to 0 extra bytes."""
     state = opt.init(params)
     params, state = opt.update(grads, state, params)
+    gc.collect()
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1474,6 +1491,7 @@ def check_update_memory(dev):
     for name, params in trees.items():
         row = {}
         for flow, kw in (("fused", {}), ("staged", {"fused_write": False})):
+            gc.collect()
             torch.cuda.empty_cache()
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
@@ -1741,6 +1759,161 @@ def fused_entry(name, source, replaces, launches, max_abs_err, rows,
                                            for r in rows), **extra)
 
 
+# Phase 18: the corpus path.  A byte corpus of the JAX package's sources
+# (frozen, so its content hash is the same in every revision), built by the
+# port's build_corpus, and a second build with another held-out tail (the
+# same text and vocab, another hash) for the refused resume.
+CORPUS_GLOB = os.path.join("src", "repro", "**", "*.py")
+CORPUS_EVAL_FRACTIONS = (0.05, 0.1)
+CORPUS_EVAL = ["--eval-every", "10", "--eval-batches", "4"]
+EVAL_TIMING_RUNS = 5
+
+
+def build_corpora(tmp):
+    """The phase's corpus and the one with another eval tail; prints each
+    one's hash and split sizes."""
+    from repro_torch.data import build_corpus
+    out = []
+    for frac in CORPUS_EVAL_FRACTIONS:
+        d = os.path.join(tmp, f"corpus_{frac}")
+        t0 = time.perf_counter()
+        index = build_corpus.build(os.path.join(REPO, CORPUS_GLOB), d,
+                                   tokenizer_kind="byte",
+                                   eval_fraction=frac)
+        tr = index["splits"]["train"]["n_tokens"]
+        ev = index["splits"]["eval"]["n_tokens"]
+        print(f"corpus {CORPUS_GLOB} (byte, eval fraction {frac}): hash "
+              f"{index['corpus_hash']}; train {tr} tokens "
+              f"({(tr - 1) // 256} windows of 257), eval {ev} tokens "
+              f"({(ev - 1) // 256} windows); built in "
+              f"{time.perf_counter() - t0:.2f} s")
+        out.append((d, index["corpus_hash"]))
+    return out
+
+
+def time_eval(res, corpus, dev):
+    """Wall time of one eval as the launcher runs it (4 batches of 16 x
+    256 of the eval split, a host fetch at the end), on the trained
+    parameters: the first call and the best of the next ones."""
+    from repro_torch import configs
+    from repro_torch.data.eval import make_lm_evaluator
+    from repro_torch.data.pipeline import make_source
+    from repro_torch.data.store import TokenStore
+    from repro_torch.models import lm
+    cfg = configs.get_config("llama-60m")    # the launcher's vocab rule
+    cfg = cfg.with_(vocab=max(cfg.vocab, TokenStore(corpus).vocab_size))
+    batch, seq = (int(MAIN_ARGS[MAIN_ARGS.index(flag) + 1])
+                  for flag in ("--batch", "--seq"))
+    ev = make_lm_evaluator(cfg, lm, make_source(
+        "corpus", cfg.vocab, seq, batch, corpus_dir=corpus, split="eval"),
+        n_batches=4, device=dev)
+    walls, losses = [], []
+    for _ in range(1 + EVAL_TIMING_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(ev(res.params)["loss"])
+        walls.append(time.perf_counter() - t0)
+    if len(set(losses)) != 1 or losses[0] != res.evals[-1][1]:
+        raise AssertionError(f"eval of the final parameters {losses} != "
+                             f"the launcher's step-20 eval {res.evals[-1]}")
+    return walls[0] * 1e3, min(walls[1:]) * 1e3
+
+
+def run_corpus_path(train, kernel, hk, dev, synthetic, card):
+    """Phase 18: full-width llama-60m GWT-2 on the byte corpus through K1,
+    with 2 data workers and eval every 10 steps (launch counts set to 0
+    just before and read just after); the same steps with the prefetch
+    thread and no eval, bitwise; 10 steps + checkpoint + resume, bitwise;
+    a resume against the other corpus refused.  Returns the K1 entry's
+    ``corpus_path`` record."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
+    try:
+        (corpus, digest), (other, _) = build_corpora(tmp)
+        args = MAIN_ARGS + ["--data", "corpus", "--corpus-dir", corpus]
+        reset_counts(kernel, hk)
+        t0 = time.perf_counter()
+        res = train.main(args + ["--workers", "2"] + CORPUS_EVAL)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = all_counts(kernel, hk)
+        want = {k: 0 for k in counts}
+        want.update(fused_counts(k1=3 * STEPS))
+        if counts != want:
+            raise AssertionError(f"corpus path launched {counts} in {STEPS} "
+                                 f"steps, want {want}")
+        logged = [res.losses[i] for i in range(4, len(res.losses), 5)]
+        if not np.all(np.isfinite(res.losses)) or not logged[-1] < logged[0]:
+            raise AssertionError(f"corpus path losses {res.losses}")
+        steps = [s for s, _ in res.evals]
+        evals = [v for _, v in res.evals]
+        if steps != [10, 20] or not np.all(np.isfinite(evals)):
+            raise AssertionError(f"evals {res.evals}, want finite ones at "
+                                 f"steps 10 and 20")
+        if not evals[1] < evals[0]:
+            raise AssertionError(f"eval loss did not fall: {res.evals}")
+        plain = train.main(args + ["--workers", "0"])
+        if plain.losses != res.losses:
+            raise AssertionError(f"workers 0 without eval: {plain.losses} vs "
+                                 f"{res.losses}")
+        assert_bitwise(plain.params, res.params, "workers 0 without eval")
+        assert_bitwise(plain.opt_state, res.opt_state,
+                       "workers 0 without eval (state)")
+        ckpt = ["--ckpt-dir", os.path.join(tmp, "ckpt"), "--ckpt-every",
+                "10", "--workers", "2"] + CORPUS_EVAL
+        first = train.main(args + ckpt)
+        shutil.rmtree(os.path.join(tmp, "ckpt", f"step_{STEPS:09d}"))
+        resumed = train.main(args + ckpt + ["--resume", "--workers", "0"])
+        if resumed.start_step != 10 or first.losses[10:] != resumed.losses \
+                or list(resumed.evals) != list(res.evals[1:]):
+            raise AssertionError(f"resume from {resumed.start_step}: losses "
+                                 f"{resumed.losses} vs {first.losses[10:]}, "
+                                 f"evals {resumed.evals}")
+        assert_bitwise(resumed.params, res.params, "resumed params")
+        assert_bitwise(resumed.opt_state, res.opt_state, "resumed state")
+        foreign = MAIN_ARGS + ["--data", "corpus", "--corpus-dir", other]
+        try:
+            train.main(foreign + ckpt + ["--resume"])
+        except SystemExit as e:
+            if "corpus_hash" not in str(e):
+                raise
+            refused = str(e)
+        else:
+            raise AssertionError("a resume on another corpus was not refused")
+        eval_first_ms, eval_ms = time_eval(res, corpus, dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wd, wd32 = res.watchdog, synthetic.watchdog
+    record = {
+        "corpus": CORPUS_GLOB, "corpus_hash": digest, "launches": counts,
+        "losses": res.losses, "evals": [list(e) for e in res.evals],
+        "step_ms": res.step_ms, "step_ms_workers_0_no_eval": plain.step_ms,
+        "synthetic_step_ms": synthetic.step_ms,
+        "dispatch_s_per_step": wd["dispatch_s_per_step"],
+        "blocked_s_per_step": wd["blocked_s_per_step"],
+        "synthetic_dispatch_s_per_step": wd32["dispatch_s_per_step"],
+        "synthetic_blocked_s_per_step": wd32["blocked_s_per_step"],
+        "watchdog_incidents": wd["incidents"],
+        "eval_ms": eval_ms, "eval_first_ms": eval_first_ms,
+        "wall_s": wall}
+    print(f"corpus path: {STEPS} steps in {wall:.2f} s, workers 2, eval "
+          f"every 10; logged losses {logged}; evals {res.evals}; launches "
+          f"{counts}")
+    print(f"corpus path: workers 0 without eval == workers 2 with eval, "
+          f"bitwise (losses, params, state); 10 steps + checkpoint + resume "
+          f"(workers 0) == {STEPS} straight, bitwise; other corpus refused "
+          f"({refused.split(':')[0]})")
+    print(f"corpus path numbers ({card}): step {res.step_ms:.2f} ms with "
+          f"workers 2 and eval, {plain.step_ms:.2f} ms with workers 0 and no "
+          f"eval, synthetic f32 step {synthetic.step_ms:.2f} ms (phase 5); "
+          f"watchdog dispatch {wd['dispatch_s_per_step'] * 1e3:.2f} ms/step, "
+          f"blocked {wd['blocked_s_per_step'] * 1e3:.2f} ms/step (synthetic "
+          f"{wd32['dispatch_s_per_step'] * 1e3:.2f} / "
+          f"{wd32['blocked_s_per_step'] * 1e3:.2f}), {wd['incidents']} "
+          f"incidents; eval (4 x 16 x 256) {eval_ms:.2f} ms, first call "
+          f"{eval_first_ms:.2f} ms")
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA "
@@ -1806,6 +1979,7 @@ def main() -> int:
     prof_dp = profile_step(dev, "f32", dp_reduce="compressed")
     rows_tile = time_tile(kernel, ref, build, dev, parent)
     prof_staged = profile_step(dev, "f32", fused_write=False)
+    corpus_path = run_corpus_path(train, kernel, hk, dev, res32, card)
     print(f"staged step vs fused step (same call): launcher-equivalent "
           f"loop {staged32['step_ms']:.2f} vs {res32.step_ms:.2f} ms; "
           f"profiled {prof_staged['step_ms']:.2f} vs "
@@ -1824,7 +1998,8 @@ def main() -> int:
                     "src/repro/kernels/gwt_adam/kernel.py:404",
                     launches_k1, err_k1, rows_k1, step_ms=res32.step_ms,
                     peak_mib=peak32 / 2**20, profile=prof32,
-                    phase_2_buckets_by_design=designs_k1),
+                    phase_2_buckets_by_design=designs_k1,
+                    corpus_path=corpus_path),
         fused_entry("gwt_adam_fused_q8",
                     "gwt_adam/csrc/gwt_adam_fused_q8.cu",
                     "src/repro/kernels/gwt_adam/kernel.py:554",

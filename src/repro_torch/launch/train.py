@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama-60m \
         --optimizer gwt --level 2 --steps 200 --batch 16 --seq 256 \
         [--host adam|adam_mini|muon] [--state-codec int8] \
+        [--data synthetic|bytes|corpus --corpus-dir D --workers N] \
+        [--eval-every K --eval-batches B] \
         [--ckpt-dir D --ckpt-every N --resume]
 
 ``--optimizer`` is ``gwt`` (with ``--host``, ``--level``, ``--alpha``) or
@@ -10,6 +12,16 @@ one of the full-rank baselines ``adam``, ``adam_mini``, ``muon``, ``sgd``;
 every choice runs under a warmup-cosine schedule peaking at ``--lr`` and
 takes ``--state-codec`` and ``--resume``.  The JAX package's low-rank
 families are not ported yet.
+
+Data (the JAX package's sources, batch ``i`` bitwise the same):
+``--data synthetic`` (the default), ``bytes`` (this repo's ``src/**/*.py``)
+or ``corpus`` over a directory built by ``python -m
+repro_torch.data.build_corpus``; the model's vocab grows to the corpus
+tokenizer's and never shrinks.  ``--workers N`` loads batches in N worker
+processes (0: a prefetch thread); the stream is the same for any N.
+``--eval-every K`` evaluates the held-out loss and perplexity over
+``--eval-batches`` batches every K steps (the corpus eval split, or a
+disjoint seed stream of the other sources).
 
 Runs on CUDA unless ``--device cpu`` is given; without a card and without
 ``--device cpu`` it raises instead of falling back to the CPU.
@@ -31,12 +43,17 @@ Fault tolerance: with ``--ckpt-dir`` the loop checkpoints every
 SIGTERM -> checkpoint at the next chunk boundary -> clean exit; a restart
 with ``--resume`` continues from the latest committed step with the data
 stream aligned, bitwise as if it had not stopped.  A checkpoint written
-under the other ``--state-codec`` is transcoded on resume.
+under the other ``--state-codec`` is transcoded on resume; one in the JAX
+package's legacy per-leaf layout is migrated into buckets (and transcoded
+to ``int8`` under ``--state-codec int8``).  The manifest records the data
+source, its order seed and a corpus's content hash; a resume on another
+data stream refuses.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import os
 from typing import Any, List, NamedTuple, Optional, Tuple
 
@@ -45,7 +62,9 @@ import torch
 from repro_torch import configs, optim
 from repro_torch.checkpoint.manager import CheckpointManager, \
     StructureMismatch
+from repro_torch.data.eval import make_lm_evaluator
 from repro_torch.data.pipeline import make_source
+from repro_torch.data.store import TokenStore
 from repro_torch.distributed import compression
 from repro_torch.launch.mesh import DPContext, init_dp
 from repro_torch.models import lm
@@ -68,6 +87,8 @@ class TrainResult(NamedTuple):
     # per-rank gradient-reduction bytes per step with --dp-reduce, and the
     # exact f32 reduction's (compression.tree_wire_bytes)
     wire_bytes: Optional[Tuple[int, int]] = None
+    evals: Tuple[Tuple[int, float], ...] = ()   # (step, eval loss)
+    watchdog: Optional[dict] = None            # StepWatchdog.summary()
 
 
 def resolve_device(name: str) -> torch.device:
@@ -141,18 +162,24 @@ def resume(ckpt: CheckpointManager, params, opt_state, build_optimizer,
                                     device=device)
         return state["params"], own_row(state["opt"]), start
     except StructureMismatch as e:
+        # two recoverable mismatches: the JAX package's legacy per-leaf
+        # layout ("'leaves'" in its treedef) and a codec change
         saved_codec = ckpt.saved_run().get("state_codec", "f32")
-        if "'leaves'" in ckpt.manifest().get("treedef", ""):
+        legacy = "'leaves'" in ckpt.manifest().get("treedef", "")
+        if legacy and ef is not None:
             raise StructureMismatch(
                 f"checkpoint in {ckpt.dir} holds the legacy per-leaf "
-                f"optimizer state, which the port does not migrate; resume "
-                f"it once with the JAX package to rewrite it") from e
-        if saved_codec == codec:
+                f"optimizer state, which predates --dp-error-feedback; "
+                f"resume it once without error feedback to migrate "
+                f"it") from e
+        if not legacy and saved_codec == codec:
             raise StructureMismatch(
                 f"checkpoint in {ckpt.dir} does not match this run's "
                 f"optimizer state; did --optimizer/--level/--host, "
                 f"--dp-reduce or the model config change since it was "
                 f"saved? ({e})") from e
+    if legacy:
+        return _migrate(ckpt, params, build_optimizer, codec, device, log)
     saved_opt = build_optimizer(saved_codec)
     state, start = ckpt.restore(
         None, {"params": params, "opt": like(saved_opt.init(_meta(params)))},
@@ -165,6 +192,25 @@ def resume(ckpt: CheckpointManager, params, opt_state, build_optimizer,
         converted = {"opt": converted, "dp_ef": state["opt"]["dp_ef"]}
     log(f"transcoded optimizer state {saved_codec} -> {codec}")
     return state["params"], own_row(converted), start
+
+
+def _migrate(ckpt: CheckpointManager, params, build_optimizer, codec: str,
+             device, log):
+    """Restore a legacy per-leaf checkpoint, regroup it into buckets and,
+    for another codec than f32, transcode it (legacy states are raw f32).
+    Returns ``(params, opt_state, step)``."""
+    f32_opt = build_optimizer("f32")
+    state, start = ckpt.restore(
+        None, {"params": params,
+               "opt": f32_opt.engine.legacy_like(params)},
+        device=device)
+    opt_state = f32_opt.engine.migrate_legacy(state["opt"], state["params"])
+    log("migrated legacy per-leaf optimizer state -> buckets")
+    if codec != "f32":
+        opt_state = engine.transcode(opt_state, state["params"], f32_opt,
+                                     build_optimizer(codec))
+        log(f"transcoded optimizer state f32 -> {codec}")
+    return state["params"], opt_state, start
 
 
 def main(argv=None) -> TrainResult:
@@ -190,6 +236,23 @@ def main(argv=None) -> TrainResult:
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--data", default="synthetic",
+                    choices=["synthetic", "bytes", "corpus"])
+    ap.add_argument("--corpus-dir", default="",
+                    help="with --data corpus: a directory built by "
+                         "`python -m repro_torch.data.build_corpus` (mmap "
+                         "token shards + index)")
+    ap.add_argument("--workers", type=int, default=0,
+                    help="data-loader worker PROCESSES (shared-memory "
+                         "transport; 0 = in-process prefetch thread).  "
+                         "Batches are a pure function of the step, so the "
+                         "worker count never changes the stream and may "
+                         "change across resumes")
+    ap.add_argument("--eval-every", type=int, default=0,
+                    help="evaluate held-out loss/perplexity every N steps "
+                         "(corpus eval split, or a disjoint stream of the "
+                         "other sources); 0 disables")
+    ap.add_argument("--eval-batches", type=int, default=8)
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--log-every", type=int, default=10)
@@ -230,6 +293,9 @@ def main(argv=None) -> TrainResult:
     if dp_spec is None and int(os.environ.get("WORLD_SIZE", "1")) > 1:
         ap.error("a run of several ranks needs --dp-reduce exact or "
                  "compressed")
+    if args.data == "corpus" and not args.corpus_dir:
+        ap.error("--data corpus needs --corpus-dir (build one with "
+                 "`python -m repro_torch.data.build_corpus`)")
 
     device = resolve_device(args.device)
     dp = init_dp(device) if dp_spec is not None else None
@@ -245,13 +311,21 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
     log = print if rank0 else (lambda s: None)
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get_config(args.arch))
+    if args.data == "corpus":
+        # the embedding table must cover the corpus tokenizer: vocab is a
+        # property of the data, so the model grows to fit (never shrinks)
+        corpus_vocab = TokenStore(args.corpus_dir).vocab_size
+        if corpus_vocab > cfg.vocab:
+            log(f"model vocab {cfg.vocab} -> {corpus_vocab} (corpus "
+                f"tokenizer)")
+            cfg = cfg.with_(vocab=corpus_vocab)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     model = lm.init(cfg, generator, device)
     params = model.tree()
     n_params = sum(p.numel() for p in model.parameters())
 
-    source = make_source("synthetic", cfg.vocab, args.seq, args.batch,
-                         seed=args.seed)
+    source = make_source(args.data, cfg.vocab, args.seq, args.batch,
+                         seed=args.seed, corpus_dir=args.corpus_dir or None)
 
     def build_optimizer(codec: str):
         kw = {"state_codec": codec}
@@ -284,7 +358,9 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
 
     # data provenance, stamped into every manifest: a resume on another
     # data stream fails instead of training on
-    data_meta = {"kind": "synthetic", "order_seed": args.seed}
+    data_meta = {"kind": args.data, "order_seed": args.seed}
+    if args.data == "corpus":
+        data_meta["corpus_hash"] = source.store.corpus_hash
     run_meta = {"data": data_meta, "state_codec": args.state_codec}
     ckpt = CheckpointManager(args.ckpt_dir, run_meta=run_meta) \
         if args.ckpt_dir else None
@@ -298,17 +374,38 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
 
     train_step = lm.make_train_step(cfg, optimizer, accum_steps=args.accum,
                                     dp_reduce=dp_spec, dp=dp)
+    evaluator = None
+    if args.eval_every:
+        eval_src = make_source(args.data, cfg.vocab, args.seq, args.batch,
+                               seed=args.seed,
+                               corpus_dir=args.corpus_dir or None,
+                               split="eval")
+        evaluator = make_lm_evaluator(cfg, lm, eval_src,
+                                      n_batches=args.eval_batches,
+                                      device=device)
     loop = TrainLoop(train_step, source, device=device, ckpt=ckpt,
                      ckpt_every=args.ckpt_every, log_every=args.log_every,
-                     log=log, dp=dp)
+                     log=log, dp=dp, num_workers=args.workers,
+                     evaluator=evaluator, eval_every=args.eval_every)
     params, opt_state, losses = loop.run(params, opt_state, start_step=start,
                                          num_steps=args.steps)
+    wd = loop.watchdog.summary()
+    if wd["dispatch_s_per_step"] is not None:
+        log(f"dispatch={wd['dispatch_s_per_step'] * 1e3:.1f}ms/step "
+            f"blocked={(wd['blocked_s_per_step'] or 0) * 1e3:.1f}ms/step "
+            f"incidents={wd['incidents']}")
     if losses:
         k = max(1, len(losses) // 10)
         log(f"final loss (mean of last {k}): {sum(losses[-k:]) / k:.4f}")
+    evals = () if evaluator is None else tuple(evaluator.history)
+    if evals:
+        s, v = evals[-1]
+        log(f"final eval (step {s}): loss={v:.4f} "
+            f"ppl={math.exp(min(v, 30.0)):.2f}")
     step_ms = None if loop.steady_step_s is None \
         else loop.steady_step_s * 1e3
-    return TrainResult(params, opt_state, losses, step_ms, start, wire)
+    return TrainResult(params, opt_state, losses, step_ms, start, wire,
+                       evals, wd)
 
 
 if __name__ == "__main__":

@@ -172,6 +172,48 @@ class Engine:
         slot_ids, leaf_ids, cols = self._salt_ids[ck]
         return codec_lib.slot_salt(key, step, slot_ids, leaf_ids), cols
 
+    # -- legacy per-leaf layout interop -------------------------------------
+    # The pre-engine layout ``{"step", "leaves": (...,)}`` keeps one state per
+    # leaf in flatten order.  A dict tree here has no tuples, so "leaves" is
+    # a dict keyed by the zero-padded leaf index: its keys sort in index
+    # order, so it flattens (and checkpoints) exactly like the tuple.
+
+    def legacy_like(self, params):
+        """Abstract state in the legacy layout, on the ``meta`` device: the
+        ``like`` tree when restoring an old checkpoint.  Legacy checkpoints
+        predate the codec layer, so states here are raw (f32) whatever this
+        engine's codec is; transcode after migrating."""
+        paths, leaves = flatten_with_paths(params)
+        per_leaf = {_legacy_key(i): self.assign(pa, l).init(
+            torch.empty_like(l, device="meta"))
+            for i, (pa, l) in enumerate(zip(paths, leaves))}
+        return {"step": torch.zeros((), dtype=torch.int32, device="meta"),
+                "leaves": per_leaf}
+
+    def migrate_legacy(self, old_state, params):
+        """Regroup a legacy ``{"step", "leaves"}`` state into the named
+        bucket layout (values are untouched, only stacked)."""
+        plan = self.plan(params)
+        leaves = old_state["leaves"]
+        buckets = {b.name: _stack_states([leaves[_legacy_key(i)]
+                                          for i in b.indices])
+                   for b in plan.buckets}
+        return {"step": old_state["step"], "buckets": buckets}
+
+    def to_legacy(self, state, params):
+        """Inverse of :meth:`migrate_legacy` (downgrade path / tests)."""
+        plan = self.plan(params)
+        per_leaf = {}
+        for b in plan.buckets:
+            st = state["buckets"][b.name]
+            for j, i in enumerate(b.indices):
+                per_leaf[_legacy_key(i)] = _slice_state(st, j)
+        return {"step": state["step"], "leaves": per_leaf}
+
+
+def _legacy_key(i: int) -> str:
+    return f"{i:06d}"
+
 
 def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
           codec="f32", codec_seed: int = 0) -> Optimizer:

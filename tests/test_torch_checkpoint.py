@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import flat_numpy
+from torch_parity import flat_numpy, jax_legacy_checkpoint
 
 from repro import configs as jconfigs
 from repro.checkpoint import manager as jmanager
@@ -243,19 +243,25 @@ def test_resume_refuses_another_data_stream(tmp_path):
 
 
 def test_legacy_checkpoint_is_refused(tmp_path):
-    """A JAX checkpoint in the legacy per-leaf optimizer layout is not
-    migrated by the port: resuming it raises and says why."""
-    jparams = jlm.init(jconfigs.get_smoke("llama-60m"), jax.random.key(0))
-    jopt = jax_gwt(lr=0.01, impl="jnp")
-    legacy = jax.tree.map(lambda a: jnp.zeros(a.shape, a.dtype),
-                          jopt.engine.legacy_like(jparams))
+    """A JAX checkpoint in the legacy per-leaf optimizer layout is refused
+    only where it cannot be migrated: under ``--dp-error-feedback``, whose
+    residues postdate the layout.  A plain resume migrates it into the
+    buckets the reference's ``migrate_legacy`` gives, bitwise."""
     d = str(tmp_path / "ck")
-    jmanager.CheckpointManager(d, run_meta={
-        "data": {"kind": "synthetic", "order_seed": 0},
-        "state_codec": "f32"}).save(2, {"params": jparams, "opt": legacy},
-                                    blocking=True)
+    jparams, jopt, _ = jax_legacy_checkpoint(d)
     with pytest.raises(manager.StructureMismatch, match="legacy"):
-        _port(["--steps", "4", "--ckpt-dir", d, "--resume"])
+        _port(["--steps", "2", "--ckpt-dir", d, "--resume", "--dp-reduce",
+               "compressed", "--dp-error-feedback"])
+    like = {"params": jparams, "opt": jopt.engine.legacy_like(jparams)}
+    saved, _ = jmanager.CheckpointManager(d).restore(2, like)
+    want = flat_numpy(jopt.engine.migrate_legacy(saved["opt"], jparams))
+    res = _port(["--steps", "2", "--ckpt-dir", d, "--resume"])
+    assert res.start_step == 2 and res.losses == []
+    got = interop.state_to_numpy(res.opt_state)
+    assert sorted(got) == sorted(want)
+    for path in want:
+        assert got[path].dtype == want[path].dtype, path
+        np.testing.assert_array_equal(got[path], want[path], err_msg=path)
 
 
 _SIGTERM_CHILD = """

@@ -1,7 +1,8 @@
 """Import boundary of the port: no module of ``repro_torch`` and no part of
-``chip_smoke.py`` or ``tools/step_time.py`` imports JAX or the JAX
-package, and ``triton``, where it is used, is imported only inside a
-function, so every module imports where triton is not installed."""
+``chip_smoke.py``, ``tools/step_time.py`` or ``tools/loop_time.py``
+imports JAX or the JAX package, and ``triton``, where it is used, is
+imported only inside a function, so every module imports where triton is
+not installed."""
 
 import ast
 import os
@@ -15,7 +16,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 def _sources():
     out = [os.path.join(REPO, "chip_smoke.py"),
-           os.path.join(REPO, "tools", "step_time.py")]
+           os.path.join(REPO, "tools", "step_time.py"),
+           os.path.join(REPO, "tools", "loop_time.py")]
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -56,7 +58,9 @@ def test_the_walk_sees_the_package():
     assert {"chip_smoke.py", "step_time.py", "gwt.py", "kernel.py", "train.py", "codec.py",
             "manager.py", "fault_tolerance.py", "interop.py", "build.py",
             "compression.py", "mesh.py", "ops.py", "ref.py", "standard.py",
-            "hosts.py", "haar.py", "engine.py"} <= names
+            "hosts.py", "haar.py", "engine.py", "tokenizer.py", "store.py",
+            "order.py", "build_corpus.py", "workers.py", "eval.py",
+            "sink.py", "trace.py"} <= names
 
 
 def test_the_check_catches_what_it_forbids():

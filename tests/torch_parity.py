@@ -67,3 +67,32 @@ def port_model(jax_cfg, port_cfg, seed: int = 0):
     from repro_torch import interop
     jp = jax_params(jax_cfg, seed)
     return jp, interop.params_from_numpy(port_cfg, flat_numpy(jp), "cpu")
+
+
+def jax_legacy_checkpoint(d, steps=2):
+    """A checkpoint in the JAX package's legacy per-leaf optimizer layout
+    (``Engine.to_legacy`` and its ``CheckpointManager``), after ``steps``
+    GWT updates from random gradients on llama-60m-smoke; returns the
+    reference's parameters, optimizer and bucketed state."""
+    from repro import configs as jconfigs
+    from repro.checkpoint import manager as jmanager
+    from repro.core.gwt import gwt as jax_gwt
+    from repro.models import lm as jlm
+    jparams = jlm.init(jconfigs.get_smoke("llama-60m"), jax.random.key(0))
+    jopt = jax_gwt(lr=0.01, impl="jnp")
+    state = jopt.init(jparams)
+    update = jax.jit(jopt.update)
+    for s in range(steps):
+        leaves, tree = jax.tree.flatten(jparams)
+        keys = jax.random.split(jax.random.key(100 + s), len(leaves))
+        grads = jax.tree.unflatten(tree, [
+            0.1 * jax.random.normal(k, l.shape, l.dtype)
+            for k, l in zip(keys, leaves)])
+        jparams, state = update(grads, state, jparams)
+    jmanager.CheckpointManager(d, run_meta={
+        "data": {"kind": "synthetic", "order_seed": 0},
+        "state_codec": "f32"}).save(
+            steps, {"params": jparams,
+                    "opt": jopt.engine.to_legacy(state, jparams)},
+            blocking=True)
+    return jparams, jopt, state
