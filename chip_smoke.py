@@ -12,13 +12,14 @@ Phases (any failure raises and the script exits non-zero):
    ``-Xptxas -v``; print K1's and
    K2's one-pass plans (registers, shared memory, co-resident blocks, chunk
    slots) at the main buckets;
-2. K1 (f32 moments) at the three LLaMA-60M bucket shapes, a FIRST-mode-sized
-   leaf and a shape whose leaves end in a ragged chunk, levels 1-3, bf16 and
-   f32 parameters, in every CASE (limiter with a zero and a non-zero
-   history, a clipping case, weight decay, limiter off), each at two seed
-   sets (the seeds earlier runs used, and new ones): the entry takes the
-   design the capacity rule names (one pass where the bucket's G̃ fits on
-   chip, else two; f32 (2, 4096, 1376) is beyond it and the one-pass entry
+2. K1 (f32 and bf16 moments) at the three LLaMA-60M bucket shapes, a
+   FIRST-mode-sized leaf and a shape whose leaves end in a ragged chunk,
+   levels 1-3, bf16 and f32 parameters, in every CASE (limiter with a zero
+   and a non-zero history, a clipping case, weight decay, limiter off),
+   each at two seed sets (the seeds earlier runs used, and new ones): the
+   entry takes the design the capacity rule names (one pass where the
+   bucket's G̃ fits on chip, else two; f32 (2, 4096, 1376) is beyond it and
+   the one-pass entry
    refuses it), its two runs are bitwise equal, the one pass equals the
    two-pass kernel bitwise, and p, m, v and the norm are bitwise equal to
    the plain PyTorch version, which sums ‖G̃‖² in the kernels' order;
@@ -38,9 +39,11 @@ Phases (any failure raises and the script exits non-zero):
    10, resume a fresh run from step 10; the result must be bitwise equal
    to the 20 straight steps of phase 6 (parameters, codes, scales, norms);
 8. time K1 and K2 per launch at the main buckets, both designs in the same
-   call: device time (CUDA events around each launch, L2 flushed before
-   it), time per call back to back, the plain version's, the bound; and
-   the int8 path's generic decode/encode of the embedding's moments;
+   call (K1's one pass also with bf16 moments, beside its bound with
+   2-byte moments): device time (CUDA events around each launch, L2
+   flushed before it), time per call back to back, the plain version's,
+   the bound; and the int8 path's generic decode/encode of the embedding's
+   moments;
 9. profile a few full-width steps of each path: ``optimizer.update`` vs the
    rest, device busy share, top kernels;
 10. K3 (``haar_dwt_fwd_q``), K6 (``haar_dwt_fwd``) and K7 (``haar_dwt_inv``)
@@ -66,12 +69,13 @@ Phases (any failure raises and the script exits non-zero):
     the parent revision's (in turns), K3 and K6 as one grouped launch over
     the DP group beside ten single launches, the grouped wrapper's host
     time, and profile the data-parallel step beside the plain f32 step;
-13. K4 (``gwt_adam_tile``) and K5 (``gwt_adam_tile_q8``) against their plain
-    versions at the staged path's leaf shapes, odd rows, and an L = 3 stack
-    with an odd coefficient count per leaf (unaligned leaf bases, a ragged
-    chunk, a partial quantization block), levels 1-3, f32 and bf16
-    gradients, both seed sets: G̃, m', v' (K5: G̃, codes, scales) and the
-    ‖G̃‖² partials (``ref.chunk_ssq``) bitwise, two runs bitwise;
+13. K4 (``gwt_adam_tile``, f32 and bf16 moments) and K5
+    (``gwt_adam_tile_q8``) against their plain versions at the staged
+    path's leaf shapes, odd rows, and an L = 3 stack with an odd
+    coefficient count per leaf (unaligned leaf bases, a ragged chunk, a
+    partial quantization block), levels 1-3, f32 and bf16 gradients, both
+    seed sets: G̃, m', v' (K5: G̃, codes, scales) and the ‖G̃‖² partials
+    (``ref.chunk_ssq``) bitwise, two runs bitwise;
 14. the staged path, ``gwt(fused_write=False)``, at full width through the
     ``TrainLoop``, f32 and int8, 20 steps each: K4 must launch 140 times
     (7 leaves x 20 steps), K1, K2 and K5 never, the loss fall and stay
@@ -83,9 +87,12 @@ Phases (any failure raises and the script exits non-zero):
     bucket;
 16. the launcher's other choices at full width, 20 steps each (``--optimizer
     adam``, ``adam_mini``, ``muon``, ``sgd``; ``gwt --host adam_mini``,
-    ``--host muon``): losses finite and falling, no GWT kernel launched,
-    state bytes, step time and peak memory printed;
-17. time K4 and K5 per launch beside their bounds, their plain versions, a
+    ``--host muon``; the low-rank ``galore``, ``apollo``, ``fira``,
+    ``adarankgrad``, ``rso``, whose state bytes must be the JAX
+    package's): losses finite and falling, no GWT kernel launched, state
+    bytes, step time and peak memory printed;
+17. time K4 and K5 per launch beside their bounds (K4 also with bf16
+    moments), their plain versions, a
     ``copy_`` of the same bytes and, where ``tools/parent_kernels.py``
     wrote the parent revision's sources into ``build/parent_kernels/``, the
     parent's K4 and K5 (built in phase 1, timed in turns with the current
@@ -102,7 +109,21 @@ Phases (any failure raises and the script exits non-zero):
     corpus of another hash must be refused.  Prints the step time beside
     phase 5's synthetic step, the watchdog's dispatch and blocked
     s/step, and one eval's wall time, with the card's name and power
-    limit.
+    limit;
+19. bf16 optimizer state: ``gwt(state_dtype=torch.bfloat16)`` at full
+    width through the ``TrainLoop``, 20 steps fused (K1 with bf16 moments:
+    exactly 3 launches a step, all one pass) and 20 staged (K4 with bf16
+    moments: 7 a step), nothing else launched; losses finite and falling,
+    the staged within ``TOL_STAGED_LOSS`` of the fused; the moments bf16
+    and the state the JAX package's 90,867,744 bytes;
+20. the low-rank refresh: each of ``galore``, ``apollo``, ``fira``,
+    ``adarankgrad``, ``rso`` at full width through the ``TrainLoop`` with
+    ``update_gap=5`` for 20 steps (refreshes and moment rotations at 0, 5,
+    10, 15): every non-refresh update makes 0 synchronizing calls
+    (PyTorch's sync debug mode), no GWT kernel launches, losses finite and
+    falling; the refresh update's time beside the steady one; for
+    ``galore`` and ``rso`` 10 steps + checkpoint + resume equal the 20
+    straight steps bitwise (the refreshes at 10 and 15 after the resume).
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -184,7 +205,9 @@ def smi() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def make_inputs(shape, seed, dev, level=LEVEL, dtype=torch.bfloat16):
+def make_inputs(shape, seed, dev, level=LEVEL, dtype=torch.bfloat16,
+                mdtype=torch.float32):
+    """K1's inputs, the moments drawn in f32 and rounded to ``mdtype``."""
     L, m, n = shape
     gen = torch.Generator(device=dev).manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=gen, device=dev)
@@ -192,7 +215,7 @@ def make_inputs(shape, seed, dev, level=LEVEL, dtype=torch.bfloat16):
     p = (r(L, m, n) * 0.02).to(dtype)
     mm = r(L, m, n >> level) * 1e-3
     vv = torch.rand(L, m, n >> level, generator=gen, device=dev) * 1e-6
-    return g, p, mm, vv
+    return g, p, mm.to(mdtype), vv.to(mdtype)
 
 
 def make_q8_inputs(shape, seed, dev, level=LEVEL, dtype=torch.bfloat16):
@@ -224,6 +247,10 @@ def q8_salts(L, dev, step=3):
 FUSED_SHAPES = MAIN_SHAPES + [FIRST_SHAPE, PARTIAL_SHAPE]
 FUSED_LEVELS = (1, 2, 3)
 FUSED_DTYPES = (torch.bfloat16, torch.float32)
+# the moment dtypes K1 and K4 take (gwt(state_dtype=...)), all held in
+# phases 2 and 13
+MOMENT_DTYPES = (torch.float32, torch.bfloat16)
+MOMENT_NAMES = ["float32", "bfloat16"]
 # 0: the seeds earlier runs used (at level 2); 1: seeds no earlier run used,
 # so a pass that depends on the seed shows
 SEED_SETS = (0, 1)
@@ -265,13 +292,23 @@ def refuses_one_pass(fn, what):
                          f"capacity")
 
 
+def fused_buckets(q8):
+    """Phase 2's (K1: also each moment dtype) and phase 3's buckets:
+    ``(label, shape, level, dtype, moment dtype)``."""
+    for label, shape in FUSED_SHAPES:
+        for level in FUSED_LEVELS:
+            for dtype in FUSED_DTYPES:
+                for mdtype in ((torch.float32,) if q8 else MOMENT_DTYPES):
+                    yield label, shape, level, dtype, mdtype
+
+
 def check_fused(kernel, ref, dev, q8):
     """Phases 2 (K1) and 3 (``q8``: K2) at FUSED_SHAPES x FUSED_LEVELS x
-    FUSED_DTYPES x CASES x SEED_SETS: p, m, v and the norm (K2: p, codes,
-    scales and the norm) bitwise equal to the plain version, two runs
-    bitwise, the designs as ``check_designs`` holds them.  Returns the
-    worst absolute error over the outputs (0) and how many buckets took
-    each design."""
+    FUSED_DTYPES x CASES x SEED_SETS, K1 with f32 and with bf16 moments
+    (``MOMENT_DTYPES``): p, m, v and the norm (K2: p, codes, scales and
+    the norm) bitwise equal to the plain version, two runs bitwise, the
+    designs as ``check_designs`` holds them.  Returns the worst absolute
+    error over the outputs (0) and how many buckets took each design."""
     name = "K2" if q8 else "K1"
     lib = "gwt_adam_fused_q8" if q8 else "gwt_adam_fused"
     counter = ((lambda: (kernel.launches_q8_one_pass,
@@ -283,74 +320,67 @@ def check_fused(kernel, ref, dev, q8):
     taken = {"one": 0, "two": 0}
     step_size = torch.tensor(1e-3, device=dev)
     cases = 0
-    for label, shape in FUSED_SHAPES:
+    for label, shape, level, dtype, mdtype in fused_buckets(q8):
         L, m, n = shape
         salts = q8_salts(L, dev)
         usalts = [s.to(torch.uint32) for s in salts]
-        for level in FUSED_LEVELS:
-            for dtype in FUSED_DTYPES:
-                one = kernel.one_pass_plan(lib, shape, dtype,
-                                           level)["grid"] > 0
-                taken["one" if one else "two"] += 1
-                for seed_set in SEED_SETS:
-                    for ci, (case, use_lim, prev, wd) in enumerate(CASES):
-                        sd = seed(ci, n, level, seed_set)
-                        pn = torch.full((L,), prev, device=dev)
-                        wd_coef = torch.tensor(wd, device=dev)
-                        kw = dict(level=level, gamma=1.01,
-                                  use_limiter=use_lim, weight_decay=wd != 0)
-                        if q8:
-                            inputs = make_q8_inputs(shape, sd, dev, level,
-                                                    dtype)
-                            kw["block"] = QBLOCK
-                            want = ref.gwt_adam_fused_q8(
-                                *inputs, *salts, pn, step_size, wd_coef,
-                                **kw)
-                            args = lambda: (*(t.clone() for t in inputs),
-                                            *usalts, pn, step_size, wd_coef)
-                            entry = kernel.gwt_adam_fused_q8
-                            entries = (kernel.gwt_adam_fused_q8_two_pass,
-                                       kernel.gwt_adam_fused_q8_one_pass)
-                        else:
-                            inputs = make_inputs(shape, sd, dev, level,
-                                                 dtype)
-                            want = ref.gwt_adam_fused(
-                                *inputs, pn, step_size, wd_coef, **kw)
-                            args = lambda: (*(t.clone() for t in inputs),
-                                            pn, step_size, wd_coef)
-                            entry = kernel.gwt_adam_fused
-                            entries = (kernel.gwt_adam_fused_two_pass,
-                                       kernel.gwt_adam_fused_one_pass)
-                        before = counter()
-                        runs = [entry(*args(), **kw) for _ in range(2)]
-                        after = counter()
-                        two = entries[0](*args(), **kw)
-                        torch.cuda.synchronize()
-                        check_designs(kernel, name, label, shape, level,
-                                      dtype, runs, two,
-                                      (after[0] - before[0],
-                                       after[1] - before[1]), one)
-                        check_bands(f"{name} {label} {shape} l={level} "
-                                    f"{dtype} / {case} / seed set "
-                                    f"{seed_set}", runs, want, outputs)
-                        if use_lim and prev == 1.0 and not torch.allclose(
-                                runs[0][-1], torch.full_like(runs[0][-1],
-                                                             1.01)):
-                            raise AssertionError(
-                                f"{name} {label}: clipping case did not "
-                                f"clip ({runs[0][-1].tolist()})")
-                        cases += 1
-                if not one:
-                    refuses_one_pass(lambda: entries[1](*args(), **kw),
-                                     f"{name} {label} {shape} {dtype}")
-                print(f"{name} {label} {shape} l={level} {dtype}: "
-                      f"{'one' if one else 'two'}-pass design, {len(CASES)} "
-                      f"cases x {len(SEED_SETS)} seed sets; "
-                      f"{', '.join(outputs)} bitwise equal to the plain "
-                      f"version; two runs bitwise; "
-                      + ("bitwise equal to the two-pass kernel" if one else
-                         "beyond one-pass capacity: the one-pass entry "
-                         "refuses it"))
+        moments = "int8 moments" if q8 else f"{mdtype} moments"
+        one = kernel.one_pass_plan(lib, shape, dtype, level,
+                                   mdtype)["grid"] > 0
+        taken["one" if one else "two"] += 1
+        for seed_set in SEED_SETS:
+            for ci, (case, use_lim, prev, wd) in enumerate(CASES):
+                sd = seed(ci, n, level, seed_set)
+                pn = torch.full((L,), prev, device=dev)
+                wd_coef = torch.tensor(wd, device=dev)
+                kw = dict(level=level, gamma=1.01, use_limiter=use_lim,
+                          weight_decay=wd != 0)
+                if q8:
+                    inputs = make_q8_inputs(shape, sd, dev, level, dtype)
+                    kw["block"] = QBLOCK
+                    want = ref.gwt_adam_fused_q8(
+                        *inputs, *salts, pn, step_size, wd_coef, **kw)
+                    args = lambda: (*(t.clone() for t in inputs), *usalts,
+                                    pn, step_size, wd_coef)
+                    entry = kernel.gwt_adam_fused_q8
+                    entries = (kernel.gwt_adam_fused_q8_two_pass,
+                               kernel.gwt_adam_fused_q8_one_pass)
+                else:
+                    inputs = make_inputs(shape, sd, dev, level, dtype,
+                                         mdtype)
+                    want = ref.gwt_adam_fused(*inputs, pn, step_size,
+                                              wd_coef, **kw)
+                    args = lambda: (*(t.clone() for t in inputs), pn,
+                                    step_size, wd_coef)
+                    entry = kernel.gwt_adam_fused
+                    entries = (kernel.gwt_adam_fused_two_pass,
+                               kernel.gwt_adam_fused_one_pass)
+                before = counter()
+                runs = [entry(*args(), **kw) for _ in range(2)]
+                after = counter()
+                two = entries[0](*args(), **kw)
+                torch.cuda.synchronize()
+                check_designs(kernel, name, label, shape, level, dtype,
+                              runs, two, (after[0] - before[0],
+                                          after[1] - before[1]), one)
+                check_bands(f"{name} {label} {shape} l={level} {dtype} "
+                            f"{moments} / {case} / seed set {seed_set}",
+                            runs, want, outputs)
+                if use_lim and prev == 1.0 and not torch.allclose(
+                        runs[0][-1], torch.full_like(runs[0][-1], 1.01)):
+                    raise AssertionError(
+                        f"{name} {label}: clipping case did not clip "
+                        f"({runs[0][-1].tolist()})")
+                cases += 1
+        if not one:
+            refuses_one_pass(lambda: entries[1](*args(), **kw),
+                             f"{name} {label} {shape} {dtype}")
+        print(f"{name} {label} {shape} l={level} {dtype} {moments}: "
+              f"{'one' if one else 'two'}-pass design, {len(CASES)} cases x "
+              f"{len(SEED_SETS)} seed sets; {', '.join(outputs)} bitwise "
+              f"equal to the plain version; two runs bitwise; "
+              + ("bitwise equal to the two-pass kernel" if one else
+                 "beyond one-pass capacity: the one-pass entry refuses it"))
     print(f"{name} vs plain: {cases} cases, {', '.join(outputs)} bitwise; "
           f"buckets by design {taken}")
     return 0.0, taken
@@ -423,10 +453,10 @@ def tile_cases():
 
 def check_tile(kernel, ref, dev):
     """Phase 13: K4 and K5 against their plain versions on the card at
-    ``tile_cases()``, f32 and bf16 gradients, both seed sets: G̃, m', v'
-    (K5: G̃, codes, scales) and the ‖G̃‖² partials (``ref.chunk_ssq`` of
-    the plain G̃) bitwise, two runs bitwise.  Returns the number of cases
-    each kernel ran."""
+    ``tile_cases()``, f32 and bf16 gradients, both seed sets, K4 with f32
+    and with bf16 moments: G̃, m', v' (K5: G̃, codes, scales) and the ‖G̃‖²
+    partials (``ref.chunk_ssq`` of the plain G̃) bitwise, two runs bitwise.
+    Returns the number of cases K5 ran (K4 ran one per moment dtype)."""
     n = 0
     for label, shape, level in tile_cases():
         for dtype in (torch.float32, torch.bfloat16):
@@ -436,13 +466,15 @@ def check_tile(kernel, ref, dev):
                 what = f"{label} {shape} l={level} {dtype} / seed set " \
                     f"{seed_set}"
                 g, mm, vv = tile_inputs(shape, level, dtype, sd, dev)
-                want = ref.gwt_adam_tile(g, mm, vv, level=level)
-                runs = [kernel.gwt_adam_tile(g, mm, vv, level=level)
-                        for _ in range(2)]
-                torch.cuda.synchronize()
-                check_bands(f"K4 {what}", runs,
-                            want[:3] + (ref.chunk_ssq(want[0], level),),
-                            ("G̃", "m'", "v'", "partials"))
+                for mdtype in MOMENT_DTYPES:
+                    m_in, v_in = mm.to(mdtype), vv.to(mdtype)
+                    want = ref.gwt_adam_tile(g, m_in, v_in, level=level)
+                    runs = [kernel.gwt_adam_tile(g, m_in, v_in, level=level)
+                            for _ in range(2)]
+                    torch.cuda.synchronize()
+                    check_bands(f"K4 {what} {mdtype} moments", runs,
+                                want[:3] + (ref.chunk_ssq(want[0], level),),
+                                ("G̃", "m'", "v'", "partials"))
                 args, salts = tile_q8_inputs(shape, level, dtype, sd, dev)
                 kw = dict(level=level, block=QBLOCK)
                 want = ref.gwt_adam_tile_q8(*args, *salts, **kw)
@@ -454,8 +486,9 @@ def check_tile(kernel, ref, dev):
                             want[:5] + (ref.chunk_ssq(want[0], level),),
                             ("G̃", "qm'", "sm'", "qv'", "sv'", "partials"))
                 n += 1
-    print(f"K4/K5 vs plain: {n} cases each, G̃, m', v' (K5: G̃, codes, "
-          f"scales) and the ‖G̃‖² partials bitwise, two runs bitwise")
+    print(f"K4/K5 vs plain: {n} cases each (K4 with f32 and with bf16 "
+          f"moments in each), G̃, m', v' (K5: G̃, codes, scales) and the "
+          f"‖G̃‖² partials bitwise, two runs bitwise")
     return n
 
 
@@ -508,13 +541,14 @@ def time_ms(fn, iters):
     return start.elapsed_time(stop) / iters
 
 
-def bound(shape, esize=2):
+def bound(shape, esize=2, msize=4):
     """Least time for one launch: bytes that must move (read g, p, m, v,
-    prev_norm and the two scalars once; write p, m, v, new_norm once) over
-    HBM bandwidth, against the f32 operations over the f32 rate."""
+    prev_norm and the two scalars once; write p, m, v, new_norm once; the
+    moments ``msize`` bytes each: 4 in f32, 2 in bf16) over HBM bandwidth,
+    against the f32 operations over the f32 rate."""
     L, m, n = shape
     N, NA, B = L * m * n, L * m * (n >> LEVEL), 1 << LEVEL
-    nbytes = 2 * N * esize + N * esize + 4 * NA * 4 + 2 * L * 4 + 8
+    nbytes = 2 * N * esize + N * esize + 4 * NA * msize + 2 * L * 4 + 8
     # per coefficient: forward and inverse butterflies 2*(4B-4), Adam and
     # the preconditioner 11, detail scaling B-1; per element: round and
     # square-sum 2, limit 1, step and write 2
@@ -582,12 +616,21 @@ def time_fused(kernel, ref, dev, q8):
             counter = {"one": lambda: kernel.launches_one_pass,
                        "two": lambda: kernel.launches_two_pass}
             b_ms, b_by, nbytes = bound(shape)
-        call = {d: (lambda d=d: entry[d](*args, **kw)) for d in entry}
+            # the same bucket with bf16 moments (gwt(state_dtype=bf16)),
+            # one pass, in turns with the f32 moments' one pass below
+            args16 = (g, p, mm.to(torch.bfloat16), vv.to(torch.bfloat16),
+                      pn, ss, wd)
+            entry["bf16"] = kernel.gwt_adam_fused_one_pass
+            counter["bf16"] = counter["one"]
+        call = {d: (lambda d=d: entry[d](*(args16 if d == "bf16" else args),
+                                         **kw)) for d in entry}
         t_plain = [time_ms(plain, 5)]
-        t_dev = {"one": [], "two": []}
-        for d in ("one", "two", "two", "one"):
+        order = ("one", "two", "two", "one") if q8 else \
+            ("one", "two", "bf16", "bf16", "two", "one")
+        t_dev = {d: [] for d in entry}
+        for d in order:
             t_dev[d].append(device_ms(call[d], 20, counter[d], flush))
-        t_call = {d: [time_ms(call[d], 50)] for d in ("one", "two")}
+        t_call = {d: [time_ms(call[d], 50)] for d in entry}
         t_plain.append(time_ms(plain, 5))
         row = {"bucket": label, "shape": list(shape), "per_step": 1,
                "ms": min(t_dev["one"]), "two_pass_ms": min(t_dev["two"]),
@@ -595,6 +638,16 @@ def time_fused(kernel, ref, dev, q8):
                "two_pass_call_ms": min(t_call["two"]),
                "plain_ms": min(t_plain), "bound_ms": b_ms, "bound_by": b_by,
                "bytes": nbytes}
+        if not q8:
+            b16_ms, b16_by, n16 = bound(shape, msize=2)
+            row["bf16_moments"] = {
+                "ms": min(t_dev["bf16"]), "call_ms": min(t_call["bf16"]),
+                "bound_ms": b16_ms, "bound_by": b16_by, "bytes": n16}
+            print(f"{name} time {label} {shape} bf16 moments: one pass "
+                  f"{row['bf16_moments']['ms']:.4f} ms on the device (runs "
+                  f"{t_dev['bf16']}, {b16_ms / row['bf16_moments']['ms']:.1%}"
+                  f" of bound {b16_ms:.4f} ms, {n16 / 1e6:.2f} MB); per call "
+                  f"{row['bf16_moments']['call_ms']:.4f} ms")
         print(f"{name} time {label} {shape}: one pass {row['ms']:.4f} ms on "
               f"the device (runs {t_dev['one']}, {b_ms / row['ms']:.1%} of "
               f"bound), two passes {row['two_pass_ms']:.4f} ms (runs "
@@ -1518,13 +1571,21 @@ def check_update_memory(dev):
 
 
 # the launcher's other choices: (label, arguments)
+LOWRANK = ("galore", "apollo", "fira", "adarankgrad", "rso")
 CHOICES = [("adam", ["--optimizer", "adam"]),
            ("adam_mini", ["--optimizer", "adam_mini"]),
            ("muon", ["--optimizer", "muon"]),
            ("sgd", ["--optimizer", "sgd"]),
            ("gwt --host adam_mini", ["--optimizer", "gwt", "--host",
                                      "adam_mini"]),
-           ("gwt --host muon", ["--optimizer", "gwt", "--host", "muon"])]
+           ("gwt --host muon", ["--optimizer", "gwt", "--host", "muon"])] \
+    + [(name, ["--optimizer", name]) for name in LOWRANK]
+# the JAX package's engine.state_bytes at llama-60m: the low-rank families
+# as its launcher builds them (rank_frac 0.25), and GWT-2 with bf16 moments
+STATE_BYTES_LOWRANK = {"galore": 196_415_492, "apollo": 196_415_520,
+                       "fira": 196_415_520, "adarankgrad": 196_415_520,
+                       "rso": 196_415_492}
+STATE_BYTES_GWT_BF16 = 90_867_744
 
 
 def run_choices(train, kernel, hk):
@@ -1559,14 +1620,237 @@ def run_choices(train, kernel, hk):
             raise AssertionError(f"{label} launched {counts}")
         if not np.all(np.isfinite(res.losses)) or not logged[-1] < logged[0]:
             raise AssertionError(f"{label} losses {res.losses}")
+        if label in STATE_BYTES_LOWRANK and \
+                row["state_bytes"] != STATE_BYTES_LOWRANK[label]:
+            raise AssertionError(f"{label} state is {row['state_bytes']} "
+                                 f"bytes, the JAX package counts "
+                                 f"{STATE_BYTES_LOWRANK[label]}")
         out[label] = row
     return out
 
 
-def bound_tile(shape, level=LEVEL, esize=2, q8=False):
+def run_bf16_state(kernel, hk, fused_f32):
+    """Phase 19: ``gwt(state_dtype=bfloat16)`` at full width through the
+    ``TrainLoop``, fused write and staged, ``STEPS`` steps each, counts set
+    to 0 just before each run and read just after: fused K1 3 launches a
+    step, all one pass; staged K4 7 a step; nothing else.  Losses finite
+    and falling, the staged path's within ``TOL_STAGED_LOSS["f32"]`` of the
+    fused path's (both paths compute the same moments and round them
+    alike; they differ in the limiter norm's sum order, as with f32
+    moments); the moments bf16 and the state bytes the JAX package's.
+    Printed beside phase 5's f32-moment run ``fused_f32``."""
+    from repro_torch.optim.base import flatten_with_paths
+    from repro_torch.optim.engine import state_bytes
+    out, losses = {}, {}
+    for flow, kw, want in (("fused", {}, fused_counts(k1=3 * STEPS)),
+                           ("staged", {"fused_write": False},
+                            {"K4": 7 * STEPS})):
+        opt = gwt_opt(STEPS, state_dtype=torch.bfloat16, **kw)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernel, hk)
+        params, state, losses[flow], step_ms = staged_loop(opt, STEPS)
+        counts = all_counts(kernel, hk)
+        peak = torch.cuda.max_memory_allocated() - base
+        expect = {k: 0 for k in counts}
+        expect.update(want)
+        if counts != expect:
+            raise AssertionError(f"bf16-state {flow} path launched {counts}, "
+                                 f"want {expect}")
+        moments = [t.dtype for p, t in zip(*flatten_with_paths(state))
+                   if p.endswith("/m") or p.endswith("/v")]
+        if set(moments) != {torch.bfloat16}:
+            raise AssertionError(f"bf16-state {flow}: moment dtypes "
+                                 f"{set(moments)}")
+        nbytes = state_bytes(state)
+        if nbytes != STATE_BYTES_GWT_BF16:
+            raise AssertionError(f"bf16 state is {nbytes} bytes, the JAX "
+                                 f"package counts {STATE_BYTES_GWT_BF16}")
+        logged = [losses[flow][i] for i in range(4, STEPS, 5)]
+        if not np.all(np.isfinite(losses[flow])) or \
+                not logged[-1] < logged[0]:
+            raise AssertionError(f"bf16-state {flow} losses {losses[flow]}")
+        out[flow] = {"losses": logged, "step_ms": step_ms,
+                     "peak_mib": peak / 2**20, "launches": counts,
+                     "state_bytes": nbytes}
+        print(f"bf16 state, {flow}: {STEPS} steps, logged losses {logged}; "
+              f"launches {counts}; state {nbytes} B = {nbytes / 2**20:.2f} "
+              f"MiB; step {step_ms:.2f} ms; peak {peak / 2**20:.1f} MiB above "
+              f"what earlier phases hold")
+    gap = max(abs(a - b) for a, b in zip(losses["fused"], losses["staged"]))
+    out["max_loss_gap"] = gap
+    print(f"bf16 state: max |staged loss - fused loss| {gap:.3g} (<= "
+          f"{TOL_STAGED_LOSS['f32']}); f32-moment fused path (phase 5) "
+          f"losses {[fused_f32.losses[i] for i in range(4, STEPS, 5)]}")
+    if gap > TOL_STAGED_LOSS["f32"]:
+        raise AssertionError(f"bf16-state staged losses {losses['staged']} "
+                             f"vs fused {losses['fused']}")
+    return out
+
+
+# Phase 20: the low-rank families with a projector refresh every
+# REFRESH_GAP steps, so 20 steps refresh at 0, 5, 10 and 15.
+REFRESH_GAP = 5
+
+
+def lowrank_opt(name, steps, update_gap=REFRESH_GAP):
+    from repro_torch import optim
+    from repro_torch.optim.schedules import warmup_cosine
+    return optim.make(name, lr=warmup_cosine(0.01, steps), rank_frac=0.25,
+                      alpha=0.25, update_gap=update_gap)
+
+
+def count_syncs(fn):
+    """``fn()`` and the number of calls in it that blocked the host on the
+    card (PyTorch's sync debug mode, as ``tools/step_time.py`` counts)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message).lower() for w in caught)
+
+
+def watched(opt, log):
+    """``opt`` whose ``update`` appends ``(start event, stop event, syncs)``
+    to ``log``: one entry per step, in order."""
+    def update(grads, state, params):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out, syncs = count_syncs(lambda: opt.update(grads, state, params))
+        b.record()
+        log.append((a, b, syncs))
+        return out
+    return opt._replace(update=update)
+
+
+def resumed_loop(opt, ckpt_dir, start):
+    """The phase-20 model from its checkpoint at ``start``, then the
+    ``TrainLoop`` to ``STEPS``: a resumed run, as ``train.main --resume``
+    restores one."""
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import make_source
+    from repro_torch.models import lm
+    from repro_torch.runtime.fault_tolerance import TrainLoop
+    dev = torch.device("cuda")
+    cfg = configs.get_config("llama-60m")
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                     dev).tree()
+    state, step = CheckpointManager(ckpt_dir).restore(
+        None, {"params": params, "opt": opt.init(params)}, device=dev)
+    if step != start:
+        raise AssertionError(f"checkpoint at {step}, want {start}")
+    params = lm.LM(cfg, state["params"]).tree()
+    loop = TrainLoop(lm.make_train_step(cfg, opt),
+                     make_source("synthetic", cfg.vocab, 256, 16, seed=0),
+                     device=dev, log_every=5, log=lambda line: None)
+    params, st, losses = loop.run(params, state["opt"], start_step=start,
+                                  num_steps=STEPS)
+    torch.cuda.synchronize()
+    return params, st, losses
+
+
+def checkpointed_loop(opt, ckpt_dir, steps):
+    """``staged_loop`` to ``steps`` with a checkpoint at the end."""
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import make_source
+    from repro_torch.models import lm
+    from repro_torch.runtime.fault_tolerance import TrainLoop
+    dev = torch.device("cuda")
+    cfg = configs.get_config("llama-60m")
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                     dev).tree()
+    loop = TrainLoop(lm.make_train_step(cfg, opt),
+                     make_source("synthetic", cfg.vocab, 256, 16, seed=0),
+                     device=dev, ckpt=CheckpointManager(ckpt_dir),
+                     ckpt_every=steps, log_every=5, log=lambda line: None)
+    _, _, losses = loop.run(params, opt.init(params), num_steps=steps)
+    torch.cuda.synchronize()
+    return losses
+
+
+def run_refresh(kernel, hk):
+    """Phase 20: each low-rank family at full width through the
+    ``TrainLoop`` with ``update_gap=REFRESH_GAP`` for ``STEPS`` steps
+    (refreshes, and AdaRankGrad's and RSO's moment rotations, at steps 0,
+    5, 10, 15): every non-refresh update makes 0 synchronizing calls, no
+    GWT kernel launches, the losses are finite and falling.  Prints the
+    update's time (CUDA events around it) on refresh steps beside the
+    steady ones.  For galore and rso, 10 steps + checkpoint + a resumed
+    run of 10 equal the 20 straight steps bitwise (losses, parameters,
+    state): their refreshes at 10 and 15 come after the resume."""
+    out = {}
+    for name in LOWRANK:
+        log = []
+        reset_counts(kernel, hk)
+        params, state, losses, step_ms = staged_loop(
+            watched(lowrank_opt(name, STEPS), log), STEPS)
+        counts = all_counts(kernel, hk)
+        if any(counts.values()):
+            raise AssertionError(f"{name} launched {counts}")
+        if len(log) != STEPS:
+            raise AssertionError(f"{name}: {len(log)} updates in {STEPS} "
+                                 f"steps")
+        syncs = [n for _, _, n in log]
+        bad = [(i, n) for i, n in enumerate(syncs)
+               if i % REFRESH_GAP and n]
+        if bad:
+            raise AssertionError(f"{name}: non-refresh updates synchronized "
+                                 f"(step, calls) {bad}")
+        ms = [a.elapsed_time(b) for a, b, _ in log]
+        refresh = [ms[i] for i in range(REFRESH_GAP, STEPS, REFRESH_GAP)]
+        steady = [ms[i] for i in range(2, STEPS) if i % REFRESH_GAP]
+        logged = [losses[i] for i in range(4, STEPS, 5)]
+        if not np.all(np.isfinite(losses)) or not logged[-1] < logged[0]:
+            raise AssertionError(f"{name} losses {losses}")
+        row = {"losses": logged, "step_ms": step_ms,
+               "update_ms_refresh": sum(refresh) / len(refresh),
+               "update_ms_steady": float(np.median(steady)),
+               "update_ms_first": ms[0],
+               "syncs_per_refresh": syncs[::REFRESH_GAP],
+               "syncs_other_steps": sum(syncs) - sum(syncs[::REFRESH_GAP])}
+        print(f"refresh {name} (update_gap {REFRESH_GAP}): logged losses "
+              f"{logged}; update on refresh steps 5/10/15 "
+              f"{row['update_ms_refresh']:.2f} ms (runs "
+              f"{[round(x, 3) for x in refresh]}), steady "
+              f"{row['update_ms_steady']:.2f} ms (median of "
+              f"{len(steady)}), step 0 {ms[0]:.2f} ms; synchronizing calls "
+              f"per refresh update {row['syncs_per_refresh']}, on the other "
+              f"{STEPS - len(row['syncs_per_refresh'])} updates 0; step "
+              f"{step_ms:.2f} ms")
+        if name in ("galore", "rso"):
+            tmp = tempfile.mkdtemp(prefix="chip_smoke_refresh_")
+            try:
+                first = checkpointed_loop(lowrank_opt(name, STEPS), tmp,
+                                          STEPS // 2)
+                r_params, r_state, r_losses = resumed_loop(
+                    lowrank_opt(name, STEPS), tmp, STEPS // 2)
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+            if first != losses[:STEPS // 2] or r_losses != losses[STEPS // 2:]:
+                raise AssertionError(f"{name} resume: losses {first} + "
+                                     f"{r_losses} vs {losses}")
+            assert_bitwise(r_params, params, f"{name} resumed params")
+            assert_bitwise(r_state, state, f"{name} resumed state")
+            row["resume_bitwise"] = True
+            print(f"refresh {name}: {STEPS // 2} steps + checkpoint + resume "
+                  f"+ {STEPS // 2} steps == {STEPS} straight steps, bitwise "
+                  f"(losses, parameters, projectors, moments)")
+        out[name] = row
+    return out
+
+
+def bound_tile(shape, level=LEVEL, esize=2, q8=False, msize=4):
     """Least time for one K4 (``q8``: K5) launch on ``shape``.  Bytes: read
-    g, write G̃ (``esize`` each), read and write m and v (f32; K5: int8
-    codes and one f32 scale per 64), the partials (and K5's salts).
+    g, write G̃ (``esize`` each), read and write m and v (``msize`` bytes
+    each: f32 4, bf16 2; K5: int8 codes and one f32 scale per 64), the
+    partials (and K5's salts).
     Operations: K1's per-coefficient f32 work without the write, the
     rounding and squaring of G̃, and K5's dequantization, requantization
     (f32) and rounding hash (int32), each type over its own rate."""
@@ -1582,7 +1866,7 @@ def bound_tile(shape, level=LEVEL, esize=2, q8=False):
         f32_ops += NA * (2 + 2 * 9)
         int_ops = NA * 2 * 10
     else:
-        nbytes = 2 * N * esize + 4 * NA * 4 + parts * 4
+        nbytes = 2 * N * esize + 4 * NA * msize + parts * 4
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = f32_ops / F32_OPS_PER_S + int_ops / INT32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
@@ -1598,12 +1882,25 @@ PARENT_LIB = "gwt_adam_tile@parent"
 PARENT_HAAR = "haar_dwt@parent"
 
 
+# the C entries that take a moment-dtype code (``mdtype``) since K1 and K4
+# took bf16 moments; a parent source without it has another interface
+MDTYPE_ENTRIES = {"gwt_adam_fused": "int gwt_adam_fused(int dtype, int mdtype",
+                  "gwt_adam_tile": "int gwt_adam_tile(int dtype, int mdtype"}
+
+
 def register_parent(build, lib="gwt_adam_tile") -> bool:
     """Adds the parent's library ``lib`` to ``build.SOURCES`` as
     ``lib@parent`` (phase 1 then builds it with the others); False where
-    tools/parent_kernels.py has not written the sources."""
+    tools/parent_kernels.py has not written the sources, or where the
+    parent's C interface predates the current wrappers' (a K1 or K4 entry
+    without the moment-dtype code)."""
     src, headers = build.SOURCES[lib]
     if not (PARENT_DIR / src.name).exists():
+        return False
+    entry = MDTYPE_ENTRIES.get(lib)
+    if entry and entry not in (PARENT_DIR / src.name).read_text():
+        print(f"parent {src.name}: its C interface predates the moment-dtype "
+              f"code; not built or timed")
         return False
     build.SOURCES[f"{lib}@parent"] = (PARENT_DIR / src.name, tuple(
         PARENT_DIR / h.name for h in headers))
@@ -1696,8 +1993,30 @@ def time_tile(kernel, ref, build, dev, parent):
                   f"{row['call_ms']:.4f} ms per call (runs {t_call}), plain "
                   f"{row['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
                   f"({nbytes / 1e6:.2f} MB)")
+            if not q8:
+                row["bf16_moments"] = time_tile_bf16(kernel, g, mm, vv,
+                                                     shape, flush)
             rows[name].append(row)
     return rows
+
+
+def time_tile_bf16(kernel, g, mm, vv, shape, flush):
+    """K4 with the same moments rounded to bf16 (gwt(state_dtype=bf16)):
+    device time per launch (as ``time_tile``, two runs of 20), per call,
+    and the bound with 2-byte moments."""
+    m16, v16 = mm.to(torch.bfloat16), vv.to(torch.bfloat16)
+    kern = lambda: kernel.gwt_adam_tile(g, m16, v16, level=LEVEL)
+    t_dev = [device_ms(kern, 20, lambda: kernel.launches_tile, flush)
+             for _ in range(2)]
+    t_call = [time_ms(kern, 50) for _ in range(2)]
+    b_ms, b_by, nbytes = bound_tile(shape, msize=2)
+    out = {"ms": min(t_dev), "call_ms": min(t_call), "bound_ms": b_ms,
+           "bound_by": b_by, "bytes": nbytes}
+    print(f"K4 time {shape} bf16 moments: kernel {out['ms']:.4f} ms on the "
+          f"device (runs {t_dev}), {b_ms / out['ms']:.1%} of bound "
+          f"{b_ms:.4f} ms ({nbytes / 1e6:.2f} MB); {out['call_ms']:.4f} ms "
+          f"per call")
+    return out
 
 
 def tile_entry(name, launches, rows, **extra):
@@ -1747,6 +2066,12 @@ def step_entry(name, source, replaces, launches, max_abs_err, rows,
             "bound_by": "bytes" if all(r["bound_by"] == "bytes"
                                        for r in rows) else "operations",
             "library_ms": None, "per_launch": rows, **extra}
+
+
+def bf16_step(rows):
+    """One step's worth of K1's or K4's launches with bf16 moments."""
+    return {k: sum(r["bf16_moments"][k] * r["per_step"] for r in rows)
+            for k in ("ms", "call_ms", "bound_ms")}
 
 
 def fused_entry(name, source, replaces, launches, max_abs_err, rows,
@@ -1980,6 +2305,8 @@ def main() -> int:
     rows_tile = time_tile(kernel, ref, build, dev, parent)
     prof_staged = profile_step(dev, "f32", fused_write=False)
     corpus_path = run_corpus_path(train, kernel, hk, dev, res32, card)
+    bf16_state = run_bf16_state(kernel, hk, res32)
+    refresh = run_refresh(kernel, hk)
     print(f"staged step vs fused step (same call): launcher-equivalent "
           f"loop {staged32['step_ms']:.2f} vs {res32.step_ms:.2f} ms; "
           f"profiled {prof_staged['step_ms']:.2f} vs "
@@ -1999,7 +2326,11 @@ def main() -> int:
                     launches_k1, err_k1, rows_k1, step_ms=res32.step_ms,
                     peak_mib=peak32 / 2**20, profile=prof32,
                     phase_2_buckets_by_design=designs_k1,
-                    corpus_path=corpus_path),
+                    corpus_path=corpus_path, moment_dtypes=MOMENT_NAMES,
+                    bf16_moments=bf16_step(rows_k1),
+                    bf16_state_fused=bf16_state["fused"],
+                    bf16_state_max_loss_gap=bf16_state["max_loss_gap"],
+                    lowrank_refresh=refresh),
         fused_entry("gwt_adam_fused_q8",
                     "gwt_adam/csrc/gwt_adam_fused_q8.cu",
                     "src/repro/kernels/gwt_adam/kernel.py:554",
@@ -2031,7 +2362,9 @@ def main() -> int:
                    rows_tile["K4"], phase_13_cases=tile_cases_run,
                    staged_f32=staged32, staged_int8=staged8,
                    profile=prof_staged, update_memory=memory,
-                   launcher_choices=choices),
+                   launcher_choices=choices, moment_dtypes=MOMENT_NAMES,
+                   bf16_moments=bf16_step(rows_tile["K4"]),
+                   bf16_state_staged=bf16_state["staged"]),
         tile_entry("gwt_adam_tile_q8", staged32["launches"]["K5"],
                    rows_tile["K5"], phase_13_cases=tile_cases_run),
     ]

@@ -14,26 +14,30 @@ Per eligible weight with transform-axis width divisible by ``2^l``::
 ``host`` is ``adam`` (the paper's), ``adam_mini`` or ``muon``
 (``optim/hosts.py``, with ``host_kwargs``); ``wavelet`` is ``haar`` (the
 paper's) or ``db2``.  Ineligible leaves (embeddings, norms, 1-D) run the
-host on the full tensor at the base lr (Adam under a MUON host).  State is
-f32 moments, or blocked-int8 with ``state_codec="int8"``.
+host on the full tensor at the base lr (Adam under a MUON host).  The
+moments are kept in ``state_dtype`` (f32, or bf16 for half the bytes; the
+math stays f32), or blocked-int8 with ``state_codec="int8"``.
 
 Dataflows.  Same-shaped eligible leaves form one ``(L, m, n)`` bucket.
 With the Adam host and the Haar wavelet (``use_fused``):
 
 * ``fused_write=True`` (default): each bucket is one
-  ``kernels.gwt_adam.ops.fused_write_update`` call (K1), or under int8 one
+  ``kernels.gwt_adam.ops.fused_write_update`` call (K1, f32 or bf16
+  moments), or under int8 one
   ``fused_write_update_q8`` call (K2) that dequantizes and requantizes the
   moments inside the launch;
 * ``fused_write=False``, the staged path: no bucket call; each leaf's
   ``update`` runs ``ops.fused_update`` (K4: DWT, Adam, inverse, G̃ in the
-  gradient's dtype), then the limiter, the step and the write as tensor
-  ops.  Under int8 the engine decodes, runs that ``update`` and encodes,
-  leaf by leaf.
+  gradient's dtype, f32 or bf16 moments), then the limiter, the step and
+  the write as tensor ops.  Under int8 the engine decodes, runs that
+  ``update`` and encodes, leaf by leaf.
 
 Any other host or wavelet runs the op-by-op core (``_gwt_core``) in
 ``update``.  ``bucketed=False`` makes the engine run every leaf's
 ``update`` (the unrolled reference).  The plain-host leaves run the
-engine's generic decode -> update -> encode under int8.
+engine's generic decode -> update -> encode under int8 (the host rounds
+the new moments to ``state_dtype`` before the encode, as the JAX package's
+does).
 """
 
 from __future__ import annotations
@@ -76,6 +80,7 @@ def gwt(lr: Schedule | float,
         use_limiter: bool = True,
         eligible: Optional[Callable[[str, torch.Tensor], bool]] = None,
         weight_decay: float = 0.0,
+        state_dtype: torch.dtype = torch.float32,
         wavelet: str = "haar",
         fused_write: bool = True,
         bucketed: bool = True,
@@ -85,8 +90,9 @@ def gwt(lr: Schedule | float,
     'db2'}; ``fused_write=False`` keeps the staged dataflow (G̃
     materialized, the limiter, step and write outside the kernel), a
     baseline and not a production knob; ``bucketed=False`` the unrolled
-    per-leaf engine; ``state_codec`` ('f32' | 'int8') stores the host
-    moments raw or blocked-int8."""
+    per-leaf engine; ``state_dtype`` (f32 | bf16) is the dtype of the host
+    moments, which ``state_codec`` ('f32' | 'int8') stores raw or
+    blocked-int8."""
     if wavelet not in ("haar", "db2"):
         raise ValueError(f"unknown wavelet {wavelet!r}")
     if isinstance(lr, (int, float)):
@@ -96,10 +102,11 @@ def gwt(lr: Schedule | float,
     fwd = haar.haar_forward if wavelet == "haar" else haar.db2_forward
     inv = haar.haar_inverse if wavelet == "haar" else haar.db2_inverse
     host_kwargs = dict(host_kwargs or {})
+    host_kwargs.setdefault("state_dtype", state_dtype)
     h = hosts_lib.make_host(host, **host_kwargs)
     # ineligible leaves run Adam under a MUON host (MUON for 2-D, Adam for
     # the rest), the host itself otherwise
-    plain = hosts_lib.adam() if host == "muon" else h
+    plain = hosts_lib.adam(state_dtype=state_dtype) if host == "muon" else h
     elig = eligible or default_eligible
     use_fused = host == "adam" and wavelet == "haar"
     # the kernels take the Adam coefficients explicitly: the host's
@@ -125,7 +132,7 @@ def gwt(lr: Schedule | float,
         return new_p.to(p.dtype)
 
     # -- plain rule: the host on the full tensor ----------------------------
-    def plain_update(g, p, state, step):
+    def plain_update(g, p, state, step, leaf_id):
         delta, _, lr_mult, hstate = plain.update(g, state["host"], step)
         return _apply(p, delta, lr(step), lr_mult, 1.0), {"host": hstate}
 
@@ -157,7 +164,7 @@ def gwt(lr: Schedule | float,
                 g_tilde = g_tilde.transpose(-1, -2)
             return g_tilde, lr_mult, hstate
 
-        def update(g, p, state, step):
+        def update(g, p, state, step, leaf_id):
             # the staged per-leaf path: the core, then the limiter and the
             # apply as tensor ops
             g_tilde, lr_mult, hstate = core(g, state["host"], step)

@@ -15,17 +15,22 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.manager import from_numpy
+from repro_torch.checkpoint.manager import from_numpy, to_numpy
 from repro_torch.models import lm
 from repro_torch.optim.base import flatten_with_paths, unflatten
+
+
+def _is_bf16(a: np.ndarray) -> bool:
+    """bf16 bits as ``uint16``, or an ``ml_dtypes`` bfloat16 array."""
+    return a.dtype == np.uint16 or a.dtype.name == "bfloat16"
 
 
 def _tensor(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype == np.uint16 and dtype != torch.bfloat16:
         raise ValueError(f"uint16 bits are bf16, not {dtype}")
-    return from_numpy(a, "bfloat16" if a.dtype == np.uint16 else
-                      str(a.dtype), dtype, device)
+    return from_numpy(a, "bfloat16" if _is_bf16(a) else str(a.dtype), dtype,
+                      device)
 
 
 def params_from_numpy(cfg, arrays: Mapping[str, np.ndarray],
@@ -48,24 +53,30 @@ def params_from_numpy(cfg, arrays: Mapping[str, np.ndarray],
 
 
 # optimizer-state leaves keep their integer dtypes: int8 moment codes, the
-# uint32 codec key, the int32 step; every other leaf is f32
+# uint32 codec key, the int32 step; bf16 moments (``state_dtype``) arrive as
+# their bits or as ml_dtypes bfloat16; every other leaf is f32
 _STATE_DTYPES = {np.dtype(np.int8): torch.int8,
                  np.dtype(np.uint32): torch.uint32,
                  np.dtype(np.int32): torch.int32}
+
+
+def _state_dtype(a: np.ndarray) -> torch.dtype:
+    if _is_bf16(a):
+        return torch.bfloat16
+    return _STATE_DTYPES.get(a.dtype, torch.float32)
 
 
 def state_from_numpy(arrays: Mapping[str, np.ndarray],
                      device) -> Dict[str, object]:
     """The optimizer state from its flat ``{path: ndarray}`` export."""
     paths = sorted(arrays)
-    leaves = [_tensor(arrays[p], _STATE_DTYPES.get(np.asarray(arrays[p])
-                                                   .dtype, torch.float32),
+    leaves = [_tensor(arrays[p], _state_dtype(np.asarray(arrays[p])),
                       device) for p in paths]
     return unflatten(paths, leaves)
 
 
 def state_to_numpy(state) -> Dict[str, np.ndarray]:
     """Inverse of :func:`state_from_numpy`: ``{path: ndarray}`` in each
-    leaf's own dtype."""
+    leaf's own dtype, a bf16 leaf as its ``uint16`` bits."""
     paths, leaves = flatten_with_paths(state)
-    return {p: t.detach().cpu().numpy() for p, t in zip(paths, leaves)}
+    return {p: to_numpy(t)[0] for p, t in zip(paths, leaves)}

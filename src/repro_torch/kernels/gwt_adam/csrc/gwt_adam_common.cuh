@@ -1,11 +1,11 @@
 // Device helpers shared by the GWT-Adam kernels (gwt_adam_fused.cu: K1, f32
-// moments; gwt_adam_fused_q8.cu: K2, blocked-int8 moments; gwt_adam_tile.cu:
-// K4/K5), and the one-pass design of K1 and K2 (the second half of this
-// file).  Every product and sum is written with an _rn intrinsic, so
-// nvcc cannot contract them into FMAs that PyTorch's op-by-op arithmetic
-// does not make; sqrt and division are IEEE (build without
-// --use_fast_math).  The kernels then round exactly where their plain
-// PyTorch versions (ref.py) round.
+// or bf16 moments; gwt_adam_fused_q8.cu: K2, blocked-int8 moments;
+// gwt_adam_tile.cu: K4 (f32 or bf16 moments) and K5), and the one-pass
+// design of K1 and K2 (the second half of this file).  Every product and
+// sum is written with an _rn intrinsic, so nvcc cannot contract them into
+// FMAs that PyTorch's op-by-op arithmetic does not make; sqrt and division
+// are IEEE (build without --use_fast_math).  The kernels then round exactly
+// where their plain PyTorch versions (ref.py) round.
 
 #pragma once
 
@@ -214,6 +214,26 @@ __device__ __forceinline__ void write_params(T* __restrict__ pj,
     pj[i] = new_param<T>(to_f32(pj[i]), x[i], scale_t, ss, wd, weight_decay);
 }
 
+// A type as a value, for the dtype dispatch below.
+template <typename X>
+struct Tag {
+  using type = X;
+};
+
+// Calls f(Tag<T>{}, Tag<M>{}) for the parameter dtype code and the moment
+// dtype code (each 0 = float32, 1 = bfloat16: the wrappers' _DTYPES).
+template <typename F>
+cudaError_t with_dtypes(int dtype, int mdtype, F f) {
+  auto moments = [&](auto t) -> cudaError_t {
+    if (mdtype == 0) return f(t, Tag<float>{});
+    if (mdtype == 1) return f(t, Tag<__nv_bfloat16>{});
+    return cudaErrorInvalidValue;
+  };
+  if (dtype == 0) return moments(Tag<float>{});
+  if (dtype == 1) return moments(Tag<__nv_bfloat16>{});
+  return cudaErrorInvalidValue;
+}
+
 // Calls f(std::integral_constant<int, LEVEL>) for level 1..4.
 template <typename F>
 cudaError_t with_level(int level, F f) {
@@ -369,12 +389,44 @@ __device__ __forceinline__ void load2(const float* p, float (&a)[2], bool v1) {
   }
 }
 
+// Two bf16 values at p as their 4 bytes, the first in the low half (one
+// access where aligned and both exist; the second half 0 if absent).
+__device__ __forceinline__ unsigned load_bits2(const __nv_bfloat16* p,
+                                               bool v1) {
+  if (v1 && aligned(p, 4)) return *reinterpret_cast<const unsigned*>(p);
+  const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
+  return h[0] | (v1 ? static_cast<unsigned>(h[1]) << 16 : 0u);
+}
+
+// load_bits2's pair widened to f32: exact, a bf16 is the high half of the
+// f32 of the same value.
+__device__ __forceinline__ void widen2(unsigned bits, float (&a)[2]) {
+  a[0] = __uint_as_float(bits << 16);
+  a[1] = __uint_as_float(bits & 0xffff0000u);
+}
+
 __device__ __forceinline__ void store2(float* p, const float (&a)[2], bool v1) {
   if (v1 && aligned(p, 8)) {
     *reinterpret_cast<float2*>(p) = make_float2(a[0], a[1]);
   } else {
     p[0] = a[0];
     if (v1) p[1] = a[1];
+  }
+}
+
+// Two f32 values rounded to bf16, to nearest even, at p.
+__device__ __forceinline__ void store2(__nv_bfloat16* p, const float (&a)[2],
+                                       bool v1) {
+  const __nv_bfloat16 e0 = from_f32<__nv_bfloat16>(a[0]);
+  const __nv_bfloat16 e1 = from_f32<__nv_bfloat16>(a[1]);
+  if (v1 && aligned(p, 4)) {
+    __nv_bfloat162 u;
+    u.x = e0;
+    u.y = e1;
+    *reinterpret_cast<__nv_bfloat162*>(p) = u;
+  } else {
+    p[0] = e0;
+    if (v1) p[1] = e1;
   }
 }
 
@@ -545,22 +597,32 @@ __device__ __forceinline__ void load_pair_raw(const T* src, T (&e)[2 * B],
   }
 }
 
-// f32 moments, two coefficients a thread (the one-pass K1 and K4): 8-byte
-// loads of the pair's m and v into registers ahead of the compute, 8-byte
-// stores of the new ones to m_out, v_out (K1 passes m and v themselves: in
-// place).
-struct F32Moments {
-  const float* m;
-  const float* v;
-  float* m_out;
-  float* v_out;
+// Moments stored as M (f32 or bf16), two coefficients a thread (the
+// one-pass K1 and K4): one load of the pair's m and v each (8 bytes in f32,
+// 4 in bf16) into registers ahead of the compute, and one store of the new
+// ones, rounded to M (bf16: __float2bfloat16_rn, nearest even), to m_out,
+// v_out (K1 passes m and v themselves: in place).  bf16 pairs wait as their
+// loaded bytes and are widened to f32 only in update: widened at the load,
+// the thread waited there for the load, before the block's wait for its
+// chunk, and K1 and K4 with bf16 moments ran slower than with f32 on the
+// H100.  The update and G~ use the unrounded f32 values; only what is
+// stored is rounded, as the plain version (ref.py) and the JAX package's
+// kernel do.
+template <typename M>
+struct FloatMoments {
+  const M* m;
+  const M* v;
+  M* m_out;
+  M* v_out;
   static constexpr int kRingBytes = 0;
   struct Chunk {
-    const float *m, *v;
-    float *mo, *vo;
+    const M *m, *v;
+    M *mo, *vo;
   };
+  static constexpr bool kF32 = std::is_same_v<M, float>;
   struct Regs {
     float m[2], v[2];
+    unsigned m_bits, v_bits;  // bf16: the loaded pairs
   };
   __device__ __forceinline__ void stage(unsigned char*, long long, long long,
                                         long long, int) const {}
@@ -572,8 +634,13 @@ struct F32Moments {
   __device__ __forceinline__ void load(const Chunk& ck, int cl, bool v0,
                                        bool v1, Regs& r) const {
     if (!v0) return;
-    load2(ck.m + cl, r.m, v1);
-    load2(ck.v + cl, r.v, v1);
+    if constexpr (kF32) {
+      load2(ck.m + cl, r.m, v1);
+      load2(ck.v + cl, r.v, v1);
+    } else {
+      r.m_bits = load_bits2(ck.m + cl, v1);
+      r.v_bits = load_bits2(ck.v + cl, v1);
+    }
   }
   template <int LEVEL>
   __device__ __forceinline__ void update(const Chunk& ck, int cl, int,
@@ -582,6 +649,10 @@ struct F32Moments {
                                          const Coeffs& c) const {
     constexpr int B = 1 << LEVEL;
     if (!v0) return;
+    if constexpr (!kF32) {
+      widen2(r.m_bits, r.m);
+      widen2(r.v_bits, r.v);
+    }
     dht_adam<LEVEL>(coeff<B>(x, 0), r.m[0], r.v[0], c);
     if (v1) dht_adam<LEVEL>(coeff<B>(x, 1), r.m[1], r.v[1], c);
     store2(ck.mo + cl, r.m, v1);
@@ -610,8 +681,8 @@ struct F32Moments {
 // before the block waits for the chunk (K1, K4); update runs dht_adam on
 // each and writes the new moments to the outputs (K1, K2: the inputs, in
 // place; K4, K5: their own buffers).  All 32 lanes of a warp call update
-// together (K2's and K5's absmax is a warp shuffle).  F32Moments here and
-// Q8Moments (gwt_adam_q8.cuh) serve the one-pass kernel below and the
+// together (K2's and K5's absmax is a warp shuffle).  FloatMoments here
+// and Q8Moments (gwt_adam_q8.cuh) serve the one-pass kernel below and the
 // staged kernels of gwt_adam_tile.cu alike.
 template <typename T, int LEVEL, class Mo>
 __global__ void __launch_bounds__(kThreads)

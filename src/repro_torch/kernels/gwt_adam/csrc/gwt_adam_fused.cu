@@ -1,6 +1,7 @@
 // Fused-write GWT-Adam update (K1) for one (L, N) bucket of same-shaped
 // leaves: level-l Haar DWT along rows -> Adam on the A_l band (m, v in
-// place) -> A~ = m/(sqrt(v)+eps), details scaled by the same
+// place, f32 or bf16: read as f32, written back rounded to nearest even
+// into their own dtype) -> A~ = m/(sqrt(v)+eps), details scaled by the same
 // 1/(sqrt(v)+eps) -> inverse DWT -> G~ rounded to the parameter type ->
 // per-leaf ||G~|| -> norm-growth limiter -> p <- p - step*s*G~ - wd*p,
 // written in place.
@@ -10,9 +11,11 @@
 //
 // Bound on an H100: the update does O(30) f32 operations per gradient
 // element, so memory bounds it.  It must read g and p (2 + 2 bytes in bf16),
-// read and write m and v (4 + 4 bytes each, once per 2^l gradient elements)
-// and write p (2 bytes): 10 bytes per gradient element at level 2.  LLaMA-60M
-// has 25.3 M such elements, so about 253 MB per step over three launches.
+// read and write m and v (4 + 4 bytes each in f32, 2 + 2 in bf16, once per
+// 2^l gradient elements) and write p (2 bytes): 10 bytes per gradient
+// element at level 2 with f32 moments, 8 with bf16 moments.  LLaMA-60M has
+// 25.3 M such elements, so about 253 MB per step over three launches (f32
+// moments).
 //
 // Two designs, chosen per bucket by the caller before the launch
 // (kernel.py: one_pass_fits):
@@ -55,16 +58,16 @@
 namespace {
 
 // grid (S, L): block s of leaf l takes coefficients [s*kChunk, (s+1)*kChunk).
-template <typename T, int LEVEL>
+template <typename T, typename M, int LEVEL>
 __global__ void __launch_bounds__(kThreads)
-norm_pass(const T* __restrict__ g, const float* __restrict__ m,
-          const float* __restrict__ v, float* __restrict__ partials,
+norm_pass(const T* __restrict__ g, const M* __restrict__ m,
+          const M* __restrict__ v, float* __restrict__ partials,
           long long na, Coeffs c) {
   constexpr int B = 1 << LEVEL;
   const long long leaf = blockIdx.y;
   const T* gl = g + leaf * na * B;
-  const float* ml = m + leaf * na;
-  const float* vl = v + leaf * na;
+  const M* ml = m + leaf * na;
+  const M* vl = v + leaf * na;
   const long long base = (long long)blockIdx.x * kChunk + threadIdx.x;
   float acc = 0.0f;
   for (int k = 0; k < kPerThread; ++k) {
@@ -73,7 +76,7 @@ norm_pass(const T* __restrict__ g, const float* __restrict__ m,
     float x[B];
 #pragma unroll
     for (int i = 0; i < B; ++i) x[i] = to_f32(gl[j * B + i]);
-    float mj = ml[j], vj = vl[j];
+    float mj = to_f32(ml[j]), vj = to_f32(vl[j]);
     dht_adam<LEVEL>(x, mj, vj, c);
     acc = sum_sq<T, B>(x, acc);
   }
@@ -81,10 +84,10 @@ norm_pass(const T* __restrict__ g, const float* __restrict__ m,
   if (threadIdx.x == 0) partials[leaf * gridDim.x + blockIdx.x] = total;
 }
 
-template <typename T, int LEVEL>
+template <typename T, typename M, int LEVEL>
 __global__ void __launch_bounds__(kThreads)
-write_pass(const T* __restrict__ g, T* __restrict__ p, float* __restrict__ m,
-           float* __restrict__ v, const float* __restrict__ prev_norm,
+write_pass(const T* __restrict__ g, T* __restrict__ p, M* __restrict__ m,
+           M* __restrict__ v, const float* __restrict__ prev_norm,
            float* __restrict__ new_norm, const float* __restrict__ partials,
            const float* __restrict__ step_size,
            const float* __restrict__ wd_coef, long long na, Coeffs c,
@@ -97,8 +100,8 @@ write_pass(const T* __restrict__ g, T* __restrict__ p, float* __restrict__ m,
   const long long leaf = blockIdx.y;
   const T* gl = g + leaf * na * B;
   T* pl = p + leaf * na * B;
-  float* ml = m + leaf * na;
-  float* vl = v + leaf * na;
+  M* ml = m + leaf * na;
+  M* vl = v + leaf * na;
   const long long base = (long long)blockIdx.x * kChunk + threadIdx.x;
   for (int k = 0; k < kPerThread; ++k) {
     const long long j = base + (long long)k * kThreads;
@@ -106,16 +109,16 @@ write_pass(const T* __restrict__ g, T* __restrict__ p, float* __restrict__ m,
     float x[B];
 #pragma unroll
     for (int i = 0; i < B; ++i) x[i] = to_f32(gl[j * B + i]);
-    float mj = ml[j], vj = vl[j];
+    float mj = to_f32(ml[j]), vj = to_f32(vl[j]);
     dht_adam<LEVEL>(x, mj, vj, c);
-    ml[j] = mj;
-    vl[j] = vj;
+    ml[j] = from_f32<M>(mj);
+    vl[j] = from_f32<M>(vj);
     write_params<T, B>(pl + j * B, x, scale_t, ss, wd, weight_decay);
   }
 }
 
-template <typename T>
-cudaError_t launch(int level, const void* g, void* p, float* m, float* v,
+template <typename T, typename M>
+cudaError_t launch(int level, const void* g, void* p, void* m, void* v,
                    const float* prev_norm, float* new_norm, float* partials,
                    const float* step_size, const float* wd_coef, long long L,
                    long long na, Coeffs c, float gamma, int use_limiter,
@@ -125,34 +128,38 @@ cudaError_t launch(int level, const void* g, void* p, float* m, float* v,
   return with_level(level, [&](auto lv) {
     constexpr int LEVEL = decltype(lv)::value;
     if (use_limiter) {
-      norm_pass<T, LEVEL><<<grid, kThreads, 0, stream>>>(
-          static_cast<const T*>(g), m, v, partials, na, c);
+      norm_pass<T, M, LEVEL><<<grid, kThreads, 0, stream>>>(
+          static_cast<const T*>(g), static_cast<const M*>(m),
+          static_cast<const M*>(v), partials, na, c);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return err;
     }
-    write_pass<T, LEVEL><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(g), static_cast<T*>(p), m, v, prev_norm,
-        new_norm, partials, step_size, wd_coef, na, c, gamma, use_limiter,
-        weight_decay);
+    write_pass<T, M, LEVEL><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(g), static_cast<T*>(p), static_cast<M*>(m),
+        static_cast<M*>(v), prev_norm, new_norm, partials, step_size,
+        wd_coef, na, c, gamma, use_limiter, weight_decay);
     return cudaGetLastError();
   });
 }
 
-template <typename T>
-cudaError_t launch_one(int level, const OnePassArgs<T>& a, float* m,
-                       float* v, cudaStream_t stream) {
+template <typename T, typename M>
+cudaError_t launch_one(int level, const OnePassArgs<T>& a, void* m, void* v,
+                       cudaStream_t stream) {
+  M* mm = static_cast<M*>(m);
+  M* vv = static_cast<M*>(v);
   return with_level(level, [&](auto lv) {
     return launch_one_pass<T, decltype(lv)::value>(
-        a, F32Moments{m, v, m, v}, stream);
+        a, FloatMoments<M>{mm, vv, mm, vv}, stream);
   });
 }
 
-template <typename T>
+template <typename T, typename M>
 cudaError_t plan_one(int level, long long total, int* out) {
   return with_level(level, [&](auto lv) {
     constexpr int LEVEL = decltype(lv)::value;
-    return export_plan(one_pass_kernel<T, LEVEL, F32Moments>(),
-                       one_pass_slot<T, LEVEL>(), one_pass_ring<F32Moments>(), total,
+    using Mo = FloatMoments<M>;
+    return export_plan(one_pass_kernel<T, LEVEL, Mo>(),
+                       one_pass_slot<T, LEVEL>(), one_pass_ring<Mo>(), total,
                        out);
   });
 }
@@ -165,11 +172,12 @@ extern "C" {
 // S = ceil(na / chunk).
 int gwt_adam_fused_chunk() { return kChunk; }
 
-// dtype: 0 = float32, 1 = bfloat16 (g and p share it); m, v f32 (L, na);
-// prev_norm, new_norm f32 (L,); partials f32 (L, S); step_size and wd_coef
-// point to f32 scalars on the device.  p, m, v are updated in place.
-int gwt_adam_fused(int dtype, int level, const void* g, void* p, float* m,
-                   float* v, const float* prev_norm, float* new_norm,
+// dtype: 0 = float32, 1 = bfloat16 (g and p share it); mdtype, the same
+// codes for m and v (L, na); prev_norm, new_norm f32 (L,); partials f32
+// (L, S); step_size and wd_coef point to f32 scalars on the device.  p, m, v
+// are updated in place.
+int gwt_adam_fused(int dtype, int mdtype, int level, const void* g, void* p,
+                   void* m, void* v, const float* prev_norm, float* new_norm,
                    float* partials, const float* step_size,
                    const float* wd_coef, long long L, long long na,
                    float gamma, float b1, float c1, float b2, float c2,
@@ -177,58 +185,52 @@ int gwt_adam_fused(int dtype, int level, const void* g, void* p, float* m,
                    void* stream) {
   const Coeffs c{b1, c1, b2, c2, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(level, g, p, m, v, prev_norm, new_norm, partials,
-                         step_size, wd_coef, L, na, c, gamma, use_limiter,
-                         weight_decay, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(level, g, p, m, v, prev_norm, new_norm,
-                                 partials, step_size, wd_coef, L, na, c,
-                                 gamma, use_limiter, weight_decay, s);
-  return cudaErrorInvalidValue;
+  return with_dtypes(dtype, mdtype, [&](auto t, auto mt) {
+    using T = typename decltype(t)::type;
+    using M = typename decltype(mt)::type;
+    return launch<T, M>(level, g, p, m, v, prev_norm, new_norm, partials,
+                        step_size, wd_coef, L, na, c, gamma, use_limiter,
+                        weight_decay, s);
+  });
 }
 
 // The one-pass design, same arguments.  The caller has checked that the
 // bucket fits (one_pass_fits); otherwise the plan fails with
 // cudaErrorInvalidConfiguration before anything is launched.  A refused
 // cooperative launch returns its error.
-int gwt_adam_fused_one_pass(int dtype, int level, const void* g, void* p,
-                            float* m, float* v, const float* prev_norm,
-                            float* new_norm, float* partials,
-                            const float* step_size, const float* wd_coef,
-                            long long L, long long na, float gamma, float b1,
-                            float c1, float b2, float c2, float eps,
-                            int use_limiter, int weight_decay, void* stream) {
+int gwt_adam_fused_one_pass(int dtype, int mdtype, int level, const void* g,
+                            void* p, void* m, void* v,
+                            const float* prev_norm, float* new_norm,
+                            float* partials, const float* step_size,
+                            const float* wd_coef, long long L, long long na,
+                            float gamma, float b1, float c1, float b2,
+                            float c2, float eps, int use_limiter,
+                            int weight_decay, void* stream) {
   const Coeffs c{b1, c1, b2, c2, eps};
   const long long S = (na + kChunk - 1) / kChunk;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    const OnePassArgs<float> a{static_cast<const float*>(g),
-                               static_cast<float*>(p), partials, prev_norm,
-                               new_norm, step_size, wd_coef, na, S, L * S, 0, c,
-                               gamma, use_limiter, weight_decay};
-    return launch_one<float>(level, a, m, v, s);
-  }
-  if (dtype == 1) {
-    const OnePassArgs<__nv_bfloat16> a{
-        static_cast<const __nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(p),
-        partials, prev_norm, new_norm, step_size, wd_coef, na, S, L * S, 0, c,
-        gamma, use_limiter, weight_decay};
-    return launch_one<__nv_bfloat16>(level, a, m, v, s);
-  }
-  return cudaErrorInvalidValue;
+  return with_dtypes(dtype, mdtype, [&](auto t, auto mt) {
+    using T = typename decltype(t)::type;
+    using M = typename decltype(mt)::type;
+    const OnePassArgs<T> a{static_cast<const T*>(g), static_cast<T*>(p),
+                           partials, prev_norm, new_norm, step_size,
+                           wd_coef, na, S, L * S, 0, c, gamma, use_limiter,
+                           weight_decay};
+    return launch_one<T, M>(level, a, m, v, s);
+  });
 }
 
 // The one-pass plan of an (L, na) bucket: out[0..8] = registers per
 // thread, local (spill) bytes, static shared bytes, the most dynamic shared
 // bytes a block may have, SMs, blocks per SM, slots per block, dynamic
 // shared bytes per block, grid.
-int gwt_adam_fused_one_pass_plan(int dtype, int level, long long L,
-                                 long long na, int* out) {
+int gwt_adam_fused_one_pass_plan(int dtype, int mdtype, int level,
+                                 long long L, long long na, int* out) {
   const long long total = L * ((na + kChunk - 1) / kChunk);
-  if (dtype == 0) return plan_one<float>(level, total, out);
-  if (dtype == 1) return plan_one<__nv_bfloat16>(level, total, out);
-  return cudaErrorInvalidValue;
+  return with_dtypes(dtype, mdtype, [&](auto t, auto mt) {
+    return plan_one<typename decltype(t)::type, typename decltype(mt)::type>(
+        level, total, out);
+  });
 }
 
 }  // extern "C"

@@ -6,8 +6,9 @@
 // (leaf, chunk of 2048 coefficients).  The limiter, the step and the
 // parameter write stay with the caller.  Two variants:
 //
-//  * gwt_adam_tile (K4) over f32 moments.  Replaces the TPU kernel
-//    gwt_adam_tile (body _body, core _dht_adam_core) of
+//  * gwt_adam_tile (K4) over f32 or bf16 moments (read as f32, the new
+//    ones written rounded to nearest even into the same dtype).  Replaces
+//    the TPU kernel gwt_adam_tile (body _body, core _dht_adam_core) of
 //    src/repro/kernels/gwt_adam/kernel.py.
 //  * gwt_adam_tile_q8 (K5) over blocked-int8 moments: dequantize -> K4's
 //    chain -> stochastic requantization of the new m and v.  Replaces
@@ -15,9 +16,9 @@
 //
 // Bound on an H100: O(30) f32 operations per gradient element against a
 // few bytes, so memory bounds both.  K4 must read g (2 bytes in bf16),
-// write G~ (2), and read and write m and v (4 bytes each way per moment,
-// once per 2^l gradient elements): 8 bytes per gradient element at level
-// 2.  K5 moves the moments as int8 codes plus one f32 scale per 64 codes:
+// write G~ (2), and read and write m and v (4 bytes each way per moment in
+// f32, 2 in bf16, once per 2^l gradient elements): 8 bytes per gradient
+// element at level 2 with f32 moments, 6 with bf16 moments.  K5 moves the moments as int8 codes plus one f32 scale per 64 codes:
 // about 5.06 bytes per element at level 2.  At the staged path's leaves
 // ((8,512,512): 16.8 MB, 256 chunks for 132 SMs) the launch is about two
 // blocks per SM in one wave, so what bounds it is the bytes each SM keeps
@@ -25,7 +26,7 @@
 // arithmetic.
 //
 // Design (K1's and K2's one-pass phase A, gwt_adam_common.cuh, with the
-// same moment policies, F32Moments and Q8Moments, writing to separate
+// same moment policies, FloatMoments and Q8Moments, writing to separate
 // outputs; without the grid barrier, the limiter and the write: nothing
 // waits on another block, so a plain launch of grid (S, L), one block per
 // chunk):
@@ -86,7 +87,8 @@ constexpr int tile_smem() {
 }
 
 // grid (S, L): block s of leaf l takes coefficients [s*kChunk, (s+1)*kChunk)
-// of the leaf, with Mo the moments' policy (F32Moments: K4; Q8Moments: K5).
+// of the leaf, with Mo the moments' policy (FloatMoments: K4; Q8Moments:
+// K5).
 template <typename T, int LEVEL, class Mo>
 __global__ void __launch_bounds__(kThreads)
 tile(const T* __restrict__ g, T* __restrict__ gt, float* __restrict__ partials,
@@ -176,21 +178,24 @@ extern "C" {
 int gwt_adam_tile_chunk() { return kChunk; }
 int gwt_adam_tile_qblock() { return kQBlock; }
 
-// dtype: 0 = float32, 1 = bfloat16 (g and gt share it); m, v, m_out, v_out
-// f32 (L, na); partials f32 (L, S).  The outputs must not overlap the
-// inputs.
-int gwt_adam_tile(int dtype, int level, const void* g, const float* m,
-                  const float* v, void* gt, float* m_out, float* v_out,
-                  float* partials, long long L, long long na, float b1,
-                  float c1, float b2, float c2, float eps, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16 (g and gt share it); mdtype, the same
+// codes for m, v, m_out, v_out (L, na); partials f32 (L, S).  The outputs
+// must not overlap the inputs.
+int gwt_adam_tile(int dtype, int mdtype, int level, const void* g,
+                  const void* m, const void* v, void* gt, void* m_out,
+                  void* v_out, float* partials, long long L, long long na,
+                  float b1, float c1, float b2, float c2, float eps,
+                  void* stream) {
   const Coeffs c{b1, c1, b2, c2, eps};
-  const F32Moments mo{m, v, m_out, v_out};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(level, g, gt, partials, L, na, c, mo, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(level, g, gt, partials, L, na, c, mo, s);
-  return cudaErrorInvalidValue;
+  return with_dtypes(dtype, mdtype, [&](auto t, auto mt) {
+    using T = typename decltype(t)::type;
+    using M = typename decltype(mt)::type;
+    const FloatMoments<M> mo{static_cast<const M*>(m),
+                             static_cast<const M*>(v), static_cast<M*>(m_out),
+                             static_cast<M*>(v_out)};
+    return launch<T>(level, g, gt, partials, L, na, c, mo, s);
+  });
 }
 
 // As gwt_adam_tile over blocked-int8 moments: qm, qv (and qm_out, qv_out)

@@ -1,17 +1,20 @@
 """Build, binding and launch of the hand-written CUDA GWT-Adam kernels,
 counterparts of the TPU kernels of ``repro/kernels/gwt_adam/kernel.py``:
 
-* ``gwt_adam_fused`` (K1, ``csrc/gwt_adam_fused.cu``, f32 moments):
-  ``gwt_adam_tile_fused`` there, the fused write;
+* ``gwt_adam_fused`` (K1, ``csrc/gwt_adam_fused.cu``, f32 or bf16
+  moments): ``gwt_adam_tile_fused`` there, the fused write;
 * ``gwt_adam_fused_q8`` (K2, ``csrc/gwt_adam_fused_q8.cu``, blocked-int8
   moments): ``gwt_adam_tile_fused_q8``;
-* ``gwt_adam_tile`` (K4, ``csrc/gwt_adam_tile.cu``, f32 moments):
+* ``gwt_adam_tile`` (K4, ``csrc/gwt_adam_tile.cu``, f32 or bf16 moments):
   ``gwt_adam_tile``, the staged update that returns G̃;
 * ``gwt_adam_tile_q8`` (K5, the same source, blocked-int8 moments):
   ``gwt_adam_tile_q8``.
 
 All are built and loaded by ``repro_torch.kernels.build`` (nvcc for
-``sm_90a``, a plain C interface bound with ``ctypes``).
+``sm_90a``, a plain C interface bound with ``ctypes``).  K1 and K4 take the
+moments in either dtype, both of one dtype (code ``mdtype``, as
+``_DTYPES``): they read them as f32 and write the new ones rounded to
+nearest even into that dtype, as the plain versions do.
 
 K1 and K2 have two designs each.  The one-pass design is one cooperative
 launch that keeps the bucket's rounded G̃ in shared memory across a grid
@@ -72,22 +75,28 @@ def _declare(fn, argtypes, extras=()) -> None:
 
 def _declare_tile(lib) -> None:
     _declare(lib.gwt_adam_tile,
-             [_I, _I] + [_VP] * 7 + [_LL, _LL] + [_F] * 5 + [_VP],
+             [_I, _I, _I] + [_VP] * 7 + [_LL, _LL] + [_F] * 5 + [_VP],
              (lib.gwt_adam_tile_chunk, lib.gwt_adam_tile_qblock))
     _declare(lib.gwt_adam_tile_q8,
              [_I, _I] + [_VP] * 13 + [_LL, _LL] + [_F] * 5 + [_VP])
 
 
-def _declare_fused(lib, name: str, n_ptrs: int, extras) -> None:
-    args = [_I, _I] + [_VP] * n_ptrs + [_LL, _LL] + [_F] * 6 + [_I, _I, _VP]
+def _declare_fused(lib, name: str, n_ptrs: int, extras,
+                   codes=(_I, _I)) -> None:
+    """K1's (``codes``: dtype, moment dtype, level) and K2's (dtype, level)
+    entries."""
+    args = list(codes) + [_VP] * n_ptrs + [_LL, _LL] + [_F] * 6 \
+        + [_I, _I, _VP]
     _declare(getattr(lib, name), args, extras)
     _declare(getattr(lib, name + "_one_pass"), args)
-    _declare(getattr(lib, name + "_one_pass_plan"), [_I, _I, _LL, _LL, _VP])
+    _declare(getattr(lib, name + "_one_pass_plan"),
+             list(codes) + [_LL, _LL, _VP])
 
 
 _DECLARE = {
     "gwt_adam_fused": lambda lib: _declare_fused(
-        lib, "gwt_adam_fused", 9, (lib.gwt_adam_fused_chunk,)),
+        lib, "gwt_adam_fused", 9, (lib.gwt_adam_fused_chunk,),
+        (_I, _I, _I)),
     "gwt_adam_fused_q8": lambda lib: _declare_fused(
         lib, "gwt_adam_fused_q8", 13,
         (lib.gwt_adam_fused_q8_chunk, lib.gwt_adam_fused_q8_qblock)),
@@ -144,6 +153,16 @@ def _require_cuda(g: torch.Tensor) -> None:
                          f"{g.device}")
 
 
+def _check_moments(device, m, v, shape) -> torch.dtype:
+    """K1's and K4's moments: f32 or bf16, both of one dtype; returns it."""
+    if m.dtype not in _DTYPES:
+        raise ValueError(f"m has dtype {m.dtype}, expected float32 or "
+                         f"bfloat16")
+    _check("m", m, device, m.dtype, shape)
+    _check("v", v, device, m.dtype, shape)
+    return m.dtype
+
+
 def _check_scalars(device, L, prev_norm, step_size, wd_coef) -> None:
     _check("prev_norm", prev_norm, device, torch.float32, (L,))
     _check("step_size", step_size, device, torch.float32, ())
@@ -173,9 +192,11 @@ _plans: Dict[tuple, Dict[str, int]] = {}
 
 
 def one_pass_plan(name: str, shape: Tuple[int, int, int],
-                  dtype: torch.dtype, level: int) -> Dict[str, int]:
-    """The one-pass plan of kernel ``name`` (``"gwt_adam_fused"`` or
-    ``"gwt_adam_fused_q8"``) for a bucket, from the card: the kernel's
+                  dtype: torch.dtype, level: int,
+                  mdtype: torch.dtype = torch.float32) -> Dict[str, int]:
+    """The one-pass plan of kernel ``name`` (``"gwt_adam_fused"`` with
+    moments of ``mdtype``, or ``"gwt_adam_fused_q8"``, which ignores it)
+    for a bucket, from the card: the kernel's
     registers per thread, spill bytes, static shared bytes and the dynamic
     shared bytes a block may give its G̃ slots (``max_dyn_smem``); the
     card's SMs; and, if the bucket fits, its blocks per SM, slots per
@@ -183,22 +204,24 @@ def one_pass_plan(name: str, shape: Tuple[int, int, int],
     where it does not fit)."""
     L, rows, n = shape
     na = rows * (n >> level)
-    key = (name, torch.cuda.current_device(), dtype, level,
+    # K1's kernels (registers, shared memory) differ by moment dtype
+    codes = (_DTYPES[dtype],) if name.endswith("q8") \
+        else (_DTYPES[dtype], _DTYPES[mdtype])
+    key = (name, torch.cuda.current_device(), codes, level,
            L * -(-na // CHUNK))
     if key not in _plans:
         lib = _load(name)
         plan_fn = getattr(lib, name + "_one_pass_plan")
         out = (ctypes.c_int * len(PLAN_FIELDS))()
         # one chunk always fits: the kernel's and the card's fields
-        err = plan_fn(_DTYPES[dtype], level, 1, CHUNK,
-                      ctypes.cast(out, _VP))
+        err = plan_fn(*codes, level, 1, CHUNK, ctypes.cast(out, _VP))
         if err != 0:
             raise RuntimeError(f"{name} one-pass plan failed: CUDA error "
                                f"{err}")
         info = dict(zip(PLAN_FIELDS, out))
         if one_pass_fits(shape, dtype, level, info["sms"],
                          info["max_dyn_smem"]):
-            err = plan_fn(_DTYPES[dtype], level, L, na, ctypes.cast(out, _VP))
+            err = plan_fn(*codes, level, L, na, ctypes.cast(out, _VP))
             if err != 0:
                 raise RuntimeError(f"{name} one-pass plan of {shape} failed: "
                                    f"CUDA error {err}")
@@ -209,10 +232,12 @@ def one_pass_plan(name: str, shape: Tuple[int, int, int],
     return _plans[key]
 
 
-def _design(name: str, design: str, g: torch.Tensor, level: int) -> str:
+def _design(name: str, design: str, g: torch.Tensor, level: int,
+            mdtype: torch.dtype = torch.float32) -> str:
     """``"one"`` or ``"two"``: ``design`` itself, or for ``"auto"`` the
     one the capacity rule names; raises if ``"one"`` does not fit."""
-    fits = one_pass_plan(name, tuple(g.shape), g.dtype, level)["grid"] > 0
+    fits = one_pass_plan(name, tuple(g.shape), g.dtype, level,
+                         mdtype)["grid"] > 0
     if design == "auto":
         return "one" if fits else "two"
     if design == "one" and not fits:
@@ -229,11 +254,10 @@ def _fused(design: str, g, p, m, v, prev_norm, step_size, wd_coef, *,
     device = g.device
     _check("g", g, device, g.dtype, (L, rows, n))
     _check("p", p, device, g.dtype, (L, rows, n))
-    _check("m", m, device, torch.float32, (L, rows, n >> level))
-    _check("v", v, device, torch.float32, (L, rows, n >> level))
+    mdtype = _check_moments(device, m, v, (L, rows, n >> level))
     _check_scalars(device, L, prev_norm, step_size, wd_coef)
     _require_cuda(g)
-    design = _design("gwt_adam_fused", design, g, level)
+    design = _design("gwt_adam_fused", design, g, level, mdtype)
     lib = _load("gwt_adam_fused")
     fn = lib.gwt_adam_fused_one_pass if design == "one" \
         else lib.gwt_adam_fused
@@ -242,8 +266,8 @@ def _fused(design: str, g, p, m, v, prev_norm, step_size, wd_coef, *,
     new_norm = torch.empty((L,), dtype=torch.float32, device=device)
     stream = _stream(device)
     err = fn(
-        _DTYPES[g.dtype], level, g.data_ptr(), p.data_ptr(), m.data_ptr(),
-        v.data_ptr(), prev_norm.data_ptr(), new_norm.data_ptr(),
+        _DTYPES[g.dtype], _DTYPES[mdtype], level, g.data_ptr(), p.data_ptr(),
+        m.data_ptr(), v.data_ptr(), prev_norm.data_ptr(), new_norm.data_ptr(),
         partials.data_ptr(), step_size.data_ptr(), wd_coef.data_ptr(),
         L, na, gamma, b1, 1 - b1, b2, 1 - b2, eps, int(use_limiter),
         int(weight_decay), stream)
@@ -267,8 +291,9 @@ def gwt_adam_fused(g: torch.Tensor, p: torch.Tensor, m: torch.Tensor,
     """Fused-write update of a whole ``(L, rows, n)`` bucket on the card,
     one pass where the bucket fits (:func:`one_pass_fits`), else two.
 
-    ``g``, ``p``: the parameter dtype (f32 or bf16); ``m``, ``v``: f32
-    ``(L, rows, n >> level)``; ``prev_norm``: f32 ``(L,)``; ``step_size``,
+    ``g``, ``p``: the parameter dtype (f32 or bf16); ``m``, ``v``: f32 or
+    bf16 (one dtype) ``(L, rows, n >> level)``; ``prev_norm``: f32
+    ``(L,)``; ``step_size``,
     ``wd_coef``: f32 scalars on the card.  ``p``, ``m``, ``v`` are updated
     in place.  Returns ``(p, m, v, new_norm)``; raises on any input the
     kernel does not take and on a failed launch."""
@@ -382,8 +407,9 @@ def gwt_adam_tile(g: torch.Tensor, m: torch.Tensor, v: torch.Tensor, *,
                   eps: float = 1e-6):
     """Staged update of an ``(L, rows, n)`` stack on the card (K4).
 
-    ``g``: f32 or bf16; ``m``, ``v``: f32 ``(L, rows, n >> level)``.
-    Returns new tensors ``(G̃ in g's dtype, m', v', partials)``:
+    ``g``: f32 or bf16; ``m``, ``v``: f32 or bf16 (one dtype) ``(L, rows,
+    n >> level)``.  Returns new tensors ``(G̃ in g's dtype, m', v' in the
+    moments' dtype, partials)``:
     ``partials`` is f32 ``(L, S)``, leaf ``l``'s ``‖G̃‖²`` of the rounded G̃
     in ``S`` fixed-order pieces (their sum is the leaf's).  Raises on any
     input the kernel does not take and on a failed launch."""
@@ -391,16 +417,15 @@ def gwt_adam_tile(g: torch.Tensor, m: torch.Tensor, v: torch.Tensor, *,
     L, rows, n, na = _check_bucket(g, level)
     device = g.device
     _check("g", g, device, g.dtype, (L, rows, n))
-    _check("m", m, device, torch.float32, (L, rows, n >> level))
-    _check("v", v, device, torch.float32, (L, rows, n >> level))
+    mdtype = _check_moments(device, m, v, (L, rows, n >> level))
     _require_cuda(g)
     lib = _load("gwt_adam_tile")
     gt, m_out, v_out = (torch.empty_like(t) for t in (g, m, v))
     partials = _partials(lib, L, na, device)
     stream = _stream(device)
     err = lib.gwt_adam_tile(
-        _DTYPES[g.dtype], level, g.data_ptr(), m.data_ptr(), v.data_ptr(),
-        gt.data_ptr(), m_out.data_ptr(), v_out.data_ptr(),
+        _DTYPES[g.dtype], _DTYPES[mdtype], level, g.data_ptr(), m.data_ptr(),
+        v.data_ptr(), gt.data_ptr(), m_out.data_ptr(), v_out.data_ptr(),
         partials.data_ptr(), L, na, b1, 1 - b1, b2, 1 - b2, eps, stream)
     if err != 0:
         raise RuntimeError(f"gwt_adam_tile launch failed: CUDA error {err}")

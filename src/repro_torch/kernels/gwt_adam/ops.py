@@ -59,7 +59,8 @@ def fused_update(g: torch.Tensor, state: dict, step: torch.Tensor, *,
                  level: int, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-6):
     """The staged GWT-Adam core of one leaf or one ``(L, ..., n)`` stack:
-    ``state`` holds ``m``, ``v`` of shape ``g.shape[:-1] + (n >> level,)``.
+    ``state`` holds ``m``, ``v`` of shape ``g.shape[:-1] + (n >> level,)``,
+    f32 or bf16 (the new moments come back in their dtype).
     Returns ``(G̃ in g's dtype, lr_mult, {"m": m', "v": v'})`` as new
     tensors, G̃ shaped like ``g``; the kernel's ‖G̃‖² partials are dropped,
     as in the JAX entry.  A transposed ``g`` is copied contiguous."""
@@ -113,8 +114,8 @@ def fused_write_update(g: torch.Tensor, p: torch.Tensor, state: dict,
                        gamma: float, use_limiter: bool, level: int,
                        b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6):
     """One bucket: ``g``, ``p`` are ``(L, ..., n)`` leaf stacks, ``state``
-    holds ``m``, ``v`` of shape ``(L, ..., n >> level)`` and ``prev_norm``
-    is ``(L,)``.  Returns ``(new_p, new_norm, {"m": new_m, "v": new_v})``.
+    holds ``m``, ``v`` of shape ``(L, ..., n >> level)``, f32 or bf16, and
+    ``prev_norm`` is ``(L,)``.  Returns ``(new_p, new_norm, {"m": new_m, "v": new_v})``.
     On CUDA the returned ``new_p``, ``m`` and ``v`` are the input tensors,
     updated in place; all four inputs must then be contiguous."""
     m_st, v_st = state["m"], state["v"]

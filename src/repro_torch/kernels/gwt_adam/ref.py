@@ -1,6 +1,11 @@
 """Plain PyTorch versions of the GWT-Adam updates, staged (K4, K5) and
-fused-write (K1, K2), over f32 and over blocked-int8 moments (counterpart
-of ``repro/kernels/gwt_adam/ref.py``).
+fused-write (K1, K2), over f32 or bf16 and over blocked-int8 moments
+(counterpart of ``repro/kernels/gwt_adam/ref.py``).
+
+Moments of f32 or bf16 are read as f32, the update and G̃ use the unrounded
+f32 values, and the new moments are rounded once, to nearest even, into the
+input moments' dtype: the JAX package's ``m_ref[...].astype(f32)`` in and
+``m.astype(m_out_ref.dtype)`` out.
 
 The CPU path runs them, and ``chip_smoke.py`` holds the CUDA kernels against
 them on the card, bitwise.  They round where the kernels round (the square
@@ -98,8 +103,9 @@ def gwt_adam_tile(g: torch.Tensor, m_st: torch.Tensor, v_st: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                              torch.Tensor]:
     """DWT -> Adam on ``A_l`` -> scaled details -> inverse, over any
-    leading dims (the plain version of K4).  Returns ``(G̃ in g's dtype,
-    m', v', ssq)``: ``ssq`` is f32 ``‖G̃‖²`` of the rounded G̃, one per leaf
+    leading dims (the plain version of K4).  ``m_st``, ``v_st``: f32 or
+    bf16.  Returns ``(G̃ in g's dtype, m', v' in the moments' dtype,
+    ssq)``: ``ssq`` is f32 ``‖G̃‖²`` of the rounded G̃, one per leaf
     (the first axis), summed in the kernels' order (:func:`chunk_ssq`,
     then :func:`leaf_ssq`)."""
     g32 = g.float()
@@ -165,8 +171,10 @@ def gwt_adam_fused(g: torch.Tensor, p: torch.Tensor, m_st: torch.Tensor,
                    level: int, gamma: float, use_limiter: bool,
                    weight_decay: bool, b1: float = 0.9,
                    b2: float = 0.999, eps: float = 1e-6):
-    """Fused-write update over an ``(L, m, n)`` bucket.  Returns new tensors
-    ``(new_p, new_m, new_v, new_norm)`` with ``new_norm`` f32 ``(L,)``."""
+    """Fused-write update over an ``(L, m, n)`` bucket (the plain version
+    of K1), moments f32 or bf16.  Returns new tensors ``(new_p, new_m,
+    new_v, new_norm)``, the moments in their input dtype, ``new_norm`` f32
+    ``(L,)``."""
     gt, m, v, _ = gwt_adam_tile(g, m_st, v_st, level=level, b1=b1, b2=b2,
                                 eps=eps)
     new_p, new_norm = _limit_write(

@@ -7,11 +7,13 @@
         [--eval-every K --eval-batches B] \
         [--ckpt-dir D --ckpt-every N --resume]
 
-``--optimizer`` is ``gwt`` (with ``--host``, ``--level``, ``--alpha``) or
-one of the full-rank baselines ``adam``, ``adam_mini``, ``muon``, ``sgd``;
-every choice runs under a warmup-cosine schedule peaking at ``--lr`` and
-takes ``--state-codec`` and ``--resume``.  The JAX package's low-rank
-families are not ported yet.
+``--optimizer`` is ``gwt`` (with ``--host``, ``--level``, ``--alpha``), one
+of the full-rank baselines ``adam``, ``adam_mini``, ``muon``, ``sgd``, or
+one of the low-rank baselines ``galore``, ``apollo``, ``fira``,
+``adarankgrad``, ``rso`` (rank 1/4 of each weight's smaller side,
+``--alpha``, as the JAX launcher builds them: APOLLO too gets ``--alpha``,
+not its constructor's 1.0); every choice runs under a warmup-cosine
+schedule peaking at ``--lr`` and takes ``--state-codec`` and ``--resume``.
 
 Data (the JAX package's sources, batch ``i`` bitwise the same):
 ``--data synthetic`` (the default), ``bytes`` (this repo's ``src/**/*.py``)
@@ -331,6 +333,8 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
         kw = {"state_codec": codec}
         if args.optimizer == "gwt":
             kw.update(level=args.level, alpha=args.alpha, host=args.host)
+        elif args.optimizer in optim.LOWRANK:
+            kw.update(rank_frac=0.25, alpha=args.alpha)
         return make_optimizer(args.optimizer, args.lr, args.steps, **kw)
 
     optimizer = build_optimizer(args.state_codec)

@@ -33,6 +33,20 @@ a per-leaf encode its leaf's column.  The ``f32`` codec skips all of it.
 ``update`` writes the new parameter values into the parameter tensors in
 place.  Stacking a bucket copies its gradients and parameters into one
 contiguous ``(L, ...)`` tensor per call.
+
+**Leaf ids.**  A rule's ``update`` gets its leaf's flatten-order index
+``leaf_id``, as the JAX package's does (APOLLO and RSO seed their random
+projectors with it).
+
+**The host step.**  Rules that branch on the step (the low-rank families'
+projector refresh every ``update_gap`` steps, a ``lax.cond`` in the JAX
+package) declare ``LeafRule.host_step`` and get the step as a Python int.
+Reading the device step would block the host every step, so the engine
+keeps a host mirror: the ``step + 1`` tensor each update returns is
+remembered with its int.  A state whose step tensor the engine did not make
+(after ``init``, a checkpoint restore or a transcode that built a new one)
+has its device step read once.  An update none of whose rules declares
+``host_step`` never reads it.
 """
 
 from __future__ import annotations
@@ -51,9 +65,11 @@ class LeafRule(NamedTuple):
     * ``kind`` — rule family name; the bucket-name prefix.
     * ``init(leaf) -> state`` — per-leaf state (a dict of tensors) from a
       tensor (a ``meta`` tensor gives a ``meta`` state).
-    * ``update(g, p, state, step) -> (new_p, new_state)`` — one leaf; the
-      only path of an unrolled engine (``build(bucketed=False)``) and of
-      a rule without ``vector_update``.
+    * ``update(g, p, state, step, leaf_id) -> (new_p, new_state)`` — one
+      leaf (``leaf_id``: its flatten-order index, an int); the only path
+      of an unrolled engine (``build(bucketed=False)``) and of a rule
+      without ``vector_update``.  A ``host_step`` rule also gets the step
+      as an int: ``update(g, p, state, step, leaf_id, host_step)``.
     * ``sig`` — extra static signature that must also match to bucket.
     * ``vector_update(g_stk, p_stk, state_stk, step[, salts])
       -> (new_p_stk, new_state_stk)`` — optional, over the whole stacked
@@ -63,6 +79,8 @@ class LeafRule(NamedTuple):
     * ``slots`` — bool tree mirroring the per-leaf state: True marks a
       moment slot the codec stores encoded; ``None``: no slots.
     * ``codec_native`` — ``vector_update`` takes the encoded slots itself.
+    * ``host_step`` — ``update`` takes the step as an int too (see the
+      module doc).
     """
 
     kind: str
@@ -72,6 +90,7 @@ class LeafRule(NamedTuple):
     vector_update: Optional[Callable[..., Tuple[torch.Tensor, Any]]] = None
     slots: Any = None
     codec_native: bool = False
+    host_step: bool = False
 
 
 class Bucket(NamedTuple):
@@ -138,6 +157,10 @@ class Engine:
         self.codec_seed = codec_seed
         self._plans: Dict[tuple, LeafPlan] = {}
         self._salt_ids: Dict[tuple, tuple] = {}
+        # the host mirror of the step: id(step tensor) -> (tensor, int) for
+        # the step tensors the last few updates returned (the tensor is
+        # kept so that its id is not reused)
+        self._host_steps: Dict[int, Tuple[torch.Tensor, int]] = {}
 
     def plan(self, params) -> LeafPlan:
         paths, leaves = flatten_with_paths(params)
@@ -146,6 +169,21 @@ class Engine:
         if key not in self._plans:
             self._plans[key] = build_plan(self.assign, params)
         return self._plans[key]
+
+    def host_step(self, step: torch.Tensor) -> int:
+        """The int value of the state's ``step`` tensor: from the mirror if
+        an update of this engine returned it, else read from the device
+        (once: a state from ``init``, a restore or a transcode)."""
+        hit = self._host_steps.get(id(step))
+        if hit is not None and hit[0] is step:
+            return hit[1]
+        return int(step)
+
+    def returned_step(self, step: torch.Tensor, value: int) -> None:
+        """Remember ``step`` (a tensor an update returns) as ``value``."""
+        if len(self._host_steps) >= _HOST_STEPS_KEPT:
+            self._host_steps.pop(next(iter(self._host_steps)))
+        self._host_steps[id(step)] = (step, value)
 
     def codec_key(self, device=None) -> Optional[torch.Tensor]:
         """The uint32 rounding key ``init`` stores in
@@ -215,6 +253,11 @@ def _legacy_key(i: int) -> str:
     return f"{i:06d}"
 
 
+# step tensors the host mirror keeps: one per optimizer state a caller
+# alternates between
+_HOST_STEPS_KEPT = 8
+
+
 def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
           codec="f32", codec_seed: int = 0) -> Optimizer:
     """Build an :class:`Optimizer` from a leaf-rule assignment.
@@ -253,6 +296,8 @@ def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
         _, pleaves = flatten_with_paths(params)
         if quant:
             salts, cols = eng.salts(plan, key, step)
+        hstep = eng.host_step(step) if any(
+            b.rule.host_step for b in plan.buckets) else None
         new_buckets = {}
         for b in plan.buckets:
             st = state["buckets"][b.name]
@@ -274,8 +319,9 @@ def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
                     s = _slice_state(st, j)
                     if coded:
                         s = codec_lib.tree_decode(cdc, rule.slots, s)
+                    extra = (hstep,) if rule.host_step else ()
                     new_p, ns_j = rule.update(gleaves[i], pleaves[i], s,
-                                              step)
+                                              step, i, *extra)
                     if coded:
                         ns_j = codec_lib.tree_encode(cdc, rule.slots, ns_j,
                                                      salts[:, i])
@@ -284,6 +330,8 @@ def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
                 ns = _stack_states(per_leaf)
             new_buckets[b.name] = ns
         out = {"step": step + 1, "buckets": new_buckets}
+        if hstep is not None:
+            eng.returned_step(out["step"], hstep + 1)
         if quant:
             out["codec_key"] = key
         return params, out

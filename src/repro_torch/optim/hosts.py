@@ -7,9 +7,11 @@ optimizer slot of the paper's Algorithm 1.
 
 ``detail_scale`` is the diagonal preconditioner GWT applies to the wavelet
 detail bands (Adam: ``1/(√V+ε)``), or None where the host has none (MUON:
-the details pass unscaled).  States are f32; math is f32.  The state codec
-may store the slots encoded; the engine decodes them before ``update``
-sees them.
+the details pass unscaled).  States are kept in ``state_dtype`` (f32 by
+default, bf16 for half the bytes); math is f32 from ``state[...].float()``,
+and the returned preconditioner uses the unrounded f32 moments: only the
+stored state is rounded.  The state codec may store the slots encoded; the
+engine decodes them before ``update`` sees them.
 """
 
 from __future__ import annotations
@@ -30,10 +32,11 @@ class Host(NamedTuple):
     slots: Any = None
 
 
-def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6) -> Host:
+def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
+         state_dtype: torch.dtype = torch.float32) -> Host:
     def init(shape, device):
-        return {"m": torch.zeros(shape, dtype=torch.float32, device=device),
-                "v": torch.zeros(shape, dtype=torch.float32, device=device)}
+        return {"m": torch.zeros(shape, dtype=state_dtype, device=device),
+                "v": torch.zeros(shape, dtype=state_dtype, device=device)}
 
     def update(g, state, step):
         g32 = g.float()
@@ -43,19 +46,21 @@ def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6) -> Host:
         precond = m / denom
         t = step.float() + 1.0
         lr_mult = torch.sqrt(1 - b2 ** t) / (1 - b1 ** t)
-        return precond, 1.0 / denom, lr_mult, {"m": m, "v": v}
+        return precond, 1.0 / denom, lr_mult, {"m": m.to(state_dtype),
+                                               "v": v.to(state_dtype)}
 
     return Host(init, update, "adam", slots={"m": True, "v": True})
 
 
-def adam_mini(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6) -> Host:
+def adam_mini(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
+              state_dtype: torch.dtype = torch.float32) -> Host:
     """Adam-mini: a full first moment and one second moment per row
     (``v`` shaped ``(..., 1)``; a scalar for 1-D tensors)."""
     def init(shape, device):
         shape = tuple(shape)
         vshape = shape[:-1] + (1,) if len(shape) >= 2 else ()
-        return {"m": torch.zeros(shape, dtype=torch.float32, device=device),
-                "v": torch.zeros(vshape, dtype=torch.float32, device=device)}
+        return {"m": torch.zeros(shape, dtype=state_dtype, device=device),
+                "v": torch.zeros(vshape, dtype=state_dtype, device=device)}
 
     def update(g, state, step):
         g32 = g.float()
@@ -67,7 +72,8 @@ def adam_mini(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6) -> Host:
         precond = m / denom
         t = step.float() + 1.0
         lr_mult = torch.sqrt(1 - b2 ** t) / (1 - b1 ** t)
-        return precond, 1.0 / denom, lr_mult, {"m": m, "v": v}
+        return precond, 1.0 / denom, lr_mult, {"m": m.to(state_dtype),
+                                               "v": v.to(state_dtype)}
 
     return Host(init, update, "adam_mini", slots={"m": True, "v": True})
 
@@ -92,13 +98,13 @@ def newton_schulz(m: torch.Tensor, steps: int = 5) -> torch.Tensor:
     return x
 
 
-def muon(beta: float = 0.95, ns_steps: int = 5,
-         nesterov: bool = True) -> Host:
+def muon(beta: float = 0.95, ns_steps: int = 5, nesterov: bool = True,
+         state_dtype: torch.dtype = torch.float32) -> Host:
     """MUON: momentum, Newton-Schulz orthogonalization, the RMS-matching
     scale ``sqrt(max(1, rows/cols))``; ``lr_mult`` 1 and no detail scale.
     Momentum-only state; 2-D (or batched 2-D) tensors only."""
     def init(shape, device):
-        return {"m": torch.zeros(tuple(shape), dtype=torch.float32,
+        return {"m": torch.zeros(tuple(shape), dtype=state_dtype,
                                  device=device)}
 
     def update(g, state, step):
@@ -109,7 +115,7 @@ def muon(beta: float = 0.95, ns_steps: int = 5,
         rows, cols = o.shape[-2], o.shape[-1]
         o = o * math.sqrt(max(1.0, rows / cols))
         one = torch.ones((), dtype=torch.float32, device=g.device)
-        return o, None, one, {"m": m}
+        return o, None, one, {"m": m.to(state_dtype)}
 
     return Host(init, update, "muon", slots={"m": True})
 

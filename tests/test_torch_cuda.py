@@ -10,8 +10,9 @@ both round at the same points, neither contracts FMAs, and the plain
 version adds the per-leaf ‖G̃‖² in the kernels' order (``ref.chunk_ssq``,
 ``ref.leaf_norm``), so K1's p, m, v and norm, K2's p, codes, scales and
 norm, and K4's and K5's outputs and ‖G̃‖² partials are held bitwise, at
-three seeds where a seed could matter.  K1's and K2's one-pass design must
-equal their two-pass kernels bitwise on every output.  The Haar DWT
+three seeds where a seed could matter; K1 and K4 with bf16 moments too.
+K1's and K2's one-pass design must equal their two-pass kernels bitwise on
+every output.  The Haar DWT
 kernels (K3, K6, K7) round where their plain versions round: bitwise, NaN
 codes of the fp8 wire included; K3's and K6's grouped entries too, leaf by
 leaf (unaligned leaves, ragged last tiles, groups of two launches), and
@@ -366,6 +367,53 @@ def test_tile_kernels_on_odd_leaves(dtype, level):
     dev = _card()
     _check_tile_kernels(dev, *_tile_inputs(dev, level, m=37, n=43 << level,
                                            dtype=dtype), level)
+
+
+# K1 and K4 with bf16 moments (gwt(state_dtype=torch.bfloat16)): read as
+# f32, written back rounded to nearest even; every output bitwise to the
+# plain version, at a ragged-chunk and an unaligned-leaf shape (leaf 1's
+# moments start at an odd coefficient: 2-byte accesses there), levels 1-3.
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ragged", "unaligned"])
+@pytest.mark.parametrize("level", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bf16_moments_match_plain_versions(dtype, level, kind):
+    dev = _card()
+    shape = _design_shape(kind, level)
+    g, p, mm, vv = _design_inputs(dev, shape, level, dtype)
+    mm, vv = mm.to(torch.bfloat16), vv.to(torch.bfloat16)
+    scalars = _design_scalars(dev)
+    for use_limiter in (True, False):
+        args = dict(level=level, gamma=1.01, use_limiter=use_limiter,
+                    weight_decay=True)
+        want = ref.gwt_adam_fused(g, p, mm, vv, *scalars, **args)
+        fresh = lambda: (g.clone(), p.clone(), mm.clone(), vv.clone(),
+                         *scalars)
+        one = [kernel.gwt_adam_fused(*fresh(), **args) for _ in range(2)]
+        two = kernel.gwt_adam_fused_two_pass(*fresh(), **args)
+        torch.cuda.synchronize()
+        assert one[0][1].dtype == torch.bfloat16
+        for a, b, c in zip(*one, two):
+            assert torch.equal(a, b) and torch.equal(a, c)
+        _bitwise(one[0], want)
+    want = ref.gwt_adam_tile(g, mm, vv, level=level)
+    outs = [kernel.gwt_adam_tile(g, mm, vv, level=level) for _ in range(2)]
+    torch.cuda.synchronize()
+    _bitwise(outs[1], outs[0])
+    _bitwise(outs[0], want[:3] + (ref.chunk_ssq(want[0], level),))
+
+
+@pytest.mark.cuda
+def test_mixed_moment_dtypes_are_refused():
+    dev = _card()
+    g, p, m, v = _inputs(dev)
+    scalars = (torch.zeros(3, device=dev), torch.tensor(0.01, device=dev),
+               torch.tensor(0.0, device=dev))
+    kw = dict(level=2, gamma=1.01, use_limiter=True, weight_decay=False)
+    with pytest.raises(ValueError, match="dtype"):
+        kernel.gwt_adam_fused(g, p, m.bfloat16(), v, *scalars, **kw)
+    with pytest.raises(ValueError, match="dtype"):
+        kernel.gwt_adam_tile(g, m, v.bfloat16(), level=2)
 
 
 @pytest.mark.cuda

@@ -103,7 +103,7 @@ def routed(monkeypatch):
     monkeypatch.setattr(kernel, "_require_cuda", lambda g: None)
     monkeypatch.setattr(kernel, "_stream", lambda device: 0)
 
-    def plan(name, shape, dtype, level):
+    def plan(name, shape, dtype, level, mdtype=torch.float32):
         return {"grid": 1 if fits(shape, dtype, level, name) else 0}
     monkeypatch.setattr(kernel, "one_pass_plan", plan)
     for name in ("launches", "launches_one_pass", "launches_two_pass",

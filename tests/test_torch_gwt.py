@@ -144,7 +144,7 @@ def test_staged_leaf_update_matches_reference():
             flat[path]), jst, jnp.int32(step), 0)
         tnew, tns = tb.rule.update(to_torch(g[path]), to_torch(flat[path]),
                                    tst, torch.tensor(step,
-                                                     dtype=torch.int32))
+                                                     dtype=torch.int32), 0)
         assert spacings(tnew, jnew) <= 4, path
         for k in ("m", "v"):
             assert spacings(tns["host"][k], jns["host"][k]) <= 4, path

@@ -60,7 +60,7 @@ def test_the_walk_sees_the_package():
             "compression.py", "mesh.py", "ops.py", "ref.py", "standard.py",
             "hosts.py", "haar.py", "engine.py", "tokenizer.py", "store.py",
             "order.py", "build_corpus.py", "workers.py", "eval.py",
-            "sink.py", "trace.py"} <= names
+            "sink.py", "trace.py", "lowrank.py"} <= names
 
 
 def test_the_check_catches_what_it_forbids():
