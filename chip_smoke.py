@@ -125,6 +125,32 @@ Phases (any failure raises and the script exits non-zero):
     ``galore`` and ``rso`` 10 steps + checkpoint + resume equal the 20
     straight steps bitwise (the refreshes at 10 and 15 after the resume).
 
+21. K1 at the dense configs' bucket widths: one layer's rows of each
+    qwen2.5-3b width ((2,2048,256), (2,2048,2048), (2,2048,11008),
+    (1,11008,2048)) and the stacked bias buckets ((2,36,256), (1,36,2048))
+    as phase 2 holds them at level 2; the whole (2,73728,256) bucket
+    through the two-pass design bitwise to the plain version; the
+    (2,73728,11008) bucket (1.62e9 elements): two runs bitwise, finite;
+22. the dense main path: ``train.main`` trains qwen2.5-3b at full width
+    and depth (36 layers; GQA, QKV bias, remat) with GWT-2 for 20 steps at
+    batch 16 x seq 256: K1 exactly 6 times a step, each bucket in the
+    design the capacity rule names, nothing else launched; the state the
+    JAX package's 8,039,764,012 bytes; losses finite and falling; step
+    time, tokens/s, peak memory, a profile of the step, and K1 per launch
+    at each of the six buckets beside its bound and plain version;
+23. deepseek-67b, gemma2-9b and gemma3-27b at full width, cut to 2
+    layers, 5 steps each through the launcher: deepseek (untied head on
+    plain Adam) at 16 x 256, gemma2 (local and global, both softcaps) at
+    1 x 8192 where the 4096 window takes the block-local route, gemma3
+    (remainder blocks only, QK-norm) at 2 x 2048; state bytes the JAX
+    package's, K1 counts and attention routes exact, losses finite;
+24. the chunked route: ``_flash_attn`` against ``_direct_attn`` on the
+    card at (1,4096,16,128) bf16, and one full-width qwen2.5-3b step cut
+    to 2 layers at 1 x 16384, which takes it;
+25. each dense smoke config, f32 and bf16, 3 steps on the card and on the
+    CPU from the same parameters and batches: losses within
+    ``TOL_SMOKE_LOSS``.
+
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device it
 exits non-zero before printing any result.
@@ -147,6 +173,13 @@ from pathlib import Path
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "src"))
+# The phases run workloads of very different sizes in one process, and the
+# full-width dense cuts (phase 23) peak within 15 GB of the card's 80 GB:
+# with fixed segments, blocks that earlier phases left alive pin whole
+# segments and the cache splits the rest (12 GiB reserved but unallocated
+# at a 7.8 GiB request, seen on an H100).  Growable segments map what they
+# use; set before torch touches CUDA.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -169,6 +202,9 @@ FIRST_SHAPE = ("FIRST-mode (8,1376,514) leaf", (1, 4112, 1376))
 PARTIAL_SHAPE = ("partial last block", (3, 37, 344))
 LEVEL = 2
 QBLOCK = 64
+# the names of K1's CUDA kernels (gwt_adam_fused.cu and the one-pass
+# kernel of gwt_adam_common.cuh), as the profiler reports them
+K1_KERNEL_NAMES = ("one_pass<", "norm_pass<", "write_pass<")
 STEPS = 20
 MAIN_ARGS = ["--arch", "llama-60m", "--steps", str(STEPS), "--batch", "16",
              "--seq", "256", "--log-every", "5", "--seed", "0"]
@@ -292,23 +328,25 @@ def refuses_one_pass(fn, what):
                          f"capacity")
 
 
-def fused_buckets(q8):
+def fused_buckets(q8, shapes=FUSED_SHAPES, levels=FUSED_LEVELS):
     """Phase 2's (K1: also each moment dtype) and phase 3's buckets:
     ``(label, shape, level, dtype, moment dtype)``."""
-    for label, shape in FUSED_SHAPES:
-        for level in FUSED_LEVELS:
+    for label, shape in shapes:
+        for level in levels:
             for dtype in FUSED_DTYPES:
                 for mdtype in ((torch.float32,) if q8 else MOMENT_DTYPES):
                     yield label, shape, level, dtype, mdtype
 
 
-def check_fused(kernel, ref, dev, q8):
-    """Phases 2 (K1) and 3 (``q8``: K2) at FUSED_SHAPES x FUSED_LEVELS x
+def check_fused(kernel, ref, dev, q8, shapes=FUSED_SHAPES,
+                levels=FUSED_LEVELS):
+    """Phases 2 (K1) and 3 (``q8``: K2) at ``shapes`` x ``levels`` x
     FUSED_DTYPES x CASES x SEED_SETS, K1 with f32 and with bf16 moments
     (``MOMENT_DTYPES``): p, m, v and the norm (K2: p, codes, scales and
     the norm) bitwise equal to the plain version, two runs bitwise, the
-    designs as ``check_designs`` holds them.  Returns the worst absolute
-    error over the outputs (0) and how many buckets took each design."""
+    designs as ``check_designs`` holds them; phase 21 takes K1 at the
+    dense configs' widths.  Returns the worst absolute error over the
+    outputs (0) and how many buckets took each design."""
     name = "K2" if q8 else "K1"
     lib = "gwt_adam_fused_q8" if q8 else "gwt_adam_fused"
     counter = ((lambda: (kernel.launches_q8_one_pass,
@@ -320,7 +358,8 @@ def check_fused(kernel, ref, dev, q8):
     taken = {"one": 0, "two": 0}
     step_size = torch.tensor(1e-3, device=dev)
     cases = 0
-    for label, shape, level, dtype, mdtype in fused_buckets(q8):
+    for label, shape, level, dtype, mdtype in fused_buckets(q8, shapes,
+                                                            levels):
         L, m, n = shape
         salts = q8_salts(L, dev)
         usalts = [s.to(torch.uint32) for s in salts]
@@ -492,39 +531,49 @@ def check_tile(kernel, ref, dev):
     return n
 
 
-def check_small_training(dev):
-    """Phase 4: llama-60m-smoke, f32 and int8 state, same parameters and
-    batches on the card and on the CPU; per-step losses within 1e-4
-    relative."""
-    from repro_torch import configs
+def small_training(dev, cfg, codecs, seq, steps, rtol):
+    """``steps`` GWT-2 steps of ``cfg`` (batch 4 x ``seq``) under each
+    state codec, from the same parameters and batches on the card and on
+    the CPU; per-step losses within ``rtol``.  Returns the losses."""
     from repro_torch.core.gwt import gwt
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models import lm
     from repro_torch.optim.base import flatten_with_paths, unflatten
     from repro_torch.optim.schedules import warmup_cosine
 
-    cfg = configs.get_smoke("llama-60m")
     base = lm.init(cfg, torch.Generator().manual_seed(0), "cpu").tree()
     paths, leaves = flatten_with_paths(base)
-    data = SyntheticLM(cfg.vocab, 32, 4, seed=0)
-    for codec in ("f32", "int8"):
+    data = SyntheticLM(cfg.vocab, seq, 4, seed=0)
+    result = {}
+    for codec in codecs:
         losses = {}
         for device in ("cpu", "cuda"):
             tree = lm.LM(cfg, unflatten(paths, [l.detach().to(device).clone()
                                                 for l in leaves])).tree()
-            opt = gwt(warmup_cosine(0.01, 4), state_codec=codec)
+            opt = gwt(warmup_cosine(0.01, steps), state_codec=codec)
             state = opt.init(tree)
             step = lm.make_train_step(cfg, opt)
             out = []
-            for i in range(4):
+            for i in range(steps):
                 b = {k: torch.from_numpy(v).to(device)
                      for k, v in data.batch(i).items()}
                 tree, state, met = step(tree, state, b)
                 out.append(met["loss"])
             losses[device] = torch.stack(out).cpu().numpy()
-        print(f"smoke {codec} losses cpu={losses['cpu'].tolist()} "
-              f"cuda={losses['cuda'].tolist()}")
-        np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+        print(f"smoke {cfg.name} {cfg.dtype} {codec} losses "
+              f"cpu={losses['cpu'].tolist()} cuda={losses['cuda'].tolist()}")
+        np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=rtol)
+        result[codec] = {d: l.tolist() for d, l in losses.items()}
+    return result
+
+
+def check_small_training(dev):
+    """Phase 4: llama-60m-smoke, f32 and int8 state, same parameters and
+    batches on the card and on the CPU; per-step losses within 1e-4
+    relative."""
+    from repro_torch import configs
+    small_training(dev, configs.get_smoke("llama-60m"), ("f32", "int8"), 32,
+                   4, 1e-4)
 
 
 def time_ms(fn, iters):
@@ -690,12 +739,14 @@ def time_generic_wrap(dev):
     return t_dec, t_enc
 
 
-def profile_step(dev, codec, steps=4, dp_reduce=None, fused_write=True):
-    """Phase 9: where a full-width step's time goes.  First without the
-    profiler: step time and ``optimizer.update``'s share (CUDA events around
-    it).  Then under ``torch.profiler``: device kernel time per step (kernel
-    durations; the profiler slows the host, not the kernels), launches per
-    step, and the ops that take the most device time."""
+def profile_step(dev, codec, steps=4, dp_reduce=None, fused_write=True,
+                 arch="llama-60m", batch=16, seq=256):
+    """Phase 9 (and 22 for qwen2.5-3b): where a full-width step's time
+    goes.  First without the profiler: step time and
+    ``optimizer.update``'s share (CUDA events around it).  Then under
+    ``torch.profiler``: device kernel time per step (kernel durations; the
+    profiler slows the host, not the kernels), launches per step, K1's
+    kernels' share, and the ops that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import configs
@@ -704,7 +755,7 @@ def profile_step(dev, codec, steps=4, dp_reduce=None, fused_write=True):
     from repro_torch.models import lm
     from repro_torch.optim.schedules import warmup_cosine
 
-    cfg = configs.get_config("llama-60m")
+    cfg = configs.get_config(arch)
     tree = lm.init(cfg, torch.Generator(device=dev).manual_seed(1),
                    dev).tree()
     opt = gwt(warmup_cosine(0.01, 100), state_codec=codec,
@@ -722,7 +773,7 @@ def profile_step(dev, codec, steps=4, dp_reduce=None, fused_write=True):
 
     step = lm.make_train_step(cfg, opt._replace(update=timed_update),
                               dp_reduce=dp_reduce)
-    data = SyntheticLM(cfg.vocab, 256, 16, seed=1)
+    data = SyntheticLM(cfg.vocab, seq, batch, seed=1)
     batches = [{k: torch.from_numpy(v).to(dev)
                 for k, v in data.batch(i).items()}
                for i in range(2 * steps + 2)]
@@ -745,17 +796,23 @@ def profile_step(dev, codec, steps=4, dp_reduce=None, fused_write=True):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         prof_step_ms, _ = run(batches[2 + steps:])
-    kernel_us = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernel_us = [e.time_range.elapsed_us() for e in kernels]
     busy_ms = sum(kernel_us) / 1e3 / steps
-    print(f"profile {codec} dp_reduce={dp_reduce} fused_write="
+    # K1's kernels: the one-pass design and the two-pass norm and write
+    # passes of gwt_adam_fused.cu (K2's share the names; f32 runs no K2)
+    k1_ms = sum(e.time_range.elapsed_us() for e in kernels
+                if any(k in e.name for k in K1_KERNEL_NAMES)) / 1e3 / steps
+    print(f"profile {arch} {codec} dp_reduce={dp_reduce} fused_write="
           f"{fused_write}: step {step_ms:.2f} ms, "
           f"optimizer.update {opt_ms:.2f} ms, rest of the step (data to model grads) "
           f"{step_ms - opt_ms:.2f} ms; device kernels {busy_ms:.2f} ms/step "
           f"= {busy_ms / step_ms:.1%} of the unprofiled step "
           f"({1 - busy_ms / step_ms:.1%} idle); {len(kernel_us) // steps} "
           f"kernel launches/step; step under the profiler "
-          f"{prof_step_ms:.2f} ms")
+          f"{prof_step_ms:.2f} ms; GWT kernels {k1_ms:.3f} ms/step "
+          f"= {k1_ms / busy_ms:.2%} of device time")
     dev_time = lambda e: getattr(e, "self_device_time_total",
                                  getattr(e, "self_cuda_time_total", 0))
     ops = sorted(prof.key_averages(), key=lambda e: -dev_time(e))[:10]
@@ -763,7 +820,7 @@ def profile_step(dev, codec, steps=4, dp_reduce=None, fused_write=True):
         print(f"  {dev_time(e) / 1e3 / steps:8.3f} ms/step device "
               f"{e.count // steps:5d} calls/step  {e.key[:70]}")
     return {"step_ms": step_ms, "update_ms": opt_ms,
-            "device_busy_ms": busy_ms,
+            "device_busy_ms": busy_ms, "gwt_kernel_ms": k1_ms,
             "launches_per_step": len(kernel_us) // steps}
 
 
@@ -2239,6 +2296,392 @@ def run_corpus_path(train, kernel, hk, dev, synthetic, card):
     return record
 
 
+# Phases 21-25: the dense attention family at full width.  GWT-2 over
+# qwen2.5-3b's plan gives K1 six buckets a step, rows merged as
+# ``ops._rows`` feeds them, in plan order; the stacked QKV biases are GWT
+# leaves in the JAX package, and so in the port.
+DENSE_ARCHS = ("qwen2.5-3b", "gemma2-9b", "gemma3-27b", "deepseek-67b")
+QWEN_BUCKETS = [("ffn.w_down", (1, 396288, 2048)),
+                ("ffn.w_gate (w_gate, w_up)", (2, 73728, 11008)),
+                ("mixer.bk (bk, bv)", (2, 36, 256)),
+                ("mixer.bq", (1, 36, 2048)),
+                ("mixer.wk (wk, wv)", (2, 73728, 256)),
+                ("mixer.wo (wo, wq)", (2, 73728, 2048))]
+# phase 21: one layer's rows of each of those widths (the bias buckets
+# whole), in every CASE at both seed sets
+DENSE_SHAPES = [("wk/wv, one layer", (2, 2048, 256)),
+                ("wo/wq, one layer", (2, 2048, 2048)),
+                ("w_gate/w_up, one layer", (2, 2048, 11008)),
+                ("w_down, one layer", (1, 11008, 2048)),
+                ("bk/bv", (2, 36, 256)), ("bq", (1, 36, 2048))]
+QWEN_ARGS = ["--arch", "qwen2.5-3b", "--steps", str(STEPS), "--batch",
+             "16", "--seq", "256", "--log-every", "5", "--seed", "0"]
+QWEN_STATE_BYTES = 8_039_764_012   # the JAX package's engine.state_bytes
+# phase 23: (arch, layers, batch, seq, the JAX package's state bytes at
+# that depth).  Every width is the published one; only depth is cut, to
+# fit one card.  gemma2 at seq 8192 is the first length its 4096 window
+# takes the block-local route at; gemma3 at 2 layers has only remainder
+# (rem) blocks, both local, and its 1024 window divides 2048.
+DENSE_CUTS = [("deepseek-67b", 2, 16, 256, 16_190_341_152),
+              ("gemma2-9b", 2, 1, 8192, 8_132_898_876),
+              ("gemma3-27b", 2, 2, 2048, 12_926_015_548)]
+CUT_STEPS = 5
+# phase 24: qwen2.5-3b's attention after the KV repeat, and a length past
+# 8192 that takes the chunked route
+FLASH_SHAPE = (1, 4096, 16, 128)
+FLASH_SEQ = 16384
+# _flash_attn against _direct_attn in bf16: each kv chunk's p·V is
+# rounded to bf16 before the f32 sum, so the outputs may differ by a bf16
+# spacing; 2 bf16 spacings at the direct output's largest magnitude (1
+# measured on the CPU at (1, 2048, 4, 128))
+TOL_FLASH_BF16_SPACINGS = 2
+# phase 25: card against CPU, 3 GWT-2 steps of each smoke config.  f32 as
+# phase 4; bf16 rounds every matmul output to 8 bits of mantissa, so a
+# different summation order moves a logit by a bf16 spacing and the
+# steps carry it: measured on an H100 at most 4.1e-4 relative (gemma3-27b
+# smoke, step 3), so 2e-3 leaves a factor of 5 for other seeds, and a
+# card-only fault that moves the loss by 0.2% fails
+TOL_SMOKE_LOSS = {"float32": 1e-4, "bfloat16": 2e-3}
+SMOKE_SEQ = 64                     # > the smoke window 32: block-local
+ROUTES = ("_direct_attn", "_local_block_attn", "_flash_attn")
+
+
+def gwt_buckets(cfg):
+    """The GWT buckets of GWT-2 over ``cfg``'s parameters as K1 takes
+    them: ``(name, (L, rows, n))``, and the names of the other buckets."""
+    from repro_torch.core.gwt import gwt
+    from repro_torch.models import lm
+    from repro_torch.optim.base import flatten_with_paths
+    params = lm.abstract_params(cfg)
+    shapes = dict(zip(*flatten_with_paths(params)))
+    gwt_b, other = [], {}
+    for b in gwt(lr=0.01).engine.plan(params).buckets:
+        s = tuple(shapes[b.paths[0]].shape)
+        if b.name.startswith("gwt"):
+            gwt_b.append((b.name, (len(b.paths), math.prod(s[:-1]), s[-1])))
+        else:
+            other.update({p: b.name for p in b.paths})
+    return gwt_b, other
+
+
+def one_pass(kernel, shape, dtype) -> bool:
+    return kernel.one_pass_plan("gwt_adam_fused", shape, dtype,
+                                LEVEL)["grid"] > 0
+
+
+def k1_counts(kernel, cfg, steps):
+    """K1's expected counters over ``steps`` steps of GWT-2 on ``cfg``,
+    each bucket in the design the capacity rule names."""
+    buckets, _ = gwt_buckets(cfg)
+    ones = sum(one_pass(kernel, s, cfg.torch_dtype) for _, s in buckets)
+    return {"K1": len(buckets) * steps, "K1 one-pass": ones * steps,
+            "K1 two-pass": (len(buckets) - ones) * steps}
+
+
+def check_dense_k1(kernel, ref, dev):
+    """Phase 21: K1 at one layer's rows of each qwen2.5-3b bucket width as
+    phase 2 holds it (level 2, bf16 and f32 parameters, f32 and bf16
+    moments, every CASE, both seed sets, bitwise); then every whole bucket
+    of the plan that takes the two-pass design, in every CASE, two kernel
+    runs bitwise to each other and to the plain version (the largest,
+    (2, 73728, 11008), has 1.62e9 elements: byte offsets past 2^31, and
+    99,072 chunk partials summed into each leaf's norm)."""
+    _, taken = check_fused(kernel, ref, dev, q8=False, shapes=DENSE_SHAPES,
+                           levels=(LEVEL,))
+    ss = torch.tensor(1e-3, device=dev)
+    whole = [(label, shape) for label, shape in QWEN_BUCKETS
+             if not one_pass(kernel, shape, torch.bfloat16)]
+    if len(whole) != 4:
+        raise AssertionError(f"two-pass buckets {whole}; phase 21 expects "
+                             f"the four large qwen2.5-3b buckets")
+    for label, shape in whole:
+        L = shape[0]
+        t0 = time.perf_counter()
+        for ci, (case, use_lim, prev, wd) in enumerate(CASES):
+            g, *state = make_inputs(shape, seed(ci, shape[2], LEVEL, 1), dev)
+            pn = torch.full((L,), prev, device=dev)
+            wd_coef = torch.tensor(wd, device=dev)
+            kw = dict(level=LEVEL, gamma=1.01, use_limiter=use_lim,
+                      weight_decay=wd != 0)
+            want = ref.gwt_adam_fused(g, *state, pn, ss, wd_coef, **kw)
+            before = kernel.launches_two_pass
+            runs = [kernel.gwt_adam_fused(g, *(t.clone() for t in state),
+                                          pn, ss, wd_coef, **kw)
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+            if kernel.launches_two_pass - before != 2:
+                raise AssertionError(f"K1 {shape}: not the two-pass design")
+            check_bands(f"K1 whole bucket {label} {shape} / {case}", runs,
+                        want, ("p", "m", "v", "norm"))
+            del g, state, want, runs
+        print(f"K1 whole bucket {label} {shape} ({math.prod(shape)} "
+              f"elements): two-pass design, {len(CASES)} cases, two runs "
+              f"and the plain version bitwise equal on p, m, v, norm "
+              f"({time.perf_counter() - t0:.1f} s)")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"one_layer_widths": [s for _, s in DENSE_SHAPES],
+            "buckets_by_design": taken,
+            "whole_buckets_bitwise": [list(s) for _, s in whole]}
+
+
+@contextlib.contextmanager
+def depth_cut(arch, n_layers):
+    """While the block runs, ``configs.get_config(arch)`` (what the
+    launcher builds) has ``n_layers`` layers and every published width."""
+    from repro_torch import configs
+    full = configs.get_config
+    configs.get_config = lambda name: (full(name).with_(n_layers=n_layers)
+                                       if name == arch else full(name))
+    try:
+        yield configs.get_config(arch)
+    finally:
+        configs.get_config = full
+
+
+@contextlib.contextmanager
+def route_counts():
+    """Counts the calls of each attention route while the block runs."""
+    from repro_torch.models import attention
+    counts = dict.fromkeys(ROUTES, 0)
+    saved = {name: getattr(attention, name) for name in ROUTES}
+
+    def counted(name, fn):
+        def call(*args, **kw):
+            counts[name] += 1
+            return fn(*args, **kw)
+        return call
+
+    for name, fn in saved.items():
+        setattr(attention, name, counted(name, fn))
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(attention, name, fn)
+
+
+def want_routes(cfg, S, steps):
+    """Route calls of ``steps`` steps: each block once forward and, with
+    ``cfg.remat``, once more when the backward recomputes it."""
+    kinds = list(cfg.pattern) * cfg.n_periods + \
+        list(cfg.pattern[:cfg.rem_layers])
+    want = dict.fromkeys(ROUTES, 0)
+    for kind in kinds:
+        window = cfg.window if kind == "attn_local" else 0
+        if window and S > window and S % window == 0:
+            route = "_local_block_attn"
+        elif window and S > window:
+            route = "_direct_attn"
+        elif S > 8192:
+            route = "_flash_attn"
+        else:
+            route = "_direct_attn"
+        want[route] += steps * (2 if cfg.remat else 1)
+    return want
+
+
+def run_dense(train, kernel, hk, arch, argv, cfg, steps, state_bytes_want,
+              seq):
+    """Train ``cfg`` through the launcher (counts set to 0 just before and
+    read just after): K1's launches and designs, the attention routes,
+    the state bytes, finite losses and parameters.  Returns a summary."""
+    from repro_torch.optim.engine import state_bytes
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts(kernel, hk)
+    with route_counts() as routes:
+        t0 = time.perf_counter()
+        res = train.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = all_counts(kernel, hk)
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in counts}
+    want.update(k1_counts(kernel, cfg, steps))
+    if counts != want:
+        raise AssertionError(f"{arch}: launched {counts} in {steps} steps, "
+                             f"want {want}")
+    if routes != want_routes(cfg, seq, steps):
+        raise AssertionError(f"{arch}: attention routes {routes}, want "
+                             f"{want_routes(cfg, seq, steps)}")
+    nbytes = state_bytes(res.opt_state)
+    if nbytes != state_bytes_want:
+        raise AssertionError(f"{arch}: state {nbytes} B, the JAX package "
+                             f"counts {state_bytes_want}")
+    if not np.all(np.isfinite(res.losses)):
+        raise AssertionError(f"{arch}: non-finite losses {res.losses}")
+    from repro_torch.optim.base import flatten_with_paths
+    for name, t in zip(*flatten_with_paths(res.params)):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"{arch}: non-finite parameter {name}")
+    out = {"arch": arch, "layers": cfg.n_layers, "steps": steps,
+           "losses": res.losses, "step_ms": res.step_ms,
+           "peak_mib": peak / 2**20, "base_mib": base / 2**20,
+           "state_bytes": nbytes,
+           "k1_launches": counts["K1"],
+           "k1_one_pass": counts["K1 one-pass"],
+           "k1_two_pass": counts["K1 two-pass"], "routes": routes,
+           "wall_s": wall}
+    print(f"{arch} ({cfg.n_layers} layers, {' '.join(argv[2:])}): "
+          f"{steps} steps in {wall:.2f} s, losses {res.losses}, step "
+          f"{res.step_ms} ms, peak {peak / 2**20:.1f} MiB (held before "
+          f"the run {base / 2**20:.1f} MiB), state {nbytes} "
+          f"B, K1 {counts['K1']} ({counts['K1 one-pass']} one pass, "
+          f"{counts['K1 two-pass']} two passes), routes {routes}")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_dense_main(train, kernel, hk):
+    """Phase 22: qwen2.5-3b at full width and depth through the launcher,
+    GWT-2, f32 moments, synthetic data, remat: K1 exactly 6 times a step
+    in the designs the plan names, nothing else; the state the JAX
+    package's bytes; losses finite and falling."""
+    from repro_torch import configs
+    cfg = configs.get_config("qwen2.5-3b")
+    buckets, _ = gwt_buckets(cfg)
+    if [s for _, s in buckets] != [s for _, s in QWEN_BUCKETS]:
+        raise AssertionError(f"qwen2.5-3b's GWT buckets are {buckets}")
+    out = run_dense(train, kernel, hk, "qwen2.5-3b", QWEN_ARGS, cfg, STEPS,
+                    QWEN_STATE_BYTES, 256)
+    logged = [out["losses"][i] for i in range(4, STEPS, 5)]
+    if not logged[-1] < logged[0]:
+        raise AssertionError(f"qwen2.5-3b: loss did not fall: {logged}")
+    out["logged_losses"] = logged
+    out["tokens_per_s"] = 16 * 256 / (out["step_ms"] / 1e3)
+    out["designs"] = {name: "one" if one_pass(kernel, s, torch.bfloat16)
+                      else "two" for name, s in buckets}
+    print(f"qwen2.5-3b main path: step {out['step_ms']:.2f} ms, "
+          f"{out['tokens_per_s']:.0f} tokens/s, peak "
+          f"{out['peak_mib']:.1f} MiB; logged losses {logged}; K1 designs "
+          f"{out['designs']}")
+    return out
+
+
+def time_dense_k1(kernel, ref, dev):
+    """Phase 22's K1 times: per launch at each qwen2.5-3b bucket in the
+    design the entry takes (CUDA events around each launch, L2 flushed,
+    best of two runs), per call back to back, the plain version's, the
+    bound."""
+    rows = []
+    flush = torch.empty(64 << 20, device=dev)   # 256 MB
+    ss, wd = torch.tensor(1e-3, device=dev), torch.tensor(0.0, device=dev)
+    kw = dict(level=LEVEL, gamma=1.01, use_limiter=True, weight_decay=False)
+    for label, shape in QWEN_BUCKETS:
+        g, p, mm, vv = make_inputs(shape, 7, dev)
+        pn = torch.full((shape[0],), 1e9, device=dev)
+        one = one_pass(kernel, shape, torch.bfloat16)
+        counter = (lambda: kernel.launches_one_pass) if one else \
+            (lambda: kernel.launches_two_pass)
+        call = lambda: kernel.gwt_adam_fused(g, p, mm, vv, pn, ss, wd, **kw)
+        plain = lambda: ref.gwt_adam_fused(g, p, mm, vv, pn, ss, wd, **kw)
+        t_dev = [device_ms(call, 10, counter, flush) for _ in range(2)]
+        t_call = time_ms(call, 10)
+        t_plain = time_ms(plain, 1)
+        b_ms, b_by, nbytes = bound(shape)
+        row = {"bucket": label, "shape": list(shape), "per_step": 1,
+               "design": "one" if one else "two", "ms": min(t_dev),
+               "call_ms": t_call, "plain_ms": t_plain, "bound_ms": b_ms,
+               "bound_by": b_by, "bytes": nbytes}
+        print(f"K1 time qwen2.5-3b {label} {shape}: "
+              f"{'one pass' if one else 'two passes'} {row['ms']:.4f} ms on "
+              f"the device (runs {t_dev}, {b_ms / row['ms']:.1%} of bound "
+              f"{b_ms:.4f} ms by {b_by}, {nbytes / 1e6:.2f} MB); per call "
+              f"{t_call:.4f} ms; plain {t_plain:.4f} ms")
+        rows.append(row)
+        del g, p, mm, vv, call, plain
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_dense_cuts(train, kernel, hk):
+    """Phase 23: deepseek-67b, gemma2-9b and gemma3-27b at full width, cut
+    in depth, CUT_STEPS steps each through the launcher (see
+    ``run_dense``); deepseek's untied head gets plain Adam."""
+    out = []
+    for arch, layers, batch, seq, nbytes in DENSE_CUTS:
+        with depth_cut(arch, layers) as cfg:
+            _, other = gwt_buckets(cfg)
+            if not cfg.tie_embeddings and \
+                    other.get("embed/lm_head", "gwt").startswith("gwt"):
+                raise AssertionError(f"{arch}: lm_head is not plain Adam")
+            argv = ["--arch", arch, "--steps", str(CUT_STEPS), "--batch",
+                    str(batch), "--seq", str(seq), "--log-every", "1",
+                    "--seed", "0"]
+            res = run_dense(train, kernel, hk, arch, argv, cfg, CUT_STEPS,
+                            nbytes, seq)
+        res.update(batch=batch, seq=seq, window=cfg.window,
+                   attn_softcap=cfg.attn_softcap,
+                   final_softcap=cfg.final_softcap, qk_norm=cfg.qk_norm,
+                   rem_layers=cfg.rem_layers)
+        out.append(res)
+    return out
+
+
+def check_flash(train, kernel, hk, dev):
+    """Phase 24: ``_flash_attn`` (q_chunk 512, kv_chunk 2048) against
+    ``_direct_attn`` on the card at qwen2.5-3b's attention shape in bf16,
+    within TOL_FLASH_BF16_SPACINGS; then one full-width qwen2.5-3b step
+    cut to 2 layers at batch 1 x seq 16384, which takes the chunked
+    route, with a finite loss."""
+    from repro_torch.models import attention
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(FLASH_SHAPE, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    flash = lambda: attention._flash_attn(q, k, v, q_chunk=512,
+                                          kv_chunk=2048)
+    direct = lambda: attention._direct_attn(q, k, v, causal_offset=0,
+                                            window=0, cap=0.0)
+    got, want = flash(), direct()
+    spacing = float(np.spacing(np.float32(want.float().abs().max().item()))
+                    ) * 2 ** 16
+    err = (got.float() - want.float()).abs().max().item()
+    if not err <= TOL_FLASH_BF16_SPACINGS * spacing:
+        raise AssertionError(f"_flash_attn vs _direct_attn: max |diff| "
+                             f"{err} > {TOL_FLASH_BF16_SPACINGS} bf16 "
+                             f"spacings ({spacing})")
+    t_flash, t_direct = time_ms(flash, 5), time_ms(direct, 5)
+    print(f"_flash_attn vs _direct_attn {FLASH_SHAPE} bf16: max |diff| "
+          f"{err} = {err / spacing:.3f} bf16 spacings at the largest "
+          f"magnitude; {t_flash:.3f} vs {t_direct:.3f} ms")
+    del q, k, v, got, want
+    with depth_cut("qwen2.5-3b", 2) as cfg:
+        argv = ["--arch", "qwen2.5-3b", "--steps", "1", "--batch", "1",
+                "--seq", str(FLASH_SEQ), "--log-every", "1", "--seed", "0"]
+        res = run_dense(train, kernel, hk, "qwen2.5-3b", argv, cfg, 1,
+                        gwt_state_bytes(cfg), FLASH_SEQ)
+    return {"shape": list(FLASH_SHAPE), "max_abs_err": err,
+            "bf16_spacings": err / spacing, "flash_ms": t_flash,
+            "direct_ms": t_direct, "step": res}
+
+
+def gwt_state_bytes(cfg) -> int:
+    """GWT-2's exact state bytes over ``cfg`` (on the ``meta`` device)."""
+    from repro_torch.core.gwt import gwt
+    from repro_torch.models import lm
+    from repro_torch.optim.engine import state_bytes
+    return state_bytes(gwt(lr=0.01).init(lm.abstract_params(cfg)))
+
+
+def check_dense_small_training(dev):
+    """Phase 25: each dense SMOKE config, f32 and as published (bf16),
+    3 GWT-2 steps on the card and on the CPU from the same parameters and
+    batches (seq 64: the local layers take the block-local route)."""
+    from repro_torch import configs
+    out = {}
+    for arch in DENSE_ARCHS:
+        for dtype in TOL_SMOKE_LOSS:
+            cfg = configs.get_smoke(arch).with_(dtype=dtype)
+            out[f"{arch} {dtype}"] = small_training(
+                dev, cfg, ("f32",), SMOKE_SEQ, 3, TOL_SMOKE_LOSS[dtype])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA "
@@ -2307,6 +2750,20 @@ def main() -> int:
     corpus_path = run_corpus_path(train, kernel, hk, dev, res32, card)
     bf16_state = run_bf16_state(kernel, hk, res32)
     refresh = run_refresh(kernel, hk)
+    dense_k1 = check_dense_k1(kernel, ref, dev)
+    qwen = run_dense_main(train, kernel, hk)
+    qwen["profile"] = profile_step(dev, "f32", arch="qwen2.5-3b")
+    rows_qwen = time_dense_k1(kernel, ref, dev)
+    qwen["k1_ms_per_step"] = sum(r["ms"] * r["per_step"] for r in rows_qwen)
+    qwen["k1_share_of_step"] = qwen["k1_ms_per_step"] / qwen["step_ms"]
+    print(f"qwen2.5-3b: K1 {qwen['k1_ms_per_step']:.3f} ms a step on the "
+          f"device (timed per launch) = {qwen['k1_share_of_step']:.2%} of "
+          f"the launcher's step; profiled GWT kernels "
+          f"{qwen['profile']['gwt_kernel_ms']:.3f} of "
+          f"{qwen['profile']['device_busy_ms']:.2f} ms device time a step")
+    cuts = run_dense_cuts(train, kernel, hk)
+    flash = check_flash(train, kernel, hk, dev)
+    dense_small = check_dense_small_training(dev)
     print(f"staged step vs fused step (same call): launcher-equivalent "
           f"loop {staged32['step_ms']:.2f} vs {res32.step_ms:.2f} ms; "
           f"profiled {prof_staged['step_ms']:.2f} vs "
@@ -2330,7 +2787,11 @@ def main() -> int:
                     bf16_moments=bf16_step(rows_k1),
                     bf16_state_fused=bf16_state["fused"],
                     bf16_state_max_loss_gap=bf16_state["max_loss_gap"],
-                    lowrank_refresh=refresh),
+                    lowrank_refresh=refresh,
+                    dense={"k1_widths": dense_k1, "qwen2.5-3b": qwen,
+                           "qwen2.5-3b_per_launch": rows_qwen,
+                           "depth_cuts": cuts, "flash": flash,
+                           "smoke_card_vs_cpu": dense_small}),
         fused_entry("gwt_adam_fused_q8",
                     "gwt_adam/csrc/gwt_adam_fused_q8.cu",
                     "src/repro/kernels/gwt_adam/kernel.py:554",

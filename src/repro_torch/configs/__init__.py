@@ -1,7 +1,22 @@
-"""Architecture registry of the port: the paper's LLaMA family."""
+"""Architecture registry of the port: the dense assigned archs and the
+paper's LLaMA family.
 
-from repro_torch.configs import llama_paper
+``get_config(id)`` / ``get_smoke(id)`` accept the assignment's dashed ids.
+The other six assigned ids (MoE, hybrid, SSM, M-RoPE and encoder-decoder
+architectures) are refused: their substrates wait for ROADMAP Queue 1
+item 5.
+"""
+
+from repro_torch.configs import (deepseek_67b, gemma2_9b, gemma3_27b,
+                                 llama_paper, qwen2_5_3b)
 from repro_torch.configs.base import ModelConfig
+
+_MODULES = {
+    "gemma3-27b": gemma3_27b,
+    "deepseek-67b": deepseek_67b,
+    "gemma2-9b": gemma2_9b,
+    "qwen2.5-3b": qwen2_5_3b,
+}
 
 LLAMA = {
     "llama-60m": llama_paper.LLAMA_60M,
@@ -11,15 +26,37 @@ LLAMA = {
     "llama-3b": llama_paper.LLAMA_3B,
 }
 
+# assigned ids whose blocks (MoE, mamba, xLSTM, M-RoPE, encoder-decoder)
+# the port does not build yet
+NOT_PORTED = ("jamba-v0.1-52b", "qwen3-moe-30b-a3b", "qwen2-moe-a2.7b",
+              "qwen2-vl-72b", "xlstm-350m", "seamless-m4t-large-v2")
+
+ARCH_IDS = list(_MODULES)
+
+
+def _check(name: str) -> None:
+    if name in NOT_PORTED:
+        raise ValueError(
+            f"arch {name!r} is not ported: its MoE, SSM, M-RoPE or "
+            f"encoder-decoder substrate waits for ROADMAP Queue 1 item 5")
+    if name not in _MODULES and name not in LLAMA:
+        raise ValueError(f"unknown arch {name!r}; choices: "
+                         f"{ARCH_IDS + list(LLAMA)}")
+
 
 def get_config(name: str) -> ModelConfig:
-    if name in LLAMA:
-        return LLAMA[name]
-    raise ValueError(f"unknown arch {name!r}; choices: {list(LLAMA)}")
+    _check(name)
+    if name in _MODULES:
+        return _MODULES[name].CONFIG
+    return LLAMA[name]
 
 
 def get_smoke(name: str) -> ModelConfig:
-    return llama_paper.smoke(get_config(name))
+    _check(name)
+    if name in _MODULES:
+        return _MODULES[name].SMOKE
+    return llama_paper.smoke(LLAMA[name])
 
 
-__all__ = ["ModelConfig", "get_config", "get_smoke", "LLAMA"]
+__all__ = ["ModelConfig", "get_config", "get_smoke", "ARCH_IDS", "LLAMA",
+           "NOT_PORTED"]

@@ -1,6 +1,7 @@
 """``ModelConfig``: the architecture dataclass (counterpart of
-``repro/configs/base.py``, whose module imports JAX).  Only the fields the
-dense LLaMA family reads are kept; embeddings are always tied."""
+``repro/configs/base.py``, whose module imports JAX).  The fields of the
+dense decoders are kept, with the reference's defaults; the MoE, SSM,
+M-RoPE and encoder-decoder fields wait for those substrates."""
 
 from __future__ import annotations
 
@@ -21,14 +22,34 @@ class ModelConfig:
     head_dim: int
     d_ff: int
     vocab: int
+    # layer-kind pattern for ONE period; the port builds "attn" and
+    # "attn_local" (sliding window) blocks
     pattern: Tuple[str, ...] = ("attn",)
+    family: str = "dense"
+    # attention details
+    window: int = 0                      # sliding window for attn_local
+    attn_softcap: float = 0.0            # gemma-2 logit soft-capping
+    final_softcap: float = 0.0
+    qkv_bias: bool = False
+    qk_norm: bool = False
     rope_theta: float = 1e4
+    tie_embeddings: bool = True
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
+    sub_quadratic: bool = False
+    remat: bool = True
+
+    @property
+    def period(self) -> int:
+        return len(self.pattern)
 
     @property
     def n_periods(self) -> int:
-        return self.n_layers // len(self.pattern)
+        return self.n_layers // self.period
+
+    @property
+    def rem_layers(self) -> int:
+        return self.n_layers % self.period
 
     @property
     def torch_dtype(self) -> torch.dtype:

@@ -4,16 +4,19 @@ from repro_torch.configs.base import ModelConfig
 
 def _llama(name, n_layers, d_model, n_heads, d_ff, vocab=32000):
     return ModelConfig(
-        name=name, n_layers=n_layers, d_model=d_model, n_heads=n_heads,
+        name=name, family="dense",
+        n_layers=n_layers, d_model=d_model, n_heads=n_heads,
         n_kv_heads=n_heads, head_dim=d_model // n_heads,
-        d_ff=d_ff, vocab=vocab, pattern=("attn",))
+        d_ff=d_ff, vocab=vocab, pattern=("attn",),
+        tie_embeddings=True, sub_quadratic=False, remat=False)
 
 
 def smoke(cfg: ModelConfig) -> ModelConfig:
     """CI-scale variant of a LLaMA family member: 2 layers, d=32, f32."""
     return cfg.with_(
         name=f"{cfg.name}-smoke", n_layers=2, d_model=32, n_heads=2,
-        n_kv_heads=2, head_dim=16, d_ff=64, vocab=64, dtype="float32")
+        n_kv_heads=2, head_dim=16, d_ff=64, vocab=64, dtype="float32",
+        remat=False)
 
 
 LLAMA_60M = _llama("llama-60m", 8, 512, 8, 1376)

@@ -391,7 +391,14 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
                      ckpt_every=args.ckpt_every, log_every=args.log_every,
                      log=log, dp=dp, num_workers=args.workers,
                      evaluator=evaluator, eval_every=args.eval_every)
-    params, opt_state, losses = loop.run(params, opt_state, start_step=start,
+    # hand the state over to the loop: a name kept in this frame would pin
+    # the first state's moments of every rule that returns new tensors
+    # (the plain Adam of the embedding and an untied head) for the whole
+    # run, where the JAX package donates them
+    handoff = [opt_state]
+    del opt_state
+    params, opt_state, losses = loop.run(params, handoff.pop(),
+                                         start_step=start,
                                          num_steps=args.steps)
     wd = loop.watchdog.summary()
     if wd["dispatch_s_per_step"] is not None:

@@ -1,5 +1,6 @@
 """Model substrate (counterpart of ``repro/models/layers.py``): parameter
-construction, RMSNorm, the SwiGLU MLP, the tied embedding and the loss.
+construction, RMSNorm, the logit softcap, the SwiGLU MLP, the embedding with
+its tied or untied head, and the loss.
 
 Weights keep the JAX package's ``(d_in, d_out)`` layout and are applied as
 ``x @ W``; the GWT optimizer picks its transform axis from that layout.
@@ -51,6 +52,11 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6
     return out.to(x.dtype)
 
 
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """``cap * tanh(x / cap)`` in f32, cast back to ``x``'s dtype."""
+    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
+
+
 def mlp_init(b: Builder, d_model: int, d_ff: int, lead=()):
     return {"w_gate": b.param((d_model, d_ff), lead=lead),
             "w_up": b.param((d_model, d_ff), lead=lead),
@@ -62,8 +68,13 @@ def mlp_apply(p, x: torch.Tensor) -> torch.Tensor:
     return h @ p["w_down"]
 
 
-def embed_init(b: Builder, vocab: int, d_model: int):
-    return {"embedding": b.param((vocab, d_model), scale=1.0)}
+def embed_init(b: Builder, vocab: int, d_model: int, tie: bool):
+    """The scale-1.0 embedding and, when untied, a fan-in normal
+    ``lm_head`` of shape ``(d_model, vocab)``."""
+    p = {"embedding": b.param((vocab, d_model), scale=1.0)}
+    if not tie:
+        p["lm_head"] = b.param((d_model, vocab))
+    return p
 
 
 def embed_apply(p, tokens: torch.Tensor, d_model: int) -> torch.Tensor:
@@ -75,8 +86,9 @@ def embed_apply(p, tokens: torch.Tensor, d_model: int) -> torch.Tensor:
 
 
 def logits_apply(p, x: torch.Tensor) -> torch.Tensor:
-    """Tied head: ``x @ embedding.T``."""
-    return x @ p["embedding"].T
+    """``x @ lm_head`` where the head is untied, else ``x @ embedding.T``."""
+    w = p.get("lm_head")
+    return x @ (p["embedding"].T if w is None else w)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor

@@ -3,10 +3,12 @@ parameter construction, the forward pass, the loss and the gradient-
 accumulated train step.
 
 Parameters live in a nested dict with the JAX package's paths
-(``layers/b0/mixer/wq``, ...), every per-layer weight stacked on a leading
-``(n_layers, ...)`` axis.  :class:`LM` is the ``nn.Module`` that holds them;
-the functions here take the nested dict, as the JAX functions take the
-pytree.
+(``layers/b0/mixer/wq``, ...): the ``n_periods`` whole periods of
+``cfg.pattern`` stacked on a leading ``(n_periods, ...)`` axis under
+``layers`` (absent when there is none), the ``rem_layers`` remainder blocks
+unstacked under ``rem/b{i}``.  :class:`LM` is the ``nn.Module`` that holds
+them; the functions here take the nested dict, as the JAX functions take
+the pytree.
 """
 
 from __future__ import annotations
@@ -15,11 +17,13 @@ from typing import Any, Dict, Mapping, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed import compression
 from repro_torch.models import blocks, rope as rope_lib
 from repro_torch.models.layers import (Builder, cross_entropy, embed_apply,
-                                       embed_init, logits_apply, rms_norm)
+                                       embed_init, logits_apply, rms_norm,
+                                       softcap)
 from repro_torch.optim.base import flatten_with_paths, unflatten
 
 
@@ -62,10 +66,15 @@ class LM(nn.Module):
 def _build(cfg, generator: Optional[torch.Generator],
            device) -> Dict[str, Any]:
     b = Builder(generator, device, cfg.torch_dtype)
-    p: Dict[str, Any] = {"embed": embed_init(b, cfg.vocab, cfg.d_model)}
-    p["layers"] = {f"b{i}": blocks.block_init(b, cfg, kind,
-                                             lead=(cfg.n_periods,))
-                   for i, kind in enumerate(cfg.pattern)}
+    p: Dict[str, Any] = {"embed": embed_init(b, cfg.vocab, cfg.d_model,
+                                             cfg.tie_embeddings)}
+    if cfg.n_periods > 0:
+        p["layers"] = {f"b{i}": blocks.block_init(b, cfg, kind,
+                                                 lead=(cfg.n_periods,))
+                       for i, kind in enumerate(cfg.pattern)}
+    if cfg.rem_layers:
+        p["rem"] = {f"b{i}": blocks.block_init(b, cfg, cfg.pattern[i])
+                    for i in range(cfg.rem_layers)}
     p["final_norm"] = b.param((cfg.d_model,), init="zeros")
     return p
 
@@ -82,22 +91,39 @@ def abstract_params(cfg) -> Dict[str, Any]:
     return _build(cfg, None, "meta")
 
 
+def _block(cfg, kind: str, p, x, cos, sin) -> torch.Tensor:
+    """One block; with ``cfg.remat`` its activations are recomputed in the
+    backward instead of kept (the reference's memory contract; the values
+    are the same)."""
+    if cfg.remat:
+        return checkpoint(blocks.block_apply, p, cfg, kind, x, cos, sin,
+                          use_reentrant=False)
+    return blocks.block_apply(p, cfg, kind, x, cos, sin)
+
+
 def forward(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
-    """Train-mode forward over ``tokens`` (B, S); returns logits (B, S, V)."""
+    """Train-mode forward over ``tokens`` (B, S); returns logits (B, S, V):
+    each period's blocks in ``cfg.pattern`` order, then the remainder
+    blocks, the final norm, the head and the final softcap."""
     S = tokens.shape[1]
     x = embed_apply(params["embed"], tokens, cfg.d_model)
     positions = torch.arange(S, device=tokens.device)
     cos, sin = rope_lib.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-    # unbind once: the backward then stacks the per-layer gradients instead
-    # of scattering each layer's into a full-size zero tensor
-    paths, leaves = flatten_with_paths(params["layers"])
-    per_layer = [unflatten(paths, ls)
-                 for ls in zip(*(l.unbind(0) for l in leaves))]
-    for layer in per_layer:
-        for i, _ in enumerate(cfg.pattern):
-            x = blocks.block_apply(layer[f"b{i}"], cfg, x, cos, sin)
+    if "layers" in params:
+        # unbind once: the backward then stacks the per-layer gradients
+        # instead of scattering each layer's into a full-size zero tensor
+        paths, leaves = flatten_with_paths(params["layers"])
+        for ls in zip(*(l.unbind(0) for l in leaves)):
+            layer = unflatten(paths, ls)
+            for i, kind in enumerate(cfg.pattern):
+                x = _block(cfg, kind, layer[f"b{i}"], x, cos, sin)
+    for i in range(cfg.rem_layers):
+        x = _block(cfg, cfg.pattern[i], params["rem"][f"b{i}"], x, cos, sin)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return logits_apply(params["embed"], x)
+    logits = logits_apply(params["embed"], x)
+    if cfg.final_softcap:
+        logits = softcap(logits, cfg.final_softcap)
+    return logits
 
 
 def loss_fn(cfg, params, batch) -> torch.Tensor:
@@ -238,6 +264,9 @@ def make_train_step(cfg, optimizer, accum_steps: int = 1, dp_reduce=None,
                                  accum_steps)
         grads = unflatten(paths, [(s / accum_steps).to(cfg.torch_dtype)
                                   for s in gsum])
+        # the f32 sums die here, as XLA frees a buffer after its last use:
+        # the update then runs beside the cast gradients only
+        del gsum
         params, opt_state = optimizer.update(grads, opt_state, params)
         return params, opt_state, {"loss": lsum / accum_steps}
 

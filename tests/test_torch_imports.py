@@ -60,7 +60,9 @@ def test_the_walk_sees_the_package():
             "compression.py", "mesh.py", "ops.py", "ref.py", "standard.py",
             "hosts.py", "haar.py", "engine.py", "tokenizer.py", "store.py",
             "order.py", "build_corpus.py", "workers.py", "eval.py",
-            "sink.py", "trace.py", "lowrank.py"} <= names
+            "sink.py", "trace.py", "lowrank.py", "attention.py",
+            "blocks.py", "layers.py", "lm.py", "qwen2_5_3b.py",
+            "gemma2_9b.py", "gemma3_27b.py", "deepseek_67b.py"} <= names
 
 
 def test_the_check_catches_what_it_forbids():

@@ -89,7 +89,10 @@ def test_train_loop_tracks_reference_losses():
     _, state, tlosses = tloop.run(tree, topt.init(tree), num_steps=steps)
     assert len(tlosses) == len(jlosses) == steps
     np.testing.assert_allclose(tlosses, jlosses, rtol=0, atol=2e-5)
-    assert [s.split(":")[0] for s in logged] == ["step 3", "step 6"]
+    # a step slowed by a busy host adds a "[watchdog]" incident line, which
+    # is the watchdog's job and not part of the loop's step log
+    assert [s.split(":")[0] for s in logged
+            if not s.startswith("[watchdog]")] == ["step 3", "step 6"]
     assert int(state["step"]) == steps
     assert tloop.steady_step_s is not None and tloop.steady_step_s > 0
 
