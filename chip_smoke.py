@@ -149,7 +149,30 @@ Phases (any failure raises and the script exits non-zero):
     to 2 layers at 1 x 16384, which takes it;
 25. each dense smoke config, f32 and bf16, 3 steps on the card and on the
     CPU from the same parameters and batches: losses within
-    ``TOL_SMOKE_LOSS``.
+    ``TOL_SMOKE_LOSS``;
+26. serving, the round trip: ``train.main`` trains full-width llama-60m
+    GWT-2 f32 for 20 steps (K1 exactly 3 a step, one pass) and
+    checkpoints; ``launch.serve.main --ckpt`` serves it (32 requests of
+    ``build_workload``, prompts <= 128, gen <= 64, 8 slots, page 16, chunk
+    64); then ``Engine.from_checkpoint``, continuous and static, bf16 and
+    int8 pages: none of K1-K7 launched, the arena's storage unmoved,
+    memory flat over the decode ticks, the free list recovered,
+    ``kv_bytes`` exact (``KV_BYTES``); every request's tokens equal the
+    dense ``generate`` path's up to a first divergence, which must be at
+    a near tie (printed), continuous equal to static; the paged path's
+    logits, teacher-forced on the dense tokens, within
+    ``TOL_SERVE_BF16_SPACINGS`` (bf16 pages) and
+    ``TOL_SERVE_INT8_SPACINGS`` (int8) of the dense path's, int8 picking
+    the dense token on >= 0.9 of the steps; syncs per tick counted; the
+    decode step timed and profiled (launches, device idle share, the page
+    gather) beside its bound;
+27. the same at qwen2.5-3b full width and depth, seed-0 init, 16
+    requests (prompts <= 256, gen <= 64), continuous, bf16 and int8
+    pages;
+28. serving steps of the smoke configs on the card and on the CPU from
+    the same params (paged prefill, decode and chunk prefill for
+    llama-60m, qwen2.5-3b, deepseek-67b; the dense ring-buffer decode for
+    gemma2-9b and gemma3-27b): logits within ``TOL_SERVE_SMOKE``.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -2682,6 +2705,587 @@ def check_dense_small_training(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 26-29: serving (repro_torch.serve, repro_torch.launch.serve)
+# ---------------------------------------------------------------------------
+
+# (a) llama-60m at full width, trained 20 steps by the launcher and served
+# from its checkpoint; (b) qwen2.5-3b at full width and depth, seed-0 init.
+# Workloads from launch.serve.build_workload (rate 0: all at t=0)
+SERVE_SPECS = {"llama-60m": {"requests": 32, "prompt": 128, "gen": 64},
+               "qwen2.5-3b": {"requests": 16, "prompt": 256, "gen": 64}}
+SERVE_SLOTS, SERVE_PAGE, SERVE_CHUNK = 8, 16, 64
+# kv_bytes(): pages x 16 tokens x layers x 2 (K and V) x KV heads x (hd x 2
+# B in bf16, or hd + 4 B in int8); llama-60m 97 pages (1 + 8 x 192/16),
+# qwen2.5-3b 161 (1 + 8 x 320/16)
+KV_BYTES = {("llama-60m", None): 25_427_968,
+            ("llama-60m", "int8"): 13_508_608,
+            ("qwen2.5-3b", None): 94_961_664,
+            ("qwen2.5-3b", "int8"): 48_964_608}
+# The paged path against the dense path, teacher-forced on the dense
+# tokens, in bf16 spacings of the dense logits' largest magnitude.  bf16
+# pages: both compute the same function, but the chunk prefill's matmuls
+# take 64 rows where the dense prefill takes the whole prompt, and the
+# attention sums run over the gathered pages (masked entries add exactly
+# 0) where the dense path's run over its own cache length, so a bf16
+# output moves by a spacing where an f32 sum lands near a rounding
+# boundary.  Measured on an H100 at 700 W: llama-60m 0.5 spacing with one
+# request at a time, 1.0 with its 32 requests decoded as one batch (the
+# check's form); qwen2.5-3b 0.125.  Held to 2.  int8 pages also carry each
+# K/V entry's rounding to its head vector's absmax/127, about a bf16
+# spacing of that absmax on every entry rather than near boundaries only
+# (measured 1.0 and 0.156): held to 8.
+TOL_SERVE_BF16_SPACINGS = 2
+TOL_SERVE_INT8_SPACINGS = 8
+# Two paths whose logits differ by at most e can pick different greedy
+# tokens only where the top-2 margin is under 2e: a near tie.  A request's
+# tokens must equal the dense path's up to its first divergence, and that
+# divergence must be at a near tie (printed; its later tokens, on another
+# context, are not compared).  int8 pages must also pick the dense token,
+# teacher-forced (each step on the same context), on >= 0.9 of the steps:
+# the reference's own gate (tests/test_serving.py:194).  The reference
+# test's measure, the position-by-position agreement of the two engines'
+# free-running outputs, compounds every flip into the tokens after it: it
+# is printed.
+INT8_AGREEMENT = 0.9
+# Phase 28, card against CPU on the smoke configs: f32 logits within 32
+# f32 spacings of the largest magnitude (other summation orders over 2-3
+# layers); bf16 logits within 4 bf16 spacings, as above
+TOL_SERVE_SMOKE = {"float32": ("f32", 32), "bfloat16": ("bf16", 4)}
+BF16_FLOPS_PER_S = 989e12
+PROFILED_TICKS = 5
+
+
+def spacing_err(got, want, unit="bf16"):
+    """max |got - want| in spacings of ``want``'s largest magnitude (f32,
+    or bf16: 2^16 f32 spacings)."""
+    got, want = got.double(), want.double()
+    top = float(want.abs().max().item())
+    sp = float(np.spacing(np.float32(max(top, 1e-30))))
+    if unit == "bf16":
+        sp *= 2 ** 16
+    return float((got - want.to(got.device)).abs().max().item()) / sp
+
+
+def dense_pass(cfg, params, prompt, gen, dev):
+    """The dense path of ``launch.serve.generate`` on one request, keeping
+    each step's logits: ``(tokens, logits (gen, V) f32)``."""
+    from repro_torch.launch.serve import ensure_capacity, pad_cache
+    from repro_torch.models import lm
+    S = len(prompt)
+    logits, cache = lm.make_prefill_step(cfg)(
+        params, {"tokens": torch.tensor([prompt], device=dev)})
+    cache = ensure_capacity(pad_cache(cache, S + gen), S + gen)
+    decode = lm.make_decode_step(cfg)
+    steps = [logits[0]]
+    for _ in range(gen - 1):
+        logits, cache = decode(params, cache,
+                               {"tokens": torch.argmax(logits, -1)[:, None]})
+        steps.append(logits[0])
+    out = torch.stack(steps).float()
+    return out.argmax(-1).tolist(), out
+
+
+def paged_teacher_forced(cfg, params, reqs, dense, dev, quant=None):
+    """The paged steps on every request at once, teacher-forced on the
+    dense tokens: each prompt paged into its own pages by SERVE_CHUNK
+    chunks (the last padded), then decode ticks over all requests as
+    slots, a finished request's slot idle on the trash page.  Returns
+    ``{rid: logits (len(tokens), V) f32}``: at the prompt's last position,
+    then at each decode step."""
+    from repro_torch.models import lm
+    n = len(reqs)
+    mp = max(-(-(len(r.prompt) + len(dense[r.rid][0])) // SERVE_PAGE)
+             for r in reqs)
+    pools = lm.init_paged_caches(cfg, 1 + n * mp, SERVE_PAGE, kv_quant=quant,
+                                 device=dev)
+    pt = 1 + np.arange(n * mp, dtype=np.int32).reshape(n, mp)
+    T = lambda a: torch.tensor(np.asarray(a), device=dev)
+    chunk = lm.make_chunk_prefill_step(cfg)
+    out = {}
+    for b, r in enumerate(reqs):
+        for start in range(0, len(r.prompt), SERVE_CHUNK):
+            piece = r.prompt[start:start + SERVE_CHUNK]
+            logits, _ = chunk(params, pools, T(pt[b:b + 1]), T([start]),
+                              T([piece + [0] * (SERVE_CHUNK - len(piece))]))
+        out[r.rid] = [logits[0, len(piece) - 1].float()]
+    decode = lm.make_paged_decode_step(cfg)
+    for t in range(max(len(dense[r.rid][0]) for r in reqs) - 1):
+        live = [b for b, r in enumerate(reqs) if t < len(dense[r.rid][0]) - 1]
+        rows = np.zeros_like(pt)
+        lens = np.zeros((n,), np.int32)
+        toks = np.zeros((n, 1), np.int32)
+        for b in live:
+            r = reqs[b]
+            rows[b], lens[b] = pt[b], len(r.prompt) + t
+            toks[b, 0] = dense[r.rid][0][t]
+        logits, _ = decode(params, pools, T(rows), T(lens), T(toks))
+        for b in live:
+            out[reqs[b].rid].append(logits[b].float())
+    return {rid: torch.stack(v) for rid, v in out.items()}
+
+
+def check_against_dense(label, reqs, dense, tol):
+    """Every request's engine tokens equal the dense path's up to its first
+    divergence, which must be at a near tie: a dense top-2 margin under
+    twice ``tol`` bf16 spacings (printed).  ``dense[rid] = (tokens,
+    margins, bf16 spacing of the logits)``.  Returns the divergences."""
+    near = []
+    for r in reqs:
+        want, margins, spacing = dense[r.rid]
+        if r.generated == want:
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(r.generated, want))
+                 if a != b)
+        if margins[j] >= 2 * tol * spacing:
+            raise AssertionError(
+                f"{label}: request {r.rid} diverges from the dense path at "
+                f"step {j} ({r.generated[j]} vs {want[j]}) where the dense "
+                f"top-2 margin {margins[j]} >= 2 x {tol} bf16 spacings "
+                f"({spacing})")
+        near.append({"rid": r.rid, "step": j, "margin": margins[j],
+                     "spacing": spacing})
+        print(f"{label}: request {r.rid} diverges from the dense path at "
+              f"step {j} of {len(want)} on a near tie (top-2 margin "
+              f"{margins[j]:.4g}, bf16 spacing {spacing:.4g}); its later "
+              f"tokens are not compared")
+    return near
+
+
+def dense_references(cfg, params, reqs, dev):
+    """Phase 26/27's dense side, per request: the dense path's tokens (the
+    first request's also through ``generate`` itself), each step's top-2
+    margin and the logits' bf16 spacing; the paged path's logits,
+    teacher-forced on those tokens, against the dense logits with bf16 and
+    with int8 pages (within TOL_SERVE_BF16_SPACINGS and
+    TOL_SERVE_INT8_SPACINGS), and int8's teacher-forced greedy agreement
+    (at least INT8_AGREEMENT over all steps)."""
+    from repro_torch.launch.serve import generate
+    dense, dense_logits = {}, {}
+    margins_all = []
+    for r in reqs:
+        tokens, logits = dense_pass(cfg, params, r.prompt, r.max_gen, dev)
+        if r.rid == reqs[0].rid:
+            via = generate(cfg, params, torch.tensor([r.prompt], device=dev),
+                           r.max_gen)[0].tolist()
+            if via != tokens:
+                raise AssertionError(f"dense_pass {tokens} != generate {via}")
+        top2 = logits.topk(2, dim=-1).values
+        margins = (top2[:, 0] - top2[:, 1]).tolist()
+        spacing = float(np.spacing(np.float32(
+            logits.abs().max().item()))) * 2 ** 16
+        dense[r.rid], dense_logits[r.rid] = (tokens, margins, spacing), logits
+        margins_all += [m / spacing for m in margins]
+    paged = paged_teacher_forced(cfg, params, reqs, dense, dev)
+    errs = [spacing_err(paged[rid], dense_logits[rid]) for rid in dense]
+    del paged
+    paged8 = paged_teacher_forced(cfg, params, reqs, dense, dev, "int8")
+    errs8 = [spacing_err(paged8[rid], dense_logits[rid]) for rid in dense]
+    agree = sum(int((paged8[rid].argmax(-1).cpu() ==
+                     torch.tensor(dense[rid][0])).sum()) for rid in dense)
+    total = sum(len(d[0]) for d in dense.values())
+    del paged8, dense_logits
+    tf8 = agree / total
+    summary = {"bf16_spacings_max": max(errs),
+               "bf16_spacings_mean": float(np.mean(errs)),
+               "int8_spacings_max": max(errs8),
+               "int8_spacings_mean": float(np.mean(errs8)),
+               "int8_teacher_forced_agreement": tf8, "steps": total,
+               "margin_spacings_quantiles": np.quantile(
+                   margins_all, [0.0, 0.1, 0.5, 0.9]).tolist()}
+    print(f"{cfg.name}: paged vs dense logits, teacher-forced over "
+          f"{len(reqs)} requests: bf16 pages max {max(errs):.3f} (mean "
+          f"{summary['bf16_spacings_mean']:.3f}), int8 pages max "
+          f"{max(errs8):.3f} (mean {summary['int8_spacings_mean']:.3f}) bf16 "
+          f"spacings; int8 picks the dense token on {tf8:.4f} of {total} "
+          f"steps; dense top-2 margins in bf16 spacings (min, 10%, 50%, "
+          f"90%) {summary['margin_spacings_quantiles']}")
+    if max(errs) > TOL_SERVE_BF16_SPACINGS:
+        raise AssertionError(f"{cfg.name}: bf16 pages vs dense {max(errs)} "
+                             f"bf16 spacings > {TOL_SERVE_BF16_SPACINGS}")
+    if max(errs8) > TOL_SERVE_INT8_SPACINGS:
+        raise AssertionError(f"{cfg.name}: int8 pages vs dense {max(errs8)} "
+                             f"bf16 spacings > {TOL_SERVE_INT8_SPACINGS}")
+    if not tf8 >= INT8_AGREEMENT:
+        raise AssertionError(f"{cfg.name}: int8 pages pick the dense token "
+                             f"on {tf8:.4f} of steps < {INT8_AGREEMENT}")
+    return dense, summary
+
+
+def instrument(eng, syncs: bool):
+    """Wrap the engine's two tick methods: for each tick that ran, its host
+    wall time (a decode tick ends in its token fetch, so the card is done),
+    with ``syncs`` the synchronizing calls in it (PyTorch's sync debug
+    mode), and memory_allocated after it."""
+    ticks = {"decode": [], "prefill": []}
+    for kind in ticks:
+        orig = getattr(eng, f"_{kind}_tick")
+
+        def wrapped(*a, _orig=orig, _kind=kind):
+            t0 = time.perf_counter()
+            if syncs:
+                ran, n = count_syncs(lambda: _orig(*a))
+            else:
+                ran, n = _orig(*a), None
+            if ran:
+                ticks[_kind].append((time.perf_counter() - t0, n,
+                                     torch.cuda.memory_allocated()))
+            return ran
+        setattr(eng, f"_{kind}_tick", wrapped)
+    return ticks
+
+
+def arena_ptrs(eng):
+    from repro_torch.optim.base import flatten_with_paths
+    return [t.data_ptr() for t in flatten_with_paths(eng.pools)[1]]
+
+
+def serve_run(label, make_engine, ecfg, reqs, static, kernel, hk,
+              syncs=False):
+    """One engine run, the launch counts set to 0 just before and read
+    just after (the serve path launches none of K1-K7): the arena in
+    place, the free list recovered, kv_bytes; stats, ticks, peak."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    eng = make_engine(ecfg)
+    ptrs = arena_ptrs(eng)
+    eng.warmup()
+    ticks = instrument(eng, syncs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts(kernel, hk)
+    stats = eng.run(reqs, static=static)
+    counts = all_counts(kernel, hk)
+    peak = torch.cuda.max_memory_allocated()
+    if any(counts.values()):
+        raise AssertionError(f"{label}: the serve path launched {counts}")
+    if arena_ptrs(eng) != ptrs:
+        raise AssertionError(f"{label}: the arena moved")
+    if sorted(eng.free_pages) != list(range(1, eng.num_pages)):
+        raise AssertionError(f"{label}: the free list did not recover")
+    mem = [m for _, _, m in ticks["decode"]]
+    if max(mem) != mem[0]:
+        raise AssertionError(f"{label}: memory grew over decode ticks: "
+                             f"{mem[0]} -> {max(mem)} B")
+    dec = [t for t, _, _ in ticks["decode"]]
+    pre = [t for t, _, _ in ticks["prefill"]]
+    ttft = sorted(r.t_first - r.arrival for r in reqs)
+    pct = lambda xs, p: xs[min(len(xs) - 1, int(p / 100 * len(xs)))]
+    out = dict(stats, kv_bytes=eng.kv_bytes(), decode_ticks=len(dec),
+               prefill_chunks=len(pre),
+               decode_tick_ms=1e3 * float(np.mean(dec)),
+               prefill_chunk_host_ms=1e3 * float(np.mean(pre)),
+               decode_tokens_per_s=sum(len(r.generated) - 1 for r in reqs)
+               / sum(dec),
+               ttft_p50_s=pct(ttft, 50), ttft_p99_s=pct(ttft, 99),
+               peak_mib=peak / 2**20, held_mib=base / 2**20,
+               wall_s=time.perf_counter() - t0)
+    if syncs:
+        out["syncs_per_decode_tick"] = sorted({n for _, n, _ in
+                                               ticks["decode"]})
+        out["syncs_per_prefill_chunk"] = sorted({n for _, n, _ in
+                                                 ticks["prefill"]})
+    print(f"{label}: {stats['requests']} requests, "
+          f"{stats['generated_tokens']} tokens in "
+          f"{stats['makespan_s']:.3f} s ({stats['tokens_per_sec']:.1f} "
+          f"tokens/s, {stats['requests_per_sec']:.2f} requests/s), p50/p99 "
+          f"latency {stats['p50_s']:.3f} / {stats['p99_s']:.3f} s, TTFT "
+          f"p50/p99 {out['ttft_p50_s']:.3f} / {out['ttft_p99_s']:.3f} s; "
+          f"{len(dec)} decode ticks {out['decode_tick_ms']:.2f} ms each "
+          f"(decode {out['decode_tokens_per_s']:.1f} tokens/s), "
+          f"{len(pre)} prefill chunks {out['prefill_chunk_host_ms']:.2f} ms "
+          f"of host each; kv_bytes {out['kv_bytes']}; peak "
+          f"{out['peak_mib']:.1f} MiB (held before {out['held_mib']:.1f}); "
+          f"{out['wall_s']:.1f} s with the engine's build and warm-up"
+          + (f"; syncs per decode tick {out['syncs_per_decode_tick']}, per "
+             f"prefill chunk {out['syncs_per_prefill_chunk']}"
+             if syncs else ""))
+    return eng, out
+
+
+def decode_bound_ms(cfg, params, lens, quant):
+    """Least time of a decode tick: every weight read once (the tied
+    embedding once, as the head; the input rows are negligible), each
+    active slot's cached K/V entries read once and its new ones written,
+    over HBM bandwidth; against 2 x params x slots bf16 operations."""
+    from repro_torch.optim.base import flatten_with_paths
+    leaves = flatten_with_paths(params)[1]
+    wbytes = sum(t.numel() * t.element_size() for t in leaves)
+    entry = cfg.n_kv_heads * (2 * cfg.head_dim if quant is None
+                              else cfg.head_dim + 4)
+    kvbytes = (sum(lens) + len(lens)) * cfg.n_layers * 2 * entry
+    flops = 2 * sum(t.numel() for t in leaves) * len(lens)
+    return 1e3 * max((wbytes + kvbytes) / HBM_BYTES_PER_S,
+                     flops / BF16_FLOPS_PER_S), wbytes
+
+
+def profile_decode(label, eng, plen):
+    """Time and profile the engine's decode step with every slot active at
+    ``plen`` cached positions (pages assigned by hand): ms per tick (CUDA
+    events around 20 ticks, each ending in its token fetch), launches,
+    device busy ms and idle share over PROFILED_TICKS profiled ticks, the
+    page gather's (``aten::index``) device ms; and a prefill chunk's."""
+    from torch.profiler import ProfilerActivity, profile
+    e = eng.ecfg
+    eng.reset()
+    pt = np.zeros((e.num_slots, e.max_pages), np.int32)
+    for s in range(e.num_slots):
+        pt[s] = 1 + s * e.max_pages + np.arange(e.max_pages)
+    lens = np.full((e.num_slots,), plen, np.int32)
+    toks = np.ones((e.num_slots, 1), np.int32)
+    tick = lambda: eng._decode_step(pt, lens, toks).tolist()
+    tick_ms = time_ms(tick, 20)
+    chunk = lambda: eng._chunk_step(pt[:1], 0, np.ones(
+        (1, e.prefill_chunk), np.int32)).tolist()
+    chunk_ms = time_ms(chunk, 10)
+    _, syncs = count_syncs(tick)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_TICKS):
+            tick()
+        wall = (time.perf_counter() - t0) / PROFILED_TICKS
+    kernels = [ev for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(ev.time_range.elapsed_us() for ev in kernels) / 1e3 \
+        / PROFILED_TICKS
+    dev_time = lambda ev: getattr(ev, "self_device_time_total",
+                                  getattr(ev, "self_cuda_time_total", 0))
+    gather = sum(dev_time(ev) for ev in prof.key_averages()
+                 if ev.key == "aten::index") / 1e3 / PROFILED_TICKS
+    out = {"tick_ms": tick_ms, "prefill_chunk_ms": chunk_ms,
+           "syncs_per_tick": syncs,
+           "launches_per_tick": len(kernels) // PROFILED_TICKS,
+           "device_busy_ms": busy, "profiled_tick_ms": wall * 1e3,
+           "idle_share": 1 - busy / (wall * 1e3), "gather_ms": gather}
+    print(f"{label} decode tick, {e.num_slots} slots at {plen} positions: "
+          f"{tick_ms:.3f} ms (CUDA events), prefill chunk of "
+          f"{e.prefill_chunk} {chunk_ms:.3f} ms; {syncs} syncs a tick; "
+          f"profiled: {out['launches_per_tick']} launches a tick, device "
+          f"busy {busy:.3f} of {wall * 1e3:.3f} ms ({out['idle_share']:.1%} "
+          f"idle), page gather (aten::index) {gather:.3f} ms")
+    ops = sorted(prof.key_averages(), key=lambda ev: -dev_time(ev))[:8]
+    for ev in ops:
+        print(f"  {dev_time(ev) / 1e3 / PROFILED_TICKS:8.3f} ms/tick device "
+              f"{ev.count // PROFILED_TICKS:5d} calls/tick  {ev.key[:70]}")
+    eng.reset()
+    return out
+
+
+def serve_cell(arch, cfg, params, make_engine, kernel, hk, dev, statics):
+    """Phases 26 and 27's checks on one model: the dense references
+    (``dense_references``), then for bf16 and int8 pages and each of
+    ``statics`` an engine run (``serve_run``): tokens equal the dense
+    path's up to a near-tie divergence, continuous equal to static,
+    kv_bytes exact; the free-running int8 agreement printed; then the
+    decode step timed and profiled."""
+    from repro_torch.launch.serve import build_workload
+    from repro_torch.serve.engine import EngineConfig
+    spec = SERVE_SPECS[arch]
+    work = lambda: build_workload(spec["requests"], cfg.vocab,
+                                  spec["prompt"], spec["gen"], 0.0, seed=0)
+    t0 = time.perf_counter()
+    dense, summary = dense_references(cfg, params, work(), dev)
+    dense_s = time.perf_counter() - t0
+    runs, near, outs = {}, {}, {}
+    for quant in (None, "int8"):
+        ecfg = EngineConfig(num_slots=SERVE_SLOTS, page_size=SERVE_PAGE,
+                            max_ctx=spec["prompt"] + spec["gen"],
+                            prefill_chunk=SERVE_CHUNK, kv_quant=quant)
+        tol = TOL_SERVE_BF16_SPACINGS if quant is None \
+            else TOL_SERVE_INT8_SPACINGS
+        for static in statics:
+            key = f"{quant or 'bf16'} {'static' if static else 'continuous'}"
+            reqs = work()
+            eng, out = serve_run(f"{arch} {key}", make_engine, ecfg, reqs,
+                                 static, kernel, hk,
+                                 syncs=(quant is None and not static))
+            if out["kv_bytes"] != KV_BYTES[arch, quant]:
+                raise AssertionError(f"{arch} {key}: kv_bytes "
+                                     f"{out['kv_bytes']} != "
+                                     f"{KV_BYTES[arch, quant]}")
+            runs[key], outs[key] = out, [r.generated for r in reqs]
+            near[key] = check_against_dense(f"{arch} {key}", reqs, dense,
+                                            tol)
+            if quant is None and not static:
+                prof = profile_decode(f"{arch} {key}", eng, spec["prompt"])
+                prof["bound_ms"], prof["weight_bytes"] = decode_bound_ms(
+                    cfg, eng.params, [spec["prompt"]] * SERVE_SLOTS, quant)
+                runs[key]["profile"] = prof
+            del eng
+        if len(statics) == 2 and outs[f"{quant or 'bf16'} continuous"] != \
+                outs[f"{quant or 'bf16'} static"]:
+            raise AssertionError(f"{arch} {quant}: continuous and static "
+                                 f"tokens differ")
+    a, b = outs["bf16 continuous"], outs["int8 continuous"]
+    free = sum(x == y for ra, rb in zip(a, b) for x, y in zip(ra, rb)) \
+        / sum(len(r) for r in a)
+    c = runs["bf16 continuous"]
+    print(f"{arch} serving: int8 vs bf16 pages, free-running engine "
+          f"outputs position by position: {free:.4f} of tokens agree "
+          f"(teacher-forced {summary['int8_teacher_forced_agreement']:.4f});"
+          f" decode bound {c['profile']['bound_ms']:.3f} ms a tick (weights "
+          f"{c['profile']['weight_bytes']} B) vs {c['profile']['tick_ms']:.3f}"
+          f" ms; dense references {dense_s:.1f} s"
+          + (f"; continuous vs static makespan {c['makespan_s']:.3f} vs "
+             f"{runs['bf16 static']['makespan_s']:.3f} s, tokens/s "
+             f"{c['tokens_per_sec']:.1f} vs "
+             f"{runs['bf16 static']['tokens_per_sec']:.1f}"
+             if "bf16 static" in runs else ""))
+    return {"runs": runs, "int8_free_running_agreement": free,
+            "paged_vs_dense": summary, "near_tie_divergences": near}
+
+
+def run_serve_roundtrip(train, kernel, hk, dev):
+    """Phase 26: the launcher trains full-width llama-60m GWT-2 f32 for 20
+    steps (K1 exactly 3 a step, one pass) and checkpoints; the serve
+    launcher serves the checkpoint; then the engine from the same
+    checkpoint, bf16 and int8 pages, continuous and static, against the
+    dense path from the same restored params."""
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.optim.base import flatten_with_paths
+    from repro_torch.serve.engine import Engine
+    spec = SERVE_SPECS["llama-60m"]
+    with tempfile.TemporaryDirectory() as d:
+        reset_counts(kernel, hk)
+        t0 = time.perf_counter()
+        res = train.main(MAIN_ARGS + ["--ckpt-dir", d, "--ckpt-every",
+                                      str(STEPS)])
+        train_s = time.perf_counter() - t0
+        counts = all_counts(kernel, hk)
+        want = {k: 0 for k in counts}
+        want.update(fused_counts(k1=3 * STEPS))
+        if counts != want:
+            raise AssertionError(f"serve round trip training launched "
+                                 f"{counts}, want {want}")
+        trained = [t.detach().clone() for t in
+                   flatten_with_paths(res.params)[1]]
+        del res
+        argv = ["--arch", "llama-60m", "--ckpt", d, "--requests",
+                str(spec["requests"]), "--prompt-len", str(spec["prompt"]),
+                "--gen", str(spec["gen"]), "--num-slots", str(SERVE_SLOTS),
+                "--page-size", str(SERVE_PAGE), "--prefill-chunk",
+                str(SERVE_CHUNK)]
+        reset_counts(kernel, hk)
+        t0 = time.perf_counter()
+        launcher = serve.main(argv)
+        print(f"serve round trip: training {train_s:.1f} s, serve.main "
+              f"{time.perf_counter() - t0:.1f} s")
+        if any(all_counts(kernel, hk).values()):
+            raise AssertionError(f"serve.main launched {all_counts(kernel, hk)}")
+        if launcher["kv_arena_bytes"] != KV_BYTES["llama-60m", None]:
+            raise AssertionError(f"serve.main kv bytes "
+                                 f"{launcher['kv_arena_bytes']}")
+        cfg = configs.get_config("llama-60m")
+        make = lambda ecfg: Engine.from_checkpoint(cfg, d, ecfg, device=dev)
+        params, _ = CheckpointManager(d).restore_params(
+            None, lm.abstract_params(cfg), device=dev)
+        for a, b in zip(flatten_with_paths(params)[1], trained):
+            if not torch.equal(a, b):
+                raise AssertionError("restored params differ from trained")
+        del trained
+        out = serve_cell("llama-60m", cfg, params, make, kernel, hk, dev,
+                         (False, True))
+    out["launcher"] = launcher
+    return out
+
+
+def run_serve_qwen(kernel, hk, dev):
+    """Phase 27: qwen2.5-3b at full width and depth, seed-0 init, served
+    continuous with bf16 and int8 pages."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get_config("qwen2.5-3b")
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                     dev).tree()
+    out = serve_cell("qwen2.5-3b", cfg, params,
+                     lambda ecfg: Engine(cfg, params, ecfg), kernel, hk,
+                     dev, (False,))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_smoke_card_vs_cpu(dev):
+    """Phase 28: the smoke configs on the card and on the CPU from the
+    same params and tokens.  llama-60m, qwen2.5-3b, deepseek-67b: two chunk
+    prefills of one slot's 11-token prompt (the second padded), 4 paged
+    decode ticks over 3 slots (two idle on the trash page), one chunk
+    prefill of another slot; gemma2-9b and gemma3-27b: a 64-position dense
+    prefill (window 32: the ring handoff) and 4 ring-buffer decode steps.
+    Every call's logits within TOL_SERVE_SMOKE."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import pad_cache
+    from repro_torch.models import lm
+    from repro_torch.optim.base import flatten_with_paths, unflatten
+
+    def dense_calls(cfg, p, toks, T):
+        lg, cache = lm.make_prefill_step(cfg)(p, {"tokens": T(toks[:, :64])})
+        got = [lg]
+        cache = pad_cache(cache, 68, window=cfg.window)
+        for t in range(64, 68):
+            lg, cache = lm.make_decode_step(cfg)(
+                p, cache, {"tokens": T(toks[:, t:t + 1])})
+            got.append(lg)
+        return got
+
+    def paged_calls(cfg, p, toks, T, device):
+        pools = lm.init_paged_caches(cfg, 1 + 3 * 6, 4, device=device)
+        pt = np.zeros((3, 6), np.int32)
+        pt[0, :4], pt[2, :2] = [1, 2, 3, 4], [5, 6]
+        chunk = lm.make_chunk_prefill_step(cfg)
+        got = []
+        for start in (0, 8):
+            tk = np.zeros((1, 8), np.int32)
+            piece = toks[0, start:min(start + 8, 11)]
+            tk[0, :len(piece)] = piece
+            got.append(chunk(p, pools, T(pt[:1]), T([start]), T(tk))[0])
+        live = pt.copy()
+        live[1:] = 0
+        for i in range(4):
+            last = np.zeros((3, 1), np.int32)
+            last[0, 0] = toks[0, 11 + i]
+            got.append(lm.make_paged_decode_step(cfg)(
+                p, pools, T(live), T([11 + i, 0, 0]), T(last))[0])
+        tk = np.zeros((1, 8), np.int32)
+        tk[0, :6] = toks[1, :6]
+        got.append(chunk(p, pools, T(pt[2:3]), T([0]), T(tk))[0])
+        return got
+
+    out = {}
+    for arch in ("llama-60m", "qwen2.5-3b", "deepseek-67b", "gemma2-9b",
+                 "gemma3-27b"):
+        cfg = configs.get_smoke(arch)
+        unit, tol = TOL_SERVE_SMOKE[cfg.dtype]
+        base = lm.init(cfg, torch.Generator().manual_seed(0), "cpu").tree()
+        paths, leaves = flatten_with_paths(base)
+        toks = np.random.RandomState(3).randint(0, cfg.vocab, (2, 68))
+        logs = {}
+        for device in ("cpu", dev):
+            p = unflatten(paths, [l.detach().to(device) for l in leaves])
+            T = lambda a, _d=device: torch.tensor(np.asarray(a), device=_d)
+            logs[str(device)] = dense_calls(cfg, p, toks, T) if cfg.window \
+                else paged_calls(cfg, p, toks, T, device)
+        errs = [spacing_err(g.float().cpu(), w.float(), unit)
+                for g, w in zip(logs[str(dev)], logs["cpu"])]
+        print(f"{arch} smoke ({cfg.dtype}) serving steps card vs CPU: max "
+              f"{max(errs):.3f} {unit} spacings over {len(errs)} calls")
+        if max(errs) > tol:
+            raise AssertionError(f"{arch} smoke: card vs CPU {max(errs)} "
+                                 f"{unit} spacings > {tol}")
+        out[arch] = max(errs)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA "
@@ -2764,6 +3368,13 @@ def main() -> int:
     cuts = run_dense_cuts(train, kernel, hk)
     flash = check_flash(train, kernel, hk, dev)
     dense_small = check_dense_small_training(dev)
+    t_serve = time.perf_counter()
+    serving = {"llama-60m": run_serve_roundtrip(train, kernel, hk, dev),
+               "qwen2.5-3b": run_serve_qwen(kernel, hk, dev),
+               "smoke_card_vs_cpu_spacings": serve_smoke_card_vs_cpu(dev),
+               "phases_s": time.perf_counter() - t_serve}
+    print(f"serving phases 26-28: {serving['phases_s']:.1f} s; the script "
+          f"so far {time.perf_counter() - t0:.1f} s")
     print(f"staged step vs fused step (same call): launcher-equivalent "
           f"loop {staged32['step_ms']:.2f} vs {res32.step_ms:.2f} ms; "
           f"profiled {prof_staged['step_ms']:.2f} vs "
@@ -2791,7 +3402,8 @@ def main() -> int:
                     dense={"k1_widths": dense_k1, "qwen2.5-3b": qwen,
                            "qwen2.5-3b_per_launch": rows_qwen,
                            "depth_cuts": cuts, "flash": flash,
-                           "smoke_card_vs_cpu": dense_small}),
+                           "smoke_card_vs_cpu": dense_small},
+                    serving=serving),
         fused_entry("gwt_adam_fused_q8",
                     "gwt_adam/csrc/gwt_adam_fused_q8.cu",
                     "src/repro/kernels/gwt_adam/kernel.py:554",

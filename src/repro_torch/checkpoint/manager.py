@@ -184,11 +184,54 @@ class CheckpointManager:
                 raise StructureMismatch(
                     f"{path}: checkpoint shape {tuple(lm['shape'])} != "
                     f"requested {tuple(leaf.shape)}")
+        return unflatten(paths, self._read(d, 0, leaves, meta["leaves"],
+                                           device)), step
+
+    @staticmethod
+    def _read(d: str, offset: int, leaves, metas, device) -> List[Any]:
+        """Leaves ``offset ..`` of step directory ``d``, each in its
+        ``like`` leaf's dtype, on ``device`` or the ``like`` leaf's."""
         out = []
-        for i, (leaf, lm) in enumerate(zip(leaves, meta["leaves"])):
-            with open(os.path.join(d, f"arr_{i:06d}.bin"), "rb") as f:
+        for i, (leaf, lm) in enumerate(zip(leaves, metas)):
+            with open(os.path.join(d, f"arr_{offset + i:06d}.bin"),
+                      "rb") as f:
                 arr = np.frombuffer(f.read(), dtype=_np_dtype(lm["dtype"])) \
                     .reshape(lm["shape"])
             out.append(from_numpy(arr, lm["dtype"], leaf.dtype,
                                   leaf.device if device is None else device))
-        return unflatten(paths, out), step
+        return out
+
+    def restore_params(self, step: Optional[int], like_params: Any,
+                       device=None):
+        """Restore ONLY the model parameters of a training checkpoint, the
+        serving load path (``serve.engine.Engine.from_checkpoint``).
+
+        Training saves ``{"opt": ..., "params": ...}``, and dict keys
+        flatten sorted (``"opt" < "params"``), so the parameters are the
+        manifest's TRAILING leaves: they are read by that offset and the
+        optimizer state is never read.  A checkpoint of a bare params tree
+        loads the same way, at offset 0.  Each trailing leaf's shape is
+        checked against ``like_params`` (``meta`` tensors will do; then
+        pass ``device``); a disagreement raises :class:`StructureMismatch`
+        instead of serving wrong weights.  Returns ``(params, step)``."""
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no committed checkpoint in {self.dir}")
+        meta = self.manifest(step)
+        paths, leaves = flatten_with_paths(like_params)
+        offset = len(meta["leaves"]) - len(leaves)
+        if offset < 0:
+            raise StructureMismatch(
+                f"checkpoint step {step} has {len(meta['leaves'])} leaves "
+                f"but the params tree alone has {len(leaves)}")
+        metas = meta["leaves"][offset:]
+        for i, (path, leaf, lm) in enumerate(zip(paths, leaves, metas)):
+            if tuple(leaf.shape) != tuple(lm["shape"]):
+                raise StructureMismatch(
+                    f"{path} (manifest leaf {offset + i}): "
+                    f"checkpoint shape {tuple(lm['shape'])} != requested "
+                    f"{tuple(leaf.shape)}: is this checkpoint from the same "
+                    f"arch config?")
+        return unflatten(paths, self._read(self._step_dir(step), offset,
+                                           leaves, metas, device)), step

@@ -9,22 +9,32 @@ over the reference's three compute routes chosen by static shape:
 * chunked (``_flash_attn``) past 8192 positions: an online softmax over
   ``(q_chunk, kv_chunk)`` score tiles.
 
+The cached serving modes (``attn_apply(mode=...)``): ``prefill`` hands its
+K/V over as a cache (a sliding window's ring buffer: the last ``window``
+entries); ``decode`` writes one entry per step into a dense cache (ring
+slot ``pos % size`` for a windowed block) and attends through
+``_decode_attn_grouped``, the grouped ``(KV, G)`` product with no KV
+repeat; with a ``page_table`` the cache is the shared page arena of
+``repro_torch.serve.kv``, written in place, and ``decode`` and
+``chunk_prefill`` mask each slot by its own length.
+
 The arithmetic is the reference's, written as explicit torch ops (no fused
 library attention): f32 scores from the operands, ``-1e30`` masking,
 softmax in f32, the probabilities cast to ``v.dtype`` before the second
-product.  K/V heads are repeated to the query heads before every route.
-The cached serving modes and bidirectional attention are not ported.
+product.  K/V heads are repeated to the query heads before every train
+route.  Bidirectional attention is not ported (ROADMAP Queue 1 item 5.6).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.layers import Builder, rms_norm, softcap
+from repro_torch.serve import kv as kv_lib
 
 NEG_INF = -1e30
 
@@ -169,23 +179,73 @@ def _local_block_attn(q, k, v, *, window: int, cap: float):
     return o.reshape(B, S, H, hd)
 
 
+def _decode_attn_grouped(q, k, v, kv_valid, cap: float):
+    """Attention of a few new positions against a cache, grouped: q
+    (B,S,H,hd); k/v (B,T,KV,hd), NOT repeated to ``H`` heads; kv_valid
+    (B,T).  The score buffer is f32 ``(B,KV,G,S,T)``.
+
+    Past ``B = 16`` rows, when ``B`` is a multiple of 16 and ``T·B >=
+    2^22``, the rows go in chunks of 16 to bound that buffer, chunk ``c``
+    holding rows ``m·nb + c`` (the reference's interleaved scan order)."""
+    B, S, Hq, hd = q.shape
+    KV = k.shape[2]
+    G = Hq // KV
+
+    def attend(qb, kb, vb, validb):
+        qg = qb.reshape(qb.shape[0], S, KV, G, hd)
+        s = torch.einsum("bskgd,btkd->bkgst", qg.float(),
+                         kb.float()) / math.sqrt(hd)
+        s = softcap(s, cap) if cap else s
+        s = torch.where(validb[:, None, None, None, :], s, NEG_INF)
+        w = torch.softmax(s, dim=-1)
+        return torch.einsum("bkgst,btkd->bskgd", w.to(vb.dtype), vb)
+
+    chunk_b = 16
+    if B > chunk_b and B % chunk_b == 0 and k.shape[1] * B >= 1 << 22:
+        nb = B // chunk_b
+        o = q.new_empty((B, S, KV, G, hd))
+        for c in range(nb):
+            o[c::nb] = attend(q[c::nb], k[c::nb], v[c::nb], kv_valid[c::nb])
+    else:
+        o = attend(q, k, v, kv_valid)
+    return o.reshape(B, S, Hq, hd)
+
+
 def attn_apply(p, cfg, x, cos, sin, *, local: bool = False,
-               mode: str = "train", bidirectional: bool = False,
-               page_table: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Train-mode causal attention of ``x`` (B,S,d); ``local`` applies
-    ``cfg.window``.  The route is the reference's train-mode dispatch: for
-    a window shorter than ``S``, block-local where it divides ``S``, else
+               mode: str = "train", cache: Optional[dict] = None,
+               pos=None, bidirectional: bool = False,
+               page_table: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Causal attention of ``x`` (B,S,d); ``local`` applies ``cfg.window``.
+    Returns ``(output, new_cache)``; the cache is None in train mode.
+
+    ``mode="train"`` takes the reference's train-mode dispatch: for a
+    window shorter than ``S``, block-local where it divides ``S``, else
     direct masked; without one, chunked past 8192 positions, else direct.
+    ``"prefill"`` computes the same and hands over ``{"k", "v"}`` (a
+    windowed block's last ``window`` entries; ``S % window == 0`` when
+    ``S > window``, so ring slot 0 is the oldest).  ``"decode"`` (S = 1)
+    writes the step's K/V into ``cache`` in place at ``pos`` (a host int;
+    ring slot ``pos % size`` for a windowed block) and attends the filled
+    slots.
+
+    With ``page_table`` (B, max_pages) the cache is the slot-paged arena
+    (``repro_torch.serve.kv``) and ``pos`` a per-slot fill-level tensor
+    (B,): ``"decode"`` writes each slot's entry to its page, ``"chunk_
+    prefill"`` writes one slot's (1, C) chunk at positions ``pos[0] ..
+    pos[0]+C-1`` and attends everything paged in before it; every read is
+    masked by the slot's own length.  Windowed blocks have no paged layout.
     """
-    if mode != "train" or page_table is not None:
-        raise NotImplementedError(
-            f"attention mode {mode!r} (page table: {page_table is not None})"
-            ": the cached serving modes (prefill, decode, chunk_prefill, "
-            "paged) wait for ROADMAP Queue 1 item 4")
     if bidirectional:
         raise NotImplementedError(
             "bidirectional attention (the encoder-decoder substrate) waits "
-            "for ROADMAP Queue 1 item 5")
+            "for ROADMAP Queue 1 item 5.6")
+    if page_table is not None and local and cfg.window:
+        raise NotImplementedError(
+            "paged serving covers full-attention blocks only; the "
+            "sliding-window ring-buffer layout has no page-table form")
+    if mode not in ("train", "prefill", "decode", "chunk_prefill"):
+        raise ValueError(f"attention mode {mode!r}")
     B, S, _ = x.shape
     H = cfg.n_heads
     window = cfg.window if local else 0
@@ -193,13 +253,70 @@ def attn_apply(p, cfg, x, cos, sin, *, local: bool = False,
     q, k, v = _project(p, cfg, x)
     q = rope_lib.apply_rope(q, cos, sin)
     k = rope_lib.apply_rope(k, cos, sin)
-    k, v = _repeat_kv(k, H), _repeat_kv(v, H)
-    if window and S > window and S % window == 0:
-        o = _local_block_attn(q, k, v, window=window, cap=cap)
-    elif window and S > window:
-        o = _direct_attn(q, k, v, causal_offset=0, window=window, cap=cap)
-    elif S > 8192:
-        o = _flash_attn(q, k, v, cap=cap)
+
+    new_cache = None
+    if mode == "decode" and page_table is not None:
+        if cache is None or S != 1:
+            raise ValueError("paged decode takes one token per slot and "
+                             "the page arena")
+        P = kv_lib.page_size(cache["k"])
+        page, off = kv_lib.token_dest(page_table, pos, P)
+        kv_lib.write(cache["k"], page, off, k[:, 0])
+        kv_lib.write(cache["v"], page, off, v[:, 0])
+        ck = kv_lib.gather(cache["k"], page_table, q.dtype)
+        cv = kv_lib.gather(cache["v"], page_table, q.dtype)
+        valid = torch.arange(ck.shape[1], device=x.device)[None, :] \
+            <= pos[:, None]
+        o = _decode_attn_grouped(q, ck, cv, valid, cap)
+        new_cache = cache
+    elif mode == "chunk_prefill":
+        if cache is None or page_table is None or B != 1:
+            raise ValueError("chunk_prefill is the paged engine's one-slot "
+                             "prompt step")
+        P = kv_lib.page_size(cache["k"])
+        page, off = kv_lib.chunk_dest(page_table[0], pos[0], S, P)
+        kv_lib.write(cache["k"], page, off, k[0])
+        kv_lib.write(cache["v"], page, off, v[0])
+        ck = kv_lib.gather(cache["k"], page_table, q.dtype)
+        cv = kv_lib.gather(cache["v"], page_table, q.dtype)
+        # entries past this chunk's last write are other slots' trash
+        valid = torch.arange(ck.shape[1], device=x.device)[None, :] \
+            <= pos[:, None] + (S - 1)
+        o = _direct_attn(q, _repeat_kv(ck, H), _repeat_kv(cv, H),
+                         causal_offset=pos[0], window=0, cap=cap,
+                         kv_valid=valid)
+        new_cache = cache
+    elif mode == "decode":
+        if cache is None or S != 1:
+            raise ValueError("decode takes one token and a cache")
+        size = cache["k"].shape[1]
+        slot = pos % size if window else pos
+        cache["k"][:, slot] = k[:, 0]
+        cache["v"][:, slot] = v[:, 0]
+        valid = torch.arange(size, device=x.device) <= min(pos, size - 1)
+        o = _decode_attn_grouped(q, cache["k"], cache["v"],
+                                 valid.expand(B, size), cap)
+        new_cache = cache
     else:
-        o = _direct_attn(q, k, v, causal_offset=0, window=window, cap=cap)
-    return o.reshape(B, S, H * cfg.head_dim) @ p["wo"]
+        kr, vr = _repeat_kv(k, H), _repeat_kv(v, H)
+        if window and S > window and S % window == 0:
+            o = _local_block_attn(q, kr, vr, window=window, cap=cap)
+        elif window and S > window:
+            o = _direct_attn(q, kr, vr, causal_offset=0, window=window,
+                             cap=cap)
+        elif S > 8192:
+            o = _flash_attn(q, kr, vr, cap=cap)
+        else:
+            o = _direct_attn(q, kr, vr, causal_offset=0, window=window,
+                             cap=cap)
+        if mode == "prefill":
+            if window and S > window:
+                if S % window:
+                    raise ValueError(
+                        f"prefill of {S} positions cannot hand over a ring "
+                        f"buffer of window {window}: decode writes slot "
+                        f"pos % window, so S must be a multiple of it")
+                new_cache = {"k": k[:, -window:], "v": v[:, -window:]}
+            else:
+                new_cache = {"k": k, "v": v}
+    return o.reshape(B, S, H * cfg.head_dim) @ p["wo"], new_cache

@@ -1,12 +1,15 @@
 """Layer block (counterpart of ``repro/models/blocks.py``): an attention
 mixer (``"attn"``, or ``"attn_local"`` with the sliding window) and, where
-``cfg.d_ff > 0``, the MLP, with pre-norms and residuals.  The ``"+moe"``
-suffix and the recurrent mixers (mamba, mLSTM, sLSTM) wait for ROADMAP
-Queue 1 item 5."""
+``cfg.d_ff > 0``, the MLP, with pre-norms and residuals; and the block's
+serving caches, dense (``block_cache``) or paged (``block_paged_cache``).
+The ``"+moe"`` suffix waits for ROADMAP Queue 1 item 5.3, mamba for 5.4,
+mLSTM and sLSTM for 5.5."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
+
+import torch
 
 from repro_torch.models import attention
 from repro_torch.models.layers import Builder, mlp_apply, mlp_init, rms_norm
@@ -25,7 +28,7 @@ def _check_kind(kind: str) -> str:
     if use_moe or base in ("mamba", "mlstm", "slstm"):
         raise NotImplementedError(
             f"block kind {kind!r}: the MoE and recurrent blocks wait for "
-            "ROADMAP Queue 1 item 5")
+            "ROADMAP Queue 1 item 5 (5.3 MoE, 5.4 mamba, 5.5 mLSTM/sLSTM)")
     if base not in ATTENTION_KINDS:
         raise ValueError(f"unknown block kind {base!r}")
     return base
@@ -42,12 +45,54 @@ def block_init(b: Builder, cfg, kind: str, lead=()) -> dict:
     return p
 
 
-def block_apply(p, cfg, kind: str, x, cos, sin):
+def block_apply(p, cfg, kind: str, x, cos, sin, *, mode: str = "train",
+                cache: Optional[dict] = None, pos=None, page_table=None):
+    """Returns ``(x, new_mixer_cache)``; the cache is None in train mode
+    (see ``attention.attn_apply`` for the cached modes)."""
     base = _check_kind(kind)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    x = x + attention.attn_apply(p["mixer"], cfg, h, cos, sin,
-                                 local=base == "attn_local")
+    h, nc = attention.attn_apply(p["mixer"], cfg, h, cos, sin,
+                                 local=base == "attn_local", mode=mode,
+                                 cache=cache, pos=pos,
+                                 page_table=page_table)
+    x = x + h
     if "ffn" in p:
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
         x = x + mlp_apply(p["ffn"], h)
-    return x
+    return x, nc
+
+
+def block_cache(cfg, kind: str, B: int, max_len: int, device, lead=()
+                ) -> dict:
+    """A zeroed dense decode cache ``{"k", "v"}`` of ``(*lead, B, size, KV,
+    hd)`` in the model dtype; ``size = min(window, max_len)`` for a
+    windowed block (a ring buffer), else ``max_len``."""
+    base = _check_kind(kind)
+    size = min(cfg.window, max_len) if base == "attn_local" and cfg.window \
+        else max_len
+    shape = tuple(lead) + (B, size, cfg.n_kv_heads, cfg.head_dim)
+    return {n: torch.zeros(shape, dtype=cfg.torch_dtype, device=device)
+            for n in ("k", "v")}
+
+
+def block_paged_cache(cfg, kind: str, num_pages: int, page_size: int,
+                      quant: Optional[str], device, lead=()) -> dict:
+    """The block's share of the serving arena: a page pool per K and V
+    (``repro_torch.serve.kv`` layout), ``(*lead, num_pages, page_size, KV,
+    hd)`` in the model dtype, or ``{"q": int8, "scale": f32}`` with
+    ``quant="int8"``.  Only full-attention blocks are served (the engine
+    checks)."""
+    _check_kind(kind)
+    shape = tuple(lead) + (num_pages, page_size, cfg.n_kv_heads,
+                           cfg.head_dim)
+    if quant == "int8":
+        def pool():
+            return {"q": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "scale": torch.zeros(shape[:-1], dtype=torch.float32,
+                                         device=device)}
+    elif quant is None:
+        def pool():
+            return torch.zeros(shape, dtype=cfg.torch_dtype, device=device)
+    else:
+        raise ValueError(f"kv quant {quant!r}: expected None or 'int8'")
+    return {"k": pool(), "v": pool()}

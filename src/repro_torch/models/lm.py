@@ -1,6 +1,7 @@
-"""Decoder-only LM (counterpart of ``repro/models/lm.py``, train mode):
-parameter construction, the forward pass, the loss and the gradient-
-accumulated train step.
+"""Decoder-only LM (counterpart of ``repro/models/lm.py``): parameter
+construction, the forward pass, the loss, the gradient-accumulated train
+step, and the serving caches and steps (dense prefill/decode, and the paged
+decode and chunk-prefill steps of ``repro_torch.serve.engine``).
 
 Parameters live in a nested dict with the JAX package's paths
 (``layers/b0/mixer/wq``, ...): the ``n_periods`` whole periods of
@@ -9,6 +10,10 @@ Parameters live in a nested dict with the JAX package's paths
 unstacked under ``rem/b{i}``.  :class:`LM` is the ``nn.Module`` that holds
 them; the functions here take the nested dict, as the JAX functions take
 the pytree.
+
+Not ported here: the MoE auxiliary loss and the recurrent blocks' caches
+(``blocks.py`` raises for them: ROADMAP Queue 1 items 5.3-5.5), M-RoPE
+position trees (5.2), and the encoder-decoder stack (5.6).
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from repro_torch.models import blocks, rope as rope_lib
 from repro_torch.models.layers import (Builder, cross_entropy, embed_apply,
                                        embed_init, logits_apply, rms_norm,
                                        softcap)
-from repro_torch.optim.base import flatten_with_paths, unflatten
+from repro_torch.optim.base import flatten_with_paths, tree_map, unflatten
 
 
 class ParamTree(nn.Module):
@@ -97,14 +102,37 @@ def _block(cfg, kind: str, p, x, cos, sin) -> torch.Tensor:
     are the same)."""
     if cfg.remat:
         return checkpoint(blocks.block_apply, p, cfg, kind, x, cos, sin,
-                          use_reentrant=False)
-    return blocks.block_apply(p, cfg, kind, x, cos, sin)
+                          use_reentrant=False)[0]
+    return blocks.block_apply(p, cfg, kind, x, cos, sin)[0]
 
 
-def forward(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
-    """Train-mode forward over ``tokens`` (B, S); returns logits (B, S, V):
-    each period's blocks in ``cfg.pattern`` order, then the remainder
-    blocks, the final norm, the head and the final softcap."""
+def forward(cfg, params, tokens: torch.Tensor, *, mode: str = "train",
+            caches=None):
+    """Forward over ``tokens`` (B, S): each period's blocks in
+    ``cfg.pattern`` order, then the remainder blocks, the final norm, the
+    head and the final softcap.
+
+    ``mode="train"`` returns the logits (B, S, V).  The serving modes
+    return ``(logits, new_caches)`` and run under inference mode, without
+    remat:
+
+    * ``"prefill"`` (no ``caches``): the last position's logits (B, 1, V)
+      and the dense caches the prompt fills, ``pos = S``;
+    * ``"decode"`` with dense ``caches`` (``init_cache``, or a padded
+      prefill's; ``pos`` a host int): one token per row, written into the
+      caches in place; ``pos`` advances by one;
+    * ``"decode"`` / ``"chunk_prefill"`` with paged caches (the pools of
+      ``init_paged_caches`` plus ``"pos"``, a per-slot length tensor, and
+      ``"page_table"``): one token per slot, or one slot's (1, C) chunk at
+      positions ``pos[0] .. pos[0]+C-1`` with the full chunk logits (the
+      prompt's last position may land mid-chunk).  The pools are written
+      in place.
+    """
+    if mode != "train":
+        with torch.inference_mode():
+            return _serve_forward(cfg, params, tokens, mode, caches)
+    if caches is not None:
+        raise ValueError("train mode takes no caches")
     S = tokens.shape[1]
     x = embed_apply(params["embed"], tokens, cfg.d_model)
     positions = torch.arange(S, device=tokens.device)
@@ -124,6 +152,163 @@ def forward(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
     if cfg.final_softcap:
         logits = softcap(logits, cfg.final_softcap)
     return logits
+
+
+def _period(cfg, pattern, p, x, cos, sin, mode, caches, pos, page_table):
+    """The blocks of one period (or the remainder) in a serving mode:
+    ``(x, {"b{i}": new cache})``."""
+    new = {}
+    for i, kind in enumerate(pattern):
+        c = None if caches is None else caches[f"b{i}"]
+        x, new[f"b{i}"] = blocks.block_apply(
+            p[f"b{i}"], cfg, kind, x, cos, sin, mode=mode, cache=c, pos=pos,
+            page_table=page_table)
+    return x, new
+
+
+def _serve_forward(cfg, params, tokens, mode, caches):
+    B, S = tokens.shape
+    dev = tokens.device
+    if mode == "prefill":
+        if caches is not None:
+            raise ValueError("prefill builds its caches: pass none")
+        pos = page_table = None
+        positions = torch.arange(S, device=dev)
+    elif caches is None:
+        raise ValueError(f"mode {mode!r} needs caches")
+    else:
+        pos, page_table = caches["pos"], caches.get("page_table")
+        if page_table is not None:
+            # per-slot positions: each slot rotates at its own fill level
+            positions = pos[:, None] + (
+                torch.arange(S, device=dev)[None, :]
+                if mode == "chunk_prefill" else 0)
+        elif mode == "decode":
+            positions = torch.full((B, S), pos, device=dev)
+        else:
+            raise ValueError(f"mode {mode!r} needs a page table")
+    x = embed_apply(params["embed"], tokens, cfg.d_model)
+    cos, sin = rope_lib.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    new: Dict[str, Any] = {}
+    if "layers" in params:
+        paths, leaves = flatten_with_paths(params["layers"])
+        stacked = None if caches is None else caches["layers"]
+        periods = []
+        for idx, ls in enumerate(zip(*(l.unbind(0) for l in leaves))):
+            # a period's caches are views of the stacked ones: written in
+            # place, they need no restacking
+            pc = None if stacked is None \
+                else tree_map(lambda c: c[idx], stacked)
+            x, nc = _period(cfg, cfg.pattern, unflatten(paths, ls), x, cos,
+                            sin, mode, pc, pos, page_table)
+            periods.append(nc)
+        new["layers"] = stacked if stacked is not None else tree_map(
+            lambda *cs: torch.stack(cs), *periods)
+    if cfg.rem_layers:
+        x, new["rem"] = _period(cfg, cfg.pattern[:cfg.rem_layers],
+                                params["rem"], x, cos, sin, mode,
+                                None if caches is None else caches["rem"],
+                                pos, page_table)
+    if mode == "prefill":
+        # only the last position's logits are consumed: full-sequence
+        # logits over a 152k or 262k vocab are GiBs
+        x = x[:, -1:]
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = logits_apply(params["embed"], x)
+    if cfg.final_softcap:
+        logits = softcap(logits, cfg.final_softcap)
+    if mode == "prefill":
+        new["pos"] = S
+    else:
+        new["pos"] = pos + (1 if mode == "decode" else S)
+        if page_table is not None:
+            new["page_table"] = page_table
+    return logits, new
+
+
+def init_cache(cfg, B: int, max_len: int, device) -> Dict[str, Any]:
+    """Zeroed dense decode caches for ``B`` rows of ``max_len`` positions:
+    per block ``{"k", "v"}`` (see ``blocks.block_cache``), the periods'
+    stacked on a leading ``n_periods`` axis as ``params["layers"]`` is,
+    and ``pos = 0``."""
+    cache: Dict[str, Any] = {}
+    if cfg.n_periods > 0:
+        cache["layers"] = {
+            f"b{i}": blocks.block_cache(cfg, kind, B, max_len, device,
+                                        lead=(cfg.n_periods,))
+            for i, kind in enumerate(cfg.pattern)}
+    if cfg.rem_layers:
+        cache["rem"] = {f"b{i}": blocks.block_cache(cfg, cfg.pattern[i], B,
+                                                    max_len, device)
+                        for i in range(cfg.rem_layers)}
+    cache["pos"] = 0
+    return cache
+
+
+def init_paged_caches(cfg, num_pages: int, page_size: int,
+                      kv_quant: Optional[str] = None, device="cuda"
+                      ) -> Dict[str, Any]:
+    """The serving arena: one ``(num_pages, page_size, KV, hd)`` pool per K
+    and V per block (``{"q": int8, "scale": f32}`` with ``kv_quant=
+    "int8"``), stacked over periods as the dense caches are.  No ``pos`` or
+    ``page_table``: the engine owns those and passes them per call."""
+    cache: Dict[str, Any] = {}
+    if cfg.n_periods > 0:
+        cache["layers"] = {
+            f"b{i}": blocks.block_paged_cache(cfg, kind, num_pages,
+                                              page_size, kv_quant, device,
+                                              lead=(cfg.n_periods,))
+            for i, kind in enumerate(cfg.pattern)}
+    if cfg.rem_layers:
+        cache["rem"] = {f"b{i}": blocks.block_paged_cache(
+            cfg, cfg.pattern[i], num_pages, page_size, kv_quant, device)
+            for i in range(cfg.rem_layers)}
+    return cache
+
+
+def make_prefill_step(cfg):
+    """``(params, {"tokens": (B, S)}) -> (last logits (B, V), caches)``."""
+    def prefill_step(params, batch):
+        logits, caches = forward(cfg, params, batch["tokens"],
+                                 mode="prefill")
+        return logits[:, -1], caches
+    return prefill_step
+
+
+def make_decode_step(cfg):
+    """``(params, caches, {"tokens": (B, 1)}) -> (logits (B, V), caches)``
+    over dense caches, written in place."""
+    def decode_step(params, caches, batch):
+        logits, new = forward(cfg, params, batch["tokens"], mode="decode",
+                              caches=caches)
+        return logits[:, -1], new
+    return decode_step
+
+
+def make_paged_decode_step(cfg):
+    """One serving decode tick: ``tokens (num_slots, 1)``, every slot every
+    tick (inactive slots carry trash-page rows and length 0, masked out).
+    Returns ``(logits (num_slots, V), pools)``, the pools written in
+    place."""
+    def step(params, pools, page_table, lens, tokens):
+        caches = dict(pools, pos=lens, page_table=page_table)
+        logits, _ = forward(cfg, params, tokens, mode="decode",
+                            caches=caches)
+        return logits[:, -1], pools
+    return step
+
+
+def make_chunk_prefill_step(cfg):
+    """Page in ONE slot's next prompt chunk: ``tokens (1, C)`` at positions
+    ``filled[0] .. filled[0]+C-1``, ``page_table`` that slot's row ``(1,
+    max_pages)``.  Returns the full ``(1, C, V)`` chunk logits and the
+    pools, written in place."""
+    def step(params, pools, page_table, filled, tokens):
+        caches = dict(pools, pos=filled, page_table=page_table)
+        logits, _ = forward(cfg, params, tokens, mode="chunk_prefill",
+                            caches=caches)
+        return logits, pools
+    return step
 
 
 def loss_fn(cfg, params, batch) -> torch.Tensor:

@@ -3,6 +3,7 @@ only)."""
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -13,11 +14,22 @@ def _freqs(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
 
 
+@functools.lru_cache(maxsize=32)
+def _freqs_on(head_dim: int, theta: float, device: torch.device
+              ) -> torch.Tensor:
+    """The f32 frequencies on ``device``, copied there once: a copy from
+    pageable host memory blocks the host on the card, once per forward
+    without this cache (every serving tick).  Made outside inference mode,
+    so the train forward may take it whichever mode called first."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(_freqs(head_dim, theta), dtype=torch.float32,
+                               device=device)
+
+
 def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """positions (..., S) -> cos/sin of shape (..., S, head_dim/2)."""
-    freqs = torch.as_tensor(_freqs(head_dim, theta), dtype=torch.float32,
-                            device=positions.device)
+    freqs = _freqs_on(head_dim, theta, positions.device)
     ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 

@@ -139,8 +139,9 @@ def test_attn_apply_bias_qk_norm(route, dtype):
     tcos, tsin = rope.rope_angles(torch.arange(S), HD, 1e6)
     want, _ = jattn.attn_apply(jp, jcfg, jnp.asarray(x, jd), jcos, jsin,
                                local=local)
-    got = attention.attn_apply(tp, tcfg, to_torch(x, td), tcos, tsin,
-                               local=local)
+    got, cache = attention.attn_apply(tp, tcfg, to_torch(x, td), tcos,
+                                      tsin, local=local)
+    assert cache is None
     _close(got, want, dtype)
 
 
@@ -168,11 +169,11 @@ def test_attn_apply_dispatch(monkeypatch, S, local, route):
 
 
 def test_attn_apply_refuses_what_is_not_ported():
+    """Bidirectional attention waits for the encoder-decoder substrate; a
+    windowed block has no paged layout, as in the reference."""
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        attention.attn_apply({}, tcfg, None, None, None, mode="decode")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        attention.attn_apply({}, tcfg, None, None, None,
-                             page_table=torch.zeros(1, 1))
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         attention.attn_apply({}, tcfg, None, None, None, bidirectional=True)
+    with pytest.raises(NotImplementedError, match="no page-table form"):
+        attention.attn_apply({}, tcfg, None, None, None, local=True,
+                             mode="decode", page_table=torch.zeros(1, 1))

@@ -632,3 +632,43 @@ def test_group_entries_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         haar_ops.dwt_wire_group([g.cpu(), g], 2, torch.bfloat16)
     assert (haar_kernel.launches_fwd_q, haar_kernel.launches_fwd) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_engine_on_the_card_serves_the_dense_tokens(quant):
+    """The serving engine on the card (llama-60m-smoke, f32): its arena
+    lives on the card and stays in place, launches none of K1-K7, and each
+    request's greedy tokens equal the dense ``generate`` path's; int8
+    pages agree on at least 0.9 of the tokens (the reference's gate)."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.launch.serve import build_workload, generate
+    from repro_torch.models import lm
+    from repro_torch.optim.base import flatten_with_paths
+    from repro_torch.serve.engine import Engine, EngineConfig
+    dev = _card()
+    cfg = configs.get_smoke("llama-60m")
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                     dev).tree()
+    eng = Engine(cfg, params, EngineConfig(num_slots=3, page_size=4,
+                                           max_ctx=40, prefill_chunk=8,
+                                           kv_quant=quant))
+    leaves = flatten_with_paths(eng.pools)[1]
+    ptrs = [t.data_ptr() for t in leaves]
+    assert all(t.device.type == "cuda" for t in leaves)
+    before = (kernel.launches, kernel.launches_q8, haar_kernel.launches_fwd_q)
+    reqs = build_workload(8, cfg.vocab, 24, 16, 0.0, seed=2)
+    eng.run(reqs)
+    assert (kernel.launches, kernel.launches_q8,
+            haar_kernel.launches_fwd_q) == before
+    assert [t.data_ptr() for t in flatten_with_paths(eng.pools)[1]] == ptrs
+    match = total = 0
+    for r in reqs:
+        ref = generate(cfg, params, torch.tensor([r.prompt], device=dev),
+                       r.max_gen)[0].tolist()
+        if quant is None:
+            assert r.generated == ref, r.rid
+        match += int(np.sum(np.array(r.generated) == np.array(ref)))
+        total += len(ref)
+    assert match / total >= 0.9

@@ -62,7 +62,11 @@ def test_the_walk_sees_the_package():
             "order.py", "build_corpus.py", "workers.py", "eval.py",
             "sink.py", "trace.py", "lowrank.py", "attention.py",
             "blocks.py", "layers.py", "lm.py", "qwen2_5_3b.py",
-            "gemma2_9b.py", "gemma3_27b.py", "deepseek_67b.py"} <= names
+            "gemma2_9b.py", "gemma3_27b.py", "deepseek_67b.py", "kv.py",
+            "serve.py"} <= names
+    serve = os.path.join(PKG, "serve")
+    assert {os.path.join(serve, f) for f in ("kv.py", "engine.py")} \
+        <= set(_sources())
 
 
 def test_the_check_catches_what_it_forbids():
