@@ -123,21 +123,29 @@ Phases (any failure raises and the script exits non-zero):
     (PyTorch's sync debug mode), no GWT kernel launches, losses finite and
     falling; the refresh update's time beside the steady one; for
     ``galore`` and ``rso`` 10 steps + checkpoint + resume equal the 20
-    straight steps bitwise (the refreshes at 10 and 15 after the resume).
-
+    straight steps bitwise (the refreshes at 10 and 15 after the resume);
+    APOLLO's projector draw (``core.prng``: jax.random's threefry bits,
+    uniforms and normals) on the card against the CPU at full-width
+    llama-60m and qwen2.5-3b (73728-row) leaves: bits and uniforms
+    bitwise, normals within 4 f32 spacings, no synchronizing call;
 21. K1 at the dense configs' bucket widths: one layer's rows of each
     qwen2.5-3b width ((2,2048,256), (2,2048,2048), (2,2048,11008),
     (1,11008,2048)) and the stacked bias buckets ((2,36,256), (1,36,2048))
-    as phase 2 holds them at level 2; the whole (2,73728,256) bucket
-    through the two-pass design bitwise to the plain version; the
-    (2,73728,11008) bucket (1.62e9 elements): two runs bitwise, finite;
+    as phase 2 holds them at level 2; then each whole two-pass bucket
+    ((1,396288,2048), (2,73728,11008), (2,73728,256), (2,73728,2048)) for
+    K1 with f32 and bf16 moments and for K2, in every CASE: two runs and
+    the plain version bitwise equal on every output (the largest has
+    1.62e9 elements and 99,072 partials a leaf);
 22. the dense main path: ``train.main`` trains qwen2.5-3b at full width
     and depth (36 layers; GQA, QKV bias, remat) with GWT-2 for 20 steps at
-    batch 16 x seq 256: K1 exactly 6 times a step, each bucket in the
-    design the capacity rule names, nothing else launched; the state the
-    JAX package's 8,039,764,012 bytes; losses finite and falling; step
-    time, tokens/s, peak memory, a profile of the step, and K1 per launch
-    at each of the six buckets beside its bound and plain version;
+    batch 16 x seq 256, with f32 moments and with ``--state-codec int8``:
+    K1 (int8: K2) exactly 6 times a step, each bucket in the design the
+    capacity rule names, nothing else launched; the state the JAX
+    package's 8,039,764,012 (int8: 2,135,562,352) bytes; losses finite and
+    falling; step time, tokens/s, peak memory, a profile of the f32 step,
+    K1 and K2 per launch at each of the six buckets beside the bound and
+    the plain version, and the int8 wrap of the (151936, 2048) embedding's
+    moments;
 23. deepseek-67b, gemma2-9b and gemma3-27b at full width, cut to 2
     layers, 5 steps each through the launcher: deepseek (untied head on
     plain Adam) at 16 x 256, gemma2 (local and global, both softcaps) at
@@ -225,9 +233,9 @@ FIRST_SHAPE = ("FIRST-mode (8,1376,514) leaf", (1, 4112, 1376))
 PARTIAL_SHAPE = ("partial last block", (3, 37, 344))
 LEVEL = 2
 QBLOCK = 64
-# the names of K1's CUDA kernels (gwt_adam_fused.cu and the one-pass
-# kernel of gwt_adam_common.cuh), as the profiler reports them
-K1_KERNEL_NAMES = ("one_pass<", "norm_pass<", "write_pass<")
+# the names of K1's CUDA kernels (gwt_adam_fused.cu and the one-pass and
+# two-pass kernels of gwt_adam_common.cuh), as the profiler reports them
+K1_KERNEL_NAMES = ("one_pass<", "norm_pass<", "scale_pass<", "write_pass<")
 STEPS = 20
 MAIN_ARGS = ["--arch", "llama-60m", "--steps", str(STEPS), "--batch", "16",
              "--seq", "256", "--log-every", "5", "--seed", "0"]
@@ -732,13 +740,13 @@ def time_fused(kernel, ref, dev, q8):
     return rows
 
 
-def time_generic_wrap(dev):
-    """The int8 path runs plain Adam on the 32000 x 512 embedding through
-    the engine's generic decode -> update -> encode: time the decode and
-    the encode (with the rounding hash) of its two moments, per step."""
+def time_generic_wrap(dev, shape=(1, 32000, 512)):
+    """The int8 path runs plain Adam on the embedding (llama-60m's 32000 x
+    512; qwen2.5-3b's 151936 x 2048) through the engine's generic decode
+    -> update -> encode: time the decode and the encode (with the rounding
+    hash) of its two moments, per step."""
     from repro_torch.optim import codec
     gen = torch.Generator(device=dev).manual_seed(3)
-    shape = (1, 32000, 512)
     moments = [torch.randn(shape, generator=gen, device=dev) * 1e-3,
                torch.rand(shape, generator=gen, device=dev) * 1e-6]
     key = codec.make_key(0, dev)
@@ -757,8 +765,9 @@ def time_generic_wrap(dev):
 
     t_dec = min(time_ms(decode, 5), time_ms(decode, 5))
     t_enc = min(time_ms(encode, 5), time_ms(encode, 5))
-    print(f"generic int8 wrap of the embedding's m and v (2 x 16.4 M): "
-          f"decode {t_dec:.3f} ms, encode {t_enc:.3f} ms per step")
+    print(f"generic int8 wrap of the embedding's m and v (2 x "
+          f"{math.prod(shape) / 1e6:.1f} M): decode {t_dec:.3f} ms, encode "
+          f"{t_enc:.3f} ms per step")
     return t_dec, t_enc
 
 
@@ -1926,6 +1935,61 @@ def run_refresh(kernel, hk):
     return out
 
 
+# phase 20's draws: the tolerance of tests/test_torch_prng.py (normals
+# within 4 f32 spacings of jax.random's); full-width leaves, (L, rows, n)
+PRNG_SPACINGS = 4
+PRNG_LEAVES = [("llama-60m mixer wq/wk/wv/wo", (8, 512, 512)),
+               ("llama-60m ffn w_gate/w_up", (8, 512, 1376)),
+               ("qwen2.5-3b mixer wq (73728 rows)", (36, 2048, 2048))]
+
+
+def check_prng_card(dev):
+    """Phase 20's draws: APOLLO's projector draw (``lowrank.draw_normal``,
+    the shape ``lowrank._proj_shape`` gives at rank 1/4) on the card and on
+    the CPU for full-width leaves: the threefry bits and the uniforms
+    bitwise equal, the normals within PRNG_SPACINGS f32 spacings (the
+    CPU's log1p and the card's may round apart), no synchronizing call in
+    the card's draw."""
+    from repro_torch.core import prng
+    from repro_torch.optim import lowrank
+    out = []
+    for label, shape in PRNG_LEAVES:
+        p = torch.empty(shape, device="meta")
+        r = lowrank._rank(p, None, 0.25)
+        pshape = tuple(lowrank._proj_shape(p, r, lowrank._project_left(p)))
+        key = prng.fold_in(prng.key(7 + 3), 2)
+        for fn in (prng.random_bits, prng.uniform):
+            card = fn(key, pshape, device=dev).cpu()
+            if not torch.equal(card, fn(key, pshape)):
+                raise AssertionError(f"prng {fn.__name__} {pshape}: card "
+                                     f"and CPU differ")
+        torch.cuda.synchronize()
+        card, syncs = count_syncs(
+            lambda: lowrank.draw_normal(pshape, 7, 3, 2, dev))
+        card = card.cpu()
+        cpu = lowrank.draw_normal(pshape, 7, 3, 2, "cpu")
+        sp = float(((card.double() - cpu.double()).abs()
+                    / spacing(cpu)).max())
+        same = float((card == cpu).double().mean())
+        if syncs or sp > PRNG_SPACINGS or not torch.isfinite(card).all():
+            raise AssertionError(f"prng normal {pshape}: {syncs} syncs, "
+                                 f"{sp} spacings from the CPU's")
+        print(f"prng {label}: APOLLO projector {pshape} ({card.numel()} "
+              f"draws): bits and uniforms card == CPU bitwise; normals "
+              f"within {sp:.0f} f32 spacings of the CPU's ({same:.4%} "
+              f"bitwise); {syncs} synchronizing calls in the card's draw")
+        out.append({"leaf": list(shape), "projector": list(pshape),
+                    "normal_spacings": sp, "bitwise_share": same,
+                    "syncs": syncs})
+    return out
+
+
+def spacing(t):
+    """The f32 spacing at each element of ``t`` (f64)."""
+    a = t.abs().float()
+    return (torch.nextafter(a, torch.full_like(a, math.inf)) - a).double()
+
+
 def bound_tile(shape, level=LEVEL, esize=2, q8=False, msize=4):
     """Least time for one K4 (``q8``: K5) launch on ``shape``.  Bytes: read
     g, write G̃ (``esize`` each), read and write m and v (``msize`` bytes
@@ -1962,25 +2026,29 @@ PARENT_LIB = "gwt_adam_tile@parent"
 PARENT_HAAR = "haar_dwt@parent"
 
 
-# the C entries that take a moment-dtype code (``mdtype``) since K1 and K4
-# took bf16 moments; a parent source without it has another interface
-MDTYPE_ENTRIES = {"gwt_adam_fused": "int gwt_adam_fused(int dtype, int mdtype",
-                  "gwt_adam_tile": "int gwt_adam_tile(int dtype, int mdtype"}
+# the C entry a parent source must have for this script to call it: K1's
+# and K4's with the moment-dtype code (``mdtype``, since bf16 moments), and
+# the one-leaf-a-launch K3 that ``ParentHaar`` calls (a parent with the
+# grouped K3/K6 of the current source lacks it)
+PARENT_ENTRIES = {
+    "gwt_adam_fused": "int gwt_adam_fused(int dtype, int mdtype",
+    "gwt_adam_tile": "int gwt_adam_tile(int dtype, int mdtype",
+    "haar_dwt": "int haar_dwt_fwd_q("}
 
 
 def register_parent(build, lib="gwt_adam_tile") -> bool:
     """Adds the parent's library ``lib`` to ``build.SOURCES`` as
     ``lib@parent`` (phase 1 then builds it with the others); False where
     tools/parent_kernels.py has not written the sources, or where the
-    parent's C interface predates the current wrappers' (a K1 or K4 entry
-    without the moment-dtype code)."""
+    parent's C interface is not the one this script calls
+    (``PARENT_ENTRIES``)."""
     src, headers = build.SOURCES[lib]
     if not (PARENT_DIR / src.name).exists():
         return False
-    entry = MDTYPE_ENTRIES.get(lib)
+    entry = PARENT_ENTRIES.get(lib)
     if entry and entry not in (PARENT_DIR / src.name).read_text():
-        print(f"parent {src.name}: its C interface predates the moment-dtype "
-              f"code; not built or timed")
+        print(f"parent {src.name}: its C interface lacks {entry!r}; not "
+              f"built or timed")
         return False
     build.SOURCES[f"{lib}@parent"] = (PARENT_DIR / src.name, tuple(
         PARENT_DIR / h.name for h in headers))
@@ -2339,7 +2407,8 @@ DENSE_SHAPES = [("wk/wv, one layer", (2, 2048, 256)),
                 ("bk/bv", (2, 36, 256)), ("bq", (1, 36, 2048))]
 QWEN_ARGS = ["--arch", "qwen2.5-3b", "--steps", str(STEPS), "--batch",
              "16", "--seq", "256", "--log-every", "5", "--seed", "0"]
-QWEN_STATE_BYTES = 8_039_764_012   # the JAX package's engine.state_bytes
+# the JAX package's engine.state_bytes of GWT-2 at full width, per codec
+QWEN_STATE_BYTES = {"f32": 8_039_764_012, "int8": 2_135_562_352}
 # phase 23: (arch, layers, batch, seq, the JAX package's state bytes at
 # that depth).  Every width is the published one; only depth is cut, to
 # fit one card.  gemma2 at seq 8192 is the first length its 4096 window
@@ -2387,65 +2456,103 @@ def gwt_buckets(cfg):
     return gwt_b, other
 
 
-def one_pass(kernel, shape, dtype) -> bool:
-    return kernel.one_pass_plan("gwt_adam_fused", shape, dtype,
-                                LEVEL)["grid"] > 0
+def one_pass(kernel, shape, dtype, q8=False) -> bool:
+    lib = "gwt_adam_fused_q8" if q8 else "gwt_adam_fused"
+    return kernel.one_pass_plan(lib, shape, dtype, LEVEL)["grid"] > 0
 
 
-def k1_counts(kernel, cfg, steps):
-    """K1's expected counters over ``steps`` steps of GWT-2 on ``cfg``,
-    each bucket in the design the capacity rule names."""
+def fused_plan_counts(kernel, cfg, steps, q8=False):
+    """K1's (``q8``: K2's) expected counters over ``steps`` steps of GWT-2
+    on ``cfg``, each bucket in the design the capacity rule names."""
     buckets, _ = gwt_buckets(cfg)
-    ones = sum(one_pass(kernel, s, cfg.torch_dtype) for _, s in buckets)
-    return {"K1": len(buckets) * steps, "K1 one-pass": ones * steps,
-            "K1 two-pass": (len(buckets) - ones) * steps}
+    ones = sum(one_pass(kernel, s, cfg.torch_dtype, q8) for _, s in buckets)
+    k = "K2" if q8 else "K1"
+    return {k: len(buckets) * steps, f"{k} one-pass": ones * steps,
+            f"{k} two-pass": (len(buckets) - ones) * steps}
 
 
-def check_dense_k1(kernel, ref, dev):
+# phase 21's whole-bucket kernels: (label, K2?, moment dtype)
+WHOLE_KERNELS = [("K1 f32 moments", False, torch.float32),
+                 ("K1 bf16 moments", False, torch.bfloat16),
+                 ("K2 int8 moments", True, None)]
+
+
+def whole_bucket_case(kernel, ref, dev, shape, ci, q8, mdtype, case):
+    """One CASE of a whole two-pass bucket: the entry twice (each on its
+    own copies of the state) and the plain version, on the same inputs.
+    Returns ``(runs, want, output names)``."""
+    _, use_lim, prev, wd = case
+    L = shape[0]
+    sd = seed(ci, shape[2], LEVEL, 1)
+    ss = torch.tensor(1e-3, device=dev)
+    pn = torch.full((L,), prev, device=dev)
+    wd_coef = torch.tensor(wd, device=dev)
+    kw = dict(level=LEVEL, gamma=1.01, use_limiter=use_lim,
+              weight_decay=wd != 0)
+    if q8:
+        g, *state = make_q8_inputs(shape, sd, dev)
+        salts = q8_salts(L, dev)
+        usalts = [t.to(torch.uint32) for t in salts]
+        kw["block"] = QBLOCK
+        want = ref.gwt_adam_fused_q8(g, *state, *salts, pn, ss, wd_coef,
+                                     **kw)
+        runs = [kernel.gwt_adam_fused_q8(g, *(t.clone() for t in state),
+                                         *usalts, pn, ss, wd_coef, **kw)
+                for _ in range(2)]
+        return runs, want, ("p", "qm", "sm", "qv", "sv", "norm")
+    g, *state = make_inputs(shape, sd, dev, mdtype=mdtype)
+    want = ref.gwt_adam_fused(g, *state, pn, ss, wd_coef, **kw)
+    runs = [kernel.gwt_adam_fused(g, *(t.clone() for t in state), pn, ss,
+                                  wd_coef, **kw) for _ in range(2)]
+    return runs, want, ("p", "m", "v", "norm")
+
+
+def check_dense_fused(kernel, ref, dev):
     """Phase 21: K1 at one layer's rows of each qwen2.5-3b bucket width as
     phase 2 holds it (level 2, bf16 and f32 parameters, f32 and bf16
     moments, every CASE, both seed sets, bitwise); then every whole bucket
-    of the plan that takes the two-pass design, in every CASE, two kernel
-    runs bitwise to each other and to the plain version (the largest,
-    (2, 73728, 11008), has 1.62e9 elements: byte offsets past 2^31, and
-    99,072 chunk partials summed into each leaf's norm)."""
+    of the plan that takes the two-pass design, K1 with f32 and with bf16
+    moments and K2, in every CASE (the limiter active, inactive and off),
+    two kernel runs bitwise to each other and to the plain version (the
+    largest, (2, 73728, 11008), has 1.62e9 elements: byte offsets past
+    2^31, and 99,072 chunk partials summed into each leaf's norm by the
+    scale pass)."""
     _, taken = check_fused(kernel, ref, dev, q8=False, shapes=DENSE_SHAPES,
                            levels=(LEVEL,))
-    ss = torch.tensor(1e-3, device=dev)
     whole = [(label, shape) for label, shape in QWEN_BUCKETS
              if not one_pass(kernel, shape, torch.bfloat16)]
-    if len(whole) != 4:
+    if len(whole) != 4 or any(one_pass(kernel, s, torch.bfloat16, True)
+                              for _, s in whole):
         raise AssertionError(f"two-pass buckets {whole}; phase 21 expects "
-                             f"the four large qwen2.5-3b buckets")
+                             f"the four large qwen2.5-3b buckets, for K1 "
+                             f"and K2")
     for label, shape in whole:
-        L = shape[0]
-        t0 = time.perf_counter()
-        for ci, (case, use_lim, prev, wd) in enumerate(CASES):
-            g, *state = make_inputs(shape, seed(ci, shape[2], LEVEL, 1), dev)
-            pn = torch.full((L,), prev, device=dev)
-            wd_coef = torch.tensor(wd, device=dev)
-            kw = dict(level=LEVEL, gamma=1.01, use_limiter=use_lim,
-                      weight_decay=wd != 0)
-            want = ref.gwt_adam_fused(g, *state, pn, ss, wd_coef, **kw)
-            before = kernel.launches_two_pass
-            runs = [kernel.gwt_adam_fused(g, *(t.clone() for t in state),
-                                          pn, ss, wd_coef, **kw)
-                    for _ in range(2)]
-            torch.cuda.synchronize()
-            if kernel.launches_two_pass - before != 2:
-                raise AssertionError(f"K1 {shape}: not the two-pass design")
-            check_bands(f"K1 whole bucket {label} {shape} / {case}", runs,
-                        want, ("p", "m", "v", "norm"))
-            del g, state, want, runs
-        print(f"K1 whole bucket {label} {shape} ({math.prod(shape)} "
-              f"elements): two-pass design, {len(CASES)} cases, two runs "
-              f"and the plain version bitwise equal on p, m, v, norm "
-              f"({time.perf_counter() - t0:.1f} s)")
-        gc.collect()
-        torch.cuda.empty_cache()
+        for name, q8, mdtype in WHOLE_KERNELS:
+            t0 = time.perf_counter()
+            for ci, case in enumerate(CASES):
+                counter = (lambda: kernel.launches_q8_two_pass) if q8 \
+                    else (lambda: kernel.launches_two_pass)
+                before = counter()
+                runs, want, outputs = whole_bucket_case(
+                    kernel, ref, dev, shape, ci, q8, mdtype, case)
+                torch.cuda.synchronize()
+                if counter() - before != 2:
+                    raise AssertionError(f"{name} {shape}: not the two-pass "
+                                         f"design")
+                check_bands(f"{name} whole bucket {label} {shape} / "
+                            f"{case[0]}", runs, want, outputs)
+                del runs, want
+            print(f"{name} whole bucket {label} {shape} "
+                  f"({math.prod(shape)} elements): two-pass design, "
+                  f"{len(CASES)} cases, two runs and the plain version "
+                  f"bitwise equal on {', '.join(outputs)} "
+                  f"({time.perf_counter() - t0:.1f} s)")
+            gc.collect()
+            torch.cuda.empty_cache()
     return {"one_layer_widths": [s for _, s in DENSE_SHAPES],
             "buckets_by_design": taken,
-            "whole_buckets_bitwise": [list(s) for _, s in whole]}
+            "whole_buckets_bitwise": [list(s) for _, s in whole],
+            "whole_bucket_kernels": [n for n, _, _ in WHOLE_KERNELS]}
 
 
 @contextlib.contextmanager
@@ -2505,10 +2612,11 @@ def want_routes(cfg, S, steps):
 
 
 def run_dense(train, kernel, hk, arch, argv, cfg, steps, state_bytes_want,
-              seq):
+              seq, q8=False):
     """Train ``cfg`` through the launcher (counts set to 0 just before and
-    read just after): K1's launches and designs, the attention routes,
-    the state bytes, finite losses and parameters.  Returns a summary."""
+    read just after): K1's (``q8``: K2's) launches and designs, the
+    attention routes, the state bytes, finite losses and parameters.
+    Returns a summary."""
     from repro_torch.optim.engine import state_bytes
     gc.collect()
     torch.cuda.empty_cache()
@@ -2523,7 +2631,7 @@ def run_dense(train, kernel, hk, arch, argv, cfg, steps, state_bytes_want,
     counts = all_counts(kernel, hk)
     peak = torch.cuda.max_memory_allocated()
     want = {k: 0 for k in counts}
-    want.update(k1_counts(kernel, cfg, steps))
+    want.update(fused_plan_counts(kernel, cfg, steps, q8))
     if counts != want:
         raise AssertionError(f"{arch}: launched {counts} in {steps} steps, "
                              f"want {want}")
@@ -2543,81 +2651,107 @@ def run_dense(train, kernel, hk, arch, argv, cfg, steps, state_bytes_want,
     out = {"arch": arch, "layers": cfg.n_layers, "steps": steps,
            "losses": res.losses, "step_ms": res.step_ms,
            "peak_mib": peak / 2**20, "base_mib": base / 2**20,
-           "state_bytes": nbytes,
-           "k1_launches": counts["K1"],
-           "k1_one_pass": counts["K1 one-pass"],
-           "k1_two_pass": counts["K1 two-pass"], "routes": routes,
-           "wall_s": wall}
+           "state_bytes": nbytes, "routes": routes, "wall_s": wall}
+    k = "K2" if q8 else "K1"
+    out.update({f"{k.lower()}_launches": counts[k],
+                f"{k.lower()}_one_pass": counts[f"{k} one-pass"],
+                f"{k.lower()}_two_pass": counts[f"{k} two-pass"]})
     print(f"{arch} ({cfg.n_layers} layers, {' '.join(argv[2:])}): "
           f"{steps} steps in {wall:.2f} s, losses {res.losses}, step "
           f"{res.step_ms} ms, peak {peak / 2**20:.1f} MiB (held before "
           f"the run {base / 2**20:.1f} MiB), state {nbytes} "
-          f"B, K1 {counts['K1']} ({counts['K1 one-pass']} one pass, "
-          f"{counts['K1 two-pass']} two passes), routes {routes}")
+          f"B, {k} {counts[k]} ({counts[f'{k} one-pass']} one pass, "
+          f"{counts[f'{k} two-pass']} two passes), routes {routes}")
     del res
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def run_dense_main(train, kernel, hk):
+def run_dense_main(train, kernel, hk, codec="f32"):
     """Phase 22: qwen2.5-3b at full width and depth through the launcher,
-    GWT-2, f32 moments, synthetic data, remat: K1 exactly 6 times a step
-    in the designs the plan names, nothing else; the state the JAX
-    package's bytes; losses finite and falling."""
+    GWT-2, f32 (``codec`` int8: blocked-int8) moments, synthetic data,
+    remat: K1 (int8: K2) exactly 6 times a step in the designs the plan
+    names, nothing else; the state the JAX package's bytes; losses finite
+    and falling."""
     from repro_torch import configs
     cfg = configs.get_config("qwen2.5-3b")
     buckets, _ = gwt_buckets(cfg)
     if [s for _, s in buckets] != [s for _, s in QWEN_BUCKETS]:
         raise AssertionError(f"qwen2.5-3b's GWT buckets are {buckets}")
-    out = run_dense(train, kernel, hk, "qwen2.5-3b", QWEN_ARGS, cfg, STEPS,
-                    QWEN_STATE_BYTES, 256)
+    q8 = codec == "int8"
+    out = run_dense(train, kernel, hk, "qwen2.5-3b",
+                    QWEN_ARGS + ["--state-codec", codec], cfg, STEPS,
+                    QWEN_STATE_BYTES[codec], 256, q8)
     logged = [out["losses"][i] for i in range(4, STEPS, 5)]
     if not logged[-1] < logged[0]:
-        raise AssertionError(f"qwen2.5-3b: loss did not fall: {logged}")
+        raise AssertionError(f"qwen2.5-3b {codec}: loss did not fall: "
+                             f"{logged}")
+    out["codec"] = codec
     out["logged_losses"] = logged
     out["tokens_per_s"] = 16 * 256 / (out["step_ms"] / 1e3)
-    out["designs"] = {name: "one" if one_pass(kernel, s, torch.bfloat16)
+    out["designs"] = {name: "one" if one_pass(kernel, s, torch.bfloat16, q8)
                       else "two" for name, s in buckets}
-    print(f"qwen2.5-3b main path: step {out['step_ms']:.2f} ms, "
-          f"{out['tokens_per_s']:.0f} tokens/s, peak "
-          f"{out['peak_mib']:.1f} MiB; logged losses {logged}; K1 designs "
-          f"{out['designs']}")
+    print(f"qwen2.5-3b main path, {codec} moments: step "
+          f"{out['step_ms']:.2f} ms, {out['tokens_per_s']:.0f} tokens/s, "
+          f"peak {out['peak_mib']:.1f} MiB; logged losses {logged}; "
+          f"{'K2' if q8 else 'K1'} designs {out['designs']}")
     return out
 
 
-def time_dense_k1(kernel, ref, dev):
-    """Phase 22's K1 times: per launch at each qwen2.5-3b bucket in the
-    design the entry takes (CUDA events around each launch, L2 flushed,
-    best of two runs), per call back to back, the plain version's, the
-    bound."""
+def time_dense_fused(kernel, ref, dev, q8=False):
+    """Phase 22's K1 (``q8``: K2) times: per launch at each qwen2.5-3b
+    bucket in the design the entry takes (CUDA events around each launch,
+    L2 flushed, best of two runs), per call back to back, the plain
+    version's, the bound; for a two-pass bucket also the write pass alone
+    (the call without the limiter, which launches nothing else)."""
     rows = []
+    name = "K2" if q8 else "K1"
     flush = torch.empty(64 << 20, device=dev)   # 256 MB
     ss, wd = torch.tensor(1e-3, device=dev), torch.tensor(0.0, device=dev)
     kw = dict(level=LEVEL, gamma=1.01, use_limiter=True, weight_decay=False)
     for label, shape in QWEN_BUCKETS:
-        g, p, mm, vv = make_inputs(shape, 7, dev)
         pn = torch.full((shape[0],), 1e9, device=dev)
-        one = one_pass(kernel, shape, torch.bfloat16)
-        counter = (lambda: kernel.launches_one_pass) if one else \
-            (lambda: kernel.launches_two_pass)
-        call = lambda: kernel.gwt_adam_fused(g, p, mm, vv, pn, ss, wd, **kw)
-        plain = lambda: ref.gwt_adam_fused(g, p, mm, vv, pn, ss, wd, **kw)
+        one = one_pass(kernel, shape, torch.bfloat16, q8)
+        if q8:
+            inputs = make_q8_inputs(shape, 7, dev)
+            salts = q8_salts(shape[0], dev)
+            usalts = [t.to(torch.uint32) for t in salts]
+            call = lambda **o: kernel.gwt_adam_fused_q8(
+                *inputs, *usalts, pn, ss, wd, block=QBLOCK, **{**kw, **o})
+            plain = lambda: ref.gwt_adam_fused_q8(
+                *inputs, *salts, pn, ss, wd, block=QBLOCK, **kw)
+            counter = (lambda: kernel.launches_q8_one_pass) if one else \
+                (lambda: kernel.launches_q8_two_pass)
+            b_ms, b_by, nbytes = bound_q8(shape)
+        else:
+            inputs = make_inputs(shape, 7, dev)
+            call = lambda **o: kernel.gwt_adam_fused(*inputs, pn, ss, wd,
+                                                     **{**kw, **o})
+            plain = lambda: ref.gwt_adam_fused(*inputs, pn, ss, wd, **kw)
+            counter = (lambda: kernel.launches_one_pass) if one else \
+                (lambda: kernel.launches_two_pass)
+            b_ms, b_by, nbytes = bound(shape)
         t_dev = [device_ms(call, 10, counter, flush) for _ in range(2)]
         t_call = time_ms(call, 10)
         t_plain = time_ms(plain, 1)
-        b_ms, b_by, nbytes = bound(shape)
         row = {"bucket": label, "shape": list(shape), "per_step": 1,
                "design": "one" if one else "two", "ms": min(t_dev),
                "call_ms": t_call, "plain_ms": t_plain, "bound_ms": b_ms,
                "bound_by": b_by, "bytes": nbytes}
-        print(f"K1 time qwen2.5-3b {label} {shape}: "
+        if not one:
+            row["write_pass_ms"] = min(
+                device_ms(lambda: call(use_limiter=False), 10, counter,
+                          flush) for _ in range(2))
+        print(f"{name} time qwen2.5-3b {label} {shape}: "
               f"{'one pass' if one else 'two passes'} {row['ms']:.4f} ms on "
               f"the device (runs {t_dev}, {b_ms / row['ms']:.1%} of bound "
               f"{b_ms:.4f} ms by {b_by}, {nbytes / 1e6:.2f} MB); per call "
-              f"{t_call:.4f} ms; plain {t_plain:.4f} ms")
+              f"{t_call:.4f} ms; plain {t_plain:.4f} ms"
+              + ("" if one else f"; the write pass alone "
+                 f"{row['write_pass_ms']:.4f} ms"))
         rows.append(row)
-        del g, p, mm, vv, call, plain
+        del inputs, call, plain
         torch.cuda.empty_cache()
     return rows
 
@@ -3354,15 +3488,31 @@ def main() -> int:
     corpus_path = run_corpus_path(train, kernel, hk, dev, res32, card)
     bf16_state = run_bf16_state(kernel, hk, res32)
     refresh = run_refresh(kernel, hk)
-    dense_k1 = check_dense_k1(kernel, ref, dev)
+    refresh["prng_card_vs_cpu"] = check_prng_card(dev)
+    dense_fused = check_dense_fused(kernel, ref, dev)
     qwen = run_dense_main(train, kernel, hk)
     qwen["profile"] = profile_step(dev, "f32", arch="qwen2.5-3b")
-    rows_qwen = time_dense_k1(kernel, ref, dev)
-    qwen["k1_ms_per_step"] = sum(r["ms"] * r["per_step"] for r in rows_qwen)
-    qwen["k1_share_of_step"] = qwen["k1_ms_per_step"] / qwen["step_ms"]
-    print(f"qwen2.5-3b: K1 {qwen['k1_ms_per_step']:.3f} ms a step on the "
-          f"device (timed per launch) = {qwen['k1_share_of_step']:.2%} of "
-          f"the launcher's step; profiled GWT kernels "
+    rows_qwen = time_dense_fused(kernel, ref, dev)
+    qwen8 = run_dense_main(train, kernel, hk, "int8")
+    rows_qwen8 = time_dense_fused(kernel, ref, dev, q8=True)
+    qwen8["embedding_wrap_ms"] = dict(zip(
+        ("decode", "encode"), time_generic_wrap(dev, (1, 151936, 2048))))
+    for run, rows, k in ((qwen, rows_qwen, "K1"), (qwen8, rows_qwen8, "K2")):
+        run[f"{k.lower()}_ms_per_step"] = sum(r["ms"] * r["per_step"]
+                                              for r in rows)
+        run[f"{k.lower()}_bound_ms_per_step"] = sum(
+            r["bound_ms"] * r["per_step"] for r in rows)
+        run[f"{k.lower()}_write_pass_ms_per_step"] = sum(
+            r.get("write_pass_ms", 0.0) for r in rows)
+        print(f"qwen2.5-3b {run['codec']}: {k} "
+              f"{run[f'{k.lower()}_ms_per_step']:.3f} ms a step on the "
+              f"device (timed per launch; bound "
+              f"{run[f'{k.lower()}_bound_ms_per_step']:.3f} ms; the two-pass "
+              f"buckets' write passes alone "
+              f"{run[f'{k.lower()}_write_pass_ms_per_step']:.3f} ms) = "
+              f"{run[f'{k.lower()}_ms_per_step'] / run['step_ms']:.2%} of "
+              f"the launcher's step")
+    print(f"qwen2.5-3b f32: profiled GWT kernels "
           f"{qwen['profile']['gwt_kernel_ms']:.3f} of "
           f"{qwen['profile']['device_busy_ms']:.2f} ms device time a step")
     cuts = run_dense_cuts(train, kernel, hk)
@@ -3399,7 +3549,7 @@ def main() -> int:
                     bf16_state_fused=bf16_state["fused"],
                     bf16_state_max_loss_gap=bf16_state["max_loss_gap"],
                     lowrank_refresh=refresh,
-                    dense={"k1_widths": dense_k1, "qwen2.5-3b": qwen,
+                    dense={"k1_widths": dense_fused, "qwen2.5-3b": qwen,
                            "qwen2.5-3b_per_launch": rows_qwen,
                            "depth_cuts": cuts, "flash": flash,
                            "smoke_card_vs_cpu": dense_small},
@@ -3411,7 +3561,9 @@ def main() -> int:
                     peak_mib=peak8 / 2**20, state_bytes=mib8,
                     profile=prof8, phase_3_buckets_by_design=designs_k2,
                     embedding_wrap_ms={
-                        "decode": wrap_dec, "encode": wrap_enc}),
+                        "decode": wrap_dec, "encode": wrap_enc},
+                    dense={"qwen2.5-3b int8": qwen8,
+                           "qwen2.5-3b_per_launch": rows_qwen8}),
         group_entry("haar_dwt_fwd_q",
                     "src/repro/kernels/haar_dwt/kernel.py:124",
                     dp_counts["K3"], err_haar, rows_haar["K3 bf16"],

@@ -138,39 +138,44 @@ __device__ __forceinline__ float chunk_partial(const T* slot, int n) {
   return block_sum(acc);
 }
 
-// The limiter scale of leaf `leaf`, the same in every block that asks: the
-// first warp sums the leaf's S partials in a fixed order (lane-strided,
-// then a fixed shuffle tree).  If `write_norm`, it writes the leaf's new
-// norm.  The partials are read through L2 (__ldcg), because the one-pass
-// kernels write them in the same launch.  Call from every thread; it
-// synchronises the block.
+// The limiter of one leaf, computed by one whole warp: the leaf's S
+// partials summed in a fixed order (lane-strided from 0, then a fixed
+// shuffle tree; ref.leaf_ssq repeats it), the correctly rounded root, the
+// scale and the new norm (a zero-norm step keeps the limiter history).
+// The results are valid in lane 0.  The partials are read through L2
+// (__ldcg), because the one-pass kernels write them in the same launch.
+__device__ __forceinline__ void leaf_limit(const float* part, long long S,
+                                           float prev, float gamma,
+                                           float& scale, float& out_norm) {
+  const int lane = threadIdx.x & 31;
+  float acc = 0.0f;
+#pragma unroll 8
+  for (long long i = lane; i < S; i += 32) acc = __fadd_rn(acc, __ldcg(part + i));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, off));
+  const float norm = __fsqrt_rn(acc);
+  const float safe_prev = prev > 0.0f ? prev : norm;
+  const float limit = __fmul_rn(gamma, safe_prev);
+  scale = norm > limit ? __fdiv_rn(limit, fmaxf(norm, 1e-30f)) : 1.0f;
+  out_norm = norm > 0.0f ? __fmul_rn(norm, scale) : prev;
+}
+
+// The one-pass kernels' limiter scale of leaf `leaf`, the same in every
+// block that asks: the first warp runs leaf_limit and, if `write_norm`,
+// writes the leaf's new norm.  Call from every thread; it synchronises the
+// block.
 __device__ __forceinline__ float leaf_scale_at(const float* partials,
                                                const float* __restrict__ prev_norm,
                                                float* __restrict__ new_norm,
-                                               float gamma, int use_limiter,
-                                               long long leaf, long long S,
-                                               bool write_norm) {
+                                               float gamma, long long leaf,
+                                               long long S, bool write_norm) {
   __shared__ float s_scale;
   if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    const float prev = prev_norm[leaf];
-    float scale = 1.0f, out_norm = prev;
-    if (use_limiter) {
-      const float* part = partials + leaf * S;
-      float acc = 0.0f;
-#pragma unroll 8
-      for (long long i = lane; i < S; i += 32) acc = __fadd_rn(acc, __ldcg(part + i));
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, off));
-      const float norm = __fsqrt_rn(acc);
-      const float safe_prev = prev > 0.0f ? prev : norm;
-      const float limit = __fmul_rn(gamma, safe_prev);
-      scale = norm > limit ? __fdiv_rn(limit, fmaxf(norm, 1e-30f)) : 1.0f;
-      // a zero-norm step keeps the limiter history
-      out_norm = norm > 0.0f ? __fmul_rn(norm, scale) : prev;
-    }
-    if (lane == 0) {
+    float scale, out_norm;
+    leaf_limit(partials + leaf * S, S, prev_norm[leaf], gamma, scale,
+               out_norm);
+    if (threadIdx.x == 0) {
       s_scale = scale;
       if (write_norm) new_norm[leaf] = out_norm;
     }
@@ -179,16 +184,6 @@ __device__ __forceinline__ float leaf_scale_at(const float* partials,
   const float scale = s_scale;
   __syncthreads();  // the next call overwrites s_scale
   return scale;
-}
-
-// The two-pass write kernels' form: the leaf is blockIdx.y, its S partials
-// are gridDim.x, and block 0 of the leaf writes the new norm.
-__device__ __forceinline__ float leaf_scale(const float* __restrict__ partials,
-                                            const float* __restrict__ prev_norm,
-                                            float* __restrict__ new_norm,
-                                            float gamma, int use_limiter) {
-  return leaf_scale_at(partials, prev_norm, new_norm, gamma, use_limiter,
-                       blockIdx.y, gridDim.x, blockIdx.x == 0);
 }
 
 // One element's new parameter: p - step * T(G~ * T(scale)) [- wd * p], with
@@ -201,17 +196,6 @@ __device__ __forceinline__ T new_param(float p32, float x, float scale_t,
   float np = __fsub_rn(p32, __fmul_rn(ss, limited));
   if (weight_decay) np = __fsub_rn(np, __fmul_rn(wd, p32));
   return from_f32<T>(np);
-}
-
-// p <- new_param(p, G~) for one coefficient's B elements.
-template <typename T, int B>
-__device__ __forceinline__ void write_params(T* __restrict__ pj,
-                                             const float (&x)[B],
-                                             float scale_t, float ss,
-                                             float wd, int weight_decay) {
-#pragma unroll
-  for (int i = 0; i < B; ++i)
-    pj[i] = new_param<T>(to_f32(pj[i]), x[i], scale_t, ss, wd, weight_decay);
 }
 
 // A type as a value, for the dtype dispatch below.
@@ -269,7 +253,7 @@ cudaError_t with_level(int level, F f) {
 //    same (L, S) partials.
 //  * One grid barrier (cooperative_groups::this_grid().sync()).
 //  * Phase B: each block computes the limiter scale of each leaf it holds
-//    with leaf_scale_at (the same fixed order as the two-pass write pass;
+//    with leaf_scale_at (the fixed order of the two-pass scale pass;
 //    the block owning chunk 0 of a leaf writes its new norm), then reads p
 //    with 16-byte loads, up to 64 bytes a thread in flight, and writes p
 //    from the G~ in shared memory.  Every written value is therefore
@@ -805,8 +789,8 @@ one_pass(const OnePassArgs<T> a, const Mo mo) {
       if (r0 == 0 && leaf != cur) {
         // runs are contiguous, so chunk 0 of a leaf starts its run here
         scale_t = round_to<T>(leaf_scale_at(a.partials, a.prev_norm,
-                                            a.new_norm, a.gamma, 1, leaf,
-                                            a.S, s == 0));
+                                            a.new_norm, a.gamma, leaf, a.S,
+                                            s == 0));
         cur = leaf;
       }
 #pragma unroll
@@ -955,6 +939,232 @@ inline cudaError_t export_plan(const void* kern, long long slot,
                         p.sms, p.blocks_per_sm, p.slots, p.smem, p.grid};
   for (int i = 0; i < 9; ++i) out[i] = fields[i];
   return cudaSuccess;
+}
+
+// ---------------------------------------------------------------------------
+// The two-pass design of K1 and K2, for buckets whose G~ does not fit on
+// chip.  Three launches with the limiter, one without:
+//
+//  * The norm pass (in each kernel's source) writes one ||G~||^2 partial
+//    per (leaf, chunk of kChunk coefficients) and nothing else.
+//  * The scale pass: one warp per leaf runs leaf_limit over the leaf's S
+//    partials and writes the leaf's scale, rounded to T, and its new norm,
+//    so each partial is read once (a leaf of qwen2.5-3b's (2, 73728,
+//    11008) has 99,072), and the write pass reads one float a leaf.
+//  * The write pass (write_pass below): a persistent grid of co-resident
+//    blocks that streams the bucket.  The bucket is cut into pieces of
+//    WritePlan::kPiece coefficients (whole rounds of two coefficients a
+//    thread; a piece never crosses a leaf or a chunk), dealt out in
+//    contiguous, balanced runs in the chunks' order.  The next piece's g
+//    and p, and for K2 its codes and scales (Mo::stage), are copied into a
+//    ring of two shared entries by 16-byte cp.async while the current piece
+//    computes; K1's moments are loaded into registers ahead of the wait, as
+//    in the one-pass kernel.  A round reads a thread's two coefficients of
+//    g and p from shared memory, runs Mo::update (dht_adam, the moments'
+//    store), and writes p by new_param with the leaf's scale in one 16-byte
+//    store where the address allows it.  The arithmetic is the one-pass
+//    kernel's, so every output is bitwise what it was.  Without the
+//    limiter the scale is T(1) and the write pass copies prev_norm to
+//    new_norm.
+//  * The piece: four rounds (2048 coefficients, a whole chunk) where a
+//    round's g is at most 4 KB (bf16 at level 2), fewer where it is larger,
+//    so that a ring entry (g and p) stays at most 32 KB and at least three
+//    blocks of K1 fit an SM at bf16 level 2.
+
+constexpr int kScaleWarps = 8;  // leaves per scale-pass block
+
+template <typename T>
+__global__ void __launch_bounds__(kScaleWarps * 32)
+scale_pass(const float* __restrict__ partials,
+           const float* __restrict__ prev_norm, float* __restrict__ new_norm,
+           float* __restrict__ scale, long long L, long long S, float gamma) {
+  const long long leaf = static_cast<long long>(blockIdx.x) * kScaleWarps +
+                         (threadIdx.x >> 5);
+  if (leaf >= L) return;  // whole warps
+  float sc, out_norm;
+  leaf_limit(partials + leaf * S, S, prev_norm[leaf], gamma, sc, out_norm);
+  if ((threadIdx.x & 31) == 0) {
+    scale[leaf] = round_to<T>(sc);
+    new_norm[leaf] = out_norm;
+  }
+}
+
+template <typename T>
+struct WriteArgs {
+  const T* g;
+  T* p;
+  const float* scale;  // (L,) rounded to T; null without the limiter
+  const float* prev_norm;
+  float* new_norm;  // written here only without the limiter
+  const float* step_size;
+  const float* wd_coef;
+  long long na;     // coefficients per leaf
+  long long P;      // pieces per leaf
+  long long total;  // L * P
+  Coeffs c;
+  int weight_decay;
+};
+
+template <typename T, int LEVEL, class Mo>
+struct WritePlan {
+  static constexpr int kPairBytes = 2 * (1 << LEVEL) * static_cast<int>(sizeof(T));
+  static constexpr int kPieceRounds =
+      kPairBytes * kThreads * kRounds <= 16384 ? kRounds
+      : kPairBytes * kThreads * 2 <= 16384     ? 2
+                                               : 1;
+  static constexpr int kPiece = kPieceRounds * 2 * kThreads;  // coefficients
+  static constexpr int kSlot = kPiece * (1 << LEVEL) * static_cast<int>(sizeof(T));
+  static constexpr int kEntry = 2 * kSlot + Mo::kRingBytes;  // g, p, Mo's
+  static constexpr int kSmem = 2 * kEntry;
+  static_assert(kChunk % kPiece == 0, "a piece never crosses a chunk");
+  static_assert(kEntry % 16 == 0, "ring entries stay 16-byte aligned");
+};
+
+template <typename T, int LEVEL, class Mo>
+__global__ void __launch_bounds__(kThreads)
+write_pass(const WriteArgs<T> a, const Mo mo) {
+  using W = WritePlan<T, LEVEL, Mo>;
+  constexpr int B = 1 << LEVEL;
+  extern __shared__ __align__(16) unsigned char ring[];
+  const long long grid = gridDim.x, b = blockIdx.x;
+  const long long per = a.total / grid, extra = a.total % grid;
+  const long long first = b * per + (b < extra ? b : extra);
+  const int count = static_cast<int>(per + (b < extra ? 1 : 0));
+  const int t = threadIdx.x;
+  // piece i of the run: its leaf, its first coefficient j0, its count n
+  auto where = [&](int i, long long& leaf, long long& j0, int& n) {
+    const long long pc = first + i;
+    leaf = pc / a.P;
+    j0 = (pc % a.P) * W::kPiece;
+    const long long left = a.na - j0;
+    n = static_cast<int>(left < W::kPiece ? left : W::kPiece);
+  };
+  auto entry = [&](int i) { return ring + (i & 1) * W::kEntry; };
+  // every thread commits one group per piece (empty past the last), so
+  // piece i's copies are done when at most one group is pending
+  auto stage = [&](int i) {
+    if (i < count) {
+      long long leaf, j0;
+      int n;
+      where(i, leaf, j0, n);
+      const long long off = (leaf * a.na + j0) * B;
+      const int bytes = n * B * static_cast<int>(sizeof(T));
+      unsigned char* e = entry(i);
+      stage_async(e, reinterpret_cast<const unsigned char*>(a.g + off), bytes);
+      stage_async(e + W::kSlot, reinterpret_cast<const unsigned char*>(a.p + off),
+                  bytes);
+      if constexpr (Mo::kRingBytes > 0)
+        mo.stage(e + 2 * W::kSlot, leaf, a.na, j0, n);
+    }
+    cp_async_commit();
+  };
+  stage(0);
+  const float ss = *a.step_size, wd = *a.wd_coef;
+  for (int i = 0; i < count; ++i) {
+    long long leaf, j0;
+    int n;
+    where(i, leaf, j0, n);
+    const unsigned char* e = entry(i);
+    const T* gs = reinterpret_cast<const T*>(e);
+    const T* ps = reinterpret_cast<const T*>(e + W::kSlot);
+    T* pc = a.p + (leaf * a.na + j0) * B;
+    float scale_t;
+    if (a.scale) {
+      scale_t = a.scale[leaf];
+    } else {
+      scale_t = round_to<T>(1.0f);
+      if (j0 == 0 && t == 0) a.new_norm[leaf] = a.prev_norm[leaf];
+    }
+    const typename Mo::Chunk ck = mo.chunk(e + 2 * W::kSlot, leaf, a.na, j0);
+    typename Mo::Regs regs[W::kPieceRounds];
+#pragma unroll
+    for (int r = 0; r < W::kPieceRounds; ++r) {
+      const int cl = 2 * (t + r * kThreads);
+      mo.load(ck, cl, cl < n, cl + 1 < n, regs[r]);
+    }
+    stage(i + 1);
+    cp_async_wait<1>();
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < W::kPieceRounds; ++r) {
+      const int cl = 2 * (t + r * kThreads);
+      const bool v0 = cl < n, v1 = cl + 1 < n;
+      float x[2 * B];
+      vload<T, 2 * B>(gs + cl * B, x);  // past the leaf's end: unused
+      mo.template update<LEVEL>(ck, cl, n, v0, v1, x, regs[r], a.c);
+      if (!v0) continue;
+      T pe[2 * B];
+      load_pair_raw<T, B>(ps + cl * B, pe, v1);
+#pragma unroll
+      for (int k = 0; k < 2 * B; ++k)
+        pe[k] = new_param<T>(to_f32(pe[k]), x[k], scale_t, ss, wd,
+                             a.weight_decay);
+      store_pair<T, B>(pc + cl * B, pe, v1);
+    }
+    __syncthreads();  // the next stage overwrites this piece's entry
+  }
+}
+
+// The write pass's grid: co-resident blocks x SMs (cached per kernel and
+// device), at most one block a piece.
+template <typename T, int LEVEL, class Mo>
+cudaError_t write_grid(long long total, int* grid) {
+  static std::mutex mu;
+  static std::map<int, int> width;  // device -> blocks
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = width.find(dev);
+  if (it == width.end()) {
+    const void* kern = reinterpret_cast<const void*>(&write_pass<T, LEVEL, Mo>);
+    int sms, occ;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaFuncSetAttribute(
+             kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             WritePlan<T, LEVEL, Mo>::kSmem)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &occ, kern, kThreads, WritePlan<T, LEVEL, Mo>::kSmem)) !=
+            cudaSuccess)
+      return err;
+    if (occ < 1) return cudaErrorInvalidConfiguration;
+    it = width.emplace(dev, occ * sms).first;
+  }
+  *grid = static_cast<int>(total < it->second ? total : it->second);
+  return cudaSuccess;
+}
+
+// The scale pass (with the limiter: partials -> scale, new_norm) and the
+// write pass of a two-pass launch, after the norm pass.
+template <typename T, int LEVEL, class Mo>
+cudaError_t launch_scale_and_write(const T* g, T* p, const Mo& mo,
+                                   const float* partials, float* scale,
+                                   const float* prev_norm, float* new_norm,
+                                   const float* step_size,
+                                   const float* wd_coef, long long L,
+                                   long long na, Coeffs c, float gamma,
+                                   int use_limiter, int weight_decay,
+                                   cudaStream_t stream) {
+  using W = WritePlan<T, LEVEL, Mo>;
+  if (use_limiter) {
+    const long long S = (na + kChunk - 1) / kChunk;
+    const unsigned blocks = static_cast<unsigned>((L + kScaleWarps - 1) / kScaleWarps);
+    scale_pass<T><<<blocks, kScaleWarps * 32, 0, stream>>>(
+        partials, prev_norm, new_norm, scale, L, S, gamma);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const long long P = (na + W::kPiece - 1) / W::kPiece;
+  const WriteArgs<T> a{g, p, use_limiter ? scale : nullptr, prev_norm,
+                       new_norm, step_size, wd_coef, na, P, L * P, c,
+                       weight_decay};
+  int grid;
+  const cudaError_t err = write_grid<T, LEVEL, Mo>(a.total, &grid);
+  if (err != cudaSuccess) return err;
+  if (grid == 0) return cudaSuccess;  // an empty bucket
+  write_pass<T, LEVEL, Mo><<<grid, kThreads, W::kSmem, stream>>>(a, mo);
+  return cudaGetLastError();
 }
 
 }  // namespace

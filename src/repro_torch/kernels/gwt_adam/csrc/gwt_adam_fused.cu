@@ -29,12 +29,14 @@
 //    buckets need 8, 11 and 6 chunks of 16 KB per SM, within the 227 KB a
 //    block may hold.  Capacity rule: ceil(L*S / SMs) * 2048 * 2^l *
 //    sizeof(T) <= the shared memory one block may have, S = ceil(na/2048).
-//  * Two passes (gwt_adam_fused; below), for the buckets whose G~ does not
-//    fit on chip (f32 parameters of (2, 4096, 1376) need 45 MB; larger
-//    models).  CUDA blocks run in no order, so the per-leaf norm takes two
-//    launches: the norm pass writes one f32 partial per (leaf, chunk of
-//    2048 coefficients) and nothing else; the write pass sums its leaf's
-//    partials in a fixed order (leaf_scale), applies the limiter,
+//  * Two passes (gwt_adam_fused; gwt_adam_common.cuh describes the
+//    design), for the buckets whose G~ does not fit on chip (f32
+//    parameters of (2, 4096, 1376) need 45 MB; qwen2.5-3b's four large
+//    buckets).  CUDA blocks run in no order, so the per-leaf norm takes
+//    separate launches: the norm pass (below) writes one f32 partial per
+//    (leaf, chunk of 2048 coefficients) and nothing else; the scale pass
+//    sums each leaf's partials once, in a fixed order, and applies the
+//    limiter; the write pass streams the bucket through a persistent grid,
 //    recomputes the tile and writes p, m, v.  Recomputing costs one more
 //    read of g, m and v: 14 bytes per element against the 10-byte bound.
 //
@@ -84,61 +86,30 @@ norm_pass(const T* __restrict__ g, const M* __restrict__ m,
   if (threadIdx.x == 0) partials[leaf * gridDim.x + blockIdx.x] = total;
 }
 
-template <typename T, typename M, int LEVEL>
-__global__ void __launch_bounds__(kThreads)
-write_pass(const T* __restrict__ g, T* __restrict__ p, M* __restrict__ m,
-           M* __restrict__ v, const float* __restrict__ prev_norm,
-           float* __restrict__ new_norm, const float* __restrict__ partials,
-           const float* __restrict__ step_size,
-           const float* __restrict__ wd_coef, long long na, Coeffs c,
-           float gamma, int use_limiter, int weight_decay) {
-  constexpr int B = 1 << LEVEL;
-  const float scale_t = round_to<T>(
-      leaf_scale(partials, prev_norm, new_norm, gamma, use_limiter));
-  const float ss = *step_size;
-  const float wd = *wd_coef;
-  const long long leaf = blockIdx.y;
-  const T* gl = g + leaf * na * B;
-  T* pl = p + leaf * na * B;
-  M* ml = m + leaf * na;
-  M* vl = v + leaf * na;
-  const long long base = (long long)blockIdx.x * kChunk + threadIdx.x;
-  for (int k = 0; k < kPerThread; ++k) {
-    const long long j = base + (long long)k * kThreads;
-    if (j >= na) break;
-    float x[B];
-#pragma unroll
-    for (int i = 0; i < B; ++i) x[i] = to_f32(gl[j * B + i]);
-    float mj = to_f32(ml[j]), vj = to_f32(vl[j]);
-    dht_adam<LEVEL>(x, mj, vj, c);
-    ml[j] = from_f32<M>(mj);
-    vl[j] = from_f32<M>(vj);
-    write_params<T, B>(pl + j * B, x, scale_t, ss, wd, weight_decay);
-  }
-}
-
 template <typename T, typename M>
 cudaError_t launch(int level, const void* g, void* p, void* m, void* v,
                    const float* prev_norm, float* new_norm, float* partials,
-                   const float* step_size, const float* wd_coef, long long L,
-                   long long na, Coeffs c, float gamma, int use_limiter,
-                   int weight_decay, cudaStream_t stream) {
+                   float* scale, const float* step_size,
+                   const float* wd_coef, long long L, long long na, Coeffs c,
+                   float gamma, int use_limiter, int weight_decay,
+                   cudaStream_t stream) {
   const long long S = (na + kChunk - 1) / kChunk;
   const dim3 grid((unsigned)S, (unsigned)L);
+  M* mm = static_cast<M*>(m);
+  M* vv = static_cast<M*>(v);
   return with_level(level, [&](auto lv) {
     constexpr int LEVEL = decltype(lv)::value;
     if (use_limiter) {
       norm_pass<T, M, LEVEL><<<grid, kThreads, 0, stream>>>(
-          static_cast<const T*>(g), static_cast<const M*>(m),
-          static_cast<const M*>(v), partials, na, c);
+          static_cast<const T*>(g), mm, vv, partials, na, c);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return err;
     }
-    write_pass<T, M, LEVEL><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(g), static_cast<T*>(p), static_cast<M*>(m),
-        static_cast<M*>(v), prev_norm, new_norm, partials, step_size,
-        wd_coef, na, c, gamma, use_limiter, weight_decay);
-    return cudaGetLastError();
+    return launch_scale_and_write<T, LEVEL>(
+        static_cast<const T*>(g), static_cast<T*>(p),
+        FloatMoments<M>{mm, vv, mm, vv}, partials, scale, prev_norm,
+        new_norm, step_size, wd_coef, L, na, c, gamma, use_limiter,
+        weight_decay, stream);
   });
 }
 
@@ -172,13 +143,14 @@ extern "C" {
 // S = ceil(na / chunk).
 int gwt_adam_fused_chunk() { return kChunk; }
 
-// dtype: 0 = float32, 1 = bfloat16 (g and p share it); mdtype, the same
-// codes for m and v (L, na); prev_norm, new_norm f32 (L,); partials f32
-// (L, S); step_size and wd_coef point to f32 scalars on the device.  p, m, v
-// are updated in place.
+// The two-pass design.  dtype: 0 = float32, 1 = bfloat16 (g and p share
+// it); mdtype, the same codes for m and v (L, na); prev_norm, new_norm f32
+// (L,); partials f32 (L, S) and scale f32 (L,), scratch the caller
+// allocates; step_size and wd_coef point to f32 scalars on the device.  p,
+// m, v are updated in place.
 int gwt_adam_fused(int dtype, int mdtype, int level, const void* g, void* p,
                    void* m, void* v, const float* prev_norm, float* new_norm,
-                   float* partials, const float* step_size,
+                   float* partials, float* scale, const float* step_size,
                    const float* wd_coef, long long L, long long na,
                    float gamma, float b1, float c1, float b2, float c2,
                    float eps, int use_limiter, int weight_decay,
@@ -189,15 +161,15 @@ int gwt_adam_fused(int dtype, int mdtype, int level, const void* g, void* p,
     using T = typename decltype(t)::type;
     using M = typename decltype(mt)::type;
     return launch<T, M>(level, g, p, m, v, prev_norm, new_norm, partials,
-                        step_size, wd_coef, L, na, c, gamma, use_limiter,
-                        weight_decay, s);
+                        scale, step_size, wd_coef, L, na, c, gamma,
+                        use_limiter, weight_decay, s);
   });
 }
 
-// The one-pass design, same arguments.  The caller has checked that the
-// bucket fits (one_pass_fits); otherwise the plan fails with
-// cudaErrorInvalidConfiguration before anything is launched.  A refused
-// cooperative launch returns its error.
+// The one-pass design, the same arguments but the scale.  The caller has
+// checked that the bucket fits (one_pass_fits); otherwise the plan fails
+// with cudaErrorInvalidConfiguration before anything is launched.  A
+// refused cooperative launch returns its error.
 int gwt_adam_fused_one_pass(int dtype, int mdtype, int level, const void* g,
                             void* p, void* m, void* v,
                             const float* prev_norm, float* new_norm,

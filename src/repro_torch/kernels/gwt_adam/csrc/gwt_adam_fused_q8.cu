@@ -30,14 +30,14 @@
 //    one __fdiv_rn per block and moment (quant_inv), the same bits as the
 //    two-pass kernel's division per coefficient.  The codes are 2-byte
 //    loads and stores, the scales one per warp.
-//  * Two passes (gwt_adam_fused_q8; below), for buckets whose G~ does not
-//    fit on chip: a norm pass writes one partial per (leaf, chunk of 2048
-//    coefficients), the write pass sums its leaf's partials in a fixed
-//    order and recomputes, about 9.6 bytes per element.  A chunk is 8
-//    rounds of 256 threads, one coefficient each, so each round holds 4
-//    whole quantization blocks, each on two warps: the absmax is a warp
-//    shuffle tree and one exchange between the two warps through shared
-//    memory (pair_absmax, two barriers a round).
+//  * Two passes (gwt_adam_fused_q8; gwt_adam_common.cuh describes the
+//    design), for buckets whose G~ does not fit on chip: a norm pass
+//    (below) writes one partial per (leaf, chunk of 2048 coefficients), the
+//    scale pass sums each leaf's partials once in a fixed order, and the
+//    write pass streams the bucket through a persistent grid and
+//    recomputes, about 9.6 bytes per element.  Its rounds are the one-pass
+//    kernel's (Q8Moments: a warp is one quantization block, the codes and
+//    scales staged into shared memory with g and p).
 //
 // Common to both:
 //  * One A_l coefficient's chain per thread over the leaf's flat
@@ -54,10 +54,8 @@
 //    (salt, j), so both designs round as the plain version does.  The salts
 //    (one per leaf and moment) are computed on the device by the codec
 //    module and passed in.
-//  * In place: every lane of a quantization block reads its scale before
-//    the absmax (the one-pass kernel copies a chunk's codes and scales into
-//    shared memory before it writes any), and the one lane that writes the
-//    new scale does so after.
+//  * In place: a chunk's (the write pass: a piece's) codes and scales are
+//    copied into shared memory before any of them is written.
 //  * Rounding: the helpers of gwt_adam_common.cuh (_rn intrinsics, IEEE
 //    sqrt and division); scale = absmax * f32(1/127), inv = 1/scale by
 //    __fdiv_rn, y = x*inv, q = floor(y) + (u < y - floor(y)) clipped to
@@ -100,86 +98,28 @@ norm_pass(const T* __restrict__ g, const signed char* __restrict__ qm,
   if (threadIdx.x == 0) partials[leaf * gridDim.x + blockIdx.x] = total;
 }
 
-template <typename T, int LEVEL>
-__global__ void __launch_bounds__(kThreads)
-write_pass(const T* __restrict__ g, T* __restrict__ p,
-           signed char* __restrict__ qm, float* __restrict__ sm,
-           signed char* __restrict__ qv, float* __restrict__ sv,
-           const unsigned* __restrict__ salt_m,
-           const unsigned* __restrict__ salt_v,
-           const float* __restrict__ prev_norm, float* __restrict__ new_norm,
-           const float* __restrict__ partials,
-           const float* __restrict__ step_size,
-           const float* __restrict__ wd_coef, long long na, long long nb,
-           Coeffs c, float gamma, int use_limiter, int weight_decay) {
-  constexpr int B = 1 << LEVEL;
-  const float scale_t = round_to<T>(
-      leaf_scale(partials, prev_norm, new_norm, gamma, use_limiter));
-  const float ss = *step_size;
-  const float wd = *wd_coef;
-  const long long leaf = blockIdx.y;
-  const unsigned salt_ml = salt_m[leaf], salt_vl = salt_v[leaf];
-  const T* gl = g + leaf * na * B;
-  T* pl = p + leaf * na * B;
-  signed char* qml = qm + leaf * na;
-  signed char* qvl = qv + leaf * na;
-  float* sml = sm + leaf * nb;
-  float* svl = sv + leaf * nb;
-  for (int k = 0; k < kPerThread; ++k) {
-    // the round's start is the same for every thread: the barriers inside
-    // pair_absmax are reached by the whole block or by none of it
-    const long long j0 = (long long)blockIdx.x * kChunk + (long long)k * kThreads;
-    if (j0 >= na) break;
-    const long long j = j0 + threadIdx.x;
-    const bool valid = j < na;
-    float x[B];
-    float mj = 0.0f, vj = 0.0f;
-#pragma unroll
-    for (int i = 0; i < B; ++i) x[i] = valid ? to_f32(gl[j * B + i]) : 0.0f;
-    if (valid) {
-      mj = dequant(qml, sml, j);
-      vj = dequant(qvl, svl, j);
-    }
-    dht_adam<LEVEL>(x, mj, vj, c);
-    if (valid) write_params<T, B>(pl + j * B, x, scale_t, ss, wd, weight_decay);
-    float am = valid ? fabsf(mj) : 0.0f, av = valid ? fabsf(vj) : 0.0f;
-    pair_absmax(am, av);
-    const float scm = quant_scale(am), scv = quant_scale(av);
-    if (valid) {
-      qml[j] = quant(mj, scm, salt_ml, static_cast<unsigned>(j));
-      qvl[j] = quant(vj, scv, salt_vl, static_cast<unsigned>(j));
-      if (j % kQBlock == 0) {
-        sml[j / kQBlock] = scm;
-        svl[j / kQBlock] = scv;
-      }
-    }
-  }
-}
-
 template <typename T>
-cudaError_t launch(int level, const void* g, void* p, signed char* qm,
-                   float* sm, signed char* qv, float* sv,
-                   const unsigned* salt_m, const unsigned* salt_v,
+cudaError_t launch(int level, const void* g, void* p, const Q8Moments& mo,
                    const float* prev_norm, float* new_norm, float* partials,
-                   const float* step_size, const float* wd_coef, long long L,
-                   long long na, Coeffs c, float gamma, int use_limiter,
-                   int weight_decay, cudaStream_t stream) {
+                   float* scale, const float* step_size,
+                   const float* wd_coef, long long L, long long na, Coeffs c,
+                   float gamma, int use_limiter, int weight_decay,
+                   cudaStream_t stream) {
   const long long S = (na + kChunk - 1) / kChunk;
-  const long long nb = (na + kQBlock - 1) / kQBlock;
   const dim3 grid((unsigned)S, (unsigned)L);
   return with_level(level, [&](auto lv) {
     constexpr int LEVEL = decltype(lv)::value;
     if (use_limiter) {
       norm_pass<T, LEVEL><<<grid, kThreads, 0, stream>>>(
-          static_cast<const T*>(g), qm, sm, qv, sv, partials, na, nb, c);
+          static_cast<const T*>(g), mo.qm, mo.sm, mo.qv, mo.sv, partials, na,
+          mo.nb, c);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return err;
     }
-    write_pass<T, LEVEL><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(g), static_cast<T*>(p), qm, sm, qv, sv, salt_m,
-        salt_v, prev_norm, new_norm, partials, step_size, wd_coef, na, nb, c,
-        gamma, use_limiter, weight_decay);
-    return cudaGetLastError();
+    return launch_scale_and_write<T, LEVEL>(
+        static_cast<const T*>(g), static_cast<T*>(p), mo, partials, scale,
+        prev_norm, new_norm, step_size, wd_coef, L, na, c, gamma,
+        use_limiter, weight_decay, stream);
   });
 }
 
@@ -210,37 +150,39 @@ extern "C" {
 int gwt_adam_fused_q8_chunk() { return kChunk; }
 int gwt_adam_fused_q8_qblock() { return kQBlock; }
 
-// dtype: 0 = float32, 1 = bfloat16 (g and p share it); qm, qv int8 (L, na);
-// sm, sv f32 (L, nb); salt_m, salt_v uint32 (L,); prev_norm, new_norm f32
-// (L,); partials f32 (L, S); step_size and wd_coef point to f32 scalars on
-// the device.  p, qm, sm, qv, sv are updated in place.
+// The two-pass design.  dtype: 0 = float32, 1 = bfloat16 (g and p share
+// it); qm, qv int8 (L, na); sm, sv f32 (L, nb); salt_m, salt_v uint32
+// (L,); prev_norm, new_norm f32 (L,); partials f32 (L, S) and scale f32
+// (L,), scratch the caller allocates; step_size and wd_coef point to f32
+// scalars on the device.  p, qm, sm, qv, sv are updated in place.
 int gwt_adam_fused_q8(int dtype, int level, const void* g, void* p,
                       signed char* qm, float* sm, signed char* qv, float* sv,
                       const unsigned* salt_m, const unsigned* salt_v,
                       const float* prev_norm, float* new_norm,
-                      float* partials, const float* step_size,
+                      float* partials, float* scale, const float* step_size,
                       const float* wd_coef, long long L, long long na,
                       float gamma, float b1, float c1, float b2, float c2,
                       float eps, int use_limiter, int weight_decay,
                       void* stream) {
   const Coeffs c{b1, c1, b2, c2, eps};
+  const Q8Moments mo{qm, sm, qv, sv, salt_m, salt_v, qm, sm, qv, sv,
+                     (na + kQBlock - 1) / kQBlock};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(level, g, p, qm, sm, qv, sv, salt_m, salt_v,
-                         prev_norm, new_norm, partials, step_size, wd_coef, L,
-                         na, c, gamma, use_limiter, weight_decay, s);
+    return launch<float>(level, g, p, mo, prev_norm, new_norm, partials,
+                         scale, step_size, wd_coef, L, na, c, gamma,
+                         use_limiter, weight_decay, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(level, g, p, qm, sm, qv, sv, salt_m, salt_v,
-                                 prev_norm, new_norm, partials, step_size,
-                                 wd_coef, L, na, c, gamma, use_limiter,
-                                 weight_decay, s);
+    return launch<__nv_bfloat16>(level, g, p, mo, prev_norm, new_norm,
+                                 partials, scale, step_size, wd_coef, L, na,
+                                 c, gamma, use_limiter, weight_decay, s);
   return cudaErrorInvalidValue;
 }
 
-// The one-pass design, same arguments.  The caller has checked that the
-// bucket fits (one_pass_fits); otherwise the plan fails with
-// cudaErrorInvalidConfiguration before anything is launched.  A refused
-// cooperative launch returns its error.
+// The one-pass design, the same arguments but the scale.  The caller has
+// checked that the bucket fits (one_pass_fits); otherwise the plan fails
+// with cudaErrorInvalidConfiguration before anything is launched.  A
+// refused cooperative launch returns its error.
 int gwt_adam_fused_q8_one_pass(int dtype, int level, const void* g, void* p,
                                signed char* qm, float* sm, signed char* qv,
                                float* sv, const unsigned* salt_m,

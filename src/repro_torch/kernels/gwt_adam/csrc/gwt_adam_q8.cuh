@@ -2,8 +2,8 @@
 // (gwt_adam_fused_q8.cu: K2, the fused write; gwt_adam_tile.cu: K5, the
 // staged update): dequantization, the codec's murmur3 rounding hash in
 // native uint32, stochastic requantization and the absmax of a
-// 64-coefficient quantization block held by two warps (the two-pass K2) or
-// by one (the one-pass K2 and K5, whose moment policy is Q8Moments).
+// 64-coefficient quantization block held by one warp (Q8Moments, the
+// moment policy of K2's designs and K5).
 // Include after gwt_adam_common.cuh.  Rounding as there: _rn intrinsics,
 // IEEE division.
 
@@ -57,15 +57,9 @@ __device__ __forceinline__ signed char quant_with(float x, float inv,
   return static_cast<signed char>(static_cast<int>(q));
 }
 
-__device__ __forceinline__ signed char quant(float x, float scale,
-                                             unsigned salt, unsigned idx) {
-  return quant_with(x, quant_inv(scale), salt, idx);
-}
-
-// Absmax over one warp, for two values at once: the one-pass K2 and K5 put
-// a whole quantization block on one warp (32 lanes x 2 coefficients), so no
-// shared memory and no barrier.  A max is exact and order-free, so it
-// equals pair_absmax's.
+// Absmax over one warp, for two values at once: K2 and K5 put a whole
+// quantization block on one warp (32 lanes x 2 coefficients), so no shared
+// memory and no barrier.
 __device__ __forceinline__ void warp_absmax(float& am, float& av) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -87,7 +81,7 @@ __device__ __forceinline__ void store_codes(signed char* q,
   }
 }
 
-// Blocked-int8 moments, two coefficients a thread (the one-pass K2 and K5):
+// Blocked-int8 moments, two coefficients a thread (K2 and K5):
 // a warp is one quantization block per round.  A chunk's codes and scales
 // are staged into shared memory with its g; the new ones go to qm_out,
 // sm_out, qv_out, sv_out (K2 passes the inputs themselves: in place).
@@ -196,26 +190,5 @@ struct Q8Moments {
     }
   }
 };
-
-// Absmax of |a| over the 64 threads (two warps) of each quantization block
-// of the current round, for two values at once.  Synchronises the block.
-__device__ __forceinline__ void pair_absmax(float& am, float& av) {
-  __shared__ float s_am[kThreads / 32], s_av[kThreads / 32];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    am = fmaxf(am, __shfl_xor_sync(0xffffffffu, am, off));
-    av = fmaxf(av, __shfl_xor_sync(0xffffffffu, av, off));
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    s_am[warp] = am;
-    s_av[warp] = av;
-  }
-  __syncthreads();
-  const int first = warp & ~1;
-  am = fmaxf(s_am[first], s_am[first + 1]);
-  av = fmaxf(s_av[first], s_av[first + 1]);
-  __syncthreads();  // the next round overwrites s_am, s_av
-}
 
 }  // namespace

@@ -18,9 +18,10 @@ nearest even into that dtype, as the plain versions do.
 
 K1 and K2 have two designs each.  The one-pass design is one cooperative
 launch that keeps the bucket's rounded G̃ in shared memory across a grid
-barrier and reads every input once; the two-pass design (a norm pass, then
-a write pass that recomputes) takes the buckets whose G̃ does not fit on
-chip.  :func:`gwt_adam_fused` and :func:`gwt_adam_fused_q8` choose by
+barrier and reads every input once; the two-pass design (a norm pass, a
+scale pass of one warp per leaf, then a streaming write pass that
+recomputes: three launches with the limiter, the write pass alone without)
+takes the buckets whose G̃ does not fit on chip.  :func:`gwt_adam_fused` and :func:`gwt_adam_fused_q8` choose by
 :func:`one_pass_fits`, before the launch, from the bucket's shape, dtype
 and level and the card's capacity; :func:`gwt_adam_fused_two_pass` and
 the other three ``*_one_pass`` / ``*_two_pass`` functions launch one design
@@ -31,7 +32,8 @@ same results.
 count the calls of the K1, K2, K4 and K5 entries that launched their
 kernel; ``launches_one_pass``, ``launches_two_pass``,
 ``launches_q8_one_pass`` and ``launches_q8_two_pass`` count K1's and K2's
-launches by design.  Nothing else changes them.
+launches by design: one a call, whatever the design's kernel launches.
+Nothing else changes them.
 """
 
 from __future__ import annotations
@@ -84,11 +86,12 @@ def _declare_tile(lib) -> None:
 def _declare_fused(lib, name: str, n_ptrs: int, extras,
                    codes=(_I, _I)) -> None:
     """K1's (``codes``: dtype, moment dtype, level) and K2's (dtype, level)
-    entries."""
-    args = list(codes) + [_VP] * n_ptrs + [_LL, _LL] + [_F] * 6 \
-        + [_I, _I, _VP]
-    _declare(getattr(lib, name), args, extras)
-    _declare(getattr(lib, name + "_one_pass"), args)
+    entries; the two-pass entry takes one pointer more, the scale."""
+    def args(n):
+        return list(codes) + [_VP] * n + [_LL, _LL] + [_F] * 6 \
+            + [_I, _I, _VP]
+    _declare(getattr(lib, name), args(n_ptrs + 1), extras)
+    _declare(getattr(lib, name + "_one_pass"), args(n_ptrs))
     _declare(getattr(lib, name + "_one_pass_plan"),
              list(codes) + [_LL, _LL, _VP])
 
@@ -246,6 +249,19 @@ def _design(name: str, design: str, g: torch.Tensor, level: int,
     return design
 
 
+def _scratch(lib, name: str, design: str, L: int, na: int, device):
+    """The C entry ``name`` (two passes) or ``name + "_one_pass"`` of
+    ``design``, and the scratch it takes: the ``(L, S)`` chunk partials,
+    and for two passes the ``(L,)`` leaf scales.  The caller keeps the
+    tensors until the launch is queued."""
+    partials = torch.empty((L, -(-na // CHUNK)), dtype=torch.float32,
+                           device=device)
+    if design == "one":
+        return getattr(lib, name + "_one_pass"), (partials,)
+    scale = torch.empty((L,), dtype=torch.float32, device=device)
+    return getattr(lib, name), (partials, scale)
+
+
 def _fused(design: str, g, p, m, v, prev_norm, step_size, wd_coef, *,
            level, gamma, use_limiter, weight_decay, b1=0.9, b2=0.999,
            eps=1e-6):
@@ -259,16 +275,14 @@ def _fused(design: str, g, p, m, v, prev_norm, step_size, wd_coef, *,
     _require_cuda(g)
     design = _design("gwt_adam_fused", design, g, level, mdtype)
     lib = _load("gwt_adam_fused")
-    fn = lib.gwt_adam_fused_one_pass if design == "one" \
-        else lib.gwt_adam_fused
-    partials = torch.empty((L, -(-na // CHUNK)), dtype=torch.float32,
-                           device=device)
+    fn, scratch = _scratch(lib, "gwt_adam_fused", design, L, na, device)
     new_norm = torch.empty((L,), dtype=torch.float32, device=device)
     stream = _stream(device)
     err = fn(
         _DTYPES[g.dtype], _DTYPES[mdtype], level, g.data_ptr(), p.data_ptr(),
         m.data_ptr(), v.data_ptr(), prev_norm.data_ptr(), new_norm.data_ptr(),
-        partials.data_ptr(), step_size.data_ptr(), wd_coef.data_ptr(),
+        *(t.data_ptr() for t in scratch), step_size.data_ptr(),
+        wd_coef.data_ptr(),
         L, na, gamma, b1, 1 - b1, b2, 1 - b2, eps, int(use_limiter),
         int(weight_decay), stream)
     if err != 0:
@@ -338,17 +352,15 @@ def _fused_q8(design: str, g, p, qm, sm, qv, sv, salt_m, salt_v, prev_norm,
         raise RuntimeError(f"gwt_adam_fused_q8 was built with blocks of "
                            f"{lib.gwt_adam_fused_q8_qblock()}, this module "
                            f"assumes {QBLOCK}")
-    fn = lib.gwt_adam_fused_q8_one_pass if design == "one" \
-        else lib.gwt_adam_fused_q8
-    partials = torch.empty((L, -(-na // CHUNK)), dtype=torch.float32,
-                           device=device)
+    fn, scratch = _scratch(lib, "gwt_adam_fused_q8", design, L, na, device)
     new_norm = torch.empty((L,), dtype=torch.float32, device=device)
     stream = _stream(device)
     err = fn(
         _DTYPES[g.dtype], level, g.data_ptr(), p.data_ptr(), qm.data_ptr(),
         sm.data_ptr(), qv.data_ptr(), sv.data_ptr(), salt_m.data_ptr(),
         salt_v.data_ptr(), prev_norm.data_ptr(), new_norm.data_ptr(),
-        partials.data_ptr(), step_size.data_ptr(), wd_coef.data_ptr(),
+        *(t.data_ptr() for t in scratch), step_size.data_ptr(),
+        wd_coef.data_ptr(),
         L, na, gamma, b1, 1 - b1, b2, 1 - b2, eps, int(use_limiter),
         int(weight_decay), stream)
     if err != 0:

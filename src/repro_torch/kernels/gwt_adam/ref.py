@@ -77,7 +77,7 @@ def chunk_ssq(gt: torch.Tensor, level: int) -> torch.Tensor:
 
 def leaf_ssq(partials: torch.Tensor) -> torch.Tensor:
     """Each leaf's ``‖G̃‖²`` from its ``(L, S)`` partials, added as the
-    kernels' ``leaf_scale_at`` adds them: lane i adds partials i, i + 32,
+    kernels' ``leaf_limit`` adds them: lane i adds partials i, i + 32,
     ... in order from 0, then the 32 lane sums by the ``__shfl_down``
     tree."""
     L, S = partials.shape

@@ -31,11 +31,10 @@ Differences from the JAX package, each forced by eager PyTorch:
   non-refresh step makes no synchronizing call and runs no SVD.  A refresh
   step may synchronize inside ``torch.linalg.svd``/``qr``.
 * APOLLO and RSO draw with ``jax.random.fold_in(key(seed + leaf_id),
-  step // update_gap)`` there.  The port cannot reproduce those bits: it
-  draws with a ``torch.Generator`` on the parameter's device seeded from
-  ``(seed + leaf_id, step // update_gap)`` (:func:`draw_normal`), so a
-  resumed run draws the projector a straight run draws.  Tests replace
-  :func:`draw_normal` (and :func:`svd`) with the JAX package's.
+  step // update_gap)`` there, and here with the same key through
+  :mod:`repro_torch.core.prng` (:func:`draw_normal`): the same uniforms bit
+  for bit, normals within 4 f32 spacings, so a run the JAX package wrote
+  continues in the port with the projectors it would have drawn.
 * SVD and QR are ``torch.linalg`` calls in f32 (the JAX package leaves
   them to XLA, outside any Pallas kernel).  SVD signs are arbitrary: the
   update is invariant to a column sign flip within a refresh epoch.
@@ -48,7 +47,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.core import limiter
+from repro_torch.core import limiter, prng
 from repro_torch.optim import engine, hosts as hosts_lib
 from repro_torch.optim.base import Optimizer, default_eligible
 from repro_torch.optim.schedules import constant
@@ -77,24 +76,11 @@ def svd(g32: torch.Tensor):
 def draw_normal(shape, seed: int, leaf_id: int, epoch: int,
                 device) -> torch.Tensor:
     """Standard normal f32 draws of ``shape`` for leaf ``leaf_id`` in
-    refresh epoch ``epoch`` (``step // update_gap``), from a generator on
-    ``device`` seeded by ``(seed + leaf_id, epoch)``: the same draws for the
-    same triple, another epoch another draw."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(_seed32(seed + leaf_id, epoch))
-    return torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
-                       device=device)
-
-
-def _seed32(a: int, b: int) -> int:
-    """A 32-bit generator seed from two ints (splitmix64 of the pair,
-    folded): the CPU generator keeps only 32 bits of a seed."""
-    x = (((a & 0xFFFFFFFF) << 32) | (b & 0xFFFFFFFF)) + 0x9E3779B97F4A7C15
-    x &= 0xFFFFFFFFFFFFFFFF
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
-    x ^= x >> 31
-    return (x ^ (x >> 32)) & 0xFFFFFFFF
+    refresh epoch ``epoch`` (``step // update_gap``) on ``device``: the
+    JAX package's ``jax.random.normal(fold_in(key(seed + leaf_id),
+    epoch))`` (:mod:`repro_torch.core.prng`)."""
+    return prng.normal(prng.fold_in(prng.key(seed + leaf_id), epoch), shape,
+                       device)
 
 
 def _basis(u, vh, r, left):

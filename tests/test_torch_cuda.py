@@ -12,7 +12,8 @@ version adds the per-leaf ‖G̃‖² in the kernels' order (``ref.chunk_ssq``,
 norm, and K4's and K5's outputs and ‖G̃‖² partials are held bitwise, at
 three seeds where a seed could matter; K1 and K4 with bf16 moments too.
 K1's and K2's one-pass design must equal their two-pass kernels bitwise on
-every output.  The Haar DWT
+every output, and the two-pass design the plain version at leaves of 1, 31,
+33 and 1100 chunks.  The Haar DWT
 kernels (K3, K6, K7) round where their plain versions round: bitwise, NaN
 codes of the fp8 wire included; K3's and K6's grouped entries too, leaf by
 leaf (unaligned leaves, ragged last tiles, groups of two launches), and
@@ -280,6 +281,77 @@ def test_q8_one_pass_matches_two_pass_and_plain(dtype, level, kind,
     for a, b, c in zip(*one, two):
         assert torch.equal(a, b) and torch.equal(a, c)
     _bitwise(one[0], want)
+
+
+# K1's and K2's two-pass design (norm pass, scale pass, streaming write
+# pass) on multi-leaf buckets whose leaves have S = 1, 31, 33 and 1100
+# chunks of 2048 coefficients (1100: more than 1024 partials a leaf, not a
+# multiple of 32, so the scale pass's lane-strided sum has ragged lanes),
+# the last chunk ragged; every output bitwise to the plain version, the
+# limiter on (per-leaf histories: clipping, 0, not clipping) and off; the
+# design counter moves by one a call whatever the design launches.
+TWO_PASS_CHUNKS = (1, 31, 33, 1100)
+
+
+def _two_pass_shape(S):
+    na = 1500 if S == 1 else (S - 1) * 2048 + 5
+    return (3, 1, na << 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_limiter", [True, False])
+@pytest.mark.parametrize("S", TWO_PASS_CHUNKS)
+@pytest.mark.parametrize("mdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_two_pass_matches_plain_at_odd_chunk_counts(dtype, mdtype, S,
+                                                    use_limiter):
+    dev = _card()
+    shape = _two_pass_shape(S)
+    g, p, mm, vv = _design_inputs(dev, shape, 2, dtype)
+    mm, vv = mm.to(mdtype), vv.to(mdtype)
+    scalars = _design_scalars(dev)
+    args = dict(level=2, gamma=1.01, use_limiter=use_limiter,
+                weight_decay=True)
+    want = ref.gwt_adam_fused(g, p, mm, vv, *scalars, **args)
+    before = (kernel.launches, kernel.launches_two_pass)
+    got = kernel.gwt_adam_fused_two_pass(g, p.clone(), mm.clone(),
+                                         vv.clone(), *scalars, **args)
+    torch.cuda.synchronize()
+    assert (kernel.launches - before[0],
+            kernel.launches_two_pass - before[1]) == (1, 1)
+    _bitwise(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_limiter", [True, False])
+@pytest.mark.parametrize("S", TWO_PASS_CHUNKS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_q8_two_pass_matches_plain_at_odd_chunk_counts(dtype, S,
+                                                       use_limiter):
+    dev = _card()
+    shape = _two_pass_shape(S)
+    L = shape[0]
+    g, p, mm, vv = _design_inputs(dev, shape, 2, dtype)
+    (qm, sm), (qv, sv) = (
+        codec.quant_blocks(a.reshape(L, -1), torch.arange(L, device=dev)
+                           + salt) for a, salt in ((mm, 1), (vv, 2)))
+    inputs = (g, p, qm.reshape(mm.shape), sm, qv.reshape(vv.shape), sv)
+    key = codec.make_key(0, dev)
+    step = torch.tensor(4, dtype=torch.int32, device=dev)
+    salts = [codec.slot_salt(key, step, s, torch.arange(L, device=dev))
+             for s in (0, 1)]
+    scalars = _design_scalars(dev)
+    args = dict(level=2, block=64, gamma=1.01, use_limiter=use_limiter,
+                weight_decay=True)
+    want = ref.gwt_adam_fused_q8(*inputs, *salts, *scalars, **args)
+    before = (kernel.launches_q8, kernel.launches_q8_two_pass)
+    got = kernel.gwt_adam_fused_q8_two_pass(
+        *(t.clone() for t in inputs), *(s.to(torch.uint32) for s in salts),
+        *scalars, **args)
+    torch.cuda.synchronize()
+    assert (kernel.launches_q8 - before[0],
+            kernel.launches_q8_two_pass - before[1]) == (1, 1)
+    _bitwise(got, want)
 
 
 @pytest.mark.cuda

@@ -186,6 +186,19 @@ def test_full_width_plan_and_state_bytes(arch, n_layers):
         assert "gwt_last__layers.b0.mixer.bq" in [b for b, _ in got]
 
 
+def test_full_width_int8_state_bytes():
+    """qwen2.5-3b at full width with blocked-int8 moments (the launcher's
+    ``--state-codec int8``; ``chip_smoke.QWEN_STATE_BYTES``): the port's
+    exact state bytes equal the JAX package's."""
+    jcfg, tcfg = jconfigs.get_config("qwen2.5-3b"), \
+        configs.get_config("qwen2.5-3b")
+    jopt = jax_gwt(lr=0.01, impl="jnp", state_codec="int8")
+    topt = gwt(lr=0.01, state_codec="int8")
+    nbytes = engine.state_bytes(topt.init(lm.abstract_params(tcfg)))
+    assert nbytes == jengine.state_bytes(jopt, jlm.abstract_params(jcfg)) \
+        == 2_135_562_352
+
+
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma3-27b",
                                   "deepseek-67b"])
 def test_interop_round_trip(arch):

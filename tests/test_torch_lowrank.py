@@ -6,12 +6,16 @@ engine's host step, and the launcher's low-rank ``--optimizer`` choices.
 Every family runs 5 steps on llama-60m-smoke parameters and gradients
 with ``rank=4, update_gap=2`` (refreshes at steps 0, 2 and 4; AdaRankGrad
 and RSO rotate their moments at each), under both codecs, bucketed and
-unrolled.  The JAX update is jitted.  The random draws (APOLLO, RSO) and
-the SVDs (GaLore, Fira, AdaRankGrad) are the JAX package's, injected into
-the port (``lowrank.draw_normal``, ``lowrank.svd``), because the port
-cannot reproduce ``jax.random``'s bits and SVD signs are arbitrary (a sign
-flip of GaLore's new basis mixes with the unrotated moments of the last
-epoch).  Everything downstream of the projector is then held tightly:
+unrolled.  The JAX update is jitted.  The SVDs (GaLore, Fira,
+AdaRankGrad) are the JAX package's, injected into the port
+(``lowrank.svd``), because SVD signs are arbitrary (a sign flip of
+GaLore's new basis mixes with the unrotated moments of the last epoch);
+the family test injects the JAX package's draws (APOLLO, RSO) too
+(``lowrank.draw_normal``), so it holds the update alone, and
+``test_random_families_match_reference_with_the_ports_draws`` holds the
+port's own draws (``core.prng``, normals within 4 f32 spacings of
+``jax.random``'s) under the same tolerances.  Everything downstream of the
+projector is held tightly:
 
 * moments, projectors, scales and norms within ``STATE_SPACINGS`` = 16
   f32 spacings of the leaf's largest element (measured 9): the
@@ -159,6 +163,30 @@ def test_family_matches_reference(name, codec_name, bucketed,
     _assert_state(ts, js)
     _assert_params(tp, jp, flat, UPDATE_RTOL if codec_name == "f32"
                    else INT8_UPDATE_RTOL)
+
+
+@pytest.mark.parametrize("codec_name", ["f32", "int8"])
+@pytest.mark.parametrize("name", ["apollo", "rso"])
+def test_random_families_match_reference_with_the_ports_draws(name,
+                                                              codec_name):
+    """APOLLO and RSO with the port's own draws (``core.prng``, nothing
+    injected) through refreshes at steps 0, 2 and 4: the state and the
+    parameters within the family test's tolerances, the projectors
+    within ``STATE_SPACINGS`` and their subspaces ``P Pᵀ`` within
+    ``SUBSPACE_ATOL`` (RSO's QR signs need not agree)."""
+    flat = _smoke_params()
+    kw = dict(LOWRANK_KW, state_codec=codec_name)
+    tp, ts = _run_port(optim.make(name, lr=0.01, **kw), flat)
+    jp, js = _run_jax(joptim.make(name, lr=0.01, **kw), flat)
+    _assert_state(ts, js)
+    _assert_params(tp, jp, flat, UPDATE_RTOL if codec_name == "f32"
+                   else INT8_UPDATE_RTOL)
+    projs = [(b["proj"], np.asarray(js["buckets"][n]["proj"]))
+             for n, b in ts["buckets"].items() if "proj" in b]
+    assert len(projs) == 3
+    for got, want in projs:
+        np.testing.assert_allclose(_subspace(got), _subspace(want),
+                                   atol=SUBSPACE_ATOL)
 
 
 def _subspace(proj):
@@ -514,6 +542,28 @@ def test_jax_galore_checkpoint_resumes_in_the_port(tmp_path,
     tp, ts = _run_port(topt, flat, steps=3, start=2, tp=state["params"],
                        ts=state["opt"])
     jp, js = _run_jax(jopt, flat, steps=3, start=2, jp=jp, js=js)
+    _assert_state(ts, js)
+    _assert_params(tp, jp, flat)
+
+
+def test_jax_apollo_checkpoint_resumes_in_the_port(tmp_path):
+    """An ``apollo`` state the JAX package checkpointed after 3 steps
+    loads in the port; 2 more steps on each side, across the refresh at
+    step 4, where the port draws its own projector (``core.prng``), agree
+    within the family test's tolerances."""
+    flat = _smoke_params()
+    jopt = joptim.make("apollo", lr=0.01, **LOWRANK_KW)
+    jp, js = _run_jax(jopt, flat, steps=3)
+    jmanager.CheckpointManager(str(tmp_path)).save(
+        3, {"params": jp, "opt": js}, blocking=True)
+    topt = optim.make("apollo", lr=0.01, **LOWRANK_KW)
+    tp0 = unflatten(list(flat), [to_torch(v) for v in flat.values()])
+    state, start = CheckpointManager(str(tmp_path)).restore(
+        None, {"params": tp0, "opt": topt.init(tp0)}, device="cpu")
+    assert start == 3
+    tp, ts = _run_port(topt, flat, steps=2, start=3, tp=state["params"],
+                       ts=state["opt"])
+    jp, js = _run_jax(jopt, flat, steps=2, start=3, jp=jp, js=js)
     _assert_state(ts, js)
     _assert_params(tp, jp, flat)
 

@@ -7,7 +7,7 @@ t + 256k (k = 0..7), each one's 2^l squares in order
 (``gwt_adam_common.cuh``: ``sum_sq``); each warp adds its lanes by
 ``__shfl_down_sync`` at offsets 16..1 and the 8 warp sums are added in
 order (``block_sum``); a leaf's partials are added lane-strided, then by
-the same shuffle tree, and the root is ``__fsqrt_rn`` (``leaf_scale_at``).
+the same shuffle tree, and the root is ``__fsqrt_rn`` (``leaf_limit``).
 The shapes have ragged last chunks and odd coefficient counts per leaf,
 so leaf bases are unaligned on the card.  The fused plain versions, which
 take their limiter norm from this order, are held to the JAX oracle at

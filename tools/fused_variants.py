@@ -15,12 +15,16 @@ and writes as many bytes as K1's bound counts.  A variant that stops
 before the grid barrier (``phase_a_only``) times phase A alone; its
 parameters are not written, so only its time means anything.  With
 ``--parent`` the sources ``tools/parent_kernels.py`` wrote are timed too,
-as the variant ``parent``.
+as the variant ``parent``, and K1's and K2's two-pass designs, as built
+and the parent's (through the parent's C interface), at qwen2.5-3b's four
+two-pass buckets, in the order parent, new, new, parent (best of each;
+CUDA events as above, 5 launches a run), beside the bounds.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import shutil
 import sys
 from pathlib import Path
@@ -90,6 +94,103 @@ def one_pass_ms(lib: str, shape, flush, dev) -> float:
     return min(cs.device_ms(fn, 20, count, flush) for _ in range(2))
 
 
+class ParentTwoPass:
+    """The parent revision's K1/K2 two-pass entries (``gwt_adam_fused@parent``,
+    ``gwt_adam_fused_q8@parent``), called through that revision's C
+    interface: the partials buffer and no scale buffer, unless the parent
+    already takes one."""
+
+    def __init__(self):
+        vp, ll, f, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float, \
+            ctypes.c_int
+        self.launches = 0
+        self.libs = {}
+        for lib, n_ptrs, codes in (("gwt_adam_fused", 9, (i, i, i)),
+                                   ("gwt_adam_fused_q8", 13, (i, i))):
+            src = build.SOURCES[f"{lib}@parent"][0].read_text()
+            scale = "float* partials, float* scale" in src
+            n = n_ptrs + scale
+
+            def declare(l, lib=lib, n=n, codes=codes):
+                fn = getattr(l, lib)
+                fn.argtypes = list(codes) + [vp] * n + [ll, ll] + [f] * 6 \
+                    + [i, i, vp]
+                fn.restype = i
+            self.libs[lib] = (build.load(f"{lib}@parent", declare), scale)
+
+    def __call__(self, lib, codes, ptrs, partials, scale, L, na):
+        handle, takes_scale = self.libs[lib]
+        extra = (scale.data_ptr(),) if takes_scale else ()
+        head, tail = ptrs[:-2], ptrs[-2:]   # ..., new_norm | step, wd
+        err = getattr(handle, lib)(
+            *codes, *head, partials.data_ptr(), *extra, *tail, L, na, 1.01,
+            0.9, 1 - 0.9, 0.999, 1 - 0.999, 1e-6, 1, 0,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent {lib}: CUDA error {err}")
+        self.launches += 1
+
+
+def dense_two_pass(flush, dev) -> None:
+    """K1's and K2's two-pass designs, as built and the parent's, at
+    qwen2.5-3b's two-pass buckets (bf16, level 2, limiter on)."""
+    parent = ParentTwoPass()
+    ss, wd = torch.tensor(1e-3, device=dev), torch.tensor(0.0, device=dev)
+    kw = dict(level=cs.LEVEL, gamma=1.01, use_limiter=True,
+              weight_decay=False)
+    total = {}
+    for label, shape in cs.QWEN_BUCKETS:
+        if cs.one_pass(kernel, shape, torch.bfloat16):
+            continue
+        L, rows, n = shape
+        na = rows * (n >> cs.LEVEL)
+        pn = torch.full((L,), 1e9, device=dev)
+        new_norm = torch.empty(L, device=dev)
+        partials = torch.empty((L, -(-na // kernel.CHUNK)), device=dev)
+        scale = torch.empty(L, device=dev)
+        for q8 in (False, True):
+            if q8:
+                inputs = cs.make_q8_inputs(shape, 7, dev)
+                salts = [t.to(torch.uint32) for t in cs.q8_salts(L, dev)]
+                lib, codes = "gwt_adam_fused_q8", (1, cs.LEVEL)
+                new = lambda: kernel.gwt_adam_fused_q8_two_pass(
+                    *inputs, *salts, pn, ss, wd, block=cs.QBLOCK, **kw)
+                count = lambda: kernel.launches_q8_two_pass
+                b_ms = cs.bound_q8(shape)[0]
+                tensors = (*inputs, *salts)
+            else:
+                inputs = cs.make_inputs(shape, 7, dev)
+                lib, codes = "gwt_adam_fused", (1, 0, cs.LEVEL)
+                new = lambda: kernel.gwt_adam_fused_two_pass(
+                    *inputs, pn, ss, wd, **kw)
+                count = lambda: kernel.launches_two_pass
+                b_ms = cs.bound(shape)[0]
+                tensors = inputs
+            ptrs = tuple(t.data_ptr() for t in (*tensors, pn, new_norm, ss,
+                                                 wd))
+            old = lambda: parent(lib, codes, ptrs, partials, scale, L, na)
+            runs = {"parent": [], "new": []}
+            for name in ("parent", "new", "new", "parent"):
+                fn, cnt = (old, lambda: parent.launches) if name == \
+                    "parent" else (new, count)
+                runs[name].append(cs.device_ms(fn, 5, cnt, flush))
+            k = "K2" if q8 else "K1"
+            best = {name: min(r) for name, r in runs.items()}
+            for name, ms in best.items():
+                total[(k, name)] = total.get((k, name), 0.0) + ms
+            total[(k, "bound")] = total.get((k, "bound"), 0.0) + b_ms
+            print(f"two passes {k} {label} {shape}: new {best['new']:.4f} "
+                  f"ms, parent {best['parent']:.4f} ms, bound {b_ms:.4f} ms "
+                  f"(runs {runs})", flush=True)
+            del inputs, tensors, new, old
+            torch.cuda.empty_cache()
+    for k in ("K1", "K2"):
+        print(f"two passes {k}, the four buckets (one step): new "
+              f"{total[(k, 'new')]:.4f} ms, parent "
+              f"{total[(k, 'parent')]:.4f} ms, bound "
+              f"{total[(k, 'bound')]:.4f} ms")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variants", default=",".join(VARIANTS))
@@ -138,6 +239,8 @@ def main() -> int:
         build.SOURCES[lib] = sources[lib]
         build._libs.pop(lib, None)
     kernel._plans.clear()
+    if args.parent:
+        dense_two_pass(flush, dev)
     return 0
 
 

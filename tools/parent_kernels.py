@@ -12,7 +12,10 @@ same C interface) and that ``haar_dwt.cu`` as ``haar_dwt@parent``; phase 17
 times the parent's K4/K5 in turns with the current ones, phase 12 its
 K3/K6 (the one-leaf-a-launch design) and K7.  ``tools/tile_variants.py``
 and ``tools/haar_variants.py`` do the same, and ``tools/fused_variants.py
---parent`` times that revision's K1/K2 one pass.  Run it in a git checkout
+--parent`` times that revision's K1/K2, one pass at llama-60m's buckets
+and two passes at qwen2.5-3b's.  ``chip_smoke.register_parent`` skips a
+parent whose C interface it does not call (a K1/K4 entry without the
+moment-dtype code; a K3 already grouped).  Run it in a git checkout
 before copying the repository to the card's machine: the copy keeps
 ``build/`` but has no git history.
 """
