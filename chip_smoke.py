@@ -180,7 +180,35 @@ Phases (any failure raises and the script exits non-zero):
 28. serving steps of the smoke configs on the card and on the CPU from
     the same params (paged prefill, decode and chunk prefill for
     llama-60m, qwen2.5-3b, deepseek-67b; the dense ring-buffer decode for
-    gemma2-9b and gemma3-27b): logits within ``TOL_SERVE_SMOKE``.
+    gemma2-9b and gemma3-27b; qwen2-vl-72b through the dense path, the
+    MoE configs paged, in f32): logits within ``TOL_SERVE_SMOKE``;
+    phase 25 also trains the qwen2-vl-72b and MoE smoke configs;
+29. LoRA at full-width llama-60m on phase 26's checkpoint:
+    ``train.main --finetune lora --lora-rank 8 --base-ckpt``, 20 steps
+    GWT-2, f32 then int8 moments: K1 (int8: K2) exactly 4 a step at the
+    adapter buckets (``LORA_BUCKETS``: f32 adapters under the bf16
+    model's gradient, which the step casts to bf16), the base bitwise the
+    checkpoint's, the adapter state the JAX package's bytes; each adapter
+    bucket whole, K1 and K2 in every CASE, bitwise to the plain version;
+    ``launch.serve.main --ckpt`` on the fine-tune (merged at load from its
+    run metadata), and the engine's tokens equal dense ``generate`` on
+    ``lora.merge``'s weights up to a near tie; K1/K2 timed per adapter
+    bucket beside the bound;
+30. LoRA at qwen2.5-3b full width and depth from a random base, 5 steps:
+    K1 5 a step, step time, peak memory, adapter state bytes, the merge's
+    share of the step; the five adapter buckets held whole and timed;
+31. qwen2-vl-72b cut to 1 layer (every width published), 16 x 256, 5
+    steps through the launcher: K1's launches and designs, the attention
+    routes, the JAX package's state bytes, finite losses; every GWT bucket
+    of the cut (``gwt_buckets``) held whole, K1 in every CASE, bitwise to
+    the plain version;
+32. qwen2-moe-a2.7b and qwen3-moe-30b-a3b cut to 2 layers, the same (K2
+    too at every bucket of qwen3-moe); the expert buckets
+    (``EXPERT_BUCKETS``, checked against the plan) timed; the dropped
+    pairs a step and the aux loss read in a second run of the same steps
+    with ``moe_probe`` (the timed run has no probe); qwen3-moe again with
+    ``--state-codec int8`` (K2 by plan, the JAX package's state bytes)
+    and K2 timed at its expert buckets.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -273,22 +301,25 @@ def smi() -> str:
 
 
 def make_inputs(shape, seed, dev, level=LEVEL, dtype=torch.bfloat16,
-                mdtype=torch.float32):
-    """K1's inputs, the moments drawn in f32 and rounded to ``mdtype``."""
+                mdtype=torch.float32, pdtype=None):
+    """K1's inputs, g of ``dtype``, p of ``pdtype`` (``dtype`` where not
+    given), the moments drawn in f32 and rounded to ``mdtype``."""
     L, m, n = shape
     gen = torch.Generator(device=dev).manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=gen, device=dev)
     g = (r(L, m, n) * 0.01).to(dtype)
-    p = (r(L, m, n) * 0.02).to(dtype)
+    p = (r(L, m, n) * 0.02).to(pdtype or dtype)
     mm = r(L, m, n >> level) * 1e-3
     vv = torch.rand(L, m, n >> level, generator=gen, device=dev) * 1e-6
     return g, p, mm.to(mdtype), vv.to(mdtype)
 
 
-def make_q8_inputs(shape, seed, dev, level=LEVEL, dtype=torch.bfloat16):
+def make_q8_inputs(shape, seed, dev, level=LEVEL, dtype=torch.bfloat16,
+                   pdtype=None):
     """K1's inputs with the moments encoded by the port's codec."""
     from repro_torch.optim import codec
-    g, p, mm, vv = make_inputs(shape, seed, dev, level, dtype)
+    g, p, mm, vv = make_inputs(shape, seed, dev, level, dtype,
+                               pdtype=pdtype)
     L = shape[0]
     ids = torch.arange(L, device=dev)
     (qm, sm), (qv, sv) = (codec.quant_blocks(a.reshape(L, -1), ids + salt)
@@ -621,14 +652,16 @@ def time_ms(fn, iters):
     return start.elapsed_time(stop) / iters
 
 
-def bound(shape, esize=2, msize=4):
+def bound(shape, esize=2, msize=4, psize=None):
     """Least time for one launch: bytes that must move (read g, p, m, v,
-    prev_norm and the two scalars once; write p, m, v, new_norm once; the
-    moments ``msize`` bytes each: 4 in f32, 2 in bf16) over HBM bandwidth,
-    against the f32 operations over the f32 rate."""
+    prev_norm and the two scalars once; write p, m, v, new_norm once; g
+    ``esize`` bytes an element, p ``psize`` (``esize`` where not given),
+    the moments ``msize`` bytes each: 4 in f32, 2 in bf16) over HBM
+    bandwidth, against the f32 operations over the f32 rate."""
     L, m, n = shape
     N, NA, B = L * m * n, L * m * (n >> LEVEL), 1 << LEVEL
-    nbytes = 2 * N * esize + N * esize + 4 * NA * msize + 2 * L * 4 + 8
+    nbytes = 2 * N * (psize or esize) + N * esize + 4 * NA * msize \
+        + 2 * L * 4 + 8
     # per coefficient: forward and inverse butterflies 2*(4B-4), Adam and
     # the preconditioner 11, detail scaling B-1; per element: round and
     # square-sum 2, limit 1, step and write 2
@@ -638,8 +671,9 @@ def bound(shape, esize=2, msize=4):
         else "operations", nbytes
 
 
-def bound_q8(shape, esize=2):
-    """Least time for one K2 launch.  Bytes: read g; read and write p; read
+def bound_q8(shape, esize=2, psize=None):
+    """Least time for one K2 launch.  Bytes: read g (``esize`` bytes an
+    element); read and write p (``psize``, ``esize`` where not given); read
     and write both moments' int8 codes and their f32 scales; read prev_norm,
     the salts and the two scalars, write new_norm.  Operations: K1's f32
     work plus dequantization (2) and requantization (~9 per moment) in f32,
@@ -648,7 +682,8 @@ def bound_q8(shape, esize=2):
     L, m, n = shape
     N, NA, B = L * m * n, L * m * (n >> LEVEL), 1 << LEVEL
     nb = L * -(-(m * (n >> LEVEL)) // QBLOCK)
-    nbytes = 3 * N * esize + 2 * 2 * NA + 2 * 2 * nb * 4 + 4 * L * 4 + 8
+    nbytes = N * esize + 2 * N * (psize or esize) + 2 * 2 * NA \
+        + 2 * 2 * nb * 4 + 4 * L * 4 + 8
     f32_ops = NA * (2 * (4 * B - 4) + 11 + (B - 1) + 2 + 2 * 9) + N * 5
     int_ops = NA * 2 * 10
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -2392,6 +2427,8 @@ def run_corpus_path(train, kernel, hk, dev, synthetic, card):
 # ``ops._rows`` feeds them, in plan order; the stacked QKV biases are GWT
 # leaves in the JAX package, and so in the port.
 DENSE_ARCHS = ("qwen2.5-3b", "gemma2-9b", "gemma3-27b", "deepseek-67b")
+# phase 25 also trains the M-RoPE and MoE smoke configs
+NEW_ARCHS = ("qwen2-vl-72b", "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b")
 QWEN_BUCKETS = [("ffn.w_down", (1, 396288, 2048)),
                 ("ffn.w_gate (w_gate, w_up)", (2, 73728, 11008)),
                 ("mixer.bk (bk, bv)", (2, 36, 256)),
@@ -2456,9 +2493,10 @@ def gwt_buckets(cfg):
     return gwt_b, other
 
 
-def one_pass(kernel, shape, dtype, q8=False) -> bool:
+def one_pass(kernel, shape, dtype, q8=False, pdtype=None) -> bool:
     lib = "gwt_adam_fused_q8" if q8 else "gwt_adam_fused"
-    return kernel.one_pass_plan(lib, shape, dtype, LEVEL)["grid"] > 0
+    return kernel.one_pass_plan(lib, shape, dtype, LEVEL,
+                                pdtype=pdtype)["grid"] > 0
 
 
 def fused_plan_counts(kernel, cfg, steps, q8=False):
@@ -2826,12 +2864,13 @@ def gwt_state_bytes(cfg) -> int:
 
 
 def check_dense_small_training(dev):
-    """Phase 25: each dense SMOKE config, f32 and as published (bf16),
+    """Phase 25: each dense, M-RoPE and MoE SMOKE config, f32 and as
+    published (bf16),
     3 GWT-2 steps on the card and on the CPU from the same parameters and
     batches (seq 64: the local layers take the block-local route)."""
     from repro_torch import configs
     out = {}
-    for arch in DENSE_ARCHS:
+    for arch in DENSE_ARCHS + NEW_ARCHS:
         for dtype in TOL_SMOKE_LOSS:
             cfg = configs.get_smoke(arch).with_(dtype=dtype)
             out[f"{arch} {dtype}"] = small_training(
@@ -3272,10 +3311,10 @@ def serve_cell(arch, cfg, params, make_engine, kernel, hk, dev, statics):
             "paged_vs_dense": summary, "near_tie_divergences": near}
 
 
-def run_serve_roundtrip(train, kernel, hk, dev):
+def run_serve_roundtrip(train, kernel, hk, dev, d):
     """Phase 26: the launcher trains full-width llama-60m GWT-2 f32 for 20
-    steps (K1 exactly 3 a step, one pass) and checkpoints; the serve
-    launcher serves the checkpoint; then the engine from the same
+    steps (K1 exactly 3 a step, one pass) and checkpoints into ``d``; the
+    serve launcher serves the checkpoint; then the engine from the same
     checkpoint, bf16 and int8 pages, continuous and static, against the
     dense path from the same restored params."""
     from repro_torch import configs
@@ -3285,46 +3324,46 @@ def run_serve_roundtrip(train, kernel, hk, dev):
     from repro_torch.optim.base import flatten_with_paths
     from repro_torch.serve.engine import Engine
     spec = SERVE_SPECS["llama-60m"]
-    with tempfile.TemporaryDirectory() as d:
-        reset_counts(kernel, hk)
-        t0 = time.perf_counter()
-        res = train.main(MAIN_ARGS + ["--ckpt-dir", d, "--ckpt-every",
-                                      str(STEPS)])
-        train_s = time.perf_counter() - t0
-        counts = all_counts(kernel, hk)
-        want = {k: 0 for k in counts}
-        want.update(fused_counts(k1=3 * STEPS))
-        if counts != want:
-            raise AssertionError(f"serve round trip training launched "
-                                 f"{counts}, want {want}")
-        trained = [t.detach().clone() for t in
-                   flatten_with_paths(res.params)[1]]
-        del res
-        argv = ["--arch", "llama-60m", "--ckpt", d, "--requests",
-                str(spec["requests"]), "--prompt-len", str(spec["prompt"]),
-                "--gen", str(spec["gen"]), "--num-slots", str(SERVE_SLOTS),
-                "--page-size", str(SERVE_PAGE), "--prefill-chunk",
-                str(SERVE_CHUNK)]
-        reset_counts(kernel, hk)
-        t0 = time.perf_counter()
-        launcher = serve.main(argv)
-        print(f"serve round trip: training {train_s:.1f} s, serve.main "
-              f"{time.perf_counter() - t0:.1f} s")
-        if any(all_counts(kernel, hk).values()):
-            raise AssertionError(f"serve.main launched {all_counts(kernel, hk)}")
-        if launcher["kv_arena_bytes"] != KV_BYTES["llama-60m", None]:
-            raise AssertionError(f"serve.main kv bytes "
-                                 f"{launcher['kv_arena_bytes']}")
-        cfg = configs.get_config("llama-60m")
-        make = lambda ecfg: Engine.from_checkpoint(cfg, d, ecfg, device=dev)
-        params, _ = CheckpointManager(d).restore_params(
-            None, lm.abstract_params(cfg), device=dev)
-        for a, b in zip(flatten_with_paths(params)[1], trained):
-            if not torch.equal(a, b):
-                raise AssertionError("restored params differ from trained")
-        del trained
-        out = serve_cell("llama-60m", cfg, params, make, kernel, hk, dev,
-                         (False, True))
+    # ``d`` outlives the phase: phase 29 fine-tunes its checkpoint
+    reset_counts(kernel, hk)
+    t0 = time.perf_counter()
+    res = train.main(MAIN_ARGS + ["--ckpt-dir", d, "--ckpt-every",
+                                  str(STEPS)])
+    train_s = time.perf_counter() - t0
+    counts = all_counts(kernel, hk)
+    want = {k: 0 for k in counts}
+    want.update(fused_counts(k1=3 * STEPS))
+    if counts != want:
+        raise AssertionError(f"serve round trip training launched "
+                             f"{counts}, want {want}")
+    trained = [t.detach().clone() for t in
+               flatten_with_paths(res.params)[1]]
+    del res
+    argv = ["--arch", "llama-60m", "--ckpt", d, "--requests",
+            str(spec["requests"]), "--prompt-len", str(spec["prompt"]),
+            "--gen", str(spec["gen"]), "--num-slots", str(SERVE_SLOTS),
+            "--page-size", str(SERVE_PAGE), "--prefill-chunk",
+            str(SERVE_CHUNK)]
+    reset_counts(kernel, hk)
+    t0 = time.perf_counter()
+    launcher = serve.main(argv)
+    print(f"serve round trip: training {train_s:.1f} s, serve.main "
+          f"{time.perf_counter() - t0:.1f} s")
+    if any(all_counts(kernel, hk).values()):
+        raise AssertionError(f"serve.main launched {all_counts(kernel, hk)}")
+    if launcher["kv_arena_bytes"] != KV_BYTES["llama-60m", None]:
+        raise AssertionError(f"serve.main kv bytes "
+                             f"{launcher['kv_arena_bytes']}")
+    cfg = configs.get_config("llama-60m")
+    make = lambda ecfg: Engine.from_checkpoint(cfg, d, ecfg, device=dev)
+    params, _ = CheckpointManager(d).restore_params(
+        None, lm.abstract_params(cfg), device=dev)
+    for a, b in zip(flatten_with_paths(params)[1], trained):
+        if not torch.equal(a, b):
+            raise AssertionError("restored params differ from trained")
+    del trained
+    out = serve_cell("llama-60m", cfg, params, make, kernel, hk, dev,
+                     (False, True))
     out["launcher"] = launcher
     return out
 
@@ -3397,8 +3436,11 @@ def serve_smoke_card_vs_cpu(dev):
 
     out = {}
     for arch in ("llama-60m", "qwen2.5-3b", "deepseek-67b", "gemma2-9b",
-                 "gemma3-27b"):
+                 "gemma3-27b", "qwen2-vl-72b", "qwen2-moe-a2.7b",
+                 "qwen3-moe-30b-a3b"):
         cfg = configs.get_smoke(arch)
+        if cfg.n_experts:
+            cfg = cfg.with_(dtype="float32")
         unit, tol = TOL_SERVE_SMOKE[cfg.dtype]
         base = lm.init(cfg, torch.Generator().manual_seed(0), "cpu").tree()
         paths, leaves = flatten_with_paths(base)
@@ -3407,7 +3449,8 @@ def serve_smoke_card_vs_cpu(dev):
         for device in ("cpu", dev):
             p = unflatten(paths, [l.detach().to(device) for l in leaves])
             T = lambda a, _d=device: torch.tensor(np.asarray(a), device=_d)
-            logs[str(device)] = dense_calls(cfg, p, toks, T) if cfg.window \
+            logs[str(device)] = dense_calls(cfg, p, toks, T) \
+                if cfg.window or cfg.mrope_sections \
                 else paged_calls(cfg, p, toks, T, device)
         errs = [spacing_err(g.float().cpu(), w.float(), unit)
                 for g, w in zip(logs[str(dev)], logs["cpu"])]
@@ -3417,6 +3460,458 @@ def serve_smoke_card_vs_cpu(dev):
             raise AssertionError(f"{arch} smoke: card vs CPU {max(errs)} "
                                  f"{unit} spacings > {tol}")
         out[arch] = max(errs)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 29-32: LoRA fine-tuning and merged serving, M-RoPE at qwen2-vl-72b,
+# the MoE configs
+# ---------------------------------------------------------------------------
+
+LORA_RANK, LORA_ALPHA = 8, 16.0
+# the JAX package's engine.state_bytes of the launcher's LoRA (rank 8,
+# GWT-2) at full width, per codec (tests/test_torch_lora.py)
+LORA_STATE_BYTES = {("llama-60m", "f32"): 1_249_340,
+                    ("llama-60m", "int8"): 331_904,
+                    ("qwen2.5-3b", "f32"): 29_933_628}
+# the adapter buckets K1 and K2 take (f32 p; bf16 g, the model dtype the
+# step casts the gradients to), rows merged, in plan order
+LORA_BUCKETS = {"llama-60m": [(1, 11008, 8), (5, 64, 512), (6, 4096, 8),
+                              (2, 64, 1376)],
+                "qwen2.5-3b": [(1, 396288, 8), (3, 288, 2048),
+                               (6, 73728, 8), (2, 288, 11008),
+                               (2, 288, 256)]}
+LORA_SERVE = {"requests": 8, "prompt": 128, "gen": 32}
+# phases 31-32: (arch, layers, batch, seq, the JAX package's GWT-2 state
+# bytes at that depth).  Every width is the published one; only depth is
+# cut, to fit one card: qwen2-vl-72b's 8192 width, 29,568 d_ff and untied
+# 152,064 vocab at 1 layer, the MoE configs at 2
+NEW_CUTS = [("qwen2-vl-72b", 1, 16, 256, 21_686_865_964),
+            ("qwen2-moe-a2.7b", 2, 16, 256, 4_911_505_464),
+            ("qwen3-moe-30b-a3b", 2, 16, 256, 7_474_335_776)]
+# phase 32's int8 run: the JAX package's state bytes of GWT-2 with blocked
+# int8 moments at the 2-layer cut (tests/test_torch_dense.py)
+INT8_CUTS = {"qwen3-moe-30b-a3b": 1_985_370_468}
+# the expert buckets of the MoE cuts (bf16), found in the plan and timed;
+# steps of the second, probed run that reads drops and the aux loss
+EXPERT_BUCKETS = {"qwen3-moe-30b-a3b": [(2, 524288, 768),
+                                        (1, 196608, 2048)],
+                  "qwen2-moe-a2.7b": [(2, 262144, 1408),
+                                      (1, 180224, 2048)]}
+PROBE_STEPS = CUT_STEPS
+
+
+def lora_argv(base, codec, ckpt=None, arch="llama-60m", steps=STEPS):
+    argv = ["--arch", arch, "--steps", str(steps), "--batch", "16",
+            "--seq", "256", "--log-every", "5" if steps >= 10 else "1",
+            "--seed", "0",
+            "--finetune", "lora", "--lora-rank", str(LORA_RANK),
+            "--lora-alpha", str(LORA_ALPHA), "--state-codec", codec]
+    if base:
+        argv += ["--base-ckpt", base]
+    if ckpt:
+        argv += ["--ckpt-dir", ckpt, "--ckpt-every", str(steps)]
+    return argv
+
+
+def lora_plan(kernel, arch, q8):
+    """The adapter buckets of the launcher's LoRA tree on ``arch`` (checked
+    against LORA_BUCKETS) and K1's (``q8``: K2's) counters a step."""
+    from repro_torch import configs, optim
+    from repro_torch.models import lm, lora
+    from repro_torch.optim.base import flatten_with_paths
+    tree = lora.inject(lm.abstract_params(configs.get_config(arch)),
+                       LORA_RANK, (0, 0))
+    shapes = dict(zip(*flatten_with_paths(tree)))
+    opt = lora.wrap_optimizer(optim.make("gwt", lr=0.01))
+    got = []
+    for b in opt.engine.plan(tree).buckets:
+        s = tuple(shapes[b.paths[0]].shape)
+        if b.name.startswith("gwt"):
+            got.append((len(b.paths), math.prod(s[:-1]), s[-1]))
+        elif not b.name.startswith("frozen__base."):
+            raise AssertionError(f"{arch} LoRA: bucket {b.name}")
+    if got != LORA_BUCKETS[arch]:
+        raise AssertionError(f"{arch} LoRA buckets {got}")
+    ones = sum(one_pass(kernel, s, configs.get_config(arch).torch_dtype, q8,
+                        pdtype=torch.float32) for s in got)
+    k = "K2" if q8 else "K1"
+    return {k: len(got), f"{k} one-pass": ones,
+            f"{k} two-pass": len(got) - ones}
+
+
+def check_buckets_whole(kernel, ref, dev, label, shapes, dtype, kernels,
+                        pdtype=None):
+    """Each bucket of ``shapes`` (``dtype`` g, ``pdtype`` p: ``dtype``
+    where not given) whole, in every CASE: two kernel runs bitwise to each
+    other and to the plain version, K1 with each moment dtype of
+    ``kernels`` (None: K2)."""
+    for shape in shapes:
+        t0 = time.perf_counter()
+        for mdtype in kernels:
+            q8 = mdtype is None
+            for ci, case in enumerate(CASES):
+                _, use_lim, prev, wd = case
+                L = shape[0]
+                sd = seed(ci, shape[2], LEVEL, 1)
+                ss = torch.tensor(1e-3, device=dev)
+                pn = torch.full((L,), prev, device=dev)
+                wd_coef = torch.tensor(wd, device=dev)
+                kw = dict(level=LEVEL, gamma=1.01, use_limiter=use_lim,
+                          weight_decay=wd != 0)
+                before = kernel.launches_q8 if q8 else kernel.launches
+                if q8:
+                    g, *st = make_q8_inputs(shape, sd, dev, dtype=dtype,
+                                            pdtype=pdtype)
+                    salts = q8_salts(L, dev)
+                    us = [t.to(torch.uint32) for t in salts]
+                    want = ref.gwt_adam_fused_q8(g, *st, *salts, pn, ss,
+                                                 wd_coef, block=QBLOCK, **kw)
+                    runs = [kernel.gwt_adam_fused_q8(
+                        g, *(t.clone() for t in st), *us, pn, ss, wd_coef,
+                        block=QBLOCK, **kw) for _ in range(2)]
+                    names = ("p", "qm", "sm", "qv", "sv", "norm")
+                else:
+                    g, *st = make_inputs(shape, sd, dev, dtype=dtype,
+                                         mdtype=mdtype, pdtype=pdtype)
+                    want = ref.gwt_adam_fused(g, *st, pn, ss, wd_coef, **kw)
+                    runs = [kernel.gwt_adam_fused(
+                        g, *(t.clone() for t in st), pn, ss, wd_coef, **kw)
+                        for _ in range(2)]
+                    names = ("p", "m", "v", "norm")
+                torch.cuda.synchronize()
+                after = kernel.launches_q8 if q8 else kernel.launches
+                if after - before != 2:
+                    raise AssertionError(f"{label} {shape}: {after - before}"
+                                         f" launches for two calls")
+                check_bands(f"{label} {shape} "
+                            f"{'K2' if q8 else f'K1 {mdtype}'} / {case[0]}",
+                            runs, want, names)
+                del runs, want, g, st
+        print(f"{label} bucket {shape} g {dtype} p {pdtype or dtype} "
+              f"({math.prod(shape)} elements, "
+              f"{'one' if one_pass(kernel, shape, dtype, pdtype=pdtype) else 'two'}"
+              f"-pass design): {len(CASES)} cases x "
+              f"{[str(m) if m else 'K2' for m in kernels]}, two runs and the "
+              f"plain version bitwise ({time.perf_counter() - t0:.1f} s)")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def time_buckets(kernel, ref, dev, label, shapes, dtype, q8=False,
+                 pdtype=None):
+    """K1's (``q8``: K2's) device time per launch at each bucket of
+    ``dtype`` g and ``pdtype`` p (``dtype`` where not given; CUDA events,
+    L2 flushed, best of two runs of 10), the plain version's, the bound;
+    one launch a step each."""
+    rows = []
+    flush = torch.empty(64 << 20, device=dev)
+    ss, wd = torch.tensor(1e-3, device=dev), torch.tensor(0.0, device=dev)
+    kw = dict(level=LEVEL, gamma=1.01, use_limiter=True, weight_decay=False)
+    esize = torch.empty((), dtype=dtype).element_size()
+    psize = torch.empty((), dtype=pdtype or dtype).element_size()
+    for shape in shapes:
+        pn = torch.full((shape[0],), 1e9, device=dev)
+        if q8:
+            inputs = make_q8_inputs(shape, 7, dev, dtype=dtype,
+                                    pdtype=pdtype)
+            salts = q8_salts(shape[0], dev)
+            us = [t.to(torch.uint32) for t in salts]
+            call = lambda: kernel.gwt_adam_fused_q8(
+                *inputs, *us, pn, ss, wd, block=QBLOCK, **kw)
+            plain = lambda: ref.gwt_adam_fused_q8(
+                *inputs, *salts, pn, ss, wd, block=QBLOCK, **kw)
+            counter = lambda: kernel.launches_q8
+            b_ms, b_by, nbytes = bound_q8(shape, esize, psize)
+        else:
+            inputs = make_inputs(shape, 7, dev, dtype=dtype, pdtype=pdtype)
+            call = lambda: kernel.gwt_adam_fused(*inputs, pn, ss, wd, **kw)
+            plain = lambda: ref.gwt_adam_fused(*inputs, pn, ss, wd, **kw)
+            counter = lambda: kernel.launches
+            b_ms, b_by, nbytes = bound(shape, esize, psize=psize)
+        t_dev = min(device_ms(call, 10, counter, flush) for _ in range(2))
+        t_plain = time_ms(plain, 1)
+        row = {"bucket": f"{label} {list(shape)}", "shape": list(shape),
+               "per_step": 1, "ms": t_dev, "plain_ms": t_plain,
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+               "design": "one" if one_pass(kernel, shape, dtype, q8, pdtype)
+               else "two"}
+        print(f"{'K2' if q8 else 'K1'} time {label} {shape} g {dtype} p "
+              f"{pdtype or dtype}: "
+              f"{row['design']}-pass {t_dev:.4f} ms on the device "
+              f"({b_ms / t_dev:.1%} of bound {b_ms:.4f} ms by {b_by}); plain "
+              f"{t_plain:.4f} ms")
+        rows.append(row)
+        del inputs, call, plain
+        torch.cuda.empty_cache()
+    return rows
+
+
+def lora_finetune(train, kernel, hk, label, argv, arch, codec, steps):
+    """One ``--finetune lora`` run of the launcher, the counts set to 0
+    just before and read just after: K1 (int8: K2) exactly once per
+    adapter bucket a step, in the designs the plan names; the state the
+    JAX package's bytes; the base bitwise as restored (or as drawn)."""
+    from repro_torch.optim.engine import state_bytes
+    q8 = codec == "int8"
+    per_step = lora_plan(kernel, arch, q8)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernel, hk)
+    t0 = time.perf_counter()
+    res = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = all_counts(kernel, hk)
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in counts}
+    want.update({k: v * steps for k, v in per_step.items()})
+    if counts != want:
+        raise AssertionError(f"{label}: launched {counts}, want {want}")
+    nbytes = state_bytes(res.opt_state)
+    if nbytes != LORA_STATE_BYTES[arch, codec]:
+        raise AssertionError(f"{label}: state {nbytes} B, the JAX package "
+                             f"counts {LORA_STATE_BYTES[arch, codec]}")
+    if not np.all(np.isfinite(res.losses)):
+        raise AssertionError(f"{label}: losses {res.losses}")
+    print(f"{label}: {steps} steps in {wall:.2f} s, losses {res.losses}, "
+          f"step {res.step_ms:.2f} ms, peak {peak / 2**20:.1f} MiB, adapter "
+          f"state {nbytes} B, launches {counts}")
+    return res, {"arch": arch, "codec": codec, "steps": steps,
+                 "losses": res.losses, "step_ms": res.step_ms,
+                 "peak_mib": peak / 2**20, "state_bytes": nbytes,
+                 "launches": {k: v for k, v in counts.items() if v},
+                 "wall_s": wall}
+
+
+def run_lora_roundtrip(train, kernel, hk, ref, dev, base):
+    """Phase 29: LoRA on phase 26's 20-step llama-60m checkpoint ``base``:
+    ``--finetune lora`` 20 steps GWT-2, f32 then int8 moments (K1, K2 4 a
+    step at the f32 adapter buckets, held whole against the plain
+    version); the base bitwise the checkpoint's after the run; the state
+    the JAX package's bytes; then ``launch.serve.main --ckpt`` on the
+    fine-tune (merged at load from its run metadata) and the engine's
+    tokens against dense ``generate`` on ``lora.merge`` of the restored
+    tree, up to a near tie."""
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import serve
+    from repro_torch.launch.serve import build_workload
+    from repro_torch.models import lm, lora
+    from repro_torch.optim.base import flatten_with_paths
+    from repro_torch.serve.engine import Engine, EngineConfig
+    cfg = configs.get_config("llama-60m")
+    base_params, _ = CheckpointManager(base).restore_params(
+        None, lm.abstract_params(cfg), device=dev)
+    out = {}
+    ft = tempfile.mkdtemp(prefix="chip_smoke_lora_")
+    try:
+        for codec in ("f32", "int8"):
+            res, summary = lora_finetune(
+                train, kernel, hk, f"phase 29 llama-60m LoRA {codec}",
+                lora_argv(base, codec, ft if codec == "f32" else None),
+                "llama-60m", codec, STEPS)
+            for (p, a), b in zip(zip(*flatten_with_paths(res.params["base"])),
+                                 flatten_with_paths(base_params)[1]):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"LoRA {codec}: base {p} moved")
+            out[codec] = summary
+            del res
+        check_buckets_whole(kernel, ref, dev, "LoRA llama-60m",
+                            LORA_BUCKETS["llama-60m"], cfg.torch_dtype,
+                            (torch.float32, None), pdtype=torch.float32)
+        reset_counts(kernel, hk)
+        spec = LORA_SERVE
+        argv = ["--arch", "llama-60m", "--ckpt", ft, "--requests",
+                str(spec["requests"]), "--prompt-len", str(spec["prompt"]),
+                "--gen", str(spec["gen"]), "--num-slots", str(SERVE_SLOTS),
+                "--page-size", str(SERVE_PAGE), "--prefill-chunk",
+                str(SERVE_CHUNK)]
+        out["serve_launcher"] = serve.main(argv)
+        tree, _ = CheckpointManager(ft).restore_params(
+            None, lora.inject(lm.abstract_params(cfg), LORA_RANK, (0, 0)),
+            device=dev)
+        merged = lora.merge(tree, LORA_ALPHA, LORA_RANK)
+        moved = sum(not torch.equal(a, b) for a, b in zip(
+            flatten_with_paths(merged)[1], flatten_with_paths(base_params)[1]))
+        ecfg = EngineConfig(num_slots=SERVE_SLOTS, page_size=SERVE_PAGE,
+                            max_ctx=spec["prompt"] + spec["gen"],
+                            prefill_chunk=SERVE_CHUNK)
+        eng = Engine.from_checkpoint(cfg, ft, ecfg, device=dev)
+        for (p, a), b in zip(zip(*flatten_with_paths(eng.params)),
+                             flatten_with_paths(merged)[1]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"served {p} is not lora.merge's")
+        reqs = build_workload(spec["requests"], cfg.vocab, spec["prompt"],
+                              spec["gen"], 0.0, seed=1)
+        eng.run(reqs)
+        if any(all_counts(kernel, hk).values()):
+            raise AssertionError(f"LoRA serving launched "
+                                 f"{all_counts(kernel, hk)}")
+        dense = {}
+        for r in reqs:
+            toks, logits = dense_pass(cfg, merged, list(r.prompt),
+                                      r.max_gen, dev)
+            top2 = logits.topk(2, dim=-1).values
+            dense[r.rid] = (toks, (top2[:, 0] - top2[:, 1]).tolist(),
+                            float(np.spacing(np.float32(
+                                logits.abs().max().item()))) * 2 ** 16)
+        near = check_against_dense("LoRA llama-60m served", reqs, dense,
+                                   TOL_SERVE_BF16_SPACINGS)
+        print(f"phase 29: the fine-tune merged at load moves {moved} "
+              f"leaves; {len(reqs)} requests served equal dense generate "
+              f"on lora.merge's weights up to {len(near)} near-tie "
+              f"divergences")
+        out.update(merged_leaves_moved=moved, near_tie_divergences=near)
+    finally:
+        shutil.rmtree(ft, ignore_errors=True)
+    out["k1_adapter_buckets"] = time_buckets(
+        kernel, ref, dev, "LoRA llama-60m", LORA_BUCKETS["llama-60m"],
+        cfg.torch_dtype, pdtype=torch.float32)
+    out["k2_adapter_buckets"] = time_buckets(
+        kernel, ref, dev, "LoRA llama-60m", LORA_BUCKETS["llama-60m"],
+        cfg.torch_dtype, q8=True, pdtype=torch.float32)
+    return out
+
+
+def run_lora_qwen(train, kernel, hk, ref, dev):
+    """Phase 30: LoRA at qwen2.5-3b full width and depth, a random-init
+    base, 5 steps: step time, peak memory, adapter state bytes; the
+    merge's share of the step (``lora.merge`` of the run's tree timed
+    alone); K1 at the adapter buckets timed and held whole."""
+    from repro_torch.models import lora
+    res, out = lora_finetune(train, kernel, hk, "phase 30 qwen2.5-3b LoRA",
+                             lora_argv(None, "f32", arch="qwen2.5-3b",
+                                       steps=CUT_STEPS),
+                             "qwen2.5-3b", "f32", CUT_STEPS)
+    tree = res.params
+    del res
+    with torch.no_grad():
+        merge_ms = time_ms(lambda: lora.merge(tree, LORA_ALPHA, LORA_RANK),
+                           3)
+    out["merge_ms"] = merge_ms
+    out["merge_share"] = merge_ms / out["step_ms"]
+    print(f"phase 30: lora.merge alone {merge_ms:.2f} ms = "
+          f"{out['merge_share']:.1%} of the {out['step_ms']:.2f} ms step "
+          f"(the step merges once in the forward)")
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_buckets_whole(kernel, ref, dev, "LoRA qwen2.5-3b",
+                        LORA_BUCKETS["qwen2.5-3b"], torch.bfloat16,
+                        (torch.float32,), pdtype=torch.float32)
+    out["k1_adapter_buckets"] = time_buckets(
+        kernel, ref, dev, "LoRA qwen2.5-3b", LORA_BUCKETS["qwen2.5-3b"],
+        torch.bfloat16, pdtype=torch.float32)
+    return out
+
+
+@contextlib.contextmanager
+def moe_probe():
+    """Collects each MoE call's dropped pairs and aux loss (device
+    scalars, read after the run: no sync in the step)."""
+    from repro_torch.models import moe
+    seen = {"dropped": [], "pairs": [], "aux": []}
+    route, dense = moe.route, moe._moe_dense
+
+    def counted_route(probs, cfg):
+        out = route(probs, cfg)
+        seen["dropped"].append((out[2] == out[3]).sum().detach())
+        seen["pairs"].append(out[2].numel())
+        return out
+
+    def counted_dense(p, cfg, x):
+        y, aux = dense(p, cfg, x)
+        seen["aux"].append(aux.detach())
+        return y, aux
+
+    moe.route, moe._moe_dense = counted_route, counted_dense
+    try:
+        yield seen
+    finally:
+        moe.route, moe._moe_dense = route, dense
+
+
+def moe_stats(train, arch, argv, layers, cfg):
+    """Dropped pairs and the aux loss of the MoE layers over PROBE_STEPS
+    launcher steps with ``moe_probe``, a run apart from the timed one (the
+    probe adds a device reduction at every routing)."""
+    argv = list(argv)
+    argv[argv.index("--steps") + 1] = str(PROBE_STEPS)
+    with depth_cut(arch, layers), moe_probe() as seen:
+        train.main(argv)
+        torch.cuda.synchronize()
+    # the backward's recompute (remat) routes the same tokens again but
+    # stops before the aux (the checkpoint stops once it has what the
+    # backward needs): drops are averaged over every routing, the aux over
+    # the forward's
+    routes = len(seen["dropped"])
+    dropped = torch.stack(seen["dropped"]).cpu().numpy()
+    aux = torch.stack(seen["aux"]).float().cpu().numpy()
+    out = dict(moe_probe_steps=PROBE_STEPS, moe_routings=routes,
+               moe_aux_calls=len(aux),
+               dropped_per_step=float(dropped.sum()) * layers / routes,
+               routed_pairs_per_call=seen["pairs"][0],
+               aux_mean=float(aux.mean()), aux_last=float(aux[-1]),
+               capacity_factor=cfg.capacity_factor)
+    print(f"{arch}: {routes} routings ({len(aux)} forward) in "
+          f"{PROBE_STEPS} probed steps, {out['dropped_per_step']:.1f} of "
+          f"{seen['pairs'][0] * layers} routed pairs dropped a step at "
+          f"capacity factor {cfg.capacity_factor}, aux loss mean "
+          f"{out['aux_mean']:.4f} (last {out['aux_last']:.4f})")
+    del seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_new_cuts(train, kernel, hk, ref, dev):
+    """Phases 31 and 32: qwen2-vl-72b at 1 layer and the MoE configs at 2,
+    full width, 16 x 256, CUT_STEPS steps each through the launcher
+    (``run_dense``: K1's launches and designs, the attention routes, the
+    JAX package's state bytes, finite losses and parameters); every GWT
+    bucket of each cut held whole against the plain version (K2 too where
+    the cut also runs int8); the MoE runs also report dropped pairs and
+    the aux loss per layer call (``moe_stats``) and time their expert
+    buckets."""
+    out = []
+    for arch, layers, batch, seq, nbytes in NEW_CUTS:
+        argv = ["--arch", arch, "--steps", str(CUT_STEPS), "--batch",
+                str(batch), "--seq", str(seq), "--log-every", "1",
+                "--seed", "0"]
+        with depth_cut(arch, layers) as cfg:
+            res = run_dense(train, kernel, hk, arch, argv, cfg, CUT_STEPS,
+                            nbytes, seq)
+        res.update(batch=batch, seq=seq)
+        buckets, _ = gwt_buckets(cfg)
+        shapes = [s for _, s in buckets]
+        check_buckets_whole(
+            kernel, ref, dev, f"{arch} cut", shapes, cfg.torch_dtype,
+            (torch.float32, None) if arch in INT8_CUTS else (torch.float32,))
+        res["buckets_held_whole"] = [list(s) for s in shapes]
+        if cfg.n_experts:
+            missing = [s for s in EXPERT_BUCKETS[arch] if s not in shapes]
+            if missing:
+                raise AssertionError(f"{arch}: expert buckets {missing} not "
+                                     f"in the plan {shapes}")
+            res.update(moe_stats(train, arch, argv, layers, cfg))
+            res["k1_expert_buckets"] = time_buckets(
+                kernel, ref, dev, f"{arch} experts", EXPERT_BUCKETS[arch],
+                torch.bfloat16)
+            if arch in INT8_CUTS:
+                # K2 on a main path at the expert buckets
+                with depth_cut(arch, layers) as cfg8:
+                    res["int8"] = run_dense(
+                        train, kernel, hk, arch,
+                        argv + ["--state-codec", "int8"], cfg8, CUT_STEPS,
+                        INT8_CUTS[arch], seq, q8=True)
+                res["k2_expert_buckets"] = time_buckets(
+                    kernel, ref, dev, f"{arch} experts",
+                    EXPERT_BUCKETS[arch], torch.bfloat16, q8=True)
+        out.append(res)
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3519,11 +4014,23 @@ def main() -> int:
     flash = check_flash(train, kernel, hk, dev)
     dense_small = check_dense_small_training(dev)
     t_serve = time.perf_counter()
-    serving = {"llama-60m": run_serve_roundtrip(train, kernel, hk, dev),
+    base_ckpt = tempfile.mkdtemp(prefix="chip_smoke_base_")
+    serving = {"llama-60m": run_serve_roundtrip(train, kernel, hk, dev,
+                                                base_ckpt),
                "qwen2.5-3b": run_serve_qwen(kernel, hk, dev),
                "smoke_card_vs_cpu_spacings": serve_smoke_card_vs_cpu(dev),
                "phases_s": time.perf_counter() - t_serve}
     print(f"serving phases 26-28: {serving['phases_s']:.1f} s; the script "
+          f"so far {time.perf_counter() - t0:.1f} s")
+    t_new = time.perf_counter()
+    try:
+        lora_llama = run_lora_roundtrip(train, kernel, hk, ref, dev,
+                                        base_ckpt)
+    finally:
+        shutil.rmtree(base_ckpt, ignore_errors=True)
+    lora_qwen = run_lora_qwen(train, kernel, hk, ref, dev)
+    new_cuts = run_new_cuts(train, kernel, hk, ref, dev)
+    print(f"phases 29-32: {time.perf_counter() - t_new:.1f} s; the script "
           f"so far {time.perf_counter() - t0:.1f} s")
     print(f"staged step vs fused step (same call): launcher-equivalent "
           f"loop {staged32['step_ms']:.2f} vs {res32.step_ms:.2f} ms; "
@@ -3553,7 +4060,9 @@ def main() -> int:
                            "qwen2.5-3b_per_launch": rows_qwen,
                            "depth_cuts": cuts, "flash": flash,
                            "smoke_card_vs_cpu": dense_small},
-                    serving=serving),
+                    serving=serving,
+                    lora={"llama-60m": lora_llama, "qwen2.5-3b": lora_qwen},
+                    mrope_moe_cuts=new_cuts),
         fused_entry("gwt_adam_fused_q8",
                     "gwt_adam/csrc/gwt_adam_fused_q8.cu",
                     "src/repro/kernels/gwt_adam/kernel.py:554",
@@ -3563,7 +4072,10 @@ def main() -> int:
                     embedding_wrap_ms={
                         "decode": wrap_dec, "encode": wrap_enc},
                     dense={"qwen2.5-3b int8": qwen8,
-                           "qwen2.5-3b_per_launch": rows_qwen8}),
+                           "qwen2.5-3b_per_launch": rows_qwen8},
+                    lora_int8={"llama-60m": lora_llama["int8"],
+                               "adapter_buckets":
+                               lora_llama["k2_adapter_buckets"]}),
         group_entry("haar_dwt_fwd_q",
                     "src/repro/kernels/haar_dwt/kernel.py:124",
                     dp_counts["K3"], err_haar, rows_haar["K3 bf16"],

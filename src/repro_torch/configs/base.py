@@ -1,7 +1,8 @@
 """``ModelConfig``: the architecture dataclass (counterpart of
 ``repro/configs/base.py``, whose module imports JAX).  The fields of the
-dense decoders are kept, with the reference's defaults; the MoE, SSM,
-M-RoPE and encoder-decoder fields wait for those substrates."""
+dense decoders, the MoE and M-RoPE are kept, with the reference's defaults;
+the SSM and encoder-decoder fields wait for those substrates (ROADMAP
+Queue 1 items 5.4-5.6)."""
 
 from __future__ import annotations
 
@@ -23,9 +24,19 @@ class ModelConfig:
     d_ff: int
     vocab: int
     # layer-kind pattern for ONE period; the port builds "attn" and
-    # "attn_local" (sliding window) blocks
+    # "attn_local" (sliding window) blocks, and with the "+moe" suffix the
+    # MoE FFN in place of the MLP
     pattern: Tuple[str, ...] = ("attn",)
     family: str = "dense"
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+    # pad the expert WEIGHT arrays to n_experts + padding (the router
+    # stays at n_experts; padded experts are never routed)
+    expert_padding: int = 0
     # attention details
     window: int = 0                      # sliding window for attn_local
     attn_softcap: float = 0.0            # gemma-2 logit soft-capping
@@ -33,6 +44,7 @@ class ModelConfig:
     qkv_bias: bool = False
     qk_norm: bool = False
     rope_theta: float = 1e4
+    mrope_sections: Tuple[int, ...] = ()  # qwen2-vl M-RoPE (t,h,w) split
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"

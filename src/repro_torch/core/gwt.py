@@ -125,15 +125,19 @@ def gwt(lr: Schedule | float,
         return inv(precond_a, tilde_d), lr_mult, hstate
 
     def _apply(p, delta, lr_t, lr_mult, eff_alpha):
+        # p - step * delta (- lr * wd * p), each term rounded as the
+        # reference rounds it, the differences taken in place on a copy
         step_size = (lr_t * lr_mult * eff_alpha).float()
-        new_p = p.float() - step_size * delta.float()
+        new_p = p.to(torch.float32, copy=True)
+        new_p.sub_(step_size * delta.float())
         if weight_decay:
-            new_p = new_p - lr_t * weight_decay * p.float()
+            new_p.sub_(lr_t * weight_decay * p.float())
         return new_p.to(p.dtype)
 
     # -- plain rule: the host on the full tensor ----------------------------
     def plain_update(g, p, state, step, leaf_id):
-        delta, _, lr_mult, hstate = plain.update(g, state["host"], step)
+        delta, dscale, lr_mult, hstate = plain.update(g, state["host"], step)
+        del dscale   # GWT's detail scale: the plain rule has no details
         return _apply(p, delta, lr(step), lr_mult, 1.0), {"host": hstate}
 
     plain_rule = engine.LeafRule(
@@ -176,7 +180,10 @@ def gwt(lr: Schedule | float,
 
         def vector_update(g_stk, p_stk, state, step):
             # one fused-write call for the whole (L, m, n) bucket; FIRST-mode
-            # leaves go in as contiguous transposed copies
+            # leaves go in as contiguous transposed copies.  A LoRA adapter
+            # of a bf16 model is f32 under a bf16 gradient (the step casts
+            # it to the model dtype, as the JAX package's does): the kernel
+            # rounds G~ and the limited step to bf16, as the reference's
             gt = g_stk.transpose(-1, -2).contiguous() if swap else g_stk
             pt = p_stk.transpose(-1, -2).contiguous() if swap else p_stk
             new_p, new_norm, hstate = gwt_ops.fused_write_update(

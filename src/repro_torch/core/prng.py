@@ -103,7 +103,7 @@ def random_bits(k: Key, shape: Sequence[int],
     return (b0 ^ b1).reshape(tuple(shape))
 
 
-def _f32(x: float) -> float:
+def f32(x: float) -> float:
     """``x`` rounded to f32 (a Python float: no tensor to copy to the
     card; PyTorch rounds such a scalar to an f32 tensor's dtype)."""
     return float(torch.tensor(x, dtype=torch.float32))
@@ -116,8 +116,8 @@ def uniform(k: Key, shape: Sequence[int], minval: float = 0.0,
     ``device``."""
     bits = random_bits(k, shape, device)
     floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    lo = _f32(minval)
-    width = _f32(_f32(maxval) - lo)
+    lo = f32(minval)
+    width = f32(f32(maxval) - lo)
     return torch.clamp_min(_fma(floats - 1.0, width, lo), lo)
 
 
@@ -145,4 +145,4 @@ def normal(k: Key, shape: Sequence[int],
     """``jax.random.normal(k, shape, float32)`` on ``device``, within 4 f32
     spacings (bits and uniforms are exact; see the module docstring)."""
     lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
-    return erf_inv(uniform(k, shape, lo, 1.0, device)) * _f32(math.sqrt(2))
+    return erf_inv(uniform(k, shape, lo, 1.0, device)) * f32(math.sqrt(2))

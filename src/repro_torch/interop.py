@@ -3,20 +3,21 @@ port.
 
 Both directions use a flat ``{path: ndarray}`` dict keyed by the JAX
 flatten paths (``"layers/b0/mixer/wq"``,
-``"buckets/gwt_last__layers.b0.mixer.wk/host/m/q"``).  A bf16 leaf arrives
+``"buckets/gwt_last__layers.b0.mixer.wk/host/m/q"``; a LoRA tree's
+``"base/..."`` and ``"lora/.../a"``).  A bf16 leaf arrives
 either as float32 (every bf16 value is exact in float32) or as its raw bits
 viewed as ``uint16``; ``ml_dtypes`` is not needed.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.checkpoint.manager import from_numpy, to_numpy
-from repro_torch.models import lm
+from repro_torch.models import lm, lora
 from repro_torch.optim.base import flatten_with_paths, unflatten
 
 
@@ -34,21 +35,27 @@ def _tensor(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
 
 
 def params_from_numpy(cfg, arrays: Mapping[str, np.ndarray],
-                      device) -> lm.LM:
+                      device, lora_rank: Optional[int] = None) -> lm.LM:
     """An :class:`lm.LM` holding ``arrays``, checked path by path and shape
-    by shape against the port's own parameter tree for ``cfg``."""
-    paths, leaves = flatten_with_paths(lm.abstract_params(cfg))
+    by shape against the port's own parameter tree for ``cfg``, each leaf
+    in that tree's dtype (the model dtype; f32 for an MoE router).  With
+    ``lora_rank`` the tree is a LoRA fine-tune's ``{"base", "lora"}``
+    (``models.lora.inject`` at that rank; the adapters are f32)."""
+    like = lm.abstract_params(cfg)
+    if lora_rank is not None:
+        like = lora.inject(like, lora_rank, (0, 0))
+    paths, leaves = flatten_with_paths(like)
     want = {p: tuple(l.shape) for p, l in zip(paths, leaves)}
     if set(arrays) != set(want):
         raise ValueError(f"parameter paths differ: missing "
                          f"{sorted(set(want) - set(arrays))}, unexpected "
                          f"{sorted(set(arrays) - set(want))}")
     out = []
-    for p in paths:
+    for p, leaf in zip(paths, leaves):
         if tuple(np.shape(arrays[p])) != want[p]:
             raise ValueError(f"{p}: shape {np.shape(arrays[p])}, expected "
                              f"{want[p]}")
-        out.append(_tensor(arrays[p], cfg.torch_dtype, device))
+        out.append(_tensor(arrays[p], leaf.dtype, device))
     return lm.LM(cfg, unflatten(paths, out))
 
 

@@ -187,15 +187,16 @@ __device__ __forceinline__ float leaf_scale_at(const float* partials,
 }
 
 // One element's new parameter: p - step * T(G~ * T(scale)) [- wd * p], with
-// G~ rounded to T first and the result computed in f32.
-template <typename T>
-__device__ __forceinline__ T new_param(float p32, float x, float scale_t,
+// G~ rounded to T, the gradient's type, first, the result computed in f32
+// and rounded to P, the parameter's type.
+template <typename T, typename P>
+__device__ __forceinline__ P new_param(float p32, float x, float scale_t,
                                        float ss, float wd, int weight_decay) {
   const float gt = round_to<T>(x);
   const float limited = round_to<T>(__fmul_rn(gt, scale_t));
   float np = __fsub_rn(p32, __fmul_rn(ss, limited));
   if (weight_decay) np = __fsub_rn(np, __fmul_rn(wd, p32));
-  return from_f32<T>(np);
+  return from_f32<P>(np);
 }
 
 // A type as a value, for the dtype dispatch below.
@@ -204,7 +205,7 @@ struct Tag {
   using type = X;
 };
 
-// Calls f(Tag<T>{}, Tag<M>{}) for the parameter dtype code and the moment
+// Calls f(Tag<T>{}, Tag<M>{}) for the gradient dtype code and the moment
 // dtype code (each 0 = float32, 1 = bfloat16: the wrappers' _DTYPES).
 template <typename F>
 cudaError_t with_dtypes(int dtype, int mdtype, F f) {
@@ -215,6 +216,19 @@ cudaError_t with_dtypes(int dtype, int mdtype, F f) {
   };
   if (dtype == 0) return moments(Tag<float>{});
   if (dtype == 1) return moments(Tag<__nv_bfloat16>{});
+  return cudaErrorInvalidValue;
+}
+
+// Calls f(Tag<T>{}, Tag<P>{}) for K1's and K2's dtype code of g (T) and p
+// (P): 0 = both float32, 1 = both bfloat16, 2 = bfloat16 g with float32 p
+// (the f32 LoRA adapters of a bf16 model, whose gradient the step casts to
+// bf16: G~ and the limited step are rounded to bf16, as the JAX package's
+// kernel rounds them to g's dtype, and p is read and written in f32).
+template <typename F>
+cudaError_t with_params(int dtype, F f) {
+  if (dtype == 0) return f(Tag<float>{}, Tag<float>{});
+  if (dtype == 1) return f(Tag<__nv_bfloat16>{}, Tag<__nv_bfloat16>{});
+  if (dtype == 2) return f(Tag<__nv_bfloat16>{}, Tag<float>{});
   return cudaErrorInvalidValue;
 }
 
@@ -536,10 +550,10 @@ __device__ __forceinline__ const T* staged(const unsigned char* dst,
       dst + (reinterpret_cast<uintptr_t>(src) & 15));
 }
 
-template <typename T>
+template <typename T, typename P>
 struct OnePassArgs {
   const T* g;
-  T* p;
+  P* p;
   float* partials;  // (L, S)
   const float* prev_norm;
   float* new_norm;
@@ -668,14 +682,14 @@ struct FloatMoments {
 // together (K2's and K5's absmax is a warp shuffle).  FloatMoments here
 // and Q8Moments (gwt_adam_q8.cuh) serve the one-pass kernel below and the
 // staged kernels of gwt_adam_tile.cu alike.
-template <typename T, int LEVEL, class Mo>
+template <typename T, typename P, int LEVEL, class Mo>
 __global__ void __launch_bounds__(kThreads)
-one_pass(const OnePassArgs<T> a, const Mo mo) {
+one_pass(const OnePassArgs<T, P> a, const Mo mo) {
   constexpr int B = 1 << LEVEL;
   constexpr int kSlot = kChunk * B * static_cast<int>(sizeof(T));
   // rounds whose p phase B loads before it computes any: up to 64 bytes
   // a thread in flight
-  constexpr int kPairBytes = 2 * B * static_cast<int>(sizeof(T));
+  constexpr int kPairBytes = 2 * B * static_cast<int>(sizeof(P));
   constexpr int kDepth = 64 / kPairBytes >= kRounds ? kRounds
                          : 64 / kPairBytes >= 1     ? 64 / kPairBytes
                                                     : 1;
@@ -723,7 +737,7 @@ one_pass(const OnePassArgs<T> a, const Mo mo) {
     where(i, leaf, s, n);
     const long long j0 = s * kChunk;
     T* gt = reinterpret_cast<T*>(slots + i * kSlot);
-    T* pc = a.p + (leaf * a.na + j0) * B;  // the chunk's p
+    P* pc = a.p + (leaf * a.na + j0) * B;  // the chunk's p
     if (!a.use_limiter && s == 0 && t == 0)
       a.new_norm[leaf] = a.prev_norm[leaf];
     const typename Mo::Chunk ck = mo.chunk(entry(i), leaf, a.na, j0);
@@ -750,13 +764,13 @@ one_pass(const OnePassArgs<T> a, const Mo mo) {
       if (a.use_limiter) {
         vstore<T, 2 * B>(gt + cl * B, e);
       } else {
-        T pe[2 * B];
-        load_pair_raw<T, B>(pc + cl * B, pe, v1);
+        P pe[2 * B];
+        load_pair_raw<P, B>(pc + cl * B, pe, v1);
 #pragma unroll
         for (int k = 0; k < 2 * B; ++k)
-          pe[k] = new_param<T>(to_f32(pe[k]), x[k], round_to<T>(1.0f), ss,
-                               wd, a.weight_decay);
-        store_pair<T, B>(pc + cl * B, pe, v1);
+          pe[k] = new_param<T, P>(to_f32(pe[k]), x[k], round_to<T>(1.0f),
+                                  ss, wd, a.weight_decay);
+        store_pair<P, B>(pc + cl * B, pe, v1);
       }
     }
     if (a.use_limiter) {
@@ -777,14 +791,14 @@ one_pass(const OnePassArgs<T> a, const Mo mo) {
     int n;
     where(i, leaf, s, n);
     const T* gt = reinterpret_cast<const T*>(slots + i * kSlot);
-    T* pc = a.p + (leaf * a.na + s * kChunk) * B;
+    P* pc = a.p + (leaf * a.na + s * kChunk) * B;
 #pragma unroll
     for (int r0 = 0; r0 < kRounds; r0 += kDepth) {
-      T pe[kDepth][2 * B];
+      P pe[kDepth][2 * B];
 #pragma unroll
       for (int d = 0; d < kDepth; ++d) {
         const int cl = 2 * (t + (r0 + d) * kThreads);
-        if (cl < n) load_pair_raw<T, B>(pc + cl * B, pe[d], cl + 1 < n);
+        if (cl < n) load_pair_raw<P, B>(pc + cl * B, pe[d], cl + 1 < n);
       }
       if (r0 == 0 && leaf != cur) {
         // runs are contiguous, so chunk 0 of a leaf starts its run here
@@ -801,9 +815,9 @@ one_pass(const OnePassArgs<T> a, const Mo mo) {
         vload<T, 2 * B>(gt + cl * B, x);
 #pragma unroll
         for (int k = 0; k < 2 * B; ++k)
-          pe[d][k] = new_param<T>(to_f32(pe[d][k]), x[k], scale_t, ss, wd,
-                                  a.weight_decay);
-        store_pair<T, B>(pc + cl * B, pe[d], cl + 1 < n);
+          pe[d][k] = new_param<T, P>(to_f32(pe[d][k]), x[k], scale_t, ss,
+                                     wd, a.weight_decay);
+        store_pair<P, B>(pc + cl * B, pe[d], cl + 1 < n);
       }
     }
   }
@@ -897,9 +911,9 @@ inline cudaError_t plan_one_pass(const void* kern, long long slot,
   return cudaErrorInvalidConfiguration;
 }
 
-template <typename T, int LEVEL, class Mo>
+template <typename T, typename P, int LEVEL, class Mo>
 const void* one_pass_kernel() {
-  return reinterpret_cast<const void*>(&one_pass<T, LEVEL, Mo>);
+  return reinterpret_cast<const void*>(&one_pass<T, P, LEVEL, Mo>);
 }
 
 template <typename T, int LEVEL>
@@ -913,15 +927,15 @@ constexpr long long one_pass_ring() {
   return static_cast<long long>(kLookahead + 1) * Mo::kRingBytes;
 }
 
-template <typename T, int LEVEL, class Mo>
-cudaError_t launch_one_pass(const OnePassArgs<T>& a, const Mo& mo,
+template <typename T, typename P, int LEVEL, class Mo>
+cudaError_t launch_one_pass(const OnePassArgs<T, P>& a, const Mo& mo,
                             cudaStream_t stream) {
-  const void* kern = one_pass_kernel<T, LEVEL, Mo>();
+  const void* kern = one_pass_kernel<T, P, LEVEL, Mo>();
   OnePassPlan plan;
   cudaError_t err = plan_one_pass(kern, one_pass_slot<T, LEVEL>(),
                                   one_pass_ring<Mo>(), a.total, &plan);
   if (err != cudaSuccess) return err;
-  OnePassArgs<T> args = a;
+  OnePassArgs<T, P> args = a;
   args.slots = plan.slots;
   Mo moments = mo;
   void* params[] = {&args, &moments};
@@ -989,41 +1003,44 @@ scale_pass(const float* __restrict__ partials,
   }
 }
 
-template <typename T>
+template <typename T, typename P>
 struct WriteArgs {
   const T* g;
-  T* p;
+  P* p;
   const float* scale;  // (L,) rounded to T; null without the limiter
   const float* prev_norm;
   float* new_norm;  // written here only without the limiter
   const float* step_size;
   const float* wd_coef;
-  long long na;     // coefficients per leaf
-  long long P;      // pieces per leaf
-  long long total;  // L * P
+  long long na;      // coefficients per leaf
+  long long pieces;  // pieces per leaf
+  long long total;   // L * pieces
   Coeffs c;
   int weight_decay;
 };
 
-template <typename T, int LEVEL, class Mo>
+template <typename T, typename P, int LEVEL, class Mo>
 struct WritePlan {
-  static constexpr int kPairBytes = 2 * (1 << LEVEL) * static_cast<int>(sizeof(T));
+  // a pair's g and p bytes
+  static constexpr int kPairBytes =
+      2 * (1 << LEVEL) * static_cast<int>(sizeof(T) + sizeof(P));
   static constexpr int kPieceRounds =
-      kPairBytes * kThreads * kRounds <= 16384 ? kRounds
-      : kPairBytes * kThreads * 2 <= 16384     ? 2
+      kPairBytes * kThreads * kRounds <= 32768 ? kRounds
+      : kPairBytes * kThreads * 2 <= 32768     ? 2
                                                : 1;
   static constexpr int kPiece = kPieceRounds * 2 * kThreads;  // coefficients
   static constexpr int kSlot = kPiece * (1 << LEVEL) * static_cast<int>(sizeof(T));
-  static constexpr int kEntry = 2 * kSlot + Mo::kRingBytes;  // g, p, Mo's
+  static constexpr int kSlotP = kPiece * (1 << LEVEL) * static_cast<int>(sizeof(P));
+  static constexpr int kEntry = kSlot + kSlotP + Mo::kRingBytes;  // g, p, Mo's
   static constexpr int kSmem = 2 * kEntry;
   static_assert(kChunk % kPiece == 0, "a piece never crosses a chunk");
   static_assert(kEntry % 16 == 0, "ring entries stay 16-byte aligned");
 };
 
-template <typename T, int LEVEL, class Mo>
+template <typename T, typename P, int LEVEL, class Mo>
 __global__ void __launch_bounds__(kThreads)
-write_pass(const WriteArgs<T> a, const Mo mo) {
-  using W = WritePlan<T, LEVEL, Mo>;
+write_pass(const WriteArgs<T, P> a, const Mo mo) {
+  using W = WritePlan<T, P, LEVEL, Mo>;
   constexpr int B = 1 << LEVEL;
   extern __shared__ __align__(16) unsigned char ring[];
   const long long grid = gridDim.x, b = blockIdx.x;
@@ -1034,8 +1051,8 @@ write_pass(const WriteArgs<T> a, const Mo mo) {
   // piece i of the run: its leaf, its first coefficient j0, its count n
   auto where = [&](int i, long long& leaf, long long& j0, int& n) {
     const long long pc = first + i;
-    leaf = pc / a.P;
-    j0 = (pc % a.P) * W::kPiece;
+    leaf = pc / a.pieces;
+    j0 = (pc % a.pieces) * W::kPiece;
     const long long left = a.na - j0;
     n = static_cast<int>(left < W::kPiece ? left : W::kPiece);
   };
@@ -1048,13 +1065,13 @@ write_pass(const WriteArgs<T> a, const Mo mo) {
       int n;
       where(i, leaf, j0, n);
       const long long off = (leaf * a.na + j0) * B;
-      const int bytes = n * B * static_cast<int>(sizeof(T));
       unsigned char* e = entry(i);
-      stage_async(e, reinterpret_cast<const unsigned char*>(a.g + off), bytes);
+      stage_async(e, reinterpret_cast<const unsigned char*>(a.g + off),
+                  n * B * static_cast<int>(sizeof(T)));
       stage_async(e + W::kSlot, reinterpret_cast<const unsigned char*>(a.p + off),
-                  bytes);
+                  n * B * static_cast<int>(sizeof(P)));
       if constexpr (Mo::kRingBytes > 0)
-        mo.stage(e + 2 * W::kSlot, leaf, a.na, j0, n);
+        mo.stage(e + W::kSlot + W::kSlotP, leaf, a.na, j0, n);
     }
     cp_async_commit();
   };
@@ -1066,8 +1083,8 @@ write_pass(const WriteArgs<T> a, const Mo mo) {
     where(i, leaf, j0, n);
     const unsigned char* e = entry(i);
     const T* gs = reinterpret_cast<const T*>(e);
-    const T* ps = reinterpret_cast<const T*>(e + W::kSlot);
-    T* pc = a.p + (leaf * a.na + j0) * B;
+    const P* ps = reinterpret_cast<const P*>(e + W::kSlot);
+    P* pc = a.p + (leaf * a.na + j0) * B;
     float scale_t;
     if (a.scale) {
       scale_t = a.scale[leaf];
@@ -1075,7 +1092,8 @@ write_pass(const WriteArgs<T> a, const Mo mo) {
       scale_t = round_to<T>(1.0f);
       if (j0 == 0 && t == 0) a.new_norm[leaf] = a.prev_norm[leaf];
     }
-    const typename Mo::Chunk ck = mo.chunk(e + 2 * W::kSlot, leaf, a.na, j0);
+    const typename Mo::Chunk ck =
+        mo.chunk(e + W::kSlot + W::kSlotP, leaf, a.na, j0);
     typename Mo::Regs regs[W::kPieceRounds];
 #pragma unroll
     for (int r = 0; r < W::kPieceRounds; ++r) {
@@ -1093,13 +1111,13 @@ write_pass(const WriteArgs<T> a, const Mo mo) {
       vload<T, 2 * B>(gs + cl * B, x);  // past the leaf's end: unused
       mo.template update<LEVEL>(ck, cl, n, v0, v1, x, regs[r], a.c);
       if (!v0) continue;
-      T pe[2 * B];
-      load_pair_raw<T, B>(ps + cl * B, pe, v1);
+      P pe[2 * B];
+      load_pair_raw<P, B>(ps + cl * B, pe, v1);
 #pragma unroll
       for (int k = 0; k < 2 * B; ++k)
-        pe[k] = new_param<T>(to_f32(pe[k]), x[k], scale_t, ss, wd,
-                             a.weight_decay);
-      store_pair<T, B>(pc + cl * B, pe, v1);
+        pe[k] = new_param<T, P>(to_f32(pe[k]), x[k], scale_t, ss, wd,
+                                a.weight_decay);
+      store_pair<P, B>(pc + cl * B, pe, v1);
     }
     __syncthreads();  // the next stage overwrites this piece's entry
   }
@@ -1107,7 +1125,7 @@ write_pass(const WriteArgs<T> a, const Mo mo) {
 
 // The write pass's grid: co-resident blocks x SMs (cached per kernel and
 // device), at most one block a piece.
-template <typename T, int LEVEL, class Mo>
+template <typename T, typename P, int LEVEL, class Mo>
 cudaError_t write_grid(long long total, int* grid) {
   static std::mutex mu;
   static std::map<int, int> width;  // device -> blocks
@@ -1117,15 +1135,16 @@ cudaError_t write_grid(long long total, int* grid) {
   std::lock_guard<std::mutex> lock(mu);
   auto it = width.find(dev);
   if (it == width.end()) {
-    const void* kern = reinterpret_cast<const void*>(&write_pass<T, LEVEL, Mo>);
+    const void* kern =
+        reinterpret_cast<const void*>(&write_pass<T, P, LEVEL, Mo>);
     int sms, occ;
     if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                       dev)) != cudaSuccess ||
         (err = cudaFuncSetAttribute(
              kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             WritePlan<T, LEVEL, Mo>::kSmem)) != cudaSuccess ||
+             WritePlan<T, P, LEVEL, Mo>::kSmem)) != cudaSuccess ||
         (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &occ, kern, kThreads, WritePlan<T, LEVEL, Mo>::kSmem)) !=
+             &occ, kern, kThreads, WritePlan<T, P, LEVEL, Mo>::kSmem)) !=
             cudaSuccess)
       return err;
     if (occ < 1) return cudaErrorInvalidConfiguration;
@@ -1137,8 +1156,8 @@ cudaError_t write_grid(long long total, int* grid) {
 
 // The scale pass (with the limiter: partials -> scale, new_norm) and the
 // write pass of a two-pass launch, after the norm pass.
-template <typename T, int LEVEL, class Mo>
-cudaError_t launch_scale_and_write(const T* g, T* p, const Mo& mo,
+template <typename T, typename P, int LEVEL, class Mo>
+cudaError_t launch_scale_and_write(const T* g, P* p, const Mo& mo,
                                    const float* partials, float* scale,
                                    const float* prev_norm, float* new_norm,
                                    const float* step_size,
@@ -1146,7 +1165,7 @@ cudaError_t launch_scale_and_write(const T* g, T* p, const Mo& mo,
                                    long long na, Coeffs c, float gamma,
                                    int use_limiter, int weight_decay,
                                    cudaStream_t stream) {
-  using W = WritePlan<T, LEVEL, Mo>;
+  using W = WritePlan<T, P, LEVEL, Mo>;
   if (use_limiter) {
     const long long S = (na + kChunk - 1) / kChunk;
     const unsigned blocks = static_cast<unsigned>((L + kScaleWarps - 1) / kScaleWarps);
@@ -1155,15 +1174,15 @@ cudaError_t launch_scale_and_write(const T* g, T* p, const Mo& mo,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  const long long P = (na + W::kPiece - 1) / W::kPiece;
-  const WriteArgs<T> a{g, p, use_limiter ? scale : nullptr, prev_norm,
-                       new_norm, step_size, wd_coef, na, P, L * P, c,
-                       weight_decay};
+  const long long pieces = (na + W::kPiece - 1) / W::kPiece;
+  const WriteArgs<T, P> a{g, p, use_limiter ? scale : nullptr, prev_norm,
+                          new_norm, step_size, wd_coef, na, pieces,
+                          L * pieces, c, weight_decay};
   int grid;
-  const cudaError_t err = write_grid<T, LEVEL, Mo>(a.total, &grid);
+  const cudaError_t err = write_grid<T, P, LEVEL, Mo>(a.total, &grid);
   if (err != cudaSuccess) return err;
   if (grid == 0) return cudaSuccess;  // an empty bucket
-  write_pass<T, LEVEL, Mo><<<grid, kThreads, W::kSmem, stream>>>(a, mo);
+  write_pass<T, P, LEVEL, Mo><<<grid, kThreads, W::kSmem, stream>>>(a, mo);
   return cudaGetLastError();
 }
 

@@ -2,7 +2,7 @@
 // leaves: level-l Haar DWT along rows -> Adam on the A_l band (m, v in
 // place, f32 or bf16: read as f32, written back rounded to nearest even
 // into their own dtype) -> A~ = m/(sqrt(v)+eps), details scaled by the same
-// 1/(sqrt(v)+eps) -> inverse DWT -> G~ rounded to the parameter type ->
+// 1/(sqrt(v)+eps) -> inverse DWT -> G~ rounded to the gradient type ->
 // per-leaf ||G~|| -> norm-growth limiter -> p <- p - step*s*G~ - wd*p,
 // written in place.
 //
@@ -49,11 +49,12 @@
 // same order, so every written value is bitwise the same in both; no float
 // atomics, so the result is identical from run to run.  Rounding follows
 // the plain PyTorch version (ref.py) point for point: G~ is rounded to the
-// parameter type before the norm and the write, limited = G~ * T(scale) is
-// rounded to T, new p is computed in f32.  Every product and sum is written
-// with an _rn intrinsic, so nvcc cannot contract them into FMAs that
-// PyTorch's op-by-op arithmetic does not make, and sqrt and division are
-// IEEE (build without --use_fast_math).
+// gradient type T before the norm and the write, limited = G~ * T(scale) is
+// rounded to T, new p is computed in f32 and rounded to the parameter type
+// P (T itself, or f32 under a bf16 gradient: a LoRA adapter's).  Every
+// product and sum is written with an _rn intrinsic, so nvcc cannot contract
+// them into FMAs that PyTorch's op-by-op arithmetic does not make, and sqrt
+// and division are IEEE (build without --use_fast_math).
 
 #include "gwt_adam_common.cuh"
 
@@ -86,7 +87,7 @@ norm_pass(const T* __restrict__ g, const M* __restrict__ m,
   if (threadIdx.x == 0) partials[leaf * gridDim.x + blockIdx.x] = total;
 }
 
-template <typename T, typename M>
+template <typename T, typename P, typename M>
 cudaError_t launch(int level, const void* g, void* p, void* m, void* v,
                    const float* prev_norm, float* new_norm, float* partials,
                    float* scale, const float* step_size,
@@ -105,33 +106,43 @@ cudaError_t launch(int level, const void* g, void* p, void* m, void* v,
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return err;
     }
-    return launch_scale_and_write<T, LEVEL>(
-        static_cast<const T*>(g), static_cast<T*>(p),
+    return launch_scale_and_write<T, P, LEVEL>(
+        static_cast<const T*>(g), static_cast<P*>(p),
         FloatMoments<M>{mm, vv, mm, vv}, partials, scale, prev_norm,
         new_norm, step_size, wd_coef, L, na, c, gamma, use_limiter,
         weight_decay, stream);
   });
 }
 
-template <typename T, typename M>
-cudaError_t launch_one(int level, const OnePassArgs<T>& a, void* m, void* v,
-                       cudaStream_t stream) {
+template <typename T, typename P, typename M>
+cudaError_t launch_one(int level, const OnePassArgs<T, P>& a, void* m,
+                       void* v, cudaStream_t stream) {
   M* mm = static_cast<M*>(m);
   M* vv = static_cast<M*>(v);
   return with_level(level, [&](auto lv) {
-    return launch_one_pass<T, decltype(lv)::value>(
+    return launch_one_pass<T, P, decltype(lv)::value>(
         a, FloatMoments<M>{mm, vv, mm, vv}, stream);
   });
 }
 
-template <typename T, typename M>
+template <typename T, typename P, typename M>
 cudaError_t plan_one(int level, long long total, int* out) {
   return with_level(level, [&](auto lv) {
     constexpr int LEVEL = decltype(lv)::value;
     using Mo = FloatMoments<M>;
-    return export_plan(one_pass_kernel<T, LEVEL, Mo>(),
+    return export_plan(one_pass_kernel<T, P, LEVEL, Mo>(),
                        one_pass_slot<T, LEVEL>(), one_pass_ring<Mo>(), total,
                        out);
+  });
+}
+
+// Calls f(Tag<T>{}, Tag<P>{}, Tag<M>{}) for K1's dtype codes.
+template <typename F>
+cudaError_t with_fused_dtypes(int dtype, int mdtype, F f) {
+  return with_params(dtype, [&](auto t, auto pt) -> cudaError_t {
+    if (mdtype == 0) return f(t, pt, Tag<float>{});
+    if (mdtype == 1) return f(t, pt, Tag<__nv_bfloat16>{});
+    return cudaErrorInvalidValue;
   });
 }
 
@@ -143,8 +154,9 @@ extern "C" {
 // S = ceil(na / chunk).
 int gwt_adam_fused_chunk() { return kChunk; }
 
-// The two-pass design.  dtype: 0 = float32, 1 = bfloat16 (g and p share
-// it); mdtype, the same codes for m and v (L, na); prev_norm, new_norm f32
+// The two-pass design.  dtype: 0 = float32 g and p, 1 = bfloat16 g and p,
+// 2 = bfloat16 g with float32 p (with_params); mdtype, 0 = float32 or
+// 1 = bfloat16, for m and v (L, na); prev_norm, new_norm f32
 // (L,); partials f32 (L, S) and scale f32 (L,), scratch the caller
 // allocates; step_size and wd_coef point to f32 scalars on the device.  p,
 // m, v are updated in place.
@@ -157,10 +169,11 @@ int gwt_adam_fused(int dtype, int mdtype, int level, const void* g, void* p,
                    void* stream) {
   const Coeffs c{b1, c1, b2, c2, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_dtypes(dtype, mdtype, [&](auto t, auto mt) {
+  return with_fused_dtypes(dtype, mdtype, [&](auto t, auto pt, auto mt) {
     using T = typename decltype(t)::type;
+    using P = typename decltype(pt)::type;
     using M = typename decltype(mt)::type;
-    return launch<T, M>(level, g, p, m, v, prev_norm, new_norm, partials,
+    return launch<T, P, M>(level, g, p, m, v, prev_norm, new_norm, partials,
                         scale, step_size, wd_coef, L, na, c, gamma,
                         use_limiter, weight_decay, s);
   });
@@ -181,14 +194,15 @@ int gwt_adam_fused_one_pass(int dtype, int mdtype, int level, const void* g,
   const Coeffs c{b1, c1, b2, c2, eps};
   const long long S = (na + kChunk - 1) / kChunk;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_dtypes(dtype, mdtype, [&](auto t, auto mt) {
+  return with_fused_dtypes(dtype, mdtype, [&](auto t, auto pt, auto mt) {
     using T = typename decltype(t)::type;
+    using P = typename decltype(pt)::type;
     using M = typename decltype(mt)::type;
-    const OnePassArgs<T> a{static_cast<const T*>(g), static_cast<T*>(p),
-                           partials, prev_norm, new_norm, step_size,
-                           wd_coef, na, S, L * S, 0, c, gamma, use_limiter,
-                           weight_decay};
-    return launch_one<T, M>(level, a, m, v, s);
+    const OnePassArgs<T, P> a{static_cast<const T*>(g), static_cast<P*>(p),
+                              partials, prev_norm, new_norm, step_size,
+                              wd_coef, na, S, L * S, 0, c, gamma,
+                              use_limiter, weight_decay};
+    return launch_one<T, P, M>(level, a, m, v, s);
   });
 }
 
@@ -199,9 +213,9 @@ int gwt_adam_fused_one_pass(int dtype, int mdtype, int level, const void* g,
 int gwt_adam_fused_one_pass_plan(int dtype, int mdtype, int level,
                                  long long L, long long na, int* out) {
   const long long total = L * ((na + kChunk - 1) / kChunk);
-  return with_dtypes(dtype, mdtype, [&](auto t, auto mt) {
-    return plan_one<typename decltype(t)::type, typename decltype(mt)::type>(
-        level, total, out);
+  return with_fused_dtypes(dtype, mdtype, [&](auto t, auto pt, auto mt) {
+    return plan_one<typename decltype(t)::type, typename decltype(pt)::type,
+                    typename decltype(mt)::type>(level, total, out);
   });
 }
 

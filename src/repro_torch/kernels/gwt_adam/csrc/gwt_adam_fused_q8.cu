@@ -2,7 +2,7 @@
 // (L, N) bucket of same-shaped leaves: dequantize m and v (q * scale of the
 // coefficient's 64-element block) -> level-l Haar DWT along rows -> Adam on
 // the A_l band -> A~ = m/(sqrt(v)+eps), details scaled by the same
-// 1/(sqrt(v)+eps) -> inverse DWT -> G~ rounded to the parameter type ->
+// 1/(sqrt(v)+eps) -> inverse DWT -> G~ rounded to the gradient type ->
 // per-leaf ||G~|| -> norm-growth limiter -> p <- p - step*s*G~ - wd*p, and
 // the new m and v requantized with stochastic rounding; p, codes and scales
 // are written in place.
@@ -98,7 +98,7 @@ norm_pass(const T* __restrict__ g, const signed char* __restrict__ qm,
   if (threadIdx.x == 0) partials[leaf * gridDim.x + blockIdx.x] = total;
 }
 
-template <typename T>
+template <typename T, typename P>
 cudaError_t launch(int level, const void* g, void* p, const Q8Moments& mo,
                    const float* prev_norm, float* new_norm, float* partials,
                    float* scale, const float* step_size,
@@ -116,26 +116,26 @@ cudaError_t launch(int level, const void* g, void* p, const Q8Moments& mo,
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return err;
     }
-    return launch_scale_and_write<T, LEVEL>(
-        static_cast<const T*>(g), static_cast<T*>(p), mo, partials, scale,
+    return launch_scale_and_write<T, P, LEVEL>(
+        static_cast<const T*>(g), static_cast<P*>(p), mo, partials, scale,
         prev_norm, new_norm, step_size, wd_coef, L, na, c, gamma,
         use_limiter, weight_decay, stream);
   });
 }
 
-template <typename T>
-cudaError_t launch_one(int level, const OnePassArgs<T>& a,
+template <typename T, typename P>
+cudaError_t launch_one(int level, const OnePassArgs<T, P>& a,
                        const Q8Moments& mo, cudaStream_t stream) {
   return with_level(level, [&](auto lv) {
-    return launch_one_pass<T, decltype(lv)::value>(a, mo, stream);
+    return launch_one_pass<T, P, decltype(lv)::value>(a, mo, stream);
   });
 }
 
-template <typename T>
+template <typename T, typename P>
 cudaError_t plan_one(int level, long long total, int* out) {
   return with_level(level, [&](auto lv) {
     constexpr int LEVEL = decltype(lv)::value;
-    return export_plan(one_pass_kernel<T, LEVEL, Q8Moments>(),
+    return export_plan(one_pass_kernel<T, P, LEVEL, Q8Moments>(),
                        one_pass_slot<T, LEVEL>(), one_pass_ring<Q8Moments>(), total,
                        out);
   });
@@ -150,8 +150,8 @@ extern "C" {
 int gwt_adam_fused_q8_chunk() { return kChunk; }
 int gwt_adam_fused_q8_qblock() { return kQBlock; }
 
-// The two-pass design.  dtype: 0 = float32, 1 = bfloat16 (g and p share
-// it); qm, qv int8 (L, na); sm, sv f32 (L, nb); salt_m, salt_v uint32
+// The two-pass design.  dtype: 0 = float32 g and p, 1 = bfloat16 g and p,
+// 2 = bfloat16 g with float32 p (with_params); qm, qv int8 (L, na); sm, sv f32 (L, nb); salt_m, salt_v uint32
 // (L,); prev_norm, new_norm f32 (L,); partials f32 (L, S) and scale f32
 // (L,), scratch the caller allocates; step_size and wd_coef point to f32
 // scalars on the device.  p, qm, sm, qv, sv are updated in place.
@@ -168,15 +168,11 @@ int gwt_adam_fused_q8(int dtype, int level, const void* g, void* p,
   const Q8Moments mo{qm, sm, qv, sv, salt_m, salt_v, qm, sm, qv, sv,
                      (na + kQBlock - 1) / kQBlock};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(level, g, p, mo, prev_norm, new_norm, partials,
-                         scale, step_size, wd_coef, L, na, c, gamma,
-                         use_limiter, weight_decay, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(level, g, p, mo, prev_norm, new_norm,
-                                 partials, scale, step_size, wd_coef, L, na,
-                                 c, gamma, use_limiter, weight_decay, s);
-  return cudaErrorInvalidValue;
+  return with_params(dtype, [&](auto t, auto pt) {
+    return launch<typename decltype(t)::type, typename decltype(pt)::type>(
+        level, g, p, mo, prev_norm, new_norm, partials, scale, step_size,
+        wd_coef, L, na, c, gamma, use_limiter, weight_decay, s);
+  });
 }
 
 // The one-pass design, the same arguments but the scale.  The caller has
@@ -199,30 +195,25 @@ int gwt_adam_fused_q8_one_pass(int dtype, int level, const void* g, void* p,
   const Q8Moments mo{qm, sm, qv, sv, salt_m, salt_v, qm, sm, qv, sv,
                      (na + kQBlock - 1) / kQBlock};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    const OnePassArgs<float> a{static_cast<const float*>(g),
-                               static_cast<float*>(p), partials, prev_norm,
-                               new_norm, step_size, wd_coef, na, S, L * S, 0, c,
-                               gamma, use_limiter, weight_decay};
-    return launch_one<float>(level, a, mo, s);
-  }
-  if (dtype == 1) {
-    const OnePassArgs<__nv_bfloat16> a{
-        static_cast<const __nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(p),
-        partials, prev_norm, new_norm, step_size, wd_coef, na, S, L * S, 0, c,
-        gamma, use_limiter, weight_decay};
-    return launch_one<__nv_bfloat16>(level, a, mo, s);
-  }
-  return cudaErrorInvalidValue;
+  return with_params(dtype, [&](auto t, auto pt) {
+    using T = typename decltype(t)::type;
+    using P = typename decltype(pt)::type;
+    const OnePassArgs<T, P> a{static_cast<const T*>(g), static_cast<P*>(p),
+                              partials, prev_norm, new_norm, step_size,
+                              wd_coef, na, S, L * S, 0, c, gamma,
+                              use_limiter, weight_decay};
+    return launch_one<T, P>(level, a, mo, s);
+  });
 }
 
 // The one-pass plan of an (L, na) bucket, as gwt_adam_fused_one_pass_plan.
 int gwt_adam_fused_q8_one_pass_plan(int dtype, int level, long long L,
                                     long long na, int* out) {
   const long long total = L * ((na + kChunk - 1) / kChunk);
-  if (dtype == 0) return plan_one<float>(level, total, out);
-  if (dtype == 1) return plan_one<__nv_bfloat16>(level, total, out);
-  return cudaErrorInvalidValue;
+  return with_params(dtype, [&](auto t, auto pt) {
+    return plan_one<typename decltype(t)::type, typename decltype(pt)::type>(
+        level, total, out);
+  });
 }
 
 }  // extern "C"

@@ -60,6 +60,12 @@ CHUNK = 2048
 QBLOCK = 64
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# K1's and K2's codes of (g's dtype, p's dtype): with_params of the sources.
+# The third is a LoRA adapter of a bf16 model: f32 parameters whose gradient
+# the step casts to bf16; G~ and the limited step are rounded to bf16.
+_PARAM_CODES = {(torch.float32, torch.float32): 0,
+                (torch.bfloat16, torch.bfloat16): 1,
+                (torch.bfloat16, torch.float32): 2}
 # the fields the one-pass plan functions fill, in their order
 PLAN_FIELDS = ("regs", "local_bytes", "static_smem", "max_dyn_smem", "sms",
                "blocks_per_sm", "slots", "smem", "grid")
@@ -156,6 +162,18 @@ def _require_cuda(g: torch.Tensor) -> None:
                          f"{g.device}")
 
 
+def _check_params(g: torch.Tensor, p: torch.Tensor) -> int:
+    """K1's and K2's ``p``: of g's dtype, or f32 under a bf16 ``g``;
+    returns the pair's code (``_PARAM_CODES``)."""
+    code = _PARAM_CODES.get((g.dtype, p.dtype))
+    if code is None:
+        raise ValueError(f"p has dtype {p.dtype}, expected {g.dtype}"
+                         + (" or torch.float32" if g.dtype == torch.bfloat16
+                            else ""))
+    _check("p", p, g.device, p.dtype, tuple(g.shape))
+    return code
+
+
 def _check_moments(device, m, v, shape) -> torch.dtype:
     """K1's and K4's moments: f32 or bf16, both of one dtype; returns it."""
     if m.dtype not in _DTYPES:
@@ -196,10 +214,12 @@ _plans: Dict[tuple, Dict[str, int]] = {}
 
 def one_pass_plan(name: str, shape: Tuple[int, int, int],
                   dtype: torch.dtype, level: int,
-                  mdtype: torch.dtype = torch.float32) -> Dict[str, int]:
+                  mdtype: torch.dtype = torch.float32,
+                  pdtype: torch.dtype = None) -> Dict[str, int]:
     """The one-pass plan of kernel ``name`` (``"gwt_adam_fused"`` with
     moments of ``mdtype``, or ``"gwt_adam_fused_q8"``, which ignores it)
-    for a bucket, from the card: the kernel's
+    for a bucket of gradients of ``dtype`` and parameters of ``pdtype``
+    (``dtype`` where not given), from the card: the kernel's
     registers per thread, spill bytes, static shared bytes and the dynamic
     shared bytes a block may give its G̃ slots (``max_dyn_smem``); the
     card's SMs; and, if the bucket fits, its blocks per SM, slots per
@@ -207,9 +227,10 @@ def one_pass_plan(name: str, shape: Tuple[int, int, int],
     where it does not fit)."""
     L, rows, n = shape
     na = rows * (n >> level)
-    # K1's kernels (registers, shared memory) differ by moment dtype
-    codes = (_DTYPES[dtype],) if name.endswith("q8") \
-        else (_DTYPES[dtype], _DTYPES[mdtype])
+    # the kernels (registers, shared memory) differ by parameter dtype,
+    # K1's by moment dtype too
+    pcode = _PARAM_CODES[(dtype, pdtype or dtype)]
+    codes = (pcode,) if name.endswith("q8") else (pcode, _DTYPES[mdtype])
     key = (name, torch.cuda.current_device(), codes, level,
            L * -(-na // CHUNK))
     if key not in _plans:
@@ -235,12 +256,12 @@ def one_pass_plan(name: str, shape: Tuple[int, int, int],
     return _plans[key]
 
 
-def _design(name: str, design: str, g: torch.Tensor, level: int,
-            mdtype: torch.dtype = torch.float32) -> str:
+def _design(name: str, design: str, g: torch.Tensor, p: torch.Tensor,
+            level: int, mdtype: torch.dtype = torch.float32) -> str:
     """``"one"`` or ``"two"``: ``design`` itself, or for ``"auto"`` the
     one the capacity rule names; raises if ``"one"`` does not fit."""
     fits = one_pass_plan(name, tuple(g.shape), g.dtype, level,
-                         mdtype)["grid"] > 0
+                         mdtype, pdtype=p.dtype)["grid"] > 0
     if design == "auto":
         return "one" if fits else "two"
     if design == "one" and not fits:
@@ -269,17 +290,17 @@ def _fused(design: str, g, p, m, v, prev_norm, step_size, wd_coef, *,
     L, rows, n, na = _check_bucket(g, level)
     device = g.device
     _check("g", g, device, g.dtype, (L, rows, n))
-    _check("p", p, device, g.dtype, (L, rows, n))
+    pcode = _check_params(g, p)
     mdtype = _check_moments(device, m, v, (L, rows, n >> level))
     _check_scalars(device, L, prev_norm, step_size, wd_coef)
     _require_cuda(g)
-    design = _design("gwt_adam_fused", design, g, level, mdtype)
+    design = _design("gwt_adam_fused", design, g, p, level, mdtype)
     lib = _load("gwt_adam_fused")
     fn, scratch = _scratch(lib, "gwt_adam_fused", design, L, na, device)
     new_norm = torch.empty((L,), dtype=torch.float32, device=device)
     stream = _stream(device)
     err = fn(
-        _DTYPES[g.dtype], _DTYPES[mdtype], level, g.data_ptr(), p.data_ptr(),
+        pcode, _DTYPES[mdtype], level, g.data_ptr(), p.data_ptr(),
         m.data_ptr(), v.data_ptr(), prev_norm.data_ptr(), new_norm.data_ptr(),
         *(t.data_ptr() for t in scratch), step_size.data_ptr(),
         wd_coef.data_ptr(),
@@ -305,7 +326,8 @@ def gwt_adam_fused(g: torch.Tensor, p: torch.Tensor, m: torch.Tensor,
     """Fused-write update of a whole ``(L, rows, n)`` bucket on the card,
     one pass where the bucket fits (:func:`one_pass_fits`), else two.
 
-    ``g``, ``p``: the parameter dtype (f32 or bf16); ``m``, ``v``: f32 or
+    ``g``, ``p``: one dtype (f32 or bf16), or bf16 ``g`` with f32 ``p``
+    (G̃ and the limited step rounded to bf16); ``m``, ``v``: f32 or
     bf16 (one dtype) ``(L, rows, n >> level)``; ``prev_norm``: f32
     ``(L,)``; ``step_size``,
     ``wd_coef``: f32 scalars on the card.  ``p``, ``m``, ``v`` are updated
@@ -338,7 +360,7 @@ def _fused_q8(design: str, g, p, qm, sm, qv, sv, salt_m, salt_v, prev_norm,
                          f"{block}")
     nb = -(-na // block)
     _check("g", g, device, g.dtype, (L, rows, n))
-    _check("p", p, device, g.dtype, (L, rows, n))
+    pcode = _check_params(g, p)
     for name, q, s in (("m", qm, sm), ("v", qv, sv)):
         _check(f"q{name}", q, device, torch.int8, (L, rows, n >> level))
         _check(f"s{name}", s, device, torch.float32, (L, nb))
@@ -346,7 +368,7 @@ def _fused_q8(design: str, g, p, qm, sm, qv, sv, salt_m, salt_v, prev_norm,
     _check("salt_v", salt_v, device, torch.uint32, (L,))
     _check_scalars(device, L, prev_norm, step_size, wd_coef)
     _require_cuda(g)
-    design = _design("gwt_adam_fused_q8", design, g, level)
+    design = _design("gwt_adam_fused_q8", design, g, p, level)
     lib = _load("gwt_adam_fused_q8")
     if lib.gwt_adam_fused_q8_qblock() != QBLOCK:
         raise RuntimeError(f"gwt_adam_fused_q8 was built with blocks of "
@@ -356,7 +378,7 @@ def _fused_q8(design: str, g, p, qm, sm, qv, sv, salt_m, salt_v, prev_norm,
     new_norm = torch.empty((L,), dtype=torch.float32, device=device)
     stream = _stream(device)
     err = fn(
-        _DTYPES[g.dtype], level, g.data_ptr(), p.data_ptr(), qm.data_ptr(),
+        pcode, level, g.data_ptr(), p.data_ptr(), qm.data_ptr(),
         sm.data_ptr(), qv.data_ptr(), sv.data_ptr(), salt_m.data_ptr(),
         salt_v.data_ptr(), prev_norm.data_ptr(), new_norm.data_ptr(),
         *(t.data_ptr() for t in scratch), step_size.data_ptr(),

@@ -11,6 +11,12 @@ the continuous-batching engine's command line, and the small dense
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-60m \
         --smoke --ckpt runs/smoke/ckpt --kv-quant int8 --device cpu
 
+    # a --finetune lora checkpoint: its adapters are merged into the base
+    # at load (detected from its run metadata; --merge-lora --lora-rank R
+    # --lora-alpha A for one written without it)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-60m \
+        --ckpt runs/ft
+
 Runs on CUDA unless ``--device cpu`` is given; without a card it raises
 instead of falling back to the CPU.  The engine lives in
 :mod:`repro_torch.serve.engine`; this module builds a workload and prints
@@ -31,9 +37,6 @@ from repro_torch import configs, obs
 from repro_torch.launch.train import resolve_device
 from repro_torch.models import lm
 from repro_torch.serve.engine import Engine, EngineConfig, Request
-
-LORA_TODO = ("LoRA adapters (--merge-lora, --lora-rank, --lora-alpha) wait "
-             "for ROADMAP Queue 1 item 5.1")
 
 
 def _map_kv(fn, cache: Mapping[str, Any]):
@@ -153,11 +156,14 @@ def main(argv=None) -> dict:
                     help="retire a request early when it generates this "
                          "token (default: max_gen-bounded only)")
     ap.add_argument("--merge-lora", action="store_true",
-                    help="serve a --finetune lora checkpoint: "
-                         + LORA_TODO)
-    ap.add_argument("--lora-rank", type=int, default=None, help=LORA_TODO)
-    ap.add_argument("--lora-alpha", type=float, default=None,
-                    help=LORA_TODO)
+                    help="treat --ckpt as a --finetune lora checkpoint: "
+                         "restore {'base','lora'} and serve the merged "
+                         "weights (checkpoints the launcher wrote are "
+                         "detected from their run metadata without it)")
+    ap.add_argument("--lora-rank", type=int, default=8,
+                    help="adapter rank for --merge-lora on checkpoints "
+                         "without run metadata")
+    ap.add_argument("--lora-alpha", type=float, default=16.0)
     ap.add_argument("--static", action="store_true",
                     help="static-wave admission (the benchmark baseline)")
     ap.add_argument("--seed", type=int, default=0)
@@ -171,9 +177,6 @@ def main(argv=None) -> dict:
                          "(queue depth, slot occupancy, page-arena "
                          "utilization) -> <dir>/trace.json")
     args = ap.parse_args(argv)
-    if args.merge_lora or args.lora_rank is not None \
-            or args.lora_alpha is not None:
-        raise NotImplementedError(LORA_TODO)
     device = resolve_device(args.device)
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get_config(args.arch))
@@ -190,7 +193,10 @@ def main(argv=None) -> dict:
                              "device": str(device)})
     try:
         if args.ckpt:
-            eng = Engine.from_checkpoint(cfg, args.ckpt, ecfg, device=device)
+            eng = Engine.from_checkpoint(
+                cfg, args.ckpt, ecfg, device=device,
+                merge_lora=True if args.merge_lora else None,
+                lora_rank=args.lora_rank, lora_alpha=args.lora_alpha)
         else:
             gen = torch.Generator(device=device).manual_seed(args.seed)
             eng = Engine(cfg, lm.init(cfg, gen, device), ecfg)

@@ -7,6 +7,11 @@
         [--eval-every K --eval-batches B] \
         [--ckpt-dir D --ckpt-every N --resume]
 
+    # LoRA: pre-train a base, then fine-tune adapters on it (frozen base)
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama-60m \
+        --finetune lora --lora-rank 8 --lora-alpha 16 --base-ckpt D \
+        [--state-codec int8] [--ckpt-dir FT]
+
 ``--optimizer`` is ``gwt`` (with ``--host``, ``--level``, ``--alpha``), one
 of the full-rank baselines ``adam``, ``adam_mini``, ``muon``, ``sgd``, or
 one of the low-rank baselines ``galore``, ``apollo``, ``fira``,
@@ -24,6 +29,14 @@ processes (0: a prefetch thread); the stream is the same for any N.
 ``--eval-every K`` evaluates the held-out loss and perplexity over
 ``--eval-batches`` batches every K steps (the corpus eval split, or a
 disjoint seed stream of the other sources).
+
+``--finetune lora`` wraps the parameters into ``{"base", "lora"}``
+(``models/lora.py``): adapters of ``--lora-rank`` on every attention and
+MLP projection, drawn from ``fold_in(key(seed), 777)``, trained through the
+merged forward with the base frozen (no optimizer state, no gradient); the
+optimizer's own rule takes the adapters.  ``--base-ckpt`` restores the
+base's parameters from a checkpoint first.  The manifest records the rank
+and alpha, from which serving merges the adapters at load.
 
 Runs on CUDA unless ``--device cpu`` is given; without a card and without
 ``--device cpu`` it raises instead of falling back to the CPU.
@@ -64,12 +77,13 @@ import torch
 from repro_torch import configs, optim
 from repro_torch.checkpoint.manager import CheckpointManager, \
     StructureMismatch
+from repro_torch.core import prng
 from repro_torch.data.eval import make_lm_evaluator
 from repro_torch.data.pipeline import make_source
 from repro_torch.data.store import TokenStore
 from repro_torch.distributed import compression
 from repro_torch.launch.mesh import DPContext, init_dp
-from repro_torch.models import lm
+from repro_torch.models import lm, lora
 from repro_torch.optim import engine
 from repro_torch.optim.base import flatten_with_paths, tree_map
 from repro_torch.optim.schedules import warmup_cosine
@@ -233,6 +247,17 @@ def main(argv=None) -> TrainResult:
                          "64 elements, stochastic rounding); --resume "
                          "transcodes a checkpoint of the other codec")
     ap.add_argument("--alpha", type=float, default=0.25)
+    ap.add_argument("--finetune", default="none", choices=["none", "lora"],
+                    help="'lora': freeze the base model (no optimizer "
+                         "state, no gradient) and train low-rank adapters "
+                         "on the attention/MLP projections; composes with "
+                         "any --optimizer/--state-codec")
+    ap.add_argument("--lora-rank", type=int, default=8)
+    ap.add_argument("--lora-alpha", type=float, default=16.0)
+    ap.add_argument("--base-ckpt", default="",
+                    help="checkpoint dir holding the pre-trained base "
+                         "(params-only restore); with --finetune lora the "
+                         "restored weights become the frozen base")
     ap.add_argument("--lr", type=float, default=0.01)
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=16)
@@ -295,6 +320,10 @@ def main(argv=None) -> TrainResult:
     if dp_spec is None and int(os.environ.get("WORLD_SIZE", "1")) > 1:
         ap.error("a run of several ranks needs --dp-reduce exact or "
                  "compressed")
+    if args.finetune == "lora" and dp_spec is not None:
+        ap.error("--finetune lora does not compose with --dp-reduce yet "
+                 "(the sharded step reduces full-tree gradients; adapter-"
+                 "only reduction is future work) — drop --dp-reduce")
     if args.data == "corpus" and not args.corpus_dir:
         ap.error("--data corpus needs --corpus-dir (build one with "
                  "`python -m repro_torch.data.build_corpus`)")
@@ -325,6 +354,14 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
     model = lm.init(cfg, generator, device)
     params = model.tree()
     n_params = sum(p.numel() for p in model.parameters())
+    if args.base_ckpt:
+        base, base_step = CheckpointManager(args.base_ckpt).restore_params(
+            None, params)
+        del model
+        params = lm.LM(cfg, base).tree()
+        log(f"restored pre-trained base from {args.base_ckpt} (step "
+            f"{base_step})")
+    finetune = args.finetune == "lora"
 
     source = make_source(args.data, cfg.vocab, args.seq, args.batch,
                          seed=args.seed, corpus_dir=args.corpus_dir or None)
@@ -335,8 +372,17 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
             kw.update(level=args.level, alpha=args.alpha, host=args.host)
         elif args.optimizer in optim.LOWRANK:
             kw.update(rank_frac=0.25, alpha=args.alpha)
-        return make_optimizer(args.optimizer, args.lr, args.steps, **kw)
+        opt = make_optimizer(args.optimizer, args.lr, args.steps, **kw)
+        return lora.wrap_optimizer(opt) if finetune else opt
 
+    if finetune:
+        params = lora.inject(params, args.lora_rank,
+                             prng.fold_in(prng.key(args.seed), 777))
+        n_adapter = sum(t.numel()
+                        for t in flatten_with_paths(params["lora"])[1])
+        log(f"finetune=lora rank={args.lora_rank} alpha={args.lora_alpha} "
+            f"adapters={n_adapter/1e3:.1f}K params "
+            f"({n_adapter/max(n_params, 1):.4f} of base)")
     optimizer = build_optimizer(args.state_codec)
     opt_state = optimizer.init(params)
 
@@ -366,6 +412,10 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
     if args.data == "corpus":
         data_meta["corpus_hash"] = source.store.corpus_hash
     run_meta = {"data": data_meta, "state_codec": args.state_codec}
+    if finetune:
+        # serving reads this to merge the adapters into the base at load
+        run_meta["finetune"] = {"mode": "lora", "rank": args.lora_rank,
+                                "alpha": args.lora_alpha}
     ckpt = CheckpointManager(args.ckpt_dir, run_meta=run_meta) \
         if args.ckpt_dir else None
     start = 0
@@ -376,15 +426,24 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
         params = lm.LM(cfg, params).tree()
         log(f"resumed from step {start}")
 
-    train_step = lm.make_train_step(cfg, optimizer, accum_steps=args.accum,
-                                    dp_reduce=dp_spec, dp=dp)
+    if finetune:
+        train_step = lora.make_train_step(lm, cfg, optimizer,
+                                          rank=args.lora_rank,
+                                          alpha=args.lora_alpha,
+                                          accum_steps=args.accum)
+    else:
+        train_step = lm.make_train_step(cfg, optimizer,
+                                        accum_steps=args.accum,
+                                        dp_reduce=dp_spec, dp=dp)
     evaluator = None
     if args.eval_every:
         eval_src = make_source(args.data, cfg.vocab, args.seq, args.batch,
                                seed=args.seed,
                                corpus_dir=args.corpus_dir or None,
                                split="eval")
-        evaluator = make_lm_evaluator(cfg, lm, eval_src,
+        eval_mod = lora.loss_module(lm, args.lora_alpha, args.lora_rank) \
+            if finetune else lm
+        evaluator = make_lm_evaluator(cfg, eval_mod, eval_src,
                                       n_batches=args.eval_batches,
                                       device=device)
     loop = TrainLoop(train_step, source, device=device, ckpt=ckpt,

@@ -1,9 +1,10 @@
 """Layer block (counterpart of ``repro/models/blocks.py``): an attention
-mixer (``"attn"``, or ``"attn_local"`` with the sliding window) and, where
-``cfg.d_ff > 0``, the MLP, with pre-norms and residuals; and the block's
-serving caches, dense (``block_cache``) or paged (``block_paged_cache``).
-The ``"+moe"`` suffix waits for ROADMAP Queue 1 item 5.3, mamba for 5.4,
-mLSTM and sLSTM for 5.5."""
+mixer (``"attn"``, or ``"attn_local"`` with the sliding window) and the
+FFN, with pre-norms and residuals: the MoE (``models/moe.py``) for a kind
+with the ``"+moe"`` suffix (``"attn+moe"``), else the MLP where
+``cfg.d_ff > 0``; and the block's serving caches, dense (``block_cache``)
+or paged (``block_paged_cache``).  The recurrent mixers wait for ROADMAP
+Queue 1 items 5.4 (mamba) and 5.5 (mLSTM, sLSTM)."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.models import attention
+from repro_torch.models import attention, moe as moe_lib
 from repro_torch.models.layers import Builder, mlp_apply, mlp_init, rms_norm
 
 ATTENTION_KINDS = ("attn", "attn_local")
@@ -23,23 +24,26 @@ def parse_kind(kind: str) -> Tuple[str, bool]:
     return base, "moe" in mods
 
 
-def _check_kind(kind: str) -> str:
+def _check_kind(kind: str) -> Tuple[str, bool]:
     base, use_moe = parse_kind(kind)
-    if use_moe or base in ("mamba", "mlstm", "slstm"):
+    if base in ("mamba", "mlstm", "slstm"):
         raise NotImplementedError(
-            f"block kind {kind!r}: the MoE and recurrent blocks wait for "
-            "ROADMAP Queue 1 item 5 (5.3 MoE, 5.4 mamba, 5.5 mLSTM/sLSTM)")
+            f"block kind {kind!r}: the recurrent blocks wait for ROADMAP "
+            "Queue 1 items 5.4 (mamba) and 5.5 (mLSTM/sLSTM)")
     if base not in ATTENTION_KINDS:
         raise ValueError(f"unknown block kind {base!r}")
-    return base
+    return base, use_moe
 
 
 def block_init(b: Builder, cfg, kind: str, lead=()) -> dict:
-    _check_kind(kind)
+    _, use_moe = _check_kind(kind)
     d = cfg.d_model
     p = {"norm1": b.param((d,), init="zeros", lead=lead),
          "mixer": attention.attn_init(b, cfg, lead=lead)}
-    if cfg.d_ff > 0:
+    if use_moe:
+        p["norm2"] = b.param((d,), init="zeros", lead=lead)
+        p["ffn"] = moe_lib.moe_init(b, cfg, lead=lead)
+    elif cfg.d_ff > 0:
         p["norm2"] = b.param((d,), init="zeros", lead=lead)
         p["ffn"] = mlp_init(b, d, cfg.d_ff, lead=lead)
     return p
@@ -47,19 +51,25 @@ def block_init(b: Builder, cfg, kind: str, lead=()) -> dict:
 
 def block_apply(p, cfg, kind: str, x, cos, sin, *, mode: str = "train",
                 cache: Optional[dict] = None, pos=None, page_table=None):
-    """Returns ``(x, new_mixer_cache)``; the cache is None in train mode
-    (see ``attention.attn_apply`` for the cached modes)."""
-    base = _check_kind(kind)
+    """Returns ``(x, new_mixer_cache, aux)``; the cache is None in train
+    mode (see ``attention.attn_apply`` for the cached modes), ``aux`` the
+    MoE's load-balancing loss (an f32 scalar), None for an MLP block."""
+    base, use_moe = _check_kind(kind)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     h, nc = attention.attn_apply(p["mixer"], cfg, h, cos, sin,
                                  local=base == "attn_local", mode=mode,
                                  cache=cache, pos=pos,
                                  page_table=page_table)
     x = x + h
+    aux = None
     if "ffn" in p:
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + mlp_apply(p["ffn"], h)
-    return x, nc
+        if use_moe:
+            h, aux = moe_lib.moe_apply(p["ffn"], cfg, h)
+        else:
+            h = mlp_apply(p["ffn"], h)
+        x = x + h
+    return x, nc, aux
 
 
 def block_cache(cfg, kind: str, B: int, max_len: int, device, lead=()
@@ -67,7 +77,7 @@ def block_cache(cfg, kind: str, B: int, max_len: int, device, lead=()
     """A zeroed dense decode cache ``{"k", "v"}`` of ``(*lead, B, size, KV,
     hd)`` in the model dtype; ``size = min(window, max_len)`` for a
     windowed block (a ring buffer), else ``max_len``."""
-    base = _check_kind(kind)
+    base, _ = _check_kind(kind)
     size = min(cfg.window, max_len) if base == "attn_local" and cfg.window \
         else max_len
     shape = tuple(lead) + (B, size, cfg.n_kv_heads, cfg.head_dim)

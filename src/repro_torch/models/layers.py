@@ -1,6 +1,7 @@
 """Model substrate (counterpart of ``repro/models/layers.py``): parameter
 construction, RMSNorm, the logit softcap, the SwiGLU MLP, the embedding with
-its tied or untied head, and the loss.
+its tied or untied head, the loss, and the LoRA adapter pairs
+(``models/lora.py`` builds trees out of them).
 
 Weights keep the JAX package's ``(d_in, d_out)`` layout and are applied as
 ``x @ W``; the GWT optimizer picks its transform axis from that layout.
@@ -13,6 +14,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core import prng
 
 
 class Builder:
@@ -27,21 +30,23 @@ class Builder:
         self.dtype = dtype
 
     def param(self, shape: Tuple[int, ...], init: str = "normal",
-              scale: Optional[float] = None, lead: Tuple[int, ...] = ()
-              ) -> torch.Tensor:
+              scale: Optional[float] = None, lead: Tuple[int, ...] = (),
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """``lead`` prepends stacked-layer axes; the fan-in is the per-layer
-        shape's."""
+        shape's.  ``dtype`` overrides the builder's (the f32 MoE
+        router)."""
         full = tuple(lead) + tuple(shape)
+        dtype = dtype or self.dtype
         if self.device.type == "meta":
-            return torch.empty(full, dtype=self.dtype, device=self.device)
+            return torch.empty(full, dtype=dtype, device=self.device)
         if init == "zeros":
-            return torch.zeros(full, dtype=self.dtype, device=self.device)
+            return torch.zeros(full, dtype=dtype, device=self.device)
         if scale is None:
             fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
             scale = 1.0 / math.sqrt(fan_in)
         x = torch.randn(full, generator=self.generator, dtype=torch.float32,
                         device=self.device)
-        return (x * scale).to(self.dtype)
+        return (x * scale).to(dtype)
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6
@@ -98,3 +103,30 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return torch.mean(lse - ll)
+
+
+def lora_pair_init(key: prng.Key, shape, rank: int, device,
+                   dtype: torch.dtype = torch.float32):
+    """Adapter pair for a ``(..., m, n)`` weight: ``a`` ``(..., m, r)``, a
+    ``jax.random.normal`` draw of ``key`` (``core.prng``) over ``sqrt(m)``
+    in f32, and ``b`` ``(..., r, n)`` zeros, so the delta ``a @ b`` is
+    exactly zero at init.  Leading axes (stacked layers, experts) carry
+    through.  On the ``meta`` device it draws nothing."""
+    m, n = shape[-2], shape[-1]
+    lead = tuple(shape[:-2])
+    b = torch.zeros(lead + (rank, n), dtype=dtype, device=device)
+    if torch.device(device).type == "meta":
+        return {"a": torch.empty(lead + (m, rank), dtype=dtype,
+                                 device=device), "b": b}
+    a = prng.normal(key, lead + (m, rank), device)
+    # an element-wise f32 division by sqrt(m) rounded to f32, as
+    # jnp.asarray(np.sqrt(m), f32) divides (CUDA turns a division by a
+    # host scalar into a product with its reciprocal)
+    a = a / torch.full_like(a, math.sqrt(m))
+    return {"a": a.to(dtype), "b": b}
+
+
+def lora_delta(pair, alpha: float, rank: int) -> torch.Tensor:
+    """The ``(..., m, n)`` update ``(a @ b) * (alpha / r)`` in the
+    adapters' dtype, batched over the leading axes."""
+    return (pair["a"] @ pair["b"]) * prng.f32(alpha / rank)

@@ -11,9 +11,13 @@ unstacked under ``rem/b{i}``.  :class:`LM` is the ``nn.Module`` that holds
 them; the functions here take the nested dict, as the JAX functions take
 the pytree.
 
-Not ported here: the MoE auxiliary loss and the recurrent blocks' caches
-(``blocks.py`` raises for them: ROADMAP Queue 1 items 5.3-5.5), M-RoPE
-position trees (5.2), and the encoder-decoder stack (5.6).
+The MoE blocks' Switch auxiliary loss is summed over periods and remainder
+blocks in the JAX package's order and enters the loss as ``CE + AUX_COEF *
+aux``.  M-RoPE configs (``cfg.mrope_sections``) take a batch's
+``mrope_positions`` (3, B, S), or broadcast the 1-D positions to it.
+
+Not ported here: the recurrent blocks' caches (``blocks.py`` raises for
+them: ROADMAP Queue 1 items 5.4-5.5) and the encoder-decoder stack (5.6).
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ from repro_torch.models.layers import (Builder, cross_entropy, embed_apply,
                                        embed_init, logits_apply, rms_norm,
                                        softcap)
 from repro_torch.optim.base import flatten_with_paths, tree_map, unflatten
+
+AUX_COEF = 0.01  # MoE load-balance loss weight, as the JAX package
 
 
 class ParamTree(nn.Module):
@@ -64,8 +70,11 @@ class LM(nn.Module):
         copies)."""
         return self.params.tree()
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return forward(self.cfg, self.tree(), tokens)
+    def forward(self, tokens: torch.Tensor,
+                mrope_positions: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        return forward(self.cfg, self.tree(), tokens,
+                       mrope_positions=mrope_positions)
 
 
 def _build(cfg, generator: Optional[torch.Generator],
@@ -96,18 +105,40 @@ def abstract_params(cfg) -> Dict[str, Any]:
     return _build(cfg, None, "meta")
 
 
-def _block(cfg, kind: str, p, x, cos, sin) -> torch.Tensor:
-    """One block; with ``cfg.remat`` its activations are recomputed in the
-    backward instead of kept (the reference's memory contract; the values
-    are the same)."""
+def _block(cfg, kind: str, p, x, cos, sin):
+    """One block: ``(x, aux)``; with ``cfg.remat`` its activations are
+    recomputed in the backward instead of kept (the reference's memory
+    contract; the values are the same)."""
     if cfg.remat:
-        return checkpoint(blocks.block_apply, p, cfg, kind, x, cos, sin,
-                          use_reentrant=False)[0]
-    return blocks.block_apply(p, cfg, kind, x, cos, sin)[0]
+        x, _, aux = checkpoint(blocks.block_apply, p, cfg, kind, x, cos,
+                               sin, use_reentrant=False)
+    else:
+        x, _, aux = blocks.block_apply(p, cfg, kind, x, cos, sin)
+    return x, aux
+
+
+def _add_aux(total, aux):
+    """Sum the blocks' aux losses as the JAX package's scan does, from an
+    f32 zero; MLP blocks (None) add nothing."""
+    if aux is None:
+        return total
+    return (torch.zeros((), dtype=torch.float32, device=aux.device)
+            if total is None else total) + aux
+
+
+def _angles(cfg, positions, mrope_positions, B, S):
+    """cos/sin for ``positions`` ((S,) or (B, S)); an M-RoPE config rotates
+    by ``mrope_positions`` (3, B, S), or by ``positions`` broadcast to it."""
+    if cfg.mrope_sections:
+        if mrope_positions is None:
+            mrope_positions = positions.expand(3, B, S)
+        return rope_lib.mrope_angles(mrope_positions, cfg.head_dim,
+                                     cfg.rope_theta, cfg.mrope_sections)
+    return rope_lib.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
 
 
 def forward(cfg, params, tokens: torch.Tensor, *, mode: str = "train",
-            caches=None):
+            caches=None, mrope_positions: Optional[torch.Tensor] = None):
     """Forward over ``tokens`` (B, S): each period's blocks in
     ``cfg.pattern`` order, then the remainder blocks, the final norm, the
     head and the final softcap.
@@ -127,31 +158,49 @@ def forward(cfg, params, tokens: torch.Tensor, *, mode: str = "train",
       positions ``pos[0] .. pos[0]+C-1`` with the full chunk logits (the
       prompt's last position may land mid-chunk).  The pools are written
       in place.
+
+    ``mrope_positions`` (3, B, S) rotates an M-RoPE config in train mode
+    and the dense serving modes (the paged engine refuses M-RoPE, as the
+    JAX package's does).
     """
     if mode != "train":
         with torch.inference_mode():
-            return _serve_forward(cfg, params, tokens, mode, caches)
+            return _serve_forward(cfg, params, tokens, mode, caches,
+                                  mrope_positions)
     if caches is not None:
         raise ValueError("train mode takes no caches")
-    S = tokens.shape[1]
+    return _train_forward(cfg, params, tokens, mrope_positions)[0]
+
+
+def _train_forward(cfg, params, tokens, mrope_positions=None):
+    """Train-mode logits and the summed aux loss (None without MoE)."""
+    B, S = tokens.shape
     x = embed_apply(params["embed"], tokens, cfg.d_model)
-    positions = torch.arange(S, device=tokens.device)
-    cos, sin = rope_lib.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    cos, sin = _angles(cfg, torch.arange(S, device=tokens.device),
+                       mrope_positions, B, S)
+    aux_total = None
     if "layers" in params:
         # unbind once: the backward then stacks the per-layer gradients
         # instead of scattering each layer's into a full-size zero tensor
         paths, leaves = flatten_with_paths(params["layers"])
         for ls in zip(*(l.unbind(0) for l in leaves)):
             layer = unflatten(paths, ls)
+            aux_p = None
             for i, kind in enumerate(cfg.pattern):
-                x = _block(cfg, kind, layer[f"b{i}"], x, cos, sin)
+                x, aux = _block(cfg, kind, layer[f"b{i}"], x, cos, sin)
+                aux_p = _add_aux(aux_p, aux)
+            aux_total = _add_aux(aux_total, aux_p)
+    aux_r = None
     for i in range(cfg.rem_layers):
-        x = _block(cfg, cfg.pattern[i], params["rem"][f"b{i}"], x, cos, sin)
+        x, aux = _block(cfg, cfg.pattern[i], params["rem"][f"b{i}"], x, cos,
+                        sin)
+        aux_r = _add_aux(aux_r, aux)
+    aux_total = _add_aux(aux_total, aux_r)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = logits_apply(params["embed"], x)
     if cfg.final_softcap:
         logits = softcap(logits, cfg.final_softcap)
-    return logits
+    return logits, aux_total
 
 
 def _period(cfg, pattern, p, x, cos, sin, mode, caches, pos, page_table):
@@ -160,13 +209,13 @@ def _period(cfg, pattern, p, x, cos, sin, mode, caches, pos, page_table):
     new = {}
     for i, kind in enumerate(pattern):
         c = None if caches is None else caches[f"b{i}"]
-        x, new[f"b{i}"] = blocks.block_apply(
+        x, new[f"b{i}"], _ = blocks.block_apply(
             p[f"b{i}"], cfg, kind, x, cos, sin, mode=mode, cache=c, pos=pos,
             page_table=page_table)
     return x, new
 
 
-def _serve_forward(cfg, params, tokens, mode, caches):
+def _serve_forward(cfg, params, tokens, mode, caches, mrope_positions):
     B, S = tokens.shape
     dev = tokens.device
     if mode == "prefill":
@@ -187,8 +236,11 @@ def _serve_forward(cfg, params, tokens, mode, caches):
             positions = torch.full((B, S), pos, device=dev)
         else:
             raise ValueError(f"mode {mode!r} needs a page table")
+    if mrope_positions is not None and page_table is not None:
+        raise NotImplementedError("paged serving does not thread "
+                                  "multimodal rope position trees")
     x = embed_apply(params["embed"], tokens, cfg.d_model)
-    cos, sin = rope_lib.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    cos, sin = _angles(cfg, positions, mrope_positions, B, S)
     new: Dict[str, Any] = {}
     if "layers" in params:
         paths, leaves = flatten_with_paths(params["layers"])
@@ -267,20 +319,24 @@ def init_paged_caches(cfg, num_pages: int, page_size: int,
 
 
 def make_prefill_step(cfg):
-    """``(params, {"tokens": (B, S)}) -> (last logits (B, V), caches)``."""
+    """``(params, {"tokens": (B, S)[, "mrope_positions": (3, B, S)]}) ->
+    (last logits (B, V), caches)``."""
     def prefill_step(params, batch):
-        logits, caches = forward(cfg, params, batch["tokens"],
-                                 mode="prefill")
+        logits, caches = forward(
+            cfg, params, batch["tokens"], mode="prefill",
+            mrope_positions=batch.get("mrope_positions"))
         return logits[:, -1], caches
     return prefill_step
 
 
 def make_decode_step(cfg):
-    """``(params, caches, {"tokens": (B, 1)}) -> (logits (B, V), caches)``
-    over dense caches, written in place."""
+    """``(params, caches, {"tokens": (B, 1)[, "mrope_positions": (3, B,
+    1)]}) -> (logits (B, V), caches)`` over dense caches, written in
+    place."""
     def decode_step(params, caches, batch):
         logits, new = forward(cfg, params, batch["tokens"], mode="decode",
-                              caches=caches)
+                              caches=caches,
+                              mrope_positions=batch.get("mrope_positions"))
         return logits[:, -1], new
     return decode_step
 
@@ -312,18 +368,28 @@ def make_chunk_prefill_step(cfg):
 
 
 def loss_fn(cfg, params, batch) -> torch.Tensor:
-    return cross_entropy(forward(cfg, params, batch["tokens"]),
-                         batch["labels"])
+    """Mean cross-entropy, plus ``AUX_COEF`` times the MoE blocks' summed
+    load-balancing loss where the model has MoE blocks."""
+    logits, aux = _train_forward(cfg, params, batch["tokens"],
+                                 batch.get("mrope_positions"))
+    loss = cross_entropy(logits, batch["labels"])
+    return loss if aux is None else loss + AUX_COEF * aux
 
 
 def microbatch_split(batch: Dict[str, torch.Tensor], accum: int
                      ) -> Dict[str, torch.Tensor]:
     """``(B, ...) -> (accum, B/accum, ...)`` with microbatch ``a`` holding
-    global rows ``m·accum + a``, the JAX package's layout."""
+    global rows ``m·accum + a``, the JAX package's layout;
+    ``mrope_positions`` (3, B, S) is split on its batch axis 1, into
+    ``(accum, 3, B/accum, S)``."""
     out = {}
     for k, v in batch.items():
-        mb = v.shape[0] // accum
-        out[k] = v.reshape(mb, accum, *v.shape[1:]).transpose(0, 1)
+        if k == "mrope_positions":
+            mb = v.shape[1] // accum
+            out[k] = v.reshape(3, mb, accum, v.shape[2]).permute(2, 0, 1, 3)
+        else:
+            mb = v.shape[0] // accum
+            out[k] = v.reshape(mb, accum, *v.shape[1:]).transpose(0, 1)
     return out
 
 
@@ -334,30 +400,40 @@ def contiguous_microbatches(batch: Dict[str, torch.Tensor], accum: int
     ``[s·B/S, (s+1)·B/S)`` whether ``s`` is a rank, a microbatch or both."""
     out = {}
     for k, v in batch.items():
-        if v.shape[0] % accum:
-            raise ValueError(f"local batch {v.shape[0]} not divisible by "
-                             f"accum_steps={accum}")
-        out[k] = v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
+        bdim = 1 if k == "mrope_positions" else 0   # (3, B, S)
+        if v.shape[bdim] % accum:
+            raise ValueError(f"local batch {v.shape[bdim]} not divisible "
+                             f"by accum_steps={accum}")
+        if bdim:
+            out[k] = v.reshape(3, accum, v.shape[1] // accum, v.shape[2]) \
+                .transpose(0, 1)
+        else:
+            out[k] = v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
     return out
 
 
-def _accumulate(cfg, params, leaves, micro, accum_steps):
-    """f32 gradient sums and the loss sum over the microbatches."""
+def _accumulate(cfg, params, leaves, micro, accum_steps, loss=None):
+    """f32 gradient sums and the loss sum over the microbatches.  A leaf
+    that does not require grad (the frozen LoRA base) gets no gradient:
+    its sum is None."""
+    loss = loss or loss_fn
+    train = [l for l in leaves if l.requires_grad]
     gsum = [torch.zeros(l.shape, dtype=torch.float32, device=l.device)
-            for l in leaves]
+            for l in train]
     lsum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     for a in range(accum_steps):
         mb = {k: v[a] for k, v in micro.items()}
-        loss = loss_fn(cfg, params, mb)
-        grads = torch.autograd.grad(loss, leaves)
+        lval = loss(cfg, params, mb)
+        grads = torch.autograd.grad(lval, train)
         for s, g in zip(gsum, grads):
             s.add_(g.float())
-        lsum = lsum + loss.detach()
-    return gsum, lsum
+        lsum = lsum + lval.detach()
+    sums = iter(gsum)
+    return [next(sums) if l.requires_grad else None for l in leaves], lsum
 
 
 def make_sharded_train_step(cfg, optimizer, *, dp, dp_reduce,
-                            accum_steps: int = 1):
+                            accum_steps: int = 1, loss=None):
     """Data-parallel train step over the ranks of ``dp`` (a
     ``launch.mesh.DPContext``; None is one rank), counterpart of the JAX
     package's ``make_sharded_train_step``.
@@ -395,17 +471,20 @@ def make_sharded_train_step(cfg, optimizer, *, dp, dp_reduce,
                     "error-feedback train step expects opt_state = "
                     "{'opt': <optimizer state>, 'dp_ef': "
                     "compression.ef_init(params)}")
-        rows = next(iter(batch.values())).shape[0]
+        rows = batch["tokens"].shape[0]
         if rows % world:
             raise ValueError(f"global batch {rows} not divisible by "
                              f"{world} ranks")
         per = rows // world
-        local = {k: v[rank * per:(rank + 1) * per] for k, v in batch.items()}
+        # mrope_positions (3, B, S) splits on its batch axis 1
+        local = {k: v[:, rank * per:(rank + 1) * per]
+                 if k == "mrope_positions" else v[rank * per:(rank + 1) * per]
+                 for k, v in batch.items()}
         paths, leaves = flatten_with_paths(params)
         gsum, lsum = _accumulate(cfg, params, leaves,
                                  contiguous_microbatches(local, accum_steps),
-                                 accum_steps)
-        loss = compression.exact_mean(lsum / accum_steps, dp)
+                                 accum_steps, loss)
+        loss_mean = compression.exact_mean(lsum / accum_steps, dp)
         gmean = [s / accum_steps for s in gsum]
         if ef_on:
             means, errs = compression.compressed_means_ef(
@@ -418,13 +497,13 @@ def make_sharded_train_step(cfg, optimizer, *, dp, dp_reduce,
         params, opt_state = optimizer.update(grads, opt_state, params)
         if ef_on:
             opt_state = {"opt": opt_state, "dp_ef": unflatten(paths, new_ef)}
-        return params, opt_state, {"loss": loss}
+        return params, opt_state, {"loss": loss_mean}
 
     return train_step
 
 
 def make_train_step(cfg, optimizer, accum_steps: int = 1, dp_reduce=None,
-                    dp=None):
+                    dp=None, loss=None):
     """Gradient-accumulated train step ``(params, opt_state, batch) ->
     (params, opt_state, {"loss": f32 scalar on the device})``.
 
@@ -434,20 +513,27 @@ def make_train_step(cfg, optimizer, accum_steps: int = 1, dp_reduce=None,
 
     ``dp_reduce`` (a ``distributed.compression.DPReduceSpec`` or ``'exact'``
     / ``'compressed'``) routes to :func:`make_sharded_train_step` over
-    ``dp`` (a ``launch.mesh.DPContext``; None is one rank)."""
+    ``dp`` (a ``launch.mesh.DPContext``; None is one rank).
+
+    ``loss`` (``loss(cfg, params, batch) -> scalar``, default
+    :func:`loss_fn`) swaps the objective, as the JAX package's ``loss=``
+    does (``models/lora.py`` merges adapters there).  Leaves that do not
+    require grad get a ``None`` gradient, which only a frozen rule
+    (``optim.engine.FROZEN``) takes."""
     if isinstance(dp_reduce, str):
         dp_reduce = compression.DPReduceSpec.parse(dp_reduce)  # 'none': None
     if dp_reduce is not None:
         return make_sharded_train_step(cfg, optimizer, dp=dp,
                                        dp_reduce=dp_reduce,
-                                       accum_steps=accum_steps)
+                                       accum_steps=accum_steps, loss=loss)
 
     def train_step(params, opt_state, batch):
         paths, leaves = flatten_with_paths(params)
         gsum, lsum = _accumulate(cfg, params, leaves,
                                  microbatch_split(batch, accum_steps),
-                                 accum_steps)
-        grads = unflatten(paths, [(s / accum_steps).to(cfg.torch_dtype)
+                                 accum_steps, loss)
+        grads = unflatten(paths, [None if s is None else
+                                  (s / accum_steps).to(cfg.torch_dtype)
                                   for s in gsum])
         # the f32 sums die here, as XLA frees a buffer after its last use:
         # the update then runs beside the cast gradients only

@@ -1,5 +1,11 @@
-"""Rotary embeddings (counterpart of ``repro/models/rope.py``, standard RoPE
-only)."""
+"""Rotary embeddings (counterpart of ``repro/models/rope.py``): standard RoPE
+and M-RoPE (Qwen2-VL's three-section rotary).
+
+M-RoPE splits the head_dim/2 rotary frequency bands into (temporal, height,
+width) sections, each rotated by its own position row.  For text-only input
+the three rows coincide (the vision frontend is a stub, as in the JAX
+package), and M-RoPE equals RoPE.
+"""
 
 from __future__ import annotations
 
@@ -31,6 +37,25 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
     """positions (..., S) -> cos/sin of shape (..., S, head_dim/2)."""
     freqs = _freqs_on(head_dim, theta, positions.device)
     ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                 sections: Tuple[int, ...]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions (3, B, S); ``sections`` sum to head_dim/2, section ``i``
+    taking its bands' angles from row ``i``.  Returns cos/sin (B, S,
+    head_dim/2)."""
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"mrope sections {sections} must sum to head_dim/2 "
+                         f"= {head_dim // 2}")
+    freqs = _freqs_on(head_dim, theta, positions.device)
+    ang_all = positions.float()[..., None] * freqs   # (3, B, S, hd/2)
+    chunks, off = [], 0
+    for i, sec in enumerate(sections):
+        chunks.append(ang_all[i, ..., off:off + sec])
+        off += sec
+    ang = torch.cat(chunks, dim=-1)
     return torch.cos(ang), torch.sin(ang)
 
 

@@ -31,19 +31,22 @@ def flatten_with_paths(tree: Mapping) -> Tuple[List[str], List[Any]]:
     """Returns ``(paths, leaves)`` in the JAX flatten order of a dict tree."""
     paths: List[str] = []
     leaves: List[Any] = []
-
-    def walk(node, prefix):
-        for k in sorted(node):
-            v = node[k]
-            path = f"{prefix}/{k}" if prefix else str(k)
-            if isinstance(v, Mapping):
-                walk(v, path)
-            else:
-                paths.append(path)
-                leaves.append(v)
-
-    walk(tree, "")
+    _walk(tree, "", paths, leaves)
     return paths, leaves
+
+
+def _walk(node, prefix, paths, leaves):
+    # a module-level function: a recursive closure would be a reference
+    # cycle holding the leaf lists (a step's gradients, an old optimizer
+    # state) until the cyclic collector ran
+    for k in sorted(node):
+        v = node[k]
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            _walk(v, path, paths, leaves)
+        else:
+            paths.append(path)
+            leaves.append(v)
 
 
 def unflatten(paths: List[str], leaves: List[Any]) -> Dict[str, Any]:

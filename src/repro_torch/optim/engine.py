@@ -34,6 +34,11 @@ a per-leaf encode its leaf's column.  The ``f32`` codec skips all of it.
 place.  Stacking a bucket copies its gradients and parameters into one
 contiguous ``(L, ...)`` tensor per call.
 
+**Frozen leaves.**  :data:`FROZEN` (the LoRA base, ``models/lora.py``)
+keeps an empty state: zero bytes in :func:`state_bytes`, nothing to
+encode.  The engine never stacks, copies or writes a frozen leaf, and its
+gradient may be ``None`` (the LoRA step computes none).
+
 **Leaf ids.**  A rule's ``update`` gets its leaf's flatten-order index
 ``leaf_id``, as the JAX package's does (APOLLO and RSO seed their random
 projectors with it).
@@ -93,6 +98,12 @@ class LeafRule(NamedTuple):
     host_step: bool = False
 
 
+# Zero-state rule of a frozen leaf (the JAX package's ``lora.FROZEN``): an
+# empty state, and the parameter is left as it is, bitwise
+FROZEN = LeafRule(kind="frozen", init=lambda p: {},
+                  update=lambda g, p, s, step, lid: (p, s))
+
+
 class Bucket(NamedTuple):
     name: str
     rule: LeafRule
@@ -131,6 +142,15 @@ def build_plan(assign: Callable[[str, Any], LeafRule], params) -> LeafPlan:
 
 def _stack_states(per_leaf: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
     return tree_map(lambda *xs: torch.stack(xs), *per_leaf)
+
+
+def _restack(per_leaf: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
+    """The new states of a bucket's leaves, stacked; a one-leaf bucket's as
+    a view (an untied head's moments are GiBs: a stacked copy would
+    double them for the rest of the update)."""
+    if len(per_leaf) == 1:
+        return tree_map(lambda x: x.unsqueeze(0), per_leaf[0])
+    return _stack_states(per_leaf)
 
 
 def _slice_state(state: Dict[str, Any], j: int) -> Dict[str, Any]:
@@ -278,8 +298,9 @@ def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
             return codec_lib.tree_init(cdc, rule.slots, st) if quant else st
 
         device = leaves[0].device
-        buckets = {b.name: _stack_states([leaf_init(b.rule, leaves[i])
-                                          for i in b.indices])
+        buckets = {b.name: {} if b.rule is FROZEN else
+                   _stack_states([leaf_init(b.rule, leaves[i])
+                                  for i in b.indices])
                    for b in plan.buckets}
         out = {"step": torch.zeros((), dtype=torch.int32, device=device),
                "buckets": buckets}
@@ -300,6 +321,9 @@ def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
             b.rule.host_step for b in plan.buckets) else None
         new_buckets = {}
         for b in plan.buckets:
+            if b.rule is FROZEN:
+                new_buckets[b.name] = {}
+                continue
             st = state["buckets"][b.name]
             rule = b.rule
             coded = quant and rule.slots is not None
@@ -327,7 +351,9 @@ def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
                                                      salts[:, i])
                     pleaves[i].copy_(new_p)
                     per_leaf.append(ns_j)
-                ns = _stack_states(per_leaf)
+                    del new_p, ns_j
+                ns = _restack(per_leaf)
+                del per_leaf
             new_buckets[b.name] = ns
         out = {"step": step + 1, "buckets": new_buckets}
         if hstep is not None:
@@ -353,6 +379,9 @@ def transcode(state, params, src: Optimizer, dst: Optimizer):
         salts, _ = eng_d.salts(eng_d.plan(params), key, step)
     new_buckets = {}
     for b in plan.buckets:
+        if b.rule is FROZEN:
+            new_buckets[b.name] = {}
+            continue
         st = state["buckets"][b.name]
         slots = b.rule.slots
         if slots is not None and not eng_s.codec.passthrough:

@@ -39,15 +39,23 @@ def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
                 "v": torch.zeros(shape, dtype=state_dtype, device=device)}
 
     def update(g, state, step):
+        # the reference's expressions, each product and sum rounded as
+        # there, with the sums taken in place and temporaries dropped as
+        # soon as they are used: a leaf's update then holds three f32
+        # copies of it besides the moments, not six (a (152064, 8192)
+        # embedding is 5 GB a copy)
         g32 = g.float()
-        m = b1 * state["m"].float() + (1 - b1) * g32
-        v = b2 * state["v"].float() + (1 - b2) * g32 * g32
-        denom = torch.sqrt(v) + eps
+        m = b1 * state["m"].float()
+        m.add_((1 - b1) * g32)
+        v = b2 * state["v"].float()
+        v.add_(((1 - b2) * g32).mul_(g32))
+        del g32
+        denom = torch.sqrt(v).add_(eps)
         precond = m / denom
         t = step.float() + 1.0
         lr_mult = torch.sqrt(1 - b2 ** t) / (1 - b1 ** t)
-        return precond, 1.0 / denom, lr_mult, {"m": m.to(state_dtype),
-                                               "v": v.to(state_dtype)}
+        return precond, denom.reciprocal_(), lr_mult, {
+            "m": m.to(state_dtype), "v": v.to(state_dtype)}
 
     return Host(init, update, "adam", slots={"m": True, "v": True})
 

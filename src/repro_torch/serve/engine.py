@@ -134,26 +134,36 @@ class Engine:
     @classmethod
     def from_checkpoint(cls, cfg, ckpt_dir: str,
                         ecfg: Optional[EngineConfig] = None,
-                        step: Optional[int] = None, device="cuda"
+                        step: Optional[int] = None, device="cuda",
+                        merge_lora: Optional[bool] = None,
+                        lora_rank: int = 8, lora_alpha: float = 16.0
                         ) -> "Engine":
         """An engine straight from a training checkpoint directory, loading
         only the params leaves to ``device``
         (``CheckpointManager.restore_params``).
 
-        A LoRA fine-tune's checkpoint (``finetune.mode == "lora"`` in its
-        run metadata) holds adapters the port cannot merge yet (ROADMAP
-        Queue 1 item 5.1): it raises rather than serve the base weights
-        alone."""
+        A LoRA fine-tune's checkpoint holds a ``{"base", "lora"}`` tree;
+        the engine's forward knows nothing of adapters, so they are merged
+        into the base weights at load (``models.lora.merge``).
+        ``merge_lora=None`` detects the fine-tune from the run metadata
+        (``--finetune lora`` records its rank and alpha there); pass
+        ``True`` with ``lora_rank``/``lora_alpha`` for a checkpoint written
+        without it."""
         from repro_torch.checkpoint.manager import CheckpointManager
         mgr = CheckpointManager(ckpt_dir)
         ft = mgr.saved_run(step).get("finetune") or {}
-        if ft.get("mode") == "lora":
-            raise NotImplementedError(
-                f"{ckpt_dir} is a LoRA fine-tune ({ft}): merging adapters "
-                f"waits for ROADMAP Queue 1 item 5.1; serving its base "
-                f"weights alone would be wrong")
-        params, _ = mgr.restore_params(step, lm.abstract_params(cfg),
-                                       device=device)
+        if merge_lora is None:
+            merge_lora = ft.get("mode") == "lora"
+        like = lm.abstract_params(cfg)
+        if merge_lora:
+            from repro_torch.models import lora
+            rank = int(ft.get("rank", lora_rank))
+            alpha = float(ft.get("alpha", lora_alpha))
+            tree, _ = mgr.restore_params(
+                step, lora.inject(like, rank, (0, 0)), device=device)
+            params = lora.merge(tree, alpha, rank)
+        else:
+            params, _ = mgr.restore_params(step, like, device=device)
         return cls(cfg, params, ecfg)
 
     def _upload(self, *arrays: np.ndarray) -> List[torch.Tensor]:

@@ -744,3 +744,121 @@ def test_engine_on_the_card_serves_the_dense_tokens(quant):
         match += int(np.sum(np.array(r.generated) == np.array(ref)))
         total += len(ref)
     assert match / total >= 0.9
+
+
+# LoRA adapter buckets (f32 p; g f32 under an f32 model, bf16 under a
+# bf16 one, G~ then rounded to bf16): rank 4 at level 2 leaves one
+# approximation coefficient a row, so with an odd row count a leaf's
+# coefficients start on a 16-byte boundary only by accident; and the
+# adapter buckets of full-width llama-60m and qwen2.5-3b.  One MoE expert
+# bucket of bf16 weights, cut in rows from qwen3-moe-30b-a3b's (2, 524288,
+# 768).  Every output bitwise to the plain version, K1 (f32 and bf16
+# moments) and K2, the limiter on and off.
+ADAPTER_SHAPES = [(3, 37, 4), (5, 8, 12), (1, 11008, 8), (5, 64, 512),
+                  (6, 4096, 8), (2, 64, 1376), (6, 73728, 8),
+                  (3, 288, 2048)]
+EXPERT_SHAPE = (2, 8192, 768)
+
+
+def _cycled_scalars(dev, L):
+    hist = torch.tensor([1e-3, 0.0, 1e9], device=dev)
+    return (hist.repeat(-(-L // 3))[:L].contiguous(),
+            torch.tensor(0.01, device=dev), torch.tensor(1e-4, device=dev))
+
+
+def _narrow_cases():
+    """(shape, g's dtype, p's dtype)."""
+    cases = [(s, gd, torch.float32) for s in ADAPTER_SHAPES
+             for gd in (torch.float32, torch.bfloat16)]
+    return cases + [(EXPERT_SHAPE, torch.bfloat16, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_limiter", [True, False])
+@pytest.mark.parametrize("mdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,dtype,pdtype", _narrow_cases(),
+                         ids=lambda c: str(c))
+def test_adapter_and_expert_buckets_match_plain(shape, dtype, pdtype,
+                                                mdtype, use_limiter):
+    dev = _card()
+    g, p, mm, vv = _design_inputs(dev, shape, 2, dtype)
+    p, mm, vv = p.to(pdtype), mm.to(mdtype), vv.to(mdtype)
+    scalars = _cycled_scalars(dev, shape[0])
+    args = dict(level=2, gamma=1.01, use_limiter=use_limiter,
+                weight_decay=True)
+    want = ref.gwt_adam_fused(g, p, mm, vv, *scalars, **args)
+    before = kernel.launches
+    got = kernel.gwt_adam_fused(g, p.clone(), mm.clone(), vv.clone(),
+                                *scalars, **args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    _bitwise(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_limiter", [True, False])
+@pytest.mark.parametrize("shape,dtype,pdtype", _narrow_cases(),
+                         ids=lambda c: str(c))
+def test_q8_adapter_and_expert_buckets_match_plain(shape, dtype, pdtype,
+                                                   use_limiter):
+    dev = _card()
+    L = shape[0]
+    g, p, mm, vv = _design_inputs(dev, shape, 2, dtype)
+    p = p.to(pdtype)
+    (qm, sm), (qv, sv) = (
+        codec.quant_blocks(a.reshape(L, -1), torch.arange(L, device=dev)
+                           + salt) for a, salt in ((mm, 1), (vv, 2)))
+    inputs = (g, p, qm.reshape(mm.shape), sm, qv.reshape(vv.shape), sv)
+    key = codec.make_key(0, dev)
+    step = torch.tensor(4, dtype=torch.int32, device=dev)
+    salts = [codec.slot_salt(key, step, s, torch.arange(L, device=dev))
+             for s in (0, 1)]
+    scalars = _cycled_scalars(dev, L)
+    args = dict(level=2, block=64, gamma=1.01, use_limiter=use_limiter,
+                weight_decay=True)
+    want = ref.gwt_adam_fused_q8(*inputs, *salts, *scalars, **args)
+    before = kernel.launches_q8
+    got = kernel.gwt_adam_fused_q8(
+        *(t.clone() for t in inputs), *(s.to(torch.uint32) for s in salts),
+        *scalars, **args)
+    torch.cuda.synchronize()
+    assert kernel.launches_q8 == before + 1
+    _bitwise(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q8", [False, True], ids=["K1", "K2"])
+@pytest.mark.parametrize("design", ["one", "two"])
+@pytest.mark.parametrize("shape", [(3, 37, 4), (3, 37, 344), (2, 64, 1376)])
+def test_bf16_gradient_of_f32_parameters_in_both_designs(shape, design, q8):
+    """bf16 g with f32 p through each design explicitly (the one-pass
+    kernel's p rounds, the write pass's g and p slots of two widths):
+    bitwise to the plain version, which rounds G~ and the limited step to
+    bf16 and writes p in f32."""
+    dev = _card()
+    L = shape[0]
+    g, p, mm, vv = _design_inputs(dev, shape, 2, torch.bfloat16)
+    p = p.float()
+    scalars = _cycled_scalars(dev, L)
+    args = dict(level=2, gamma=1.01, use_limiter=True, weight_decay=True)
+    if q8:
+        (qm, sm), (qv, sv) = (
+            codec.quant_blocks(a.reshape(L, -1), torch.arange(L, device=dev)
+                               + salt) for a, salt in ((mm, 1), (vv, 2)))
+        inputs = (g, p, qm.reshape(mm.shape), sm, qv.reshape(vv.shape), sv)
+        key = codec.make_key(0, dev)
+        step = torch.tensor(4, dtype=torch.int32, device=dev)
+        salts = [codec.slot_salt(key, step, s, torch.arange(L, device=dev))
+                 for s in (0, 1)]
+        want = ref.gwt_adam_fused_q8(*inputs, *salts, *scalars, block=64,
+                                     **args)
+        got = getattr(kernel, f"gwt_adam_fused_q8_{design}_pass")(
+            *(t.clone() for t in inputs),
+            *(s.to(torch.uint32) for s in salts), *scalars, block=64, **args)
+    else:
+        want = ref.gwt_adam_fused(g, p, mm, vv, *scalars, **args)
+        got = getattr(kernel, f"gwt_adam_fused_{design}_pass")(
+            g, p.clone(), mm.clone(), vv.clone(), *scalars, **args)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.float32
+    _bitwise(got, want)

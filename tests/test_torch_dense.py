@@ -1,5 +1,6 @@
-"""The dense attention family of the port (qwen2.5-3b, gemma2-9b,
-gemma3-27b, deepseek-67b) against the JAX package: logits, loss and every
+"""The attention family of the port (qwen2.5-3b, gemma2-9b, gemma3-27b,
+deepseek-67b; qwen2-vl-72b with M-RoPE; the MoE qwen2-moe-a2.7b and
+qwen3-moe-30b-a3b) against the JAX package: logits, loss and every
 gradient from JAX-initialised parameters carried over by
 ``repro_torch.interop``, the parameter paths, the GWT bucket plan and the
 optimizer-state bytes, the remainder layers, ``remat``, a few GWT-2 steps
@@ -13,7 +14,8 @@ most 4, 1 and 17).  bf16: every matmul output is rounded to bf16, and a
 sum that lands near a rounding boundary moves one bf16 spacing, which the
 next layers carry: logits 4 bf16 spacings (1.5 measured), the f32 loss of
 bf16 logits 8192 f32 spacings (3848 measured), gradients 16 bf16 spacings
-(4 measured).  Over 6 GWT-2 steps (JAX on its staged path, the port on
+(4 measured).  The bf16 MoE models take the JAX package's top-k choices
+(:class:`_PinnedRouting`) and are held to the same bounds.  Over 6 GWT-2 steps (JAX on its staged path, the port on
 its fused write, f32) the losses stay within 2e-5 of each other, as in
 ``test_torch_lm.py``.
 """
@@ -52,7 +54,9 @@ from repro_torch.optim.schedules import warmup_cosine
 from repro_torch.runtime.fault_tolerance import TrainLoop
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARCHS = ["qwen2.5-3b", "gemma2-9b", "gemma3-27b", "deepseek-67b"]
+ARCHS = ["qwen2.5-3b", "gemma2-9b", "gemma3-27b", "deepseek-67b",
+         "qwen2-vl-72b", "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b"]
+MOE = ("qwen2-moe-a2.7b", "qwen3-moe-30b-a3b")
 VOCAB = 512
 # longer than the smoke window of 32 and a multiple of it: the local
 # layers take the block-local route
@@ -65,6 +69,15 @@ FULL_WIDTH_STATE_BYTES = {
     ("deepseek-67b", 2): 16_190_341_152,
     ("gemma2-9b", 2): 8_132_898_876,
     ("gemma3-27b", 2): 12_926_015_548,
+    ("qwen2-vl-72b", 1): 21_686_865_964,
+    ("qwen2-moe-a2.7b", 2): 4_911_505_464,
+    ("qwen3-moe-30b-a3b", 2): 7_474_335_776,
+}
+# the same with blocked-int8 moments (--state-codec int8)
+FULL_WIDTH_INT8_STATE_BYTES = {
+    ("qwen2-vl-72b", 1): 5_760_573_808,
+    ("qwen2-moe-a2.7b", 2): 1_304_618_684,
+    ("qwen3-moe-30b-a3b", 2): 1_985_370_468,
 }
 
 
@@ -88,7 +101,52 @@ def _loss_and_grads(tcfg, model, batch):
                                                               leaves)))
 
 
-def _check_against_reference(jcfg, tcfg, f32: bool):
+class _PinnedRouting:
+    """The JAX package's top-k choices, recorded in its forward, imposed on
+    the port's (``moe.top_k`` returns them, with the port's own
+    probabilities at them; the renormalization, the slots and the drops
+    stay the port's).  A bf16 layer input rounds differently in the two
+    packages, so their f32 router probabilities differ by a few thousand
+    f32 spacings and a near-tied choice can flip: the smoke batch flips 1
+    token of qwen2-moe-a2.7b and 3 of qwen3-moe-30b-a3b (margins -1.8e-4
+    and down to -7.9e-6 against differences of 3e-3 and more).  ``flips``
+    holds each flipped token's choices and its margin."""
+
+    def __init__(self, monkeypatch, tmoe):
+        self.jax, self.flips, self.calls = [], [], 0
+        top_k, self.own = jax.lax.top_k, tmoe.top_k
+
+        def record(x, k):
+            vals, idx = top_k(x, k)
+            jax.debug.callback(
+                lambda i, pr: self.jax.append((np.asarray(i),
+                                               np.asarray(pr))), idx, x)
+            return vals, idx
+
+        monkeypatch.setattr(jax.lax, "top_k", record)
+        monkeypatch.setattr(tmoe, "top_k", self._pinned)
+
+    def _pinned(self, probs, k):
+        self.calls += 1
+        own = self.own(probs, k)[1].numpy()
+        p = probs.detach().numpy()
+        # the JAX layer of these probabilities (the layers' differ wholly)
+        jidx, jprobs = min(self.jax, key=lambda r: np.abs(r[1] - p).max())
+        delta = float(np.abs(jprobs - p).max())
+        for t in np.nonzero((np.sort(own, -1) != np.sort(jidx, -1))
+                            .any(-1))[0]:
+            rest = np.delete(p[t], jidx[t])
+            # a near tie: the JAX choice is a top-k of the port's
+            # probabilities within twice their largest difference
+            margin = float(p[t][jidx[t]].min() - rest.max())
+            assert margin >= -2 * delta, (t, own[t], jidx[t], margin, delta)
+            self.flips.append((int(t), own[t].tolist(), jidx[t].tolist(),
+                               margin))
+        idx = torch.from_numpy(jidx.astype(np.int64)).to(probs.device)
+        return torch.gather(probs, -1, idx), idx
+
+
+def _check_against_reference(jcfg, tcfg, f32: bool, pin=None):
     jp, model = port_model(jcfg, tcfg, seed=0)
     b = _batch()
     jb = {k: jnp.asarray(v) for k, v in b.items()}
@@ -101,6 +159,9 @@ def _check_against_reference(jcfg, tcfg, f32: bool):
         logits = model(tokens)
     loss, grads = _loss_and_grads(tcfg, model, b)
     jg = flat_numpy(jgrads)
+    if pin is not None:
+        # every MoE layer of both forwards and of the loss's routed once
+        assert pin.calls == 2 * tcfg.n_layers
     if f32:
         assert spacings(logits, jlogits) <= 8
         assert spacings(loss, jloss) <= 4
@@ -116,9 +177,17 @@ def _check_against_reference(jcfg, tcfg, f32: bool):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ARCHS)
-def test_smoke_matches_reference(arch, dtype):
+def test_smoke_matches_reference(arch, dtype, monkeypatch):
+    """Logits, loss and gradients.  A bf16 MoE model takes the JAX
+    package's top-k choices (:class:`_PinnedRouting`; each flip checked to
+    be a near tie), so that it is held to the dense bounds; the routing
+    itself is held exact on one input in ``tests/test_torch_moe.py``."""
+    pin = None
+    if arch in MOE and dtype == "bfloat16":
+        from repro_torch.models import moe as tmoe
+        pin = _PinnedRouting(monkeypatch, tmoe)
     _check_against_reference(*_cfgs(arch, dtype=dtype),
-                             f32=dtype == "float32")
+                             f32=dtype == "float32", pin=pin)
 
 
 @pytest.mark.parametrize("n_layers", [8, 2], ids=["period+rem", "rem-only"])
@@ -184,6 +253,21 @@ def test_full_width_plan_and_state_bytes(arch, n_layers):
         FULL_WIDTH_STATE_BYTES[(arch, n_layers)]
     if arch == "qwen2.5-3b":
         assert "gwt_last__layers.b0.mixer.bq" in [b for b, _ in got]
+
+
+@pytest.mark.parametrize("arch,n_layers", list(FULL_WIDTH_INT8_STATE_BYTES),
+                         ids=[a for a, _ in FULL_WIDTH_INT8_STATE_BYTES])
+def test_full_width_int8_state_bytes_of_the_cuts(arch, n_layers):
+    """The chip check's qwen2-vl-72b (1 layer) and MoE (2 layers) cuts
+    with blocked-int8 moments: the port's exact state bytes equal the JAX
+    package's."""
+    jcfg = jconfigs.get_config(arch).with_(n_layers=n_layers)
+    tcfg = configs.get_config(arch).with_(n_layers=n_layers)
+    jopt = jax_gwt(lr=0.01, impl="jnp", state_codec="int8")
+    topt = gwt(lr=0.01, state_codec="int8")
+    nbytes = engine.state_bytes(topt.init(lm.abstract_params(tcfg)))
+    assert nbytes == jengine.state_bytes(jopt, jlm.abstract_params(jcfg)) \
+        == FULL_WIDTH_INT8_STATE_BYTES[(arch, n_layers)]
 
 
 def test_full_width_int8_state_bytes():
@@ -281,6 +365,15 @@ def test_launcher_trains_a_dense_smoke_config():
         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "arch=qwen2.5-3b" in out.stdout
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "qwen2-moe-a2.7b",
+                                  "qwen3-moe-30b-a3b"])
+def test_launcher_trains_the_moe_and_mrope_smoke_configs(arch):
+    res = train.main(["--arch", arch, "--smoke", "--device", "cpu",
+                      "--steps", "2", "--batch", "2", "--seq", "16",
+                      "--log-every", "1"])
+    assert len(res.losses) == 2 and all(np.isfinite(res.losses))
 
 
 @pytest.mark.parametrize("arch", configs.NOT_PORTED)

@@ -83,6 +83,7 @@ def test_empty_bucket_takes_two_passes():
 class _FakeLib:
     def __init__(self):
         self.called = []
+        self.codes = []
 
     def __getattr__(self, name):
         if name.endswith("_qblock"):
@@ -90,6 +91,7 @@ class _FakeLib:
 
         def fn(*args):
             self.called.append(name)
+            self.codes.append(args[0])
             return 0
         return fn
 
@@ -103,7 +105,7 @@ def routed(monkeypatch):
     monkeypatch.setattr(kernel, "_require_cuda", lambda g: None)
     monkeypatch.setattr(kernel, "_stream", lambda device: 0)
 
-    def plan(name, shape, dtype, level, mdtype=torch.float32):
+    def plan(name, shape, dtype, level, mdtype=torch.float32, pdtype=None):
         return {"grid": 1 if fits(shape, dtype, level, name) else 0}
     monkeypatch.setattr(kernel, "one_pass_plan", plan)
     for name in ("launches", "launches_one_pass", "launches_two_pass",
@@ -153,6 +155,26 @@ def test_wrappers_route_by_the_rule(routed, shape, dtype, one, use_limiter):
         ((1, 0) if one else (0, 1))
     assert (kernel.launches_q8_one_pass, kernel.launches_q8_two_pass) == \
         ((1, 0) if one else (0, 1))
+
+
+@pytest.mark.parametrize("shape,one", [((6, 288, 8), True),
+                                       ((8, 4096, 1376), False)])
+def test_bf16_gradient_of_f32_parameters(routed, shape, one):
+    """A LoRA adapter of a bf16 model: f32 parameters under a bf16
+    gradient reach both kernels with the mixed code (2), by the rule at the
+    gradient's dtype, since the slots hold G~ rounded to bf16."""
+    L, rows, n = shape
+    f32_p = lambda args: (args[0], torch.empty(args[1].shape, dtype=F32,
+                                               device="meta")) + args[2:]
+    kernel.gwt_adam_fused(*f32_p(_f32_args(shape, BF16)), use_limiter=True,
+                          **_KW)
+    kernel.gwt_adam_fused_q8(*f32_p(_q8_args(shape, BF16)), block=64,
+                             use_limiter=True, **_KW)
+    suffix = "_one_pass" if one else ""
+    assert routed.called == ["gwt_adam_fused" + suffix,
+                             "gwt_adam_fused_q8" + suffix]
+    assert routed.codes == [2, 2]
+    assert fits(shape, BF16) == one
 
 
 def test_explicit_designs(routed):
@@ -212,7 +234,9 @@ def _refusals_f32():
         ("level 5", good, {"level": 5}, "outside"),
         ("n % 2^l", good, {"level": 4}, "divisible"),
         ("f16", (g.half(), p.half(), m, v, pn, ss, wd), {}, "unsupported"),
-        ("p dtype", (g, p.float(), m, v, pn, ss, wd), {}, "dtype"),
+        ("p dtype", (g, p.half(), m, v, pn, ss, wd), {}, "dtype"),
+        ("bf16 p under f32 g", (g.float(), p, m, v, pn, ss, wd), {},
+         "dtype"),
         ("m dtype", (g, p, m.double(), v, pn, ss, wd), {}, "dtype"),
         ("v shape", (g, p, m, v[:, :-1], pn, ss, wd), {}, "shape"),
         ("g layout", (nc(g), p, m, v, pn, ss, wd), {}, "contiguous"),

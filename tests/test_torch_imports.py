@@ -63,7 +63,8 @@ def test_the_walk_sees_the_package():
             "sink.py", "trace.py", "lowrank.py", "attention.py",
             "blocks.py", "layers.py", "lm.py", "qwen2_5_3b.py",
             "gemma2_9b.py", "gemma3_27b.py", "deepseek_67b.py", "kv.py",
-            "serve.py"} <= names
+            "serve.py", "lora.py", "moe.py", "qwen2_vl_72b.py",
+            "qwen2_moe_a2_7b.py", "qwen3_moe_30b_a3b.py", "prng.py"} <= names
     serve = os.path.join(PKG, "serve")
     assert {os.path.join(serve, f) for f in ("kv.py", "engine.py")} \
         <= set(_sources())

@@ -20,9 +20,7 @@ over the gathered pages and its causal offset in another order again
 (measured 11.5 on a chunk's prompt positions, 2.5-5.5 on decode ticks).
 """
 
-import dataclasses
 import json
-import types
 
 import jax
 import jax.numpy as jnp
@@ -351,10 +349,9 @@ def test_engine_rejects_unsupported_archs(smoke):
             Engine(configs.get_smoke(arch), smoke[1], EngineConfig())
     with pytest.raises(NotImplementedError, match="pattern"):
         Engine(TCFG.with_(pattern=("mamba",)), smoke[1], EngineConfig())
-    mrope = types.SimpleNamespace(**dataclasses.asdict(TCFG),
-                                  mrope_sections=(2, 3, 3))
     with pytest.raises(NotImplementedError, match="multimodal rope"):
-        Engine(mrope, smoke[1], EngineConfig())
+        Engine(TCFG.with_(mrope_sections=(2, 3, 3)), smoke[1],
+               EngineConfig())
     with pytest.raises(ValueError, match="cannot hold"):
         Engine(TCFG, smoke[1], _ecfg(num_pages=4))
 
@@ -419,15 +416,20 @@ def test_serve_main_on_the_cpu_and_its_metrics(tmp_path):
     obs_trace.validate(json.load(open(tmp_path / "trace.json")))
 
 
-def test_serve_main_refuses_the_cpu_fallback_and_lora():
+def test_serve_main_refuses_the_cpu_fallback_and_lora(smoke, tmp_path):
+    """No silent CPU fallback; ``--merge-lora`` on a checkpoint that holds
+    no adapters raises instead of serving a wrong tree."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: --device cuda would run on it")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--smoke", "--device", "cuda"])
-    for flag in (["--merge-lora"], ["--lora-rank", "4"],
-                 ["--lora-alpha", "8"]):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5.1"):
-            serve.main(["--smoke", "--device", "cpu"] + flag)
+    CheckpointManager(str(tmp_path)).save(1, {"params": smoke[1]},
+                                          blocking=True)
+    for flag in (["--merge-lora"], ["--merge-lora", "--lora-rank", "4",
+                                    "--lora-alpha", "8"]):
+        with pytest.raises(StructureMismatch):
+            serve.main(["--smoke", "--device", "cpu", "--ckpt",
+                        str(tmp_path)] + flag)
 
 
 def test_workload_is_the_reference_draws():
@@ -507,12 +509,14 @@ def test_train_checkpoint_serve_roundtrip(smoke, tmp_path, codec):
 
 
 def test_lora_checkpoint_is_refused(smoke, tmp_path):
-    """A LoRA fine-tune's checkpoint raises instead of serving its base
-    weights; one without the fine-tune metadata serves."""
+    """A checkpoint whose metadata names a LoRA fine-tune but which holds
+    no adapters raises instead of serving its base weights as if merged;
+    one without the fine-tune metadata serves.  (A real fine-tune's
+    checkpoint is merged and served: tests/test_torch_lora.py.)"""
     cm = CheckpointManager(str(tmp_path), run_meta={
         "finetune": {"mode": "lora", "rank": 4, "alpha": 8.0}})
     cm.save(1, {"params": smoke[1]}, blocking=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5.1"):
+    with pytest.raises(StructureMismatch):
         Engine.from_checkpoint(TCFG, str(tmp_path), _ecfg(), device="cpu")
     cm2 = CheckpointManager(str(tmp_path / "bare"))
     cm2.save(1, {"params": smoke[1]}, blocking=True)
