@@ -208,7 +208,24 @@ Phases (any failure raises and the script exits non-zero):
     pairs a step and the aux loss read in a second run of the same steps
     with ``moe_probe`` (the timed run has no probe); qwen3-moe again with
     ``--state-codec int8`` (K2 by plan, the JAX package's state bytes)
-    and K2 timed at its expert buckets.
+    and K2 timed at its expert buckets;
+33. jamba-v0.1-52b at full width cut to the first five kinds of its
+    period (mamba, mamba+moe, mamba, mamba+moe, attn), 16 x 256, 5 steps
+    through the launcher: K1's launches and designs by plan, nothing else
+    launched, the attention routes, the JAX package's state bytes, losses
+    finite and falling; every GWT bucket of the cut held against the plain
+    version in every CASE, whole, or past 2^31 elements (the 3.76e9-element
+    expert bucket) the whole-bucket launch bitwise to one launch per leaf
+    and each leaf bitwise to the plain version; K1 timed at each bucket;
+    a profiled step; the smoke config 3 steps on the card and on the CPU
+    (f32 and bf16) within ``TOL_SMOKE_LOSS``, and its prefill + cached
+    decode on the card against its own train forward;
+34. xlstm-350m at full width and depth the same, with f32 and int8
+    moments (K2 by plan, held and timed at every bucket), the sLSTM time
+    loop's steps counted and one sLSTM block's launches profiled apart;
+35. seamless-m4t-large-v2 at full width and depth the same (64 frames a
+    row), its smoke config's ``decode_stack`` decode against teacher
+    forcing on the card.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -593,28 +610,38 @@ def check_tile(kernel, ref, dev):
     return n
 
 
+def synthetic(cfg, seq, batch, seed):
+    """The launcher's synthetic source for ``cfg``: with ``seq // 4``
+    frame embeddings a row for the encoder-decoder config."""
+    from repro_torch.data.pipeline import make_source
+    from repro_torch.models import encoder_frames
+    return make_source("synthetic", cfg.vocab, seq, batch, seed=seed,
+                       **encoder_frames(cfg, seq))
+
+
 def small_training(dev, cfg, codecs, seq, steps, rtol):
     """``steps`` GWT-2 steps of ``cfg`` (batch 4 x ``seq``) under each
     state codec, from the same parameters and batches on the card and on
     the CPU; per-step losses within ``rtol``.  Returns the losses."""
     from repro_torch.core.gwt import gwt
-    from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.models import lm
+    from repro_torch.models import module_for
     from repro_torch.optim.base import flatten_with_paths, unflatten
     from repro_torch.optim.schedules import warmup_cosine
 
-    base = lm.init(cfg, torch.Generator().manual_seed(0), "cpu").tree()
-    paths, leaves = flatten_with_paths(base)
-    data = SyntheticLM(cfg.vocab, seq, 4, seed=0)
+    mod = module_for(cfg)
+    model = mod.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    paths, leaves = flatten_with_paths(model.tree())
+    data = synthetic(cfg, seq, 4, 0)
     result = {}
     for codec in codecs:
         losses = {}
         for device in ("cpu", "cuda"):
-            tree = lm.LM(cfg, unflatten(paths, [l.detach().to(device).clone()
-                                                for l in leaves])).tree()
+            tree = type(model)(cfg, unflatten(
+                paths, [l.detach().to(device).clone()
+                        for l in leaves])).tree()
             opt = gwt(warmup_cosine(0.01, steps), state_codec=codec)
             state = opt.init(tree)
-            step = lm.make_train_step(cfg, opt)
+            step = mod.make_train_step(cfg, opt)
             out = []
             for i in range(steps):
                 b = {k: torch.from_numpy(v).to(device)
@@ -807,24 +834,29 @@ def time_generic_wrap(dev, shape=(1, 32000, 512)):
 
 
 def profile_step(dev, codec, steps=4, dp_reduce=None, fused_write=True,
-                 arch="llama-60m", batch=16, seq=256):
+                 arch="llama-60m", batch=16, seq=256, cfg=None,
+                 trace_ops=True):
     """Phase 9 (and 22 for qwen2.5-3b): where a full-width step's time
     goes.  First without the profiler: step time and
     ``optimizer.update``'s share (CUDA events around it).  Then under
     ``torch.profiler``: device kernel time per step (kernel durations; the
     profiler slows the host, not the kernels), launches per step, K1's
-    kernels' share, and the ops that take the most device time."""
+    kernels' share, and the ops that take the most device time.  ``cfg``
+    (default ``configs.get_config(arch)``) may be a cut of it.
+    ``trace_ops=False`` traces the device alone (the kernels that take the most time in place
+    of the ops: tens of thousands of launches a step trace in a fraction
+    of the time)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import configs
     from repro_torch.core.gwt import gwt
-    from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.models import lm
+    from repro_torch.models import module_for
     from repro_torch.optim.schedules import warmup_cosine
 
-    cfg = configs.get_config(arch)
-    tree = lm.init(cfg, torch.Generator(device=dev).manual_seed(1),
-                   dev).tree()
+    cfg = cfg or configs.get_config(arch)
+    mod = module_for(cfg)
+    tree = mod.init(cfg, torch.Generator(device=dev).manual_seed(1),
+                    dev).tree()
     opt = gwt(warmup_cosine(0.01, 100), state_codec=codec,
               fused_write=fused_write)
     state = opt.init(tree)
@@ -838,9 +870,9 @@ def profile_step(dev, codec, steps=4, dp_reduce=None, fused_write=True,
         marks.append((a, b))
         return out
 
-    step = lm.make_train_step(cfg, opt._replace(update=timed_update),
-                              dp_reduce=dp_reduce)
-    data = SyntheticLM(cfg.vocab, seq, batch, seed=1)
+    step = mod.make_train_step(cfg, opt._replace(update=timed_update),
+                               dp_reduce=dp_reduce)
+    data = synthetic(cfg, seq, batch, 1)
     batches = [{k: torch.from_numpy(v).to(dev)
                 for k, v in data.batch(i).items()}
                for i in range(2 * steps + 2)]
@@ -860,8 +892,9 @@ def profile_step(dev, codec, steps=4, dp_reduce=None, fused_write=True,
 
     run(batches[:2])
     step_ms, opt_ms = run(batches[2:2 + steps])
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if trace_ops
+                                      else [])
+    with profile(activities=acts) as prof:
         prof_step_ms, _ = run(batches[2 + steps:])
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -880,12 +913,19 @@ def profile_step(dev, codec, steps=4, dp_reduce=None, fused_write=True,
           f"kernel launches/step; step under the profiler "
           f"{prof_step_ms:.2f} ms; GWT kernels {k1_ms:.3f} ms/step "
           f"= {k1_ms / busy_ms:.2%} of device time")
-    dev_time = lambda e: getattr(e, "self_device_time_total",
-                                 getattr(e, "self_cuda_time_total", 0))
-    ops = sorted(prof.key_averages(), key=lambda e: -dev_time(e))[:10]
-    for e in ops:
-        print(f"  {dev_time(e) / 1e3 / steps:8.3f} ms/step device "
-              f"{e.count // steps:5d} calls/step  {e.key[:70]}")
+    if trace_ops:
+        dev_time = lambda e: getattr(e, "self_device_time_total",
+                                     getattr(e, "self_cuda_time_total", 0))
+        top = [(dev_time(e), e.count, e.key) for e in prof.key_averages()]
+    else:
+        by_name = {}
+        for e in kernels:
+            t, n = by_name.get(e.name, (0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+        top = [(t, n, name) for name, (t, n) in by_name.items()]
+    for t, n, key in sorted(top, key=lambda r: -r[0])[:10]:
+        print(f"  {t / 1e3 / steps:8.3f} ms/step device "
+              f"{n // steps:5d} calls/step  {key[:70]}")
     return {"step_ms": step_ms, "update_ms": opt_ms,
             "device_busy_ms": busy_ms, "gwt_kernel_ms": k1_ms,
             "launches_per_step": len(kernel_us) // steps}
@@ -2472,16 +2512,17 @@ TOL_FLASH_BF16_SPACINGS = 2
 # card-only fault that moves the loss by 0.2% fails
 TOL_SMOKE_LOSS = {"float32": 1e-4, "bfloat16": 2e-3}
 SMOKE_SEQ = 64                     # > the smoke window 32: block-local
-ROUTES = ("_direct_attn", "_local_block_attn", "_flash_attn")
+ROUTES = ("_direct_attn", "_local_block_attn", "_flash_attn",
+          "_flash_attn_noncausal")
 
 
 def gwt_buckets(cfg):
     """The GWT buckets of GWT-2 over ``cfg``'s parameters as K1 takes
     them: ``(name, (L, rows, n))``, and the names of the other buckets."""
     from repro_torch.core.gwt import gwt
-    from repro_torch.models import lm
+    from repro_torch.models import module_for
     from repro_torch.optim.base import flatten_with_paths
-    params = lm.abstract_params(cfg)
+    params = module_for(cfg).abstract_params(cfg)
     shapes = dict(zip(*flatten_with_paths(params)))
     gwt_b, other = [], {}
     for b in gwt(lr=0.01).engine.plan(params).buckets:
@@ -3915,6 +3956,428 @@ def run_new_cuts(train, kernel, hk, ref, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 33-35: mamba with jamba-v0.1-52b, mLSTM/sLSTM with xlstm-350m, the
+# encoder-decoder stack with seamless-m4t-large-v2
+# ---------------------------------------------------------------------------
+
+# (arch, layers or None for full depth, batch, seq, the JAX package's GWT-2
+# state bytes at that depth for each codec run: tests/test_torch_ssm.py,
+# test_torch_xlstm.py, test_torch_encdec.py).  Every width is the
+# published one.  jamba is cut to the first five kinds of its period
+# (mamba, mamba+moe, mamba, mamba+moe, attn): every kind it has, no whole
+# period; seamless takes seq // 4 = 64 frames a row
+SUBSTRATE_RUNS = [
+    ("jamba-v0.1-52b", 5, 16, 256, {"f32": 17_665_458_288}),
+    ("xlstm-350m", None, 16, 256, {"f32": 1_286_170_084,
+                                   "int8": 341_639_144}),
+    ("seamless-m4t-large-v2", None, 16, 256, {"f32": 3_609_296_972}),
+]
+SUBSTRATE_STEPS = 5
+# a bucket past this many elements is held leaf by leaf: the plain
+# version's f32 temporaries of the whole bucket (15 GB each at jamba's
+# 3.76e9-element expert bucket) do not fit beside it on the card
+WHOLE_PLAIN_MAX = 2 ** 31
+# jamba's expert buckets, checked against the plan: w_gate/w_up of the two
+# MoE blocks ((16, 4096, 14336) each; 3.76e9 elements, past 2^31) and w_down
+JAMBA_EXPERT_BUCKETS = [(4, 65536, 14336), (2, 229376, 4096)]
+# a smoke config's cached decode on the card against its own train forward
+# (teacher forcing, for the encoder-decoder): the reference test's
+# atol = rtol
+TOL_DECODE = 0.05
+PROFILED_SUBSTRATE_STEPS = 1
+
+
+def leaf_inputs(shape, seed_, dev, dtype=torch.bfloat16):
+    """K1's inputs as :func:`make_inputs` draws them, one leaf at a time
+    (so no f32 temporary of the whole bucket is made), f32 moments."""
+    L, m, n = shape
+    g = torch.empty(shape, dtype=dtype, device=dev)
+    p = torch.empty(shape, dtype=dtype, device=dev)
+    mm = torch.empty((L, m, n >> LEVEL), device=dev)
+    vv = torch.empty((L, m, n >> LEVEL), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed_)
+    for l in range(L):
+        g[l] = torch.randn(m, n, generator=gen, device=dev) * 0.01
+        p[l] = torch.randn(m, n, generator=gen, device=dev) * 0.02
+        mm[l] = torch.randn(m, n >> LEVEL, generator=gen, device=dev) * 1e-3
+        vv[l] = torch.rand(m, n >> LEVEL, generator=gen, device=dev) * 1e-6
+    return g, p, mm, vv
+
+
+def check_bucket_by_leaf(kernel, ref, dev, label, shape, dtype):
+    """A bucket past WHOLE_PLAIN_MAX in every CASE: K1 (f32 moments) on
+    the whole bucket, then on each leaf alone, bitwise equal (a leaf's sums
+    run in its own chunks, whatever the bucket), and each leaf's launch
+    bitwise to the plain version on that leaf (p, m, v, norm)."""
+    L = shape[0]
+    t0 = time.perf_counter()
+    for ci, case in enumerate(CASES):
+        _, use_lim, prev, wd = case
+        g, p, mm, vv = leaf_inputs(shape, seed(ci, shape[2], LEVEL, 1), dev,
+                                   dtype)
+        ss = torch.tensor(1e-3, device=dev)
+        pn = torch.full((L,), prev, device=dev)
+        wd_coef = torch.tensor(wd, device=dev)
+        kw = dict(level=LEVEL, gamma=1.01, use_limiter=use_lim,
+                  weight_decay=wd != 0)
+        before = kernel.launches
+        whole = kernel.gwt_adam_fused(g, p.clone(), mm.clone(), vv.clone(),
+                                      pn, ss, wd_coef, **kw)
+        for l in range(L):
+            sl = slice(l, l + 1)
+            one = kernel.gwt_adam_fused(g[sl], p[sl].clone(),
+                                        mm[sl].clone(), vv[sl].clone(),
+                                        pn[sl], ss, wd_coef, **kw)
+            want = ref.gwt_adam_fused(g[sl], p[sl], mm[sl], vv[sl], pn[sl],
+                                      ss, wd_coef, **kw)
+            torch.cuda.synchronize()
+            check_bands(f"{label} {shape} leaf {l} / {case[0]}",
+                        [one, tuple(t[sl] for t in whole)], want,
+                        ("p", "m", "v", "norm"))
+            del one, want
+        torch.cuda.synchronize()
+        if kernel.launches - before != 1 + L:
+            raise AssertionError(f"{label} {shape}: "
+                                 f"{kernel.launches - before} launches")
+        del g, p, mm, vv, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"{label} bucket {shape} g {dtype} ({math.prod(shape)} elements, "
+          f"{'one' if one_pass(kernel, shape, dtype) else 'two'}-pass "
+          f"design): {len(CASES)} cases, the whole-bucket launch bitwise to "
+          f"one launch per leaf and each leaf bitwise to the plain version "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
+def substrate_routes(cfg, seq, steps):
+    """Attention route calls of ``steps`` launcher steps (each forward
+    once more under remat): one direct call per attention block of the
+    decoder-only stacks (no window, ``seq`` <= 8192), none for a recurrent
+    block; the encoder-decoder's encoder self-attention (``seq // 4``
+    frames) and the decoder's self- and cross-attention, direct at these
+    lengths."""
+    if cfg.window or seq > 4096:
+        raise ValueError("substrate_routes counts direct routes only")
+    want = dict.fromkeys(ROUTES, 0)
+    per = steps * (2 if cfg.remat else 1)
+    if cfg.arch_class == "encdec":
+        want["_direct_attn"] = per * (cfg.n_enc_layers
+                                      + 2 * cfg.n_dec_layers)
+        return want
+    kinds = list(cfg.pattern) * cfg.n_periods + \
+        list(cfg.pattern[:cfg.rem_layers])
+    want["_direct_attn"] = per * sum(k.split("+")[0] == "attn"
+                                     for k in kinds)
+    return want
+
+
+@contextlib.contextmanager
+def slstm_steps():
+    """Counts the calls of ``xlstm.slstm_step`` (one position of an sLSTM
+    block's time loop) while the block runs."""
+    from repro_torch.models import xlstm
+    calls = [0]
+    step = xlstm.slstm_step
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return step(*args, **kw)
+
+    xlstm.slstm_step = counted
+    try:
+        yield calls
+    finally:
+        xlstm.slstm_step = step
+
+
+def run_substrate(train, kernel, hk, arch, cfg, batch, seq, codec,
+                  state_bytes_want):
+    """One launcher run of ``cfg`` (the counts set to 0 just before and
+    read just after): K1's (int8: K2's) launches and designs by plan,
+    nothing else launched, the attention routes, the sLSTM loop's steps,
+    the JAX package's state bytes, losses finite and falling, parameters
+    finite.  Returns a summary."""
+    from repro_torch.optim.base import flatten_with_paths
+    from repro_torch.optim.engine import state_bytes
+    q8 = codec == "int8"
+    steps = SUBSTRATE_STEPS
+    argv = ["--arch", arch, "--steps", str(steps), "--batch", str(batch),
+            "--seq", str(seq), "--log-every", "1", "--seed", "0",
+            "--state-codec", codec]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with route_counts() as routes, slstm_steps() as loop:
+        reset_counts(kernel, hk)
+        t0 = time.perf_counter()
+        res = train.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = all_counts(kernel, hk)
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in counts}
+    want.update(fused_plan_counts(kernel, cfg, steps, q8))
+    if counts != want:
+        raise AssertionError(f"{arch} {codec}: launched {counts} in {steps} "
+                             f"steps, want {want}")
+    if routes != substrate_routes(cfg, seq, steps):
+        raise AssertionError(f"{arch}: attention routes {routes}, want "
+                             f"{substrate_routes(cfg, seq, steps)}")
+    n_slstm = sum(k == "slstm" for k in cfg.pattern) * cfg.n_periods
+    loop_want = n_slstm * seq * steps * (2 if cfg.remat else 1)
+    if loop[0] != loop_want:
+        raise AssertionError(f"{arch}: {loop[0]} sLSTM steps, want "
+                             f"{loop_want}")
+    nbytes = state_bytes(res.opt_state)
+    if nbytes != state_bytes_want:
+        raise AssertionError(f"{arch} {codec}: state {nbytes} B, the JAX "
+                             f"package counts {state_bytes_want}")
+    losses = res.losses
+    if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch} {codec}: losses {losses} not finite "
+                             f"and falling")
+    for name, t in zip(*flatten_with_paths(res.params)):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"{arch}: non-finite parameter {name}")
+    k = "K2" if q8 else "K1"
+    out = {"arch": arch, "codec": codec, "layers": cfg.n_layers,
+           "batch": batch, "seq": seq, "steps": steps, "losses": losses,
+           "step_ms": res.step_ms,
+           "tokens_per_s": batch * seq / (res.step_ms / 1e3),
+           "peak_mib": peak / 2**20, "base_mib": base / 2**20,
+           "state_bytes": nbytes, "routes": routes,
+           "slstm_steps_per_step": loop[0] // steps, "wall_s": wall,
+           f"{k.lower()}_launches": counts[k],
+           f"{k.lower()}_one_pass": counts[f"{k} one-pass"],
+           f"{k.lower()}_two_pass": counts[f"{k} two-pass"]}
+    print(f"{arch} ({cfg.n_layers} layers, {batch} x {seq}, {codec}): "
+          f"{steps} steps in {wall:.2f} s, losses {losses}, step "
+          f"{res.step_ms:.2f} ms ({out['tokens_per_s']:.0f} tokens/s), peak "
+          f"{peak / 2**20:.1f} MiB (held before {base / 2**20:.1f}), state "
+          f"{nbytes} B, {k} {counts[k]} ({counts[f'{k} one-pass']} one "
+          f"pass, {counts[f'{k} two-pass']} two), routes {routes}, sLSTM "
+          f"steps {loop[0]}")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_bucket_by_leaf(kernel, ref, dev, label, shape, dtype):
+    """K1's device time at a bucket past WHOLE_PLAIN_MAX (CUDA events, L2
+    flushed, best of two runs of 5), its bound, and the plain version's
+    time summed over the leaves (the whole bucket's does not fit)."""
+    flush = torch.empty(64 << 20, device=dev)
+    ss, wd = torch.tensor(1e-3, device=dev), torch.tensor(0.0, device=dev)
+    kw = dict(level=LEVEL, gamma=1.01, use_limiter=True, weight_decay=False)
+    pn = torch.full((shape[0],), 1e9, device=dev)
+    g, p, mm, vv = leaf_inputs(shape, 7, dev, dtype)
+    call = lambda: kernel.gwt_adam_fused(g, p, mm, vv, pn, ss, wd, **kw)
+    t_dev = min(device_ms(call, 5, lambda: kernel.launches, flush)
+                for _ in range(2))
+    t_plain = 0.0
+    for l in range(shape[0]):
+        sl = slice(l, l + 1)
+        t_plain += time_ms(lambda: ref.gwt_adam_fused(
+            g[sl], p[sl], mm[sl], vv[sl], pn[sl], ss, wd, **kw), 1)
+        torch.cuda.empty_cache()
+    esize = torch.empty((), dtype=dtype).element_size()
+    b_ms, b_by, nbytes = bound(shape, esize)
+    row = {"bucket": f"{label} {list(shape)}", "shape": list(shape),
+           "per_step": 1, "ms": t_dev, "plain_ms": t_plain,
+           "plain_by_leaf": True, "bound_ms": b_ms, "bound_by": b_by,
+           "bytes": nbytes,
+           "design": "one" if one_pass(kernel, shape, dtype) else "two"}
+    print(f"K1 time {label} {shape} g {dtype}: {row['design']}-pass "
+          f"{t_dev:.4f} ms on the device ({b_ms / t_dev:.1%} of bound "
+          f"{b_ms:.4f} ms by {b_by}); plain {t_plain:.4f} ms (by leaf)")
+    del g, p, mm, vv, call, flush
+    torch.cuda.empty_cache()
+    return row
+
+
+def profile_slstm(dev, cfg, batch, seq):
+    """Kernel launches and device time of one sLSTM block of ``cfg`` as
+    the train step runs it (the block under remat: the forward, then the
+    recomputed forward and the backward), at batch x seq, under the
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import blocks, lm
+    from repro_torch.models.layers import Builder
+    from repro_torch.optim.base import tree_map
+    b = Builder(torch.Generator(device=dev).manual_seed(2), dev,
+                cfg.torch_dtype)
+    p = tree_map(lambda t: t.requires_grad_(),
+                 blocks.block_init(b, cfg, "slstm"))
+    x = torch.randn(batch, seq, cfg.d_model, device=dev,
+                    dtype=cfg.torch_dtype, requires_grad=True)
+
+    def run():
+        y, _ = lm._block(cfg, "slstm", p, x, None, None)
+        y.float().sum().backward()
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"launches": len(kernels),
+            "device_ms": sum(e.time_range.elapsed_us()
+                             for e in kernels) / 1e3}
+
+
+def smoke_decode(dev, cfg):
+    """On the card: a smoke config's prefill of 28 positions and 4 cached
+    decode steps against its own train forward (the encoder-decoder: the
+    decoder's prefill over 8 frames and ``decode_stack``'s decode against
+    teacher forcing), each within TOL_DECODE.  Returns the largest
+    |difference|."""
+    from repro_torch.launch.serve import pad_cache
+    from repro_torch.models import module_for
+    mod = module_for(cfg)
+    model = mod.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    params = model.tree()
+    S, prefix = 32, 28
+    rng = np.random.RandomState(3)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab, (2, S))).to(dev)
+    batch = {"tokens": toks[:, :prefix]}
+    if cfg.arch_class == "encdec":
+        frames = torch.from_numpy(rng.randn(2, 8, cfg.d_model)
+                                  .astype(np.float32)).to(dev)
+        batch["enc_embeds"] = frames
+        with torch.no_grad():
+            full = model(toks, frames).float()
+    else:
+        with torch.no_grad():
+            full = model(toks).float()
+    logits, cache = mod.make_prefill_step(cfg)(params, batch)
+    if cfg.arch_class == "encdec":
+        cache = {"dec": {"self": pad_cache(cache["dec"]["self"], S),
+                         "cross": cache["dec"]["cross"]},
+                 "pos": cache["pos"]}
+    else:
+        cache = pad_cache(cache, S)
+    pairs = [(logits, full[:, prefix - 1])]
+    decode = mod.make_decode_step(cfg)
+    for t in range(prefix, S):
+        logits, cache = decode(params, cache, {"tokens": toks[:, t:t + 1]})
+        pairs.append((logits, full[:, t]))
+    worst = 0.0
+    for i, (got, want) in enumerate(pairs):
+        diff = (got.float() - want).abs()
+        if not bool((diff <= TOL_DECODE + TOL_DECODE * want.abs()).all()):
+            raise AssertionError(f"{cfg.name} smoke: cached step {i} off "
+                                 f"the train forward by {diff.max().item()}")
+        worst = max(worst, diff.max().item())
+    print(f"{cfg.name} smoke ({cfg.dtype}) on the card: prefill + "
+          f"{S - prefix} cached decode steps against the "
+          f"{'teacher-forced' if cfg.arch_class == 'encdec' else 'train'} "
+          f"forward, max |diff| {worst:.4g} (atol = rtol = {TOL_DECODE})")
+    return worst
+
+
+def run_substrates(train, kernel, hk, ref, dev):
+    """Phases 33-35, one per config of SUBSTRATE_RUNS: the launcher's runs
+    (``run_substrate``; xlstm-350m with f32 and int8 moments), every GWT
+    bucket of the run held against the plain version in every CASE (K1
+    with f32 moments, K2 too after an int8 run; whole, or leaf by leaf past
+    WHOLE_PLAIN_MAX), K1 (K2) timed at each bucket, a profiled step
+    (launches, idle share; xlstm-350m's sLSTM blocks' launches apart), and
+    the smoke config card vs CPU (3 steps, f32 and bf16; int8 too for
+    xlstm-350m) and its cached decode on the card."""
+    from repro_torch import configs
+    out = []
+    for phase, (arch, layers, batch, seq, state) in enumerate(
+            SUBSTRATE_RUNS, start=33):
+        t0 = time.perf_counter()
+        parts = {}
+
+        def lap(name, _t=[t0]):
+            now = time.perf_counter()
+            parts[name] = now - _t[0]
+            _t[0] = now
+
+        cut = depth_cut(arch, layers) if layers else \
+            contextlib.nullcontext(configs.get_config(arch))
+        res = {"phase": phase, "arch": arch}
+        with cut as cfg:
+            for codec, nbytes in state.items():
+                res[codec] = run_substrate(train, kernel, hk, arch, cfg,
+                                           batch, seq, codec, nbytes)
+        lap("launcher")
+        buckets, _ = gwt_buckets(cfg)
+        shapes = [s for _, s in buckets]
+        if arch == "jamba-v0.1-52b":
+            missing = [s for s in JAMBA_EXPERT_BUCKETS if s not in shapes]
+            if missing:
+                raise AssertionError(f"jamba: expert buckets {missing} not "
+                                     f"in the plan {shapes}")
+        whole = [s for s in shapes if math.prod(s) <= WHOLE_PLAIN_MAX]
+        by_leaf = [s for s in shapes if math.prod(s) > WHOLE_PLAIN_MAX]
+        check_buckets_whole(
+            kernel, ref, dev, f"{arch} run", whole, cfg.torch_dtype,
+            (torch.float32, None) if "int8" in state else (torch.float32,))
+        for s in by_leaf:
+            check_bucket_by_leaf(kernel, ref, dev, f"{arch} run", s,
+                                 cfg.torch_dtype)
+        res["buckets_held_whole"] = [list(s) for s in whole]
+        res["buckets_held_by_leaf"] = [list(s) for s in by_leaf]
+        lap("buckets held")
+        res["k1_buckets"] = time_buckets(kernel, ref, dev, arch, whole,
+                                         cfg.torch_dtype) + [
+            time_bucket_by_leaf(kernel, ref, dev, arch, s, cfg.torch_dtype)
+            for s in by_leaf]
+        if "int8" in state:
+            res["k2_buckets"] = time_buckets(kernel, ref, dev, arch, shapes,
+                                             cfg.torch_dtype, q8=True)
+        for key, rows in (("k1", res["k1_buckets"]),
+                          ("k2", res.get("k2_buckets", []))):
+            if rows:
+                res[f"{key}_ms_per_step"] = sum(r["ms"] for r in rows)
+                res[f"{key}_bound_ms_per_step"] = sum(r["bound_ms"]
+                                                      for r in rows)
+        lap("buckets timed")
+        slstm = any(k == "slstm" for k in cfg.pattern)
+        res["profile"] = profile_step(dev, "f32", arch=arch, cfg=cfg,
+                                      steps=PROFILED_SUBSTRATE_STEPS,
+                                      batch=batch, seq=seq,
+                                      trace_ops=not slstm)
+        if slstm:
+            one = profile_slstm(dev, cfg, batch, seq)
+            n = sum(k == "slstm" for k in cfg.pattern) * cfg.n_periods
+            res["slstm"] = dict(one, blocks=n, share_of_launches=n * one[
+                "launches"] / res["profile"]["launches_per_step"])
+            print(f"{arch}: one sLSTM block (forward, remat recompute, "
+                  f"backward) {one['launches']} kernel launches, "
+                  f"{one['device_ms']:.2f} ms device; its {n} blocks "
+                  f"{res['slstm']['share_of_launches']:.1%} of the step's "
+                  f"{res['profile']['launches_per_step']} launches")
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("profiled")
+        res["smoke"] = {}
+        for dtype in TOL_SMOKE_LOSS:
+            scfg = configs.get_smoke(arch).with_(dtype=dtype)
+            codecs = ("f32", "int8") if "int8" in state and \
+                dtype == "float32" else ("f32",)
+            res["smoke"][dtype] = small_training(
+                dev, scfg, codecs, SMOKE_SEQ, 3, TOL_SMOKE_LOSS[dtype])
+        res["smoke"]["decode_max_abs_diff"] = smoke_decode(
+            dev, configs.get_smoke(arch))
+        lap("smoke")
+        res["phase_s"] = time.perf_counter() - t0
+        res["parts_s"] = parts
+        print(f"phase {phase} ({arch}): {res['phase_s']:.1f} s ("
+              + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + ")")
+        out.append(res)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA "
@@ -4032,6 +4495,10 @@ def main() -> int:
     new_cuts = run_new_cuts(train, kernel, hk, ref, dev)
     print(f"phases 29-32: {time.perf_counter() - t_new:.1f} s; the script "
           f"so far {time.perf_counter() - t0:.1f} s")
+    t_sub = time.perf_counter()
+    substrates = run_substrates(train, kernel, hk, ref, dev)
+    print(f"phases 33-35: {time.perf_counter() - t_sub:.1f} s; the script "
+          f"so far {time.perf_counter() - t0:.1f} s")
     print(f"staged step vs fused step (same call): launcher-equivalent "
           f"loop {staged32['step_ms']:.2f} vs {res32.step_ms:.2f} ms; "
           f"profiled {prof_staged['step_ms']:.2f} vs "
@@ -4062,7 +4529,11 @@ def main() -> int:
                            "smoke_card_vs_cpu": dense_small},
                     serving=serving,
                     lora={"llama-60m": lora_llama, "qwen2.5-3b": lora_qwen},
-                    mrope_moe_cuts=new_cuts),
+                    mrope_moe_cuts=new_cuts,
+                    recurrent_encdec=[
+                        {k: v for k, v in r.items() if k not in
+                         ("int8", "k2_buckets", "k2_ms_per_step",
+                          "k2_bound_ms_per_step")} for r in substrates]),
         fused_entry("gwt_adam_fused_q8",
                     "gwt_adam/csrc/gwt_adam_fused_q8.cu",
                     "src/repro/kernels/gwt_adam/kernel.py:554",
@@ -4075,7 +4546,13 @@ def main() -> int:
                            "qwen2.5-3b_per_launch": rows_qwen8},
                     lora_int8={"llama-60m": lora_llama["int8"],
                                "adapter_buckets":
-                               lora_llama["k2_adapter_buckets"]}),
+                               lora_llama["k2_adapter_buckets"]},
+                    xlstm_int8=[{"arch": r["arch"], "run": r["int8"],
+                                 "buckets": r["k2_buckets"],
+                                 "ms_per_step": r["k2_ms_per_step"],
+                                 "bound_ms_per_step":
+                                 r["k2_bound_ms_per_step"]}
+                                for r in substrates if "int8" in r]),
         group_entry("haar_dwt_fwd_q",
                     "src/repro/kernels/haar_dwt/kernel.py:124",
                     dp_counts["K3"], err_haar, rows_haar["K3 bf16"],

@@ -1,8 +1,7 @@
 """``ModelConfig``: the architecture dataclass (counterpart of
-``repro/configs/base.py``, whose module imports JAX).  The fields of the
-dense decoders, the MoE and M-RoPE are kept, with the reference's defaults;
-the SSM and encoder-decoder fields wait for those substrates (ROADMAP
-Queue 1 items 5.4-5.6)."""
+``repro/configs/base.py``, whose module imports JAX), every field with the
+reference's default: the dense decoders, the MoE, M-RoPE, the SSM (mamba)
+widths and the encoder-decoder split."""
 
 from __future__ import annotations
 
@@ -23,10 +22,10 @@ class ModelConfig:
     head_dim: int
     d_ff: int
     vocab: int
-    # layer-kind pattern for ONE period; the port builds "attn" and
-    # "attn_local" (sliding window) blocks, and with the "+moe" suffix the
-    # MoE FFN in place of the MLP
+    # layer-kind pattern for ONE period; entries: "attn", "attn_local",
+    # "mamba", "mlstm", "slstm"; the "+moe" suffix swaps the MLP for MoE
     pattern: Tuple[str, ...] = ("attn",)
+    arch_class: str = "decoder"          # decoder | encdec
     family: str = "dense"
     # MoE
     n_experts: int = 0
@@ -45,6 +44,13 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: float = 1e4
     mrope_sections: Tuple[int, ...] = ()  # qwen2-vl M-RoPE (t,h,w) split
+    # SSM (mamba)
+    ssm_state: int = 16
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    # enc-dec split (seamless): n_layers = n_enc + n_dec
+    n_enc_layers: int = 0
+    n_dec_layers: int = 0
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
@@ -62,6 +68,10 @@ class ModelConfig:
     @property
     def rem_layers(self) -> int:
         return self.n_layers % self.period
+
+    @property
+    def d_inner(self) -> int:  # mamba inner width
+        return self.ssm_expand * self.d_model
 
     @property
     def torch_dtype(self) -> torch.dtype:

@@ -13,7 +13,9 @@ the numpy draws, the window map and the sample order are the same code):
   slicing (``dp_rank``/``dp_size``),
 * :class:`TokenizingTextLM`: on-the-fly BPE over raw text — the GIL-heavy
   source the process-worker path
-  (``repro_torch.data.workers.ProcessPrefetcher``) exists for.
+  (``repro_torch.data.workers.ProcessPrefetcher``) exists for;
+* :class:`WithEncoderFrames` around any of them: the encoder-decoder
+  batches' seeded frame embeddings.
 
 Prefetch runs in a daemon thread with a bounded queue; source exceptions
 are captured and re-raised in the consumer (``__next__``), never swallowed
@@ -178,6 +180,27 @@ class TokenizingTextLM:
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
+class WithEncoderFrames:
+    """Encoder-decoder adapter: rides deterministic frame embeddings
+    ``(B, n_frames, d_model)`` f32 along each batch of ``source`` (the
+    audio front end's stub for seamless-style training), as
+    ``enc_embeds``.  ``batch(i)`` depends only on ``i``: the frames are
+    ``np.random.RandomState(i).randn``, the reference's, bitwise."""
+
+    def __init__(self, source, n_frames: int, d_model: int):
+        self.source = source
+        self.n_frames = n_frames
+        self.d_model = d_model
+        self.batch_size = source.batch_size
+
+    def batch(self, index: int) -> Dict[str, np.ndarray]:
+        b = dict(self.source.batch(index))
+        rng = np.random.RandomState(index)
+        b["enc_embeds"] = rng.randn(
+            self.batch_size, self.n_frames, self.d_model).astype(np.float32)
+        return b
+
+
 def stack_batches(batches) -> Dict[str, np.ndarray]:
     """Stack a list of ``batch(i)`` dicts along a new leading axis —
     the xs of the train loop's scan-over-steps superstep."""
@@ -276,22 +299,17 @@ def make_source(kind: str, vocab: int, seq_len: int, batch_size: int,
     (``vocab`` must cover the model's table; the corpus source uses the
     store's own vocab and merely checks it fits).
 
-    ``enc_frames``/``enc_dim`` > 0 (the reference's encoder-decoder frame
-    adapter, ``WithEncoderFrames``) raise: the port has no encoder-decoder
-    model yet."""
-    if enc_frames and enc_dim:
-        raise NotImplementedError(
-            "encoder-decoder batches (enc_frames/enc_dim) need the "
-            "encoder-decoder substrate, which the port does not have yet")
+    ``enc_frames``/``enc_dim`` > 0 wrap the source in
+    :class:`WithEncoderFrames` (encoder-decoder training batches)."""
     eval_split = split == "eval"
     if eval_split and kind != "corpus":
         seed = seed ^ 0x5EED_E7A1  # disjoint deterministic stream
     if kind == "synthetic":
-        return SyntheticLM(vocab, seq_len, batch_size, seed)
-    if kind == "bytes":
-        return ByteLM(pattern or "src/**/*.py", seq_len, batch_size, seed,
-                      vocab=min(vocab, 256))
-    if kind == "corpus":
+        src = SyntheticLM(vocab, seq_len, batch_size, seed)
+    elif kind == "bytes":
+        src = ByteLM(pattern or "src/**/*.py", seq_len, batch_size, seed,
+                     vocab=min(vocab, 256))
+    elif kind == "corpus":
         if not corpus_dir:
             raise ValueError("data kind 'corpus' needs corpus_dir "
                              "(--corpus-dir: a directory built by "
@@ -301,5 +319,8 @@ def make_source(kind: str, vocab: int, seq_len: int, batch_size: int,
         if src.vocab > vocab:
             raise ValueError(f"corpus vocab {src.vocab} exceeds model "
                              f"vocab {vocab}")
-        return src
-    raise ValueError(f"unknown data source {kind!r}")
+    else:
+        raise ValueError(f"unknown data source {kind!r}")
+    if enc_frames and enc_dim:
+        src = WithEncoderFrames(src, enc_frames, enc_dim)
+    return src

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.manager import from_numpy, to_numpy
-from repro_torch.models import lm, lora
+from repro_torch.models import encdec, lm, lora, module_for
 from repro_torch.optim.base import flatten_with_paths, unflatten
 
 
@@ -36,12 +36,14 @@ def _tensor(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
 
 def params_from_numpy(cfg, arrays: Mapping[str, np.ndarray],
                       device, lora_rank: Optional[int] = None) -> lm.LM:
-    """An :class:`lm.LM` holding ``arrays``, checked path by path and shape
-    by shape against the port's own parameter tree for ``cfg``, each leaf
-    in that tree's dtype (the model dtype; f32 for an MoE router).  With
-    ``lora_rank`` the tree is a LoRA fine-tune's ``{"base", "lora"}``
+    """An :class:`lm.LM` (an encoder-decoder config's
+    :class:`encdec.EncDec`) holding ``arrays``, checked path by path and
+    shape by shape against the port's own parameter tree for ``cfg``, each
+    leaf in that tree's dtype (the model dtype; f32 for an MoE router).
+    With ``lora_rank`` the tree is a LoRA fine-tune's ``{"base", "lora"}``
     (``models.lora.inject`` at that rank; the adapters are f32)."""
-    like = lm.abstract_params(cfg)
+    mod = module_for(cfg)
+    like = mod.abstract_params(cfg)
     if lora_rank is not None:
         like = lora.inject(like, lora_rank, (0, 0))
     paths, leaves = flatten_with_paths(like)
@@ -56,7 +58,8 @@ def params_from_numpy(cfg, arrays: Mapping[str, np.ndarray],
             raise ValueError(f"{p}: shape {np.shape(arrays[p])}, expected "
                              f"{want[p]}")
         out.append(_tensor(arrays[p], leaf.dtype, device))
-    return lm.LM(cfg, unflatten(paths, out))
+    return (encdec.EncDec if mod is encdec else lm.LM)(
+        cfg, unflatten(paths, out))
 
 
 # optimizer-state leaves keep their integer dtypes: int8 moment codes, the

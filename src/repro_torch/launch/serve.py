@@ -17,6 +17,12 @@ the continuous-batching engine's command line, and the small dense
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-60m \
         --ckpt runs/ft
 
+The engine serves full-attention decoder stacks.  The recurrent configs
+(jamba's mamba blocks, xLSTM) and the windowed or M-RoPE ones decode
+through :func:`generate`, the dense path (their caches hold each
+recurrent block's state beside the K/V); the encoder-decoder config is
+refused here: its decoding is ``models.encdec.decode_stack``.
+
 Runs on CUDA unless ``--device cpu`` is given; without a card it raises
 instead of falling back to the CPU.  The engine lives in
 :mod:`repro_torch.serve.engine`; this module builds a workload and prints
@@ -55,9 +61,10 @@ def _map_kv(fn, cache: Mapping[str, Any]):
 
 def pad_cache(cache, max_len: int, window: int = 0):
     """Grow full-attention prefill caches (depth = prompt) to decode
-    capacity ``max_len``.  Ring-buffer caches (depth = ``window``) stay:
-    their slot arithmetic needs ``prompt % window == 0`` (checked at
-    prefill).  The sequence axis is -3 of ``(..., S, KV, hd)``, stacked
+    capacity ``max_len``; only ``k``/``v`` leaves grow (a recurrent
+    block's state keeps its shape).  Ring-buffer caches (depth =
+    ``window``) stay: their slot arithmetic needs ``prompt % window == 0``
+    (checked at prefill).  The sequence axis is -3 of ``(..., S, KV, hd)``, stacked
     ``(L, B, S, KV, hd)`` or flat ``(B, S, KV, hd)``.  Growing is one-way;
     check the result with :func:`ensure_capacity` before decoding."""
     def grow(x):
@@ -180,6 +187,12 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get_config(args.arch))
+    if cfg.arch_class == "encdec":
+        raise SystemExit(
+            "the serving engine is decoder-only; encoder-decoder decoding "
+            "is repro_torch.models.encdec.decode_stack (make_prefill_step "
+            "and make_decode_step; tests/test_torch_encdec.py holds it "
+            "against teacher forcing)")
     ecfg = EngineConfig(num_slots=args.num_slots, page_size=args.page_size,
                         max_ctx=args.prompt_len + args.gen,
                         prefill_chunk=args.prefill_chunk,

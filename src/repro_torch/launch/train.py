@@ -38,6 +38,11 @@ optimizer's own rule takes the adapters.  ``--base-ckpt`` restores the
 base's parameters from a checkpoint first.  The manifest records the rank
 and alpha, from which serving merges the adapters at load.
 
+Every assigned ``--arch`` trains: the decoder-only LMs (attention, MoE,
+mamba, xLSTM blocks) and the encoder-decoder ``seamless-m4t-large-v2``
+(``models/encdec.py``), whose batches carry ``seq // 4`` seeded frame
+embeddings a row (``data.pipeline.WithEncoderFrames``).
+
 Runs on CUDA unless ``--device cpu`` is given; without a card and without
 ``--device cpu`` it raises instead of falling back to the CPU.
 
@@ -79,11 +84,11 @@ from repro_torch.checkpoint.manager import CheckpointManager, \
     StructureMismatch
 from repro_torch.core import prng
 from repro_torch.data.eval import make_lm_evaluator
-from repro_torch.data.pipeline import make_source
+from repro_torch.data.pipeline import WithEncoderFrames, make_source
 from repro_torch.data.store import TokenStore
 from repro_torch.distributed import compression
 from repro_torch.launch.mesh import DPContext, init_dp
-from repro_torch.models import lm, lora
+from repro_torch.models import encoder_frames, lora, module_for
 from repro_torch.optim import engine
 from repro_torch.optim.base import flatten_with_paths, tree_map
 from repro_torch.optim.schedules import warmup_cosine
@@ -350,21 +355,28 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
             log(f"model vocab {cfg.vocab} -> {corpus_vocab} (corpus "
                 f"tokenizer)")
             cfg = cfg.with_(vocab=corpus_vocab)
+    # the encoder-decoder stack (seamless) or the decoder-only LM
+    mod = module_for(cfg)
     generator = torch.Generator(device=device).manual_seed(args.seed)
-    model = lm.init(cfg, generator, device)
+    model = mod.init(cfg, generator, device)
+    wrap = type(model)   # holds a restored tree as parameters
     params = model.tree()
     n_params = sum(p.numel() for p in model.parameters())
     if args.base_ckpt:
         base, base_step = CheckpointManager(args.base_ckpt).restore_params(
             None, params)
         del model
-        params = lm.LM(cfg, base).tree()
+        params = wrap(cfg, base).tree()
         log(f"restored pre-trained base from {args.base_ckpt} (step "
             f"{base_step})")
     finetune = args.finetune == "lora"
 
+    # encoder-decoder batches carry the audio front end's frame stub
+    # (WithEncoderFrames): seq // 4 frames of d_model a row
+    enc_kw = encoder_frames(cfg, args.seq)
     source = make_source(args.data, cfg.vocab, args.seq, args.batch,
-                         seed=args.seed, corpus_dir=args.corpus_dir or None)
+                         seed=args.seed, corpus_dir=args.corpus_dir or None,
+                         **enc_kw)
 
     def build_optimizer(codec: str):
         kw = {"state_codec": codec}
@@ -410,7 +422,9 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
     # data stream fails instead of training on
     data_meta = {"kind": args.data, "order_seed": args.seed}
     if args.data == "corpus":
-        data_meta["corpus_hash"] = source.store.corpus_hash
+        data_meta["corpus_hash"] = (
+            source.source if isinstance(source, WithEncoderFrames)
+            else source).store.corpus_hash
     run_meta = {"data": data_meta, "state_codec": args.state_codec}
     if finetune:
         # serving reads this to merge the adapters into the base at load
@@ -423,26 +437,26 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
         params, opt_state, start = resume(
             ckpt, params, opt_state, build_optimizer, args.state_codec,
             data_meta, device, log=log, dp=dp)
-        params = lm.LM(cfg, params).tree()
+        params = wrap(cfg, params).tree()
         log(f"resumed from step {start}")
 
     if finetune:
-        train_step = lora.make_train_step(lm, cfg, optimizer,
+        train_step = lora.make_train_step(mod, cfg, optimizer,
                                           rank=args.lora_rank,
                                           alpha=args.lora_alpha,
                                           accum_steps=args.accum)
     else:
-        train_step = lm.make_train_step(cfg, optimizer,
-                                        accum_steps=args.accum,
-                                        dp_reduce=dp_spec, dp=dp)
+        train_step = mod.make_train_step(cfg, optimizer,
+                                         accum_steps=args.accum,
+                                         dp_reduce=dp_spec, dp=dp)
     evaluator = None
     if args.eval_every:
         eval_src = make_source(args.data, cfg.vocab, args.seq, args.batch,
                                seed=args.seed,
                                corpus_dir=args.corpus_dir or None,
-                               split="eval")
-        eval_mod = lora.loss_module(lm, args.lora_alpha, args.lora_rank) \
-            if finetune else lm
+                               split="eval", **enc_kw)
+        eval_mod = lora.loss_module(mod, args.lora_alpha, args.lora_rank) \
+            if finetune else mod
         evaluator = make_lm_evaluator(cfg, eval_mod, eval_src,
                                       n_batches=args.eval_batches,
                                       device=device)

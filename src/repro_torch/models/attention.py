@@ -9,6 +9,11 @@ over the reference's three compute routes chosen by static shape:
 * chunked (``_flash_attn``) past 8192 positions: an online softmax over
   ``(q_chunk, kv_chunk)`` score tiles.
 
+Bidirectional attention (``bidirectional=True``, the encoder) takes the
+direct route with nothing masked, or past 4096 positions the non-causal
+chunked route (``_flash_attn_noncausal``, also the long cross-attention of
+``models/encdec.py``).
+
 The cached serving modes (``attn_apply(mode=...)``): ``prefill`` hands its
 K/V over as a cache (a sliding window's ring buffer: the last ``window``
 entries); ``decode`` writes one entry per step into a dense cache (ring
@@ -22,7 +27,7 @@ The arithmetic is the reference's, written as explicit torch ops (no fused
 library attention): f32 scores from the operands, ``-1e30`` masking,
 softmax in f32, the probabilities cast to ``v.dtype`` before the second
 product.  K/V heads are repeated to the query heads before every train
-route.  Bidirectional attention is not ported (ROADMAP Queue 1 item 5.6).
+route.
 """
 
 from __future__ import annotations
@@ -149,6 +154,48 @@ def _flash_attn(q, k, v, *, q_chunk: int = 512, kv_chunk: int = 2048,
     return out.to(q.dtype)
 
 
+def _flash_attn_noncausal(q, k, v, *, q_chunk: int = 512,
+                          kv_chunk: int = 2048, cap: float = 0.0):
+    """Non-causal chunked attention (the encoder's self-attention and the
+    decoder's cross-attention at long lengths): q chunks in turn, each an
+    online softmax over the kv chunks.  q (B,Sq,H,hd); k/v (B,Skv,H,hd)
+    (KV-repeated).  The chunks shrink to the lengths; where they do not
+    divide them, the direct route with nothing masked."""
+    B, Sq, H, hd = q.shape
+    Skv = k.shape[1]
+    q_chunk = min(q_chunk, Sq)
+    kv_chunk = min(kv_chunk, Skv)
+    if Sq % q_chunk or Skv % kv_chunk:
+        return _direct_attn(q, k, v, causal_offset=int(1e9), window=0,
+                            cap=cap)
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    outs = []
+    for qi in range(Sq // q_chunk):
+        qblk = q[:, qi * q_chunk:(qi + 1) * q_chunk]
+        m = torch.full((B, H, q_chunk), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, H, q_chunk), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, H, q_chunk, hd), dtype=torch.float32,
+                          device=dev)
+        for kj in range(Skv // kv_chunk):
+            kblk = k[:, kj * kv_chunk:(kj + 1) * kv_chunk]
+            vblk = v[:, kj * kv_chunk:(kj + 1) * kv_chunk]
+            s = torch.einsum("bshd,bthd->bhst", qblk.float(),
+                             kblk.float()) * scale
+            s = softcap(s, cap) if cap else s
+            m_new = torch.maximum(m, s.amax(-1))
+            pmat = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + pmat.sum(-1)
+            pv = torch.einsum("bhst,bthd->bhsd", pmat.to(vblk.dtype), vblk)
+            acc = acc * corr[..., None] + pv.float()
+            m = m_new
+        outs.append(acc / torch.clamp(l[..., None], min=1e-30))
+    out = torch.cat(outs, dim=2).transpose(1, 2)
+    return out.to(q.dtype)
+
+
 def _local_block_attn(q, k, v, *, window: int, cap: float):
     """Exact sliding-window attention: block i attends blocks {i-1, i}.
     q/k/v (B,S,H,hd) (KV-repeated); ``S`` a multiple of ``window``."""
@@ -235,11 +282,10 @@ def attn_apply(p, cfg, x, cos, sin, *, local: bool = False,
     prefill"`` writes one slot's (1, C) chunk at positions ``pos[0] ..
     pos[0]+C-1`` and attends everything paged in before it; every read is
     masked by the slot's own length.  Windowed blocks have no paged layout.
+
+    ``bidirectional`` (the encoder, train mode) masks nothing: the direct
+    route, or past 4096 positions ``_flash_attn_noncausal``.
     """
-    if bidirectional:
-        raise NotImplementedError(
-            "bidirectional attention (the encoder-decoder substrate) waits "
-            "for ROADMAP Queue 1 item 5.6")
     if page_table is not None and local and cfg.window:
         raise NotImplementedError(
             "paged serving covers full-attention blocks only; the "
@@ -299,7 +345,13 @@ def attn_apply(p, cfg, x, cos, sin, *, local: bool = False,
         new_cache = cache
     else:
         kr, vr = _repeat_kv(k, H), _repeat_kv(v, H)
-        if window and S > window and S % window == 0:
+        if bidirectional:
+            if S > 4096:
+                o = _flash_attn_noncausal(q, kr, vr, cap=cap)
+            else:
+                o = _direct_attn(q, kr, vr, causal_offset=int(1e9),
+                                 window=0, cap=cap)
+        elif window and S > window and S % window == 0:
             o = _local_block_attn(q, kr, vr, window=window, cap=cap)
         elif window and S > window:
             o = _direct_attn(q, kr, vr, causal_offset=0, window=window,

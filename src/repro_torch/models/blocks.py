@@ -1,10 +1,11 @@
-"""Layer block (counterpart of ``repro/models/blocks.py``): an attention
-mixer (``"attn"``, or ``"attn_local"`` with the sliding window) and the
-FFN, with pre-norms and residuals: the MoE (``models/moe.py``) for a kind
-with the ``"+moe"`` suffix (``"attn+moe"``), else the MLP where
-``cfg.d_ff > 0``; and the block's serving caches, dense (``block_cache``)
-or paged (``block_paged_cache``).  The recurrent mixers wait for ROADMAP
-Queue 1 items 5.4 (mamba) and 5.5 (mLSTM, sLSTM)."""
+"""Layer block (counterpart of ``repro/models/blocks.py``): a mixer
+(``"attn"``, ``"attn_local"`` with the sliding window, ``"mamba"``,
+``"mlstm"`` or ``"slstm"``) and the FFN, with pre-norms and residuals: the
+MoE (``models/moe.py``) for a kind with the ``"+moe"`` suffix
+(``"mamba+moe"``), else the MLP where ``cfg.d_ff > 0``, else none (xLSTM);
+and the block's serving caches, dense (``block_cache``: K/V for attention,
+the recurrent state for the others) or paged (``block_paged_cache``,
+attention blocks only)."""
 
 from __future__ import annotations
 
@@ -12,10 +13,17 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.models import attention, moe as moe_lib
+from repro_torch.models import attention, moe as moe_lib, ssm, xlstm
 from repro_torch.models.layers import Builder, mlp_apply, mlp_init, rms_norm
 
 ATTENTION_KINDS = ("attn", "attn_local")
+RECURRENT_KINDS = ("mamba", "mlstm", "slstm")
+_INIT = {"mamba": ssm.mamba_init, "mlstm": xlstm.mlstm_init,
+         "slstm": xlstm.slstm_init}
+_APPLY = {"mamba": ssm.mamba_apply, "mlstm": xlstm.mlstm_apply,
+          "slstm": xlstm.slstm_apply}
+_CACHE = {"mamba": ssm.mamba_cache, "mlstm": xlstm.mlstm_cache,
+          "slstm": xlstm.slstm_cache}
 
 
 def parse_kind(kind: str) -> Tuple[str, bool]:
@@ -26,20 +34,19 @@ def parse_kind(kind: str) -> Tuple[str, bool]:
 
 def _check_kind(kind: str) -> Tuple[str, bool]:
     base, use_moe = parse_kind(kind)
-    if base in ("mamba", "mlstm", "slstm"):
-        raise NotImplementedError(
-            f"block kind {kind!r}: the recurrent blocks wait for ROADMAP "
-            "Queue 1 items 5.4 (mamba) and 5.5 (mLSTM/sLSTM)")
-    if base not in ATTENTION_KINDS:
+    if base not in ATTENTION_KINDS + RECURRENT_KINDS:
         raise ValueError(f"unknown block kind {base!r}")
     return base, use_moe
 
 
 def block_init(b: Builder, cfg, kind: str, lead=()) -> dict:
-    _, use_moe = _check_kind(kind)
+    base, use_moe = _check_kind(kind)
     d = cfg.d_model
-    p = {"norm1": b.param((d,), init="zeros", lead=lead),
-         "mixer": attention.attn_init(b, cfg, lead=lead)}
+    p = {"norm1": b.param((d,), init="zeros", lead=lead)}
+    if base in ATTENTION_KINDS:
+        p["mixer"] = attention.attn_init(b, cfg, lead=lead)
+    else:
+        p["mixer"] = _INIT[base](b, cfg, lead=lead)
     if use_moe:
         p["norm2"] = b.param((d,), init="zeros", lead=lead)
         p["ffn"] = moe_lib.moe_init(b, cfg, lead=lead)
@@ -52,14 +59,23 @@ def block_init(b: Builder, cfg, kind: str, lead=()) -> dict:
 def block_apply(p, cfg, kind: str, x, cos, sin, *, mode: str = "train",
                 cache: Optional[dict] = None, pos=None, page_table=None):
     """Returns ``(x, new_mixer_cache, aux)``; the cache is None in train
-    mode (see ``attention.attn_apply`` for the cached modes), ``aux`` the
-    MoE's load-balancing loss (an f32 scalar), None for an MLP block."""
+    mode (see ``attention.attn_apply`` and the recurrent mixers' ``*_apply``
+    for the cached modes), ``aux`` the MoE's load-balancing loss (an f32
+    scalar), None for a block without one."""
     base, use_moe = _check_kind(kind)
+    if page_table is not None and base not in ATTENTION_KINDS:
+        raise NotImplementedError(
+            f"paged serving caches exist only for attention blocks, not "
+            f"{base!r} (recurrent mixers keep O(1) state per slot and need "
+            "no paging)")
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    h, nc = attention.attn_apply(p["mixer"], cfg, h, cos, sin,
-                                 local=base == "attn_local", mode=mode,
-                                 cache=cache, pos=pos,
-                                 page_table=page_table)
+    if base in ATTENTION_KINDS:
+        h, nc = attention.attn_apply(p["mixer"], cfg, h, cos, sin,
+                                     local=base == "attn_local", mode=mode,
+                                     cache=cache, pos=pos,
+                                     page_table=page_table)
+    else:
+        h, nc = _APPLY[base](p["mixer"], cfg, h, mode=mode, cache=cache)
     x = x + h
     aux = None
     if "ffn" in p:
@@ -74,10 +90,14 @@ def block_apply(p, cfg, kind: str, x, cos, sin, *, mode: str = "train",
 
 def block_cache(cfg, kind: str, B: int, max_len: int, device, lead=()
                 ) -> dict:
-    """A zeroed dense decode cache ``{"k", "v"}`` of ``(*lead, B, size, KV,
-    hd)`` in the model dtype; ``size = min(window, max_len)`` for a
-    windowed block (a ring buffer), else ``max_len``."""
+    """A zeroed dense decode cache: for attention ``{"k", "v"}`` of
+    ``(*lead, B, size, KV, hd)`` in the model dtype, ``size = min(window,
+    max_len)`` for a windowed block (a ring buffer), else ``max_len``; for
+    a recurrent mixer its state (``ssm.mamba_cache``,
+    ``xlstm.mlstm_cache``, ``xlstm.slstm_cache``)."""
     base, _ = _check_kind(kind)
+    if base in RECURRENT_KINDS:
+        return _CACHE[base](cfg, B, device, lead=lead)
     size = min(cfg.window, max_len) if base == "attn_local" and cfg.window \
         else max_len
     shape = tuple(lead) + (B, size, cfg.n_kv_heads, cfg.head_dim)
@@ -91,8 +111,11 @@ def block_paged_cache(cfg, kind: str, num_pages: int, page_size: int,
     (``repro_torch.serve.kv`` layout), ``(*lead, num_pages, page_size, KV,
     hd)`` in the model dtype, or ``{"q": int8, "scale": f32}`` with
     ``quant="int8"``.  Only full-attention blocks are served (the engine
-    checks)."""
-    _check_kind(kind)
+    checks); a recurrent block has no paged layout."""
+    base, _ = _check_kind(kind)
+    if base not in ATTENTION_KINDS:
+        raise NotImplementedError(
+            f"no paged cache layout for block kind {base!r}")
     shape = tuple(lead) + (num_pages, page_size, cfg.n_kv_heads,
                            cfg.head_dim)
     if quant == "int8":

@@ -20,7 +20,8 @@ from repro_torch.core import prng
 
 class Builder:
     """Draws parameters in the order and scheme of the JAX ``Builder``: fan-in
-    scaled normal (``1/sqrt(shape[-2])``), zeros, or an explicit scale.
+    scaled normal (``1/sqrt(shape[-2])``), zeros, ones, or an explicit
+    scale.
     On the ``meta`` device it allocates nothing and draws nothing."""
 
     def __init__(self, generator: Optional[torch.Generator],
@@ -41,6 +42,8 @@ class Builder:
             return torch.empty(full, dtype=dtype, device=self.device)
         if init == "zeros":
             return torch.zeros(full, dtype=dtype, device=self.device)
+        if init == "ones":
+            return torch.ones(full, dtype=dtype, device=self.device)
         if scale is None:
             fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
             scale = 1.0 / math.sqrt(fan_in)

@@ -16,8 +16,10 @@ blocks in the JAX package's order and enters the loss as ``CE + AUX_COEF *
 aux``.  M-RoPE configs (``cfg.mrope_sections``) take a batch's
 ``mrope_positions`` (3, B, S), or broadcast the 1-D positions to it.
 
-Not ported here: the recurrent blocks' caches (``blocks.py`` raises for
-them: ROADMAP Queue 1 items 5.4-5.5) and the encoder-decoder stack (5.6).
+A period may mix attention and recurrent blocks (jamba's mamba, xLSTM's
+mLSTM and sLSTM): the dense serving caches then hold K/V beside each
+recurrent block's state (``blocks.block_cache``), and decode updates both
+in place.  The encoder-decoder stack is ``models/encdec.py``.
 """
 
 from __future__ import annotations
@@ -412,24 +414,44 @@ def contiguous_microbatches(batch: Dict[str, torch.Tensor], accum: int
     return out
 
 
-def _accumulate(cfg, params, leaves, micro, accum_steps, loss=None):
+def _accumulate(cfg, params, leaves, micro, accum_steps, loss=None,
+                dtype=None):
     """f32 gradient sums and the loss sum over the microbatches.  A leaf
     that does not require grad (the frozen LoRA base) gets no gradient:
-    its sum is None."""
+    its sum is None.
+
+    With ``dtype``, the gradient means in ``dtype`` and the mean loss, as
+    the train step hands them to the update: each f32 sum dies as its leaf
+    is cast.  One microbatch then takes no f32 sums at all (``(0 + g) / 1``
+    cast is ``g + 0`` cast, exact; a -0 becomes +0 either way), and each raw
+    gradient dies as its leaf is cast, so a model whose f32 sums would not
+    fit beside its state still trains (jamba's cut on the card)."""
     loss = loss or loss_fn
     train = [l for l in leaves if l.requires_grad]
-    gsum = [torch.zeros(l.shape, dtype=torch.float32, device=l.device)
-            for l in train]
+    direct = dtype is not None and accum_steps == 1
+    out = None if direct else [
+        torch.zeros(l.shape, dtype=torch.float32, device=l.device)
+        for l in train]
     lsum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     for a in range(accum_steps):
         mb = {k: v[a] for k, v in micro.items()}
         lval = loss(cfg, params, mb)
         grads = torch.autograd.grad(lval, train)
-        for s, g in zip(gsum, grads):
-            s.add_(g.float())
+        if direct:
+            out = list(grads)
+        else:
+            for s, g in zip(out, grads):
+                s.add_(g.float())
+        del grads
         lsum = lsum + lval.detach()
-    sums = iter(gsum)
-    return [next(sums) if l.requires_grad else None for l in leaves], lsum
+    if dtype is not None:
+        for i, s in enumerate(out):
+            out[i] = None    # one leaf at a time: the sum or gradient dies
+            out[i] = (s + 0.0 if direct else s / accum_steps).to(dtype)
+            del s
+        lsum = lsum / accum_steps
+    it = iter(out)
+    return [next(it) if l.requires_grad else None for l in leaves], lsum
 
 
 def make_sharded_train_step(cfg, optimizer, *, dp, dp_reduce,
@@ -509,7 +531,9 @@ def make_train_step(cfg, optimizer, accum_steps: int = 1, dp_reduce=None,
 
     Gradients are summed in f32 over the microbatches, divided by
     ``accum_steps`` and cast to ``cfg.dtype`` before the update, as the JAX
-    step does.  The optimizer writes the parameters in place.
+    step does (with one microbatch the same values come without the f32
+    sums: :func:`_accumulate`).  The optimizer writes the parameters in
+    place.
 
     ``dp_reduce`` (a ``distributed.compression.DPReduceSpec`` or ``'exact'``
     / ``'compressed'``) routes to :func:`make_sharded_train_step` over
@@ -529,16 +553,13 @@ def make_train_step(cfg, optimizer, accum_steps: int = 1, dp_reduce=None,
 
     def train_step(params, opt_state, batch):
         paths, leaves = flatten_with_paths(params)
-        gsum, lsum = _accumulate(cfg, params, leaves,
-                                 microbatch_split(batch, accum_steps),
-                                 accum_steps, loss)
-        grads = unflatten(paths, [None if s is None else
-                                  (s / accum_steps).to(cfg.torch_dtype)
-                                  for s in gsum])
-        # the f32 sums die here, as XLA frees a buffer after its last use:
-        # the update then runs beside the cast gradients only
-        del gsum
+        # the f32 sums die inside, as XLA frees a buffer after its last
+        # use: the update then runs beside the cast gradients only
+        grads, loss_val = _accumulate(cfg, params, leaves,
+                                      microbatch_split(batch, accum_steps),
+                                      accum_steps, loss, cfg.torch_dtype)
+        grads = unflatten(paths, grads)
         params, opt_state = optimizer.update(grads, opt_state, params)
-        return params, opt_state, {"loss": lsum / accum_steps}
+        return params, opt_state, {"loss": loss_val}
 
     return train_step

@@ -1,0 +1,293 @@
+"""xLSTM blocks (counterpart of ``repro/models/xlstm.py``): mLSTM
+(matrix memory) and sLSTM (scalar memory, exponential gating).
+
+mLSTM trains and prefills in the stabilised chunkwise form
+(:func:`mlstm_chunkwise`: the quadratic form inside a chunk, the matrix
+memory ``(C, n, m)`` carried from chunk to chunk) and decodes with the
+recurrent matrix-memory update.  sLSTM is a loop over time
+(:func:`slstm_step` each position), as the reference's ``lax.scan``.
+Decode writes each block's cache in place.
+
+No kernel here: the reference writes none for these blocks (stock ops)."""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import Builder, rms_norm
+from repro_torch.models.ssm import causal_conv
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+def mlstm_init(b: Builder, cfg, lead=()) -> dict:
+    d, H = cfg.d_model, cfg.n_heads
+    di = 2 * d                       # xLSTM up-projection factor 2
+    k = cfg.ssm_conv
+    return {
+        "up_proj": b.param((d, 2 * di), lead=lead),
+        "conv_w": b.param((k, di), scale=0.5, lead=lead),
+        "conv_b": b.param((di,), init="zeros", lead=lead),
+        "wq": b.param((di, di), lead=lead),
+        "wk": b.param((di, di), lead=lead),
+        "wv": b.param((di, di), lead=lead),
+        "w_igate": b.param((di, H), scale=0.01, lead=lead),
+        "b_igate": b.param((H,), init="zeros", lead=lead),
+        "w_fgate": b.param((di, H), scale=0.01, lead=lead),
+        "b_fgate": b.param((H,), init="ones", lead=lead),
+        "out_norm": b.param((di,), init="zeros", lead=lead),
+        "down_proj": b.param((di, d), lead=lead),
+    }
+
+
+def _causal(T, dev):
+    t = torch.arange(T, device=dev)
+    return t[:, None] >= t[None, :]
+
+
+def mlstm_parallel(q, k, v, log_i, log_f):
+    """The stabilised parallel (quadratic) mLSTM over the whole sequence.
+    q, k, v (B,T,H,dh); gates (B,T,H).  The chunkwise form equals it."""
+    B, T, H, dh = q.shape
+    F_ = torch.cumsum(F.logsigmoid(log_f.float()), dim=1)        # (B,T,H)
+    D = F_[:, :, None] - F_[:, None, :] + log_i.float()[:, None, :]
+    D = torch.where(_causal(T, q.device)[None, :, :, None], D,
+                    -torch.inf)                                   # (B,T,S,H)
+    m = torch.clamp_min(D.amax(dim=2, keepdim=True), 0.0)        # (B,T,1,H)
+    W = torch.exp(D - m)
+    s = torch.einsum("bthd,bshd->btsh", q.float(), k.float()) / math.sqrt(dh)
+    sw = s * W
+    n = torch.maximum(sw.sum(2, keepdim=True).abs(), torch.exp(-m))
+    h = torch.einsum("btsh,bshd->bthd", sw / n, v.float())
+    return h.to(q.dtype)
+
+
+_MLSTM_CHUNK = 1024
+
+
+def mlstm_chunkwise(q, k, v, log_i, log_f, chunk: int = _MLSTM_CHUNK):
+    """Chunkwise-parallel mLSTM, stabilised: within a chunk the quadratic
+    form over a ``(chunk, chunk)`` decay tile, across chunks the matrix
+    memory carried recurrently.  Exact; it bounds the decay matrix to
+    ``(B, chunk, chunk, H)``.  ``T`` must be a multiple of ``chunk``.
+
+    Returns ``(h (B,T,H,dh) in q's dtype, (C, n, m))``: the final state,
+    ``C`` and ``n`` stabilised by ``m``."""
+    B, T, H, dh = q.shape
+    if T % chunk:
+        raise ValueError(f"mlstm_chunkwise: T={T} is not a multiple of "
+                         f"chunk={chunk}")
+    dev = q.device
+    lf_all = F.logsigmoid(log_f.float())
+    C0 = torch.zeros((B, H, dh, dh), dtype=torch.float32, device=dev)
+    n0 = torch.zeros((B, H, dh), dtype=torch.float32, device=dev)
+    m0 = torch.full((B, H), -1e30, dtype=torch.float32, device=dev)
+    causal = _causal(chunk, dev)[None, :, :, None]
+    scale = math.sqrt(dh)
+    hs = []
+    for c in range(T // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        qc, kc, vc = q[:, sl].float(), k[:, sl].float(), v[:, sl].float()
+        lic, lfc = log_i[:, sl].float(), lf_all[:, sl]
+        ksc = kc / scale                       # decode-path convention
+        F_ = torch.cumsum(lfc, dim=1)          # (B,c,H)
+        # intra-chunk decay D[t,s] = F_t - F_s + i_s (s <= t)
+        D = F_[:, :, None] - F_[:, None, :] + lic[:, None, :]
+        D = torch.where(causal, D, -torch.inf)
+        inter_log = F_ + m0[:, None]           # weight of C0 at position t
+        m = torch.clamp_min(torch.maximum(D.amax(dim=2), inter_log), 0.0)
+        W = torch.exp(D - m[:, :, None])                          # (B,c,c,H)
+        s = torch.einsum("bthd,bshd->btsh", qc, ksc)
+        sw = s * W
+        inter_w = torch.exp(inter_log - m)                        # (B,c,H)
+        num = torch.einsum("btsh,bshd->bthd", sw, vc) \
+            + inter_w[..., None] * torch.einsum("bthd,bhde->bthe", qc, C0)
+        den = (sw.sum(2) + inter_w
+               * torch.einsum("bthd,bhd->bth", qc, n0)).abs()
+        den = torch.maximum(den, torch.exp(-m))
+        hs.append(num / den[..., None])
+        # end-of-chunk state under the new stabiliser m_end
+        Ftot = F_[:, -1]                                          # (B,H)
+        decay_s = Ftot[:, None] - F_ + lic                        # (B,c,H)
+        m_end = torch.maximum(Ftot + m0, decay_s.amax(dim=1))
+        wgt = torch.exp(decay_s - m_end[:, None])                 # (B,c,H)
+        carry = torch.exp(Ftot + m0 - m_end)
+        C0 = carry[..., None, None] * C0 \
+            + torch.einsum("bsh,bshd,bshe->bhde", wgt, ksc, vc)
+        n0 = carry[..., None] * n0 + torch.einsum("bsh,bshd->bhd", wgt, ksc)
+        m0 = m_end
+    h = hs[0] if len(hs) == 1 else torch.cat(hs, dim=1)
+    return h.to(q.dtype), (C0, n0, m0)
+
+
+def mlstm_apply(p, cfg, x: torch.Tensor, *, mode: str = "train",
+                cache: Optional[dict] = None
+                ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """``(output, new_cache)``; ``"decode"`` (T = 1) updates ``cache``
+    ``{"C", "n", "m", "conv"}`` in place, ``"prefill"`` returns it."""
+    B, T, d = x.shape
+    H = cfg.n_heads
+    di = 2 * d
+    dh = di // H
+    xz = x @ p["up_proj"]
+    xm, z = xz.chunk(2, dim=-1)
+
+    new_cache = None
+    if mode == "decode":
+        if cache is None or T != 1:
+            raise ValueError("mLSTM decode takes one token and a cache")
+        conv_win = torch.cat([cache["conv"], xm], dim=1)
+        xc = F.silu(causal_conv(xm, p["conv_w"], p["conv_b"],
+                                prev=cache["conv"]))
+        q = (xc @ p["wq"]).reshape(B, H, dh)
+        k = (xc @ p["wk"]).reshape(B, H, dh) / math.sqrt(dh)
+        v = (xc @ p["wv"]).reshape(B, H, dh)
+        log_i = (xc[:, 0] @ p["w_igate"] + p["b_igate"]).float()
+        log_f = F.logsigmoid(
+            (xc[:, 0] @ p["w_fgate"] + p["b_fgate"]).float())
+        m_new = torch.maximum(log_f + cache["m"], log_i)          # (B,H)
+        i_s = torch.exp(log_i - m_new)
+        f_s = torch.exp(log_f + cache["m"] - m_new)
+        C = f_s[..., None, None] * cache["C"] + i_s[..., None, None] \
+            * torch.einsum("bhd,bhe->bhde", k.float(), v.float())
+        nvec = f_s[..., None] * cache["n"] + i_s[..., None] * k.float()
+        num = torch.einsum("bhde,bhd->bhe", C, q.float())
+        den = torch.maximum(
+            torch.einsum("bhd,bhd->bh", nvec, q.float()).abs(),
+            torch.exp(-m_new))
+        h = (num / den[..., None]).reshape(B, 1, di).to(x.dtype)
+        for name, val in (("C", C), ("n", nvec), ("m", m_new),
+                          ("conv", conv_win[:, 1:])):
+            cache[name].copy_(val)
+        new_cache = cache
+    elif mode in ("train", "prefill"):
+        xc = F.silu(causal_conv(xm, p["conv_w"], p["conv_b"]))
+        q = (xc @ p["wq"]).reshape(B, T, H, dh)
+        k = (xc @ p["wk"]).reshape(B, T, H, dh)   # raw; forms scale inside
+        v = (xc @ p["wv"]).reshape(B, T, H, dh)
+        log_i = xc @ p["w_igate"] + p["b_igate"]
+        log_f = xc @ p["w_fgate"] + p["b_fgate"]
+        chunk = min(_MLSTM_CHUNK, T)
+        if T % chunk:
+            chunk = T
+        h, (C, n, m) = mlstm_chunkwise(q, k, v, log_i, log_f, chunk=chunk)
+        h = h.reshape(B, T, di)
+        if mode == "prefill":
+            new_cache = {"C": C, "n": n, "m": m,
+                         "conv": xm[:, -(cfg.ssm_conv - 1):].clone()}
+    else:
+        raise ValueError(f"mLSTM mode {mode!r}: the paged serving modes "
+                         f"have no recurrent-state layout")
+
+    h = rms_norm(h, p["out_norm"], cfg.norm_eps) * F.silu(z)
+    return h @ p["down_proj"], new_cache
+
+
+def mlstm_cache(cfg, B: int, device, lead=()) -> dict:
+    H = cfg.n_heads
+    di = 2 * cfg.d_model
+    dh = di // H
+    lead = tuple(lead)
+
+    def f32(*shape):
+        return torch.zeros(lead + shape, dtype=torch.float32, device=device)
+
+    return {"C": f32(B, H, dh, dh), "n": f32(B, H, dh), "m": f32(B, H),
+            "conv": torch.zeros(lead + (B, cfg.ssm_conv - 1, di),
+                                dtype=cfg.torch_dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+def slstm_ff(d: int) -> int:
+    """xLSTM sLSTM post-MLP (proj factor 4/3), rounded to the 128-lane
+    unit."""
+    return ((4 * d // 3) + 127) // 128 * 128
+
+
+def slstm_init(b: Builder, cfg, lead=()) -> dict:
+    d, H = cfg.d_model, cfg.n_heads
+    dh = d // H
+    ff = slstm_ff(d)
+    return {
+        "w": b.param((d, 4 * d), lead=lead),
+        "r": b.param((H, dh, 4 * dh), scale=0.1, lead=lead),
+        "b": b.param((4 * d,), init="zeros", lead=lead),
+        "out_norm": b.param((d,), init="zeros", lead=lead),
+        "up_gate": b.param((d, ff), lead=lead),
+        "up": b.param((d, ff), lead=lead),
+        "down": b.param((ff, d), lead=lead),
+    }
+
+
+def slstm_step(p, cfg, xt, state):
+    """One sLSTM step.  xt (B,d); state ``(c, n, h, m)``, each f32
+    (B,H,dh).  Returns ``(new state, h_new)``."""
+    B, d = xt.shape
+    H = cfg.n_heads
+    dh = d // H
+    c, n, h, m = state
+    wx = (xt @ p["w"]).reshape(B, H, 4 * dh)
+    rh = torch.einsum("bhd,hde->bhe", h, p["r"].to(h.dtype))
+    g = (wx + rh + p["b"].reshape(H, 4 * dh)).float()
+    gi, gf, gz, go = g.chunk(4, dim=-1)                           # (B,H,dh)
+    m_new = torch.maximum(gf + m, gi)          # exp-gate stabiliser
+    i_s = torch.exp(gi - m_new)
+    f_s = torch.exp(gf + m - m_new)
+    c = f_s * c + i_s * torch.tanh(gz)
+    n = f_s * n + i_s
+    h_new = torch.sigmoid(go) * c / torch.clamp_min(n, 1e-6)
+    return (c, n, h_new.float(), m_new), h_new
+
+
+def slstm_apply(p, cfg, x: torch.Tensor, *, mode: str = "train",
+                cache: Optional[dict] = None
+                ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """``(output, new_cache)``: :func:`slstm_step` over each position in
+    turn, from ``cache`` (``{"c", "n", "h", "m"}``) where given, else from
+    zeros and a ``-1e30`` stabiliser; the serving modes return the final
+    state (``"decode"``: written into ``cache`` in place)."""
+    B, T, d = x.shape
+    H = cfg.n_heads
+    dh = d // H
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"sLSTM mode {mode!r}: the paged serving modes "
+                         f"have no recurrent-state layout")
+    if cache is not None:
+        state = (cache["c"], cache["n"], cache["h"], cache["m"])
+    else:
+        z = torch.zeros((B, H, dh), dtype=torch.float32, device=x.device)
+        state = (z, z, z, torch.full((B, H, dh), -1e30, dtype=torch.float32,
+                                     device=x.device))
+    hs = []
+    for t in range(T):
+        state, h = slstm_step(p, cfg, x[:, t], state)
+        hs.append(h)
+    hs = torch.stack(hs, dim=1)                                   # (B,T,H,dh)
+
+    y = rms_norm(hs.reshape(B, T, d).to(x.dtype), p["out_norm"],
+                 cfg.norm_eps)
+    y = (F.silu(y @ p["up_gate"]) * (y @ p["up"])) @ p["down"]
+    new_cache = None
+    if mode == "decode" and cache is not None:
+        for name, val in zip("cnhm", state):
+            cache[name].copy_(val)
+        new_cache = cache
+    elif mode in ("decode", "prefill"):
+        new_cache = dict(zip("cnhm", state))
+    return y, new_cache
+
+
+def slstm_cache(cfg, B: int, device, lead=()) -> dict:
+    H = cfg.n_heads
+    shape = tuple(lead) + (B, H, cfg.d_model // H)
+    return {n: torch.zeros(shape, dtype=torch.float32, device=device)
+            for n in "cnhm"}

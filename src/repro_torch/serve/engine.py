@@ -88,6 +88,11 @@ class Engine:
 
     def __init__(self, cfg, params, ecfg: Optional[EngineConfig] = None):
         ecfg = ecfg or EngineConfig()
+        if cfg.arch_class == "encdec":
+            raise NotImplementedError(
+                "Engine serves decoder-only archs; encoder-decoder decoding "
+                "is repro_torch.models.encdec.decode_stack (see "
+                "tests/test_torch_encdec.py)")
         bad = [k for k in cfg.pattern if k.split("+")[0] != "attn"]
         if bad or cfg.window:
             raise NotImplementedError(

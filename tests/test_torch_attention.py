@@ -169,11 +169,10 @@ def test_attn_apply_dispatch(monkeypatch, S, local, route):
 
 
 def test_attn_apply_refuses_what_is_not_ported():
-    """Bidirectional attention waits for the encoder-decoder substrate; a
-    windowed block has no paged layout, as in the reference."""
+    """A windowed block has no paged layout, as in the reference
+    (bidirectional attention is held against the reference in
+    ``tests/test_torch_encdec.py``)."""
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        attention.attn_apply({}, tcfg, None, None, None, bidirectional=True)
     with pytest.raises(NotImplementedError, match="no page-table form"):
         attention.attn_apply({}, tcfg, None, None, None, local=True,
                              mode="decode", page_table=torch.zeros(1, 1))

@@ -284,8 +284,8 @@ def test_byte_and_tokenizing_sources_are_the_reference():
 
 
 def test_make_source_refusals_are_the_reference(bpe_dirs):
-    """The vocab guard, a corpus kind without a directory, an unknown kind;
-    and encoder frames, which the port does not have yet."""
+    """The vocab guard, a corpus kind without a directory, an unknown
+    kind, a corpus too short for the window."""
     port, ref = bpe_dirs
     for mod, d in ((pipeline, port), (jpipe, ref)):
         with pytest.raises(ValueError, match="exceeds model vocab 256"):
@@ -296,8 +296,28 @@ def test_make_source_refusals_are_the_reference(bpe_dirs):
             mod.make_source("c4", 512, 32, 4)
         with pytest.raises(ValueError, match="no seq_len=8192 windows"):
             mod.make_source("corpus", 512, 8192, 4, corpus_dir=d)
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        make_source("synthetic", 64, 32, 4, enc_frames=8, enc_dim=32)
+
+
+def test_encoder_frames_are_the_reference():
+    """``make_source(enc_frames=, enc_dim=)`` wraps the source in
+    ``WithEncoderFrames``: the tokens and labels of the source, and
+    ``np.random.RandomState(i).randn`` frames, bitwise the reference's;
+    the worker-process path carries them too."""
+    src = make_source("synthetic", 64, 32, 4, seed=3, enc_frames=8,
+                      enc_dim=32)
+    ref = jpipe.make_source("synthetic", 64, 32, 4, seed=3, enc_frames=8,
+                            enc_dim=32)
+    assert isinstance(src, pipeline.WithEncoderFrames)
+    for i in (0, 5):
+        got, want = src.batch(i), ref.batch(i)
+        assert got["enc_embeds"].shape == (4, 8, 32)
+        assert got["enc_embeds"].dtype == np.float32
+        _equal_batches(got, want)
+    with ProcessPrefetcher(src, start_step=2, num_workers=2) as it:
+        for want in (2, 3):
+            i, b = next(it)
+            assert i == want
+            _equal_batches(b, ref.batch(i))
 
 
 def test_stack_batches_is_the_reference():
