@@ -225,7 +225,22 @@ Phases (any failure raises and the script exits non-zero):
     loop's steps counted and one sLSTM block's launches profiled apart;
 35. seamless-m4t-large-v2 at full width and depth the same (64 frames a
     row), its smoke config's ``decode_stack`` decode against teacher
-    forcing on the card.
+    forcing on the card;
+36. observability: ``tapped_update`` and ``update`` from two copies of
+    the same parameters and state, 3 steps with the same gradients (the
+    limiter clipping on the third), at llama-60m's buckets with K1 (f32
+    moments), K2 (int8) and K4 (staged) and at qwen2.5-3b's
+    (2,73728,11008) bucket with K1 (two passes): parameters and state
+    bitwise equal, every bucket's taps against plain taps in f64 from
+    copies of g, p before, p after and the norms (``TOL_TAP_SSQ``; clips
+    and q8 saturation exact, ``q8_absmax`` bitwise), 0 synchronizing calls
+    in either; the launcher with ``--metrics-dir`` at llama-60m, f32 and
+    int8, 20 steps: the same launches and losses bitwise to phases 5-6,
+    taps on steps 5, 10, 15, 20, the trace valid with the loop's spans;
+    the ``TrainLoop``'s syncs over two log windows equal with and without
+    the tapped step; the untapped and the tapped step timed A B B A at
+    llama-60m and qwen2.5-3b (full depth, 16 x 256) with each segment's
+    peak memory.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -4378,6 +4393,367 @@ def run_substrates(train, kernel, hk, ref, dev):
     return out
 
 
+# phase 36: the observability slice.  The card's taps are held against
+# plain taps taken in f64 from copies of g, p before, p after and the
+# norms (``plain_bucket_taps``), each tensor reduced in pieces of
+# TAP_PIECE_ROWS rows: the engine's f32 sums over its row blocks within
+# TOL_TAP_SSQ relative (band_d_ssq relative to grad_ssq: a difference);
+# clip counts and rates and the q8 saturation exact, q8_absmax bitwise
+TOL_TAP_SSQ = 1e-5
+TAP_PIECE_ROWS = 4096
+# qwen2.5-3b's FFN w_gate/w_up bucket, (2, 73728, 11008) as K1 takes it
+QWEN_TAP_LEAF = (36, 2048, 11008)
+TAP_STEPS = 3            # dense, one-element, dense gradients
+OBS_TIMED_STEPS = {"llama-60m": 5, "qwen2.5-3b": 5}   # steps a segment
+OBS_SYNC_STEPS = 10      # the loop's syncs over two log windows
+
+
+def f64_pieces(x):
+    """``x`` as f64 pieces of whole rows of its last axis."""
+    rows = x.reshape(-1, x.shape[-1]) if x.ndim else x.reshape(1, 1)
+    for r in range(0, rows.shape[0], TAP_PIECE_ROWS):
+        yield rows[r:r + TAP_PIECE_ROWS].double()
+
+
+@torch.no_grad()
+def plain_bucket_taps(name, gs, before, after, old_pn, new_st):
+    """One bucket's taps in plain PyTorch from copies: ``gs`` its
+    gradients, ``before``/``after`` its parameters around the update,
+    ``old_pn`` the ``prev_norm`` before it (None: no limiter state),
+    ``new_st`` the bucket's new (encoded) state."""
+    from repro_torch.core import haar, limiter
+    from repro_torch.optim.base import flatten_with_paths
+
+    def ssq(xs):
+        return sum(float((c * c).sum()) for x in xs for c in f64_pieces(x))
+
+    out = {"grad_ssq": ssq(gs), "update_ssq": sum(
+        float(((a - b) ** 2).sum()) for x, y in zip(after, before)
+        for a, b in zip(f64_pieces(x), f64_pieces(y)))}
+    if name.startswith("gwt_"):
+        gt = [g.transpose(-1, -2).contiguous()
+              if name.startswith("gwt_first") else g for g in gs]
+        band_a = sum(float((a * a).sum()) for g in gt for c in f64_pieces(g)
+                     for a in (haar.haar_approx(c, LEVEL),))
+        out.update(band_a_ssq=band_a, band_d_ssq=out["grad_ssq"] - band_a)
+        new_pn = new_st["prev_norm"]
+        n = int(limiter.clip_flags(old_pn, new_pn,
+                                   limiter.DEFAULT_GAMMA).sum())
+        out.update(gnorm_ssq=float((new_pn.double() ** 2).sum()),
+                   clip_count=float(n),
+                   clip_rate=float(np.float32(n) / np.float32(len(gs))))
+    leaves = dict(zip(*flatten_with_paths(new_st)))
+    codes = [t for p, t in leaves.items()
+             if p.endswith("q") and t.dtype == torch.int8]
+    if codes:
+        hits = sum(int(((t >= 127) | (t <= -127)).sum()) for t in codes)
+        total = sum(t.numel() for t in codes)
+        out["q8_sat_rate"] = float(np.float32(hits) / np.float32(total))
+        scales = [t for p, t in leaves.items()
+                  if p.endswith("scale") and t.dtype == torch.float32]
+        out["q8_absmax"] = float(torch.stack([s.max() for s in scales])
+                                 .max() * 127.0)
+    return out
+
+
+def compare_taps(label, got, want):
+    """``got`` (the engine's device scalars) against ``want``; returns the
+    largest relative error of the sums."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{label}: tap names {sorted(got)}, want "
+                             f"{sorted(want)}")
+    worst = 0.0
+    for key, w in want.items():
+        bucket, tap = key.rsplit("/", 1)
+        g = float(got[key])
+        if tap in ("clip_count", "clip_rate", "q8_sat_rate", "q8_absmax"):
+            if g != w:
+                raise AssertionError(f"{label}: {key} {g}, plain {w}")
+            continue
+        scale = want[f"{bucket}/grad_ssq"] if tap == "band_d_ssq" \
+            else abs(w)
+        err = abs(g - w) / max(scale, 1e-300)
+        worst = max(worst, err)
+        if err > TOL_TAP_SSQ:
+            raise AssertionError(f"{label}: {key} {g}, plain {w} (relative "
+                                 f"{err:.3g} > {TOL_TAP_SSQ})")
+    return worst
+
+
+def tapped_vs_untapped(label, opt, make_params, make_grads, kernel, hk):
+    """TAP_STEPS steps from two copies of the same parameters and state:
+    each step ``update`` on one and ``tapped_update`` on the other with the
+    same gradients (dense, one element a leaf, dense: the limiter clips on
+    the third).  Parameters and state bitwise equal after every step; every
+    bucket's taps against ``plain_bucket_taps`` from copies taken around
+    the call (K1 and K2 write the stacked p and the moments in place:
+    ``update_ssq`` must read the old p from the leaves); no synchronizing
+    call in either update after the first.  Returns a summary."""
+    from repro_torch.optim.base import flatten_with_paths
+    pa, pb = make_params(), make_params()
+    sa, sb = opt.init(pa), opt.init(pb)
+    plan = opt.engine.plan(pb)
+    worst, clips, syncs = 0.0, [], []
+    reset_counts(kernel, hk)
+    for k in range(TAP_STEPS):
+        g = make_grads(k)
+        gl = dict(zip(*flatten_with_paths(g)))
+        before = {p: t.clone() for p, t in zip(*flatten_with_paths(pb))}
+        old_pn = {b.name: sb["buckets"][b.name]["prev_norm"].clone()
+                  for b in plan.buckets
+                  if "prev_norm" in sb["buckets"][b.name]}
+        (pa, sa), syncs_a = count_syncs(lambda: opt.update(g, sa, pa))
+        (pb, sb, taps), syncs_b = count_syncs(
+            lambda: opt.tapped_update(g, sb, pb))
+        torch.cuda.synchronize()
+        # a fresh optimizer's first update may set up a kernel's plan
+        if k and (syncs_a or syncs_b):
+            raise AssertionError(f"{label} step {k}: {syncs_a} / {syncs_b} "
+                                 f"syncs in update / tapped_update")
+        syncs.append((syncs_a, syncs_b))
+        assert_bitwise(pa, pb, f"{label} step {k} parameters")
+        assert_bitwise(sa, sb, f"{label} step {k} state")
+        after = dict(zip(*flatten_with_paths(pb)))
+        want = {}
+        for b in plan.buckets:
+            tp = plain_bucket_taps(
+                b.name, [gl[p] for p in b.paths],
+                [before[p] for p in b.paths], [after[p] for p in b.paths],
+                old_pn.get(b.name), sb["buckets"][b.name])
+            want.update({f"{b.name}/{t}": v for t, v in tp.items()})
+        worst = max(worst, compare_taps(f"{label} step {k}", taps, want))
+        clips.append(sum(v for key, v in want.items()
+                         if key.endswith("/clip_count")))
+        del before, after, taps, g, gl
+    counts = {k: v for k, v in all_counts(kernel, hk).items() if v}
+    print(f"phase 36 {label}: tapped_update == update bitwise over "
+          f"{TAP_STEPS} steps, {len(plan.buckets)} buckets' taps vs plain "
+          f"(worst relative {worst:.3g}), clipped leaves per step {clips}, "
+          f"syncs (update, tapped_update) per step {syncs}; launches "
+          f"{counts}")
+    del pa, pb, sa, sb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"buckets": len(plan.buckets), "worst_rel_err": worst,
+            "clipped_leaves": clips, "syncs": syncs, "launches": counts}
+
+
+def tap_grads(shapes, k, dev):
+    """Gradients of step ``k`` on ``dev`` for the shapes and dtypes of the
+    tree ``shapes`` (``meta`` tensors will do): dense normals on steps 0
+    and 2, one nonzero element a leaf on step 1."""
+    from repro_torch.optim.base import tree_map
+    gen = torch.Generator(device=dev).manual_seed(100 + k)
+
+    def one(p):
+        if k == 1:
+            g = torch.zeros(p.shape, dtype=p.dtype, device=dev)
+            g.view(-1)[0] = 1.0
+            return g
+        return (torch.randn(p.shape, generator=gen, device=dev)
+                * 0.01).to(p.dtype)
+    return tree_map(one, shapes)
+
+
+def check_tapped_updates(kernel, hk, dev):
+    """Phase 36's engine checks: llama-60m's buckets with K1 (f32
+    moments), K2 (int8) and K4 (the staged path), and qwen2.5-3b's
+    (2,73728,11008) bucket with K1 (two passes)."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    cfg = configs.get_config("llama-60m")
+
+    def llama():
+        return lm.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                       dev).tree()
+    shapes = lm.abstract_params(cfg)
+    out = {}
+    for label, kw in (("llama-60m f32 (K1)", {}),
+                      ("llama-60m int8 (K2)", {"state_codec": "int8"}),
+                      ("llama-60m staged f32 (K4)", {"fused_write": False})):
+        out[label] = tapped_vs_untapped(
+            label, gwt_opt(100, **kw), llama,
+            lambda k: tap_grads(shapes, k, dev), kernel, hk)
+
+    def qwen():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return {"layers": {"ffn": {n: (torch.randn(
+            QWEN_TAP_LEAF, generator=gen, device=dev) * 0.02).to(
+                torch.bfloat16) for n in ("w_gate", "w_up")}}}
+    meta = {"layers": {"ffn": {n: torch.empty(QWEN_TAP_LEAF, device="meta",
+                                              dtype=torch.bfloat16)
+                               for n in ("w_gate", "w_up")}}}
+    out["qwen2.5-3b (2,73728,11008) f32 (K1)"] = tapped_vs_untapped(
+        "qwen2.5-3b (2,73728,11008) f32 (K1)", gwt_opt(100), qwen,
+        lambda k: tap_grads(meta, k, dev), kernel, hk)
+    return out
+
+
+def check_metrics_dir(train, kernel, hk, codec, untapped):
+    """The launcher with ``--metrics-dir`` (MAIN_ARGS, ``codec``): the same
+    launches as phase 5/6's run and its losses bitwise; a ``train_step``
+    record per step with the taps on each chunk's last step (5, 10, 15,
+    20), the trace valid with the loop's spans."""
+    from repro_torch.obs import trace as obs_trace
+    d = tempfile.mkdtemp(prefix="chip_smoke_metrics_")
+    try:
+        reset_counts(kernel, hk)
+        res = train.main(MAIN_ARGS + ["--state-codec", codec,
+                                      "--metrics-dir", d])
+        torch.cuda.synchronize()
+        counts = all_counts(kernel, hk)
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        with open(os.path.join(d, "trace.json")) as f:
+            doc = json.load(f)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    mine = "K1" if codec == "f32" else "K2"
+    want = {k: 0 for k in counts}
+    want.update(fused_counts(**{mine.lower(): 3 * STEPS}))
+    if counts != want:
+        raise AssertionError(f"--metrics-dir {codec}: launched {counts}, "
+                             f"want {want}")
+    if res.losses != untapped.losses:
+        raise AssertionError(f"--metrics-dir {codec}: losses {res.losses} "
+                             f"differ from {untapped.losses} without it")
+    steps = [r for r in recs if r["kind"] == "train_step"]
+    tapped = [r["step"] for r in steps
+              if any("/grad_ssq" in k for k in r)]
+    if [r["step"] for r in steps] != list(range(1, STEPS + 1)) \
+            or tapped != list(range(5, STEPS + 1, 5)) \
+            or [r["loss"] for r in steps] != res.losses:
+        raise AssertionError(f"--metrics-dir {codec}: train_step records "
+                             f"{[(r['step'], len(r)) for r in steps]}")
+    keys = sorted(k for k in steps[-1] if "/" in k)
+    if codec == "int8" and not any(k.endswith("/q8_sat_rate") for k in keys):
+        raise AssertionError("--metrics-dir int8: no q8 taps")
+    obs_trace.validate(doc)
+    spans = {e["name"] for e in doc["traceEvents"] if e["ph"] == "X"}
+    if not {"prefetch", "dispatch", "block"} <= spans:
+        raise AssertionError(f"--metrics-dir {codec}: spans {spans}")
+    last = {k: steps[-1][k] for k in keys}
+    print(f"phase 36 --metrics-dir {codec}: {STEPS} steps, losses bitwise "
+          f"to the run without it, launches {mine} {counts[mine]}, "
+          f"{len(keys)} taps on steps {tapped}, kinds "
+          f"{sorted({r['kind'] for r in recs})}, spans {sorted(spans)}; "
+          f"step 20's GWT taps: " + ", ".join(
+              f"{k} {v:.6g}" for k, v in last.items()
+              if k.startswith("gwt_last__layers.b0.ffn.w_gate")))
+    return {"launches": counts[mine], "taps": len(keys),
+            "tapped_steps": tapped, "step_ms": res.step_ms,
+            "record_kinds": sorted({r["kind"] for r in recs}),
+            "spans": sorted(spans), "last_taps": last}
+
+
+def time_tapped_step(arch, dev, batch=16, seq=256):
+    """The untapped and the tapped train step of ``arch`` at full width
+    (GWT-2 f32 moments, synthetic batches), timed in turns A B B A, each
+    segment OBS_TIMED_STEPS[arch] steps between two synchronizes (host
+    clock), with each segment's peak ``max_memory_allocated``; and the
+    synchronizing calls of one step of each after one of each."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    cfg = configs.get_config(arch)
+    n = OBS_TIMED_STEPS[arch]
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                     dev).tree()
+    opt = gwt_opt(1000)
+    state = opt.init(params)
+    steps = {"untapped": lm.make_train_step(cfg, opt),
+             "tapped": lm.make_train_step(cfg, opt, taps=True)}
+    data = synthetic(cfg, seq, batch, 0)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch(i).items()} for i in range(n)]
+    syncs = {}
+    for name, fn in steps.items():      # warm-up, then the sync count
+        params, state, _ = fn(params, state, batches[0])
+        (params, state, _), syncs[name] = count_syncs(
+            lambda: fn(params, state, batches[0]))
+    runs = {"untapped": [], "tapped": []}
+    peaks = {"untapped": 0, "tapped": 0}
+    for name in ("untapped", "tapped", "tapped", "untapped"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for b in batches:
+            params, state, _ = steps[name](params, state, b)
+        torch.cuda.synchronize()
+        runs[name].append((time.perf_counter() - t0) / n * 1e3)
+        peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated())
+    del params, state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"arch": arch, "steps_a_segment": n,
+           "untapped_ms": runs["untapped"], "tapped_ms": runs["tapped"],
+           "peak_mib": {k: v / 2**20 for k, v in peaks.items()},
+           "syncs_per_step": syncs}
+    base = float(np.mean(runs["untapped"]))
+    dt = float(np.mean(runs["tapped"])) - base
+    # the launcher taps one step of each log window (default 10 steps)
+    out.update(tapped_minus_untapped_ms=dt,
+               amortized_share_log_every_10=dt / 10 / base)
+    print(f"phase 36 {arch} step, A B B A ({n} steps a segment): untapped "
+          f"{runs['untapped']} ms, tapped {runs['tapped']} ms ({dt:+.2f} "
+          f"ms; one tapped step in 10: {dt / 10 / base:+.3%} a step); peak "
+          f"{out['peak_mib']['untapped']:.1f} / "
+          f"{out['peak_mib']['tapped']:.1f} MiB; syncs per step {syncs}")
+    return out
+
+
+def loop_syncs(dev, tapped):
+    """The synchronizing calls of a TrainLoop run of OBS_SYNC_STEPS
+    llama-60m steps (two log windows), with or without the tapped step."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import make_source
+    from repro_torch.models import lm
+    from repro_torch.runtime.fault_tolerance import TrainLoop
+    cfg = configs.get_config("llama-60m")
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                     dev).tree()
+    opt = gwt_opt(OBS_SYNC_STEPS)
+    loop = TrainLoop(lm.make_train_step(cfg, opt),
+                     make_source("synthetic", cfg.vocab, 256, 16, seed=0),
+                     device=dev, log_every=5, log=lambda line: None,
+                     tap_step=lm.make_train_step(cfg, opt, taps=True)
+                     if tapped else None)
+    (_, _, losses), syncs = count_syncs(lambda: loop.run(
+        params, opt.init(params), num_steps=OBS_SYNC_STEPS))
+    return losses, syncs
+
+
+def run_observability(train, kernel, hk, dev, res32, res8, prof32):
+    """Phase 36 (the observability slice): the tapped update on the card
+    against plain taps at llama-60m's and qwen2.5-3b's buckets, bitwise to
+    the untapped update; the launcher with ``--metrics-dir`` (f32 and
+    int8, 20 steps); the loop's syncs with and without taps; the tapped
+    and untapped step timed at llama-60m and qwen2.5-3b."""
+    t0 = time.perf_counter()
+    out = {"engine": check_tapped_updates(kernel, hk, dev)}
+    out["metrics_dir"] = {"f32": check_metrics_dir(train, kernel, hk, "f32",
+                                                   res32),
+                          "int8": check_metrics_dir(train, kernel, hk,
+                                                    "int8", res8)}
+    loop_syncs(dev, False)     # warm-up: a first run may set up caches
+    (l0, s0), (l1, s1) = loop_syncs(dev, False), loop_syncs(dev, True)
+    if s0 != s1 or l0 != l1:
+        raise AssertionError(f"TrainLoop: {s0} syncs without taps, {s1} "
+                             f"with; losses {l0} vs {l1}")
+    out["loop_syncs"] = {"steps": OBS_SYNC_STEPS, "log_windows": 2,
+                         "untapped": s0, "tapped": s1}
+    out["timing"] = [time_tapped_step("llama-60m", dev),
+                     time_tapped_step("qwen2.5-3b", dev)]
+    out["taps_off_launches_per_step"] = prof32["launches_per_step"]
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase 36: TrainLoop syncs over {OBS_SYNC_STEPS} steps (2 log "
+          f"windows) {s0} untapped, {s1} tapped, losses bitwise; taps-off "
+          f"llama-60m f32 step {prof32['launches_per_step']} launches "
+          f"(phase 9's profile); {out['phase_s']:.1f} s; card {smi()}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA "
@@ -4499,6 +4875,9 @@ def main() -> int:
     substrates = run_substrates(train, kernel, hk, ref, dev)
     print(f"phases 33-35: {time.perf_counter() - t_sub:.1f} s; the script "
           f"so far {time.perf_counter() - t0:.1f} s")
+    observability = run_observability(train, kernel, hk, dev, res32, res8,
+                                      prof32)
+    print(f"phase 36: the script so far {time.perf_counter() - t0:.1f} s")
     print(f"staged step vs fused step (same call): launcher-equivalent "
           f"loop {staged32['step_ms']:.2f} vs {res32.step_ms:.2f} ms; "
           f"profiled {prof_staged['step_ms']:.2f} vs "
@@ -4533,7 +4912,13 @@ def main() -> int:
                     recurrent_encdec=[
                         {k: v for k, v in r.items() if k not in
                          ("int8", "k2_buckets", "k2_ms_per_step",
-                          "k2_bound_ms_per_step")} for r in substrates]),
+                          "k2_bound_ms_per_step")} for r in substrates],
+                    observability={k: v for k, v in observability.items()
+                                   if k != "engine"} | {"engine": {
+                                       k: v for k, v in
+                                       observability["engine"].items()
+                                       if "int8" not in k and "staged"
+                                       not in k}}),
         fused_entry("gwt_adam_fused_q8",
                     "gwt_adam/csrc/gwt_adam_fused_q8.cu",
                     "src/repro/kernels/gwt_adam/kernel.py:554",
@@ -4552,7 +4937,11 @@ def main() -> int:
                                  "ms_per_step": r["k2_ms_per_step"],
                                  "bound_ms_per_step":
                                  r["k2_bound_ms_per_step"]}
-                                for r in substrates if "int8" in r]),
+                                for r in substrates if "int8" in r],
+                    observability={
+                        "engine": observability["engine"][
+                            "llama-60m int8 (K2)"],
+                        "metrics_dir": observability["metrics_dir"]["int8"]}),
         group_entry("haar_dwt_fwd_q",
                     "src/repro/kernels/haar_dwt/kernel.py:124",
                     dp_counts["K3"], err_haar, rows_haar["K3 bf16"],
@@ -4578,7 +4967,9 @@ def main() -> int:
                    profile=prof_staged, update_memory=memory,
                    launcher_choices=choices, moment_dtypes=MOMENT_NAMES,
                    bf16_moments=bf16_step(rows_tile["K4"]),
-                   bf16_state_staged=bf16_state["staged"]),
+                   bf16_state_staged=bf16_state["staged"],
+                   observability=observability["engine"][
+                       "llama-60m staged f32 (K4)"]),
         tile_entry("gwt_adam_tile_q8", staged32["launches"]["K5"],
                    rows_tile["K5"], phase_13_cases=tile_cases_run),
     ]

@@ -32,6 +32,11 @@ With the Adam host and the Haar wavelet (``use_fused``):
   the write as tensor ops.  Under int8 the engine decodes, runs that
   ``update`` and encodes, leaf by leaf.
 
+Taps (``Optimizer.tapped_update``, DESIGN.md §12): each GWT bucket adds
+``band_a_ssq`` and ``band_d_ssq`` (the gradient's energy in ``A_l`` and in
+the details) and, with the limiter, ``gnorm_ssq`` (Σ of the limited ‖G̃‖²
+over the leaves), ``clip_count`` and ``clip_rate``.
+
 Any other host or wavelet runs the op-by-op core (``_gwt_core``) in
 ``update``.  ``bucketed=False`` makes the engine run every leaf's
 ``update`` (the unrolled reference).  The plain-host leaves run the
@@ -209,13 +214,41 @@ def gwt(lr: Schedule | float,
                 new_p = new_p.transpose(-1, -2)
             return new_p, {"host": hstate, "prev_norm": new_norm}
 
+        def taps(gs, old_st, new_st):
+            # the band energies of the transformed gradient (a FIRST-mode
+            # leaf's transpose): A_l's from the averaging chain alone, the
+            # details' as Parseval's remainder Σ g² - Σ A_l² (the DWT is
+            # orthonormal), over row blocks (the transform is per row);
+            # the limiter's from the norms the update threads
+            sums, bands = [], []
+            for g in gs:
+                for (blk,) in engine.row_blocks(g.transpose(-1, -2) if swap
+                                                else g):
+                    b = blk.to(torch.float32,
+                               memory_format=torch.contiguous_format)
+                    bands.append(engine.block_ssq(
+                        haar.haar_approx(b, level) if wavelet == "haar"
+                        else fwd(b, level)[0]))
+                    sums.append(engine.block_ssq(blk))
+            band_a = engine.sum_in_order(bands)
+            out = {"band_a_ssq": band_a,
+                   "band_d_ssq": engine.sum_in_order(sums) - band_a}
+            if use_limiter:
+                new_pn = new_st["prev_norm"]
+                clipped = limiter.clip_flags(old_st["prev_norm"], new_pn,
+                                             gamma)
+                out["gnorm_ssq"] = torch.sum(new_pn * new_pn)
+                out["clip_count"] = torch.sum(clipped.float())
+                out["clip_rate"] = out["clip_count"] / float(len(gs))
+            return out
+
         vu = None
         if use_fused and fused_write:
             vu = vector_update_q8 if quant else vector_update
         return engine.LeafRule(
             kind=mode, init=init, update=update, vector_update=vu,
             slots={"host": h.slots, "prev_norm": False},
-            codec_native=vu is not None and quant)
+            codec_native=vu is not None and quant, taps=taps)
 
     rules = {_Mode.PLAIN: plain_rule, _Mode.LAST: make_gwt_rule(_Mode.LAST),
              _Mode.FIRST: make_gwt_rule(_Mode.FIRST)}

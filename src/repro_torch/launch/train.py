@@ -5,7 +5,7 @@
         [--host adam|adam_mini|muon] [--state-codec int8] \
         [--data synthetic|bytes|corpus --corpus-dir D --workers N] \
         [--eval-every K --eval-batches B] \
-        [--ckpt-dir D --ckpt-every N --resume]
+        [--ckpt-dir D --ckpt-every N --resume] [--metrics-dir M]
 
     # LoRA: pre-train a base, then fine-tune adapters on it (frozen base)
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama-60m \
@@ -43,6 +43,17 @@ mamba, xLSTM blocks) and the encoder-decoder ``seamless-m4t-large-v2``
 (``models/encdec.py``), whose batches carry ``seq // 4`` seeded frame
 embeddings a row (``data.pipeline.WithEncoderFrames``).
 
+``--metrics-dir M`` turns on the telemetry of DESIGN.md §12: JSONL records
+in ``M/metrics.jsonl`` (a ``run`` header, the launcher's log lines under
+the JAX launcher's kinds, ``run_meta``, a ``train_step`` record per step
+with the optimizer's on-device taps joined to each chunk's last step,
+``eval`` and the watchdog's records) and the loop's spans in
+``M/trace.json`` (Chrome trace events: open it in Perfetto).  The taps
+(band energy, limiter clips, update and gradient norms, int8 saturation)
+need a bucketed optimizer and are not taken with ``--dp-reduce`` or LoRA,
+as in the JAX launcher.  Unset, nothing is recorded and the step is the
+untapped one.  Under ``torchrun`` only rank 0 writes them.
+
 Runs on CUDA unless ``--device cpu`` is given; without a card and without
 ``--device cpu`` it raises instead of falling back to the CPU.
 
@@ -79,7 +90,7 @@ from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch import configs, optim
+from repro_torch import configs, obs, optim
 from repro_torch.checkpoint.manager import CheckpointManager, \
     StructureMismatch
 from repro_torch.core import prng
@@ -140,7 +151,7 @@ def _check_ef_world(ckpt: CheckpointManager, ef, world: int) -> None:
 
 
 def resume(ckpt: CheckpointManager, params, opt_state, build_optimizer,
-           codec: str, data_meta: dict, device, log=print,
+           codec: str, data_meta: dict, device, log,
            dp: Optional[DPContext] = None):
     """Restore ``{"params", "opt"}`` from the latest checkpoint.  A state
     saved under another codec is restored in its own layout and transcoded
@@ -148,8 +159,9 @@ def resume(ckpt: CheckpointManager, params, opt_state, build_optimizer,
     the checkpoint holds every rank's residues, ``(D, *shape)``, and this
     rank takes its own row; another rank count raises
     :class:`StructureMismatch`.  ``build_optimizer(codec)`` builds this
-    run's optimizer under a codec.  Returns ``(params, opt_state,
-    step)``."""
+    run's optimizer under a codec; ``log(msg, kind=..., **fields)``
+    (``Telemetry.log``'s signature) reports a migration or a transcode.
+    Returns ``(params, opt_state, step)``."""
     saved_data = ckpt.saved_run().get("data")
     if saved_data is not None:
         for k in ("kind", "corpus_hash", "order_seed"):
@@ -211,7 +223,8 @@ def resume(ckpt: CheckpointManager, params, opt_state, build_optimizer,
                                  new_opt)
     if ef is not None:
         converted = {"opt": converted, "dp_ef": state["opt"]["dp_ef"]}
-    log(f"transcoded optimizer state {saved_codec} -> {codec}")
+    log(f"transcoded optimizer state {saved_codec} -> {codec}",
+        kind="transcode", src=saved_codec, dst=codec)
     return state["params"], own_row(converted), start
 
 
@@ -226,11 +239,13 @@ def _migrate(ckpt: CheckpointManager, params, build_optimizer, codec: str,
                "opt": f32_opt.engine.legacy_like(params)},
         device=device)
     opt_state = f32_opt.engine.migrate_legacy(state["opt"], state["params"])
-    log("migrated legacy per-leaf optimizer state -> buckets")
+    log("migrated legacy per-leaf optimizer state -> buckets",
+        kind="migrate")
     if codec != "f32":
         opt_state = engine.transcode(opt_state, state["params"], f32_opt,
                                      build_optimizer(codec))
-        log(f"transcoded optimizer state f32 -> {codec}")
+        log(f"transcoded optimizer state f32 -> {codec}", kind="transcode",
+            src="f32", dst=codec)
     return state["params"], opt_state, start
 
 
@@ -312,6 +327,14 @@ def main(argv=None) -> TrainResult:
                     choices=["auto", "none"],
                     help="'none' (the only layout of the port): parameters "
                          "and optimizer state replicated on every rank")
+    ap.add_argument("--metrics-dir", default="",
+                    help="telemetry directory (DESIGN.md §12): JSONL metric "
+                         "records -> <dir>/metrics.jsonl, Chrome-trace spans "
+                         "-> <dir>/trace.json (open in Perfetto), and the "
+                         "on-device training-dynamics taps (band energy, "
+                         "clip rate, update norms) joined to the step "
+                         "records.  Unset: nothing recorded, the untapped "
+                         "step")
     args = ap.parse_args(argv)
     if args.shard_params == "auto":
         ap.error("--shard-params auto (the JAX package's FSDP layout) is "
@@ -336,15 +359,34 @@ def main(argv=None) -> TrainResult:
     device = resolve_device(args.device)
     dp = init_dp(device) if dp_spec is not None else None
     try:
+        # one process writes the records and the trace: rank 0 (the JAX
+        # launcher is one process); the other ranks keep the null Telemetry
+        if dp is None or dp.rank == 0:
+            obs.configure(args.metrics_dir or None,
+                          run={"cmd": "train", "arch": args.arch,
+                               "optimizer": args.optimizer,
+                               "level": args.level, "host": args.host,
+                               "state_codec": args.state_codec,
+                               "steps": args.steps, "seed": args.seed,
+                               "finetune": args.finetune})
         return _train(args, dp_spec, dp, device if dp is None else dp.device)
     finally:
+        # writes <metrics-dir>/trace.json and closes the JSONL sink (a no-op
+        # for the null Telemetry)
+        obs.shutdown()
         if dp is not None:
             dp.close()
 
 
 def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
     rank0 = dp is None or dp.rank == 0
-    log = print if rank0 else (lambda s: None)
+    tel = obs.get()
+    say = print if rank0 else (lambda s: None)
+
+    def log(msg: str, kind: str = "log", **fields) -> None:
+        # the JAX launcher's tel.log: printed and recorded under ``kind``
+        if rank0:
+            tel.log(msg, kind=kind, **fields)
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get_config(args.arch))
     if args.data == "corpus":
@@ -353,7 +395,8 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
         corpus_vocab = TokenStore(args.corpus_dir).vocab_size
         if corpus_vocab > cfg.vocab:
             log(f"model vocab {cfg.vocab} -> {corpus_vocab} (corpus "
-                f"tokenizer)")
+                f"tokenizer)", kind="vocab_grow", old=cfg.vocab,
+                new=corpus_vocab)
             cfg = cfg.with_(vocab=corpus_vocab)
     # the encoder-decoder stack (seamless) or the decoder-only LM
     mod = module_for(cfg)
@@ -368,7 +411,8 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
         del model
         params = wrap(cfg, base).tree()
         log(f"restored pre-trained base from {args.base_ckpt} (step "
-            f"{base_step})")
+            f"{base_step})", kind="base_restore", ckpt=args.base_ckpt,
+            step=base_step)
     finetune = args.finetune == "lora"
 
     # encoder-decoder batches carry the audio front end's frame stub
@@ -394,7 +438,9 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
                         for t in flatten_with_paths(params["lora"])[1])
         log(f"finetune=lora rank={args.lora_rank} alpha={args.lora_alpha} "
             f"adapters={n_adapter/1e3:.1f}K params "
-            f"({n_adapter/max(n_params, 1):.4f} of base)")
+            f"({n_adapter/max(n_params, 1):.4f} of base)", kind="finetune",
+            rank=args.lora_rank, alpha=args.lora_alpha,
+            adapter_params=n_adapter)
     optimizer = build_optimizer(args.state_codec)
     opt_state = optimizer.init(params)
 
@@ -406,14 +452,17 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
         f"optimizer={args.optimizer} codec={args.state_codec} "
         f"opt_state={mem_bytes/2**20:.2f}MiB "
         f"({adam_f32_bytes/max(mem_bytes, 1):.1f}x smaller than "
-        f"full-Adam f32 {adam_f32_bytes/2**20:.2f}MiB)")
+        f"full-Adam f32 {adam_f32_bytes/2**20:.2f}MiB)", kind="memory",
+        params=n_params, opt_state_bytes=mem_bytes,
+        adam_f32_bytes=adam_f32_bytes)
     wire = None
     if dp_spec is not None:
         wire = (compression.tree_wire_bytes(params, dp_spec),
                 compression.tree_wire_bytes(params, None))
         log(f"dp_reduce={args.dp_reduce} dp={dp.world} "
             f"wire={wire[0]/2**20:.1f}MiB/step vs exact "
-            f"{wire[1]/2**20:.1f}MiB ({wire[1]/wire[0]:.2f}x)")
+            f"{wire[1]/2**20:.1f}MiB ({wire[1]/wire[0]:.2f}x)",
+            kind="dp_wire", wire_bytes=wire[0], exact_bytes=wire[1])
         if dp_spec.error_feedback:
             opt_state = {"opt": opt_state,
                          "dp_ef": compression.ef_init(params)}
@@ -432,23 +481,31 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
                                 "alpha": args.lora_alpha}
     ckpt = CheckpointManager(args.ckpt_dir, run_meta=run_meta) \
         if args.ckpt_dir else None
+    # the metrics stream carries the provenance the manifest records
+    tel.emit("run_meta", **run_meta)
     start = 0
     if args.resume and ckpt is not None and ckpt.latest_step() is not None:
         params, opt_state, start = resume(
             ckpt, params, opt_state, build_optimizer, args.state_codec,
             data_meta, device, log=log, dp=dp)
         params = wrap(cfg, params).tree()
-        log(f"resumed from step {start}")
+        log(f"resumed from step {start}", kind="resume", step=start)
 
+    tap_step = None
     if finetune:
         train_step = lora.make_train_step(mod, cfg, optimizer,
                                           rank=args.lora_rank,
                                           alpha=args.lora_alpha,
                                           accum_steps=args.accum)
     else:
-        train_step = mod.make_train_step(cfg, optimizer,
-                                         accum_steps=args.accum,
-                                         dp_reduce=dp_spec, dp=dp)
+        step_kw = dict(accum_steps=args.accum, dp_reduce=dp_spec, dp=dp)
+        train_step = mod.make_train_step(cfg, optimizer, **step_kw)
+        # the tapped step runs each chunk's last step (TrainLoop); the
+        # data-parallel step has no tapped channel, as in the JAX launcher
+        if args.metrics_dir and dp_spec is None \
+                and optimizer.tapped_update is not None:
+            tap_step = mod.make_train_step(cfg, optimizer, taps=True,
+                                           **step_kw)
     evaluator = None
     if args.eval_every:
         eval_src = make_source(args.data, cfg.vocab, args.seq, args.batch,
@@ -462,8 +519,9 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
                                       device=device)
     loop = TrainLoop(train_step, source, device=device, ckpt=ckpt,
                      ckpt_every=args.ckpt_every, log_every=args.log_every,
-                     log=log, dp=dp, num_workers=args.workers,
-                     evaluator=evaluator, eval_every=args.eval_every)
+                     log=say, dp=dp, num_workers=args.workers,
+                     evaluator=evaluator, eval_every=args.eval_every,
+                     tap_step=tap_step)
     # hand the state over to the loop: a name kept in this frame would pin
     # the first state's moments of every rule that returns new tensors
     # (the plain Adam of the embedding and an untied head) for the whole
@@ -475,17 +533,19 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
                                          num_steps=args.steps)
     wd = loop.watchdog.summary()
     if wd["dispatch_s_per_step"] is not None:
-        log(f"dispatch={wd['dispatch_s_per_step'] * 1e3:.1f}ms/step "
+        say(f"dispatch={wd['dispatch_s_per_step'] * 1e3:.1f}ms/step "
             f"blocked={(wd['blocked_s_per_step'] or 0) * 1e3:.1f}ms/step "
             f"incidents={wd['incidents']}")
     if losses:
         k = max(1, len(losses) // 10)
-        log(f"final loss (mean of last {k}): {sum(losses[-k:]) / k:.4f}")
+        log(f"final loss (mean of last {k}): {sum(losses[-k:]) / k:.4f}",
+            kind="final_loss", loss=sum(losses[-k:]) / k, window=k)
     evals = () if evaluator is None else tuple(evaluator.history)
     if evals:
         s, v = evals[-1]
         log(f"final eval (step {s}): loss={v:.4f} "
-            f"ppl={math.exp(min(v, 30.0)):.2f}")
+            f"ppl={math.exp(min(v, 30.0)):.2f}", kind="final_eval", step=s,
+            loss=float(v))
     step_ms = None if loop.steady_step_s is None \
         else loop.steady_step_s * 1e3
     return TrainResult(params, opt_state, losses, step_ms, start, wire,

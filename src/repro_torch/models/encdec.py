@@ -239,13 +239,14 @@ def loss_fn(cfg, params, batch) -> torch.Tensor:
 
 
 def make_train_step(cfg, optimizer, accum_steps: int = 1, dp_reduce=None,
-                    dp=None, loss=None):
+                    dp=None, loss=None, taps: bool = False):
     """``lm.make_train_step`` over :func:`loss_fn` (``loss`` swaps the
     objective, as there; ``dp_reduce`` routes to the data-parallel step
-    with this module's loss)."""
+    with this module's loss; ``taps`` adds ``metrics["taps"]``, as
+    there)."""
     return lm.make_train_step(cfg, optimizer, accum_steps=accum_steps,
                               dp_reduce=dp_reduce, dp=dp,
-                              loss=loss or loss_fn)
+                              loss=loss or loss_fn, taps=taps)
 
 
 def init_cache(cfg, B: int, max_len: int, enc_len: int, device

@@ -525,7 +525,7 @@ def make_sharded_train_step(cfg, optimizer, *, dp, dp_reduce,
 
 
 def make_train_step(cfg, optimizer, accum_steps: int = 1, dp_reduce=None,
-                    dp=None, loss=None):
+                    dp=None, loss=None, taps: bool = False):
     """Gradient-accumulated train step ``(params, opt_state, batch) ->
     (params, opt_state, {"loss": f32 scalar on the device})``.
 
@@ -543,13 +543,24 @@ def make_train_step(cfg, optimizer, accum_steps: int = 1, dp_reduce=None,
     :func:`loss_fn`) swaps the objective, as the JAX package's ``loss=``
     does (``models/lora.py`` merges adapters there).  Leaves that do not
     require grad get a ``None`` gradient, which only a frozen rule
-    (``optim.engine.FROZEN``) takes."""
+    (``optim.engine.FROZEN``) takes.
+
+    ``taps=True`` routes the update through the optimizer's
+    ``tapped_update`` and adds its per-bucket scalars to the metrics as
+    ``metrics["taps"]`` (device tensors; DESIGN.md §12).  It is ignored
+    when the optimizer has no tapped channel, and refused on the
+    ``dp_reduce`` path, as in the JAX package."""
     if isinstance(dp_reduce, str):
         dp_reduce = compression.DPReduceSpec.parse(dp_reduce)  # 'none': None
     if dp_reduce is not None:
+        if taps:
+            raise ValueError("taps=True is not supported on the sharded "
+                             "dp_reduce path: run taps-off or drop "
+                             "dp_reduce")
         return make_sharded_train_step(cfg, optimizer, dp=dp,
                                        dp_reduce=dp_reduce,
                                        accum_steps=accum_steps, loss=loss)
+    tapped = getattr(optimizer, "tapped_update", None) if taps else None
 
     def train_step(params, opt_state, batch):
         paths, leaves = flatten_with_paths(params)
@@ -559,6 +570,9 @@ def make_train_step(cfg, optimizer, accum_steps: int = 1, dp_reduce=None,
                                       microbatch_split(batch, accum_steps),
                                       accum_steps, loss, cfg.torch_dtype)
         grads = unflatten(paths, grads)
+        if tapped is not None:
+            params, opt_state, tp = tapped(grads, opt_state, params)
+            return params, opt_state, {"loss": loss_val, "taps": tp}
         params, opt_state = optimizer.update(grads, opt_state, params)
         return params, opt_state, {"loss": loss_val}
 

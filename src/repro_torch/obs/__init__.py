@@ -17,10 +17,12 @@ Three layers, composable and individually optional:
 The default global is a *null* Telemetry: ``emit`` drops the record,
 ``span`` yields a shared no-op context, ``log`` only prints.  Hot-path
 call sites therefore never need an ``if enabled`` guard — the disabled
-cost is one attribute load and a dict drop.  The port reports the
-watchdog's incidents and summary and the evaluator's results here; the
-JAX package's on-device optimizer taps and ``--metrics-dir`` are not
-ported yet, so nothing in the port configures a non-null global.
+cost is one attribute load and a dict drop.  The train launcher's
+``--metrics-dir`` and the serve launcher configure a non-null global.
+On-device tap *values* are not routed through here at all: they live in
+the train step's metrics (device tensors) and the train loop fetches them
+with the losses at ``log_every`` boundaries; this layer only receives the
+already-fetched host scalars.
 """
 
 from repro_torch.obs.sink import (JsonlSink, MemorySink, MetricSink,

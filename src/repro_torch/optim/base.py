@@ -25,6 +25,11 @@ class Optimizer(NamedTuple):
     update: Callable[[Params, OptState, Params], Tuple[Params, OptState]]
     # the engine that built the optimizer (plan() for bucket names)
     engine: Any = None
+    # the tapped channel, ``(grads, state, params) -> (params, new_state,
+    # taps)``: ``update`` plus a flat dict of f32 device scalars named
+    # "<bucket>/<metric>" (``optim.engine``; DESIGN.md §12).  None where
+    # the optimizer has none; ``update`` never computes a tap.
+    tapped_update: Any = None
 
 
 def flatten_with_paths(tree: Mapping) -> Tuple[List[str], List[Any]]:

@@ -43,6 +43,14 @@ gradient may be ``None`` (the LoRA step computes none).
 ``leaf_id``, as the JAX package's does (APOLLO and RSO seed their random
 projectors with it).
 
+**Taps** (DESIGN.md §12).  A bucketed engine's ``tapped_update`` runs the
+same body as ``update`` and adds per-bucket f32 device scalars: the
+generic ``grad_ssq`` and ``update_ssq``, the int8 codec's ``q8_sat_rate``
+and ``q8_absmax``, and the rule's own (``LeafRule.taps``).  The sums run
+over blocks of whole rows (:data:`TAP_BLOCK`), so no f32 copy of a whole
+bucket is made; ``update_ssq`` is taken leaf by leaf before the leaf's
+parameter is written.  Nothing is read back to the host.
+
 **The host step.**  Rules that branch on the step (the low-rank families'
 projector refresh every ``update_gap`` steps, a ``lax.cond`` in the JAX
 package) declare ``LeafRule.host_step`` and get the step as a Python int.
@@ -56,6 +64,7 @@ has its device step read once.  An update none of whose rules declares
 
 from __future__ import annotations
 
+import itertools
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -86,6 +95,14 @@ class LeafRule(NamedTuple):
     * ``codec_native`` — ``vector_update`` takes the encoded slots itself.
     * ``host_step`` — ``update`` takes the step as an int too (see the
       module doc).
+    * ``taps`` — optional ``(gs, old_state, new_state) -> {name: f32
+      scalar}``: rule-specific observability scalars (GWT's band energy
+      and limiter clips) added to the bucket's generic taps.  ``gs`` are
+      the bucket's gradients leaf by leaf, the states stacked in their
+      stored (encoded) layout.  On CUDA a fused write has already
+      overwritten the old state's moments in place, so a tap reads only
+      what the update replaced with new tensors (``prev_norm``).  Runs only
+      inside ``Optimizer.tapped_update`` (DESIGN.md §12).
     """
 
     kind: str
@@ -96,6 +113,7 @@ class LeafRule(NamedTuple):
     slots: Any = None
     codec_native: bool = False
     host_step: bool = False
+    taps: Optional[Callable[..., Dict[str, torch.Tensor]]] = None
 
 
 # Zero-state rule of a frozen leaf (the JAX package's ``lora.FROZEN``): an
@@ -278,6 +296,86 @@ def _legacy_key(i: int) -> str:
 _HOST_STEPS_KEPT = 8
 
 
+# The largest f32 temporary of a tap's sums, in elements.  A tap reduces a
+# tensor over blocks of whole rows (its last axis) of at most this many
+# elements and adds the blocks' f32 sums in order, so a multi-GB bucket's
+# taps hold a few hundred MiB at most, where the JAX package casts the
+# whole bucket to f32.
+TAP_BLOCK = 1 << 26
+
+
+def row_blocks(*xs: torch.Tensor):
+    """Blocks of whole rows of the last axis of the same-shaped ``xs``, in
+    order, as tuples of views, each block of at most :data:`TAP_BLOCK`
+    elements (one row where a row is longer).  Contiguous tensors are cut
+    across their merged rows; otherwise (a transposed leaf) each matrix of
+    the leading axes is cut alone."""
+    xs = tuple(x.reshape(1, -1) if x.ndim < 2 else x for x in xs)
+    n = xs[0].shape[-1]
+    rows = max(1, TAP_BLOCK // max(n, 1))
+    if all(x.is_contiguous() for x in xs):
+        mats = [tuple(x.reshape(-1, n) for x in xs)]
+    else:
+        mats = (tuple(x[idx] for x in xs) for idx in
+                itertools.product(*map(range, xs[0].shape[:-2])))
+    for ms in mats:
+        for r in range(0, ms[0].shape[0], rows):
+            yield tuple(m[r:r + rows] for m in ms)
+
+
+def block_ssq(b: torch.Tensor) -> torch.Tensor:
+    """Σ b² of one block with an f32 accumulator, as the square of its f32
+    2-norm: on CUDA a bf16 block is read as it is, with no f32 copy; the
+    root and the square add two f32 roundings to the sum's own."""
+    return torch.square(torch.linalg.vector_norm(b, dtype=torch.float32))
+
+
+def tap_ssq(x: torch.Tensor, minus: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
+    """Σ x² (with ``minus``: Σ (x - minus)², the difference taken in f32)
+    in f32 over :func:`row_blocks`, as an f32 device scalar."""
+    if minus is None:
+        return sum_in_order(block_ssq(blk) for (blk,) in row_blocks(x))
+    return sum_in_order(block_ssq(blk.to(torch.float32, copy=True,
+                                 memory_format=torch.contiguous_format)
+                          .sub_(sub))
+                for blk, sub in row_blocks(x, minus))
+
+
+def sum_in_order(xs) -> torch.Tensor:
+    """The tensors ``xs`` added in order."""
+    it = iter(xs)
+    total = next(it)
+    for x in it:
+        total = total + x
+    return total
+
+
+def _codec_taps(ns) -> Dict[str, torch.Tensor]:
+    """The int8 substrate's taps, read off an encoded stacked bucket state:
+    the share of codes on the ±127 rails (a block's scale pinned by an
+    outlier keeps its codes there) and the largest block absmax
+    (``scale · 127``).  Empty for a state with no codes."""
+    hits, total, absmax = None, 0, None
+    for path, leaf in zip(*flatten_with_paths(ns)):
+        tail = path.rsplit("/", 1)[-1]
+        if tail == "q" and leaf.dtype == torch.int8:
+            for (blk,) in row_blocks(leaf):
+                n = torch.count_nonzero(blk >= 127) \
+                    + torch.count_nonzero(blk <= -127)
+                hits = n if hits is None else hits + n
+            total += leaf.numel()
+        elif tail == "scale" and leaf.dtype == torch.float32:
+            mx = torch.amax(leaf)
+            absmax = mx if absmax is None else torch.maximum(absmax, mx)
+    if total == 0:
+        return {}
+    out = {"q8_sat_rate": hits.to(torch.float32) / float(total)}
+    if absmax is not None:
+        out["q8_absmax"] = absmax * 127.0
+    return out
+
+
 def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
           codec="f32", codec_seed: int = 0) -> Optimizer:
     """Build an :class:`Optimizer` from a leaf-rule assignment.
@@ -309,7 +407,9 @@ def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
         return out
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def run(grads, state, params, with_taps: bool):
+        # ``with_taps`` only adds reads: the parameters and state written
+        # are the same with it as without, and without it no tap is made
         step = state["step"]
         key = state.get("codec_key")
         plan = eng.plan(params)
@@ -320,6 +420,7 @@ def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
         hstep = eng.host_step(step) if any(
             b.rule.host_step for b in plan.buckets) else None
         new_buckets = {}
+        taps: Dict[str, torch.Tensor] = {}
         for b in plan.buckets:
             if b.rule is FROZEN:
                 new_buckets[b.name] = {}
@@ -327,6 +428,9 @@ def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
             st = state["buckets"][b.name]
             rule = b.rule
             coded = quant and rule.slots is not None
+            # Σ (new p - old p)², leaf by leaf before the write: on CUDA a
+            # fused rule has already written the stacked p in place
+            upd = []
             if bucketed and rule.vector_update is not None and (
                     rule.codec_native or not coded):
                 g_stk = torch.stack([gleaves[i] for i in b.indices])
@@ -336,6 +440,8 @@ def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
                 np_stk, ns = rule.vector_update(g_stk, p_stk, st, step,
                                                 *extra)
                 for j, i in enumerate(b.indices):
+                    if with_taps:
+                        upd.append(tap_ssq(np_stk[j], pleaves[i]))
                     pleaves[i].copy_(np_stk[j])
             else:
                 per_leaf = []
@@ -349,20 +455,48 @@ def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
                     if coded:
                         ns_j = codec_lib.tree_encode(cdc, rule.slots, ns_j,
                                                      salts[:, i])
+                    if with_taps:
+                        upd.append(tap_ssq(new_p, pleaves[i]))
                     pleaves[i].copy_(new_p)
                     per_leaf.append(ns_j)
                     del new_p, ns_j
                 ns = _restack(per_leaf)
                 del per_leaf
             new_buckets[b.name] = ns
+            if with_taps:
+                gs = [gleaves[i] for i in b.indices]
+                tp = {"grad_ssq": sum_in_order(tap_ssq(g) for g in gs),
+                      "update_ssq": sum_in_order(upd)}
+                if coded:
+                    tp.update(_codec_taps(ns))
+                if rule.taps is not None:
+                    tp.update(rule.taps(gs, st, ns))
+                for k, v in tp.items():
+                    taps[f"{b.name}/{k}"] = v.to(torch.float32)
         out = {"step": step + 1, "buckets": new_buckets}
         if hstep is not None:
             eng.returned_step(out["step"], hstep + 1)
         if quant:
             out["codec_key"] = key
-        return params, out
+        return params, out, taps
 
-    return Optimizer(init, update, engine=eng)
+    def update(grads, state, params):
+        new_params, out, _ = run(grads, state, params, False)
+        return new_params, out
+
+    def tapped_update(grads, state, params):
+        """``update`` plus the per-bucket taps (DESIGN.md §12): for every
+        bucket but a frozen one ``grad_ssq`` (Σ g²) and ``update_ssq``
+        (Σ (p_new - p_old)²), under a quantizing codec ``q8_sat_rate`` and
+        ``q8_absmax`` read off the state just written, and the rule's own
+        taps; keys ``"<bucket>/<tap>"``, f32 device scalars.  The
+        parameters and state are bitwise ``update``'s."""
+        return run(grads, state, params, True)
+
+    # the unrolled reference engine has no tapped channel, as the JAX
+    # package's (its taps read the stacked buckets)
+    return Optimizer(init, update, engine=eng,
+                     tapped_update=tapped_update if bucketed else None)
 
 
 @torch.no_grad()

@@ -35,6 +35,17 @@ preempted.  SIGTERM or SIGINT during ``run`` sets a
 flag; at the next chunk boundary the loop saves blocking and stops, and the
 run can be resumed from that step.
 
+Observability (DESIGN.md §12; ``obs.get()``, a null ``Telemetry`` unless a
+caller configured one): spans ``prefetch``, ``dispatch``, ``block``,
+``eval`` and ``save`` around those phases, with the JAX loop's names and
+args, and a ``train_step`` record per step at each fetch.  With
+``tap_step`` (``make_train_step(taps=True)``) each chunk's last step runs
+through it instead of ``train_step``, as the JAX loop's ``lax.cond`` puts
+the taps there; its taps, sorted by name, are packed into one f32 vector
+on the device and fetched with the losses in the same single copy, then
+joined to that step's record.  Without ``tap_step`` every step is
+``train_step``, and a sink changes no computed value.
+
 Data parallel (``dp``, a ``launch.mesh.DPContext`` of several ranks): the
 ranks agree on a preemption at each chunk boundary (stopping if any rank was
 signalled), every rank takes part in gathering the error-feedback residues
@@ -177,8 +188,11 @@ class TrainLoop:
     def __init__(self, train_step, data_source, *, device, ckpt=None,
                  ckpt_every: int = 100, log_every: int = 10,
                  log: Callable[[str], None] = print, dp=None,
-                 num_workers: int = 0, evaluator=None, eval_every: int = 0):
+                 num_workers: int = 0, evaluator=None, eval_every: int = 0,
+                 tap_step=None):
         self.train_step = train_step
+        self.tap_step = tap_step
+        self._tap_keys: Optional[List[str]] = None   # sorted, at first use
         self.data = data_source
         self.device = torch.device(device)
         self.ckpt = ckpt
@@ -238,11 +252,12 @@ class TrainLoop:
                 or step % self.eval_every:
             return
         t0 = time.monotonic()
-        r = self.evaluator(params, step)
+        tel = obs.get()
+        with tel.span("eval", step=step):
+            r = self.evaluator(params, step)
         self.watchdog.block(time.monotonic() - t0, k)
-        obs.get().emit("eval", step=step, loss=float(r["loss"]),
-                       ppl=float(r["ppl"]),
-                       n_batches=self.evaluator.n_batches)
+        tel.emit("eval", step=step, loss=float(r["loss"]),
+                 ppl=float(r["ppl"]), n_batches=self.evaluator.n_batches)
         self.log(f"step {step}: eval_loss={r['loss']:.4f} "
                  f"ppl={r['ppl']:.2f} ({self.evaluator.n_batches} batches)")
 
@@ -260,6 +275,16 @@ class TrainLoop:
         self._save(step, params, opt_state, blocking=blocking)
         self.watchdog.block(time.monotonic() - t0, k)
 
+    def _tap_vector(self, taps) -> torch.Tensor:
+        """The tap dict as one ``(T,)`` f32 device vector in sorted-name
+        order (the names recorded at the first tapped step)."""
+        if self._tap_keys is None:
+            self._tap_keys = sorted(taps)
+        if not self._tap_keys:
+            return torch.zeros((0,), dtype=torch.float32, device=self.device)
+        return torch.stack([taps[k].to(torch.float32)
+                            for k in self._tap_keys])
+
     def _preempted(self) -> bool:
         if self.dp is None:
             return self.preempt.requested
@@ -267,17 +292,38 @@ class TrainLoop:
 
     def run(self, params, opt_state, *, start_step: int = 0,
             num_steps: int = 100):
+        tel = obs.get()
         losses: List[float] = []
         window: List[torch.Tensor] = []   # per-step losses, on the device
+        # (position in window, (T,) tap vector) of each tapped step
+        tapped: List[tuple] = []
         fetches: List[tuple] = []         # (step, host time) after a fetch
 
         def flush(step: int):
             if not window:
                 return
             t0 = time.monotonic()
-            losses.extend(torch.stack(window).cpu().tolist())
-            self.watchdog.block(time.monotonic() - t0, len(window))
+            n = len(window)
+            with tel.span("block", steps=n):
+                # one device-to-host copy a window, the taps included
+                pending = torch.stack(window)
+                if tapped:
+                    pending = torch.cat([pending.float(),
+                                         *(v for _, v in tapped)])
+                host = pending.cpu().tolist()
+            self.watchdog.block(time.monotonic() - t0, n)
+            losses.extend(host[:n])
+            if getattr(tel.sink, "enabled", True):
+                t, at = len(self._tap_keys or ()), {}
+                for c, (j, _) in enumerate(tapped):
+                    at[j] = host[n + c * t:n + (c + 1) * t]
+                for j, lval in enumerate(host[:n]):
+                    rec = {"step": step - n + j + 1, "loss": lval}
+                    if j in at:
+                        rec.update(zip(self._tap_keys, at[j]))
+                    tel.emit("train_step", **rec)
             window.clear()
+            tapped.clear()
             fetches.append((step, time.perf_counter()))
 
         step = start_step
@@ -291,19 +337,27 @@ class TrainLoop:
                 end = self._chunk_end(step, num_steps)
                 k = end - step
                 batches = []
-                for j in range(k):
-                    i, b = next(pf)
-                    if i != step + j:   # bit-determinism depends on this
-                        raise RuntimeError(f"data stream desync: got batch "
-                                           f"{i}, want {step + j}")
-                    batches.append(b)
-                chunk = self._to_device(stack_batches(batches))
+                with tel.span("prefetch", steps=k):
+                    for j in range(k):
+                        i, b = next(pf)
+                        if i != step + j:   # bit-determinism depends on this
+                            raise RuntimeError(f"data stream desync: got "
+                                               f"batch {i}, want {step + j}")
+                        batches.append(b)
+                    chunk = self._to_device(stack_batches(batches))
                 self.watchdog.start()
-                for j in range(k):
-                    params, opt_state, metrics = self.train_step(
-                        params, opt_state, {kk: v[j] for kk, v in
-                                            chunk.items()})
-                    window.append(metrics["loss"])
+                with tel.span("dispatch", step=step, steps=k):
+                    for j in range(k):
+                        batch = {kk: v[j] for kk, v in chunk.items()}
+                        if self.tap_step is not None and j == k - 1:
+                            params, opt_state, metrics = self.tap_step(
+                                params, opt_state, batch)
+                            tapped.append((len(window), self._tap_vector(
+                                metrics["taps"])))
+                        else:
+                            params, opt_state, metrics = self.train_step(
+                                params, opt_state, batch)
+                        window.append(metrics["loss"])
                 dt = self.watchdog.stop(step, k, record=not first_chunk)
                 first_chunk = False
                 step = end
@@ -316,7 +370,8 @@ class TrainLoop:
                 self._maybe_eval(step, params, k)
                 if self.ckpt is not None and self.ckpt_every \
                         and step % self.ckpt_every == 0:
-                    self._timed_save(step, params, opt_state, k)
+                    with tel.span("save", step=step):
+                        self._timed_save(step, params, opt_state, k)
                     last_saved = step
                 if self._preempted():
                     preempted = True
@@ -337,6 +392,5 @@ class TrainLoop:
         if len(fetches) >= 2 and fetches[-1][0] > fetches[0][0]:
             (s0, t0), (s1, t1) = fetches[0], fetches[-1]
             self.steady_step_s = (t1 - t0) / (s1 - s0)
-        obs.get().emit("watchdog_summary", step=step,
-                       **self.watchdog.summary())
+        tel.emit("watchdog_summary", step=step, **self.watchdog.summary())
         return params, opt_state, losses
