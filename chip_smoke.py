@@ -240,7 +240,17 @@ Phases (any failure raises and the script exits non-zero):
     the ``TrainLoop``'s syncs over two log windows equal with and without
     the tapped step; the untapped and the tapped step timed A B B A at
     llama-60m and qwen2.5-3b (full depth, 16 x 256) with each segment's
-    peak memory.
+    peak memory;
+37. sharded parameters (``--shard-params auto``) against ``none`` under
+    a one-rank NCCL group, where every placement is over mesh axes of
+    size 1 and nothing is copied: qwen2.5-3b at full width and depth, 16 x
+    256, 3 steps of ``--mesh 1 --dp-reduce exact`` (K1 by plan in both
+    designs, the same counts, losses, parameters and state bitwise, the
+    auto peak within 1% of none's, each step time printed) and llama-60m
+    10 steps of ``--state-codec int8 --dp-reduce compressed`` (K2 30, K3
+    10, K7 100 in both, bitwise); the rule table's per-rank bytes of
+    qwen2.5-3b on a ``data=8`` mesh, computed from shapes and printed as
+    such.  No figure of more than one card exists.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -4754,6 +4764,158 @@ def run_observability(train, kernel, hk, dev, res32, res8, prof32):
     return out
 
 
+# phase 37: the sharded-parameter layout (--shard-params auto) against the
+# replicated one under a one-rank NCCL group: qwen2.5-3b at full width and
+# depth, 16 x 256, SHARD_QWEN_STEPS steps with exact f32 means, and
+# llama-60m SHARD_Q8_STEPS steps of int8 moments with compressed means
+SHARD_QWEN_STEPS = 3
+SHARD_Q8_STEPS = 10
+SHARD_QWEN_ARGS = ["--arch", "qwen2.5-3b", "--steps", str(SHARD_QWEN_STEPS),
+                   "--batch", "16", "--seq", "256", "--log-every", "1",
+                   "--seed", "0", "--mesh", "1", "--dp-reduce", "exact"]
+SHARD_Q8_ARGS = ["--arch", "llama-60m", "--steps", str(SHARD_Q8_STEPS),
+                 "--batch", "16", "--seq", "256", "--log-every", "5",
+                 "--seed", "0", "--state-codec", "int8", "--dp-reduce",
+                 "compressed"]
+# the auto peak may exceed none's by this share at world size 1, where the
+# placement copies nothing
+SHARD_PEAK_SHARE = 0.01
+# a data=8 mesh's per-rank bytes of qwen2.5-3b under the rule table (GWT-2
+# f32 state, bf16 parameters): figures computed from shapes, not measured
+SHARD_QWEN_RANK8 = {"state": 1_534_660_652, "params": 771_907_584}
+
+
+def host_tree(res):
+    """``{"losses", "params", "opt"}`` of a launcher result, the tensors
+    copied to the host one leaf at a time (the next run needs the card's
+    memory)."""
+    from repro_torch.optim.base import flatten_with_paths
+    paths, leaves = flatten_with_paths({"params": res.params,
+                                        "opt": res.opt_state})
+    return {"losses": list(res.losses),
+            "leaves": dict(zip(paths, (t.detach().cpu() for t in leaves)))}
+
+
+def sharded_run(train, kernel, hk, argv, label):
+    """One launcher run under a one-rank NCCL group, counts set to 0 just
+    before and read just after.  Returns the host copy of its result and
+    its counts, peak (absolute and above what was held before) and step
+    time."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    with one_rank_env():
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernel, hk)
+        t0 = time.perf_counter()
+        res = train.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = all_counts(kernel, hk)
+        peak = torch.cuda.max_memory_allocated()
+    if not np.all(np.isfinite(res.losses)):
+        raise AssertionError(f"{label}: non-finite losses {res.losses}")
+    out = {"counts": counts, "peak_mib": peak / 2**20,
+           "peak_above_base_mib": (peak - base) / 2**20,
+           "step_ms": res.step_ms, "wall_s": wall, "losses": res.losses}
+    host = host_tree(res)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 37 {label}: {wall:.2f} s, losses {out['losses']}, step "
+          f"{out['step_ms']} ms, peak {out['peak_mib']:.1f} MiB "
+          f"({out['peak_above_base_mib']:.1f} above the {base / 2**20:.1f} "
+          f"MiB held before), launches {counts}")
+    return host, out
+
+
+def check_same_run(a, b, what):
+    """Losses, parameters and optimizer state bitwise (host copies)."""
+    if a["losses"] != b["losses"]:
+        raise AssertionError(f"{what}: losses {a['losses']} vs "
+                             f"{b['losses']}")
+    assert_bitwise(a["leaves"], b["leaves"], what)
+
+
+def run_layouts(train, kernel, hk, argv, label, order, want):
+    """``argv`` under each ``--shard-params`` of ``order`` in turn: every
+    run's counts ``want`` and its result bitwise the first's.  Returns
+    ``{layout: [summary, ...]}``."""
+    first, out = None, {}
+    for layout in order:
+        host, r = sharded_run(train, kernel, hk,
+                              argv + ["--shard-params", layout],
+                              f"{label} {layout}")
+        if r["counts"] != {k: want.get(k, 0) for k in r["counts"]}:
+            raise AssertionError(f"{label} {layout}: launched "
+                                 f"{r['counts']}, want {want}")
+        if first is None:
+            first = host
+        else:
+            check_same_run(host, first, f"{label} {layout}/{order[0]}")
+        del host
+        out.setdefault(layout, []).append(r)
+    return out
+
+
+def run_sharding(train, kernel, hk):
+    """Phase 37 (the sharded-parameter slice): ``--shard-params auto``
+    against ``none`` at world size 1 under a one-rank NCCL group, where
+    every placement is over mesh axes of size 1 and nothing is copied.
+    qwen2.5-3b at full width and depth with exact means, none auto auto
+    none (K1 by plan in both designs in every run, losses, parameters and
+    state bitwise, the auto peaks within ``SHARD_PEAK_SHARE`` of none's,
+    each step time) and llama-60m with int8 moments and compressed means
+    (K2, K3 and K7 the same counts, everything bitwise); then the rule
+    table's per-rank bytes of qwen2.5-3b on a ``data=8`` mesh, computed
+    from shapes."""
+    from repro_torch import configs
+    from repro_torch.distributed import sharding
+    from repro_torch.models import lm
+    from repro_torch.optim import engine, make
+    t0 = time.perf_counter()
+    cfg = configs.get_config("qwen2.5-3b")
+    qwen = run_layouts(train, kernel, hk, SHARD_QWEN_ARGS,
+                       "qwen2.5-3b exact", ("none", "auto", "auto", "none"),
+                       fused_plan_counts(kernel, cfg, SHARD_QWEN_STEPS))
+    peaks = {k: [r["peak_mib"] for r in rs] for k, rs in qwen.items()}
+    if max(peaks["auto"]) > min(peaks["none"]) * (1 + SHARD_PEAK_SHARE):
+        raise AssertionError(f"qwen2.5-3b: auto peaks {peaks['auto']} MiB "
+                             f"over none's {peaks['none']}")
+    want = fused_counts(k2=3 * SHARD_Q8_STEPS)
+    want.update({"K3": SHARD_Q8_STEPS, "K7": 10 * SHARD_Q8_STEPS,
+                 "K3 leaves": 10 * SHARD_Q8_STEPS})
+    q8 = run_layouts(train, kernel, hk, SHARD_Q8_ARGS,
+                     "llama-60m int8 compressed", ("none", "auto"), want)
+    mesh = sharding.Mesh((8,), ("data",))
+    sh = sharding.train_step_shardings(
+        cfg, lm, {"tokens": torch.empty((16, 256), device="meta")}, mesh)
+    abs_p = lm.abstract_params(cfg)
+    st = make("gwt", lr=0.0, level=LEVEL).init(abs_p)
+    rank8 = {"state": sharding.shard_bytes(st, sh.opt),
+             "params": sharding.shard_bytes(abs_p, sh.params),
+             "state_whole": engine.state_bytes(st),
+             "params_whole": sharding.shard_bytes(abs_p, None)}
+    if {k: rank8[k] for k in SHARD_QWEN_RANK8} != SHARD_QWEN_RANK8:
+        raise AssertionError(f"qwen2.5-3b data=8 rank bytes {rank8}, want "
+                             f"{SHARD_QWEN_RANK8}")
+    steps = {k: [r["step_ms"] for r in rs] for k, rs in qwen.items()}
+    out = {"qwen2.5-3b": qwen, "llama-60m int8 compressed": q8,
+           "qwen2.5-3b data=8 rank bytes (computed)": rank8,
+           "phase_s": time.perf_counter() - t0}
+    c = qwen["auto"][0]["counts"]
+    print(f"phase 37: qwen2.5-3b exact none/auto/auto/none bitwise, K1 "
+          f"{c['K1']} ({c['K1 one-pass']} one pass, {c['K1 two-pass']} "
+          f"two) in each; step ms none {steps['none']} auto "
+          f"{steps['auto']}; peak MiB none {peaks['none']} auto "
+          f"{peaks['auto']}; llama-60m int8 compressed auto/none bitwise; "
+          f"computed from shapes, not measured: a data=8 rank of qwen2.5-3b "
+          f"holds {rank8['state']} of {rank8['state_whole']} state bytes "
+          f"and {rank8['params']} of {rank8['params_whole']} parameter "
+          f"bytes; {out['phase_s']:.1f} s; card {smi()}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA "
@@ -4878,6 +5040,8 @@ def main() -> int:
     observability = run_observability(train, kernel, hk, dev, res32, res8,
                                       prof32)
     print(f"phase 36: the script so far {time.perf_counter() - t0:.1f} s")
+    shard = run_sharding(train, kernel, hk)
+    print(f"phase 37: the script so far {time.perf_counter() - t0:.1f} s")
     print(f"staged step vs fused step (same call): launcher-equivalent "
           f"loop {staged32['step_ms']:.2f} vs {res32.step_ms:.2f} ms; "
           f"profiled {prof_staged['step_ms']:.2f} vs "
@@ -4918,7 +5082,10 @@ def main() -> int:
                                        k: v for k, v in
                                        observability["engine"].items()
                                        if "int8" not in k and "staged"
-                                       not in k}}),
+                                       not in k}},
+                    sharded_params=shard["qwen2.5-3b"],
+                    sharded_rank_bytes_computed=shard[
+                        "qwen2.5-3b data=8 rank bytes (computed)"]),
         fused_entry("gwt_adam_fused_q8",
                     "gwt_adam/csrc/gwt_adam_fused_q8.cu",
                     "src/repro/kernels/gwt_adam/kernel.py:554",
@@ -4941,7 +5108,8 @@ def main() -> int:
                     observability={
                         "engine": observability["engine"][
                             "llama-60m int8 (K2)"],
-                        "metrics_dir": observability["metrics_dir"]["int8"]}),
+                        "metrics_dir": observability["metrics_dir"]["int8"]},
+                    sharded_params=shard["llama-60m int8 compressed"]),
         group_entry("haar_dwt_fwd_q",
                     "src/repro/kernels/haar_dwt/kernel.py:124",
                     dp_counts["K3"], err_haar, rows_haar["K3 bf16"],

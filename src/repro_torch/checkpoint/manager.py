@@ -17,6 +17,12 @@ Dtype names are numpy's: ``float32``, ``int8``, ``int32``, ``uint32``, and
 ``bfloat16`` for bf16 leaves, whose bytes are the raw 16-bit patterns.  No
 ``ml_dtypes`` is needed on either side.
 
+A tree whose leaves are shards of a placed layout (``--shard-params
+auto``) is saved whole: ``save(gather=...)`` gathers each leaf on every
+rank before its host copy, and only the writing rank copies and writes.
+``restore(place=...)`` cuts each whole leaf to the resuming run's shard as
+it is read, so a checkpoint crosses layouts and device counts.
+
 ``save`` is asynchronous by default.  The port's kernels update parameters
 and moments in place, so every leaf is copied to the host before the writer
 thread starts: a later step cannot reach the bytes being written.
@@ -28,7 +34,7 @@ import json
 import os
 import shutil
 import threading
-from typing import Any, List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -141,13 +147,28 @@ class CheckpointManager:
         for s in self.committed_steps()[:-self.gc_keep]:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
-    def save(self, step: int, tree: Any, *, blocking: bool = False):
+    def save(self, step: int, tree: Any, *, blocking: bool = False,
+             gather: Optional[Callable[[str, torch.Tensor],
+                                       torch.Tensor]] = None,
+             write: bool = True):
         """Write ``tree`` (a dict tree of tensors) as step ``step``.  The
         previous asynchronous save is joined first.  Every leaf is copied
         to the host here, in the caller's thread; only the file writes run
-        in the background unless ``blocking``."""
+        in the background unless ``blocking``.
+
+        ``gather(path, leaf) -> whole leaf`` (a collective: every rank of
+        a placed layout calls ``save`` with it) is applied leaf by leaf in
+        flatten order, each whole leaf dying after its host copy;
+        ``write=False`` takes part in the gathers and writes nothing."""
         self.wait()
-        arrays = [to_numpy(t) for t in flatten_with_paths(tree)[1]]
+        arrays = []
+        for path, t in zip(*flatten_with_paths(tree)):
+            whole = t if gather is None else gather(path, t)
+            if write:
+                arrays.append(to_numpy(whole))
+            del whole
+        if not write:
+            return
         if blocking:
             self._write(step, arrays)
             return
@@ -161,13 +182,17 @@ class CheckpointManager:
             self._thread = None
 
     # -- restore -----------------------------------------------------------
-    def restore(self, step: Optional[int], like: Any, device=None):
+    def restore(self, step: Optional[int], like: Any, device=None,
+                place: Optional[Callable[[str, torch.Tensor],
+                                         torch.Tensor]] = None):
         """Restore step ``step`` (default: the latest) into the structure
         of ``like``, a dict tree of tensors (``meta`` tensors will do).
         Each leaf takes its ``like`` leaf's dtype, and goes to ``device``,
         or to the ``like`` leaf's device when ``device`` is None.  Raises
         :class:`StructureMismatch` when leaf counts or shapes differ.
-        Returns ``(tree, step)``."""
+        ``place(path, whole leaf) -> leaf`` (a run's placement: this rank's
+        shard) is applied to each leaf as it is read.  Returns ``(tree,
+        step)``."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -185,20 +210,24 @@ class CheckpointManager:
                     f"{path}: checkpoint shape {tuple(lm['shape'])} != "
                     f"requested {tuple(leaf.shape)}")
         return unflatten(paths, self._read(d, 0, leaves, meta["leaves"],
-                                           device)), step
+                                           device, paths, place)), step
 
     @staticmethod
-    def _read(d: str, offset: int, leaves, metas, device) -> List[Any]:
+    def _read(d: str, offset: int, leaves, metas, device, paths=None,
+              place=None) -> List[Any]:
         """Leaves ``offset ..`` of step directory ``d``, each in its
-        ``like`` leaf's dtype, on ``device`` or the ``like`` leaf's."""
+        ``like`` leaf's dtype, on ``device`` or the ``like`` leaf's, each
+        through ``place(path, leaf)`` if given."""
         out = []
         for i, (leaf, lm) in enumerate(zip(leaves, metas)):
             with open(os.path.join(d, f"arr_{offset + i:06d}.bin"),
                       "rb") as f:
                 arr = np.frombuffer(f.read(), dtype=_np_dtype(lm["dtype"])) \
                     .reshape(lm["shape"])
-            out.append(from_numpy(arr, lm["dtype"], leaf.dtype,
-                                  leaf.device if device is None else device))
+            t = from_numpy(arr, lm["dtype"], leaf.dtype,
+                           leaf.device if device is None else device)
+            out.append(t if place is None else place(paths[i], t))
+            del t
         return out
 
     def restore_params(self, step: Optional[int], like_params: Any,

@@ -89,7 +89,8 @@ def gwt(lr: Schedule | float,
         wavelet: str = "haar",
         fused_write: bool = True,
         bucketed: bool = True,
-        state_codec="f32") -> Optimizer:
+        state_codec="f32",
+        state_shardings=None) -> Optimizer:
     """Build the GWT optimizer.  ``host`` in {'adam', 'adam_mini', 'muon'}
     with ``host_kwargs`` for its constructor; ``wavelet`` in {'haar',
     'db2'}; ``fused_write=False`` keeps the staged dataflow (G̃
@@ -97,7 +98,9 @@ def gwt(lr: Schedule | float,
     baseline and not a production knob; ``bucketed=False`` the unrolled
     per-leaf engine; ``state_dtype`` (f32 | bf16) is the dtype of the host
     moments, which ``state_codec`` ('f32' | 'int8') stores raw or
-    blocked-int8."""
+    blocked-int8.  ``state_shardings`` (``distributed.sharding.
+    gwt_state_shardings(...)["buckets"]``) keeps each bucket's state placed
+    (``optim.engine.build``)."""
     if wavelet not in ("haar", "db2"):
         raise ValueError(f"unknown wavelet {wavelet!r}")
     if isinstance(lr, (int, float)):
@@ -254,4 +257,4 @@ def gwt(lr: Schedule | float,
              _Mode.FIRST: make_gwt_rule(_Mode.FIRST)}
     return engine.build(
         lambda path, leaf: rules[_leaf_mode(path, leaf, level, elig)],
-        bucketed=bucketed, codec=cdc)
+        bucketed=bucketed, codec=cdc, state_shardings=state_shardings)

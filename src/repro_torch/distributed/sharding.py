@@ -1,0 +1,497 @@
+"""Logical-axis -> mesh-axis placement rules (counterpart of
+``repro/distributed/sharding.py``) and the placement helpers of the
+sharded-parameter layout (``--shard-params auto``).
+
+Parameters carry logical axis names (``models.layers.Axes``, from
+``lm.param_axes`` / ``encdec.param_axes``).  A rule maps a logical name to
+a *preference list* of mesh axes: the first candidate whose mesh axes are
+(a) on the mesh, (b) not yet used by another dimension of the same tensor
+and (c) divide the dimension is taken; otherwise the dimension is
+replicated.  The table is the JAX package's, letter for letter.
+
+The pieces, as pure functions of shapes and names (no process group, no
+device; ``meta`` tensors will do):
+
+* :class:`Mesh` — axis names and sizes (``jax.sharding.AbstractMesh``), and
+  at run time this process's coordinates and its ``DeviceMesh``;
+* :class:`Spec` — the ``PartitionSpec`` counterpart: per dimension None,
+  one mesh axis, or a tuple of them, trailing Nones dropped;
+* :class:`NamedSharding` — a mesh and a spec;
+* :func:`train_rules`, :func:`decode_rules`, :func:`spec_for`,
+  :func:`tree_shardings`, :func:`gwt_state_shardings` (mirrors the port's
+  own GWT bucket plan), :func:`batch_shardings`, :func:`replicated_like`,
+  :func:`train_step_shardings` and :class:`StepShardings`.
+
+Placement.  A placed tensor is stored as the rank's *local shard*, a plain
+contiguous tensor, beside its :class:`NamedSharding`; it is not kept as a
+``DTensor``.  Every CUDA kernel of the port takes plain tensors (K1/K2 read
+``data_ptr()`` through ctypes), the port's trees, checkpoints and state
+accounting walk plain tensors, and a shard over mesh axes of size 1 is the
+full tensor itself: :func:`shard` and :func:`gather` return their input
+there, with no copy and no collective, so at world size 1 the placed layout
+holds no byte more than the replicated one.  :func:`gather` builds the
+whole tensor through ``DTensor.from_local(...).full_tensor()`` over the
+run's ``DeviceMesh``; :func:`shard` is a local slice (every rank holds the
+whole tensor when it shards, so no collective is needed).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import (Any, Callable, Dict, Mapping, NamedTuple, Optional,
+                    Sequence, Tuple, Union)
+
+import torch
+
+from repro_torch.models.layers import Axes
+from repro_torch.optim.base import flatten_with_paths, unflatten
+
+Candidate = Union[str, Tuple[str, ...]]
+Rules = Dict[str, Tuple[Candidate, ...]]
+
+
+class Mesh:
+    """A device mesh's axis names and sizes (``shape``, an ordered dict as
+    the JAX mesh's).  At run time it also holds this process's coordinate
+    along each axis (``coords``) and the ``torch.distributed``
+    ``DeviceMesh`` that gathers placed tensors; a mesh without one is
+    abstract (the rule table's input), or one process."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 coords: Optional[Sequence[int]] = None, device_mesh=None):
+        if len(shape) != len(axis_names):
+            raise ValueError(f"mesh shape {tuple(shape)} and axis names "
+                             f"{tuple(axis_names)} differ in length")
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, (int(s) for s in shape)))
+        self.coords = dict(zip(self.axis_names,
+                               coords if coords is not None
+                               else (0,) * len(self.axis_names)))
+        self.device_mesh = device_mesh
+
+    def __repr__(self):
+        return f"Mesh({self.shape})"
+
+
+class Spec(tuple):
+    """``PartitionSpec`` counterpart: one entry per leading dimension, each
+    None (replicated), a mesh axis name, or a tuple of names (the dimension
+    split over their product, the first the major)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return f"P{tuple.__repr__(self)}"
+
+
+class NamedSharding(NamedTuple):
+    """A placement: ``spec`` over ``mesh``."""
+
+    mesh: Mesh
+    spec: Spec
+
+
+def _names(entry: Candidate) -> Tuple[str, ...]:
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _dp_axes(mesh: Mesh) -> Tuple[str, ...]:
+    return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+
+
+def train_rules(mesh: Mesh) -> Rules:
+    """FSDP(data) x TP/EP(model); the batch over (pod x) data.  Parameters
+    are not sharded over the pod axis: it carries pure data parallelism."""
+    dp = _dp_axes(mesh)
+    return {
+        "vocab": ("model",),
+        "embed": ("data",),
+        "heads": ("model",),
+        "kv_heads": ("model",),
+        "mlp": ("model",),
+        "expert": ("model",),       # EP when E % model == 0, else falls
+        "expert_mlp": ("model",),   # through to TP inside the expert
+        "inner": ("model",),
+        "layers": (),
+        "batch": (dp,),
+        "seq": (),
+    }
+
+
+def decode_rules(mesh: Mesh) -> Rules:
+    """Decode: the cache's sequence axis takes the model axis (SP); for
+    batch-1 cells the sequence takes model x data."""
+    dp = _dp_axes(mesh)
+    return {
+        "vocab": ("model",),
+        "embed": ("data",),
+        "heads": ("model",),
+        "kv_heads": (),             # the cache's sequence owns 'model'
+        "mlp": ("model",),
+        "expert": ("model",),
+        "expert_mlp": ("model",),
+        "inner": ("model",),
+        "layers": (),
+        "batch": (dp,),
+        "seq": (("model",) + dp, ("model",) + dp[:1], "model"),
+    }
+
+
+def _axis_size(mesh: Mesh, cand: Candidate) -> int:
+    return math.prod(mesh.shape[a] for a in _names(cand))
+
+
+def spec_for(shape: Sequence[int], axes: Axes, mesh: Mesh,
+             rules: Rules) -> Spec:
+    """The spec of a tensor of ``shape`` with logical ``axes``."""
+    used = set()
+    entries = []
+    for size, name in zip(shape, axes.names):
+        picked = None
+        if name is not None:
+            for cand in rules.get(name, ()):
+                cand_names = _names(cand)
+                if not cand_names:
+                    continue
+                # a rule may name an axis the mesh does not have (the
+                # 'model' candidates on a pure-DP mesh): fall through
+                if any(a not in mesh.shape for a in cand_names):
+                    continue
+                if any(a in used for a in cand_names):
+                    continue
+                if size % _axis_size(mesh, cand) != 0:
+                    continue
+                picked = cand_names if len(cand_names) > 1 \
+                    else cand_names[0]
+                used.update(cand_names)
+                break
+        entries.append(picked)
+    while entries and entries[-1] is None:
+        entries.pop()
+    return Spec(*entries)
+
+
+def _map2(fn, tree, other, where: str = ""):
+    """``fn(leaf, other_leaf)`` over two dict trees of one structure; a
+    structure that differs raises."""
+    if isinstance(tree, Mapping):
+        if not isinstance(other, Mapping) or set(tree) != set(other):
+            got = sorted(other) if isinstance(other, Mapping) else other
+            raise ValueError(f"{where or 'tree'}: keys {sorted(tree)} do not "
+                             f"match {got}")
+        return {k: _map2(fn, tree[k], other[k], f"{where}/{k}" if where
+                         else str(k)) for k in tree}
+    return fn(tree, other)
+
+
+def tree_shardings(abstract: Any, axes_tree: Any, mesh: Mesh,
+                   rules: Rules):
+    """``(tensor tree, Axes tree) -> NamedSharding tree``; a None axes leaf
+    is replicated."""
+    def one(t, ax):
+        if ax is None:
+            return NamedSharding(mesh, Spec())
+        return NamedSharding(mesh, spec_for(t.shape, ax, mesh, rules))
+    return _map2(one, abstract, axes_tree)
+
+
+def _stacked(mesh: Mesh, spec: Spec) -> NamedSharding:
+    """A member's spec -> the ``(L, ...)`` bucket stack's: the stacking
+    axis is replicated, like ``layers``."""
+    return NamedSharding(mesh, Spec(*((None,) + tuple(spec))))
+
+
+def gwt_state_shardings(params_abstract, params_axes, mesh: Mesh,
+                        rules: Rules, level: int, eligible=None,
+                        host: str = "adam", state_codec: str = "f32"):
+    """The NamedSharding tree of the GWT optimizer's bucketed state
+    ``{"step", ["codec_key",] "buckets": {name: {"host": ..., "prev_norm"?}}}``
+    over the port's own bucket plan (``core.gwt``).
+
+    A bucket's host moments take the spec its members' logical axes share
+    (a FIRST-mode member's transposed, its A band's last dimension ``>>
+    level``); when same-shape members resolve to different specs (``wq``
+    ``('embed', 'heads')`` beside ``wo`` ``('heads', 'embed')`` where ``H·hd
+    == d``), the bucket stays replicated.  Under a quantizing codec a
+    moment is ``{"q", "scale"}``: ``q`` keeps the moment's spec, the block
+    ``scale`` vector is replicated, as are ``step``, ``codec_key`` and
+    ``prev_norm``.  Adam-mini's ``v`` is replicated; a MUON host keeps only
+    ``m`` (its plain leaves run Adam: ``m`` and ``v``)."""
+    from repro_torch.core.gwt import _Mode, gwt as gwt_optimizer
+    from repro_torch.optim import codec as codec_lib
+    quant = not codec_lib.get_codec(state_codec).passthrough
+    opt = gwt_optimizer(lr=0.0, level=level, host=host, eligible=eligible)
+    plan = opt.engine.plan(params_abstract)
+    _, pleaves = flatten_with_paths(params_abstract)
+    _, aleaves = flatten_with_paths(params_axes)
+    rep = NamedSharding(mesh, Spec())
+
+    def member_spec(kind: str, i: int) -> Spec:
+        shape, ax = tuple(pleaves[i].shape), aleaves[i]
+        if kind == _Mode.PLAIN:
+            return spec_for(shape, ax, mesh, rules)
+        if kind == _Mode.FIRST:
+            names = ax.names[:-2] + (ax.names[-1], ax.names[-2])
+            shape = shape[:-2] + (shape[-1], shape[-2])
+        else:
+            names = ax.names
+        a_shape = shape[:-1] + (shape[-1] >> level,)
+        return spec_for(a_shape, Axes(names), mesh, rules)
+
+    def slot(sh):
+        return {"q": sh, "scale": rep} if quant else sh
+
+    buckets = {}
+    for b in plan.buckets:
+        specs = {member_spec(b.rule.kind, i) for i in b.indices}
+        sh = _stacked(mesh, specs.pop()) if len(specs) == 1 else rep
+        host_sh = {"m": slot(sh), "v": slot(sh)}
+        if host == "adam_mini":
+            host_sh["v"] = slot(rep)
+        if b.rule.kind == _Mode.PLAIN:
+            buckets[b.name] = {"host": host_sh}
+        else:
+            if host == "muon":
+                host_sh = {"m": slot(sh)}
+            buckets[b.name] = {"host": host_sh, "prev_norm": rep}
+    out = {"step": rep, "buckets": buckets}
+    if quant:
+        out["codec_key"] = rep
+    return out
+
+
+class StepShardings(NamedTuple):
+    """The placements of the sharded train path: parameters, optimizer
+    state (None: replicated, as for every optimizer but GWT) and the input
+    batch."""
+
+    params: Any
+    opt: Any
+    batch: Dict[str, Any]
+
+
+def replicated_like(tree, mesh: Mesh):
+    """A replicated NamedSharding tree shaped like ``tree``."""
+    rep = NamedSharding(mesh, Spec())
+    if not isinstance(tree, Mapping):
+        return rep
+    return {k: replicated_like(v, mesh) for k, v in tree.items()}
+
+
+def batch_shardings(batch_abstract: Mapping[str, Any], mesh: Mesh):
+    """Input placements: the batch dimension over the DP axes (axis 1 of
+    ``mrope_positions``), the rest replicated."""
+    dp = _dp_axes(mesh)
+    dp_size = math.prod(mesh.shape[a] for a in dp)
+    out = {}
+    for k, v in batch_abstract.items():
+        bdim = 1 if k == "mrope_positions" else 0
+        spec = [None] * len(v.shape)
+        if v.shape[bdim] % dp_size == 0:
+            spec[bdim] = dp if len(dp) > 1 else dp[0]
+        elif v.shape[bdim] % mesh.shape["data"] == 0:
+            spec[bdim] = "data"
+        out[k] = NamedSharding(mesh, Spec(*spec))
+    return out
+
+
+def train_step_shardings(cfg, mod, batch_abstract, mesh: Mesh, *,
+                         optimizer_name: str = "gwt", level: int = 2,
+                         host: str = "adam", eligible=None,
+                         shard_params: bool = True,
+                         state_codec: str = "f32") -> StepShardings:
+    """The placements of the sharded train step.  ``shard_params`` applies
+    :func:`train_rules` to the parameters and, for GWT, the bucket layout
+    to its state; False replicates everything (classic DP).  Batches are
+    always split over the DP axes."""
+    params_abs = mod.abstract_params(cfg)
+    batch_sh = batch_shardings(batch_abstract, mesh)
+    if not shard_params:
+        return StepShardings(replicated_like(params_abs, mesh), None,
+                             batch_sh)
+    rules = train_rules(mesh)
+    params_axes = mod.param_axes(cfg)
+    params_sh = tree_shardings(params_abs, params_axes, mesh, rules)
+    opt_sh = None
+    if optimizer_name == "gwt":
+        opt_sh = gwt_state_shardings(params_abs, params_axes, mesh, rules,
+                                     level, eligible=eligible, host=host,
+                                     state_codec=state_codec)
+    return StepShardings(params_sh, opt_sh, batch_sh)
+
+
+# ---------------------------------------------------------------------------
+# Placement: a full tensor <-> this rank's shard
+# ---------------------------------------------------------------------------
+
+def _split(sh: NamedSharding):
+    """``[(dim, axis names)]`` of the dimensions split over axes of size
+    > 1."""
+    out = []
+    for d, entry in enumerate(sh.spec):
+        if entry is None:
+            continue
+        names = _names(entry)
+        if _axis_size(sh.mesh, names) > 1:
+            out.append((d, names))
+    return out
+
+
+def local_shape(shape: Sequence[int], sh: NamedSharding) -> Tuple[int, ...]:
+    """The shard shape of a tensor of ``shape``."""
+    out = list(shape)
+    for d, names in _split(sh):
+        n = _axis_size(sh.mesh, names)
+        if out[d] % n:
+            raise ValueError(f"dimension {d} of {tuple(shape)} does not "
+                             f"divide over {names} ({n})")
+        out[d] //= n
+    return tuple(out)
+
+
+def full_shape(shape: Sequence[int], sh: NamedSharding) -> Tuple[int, ...]:
+    """The whole tensor's shape of a shard of ``shape``."""
+    out = list(shape)
+    for d, names in _split(sh):
+        out[d] *= _axis_size(sh.mesh, names)
+    return tuple(out)
+
+
+def shard(full: torch.Tensor, sh: Optional[NamedSharding]) -> torch.Tensor:
+    """This rank's shard of ``full``: a contiguous copy of its slice (so
+    that ``full`` may die), or ``full`` itself where nothing is split.
+    Keeps ``requires_grad``."""
+    split = [] if sh is None else _split(sh)
+    if not split:
+        return full
+    if full.ndim < len(sh.spec):
+        raise ValueError(f"spec {sh.spec} has more entries than the "
+                         f"{full.ndim}-d tensor {tuple(full.shape)}")
+    with torch.no_grad():
+        x = full.detach()
+        for d, names in split:
+            n = _axis_size(sh.mesh, names)
+            if x.shape[d] % n:
+                raise ValueError(f"dimension {d} of {tuple(full.shape)} "
+                                 f"does not divide over {names} ({n})")
+            idx = 0
+            for a in names:   # the first name is the major
+                idx = idx * sh.mesh.shape[a] + sh.mesh.coords[a]
+            size = x.shape[d] // n
+            x = x.narrow(d, idx * size, size)
+        out = x.clone(memory_format=torch.contiguous_format)
+    return out.requires_grad_(full.requires_grad)
+
+
+def gather(local: torch.Tensor, sh: Optional[NamedSharding]
+           ) -> torch.Tensor:
+    """The whole tensor of which ``local`` is this rank's shard (a
+    collective over the mesh: every rank calls it), or ``local`` itself
+    where nothing is split.  Keeps ``requires_grad``; the result has no
+    autograd history."""
+    split = [] if sh is None else _split(sh)
+    if not split:
+        return local
+    dm = sh.mesh.device_mesh
+    if dm is None:
+        raise RuntimeError(f"gathering over {sh.spec} needs the run's "
+                           f"DeviceMesh; {sh.mesh} has none")
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    placements = [Replicate()] * len(sh.mesh.axis_names)
+    for d, names in split:
+        dims = [sh.mesh.axis_names.index(a) for a in names]
+        if dims != sorted(dims):
+            raise ValueError(f"spec entry {names} is not in mesh order "
+                             f"{sh.mesh.axis_names}: DTensor splits a "
+                             f"dimension over mesh axes in mesh order")
+        for m in dims:
+            placements[m] = Shard(d)
+    shape = full_shape(local.shape, sh)
+    stride = torch.empty(shape, device="meta").stride()
+    with torch.no_grad():
+        dt = DTensor.from_local(local.detach().contiguous(), dm, placements,
+                                run_check=False, shape=torch.Size(shape),
+                                stride=stride)
+        out = dt.full_tensor()
+    return out.requires_grad_(local.requires_grad)
+
+
+def _tree_apply(fn, tree, shardings):
+    if shardings is None:
+        return tree
+    return _map2(lambda t, s: fn(t, s), tree, shardings)
+
+
+def shard_tree(tree, shardings):
+    """:func:`shard` leaf by leaf (``shardings`` None: ``tree`` as it
+    is)."""
+    return _tree_apply(shard, tree, shardings)
+
+
+def gather_tree(tree, shardings):
+    """:func:`gather` leaf by leaf, in flatten order on every rank."""
+    if shardings is None:
+        return tree
+    paths, leaves = flatten_with_paths(tree)
+    flat = flat_shardings(shardings)
+    return unflatten(paths, [gather(t, flat.get(p))
+                             for p, t in zip(paths, leaves)])
+
+
+def flat_shardings(shardings) -> Dict[str, NamedSharding]:
+    """``{leaf path: NamedSharding}`` of a sharding tree; a None subtree
+    (replicated) contributes nothing."""
+    out: Dict[str, NamedSharding] = {}
+
+    def walk(node, prefix):
+        if node is None:
+            return
+        if isinstance(node, NamedSharding):
+            out[prefix] = node
+            return
+        for k, v in node.items():
+            walk(v, f"{prefix}/{k}" if prefix else str(k))
+    walk(shardings, "")
+    return out
+
+
+def leaf_gather(shardings) -> Callable[[str, torch.Tensor], torch.Tensor]:
+    """``(path, tensor) -> whole tensor`` over a sharding tree, for walks
+    that go leaf by leaf (a checkpoint's save)."""
+    flat = flat_shardings(shardings)
+    return lambda path, t: gather(t, flat.get(path))
+
+
+def leaf_shard(shardings) -> Callable[[str, torch.Tensor], torch.Tensor]:
+    """``(path, whole tensor) -> this rank's shard`` over a sharding tree
+    (a checkpoint's restore)."""
+    flat = flat_shardings(shardings)
+    return lambda path, t: shard(t, flat.get(path))
+
+
+def full_meta(tree, shardings):
+    """The whole tensors' shapes and dtypes of a tree of shards, on the
+    ``meta`` device."""
+    flat = flat_shardings(shardings) if shardings is not None else {}
+    paths, leaves = flatten_with_paths(tree)
+    return unflatten(paths, [torch.empty(
+        full_shape(t.shape, flat[p]) if p in flat else t.shape,
+        dtype=t.dtype, device="meta") for p, t in zip(paths, leaves)])
+
+
+def shard_bytes(tree, shardings) -> int:
+    """Bytes one rank holds of a tree of whole tensors (``meta`` will do)
+    under ``shardings``."""
+    flat = flat_shardings(shardings) if shardings is not None else {}
+    paths, leaves = flatten_with_paths(tree)
+    return sum(math.prod(local_shape(t.shape, flat[p]) if p in flat
+                         else t.shape) * t.element_size()
+               for p, t in zip(paths, leaves))
+
+
+def full_bytes(tree, shardings) -> int:
+    """Bytes of the whole tensors of a tree of shards: what the tree holds
+    across the mesh once, whatever the layout."""
+    return sum(t.numel() * t.element_size()
+               for t in flatten_with_paths(full_meta(tree, shardings))[1])

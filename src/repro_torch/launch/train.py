@@ -69,6 +69,24 @@ cpu``).  Without ``torchrun`` the run is one rank, and ``--dp-reduce`` still
 splits, narrows and reconstructs every gradient.  Only rank 0 logs and
 writes checkpoints.
 
+``--mesh`` lays the ranks out as the JAX launcher's does: ``8`` (data),
+``4x2`` (data, model) or ``2x4x2`` (pod, data, model); its size must be
+``WORLD_SIZE``, and without it every rank runs over ``data``.
+``--dp-reduce`` needs a one-axis mesh.  ``--shard-params auto`` (the
+default; acts only with ``--dp-reduce``) keeps each rank's shards of the
+parameters and of GWT's state between steps, placed by the FSDP rule table
+(``distributed/sharding.py``: every ``embed`` dimension over ``data`` where
+it divides); the step gathers the parameters whole, and the optimizer one
+bucket's state at a time, so the numbers are ``none``'s, bitwise.
+Checkpoints hold whole arrays and resume under either layout and any rank
+count (error-feedback residues excepted).  The ``memory`` line logs the
+whole state's bytes, a ``shard`` line each rank's.
+
+A mesh of several ranks without ``--dp-reduce`` runs the exact f32 mean
+over its data axes, its parameters unplaced; the ranks along ``model``
+compute the same replicated step (the JAX launcher leaves that axis to
+GSPMD's partitioning; the numbers are the same).
+
 Fault tolerance: with ``--ckpt-dir`` the loop checkpoints every
 ``--ckpt-every`` steps and at the end, in the JAX package's format;
 SIGTERM -> checkpoint at the next chunk boundary -> clean exit; a restart
@@ -85,7 +103,6 @@ from __future__ import annotations
 
 import argparse
 import math
-import os
 from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -97,8 +114,9 @@ from repro_torch.core import prng
 from repro_torch.data.eval import make_lm_evaluator
 from repro_torch.data.pipeline import WithEncoderFrames, make_source
 from repro_torch.data.store import TokenStore
-from repro_torch.distributed import compression
-from repro_torch.launch.mesh import DPContext, init_dp
+from repro_torch.distributed import compression, sharding
+from repro_torch.launch.mesh import (DPContext, env_world, init_mesh,
+                                     parse_mesh)
 from repro_torch.models import encoder_frames, lora, module_for
 from repro_torch.optim import engine
 from repro_torch.optim.base import flatten_with_paths, tree_map
@@ -121,6 +139,10 @@ class TrainResult(NamedTuple):
     wire_bytes: Optional[Tuple[int, int]] = None
     evals: Tuple[Tuple[int, float], ...] = ()   # (step, eval loss)
     watchdog: Optional[dict] = None            # StepWatchdog.summary()
+    # ``params`` and ``opt_state`` are whole (gathered at the end under
+    # --shard-params auto); ``local`` is this rank's ``{"params", "opt"}``
+    # as it held them, on the ``meta`` device
+    local: Any = None
 
 
 def resolve_device(name: str) -> torch.device:
@@ -152,16 +174,19 @@ def _check_ef_world(ckpt: CheckpointManager, ef, world: int) -> None:
 
 def resume(ckpt: CheckpointManager, params, opt_state, build_optimizer,
            codec: str, data_meta: dict, device, log,
-           dp: Optional[DPContext] = None):
+           dp: Optional[DPContext] = None, shardings=None):
     """Restore ``{"params", "opt"}`` from the latest checkpoint.  A state
     saved under another codec is restored in its own layout and transcoded
     to ``codec``.  With error feedback (``opt_state = {"opt", "dp_ef"}``)
     the checkpoint holds every rank's residues, ``(D, *shape)``, and this
     rank takes its own row; another rank count raises
-    :class:`StructureMismatch`.  ``build_optimizer(codec)`` builds this
-    run's optimizer under a codec; ``log(msg, kind=..., **fields)``
+    :class:`StructureMismatch`.  ``build_optimizer(codec)`` builds an
+    unplaced optimizer under a codec; ``log(msg, kind=..., **fields)``
     (``Telemetry.log``'s signature) reports a migration or a transcode.
-    Returns ``(params, opt_state, step)``."""
+    ``shardings`` (the run's ``{"params", "opt"}`` placements, shaped like
+    the checkpoint's tree; None: unplaced): ``params`` and ``opt_state``
+    are this rank's shards, the checkpoint's whole leaves are cut to them
+    as they are read.  Returns ``(params, opt_state, step)``."""
     saved_data = ckpt.saved_run().get("data")
     if saved_data is not None:
         for k in ("kind", "corpus_hash", "order_seed"):
@@ -175,6 +200,12 @@ def resume(ckpt: CheckpointManager, params, opt_state, build_optimizer,
     inner, ef = compression.split_ef(opt_state)
     if ef is not None:
         _check_ef_world(ckpt, ef, world)
+    # the checkpoint holds whole leaves: restore into their shapes
+    psh, osh = (None, None) if shardings is None else (
+        shardings["params"], compression.split_ef(shardings["opt"])[0])
+    params = sharding.full_meta(params, psh)
+    inner = sharding.full_meta(inner, osh)
+    place = None if shardings is None else sharding.leaf_shard(shardings)
 
     def like(opt):
         if ef is None:
@@ -189,10 +220,14 @@ def resume(ckpt: CheckpointManager, params, opt_state, build_optimizer,
         return {"opt": opt["opt"], "dp_ef": tree_map(
             lambda e: e[rank:rank + 1].contiguous(), opt["dp_ef"])}
 
+    def placed(p, opt):
+        # a converted state is whole: cut it to this run's layout
+        return sharding.shard_tree(p, psh), sharding.shard_tree(opt, osh)
+
     try:
         state, start = ckpt.restore(None, {"params": params,
                                            "opt": like(inner)},
-                                    device=device)
+                                    device=device, place=place)
         return state["params"], own_row(state["opt"]), start
     except StructureMismatch as e:
         # two recoverable mismatches: the JAX package's legacy per-leaf
@@ -212,20 +247,23 @@ def resume(ckpt: CheckpointManager, params, opt_state, build_optimizer,
                 f"--dp-reduce or the model config change since it was "
                 f"saved? ({e})") from e
     if legacy:
-        return _migrate(ckpt, params, build_optimizer, codec, device, log)
+        p, opt, start = _migrate(ckpt, params, build_optimizer, codec,
+                                 device, log)
+        return (*placed(p, opt), start)
     saved_opt = build_optimizer(saved_codec)
     state, start = ckpt.restore(
-        None, {"params": params, "opt": like(saved_opt.init(_meta(params)))},
+        None, {"params": params, "opt": like(saved_opt.init(params))},
         device=device)
     saved_inner, _ = compression.split_ef(state["opt"])
     new_opt = build_optimizer(codec)
     converted = engine.transcode(saved_inner, state["params"], saved_opt,
                                  new_opt)
-    if ef is not None:
-        converted = {"opt": converted, "dp_ef": state["opt"]["dp_ef"]}
     log(f"transcoded optimizer state {saved_codec} -> {codec}",
         kind="transcode", src=saved_codec, dst=codec)
-    return state["params"], own_row(converted), start
+    p, converted = placed(state["params"], converted)
+    if ef is not None:
+        converted = {"opt": converted, "dp_ef": state["opt"]["dp_ef"]}
+    return p, own_row(converted), start
 
 
 def _migrate(ckpt: CheckpointManager, params, build_optimizer, codec: str,
@@ -307,6 +345,11 @@ def main(argv=None) -> TrainResult:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
+    ap.add_argument("--mesh", default="",
+                    help="device mesh over the torchrun ranks, e.g. '8' "
+                         "(data), '4x2' (data, model) or '2x4x2' (pod, "
+                         "data, model); its size must be WORLD_SIZE.  "
+                         "Empty: every rank over 'data'")
     ap.add_argument("--dp-reduce", default="none",
                     choices=["none", "exact", "compressed"],
                     help="data-parallel gradient reduction over the ranks "
@@ -323,10 +366,14 @@ def main(argv=None) -> TrainResult:
                     help="with --dp-reduce compressed: keep each rank's "
                          "quantization residue and add it back before the "
                          "next reduction")
-    ap.add_argument("--shard-params", default="none",
+    ap.add_argument("--shard-params", default="auto",
                     choices=["auto", "none"],
-                    help="'none' (the only layout of the port): parameters "
-                         "and optimizer state replicated on every rank")
+                    help="with --dp-reduce only (no effect otherwise): "
+                         "'auto' keeps each rank's shards of the parameters "
+                         "and of GWT's state, placed by the FSDP rule table "
+                         "(distributed/sharding.py); 'none' keeps them "
+                         "replicated (classic DP).  The numbers are the "
+                         "same")
     ap.add_argument("--metrics-dir", default="",
                     help="telemetry directory (DESIGN.md §12): JSONL metric "
                          "records -> <dir>/metrics.jsonl, Chrome-trace spans "
@@ -336,18 +383,32 @@ def main(argv=None) -> TrainResult:
                          "records.  Unset: nothing recorded, the untapped "
                          "step")
     args = ap.parse_args(argv)
-    if args.shard_params == "auto":
-        ap.error("--shard-params auto (the JAX package's FSDP layout) is "
-                 "not ported; use --shard-params none")
     try:
         dp_spec = compression.DPReduceSpec.parse(
             args.dp_reduce, args.dp_level, args.dp_detail_dtype,
             error_feedback=args.dp_error_feedback)
     except ValueError as e:
         ap.error(str(e))
-    if dp_spec is None and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+    try:
+        mesh_shape = parse_mesh(args.mesh) if args.mesh else None
+    except ValueError as e:
+        ap.error(str(e))
+    world = env_world()
+    if dp_spec is not None and mesh_shape is not None \
+            and len(mesh_shape) > 1:
+        ap.error(f"--dp-reduce {args.dp_reduce} needs a pure-DP mesh "
+                 f"(single-axis '--mesh 8'), not {args.mesh!r}: the "
+                 f"manual DP reduction cannot leave ('model',) to the "
+                 f"partitioner — drop --dp-reduce for TP meshes")
+    if mesh_shape is not None and math.prod(mesh_shape) != world:
+        ap.error(f"--mesh {args.mesh!r} holds {math.prod(mesh_shape)} "
+                 f"devices but WORLD_SIZE is {world}: launch "
+                 f"{math.prod(mesh_shape)} ranks (torchrun "
+                 f"--nproc-per-node {math.prod(mesh_shape)}) or change "
+                 f"--mesh")
+    if dp_spec is None and world > 1 and mesh_shape is None:
         ap.error("a run of several ranks needs --dp-reduce exact or "
-                 "compressed")
+                 "compressed, or a --mesh")
     if args.finetune == "lora" and dp_spec is not None:
         ap.error("--finetune lora does not compose with --dp-reduce yet "
                  "(the sharded step reduces full-tree gradients; adapter-"
@@ -357,11 +418,13 @@ def main(argv=None) -> TrainResult:
                  "`python -m repro_torch.data.build_corpus`)")
 
     device = resolve_device(args.device)
-    dp = init_dp(device) if dp_spec is not None else None
+    dp = mesh = None
+    if dp_spec is not None or mesh_shape is not None:
+        dp, mesh = init_mesh(device, mesh_shape)
     try:
         # one process writes the records and the trace: rank 0 (the JAX
         # launcher is one process); the other ranks keep the null Telemetry
-        if dp is None or dp.rank == 0:
+        if dp is None or dp.process_rank == 0:
             obs.configure(args.metrics_dir or None,
                           run={"cmd": "train", "arch": args.arch,
                                "optimizer": args.optimizer,
@@ -369,7 +432,8 @@ def main(argv=None) -> TrainResult:
                                "state_codec": args.state_codec,
                                "steps": args.steps, "seed": args.seed,
                                "finetune": args.finetune})
-        return _train(args, dp_spec, dp, device if dp is None else dp.device)
+        return _train(args, dp_spec, dp, mesh,
+                      device if dp is None else dp.device)
     finally:
         # writes <metrics-dir>/trace.json and closes the JSONL sink (a no-op
         # for the null Telemetry)
@@ -378,8 +442,9 @@ def main(argv=None) -> TrainResult:
             dp.close()
 
 
-def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
-    rank0 = dp is None or dp.rank == 0
+def _train(args, dp_spec, dp: Optional[DPContext], mesh,
+           device) -> TrainResult:
+    rank0 = dp is None or dp.process_rank == 0
     tel = obs.get()
     say = print if rank0 else (lambda s: None)
 
@@ -405,10 +470,10 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
     wrap = type(model)   # holds a restored tree as parameters
     params = model.tree()
     n_params = sum(p.numel() for p in model.parameters())
+    del model   # the tree holds the tensors; placing them must free them
     if args.base_ckpt:
         base, base_step = CheckpointManager(args.base_ckpt).restore_params(
             None, params)
-        del model
         params = wrap(cfg, base).tree()
         log(f"restored pre-trained base from {args.base_ckpt} (step "
             f"{base_step})", kind="base_restore", ckpt=args.base_ckpt,
@@ -422,10 +487,25 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
                          seed=args.seed, corpus_dir=args.corpus_dir or None,
                          **enc_kw)
 
-    def build_optimizer(codec: str):
+    # a mesh of several ranks without --dp-reduce runs the exact mean over
+    # its data axes; --shard-params auto places only the --dp-reduce step's
+    # trees, as the JAX launcher pins a layout only there
+    step_spec = dp_spec
+    if step_spec is None and dp is not None and dp.processes > 1:
+        step_spec = compression.DPReduceSpec.parse("exact")
+    shardings = None
+    if dp_spec is not None and args.shard_params == "auto":
+        shardings = sharding.train_step_shardings(
+            cfg, mod, source.batch(0), mesh, optimizer_name=args.optimizer,
+            level=args.level, host=args.host, shard_params=True,
+            state_codec=args.state_codec)
+
+    def build_optimizer(codec: str, placed: bool = False):
         kw = {"state_codec": codec}
         if args.optimizer == "gwt":
             kw.update(level=args.level, alpha=args.alpha, host=args.host)
+            if placed and shardings is not None:
+                kw["state_shardings"] = shardings.opt["buckets"]
         elif args.optimizer in optim.LOWRANK:
             kw.update(rank_frac=0.25, alpha=args.alpha)
         opt = make_optimizer(args.optimizer, args.lr, args.steps, **kw)
@@ -441,12 +521,13 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
             f"({n_adapter/max(n_params, 1):.4f} of base)", kind="finetune",
             rank=args.lora_rank, alpha=args.lora_alpha,
             adapter_params=n_adapter)
-    optimizer = build_optimizer(args.state_codec)
+    optimizer = build_optimizer(args.state_codec, placed=True)
     opt_state = optimizer.init(params)
+    opt_sh = None if shardings is None else shardings.opt
 
-    # exact bytes of this optimizer's state; f32 Adam keeps m and v per
-    # parameter plus the int32 step
-    mem_bytes = engine.state_bytes(opt_state)
+    # exact bytes of this optimizer's whole state (the same under either
+    # layout); f32 Adam keeps m and v per parameter plus the int32 step
+    mem_bytes = sharding.full_bytes(opt_state, opt_sh)
     adam_f32_bytes = 8 * n_params + 4
     log(f"arch={cfg.name} params={n_params/1e6:.1f}M "
         f"optimizer={args.optimizer} codec={args.state_codec} "
@@ -456,16 +537,30 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
         params=n_params, opt_state_bytes=mem_bytes,
         adam_f32_bytes=adam_f32_bytes)
     wire = None
-    if dp_spec is not None:
-        wire = (compression.tree_wire_bytes(params, dp_spec),
+    if step_spec is not None:
+        wire = (compression.tree_wire_bytes(params, step_spec),
                 compression.tree_wire_bytes(params, None))
-        log(f"dp_reduce={args.dp_reduce} dp={dp.world} "
-            f"wire={wire[0]/2**20:.1f}MiB/step vs exact "
+        log(f"dp_reduce={args.dp_reduce if dp_spec else 'exact'} "
+            f"dp={dp.world} wire={wire[0]/2**20:.1f}MiB/step vs exact "
             f"{wire[1]/2**20:.1f}MiB ({wire[1]/wire[0]:.2f}x)",
             kind="dp_wire", wire_bytes=wire[0], exact_bytes=wire[1])
-        if dp_spec.error_feedback:
-            opt_state = {"opt": opt_state,
-                         "dp_ef": compression.ef_init(params)}
+    ef_on = dp_spec is not None and dp_spec.error_feedback
+    if ef_on:
+        opt_state = {"opt": opt_state, "dp_ef": compression.ef_init(params)}
+    ckpt_sh = None
+    if shardings is not None:
+        params = sharding.shard_tree(params, shardings.params)
+        rank_p = sum(t.numel() * t.element_size()
+                     for t in flatten_with_paths(params)[1])
+        rank_s = engine.state_bytes(compression.split_ef(opt_state)[0])
+        log(f"shard_params=auto mesh={dict(mesh.shape)} params/rank="
+            f"{rank_p/2**20:.2f}MiB opt_state/rank={rank_s/2**20:.2f}MiB",
+            kind="shard", params_rank_bytes=rank_p,
+            opt_state_rank_bytes=rank_s)
+        # placements shaped like a checkpoint's tree (residues unplaced)
+        ckpt_sh = {"params": shardings.params,
+                   "opt": {"opt": opt_sh, "dp_ef": None} if ef_on
+                   else opt_sh}
 
     # data provenance, stamped into every manifest: a resume on another
     # data stream fails instead of training on
@@ -487,7 +582,7 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
     if args.resume and ckpt is not None and ckpt.latest_step() is not None:
         params, opt_state, start = resume(
             ckpt, params, opt_state, build_optimizer, args.state_codec,
-            data_meta, device, log=log, dp=dp)
+            data_meta, device, log=log, dp=dp, shardings=ckpt_sh)
         params = wrap(cfg, params).tree()
         log(f"resumed from step {start}", kind="resume", step=start)
 
@@ -498,11 +593,12 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
                                           alpha=args.lora_alpha,
                                           accum_steps=args.accum)
     else:
-        step_kw = dict(accum_steps=args.accum, dp_reduce=dp_spec, dp=dp)
+        step_kw = dict(accum_steps=args.accum, dp_reduce=step_spec, dp=dp,
+                       shardings=shardings)
         train_step = mod.make_train_step(cfg, optimizer, **step_kw)
         # the tapped step runs each chunk's last step (TrainLoop); the
         # data-parallel step has no tapped channel, as in the JAX launcher
-        if args.metrics_dir and dp_spec is None \
+        if args.metrics_dir and step_spec is None \
                 and optimizer.tapped_update is not None:
             tap_step = mod.make_train_step(cfg, optimizer, taps=True,
                                            **step_kw)
@@ -521,7 +617,7 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
                      ckpt_every=args.ckpt_every, log_every=args.log_every,
                      log=say, dp=dp, num_workers=args.workers,
                      evaluator=evaluator, eval_every=args.eval_every,
-                     tap_step=tap_step)
+                     tap_step=tap_step, shardings=ckpt_sh)
     # hand the state over to the loop: a name kept in this frame would pin
     # the first state's moments of every rule that returns new tensors
     # (the plain Adam of the embedding and an untied head) for the whole
@@ -531,6 +627,13 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
     params, opt_state, losses = loop.run(params, handoff.pop(),
                                          start_step=start,
                                          num_steps=args.steps)
+    # the result holds whole trees, as a checkpoint does
+    local = _meta({"params": params, "opt": opt_state})
+    if ckpt_sh is not None:
+        whole = sharding.gather_tree({"params": params, "opt": opt_state},
+                                     ckpt_sh)
+        params, opt_state = whole["params"], whole["opt"]
+        del whole
     wd = loop.watchdog.summary()
     if wd["dispatch_s_per_step"] is not None:
         say(f"dispatch={wd['dispatch_s_per_step'] * 1e3:.1f}ms/step "
@@ -549,7 +652,7 @@ def _train(args, dp_spec, dp: Optional[DPContext], device) -> TrainResult:
     step_ms = None if loop.steady_step_s is None \
         else loop.steady_step_s * 1e3
     return TrainResult(params, opt_state, losses, step_ms, start, wire,
-                       evals, wd)
+                       evals, wd, local)
 
 
 if __name__ == "__main__":

@@ -46,17 +46,19 @@ NEG_INF = -1e30
 
 def attn_init(b: Builder, cfg, lead=()) -> dict:
     d, hd, H, KV = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    p = {"wq": b.param((d, H * hd), lead=lead),
-         "wk": b.param((d, KV * hd), lead=lead),
-         "wv": b.param((d, KV * hd), lead=lead),
-         "wo": b.param((H * hd, d), lead=lead)}
+    p = {"wq": b.param((d, H * hd), ("embed", "heads"), lead=lead),
+         "wk": b.param((d, KV * hd), ("embed", "kv_heads"), lead=lead),
+         "wv": b.param((d, KV * hd), ("embed", "kv_heads"), lead=lead),
+         "wo": b.param((H * hd, d), ("heads", "embed"), lead=lead)}
     if cfg.qkv_bias:
-        p["bq"] = b.param((H * hd,), init="zeros", lead=lead)
-        p["bk"] = b.param((KV * hd,), init="zeros", lead=lead)
-        p["bv"] = b.param((KV * hd,), init="zeros", lead=lead)
+        p["bq"] = b.param((H * hd,), ("heads",), init="zeros", lead=lead)
+        p["bk"] = b.param((KV * hd,), ("kv_heads",), init="zeros",
+                           lead=lead)
+        p["bv"] = b.param((KV * hd,), ("kv_heads",), init="zeros",
+                           lead=lead)
     if cfg.qk_norm:
-        p["q_norm"] = b.param((hd,), init="zeros", lead=lead)
-        p["k_norm"] = b.param((hd,), init="zeros", lead=lead)
+        p["q_norm"] = b.param((hd,), (None,), init="zeros", lead=lead)
+        p["k_norm"] = b.param((hd,), (None,), init="zeros", lead=lead)
     return p
 
 

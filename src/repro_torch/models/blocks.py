@@ -42,16 +42,16 @@ def _check_kind(kind: str) -> Tuple[str, bool]:
 def block_init(b: Builder, cfg, kind: str, lead=()) -> dict:
     base, use_moe = _check_kind(kind)
     d = cfg.d_model
-    p = {"norm1": b.param((d,), init="zeros", lead=lead)}
+    p = {"norm1": b.param((d,), (None,), init="zeros", lead=lead)}
     if base in ATTENTION_KINDS:
         p["mixer"] = attention.attn_init(b, cfg, lead=lead)
     else:
         p["mixer"] = _INIT[base](b, cfg, lead=lead)
     if use_moe:
-        p["norm2"] = b.param((d,), init="zeros", lead=lead)
+        p["norm2"] = b.param((d,), (None,), init="zeros", lead=lead)
         p["ffn"] = moe_lib.moe_init(b, cfg, lead=lead)
     elif cfg.d_ff > 0:
-        p["norm2"] = b.param((d,), init="zeros", lead=lead)
+        p["norm2"] = b.param((d,), (None,), init="zeros", lead=lead)
         p["ffn"] = mlp_init(b, d, cfg.d_ff, lead=lead)
     return p
 

@@ -30,10 +30,10 @@ from repro_torch.optim.base import flatten_with_paths, tree_map, unflatten
 
 def _xattn_init(b: Builder, cfg, lead=()) -> dict:
     d, hd, H, KV = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    return {"wq": b.param((d, H * hd), lead=lead),
-            "wk": b.param((d, KV * hd), lead=lead),
-            "wv": b.param((d, KV * hd), lead=lead),
-            "wo": b.param((H * hd, d), lead=lead)}
+    return {"wq": b.param((d, H * hd), ("embed", "heads"), lead=lead),
+            "wk": b.param((d, KV * hd), ("embed", "kv_heads"), lead=lead),
+            "wv": b.param((d, KV * hd), ("embed", "kv_heads"), lead=lead),
+            "wo": b.param((H * hd, d), ("heads", "embed"), lead=lead)}
 
 
 def _xattn_apply(p, cfg, x, kv_src=None, kv_cache=None):
@@ -61,31 +61,31 @@ def _xattn_apply(p, cfg, x, kv_src=None, kv_cache=None):
 
 def _enc_block_init(b: Builder, cfg, lead) -> dict:
     d = cfg.d_model
-    return {"norm1": b.param((d,), init="zeros", lead=lead),
+    return {"norm1": b.param((d,), (None,), init="zeros", lead=lead),
             "attn": attention.attn_init(b, cfg, lead=lead),
-            "norm2": b.param((d,), init="zeros", lead=lead),
+            "norm2": b.param((d,), (None,), init="zeros", lead=lead),
             "mlp": mlp_init(b, d, cfg.d_ff, lead=lead)}
 
 
 def _dec_block_init(b: Builder, cfg, lead) -> dict:
     d = cfg.d_model
-    return {"norm1": b.param((d,), init="zeros", lead=lead),
+    return {"norm1": b.param((d,), (None,), init="zeros", lead=lead),
             "self_attn": attention.attn_init(b, cfg, lead=lead),
-            "norm_x": b.param((d,), init="zeros", lead=lead),
+            "norm_x": b.param((d,), (None,), init="zeros", lead=lead),
             "cross_attn": _xattn_init(b, cfg, lead=lead),
-            "norm2": b.param((d,), init="zeros", lead=lead),
+            "norm2": b.param((d,), (None,), init="zeros", lead=lead),
             "mlp": mlp_init(b, d, cfg.d_ff, lead=lead)}
 
 
-def _build(cfg, generator: Optional[torch.Generator],
-           device) -> Dict[str, Any]:
-    b = Builder(generator, device, cfg.torch_dtype)
+def _build(cfg, generator: Optional[torch.Generator], device,
+           mode: str = "init") -> Dict[str, Any]:
+    b = Builder(generator, device, cfg.torch_dtype, mode)
     return {
         "embed": embed_init(b, cfg.vocab, cfg.d_model, cfg.tie_embeddings),
         "encoder": _enc_block_init(b, cfg, (cfg.n_enc_layers,)),
-        "enc_norm": b.param((cfg.d_model,), init="zeros"),
+        "enc_norm": b.param((cfg.d_model,), (None,), init="zeros"),
         "decoder": _dec_block_init(b, cfg, (cfg.n_dec_layers,)),
-        "final_norm": b.param((cfg.d_model,), init="zeros"),
+        "final_norm": b.param((cfg.d_model,), (None,), init="zeros"),
     }
 
 
@@ -109,6 +109,11 @@ def init(cfg, generator: torch.Generator, device) -> EncDec:
 def abstract_params(cfg) -> Dict[str, Any]:
     """The parameter tree on the ``meta`` device."""
     return _build(cfg, None, "meta")
+
+
+def param_axes(cfg) -> Dict[str, Any]:
+    """The parameter tree's logical axes (``lm.param_axes``)."""
+    return _build(cfg, None, "meta", mode="axes")
 
 
 def _layers(stacked):
@@ -239,14 +244,15 @@ def loss_fn(cfg, params, batch) -> torch.Tensor:
 
 
 def make_train_step(cfg, optimizer, accum_steps: int = 1, dp_reduce=None,
-                    dp=None, loss=None, taps: bool = False):
+                    dp=None, loss=None, taps: bool = False, shardings=None):
     """``lm.make_train_step`` over :func:`loss_fn` (``loss`` swaps the
     objective, as there; ``dp_reduce`` routes to the data-parallel step
-    with this module's loss; ``taps`` adds ``metrics["taps"]``, as
-    there)."""
+    with this module's loss, its parameters placed by ``shardings``;
+    ``taps`` adds ``metrics["taps"]``, as there)."""
     return lm.make_train_step(cfg, optimizer, accum_steps=accum_steps,
                               dp_reduce=dp_reduce, dp=dp,
-                              loss=loss or loss_fn, taps=taps)
+                              loss=loss or loss_fn, taps=taps,
+                              shardings=shardings)
 
 
 def init_cache(cfg, B: int, max_len: int, enc_len: int, device

@@ -18,24 +18,56 @@ import torch.nn.functional as F
 from repro_torch.core import prng
 
 
+class Axes:
+    """The logical axis names of a parameter's dimensions (``"embed"``,
+    ``"heads"``, ``"layers"``, ... or None), as the JAX package's ``Axes``:
+    what ``distributed.sharding`` maps to mesh axes."""
+
+    __slots__ = ("names",)
+
+    def __init__(self, names: Tuple[Optional[str], ...]):
+        self.names = tuple(names)
+
+    def __repr__(self):
+        return f"Axes{self.names}"
+
+    def __eq__(self, other):
+        return isinstance(other, Axes) and self.names == other.names
+
+    def __hash__(self):
+        return hash(self.names)
+
+
 class Builder:
     """Draws parameters in the order and scheme of the JAX ``Builder``: fan-in
     scaled normal (``1/sqrt(shape[-2])``), zeros, ones, or an explicit
     scale.
-    On the ``meta`` device it allocates nothing and draws nothing."""
+    On the ``meta`` device it allocates nothing and draws nothing.  With
+    ``mode="axes"`` each parameter is its :class:`Axes` instead, and nothing
+    is built on any device."""
 
     def __init__(self, generator: Optional[torch.Generator],
-                 device: torch.device, dtype: torch.dtype):
+                 device: torch.device, dtype: torch.dtype,
+                 mode: str = "init"):
+        if mode not in ("init", "axes"):
+            raise ValueError(f"unknown builder mode {mode!r}")
         self.generator = generator
         self.device = torch.device(device)
         self.dtype = dtype
+        self.mode = mode
 
-    def param(self, shape: Tuple[int, ...], init: str = "normal",
-              scale: Optional[float] = None, lead: Tuple[int, ...] = (),
-              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        """``lead`` prepends stacked-layer axes; the fan-in is the per-layer
-        shape's.  ``dtype`` overrides the builder's (the f32 MoE
+    def param(self, shape: Tuple[int, ...], axes: Tuple[Optional[str], ...],
+              init: str = "normal", scale: Optional[float] = None,
+              lead: Tuple[int, ...] = (),
+              dtype: Optional[torch.dtype] = None):
+        """``axes`` names each dimension of ``shape``; ``lead`` prepends
+        stacked-layer axes, named ``"layers"``, and the fan-in is the
+        per-layer shape's.  ``dtype`` overrides the builder's (the f32 MoE
         router)."""
+        if len(shape) != len(axes):
+            raise ValueError(f"shape {shape} and axes {axes} differ in rank")
+        if self.mode == "axes":
+            return Axes(("layers",) * len(lead) + tuple(axes))
         full = tuple(lead) + tuple(shape)
         dtype = dtype or self.dtype
         if self.device.type == "meta":
@@ -66,9 +98,9 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 
 
 def mlp_init(b: Builder, d_model: int, d_ff: int, lead=()):
-    return {"w_gate": b.param((d_model, d_ff), lead=lead),
-            "w_up": b.param((d_model, d_ff), lead=lead),
-            "w_down": b.param((d_ff, d_model), lead=lead)}
+    return {"w_gate": b.param((d_model, d_ff), ("embed", "mlp"), lead=lead),
+            "w_up": b.param((d_model, d_ff), ("embed", "mlp"), lead=lead),
+            "w_down": b.param((d_ff, d_model), ("mlp", "embed"), lead=lead)}
 
 
 def mlp_apply(p, x: torch.Tensor) -> torch.Tensor:
@@ -79,9 +111,10 @@ def mlp_apply(p, x: torch.Tensor) -> torch.Tensor:
 def embed_init(b: Builder, vocab: int, d_model: int, tie: bool):
     """The scale-1.0 embedding and, when untied, a fan-in normal
     ``lm_head`` of shape ``(d_model, vocab)``."""
-    p = {"embedding": b.param((vocab, d_model), scale=1.0)}
+    p = {"embedding": b.param((vocab, d_model), ("vocab", "embed"),
+                              scale=1.0)}
     if not tie:
-        p["lm_head"] = b.param((d_model, vocab))
+        p["lm_head"] = b.param((d_model, vocab), ("embed", "vocab"))
     return p
 
 

@@ -30,7 +30,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed import compression
+from repro_torch.distributed import compression, sharding
 from repro_torch.models import blocks, rope as rope_lib
 from repro_torch.models.layers import (Builder, cross_entropy, embed_apply,
                                        embed_init, logits_apply, rms_norm,
@@ -79,9 +79,9 @@ class LM(nn.Module):
                        mrope_positions=mrope_positions)
 
 
-def _build(cfg, generator: Optional[torch.Generator],
-           device) -> Dict[str, Any]:
-    b = Builder(generator, device, cfg.torch_dtype)
+def _build(cfg, generator: Optional[torch.Generator], device,
+           mode: str = "init") -> Dict[str, Any]:
+    b = Builder(generator, device, cfg.torch_dtype, mode)
     p: Dict[str, Any] = {"embed": embed_init(b, cfg.vocab, cfg.d_model,
                                              cfg.tie_embeddings)}
     if cfg.n_periods > 0:
@@ -91,7 +91,7 @@ def _build(cfg, generator: Optional[torch.Generator],
     if cfg.rem_layers:
         p["rem"] = {f"b{i}": blocks.block_init(b, cfg, cfg.pattern[i])
                     for i in range(cfg.rem_layers)}
-    p["final_norm"] = b.param((cfg.d_model,), init="zeros")
+    p["final_norm"] = b.param((cfg.d_model,), (None,), init="zeros")
     return p
 
 
@@ -105,6 +105,13 @@ def init(cfg, generator: torch.Generator, device) -> LM:
 def abstract_params(cfg) -> Dict[str, Any]:
     """The parameter tree on the ``meta`` device: shapes and dtypes only."""
     return _build(cfg, None, "meta")
+
+
+def param_axes(cfg) -> Dict[str, Any]:
+    """The parameter tree's logical axes (``layers.Axes`` leaves), the
+    JAX package's ``param_axes``: the stacked periods' leaves lead with
+    ``"layers"``.  Builds nothing on any device."""
+    return _build(cfg, None, "meta", mode="axes")
 
 
 def _block(cfg, kind: str, p, x, cos, sin):
@@ -455,7 +462,8 @@ def _accumulate(cfg, params, leaves, micro, accum_steps, loss=None,
 
 
 def make_sharded_train_step(cfg, optimizer, *, dp, dp_reduce,
-                            accum_steps: int = 1, loss=None):
+                            accum_steps: int = 1, loss=None,
+                            shardings=None):
     """Data-parallel train step over the ranks of ``dp`` (a
     ``launch.mesh.DPContext``; None is one rank), counterpart of the JAX
     package's ``make_sharded_train_step``.
@@ -475,7 +483,18 @@ def make_sharded_train_step(cfg, optimizer, *, dp, dp_reduce,
 
     Numerics: the gradient is the mean over ``D × accum_steps`` contiguous
     shards, summed shard by shard in order, so in the exact mode ``D`` ranks
-    with accum 1 equal one rank with accum ``D`` bitwise."""
+    with accum 1 equal one rank with accum ``D`` bitwise.
+
+    ``shardings`` (a ``distributed.sharding.StepShardings``; the
+    sharded-parameter layout, ``--shard-params auto``): the step takes and
+    returns the parameters as this rank's shards of ``shardings.params``.
+    It gathers them whole at its start, runs the forward, the backward and
+    the reduction as above, updates (the optimizer built with
+    ``state_shardings=shardings.opt["buckets"]`` keeps its state placed),
+    and keeps this rank's slices of the new parameters.  Every rank holds
+    the same reduced gradient and computes the same update, so the numbers
+    are the replicated step's, bitwise."""
+    param_sh = None if shardings is None else shardings.params
     if isinstance(dp_reduce, str):
         dp_reduce = compression.DPReduceSpec.parse(dp_reduce)
     if dp_reduce is None:
@@ -502,12 +521,16 @@ def make_sharded_train_step(cfg, optimizer, *, dp, dp_reduce,
         local = {k: v[:, rank * per:(rank + 1) * per]
                  if k == "mrope_positions" else v[rank * per:(rank + 1) * per]
                  for k, v in batch.items()}
+        # the whole parameter tree lives only inside the step
+        params = sharding.gather_tree(params, param_sh)
         paths, leaves = flatten_with_paths(params)
         gsum, lsum = _accumulate(cfg, params, leaves,
                                  contiguous_microbatches(local, accum_steps),
                                  accum_steps, loss)
         loss_mean = compression.exact_mean(lsum / accum_steps, dp)
-        gmean = [s / accum_steps for s in gsum]
+        # the means in place: the f32 sums are not needed again
+        gmean = [s.div_(accum_steps) for s in gsum]
+        del gsum
         if ef_on:
             means, errs = compression.compressed_means_ef(
                 gmean, [e[0] for e in flatten_with_paths(ef)[1]], dp, level,
@@ -515,8 +538,16 @@ def make_sharded_train_step(cfg, optimizer, *, dp, dp_reduce,
             new_ef = [err[None] for err in errs]
         else:
             means = compression.compressed_means(gmean, dp, level, wire)
-        grads = unflatten(paths, [m.to(cfg.torch_dtype) for m in means])
+        del gmean
+        for i, m in enumerate(means):   # each f32 mean dies as it is cast
+            means[i] = None
+            means[i] = m.to(cfg.torch_dtype)
+            del m
+        grads = unflatten(paths, means)
+        del leaves, means
         params, opt_state = optimizer.update(grads, opt_state, params)
+        del grads
+        params = sharding.shard_tree(params, param_sh)
         if ef_on:
             opt_state = {"opt": opt_state, "dp_ef": unflatten(paths, new_ef)}
         return params, opt_state, {"loss": loss_mean}
@@ -525,7 +556,7 @@ def make_sharded_train_step(cfg, optimizer, *, dp, dp_reduce,
 
 
 def make_train_step(cfg, optimizer, accum_steps: int = 1, dp_reduce=None,
-                    dp=None, loss=None, taps: bool = False):
+                    dp=None, loss=None, taps: bool = False, shardings=None):
     """Gradient-accumulated train step ``(params, opt_state, batch) ->
     (params, opt_state, {"loss": f32 scalar on the device})``.
 
@@ -537,7 +568,9 @@ def make_train_step(cfg, optimizer, accum_steps: int = 1, dp_reduce=None,
 
     ``dp_reduce`` (a ``distributed.compression.DPReduceSpec`` or ``'exact'``
     / ``'compressed'``) routes to :func:`make_sharded_train_step` over
-    ``dp`` (a ``launch.mesh.DPContext``; None is one rank).
+    ``dp`` (a ``launch.mesh.DPContext``; None is one rank), with the
+    parameters placed by ``shardings`` there (refused without
+    ``dp_reduce``, as the JAX package pins a layout only on that path).
 
     ``loss`` (``loss(cfg, params, batch) -> scalar``, default
     :func:`loss_fn`) swaps the objective, as the JAX package's ``loss=``
@@ -552,6 +585,9 @@ def make_train_step(cfg, optimizer, accum_steps: int = 1, dp_reduce=None,
     ``dp_reduce`` path, as in the JAX package."""
     if isinstance(dp_reduce, str):
         dp_reduce = compression.DPReduceSpec.parse(dp_reduce)  # 'none': None
+    if shardings is not None and dp_reduce is None:
+        raise ValueError("shardings= places the parameters of the "
+                         "dp_reduce step only: pass dp_reduce")
     if dp_reduce is not None:
         if taps:
             raise ValueError("taps=True is not supported on the sharded "
@@ -559,7 +595,8 @@ def make_train_step(cfg, optimizer, accum_steps: int = 1, dp_reduce=None,
                              "dp_reduce")
         return make_sharded_train_step(cfg, optimizer, dp=dp,
                                        dp_reduce=dp_reduce,
-                                       accum_steps=accum_steps, loss=loss)
+                                       accum_steps=accum_steps, loss=loss,
+                                       shardings=shardings)
     tapped = getattr(optimizer, "tapped_update", None) if taps else None
 
     def train_step(params, opt_state, batch):

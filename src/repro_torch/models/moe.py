@@ -42,11 +42,14 @@ _MOE_CHUNK_TOKENS = 8192  # tokens per dispatch chunk, as the JAX package
 def moe_init(b: Builder, cfg, lead=()) -> dict:
     d, dff = cfg.d_model, cfg.d_ff_expert
     E = cfg.n_experts + cfg.expert_padding  # padded experts never routed
-    p = {"router": b.param((d, cfg.n_experts), lead=lead,
+    p = {"router": b.param((d, cfg.n_experts), ("embed", None), lead=lead,
                            dtype=torch.float32),
-         "w_gate": b.param((E, d, dff), lead=lead),
-         "w_up": b.param((E, d, dff), lead=lead),
-         "w_down": b.param((E, dff, d), lead=lead)}
+         "w_gate": b.param((E, d, dff), ("expert", "embed", "expert_mlp"),
+                           lead=lead),
+         "w_up": b.param((E, d, dff), ("expert", "embed", "expert_mlp"),
+                         lead=lead),
+         "w_down": b.param((E, dff, d), ("expert", "expert_mlp", "embed"),
+                           lead=lead)}
     if cfg.n_shared_experts:
         p["shared"] = mlp_init(b, d, cfg.n_shared_experts * dff, lead=lead)
     return p

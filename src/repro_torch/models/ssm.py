@@ -33,15 +33,16 @@ def mamba_init(b: Builder, cfg, lead=()) -> dict:
     d, di, st, k = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
     dtr = _dt_rank(d)
     return {
-        "in_proj": b.param((d, 2 * di), lead=lead),
-        "conv_w": b.param((k, di), scale=0.5, lead=lead),
-        "conv_b": b.param((di,), init="zeros", lead=lead),
-        "x_proj": b.param((di, dtr + 2 * st), lead=lead),
-        "dt_proj": b.param((dtr, di), scale=0.1, lead=lead),
-        "dt_bias": b.param((di,), init="zeros", lead=lead),
-        "a_log": b.param((di, st), init="ones", lead=lead),
-        "d_skip": b.param((di,), init="ones", lead=lead),
-        "out_proj": b.param((di, d), lead=lead),
+        "in_proj": b.param((d, 2 * di), ("embed", "inner"), lead=lead),
+        "conv_w": b.param((k, di), (None, "inner"), scale=0.5, lead=lead),
+        "conv_b": b.param((di,), ("inner",), init="zeros", lead=lead),
+        "x_proj": b.param((di, dtr + 2 * st), ("inner", None), lead=lead),
+        "dt_proj": b.param((dtr, di), (None, "inner"), scale=0.1,
+                           lead=lead),
+        "dt_bias": b.param((di,), ("inner",), init="zeros", lead=lead),
+        "a_log": b.param((di, st), ("inner", None), init="ones", lead=lead),
+        "d_skip": b.param((di,), ("inner",), init="ones", lead=lead),
+        "out_proj": b.param((di, d), ("inner", "embed"), lead=lead),
     }
 
 

@@ -31,18 +31,20 @@ def mlstm_init(b: Builder, cfg, lead=()) -> dict:
     di = 2 * d                       # xLSTM up-projection factor 2
     k = cfg.ssm_conv
     return {
-        "up_proj": b.param((d, 2 * di), lead=lead),
-        "conv_w": b.param((k, di), scale=0.5, lead=lead),
-        "conv_b": b.param((di,), init="zeros", lead=lead),
-        "wq": b.param((di, di), lead=lead),
-        "wk": b.param((di, di), lead=lead),
-        "wv": b.param((di, di), lead=lead),
-        "w_igate": b.param((di, H), scale=0.01, lead=lead),
-        "b_igate": b.param((H,), init="zeros", lead=lead),
-        "w_fgate": b.param((di, H), scale=0.01, lead=lead),
-        "b_fgate": b.param((H,), init="ones", lead=lead),
-        "out_norm": b.param((di,), init="zeros", lead=lead),
-        "down_proj": b.param((di, d), lead=lead),
+        "up_proj": b.param((d, 2 * di), ("embed", "inner"), lead=lead),
+        "conv_w": b.param((k, di), (None, "inner"), scale=0.5, lead=lead),
+        "conv_b": b.param((di,), ("inner",), init="zeros", lead=lead),
+        "wq": b.param((di, di), ("inner", "heads"), lead=lead),
+        "wk": b.param((di, di), ("inner", "heads"), lead=lead),
+        "wv": b.param((di, di), ("inner", "heads"), lead=lead),
+        "w_igate": b.param((di, H), ("inner", None), scale=0.01,
+                           lead=lead),
+        "b_igate": b.param((H,), (None,), init="zeros", lead=lead),
+        "w_fgate": b.param((di, H), ("inner", None), scale=0.01,
+                           lead=lead),
+        "b_fgate": b.param((H,), (None,), init="ones", lead=lead),
+        "out_norm": b.param((di,), ("inner",), init="zeros", lead=lead),
+        "down_proj": b.param((di, d), ("inner", "embed"), lead=lead),
     }
 
 
@@ -218,13 +220,14 @@ def slstm_init(b: Builder, cfg, lead=()) -> dict:
     dh = d // H
     ff = slstm_ff(d)
     return {
-        "w": b.param((d, 4 * d), lead=lead),
-        "r": b.param((H, dh, 4 * dh), scale=0.1, lead=lead),
-        "b": b.param((4 * d,), init="zeros", lead=lead),
-        "out_norm": b.param((d,), init="zeros", lead=lead),
-        "up_gate": b.param((d, ff), lead=lead),
-        "up": b.param((d, ff), lead=lead),
-        "down": b.param((ff, d), lead=lead),
+        "w": b.param((d, 4 * d), ("embed", "inner"), lead=lead),
+        "r": b.param((H, dh, 4 * dh), (None, None, "inner"), scale=0.1,
+                     lead=lead),
+        "b": b.param((4 * d,), ("inner",), init="zeros", lead=lead),
+        "out_norm": b.param((d,), (None,), init="zeros", lead=lead),
+        "up_gate": b.param((d, ff), ("embed", "mlp"), lead=lead),
+        "up": b.param((d, ff), ("embed", "mlp"), lead=lead),
+        "down": b.param((ff, d), ("mlp", "embed"), lead=lead),
     }
 
 

@@ -51,6 +51,17 @@ over blocks of whole rows (:data:`TAP_BLOCK`), so no f32 copy of a whole
 bucket is made; ``update_ssq`` is taken leaf by leaf before the leaf's
 parameter is written.  Nothing is read back to the host.
 
+**Placed state** (``build(state_shardings=...)``, the sharded-parameter
+layout of ``distributed/sharding.py``).  ``init`` keeps each hinted
+bucket's stacked state as this rank's shards.  ``update`` takes whole
+parameters and gradients (every rank holds the same reduced gradient) and,
+one bucket at a time, gathers the bucket's state whole, runs the rule on
+it as on an unplaced bucket (K1/K2 over the whole ``(L, m, n)`` stack, or
+the per-leaf path), and keeps this rank's slice of the new state, cut from
+what the rule returned (a fused kernel wrote it in place into the gathered
+copy).  The transient peak is one bucket's whole state.  Over mesh axes of
+size 1 the shards are the whole tensors and nothing is copied.
+
 **The host step.**  Rules that branch on the step (the low-rank families'
 projector refresh every ``update_gap`` steps, a ``lax.cond`` in the JAX
 package) declare ``LeafRule.host_step`` and get the step as a Python int.
@@ -69,6 +80,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.optim import codec as codec_lib
 from repro_torch.optim.base import Optimizer, flatten_with_paths, tree_map
 
@@ -376,16 +388,37 @@ def _codec_taps(ns) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _hint(hints, b: Bucket, st):
+    """The bucket's placement tree, checked against its state's structure
+    (a hint for another level, host or codec raises)."""
+    hint = hints.get(b.name)
+    if hint is not None:
+        got = flatten_with_paths(hint)[0]
+        want = flatten_with_paths(st)[0]
+        if got != want:
+            raise ValueError(
+                f"state_shardings hint of bucket {b.name} has leaves {got}, "
+                f"its state {want}: pass gwt_state_shardings(...)"
+                f"['buckets'] of the SAME level/host/codec/eligible "
+                f"configuration")
+    return hint
+
+
 def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
-          codec="f32", codec_seed: int = 0) -> Optimizer:
+          codec="f32", codec_seed: int = 0,
+          state_shardings=None) -> Optimizer:
     """Build an :class:`Optimizer` from a leaf-rule assignment.
     ``bucketed=False`` runs every leaf through its rule's ``update`` (the
     unrolled reference; same state layout).  ``codec`` (name or instance)
     stores the rules' moment slots; ``codec_seed`` derives the
-    stochastic-rounding key carried in the state."""
+    stochastic-rounding key carried in the state.  ``state_shardings``
+    (``{bucket name: NamedSharding tree}``, the ``"buckets"`` of
+    ``distributed.sharding.gwt_state_shardings``) keeps those buckets'
+    state placed (the module doc's "Placed state")."""
     eng = Engine(assign, bucketed, codec=codec, codec_seed=codec_seed)
     cdc = eng.codec
     quant = not cdc.passthrough
+    hints = dict(state_shardings or {})
 
     def init(params):
         plan = eng.plan(params)
@@ -396,10 +429,15 @@ def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
             return codec_lib.tree_init(cdc, rule.slots, st) if quant else st
 
         device = leaves[0].device
-        buckets = {b.name: {} if b.rule is FROZEN else
-                   _stack_states([leaf_init(b.rule, leaves[i])
-                                  for i in b.indices])
-                   for b in plan.buckets}
+        buckets = {}
+        for b in plan.buckets:
+            if b.rule is FROZEN:
+                buckets[b.name] = {}
+                continue
+            st = _stack_states([leaf_init(b.rule, leaves[i])
+                                for i in b.indices])
+            buckets[b.name] = sharding.shard_tree(st, _hint(hints, b, st))
+            del st
         out = {"step": torch.zeros((), dtype=torch.int32, device=device),
                "buckets": buckets}
         if quant:
@@ -425,7 +463,9 @@ def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
             if b.rule is FROZEN:
                 new_buckets[b.name] = {}
                 continue
-            st = state["buckets"][b.name]
+            # a placed bucket's state, gathered whole for the rule
+            hint = _hint(hints, b, state["buckets"][b.name])
+            st = sharding.gather_tree(state["buckets"][b.name], hint)
             rule = b.rule
             coded = quant and rule.slots is not None
             # Σ (new p - old p)², leaf by leaf before the write: on CUDA a
@@ -462,7 +502,6 @@ def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
                     del new_p, ns_j
                 ns = _restack(per_leaf)
                 del per_leaf
-            new_buckets[b.name] = ns
             if with_taps:
                 gs = [gleaves[i] for i in b.indices]
                 tp = {"grad_ssq": sum_in_order(tap_ssq(g) for g in gs),
@@ -473,6 +512,10 @@ def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
                     tp.update(rule.taps(gs, st, ns))
                 for k, v in tp.items():
                     taps[f"{b.name}/{k}"] = v.to(torch.float32)
+            # this rank's slice of what the rule wrote; the gathered copy
+            # dies here
+            new_buckets[b.name] = sharding.shard_tree(ns, hint)
+            del st, ns
         out = {"step": step + 1, "buckets": new_buckets}
         if hstep is not None:
             eng.returned_step(out["step"], hstep + 1)

@@ -50,6 +50,12 @@ Data parallel (``dp``, a ``launch.mesh.DPContext`` of several ranks): the
 ranks agree on a preemption at each chunk boundary (stopping if any rank was
 signalled), every rank takes part in gathering the error-feedback residues
 into the checkpoint's ``(D, *shape)`` leaves, and only rank 0 writes.
+
+Placed layout (``shardings``, a ``{"params", "opt"}`` tree of
+``distributed.sharding`` placements shaped like a checkpoint's tree): the
+parameters and state the steps pass on are this rank's shards.  A save
+gathers them whole leaf by leaf on every rank (rank 0 writes the JAX
+package's format, whole arrays), and an eval gathers the parameters.
 """
 
 from __future__ import annotations
@@ -63,7 +69,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.data.pipeline import Prefetcher, stack_batches
-from repro_torch.distributed import compression
+from repro_torch.distributed import compression, sharding
 from repro_torch.optim.base import tree_map
 
 MAX_CHUNK = 16   # the JAX loop's default chunk length
@@ -189,7 +195,7 @@ class TrainLoop:
                  ckpt_every: int = 100, log_every: int = 10,
                  log: Callable[[str], None] = print, dp=None,
                  num_workers: int = 0, evaluator=None, eval_every: int = 0,
-                 tap_step=None):
+                 tap_step=None, shardings=None):
         self.train_step = train_step
         self.tap_step = tap_step
         self._tap_keys: Optional[List[str]] = None   # sorted, at first use
@@ -200,6 +206,7 @@ class TrainLoop:
         self.log_every = log_every
         self.log = log
         self.dp = dp
+        self.shardings = shardings
         self.num_workers = int(num_workers)
         self.evaluator = evaluator
         self.eval_every = int(eval_every)
@@ -254,6 +261,9 @@ class TrainLoop:
         t0 = time.monotonic()
         tel = obs.get()
         with tel.span("eval", step=step):
+            if self.shardings is not None:
+                params = sharding.gather_tree(params,
+                                              self.shardings["params"])
             r = self.evaluator(params, step)
         self.watchdog.block(time.monotonic() - t0, k)
         tel.emit("eval", step=step, loss=float(r["loss"]),
@@ -266,9 +276,12 @@ class TrainLoop:
         if ef is not None and self.dp is not None and self.dp.world > 1:
             opt_state = {"opt": inner,
                          "dp_ef": tree_map(self.dp.gather_rows, ef)}
-        if self.dp is None or self.dp.rank == 0:
-            self.ckpt.save(step, {"params": params, "opt": opt_state},
-                           blocking=blocking)
+        # every rank takes part in each placed leaf's gather; rank 0 writes
+        self.ckpt.save(step, {"params": params, "opt": opt_state},
+                       blocking=blocking,
+                       gather=None if self.shardings is None
+                       else sharding.leaf_gather(self.shardings),
+                       write=self.dp is None or self.dp.process_rank == 0)
 
     def _timed_save(self, step, params, opt_state, k, blocking=False):
         t0 = time.monotonic()

@@ -272,8 +272,8 @@ def test_spec_parse_matches_reference():
 
 def test_launcher_rejects_what_it_does_not_run(capsys):
     base = ["--smoke", "--steps", "1", "--device", "cpu"]
-    for argv, msg in [(["--shard-params", "auto", "--dp-reduce", "exact"],
-                       "--shard-params auto"),
+    for argv, msg in [(["--mesh", "1x1", "--dp-reduce", "exact"],
+                       "needs a pure-DP mesh"),
                       (["--dp-error-feedback"], "needs --dp-reduce"),
                       (["--dp-reduce", "exact", "--dp-error-feedback"],
                        "meaningless")]:
