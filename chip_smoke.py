@@ -250,7 +250,18 @@ Phases (any failure raises and the script exits non-zero):
     10 steps of ``--state-codec int8 --dp-reduce compressed`` (K2 30, K3
     10, K7 100 in both, bitwise); the rule table's per-rank bytes of
     qwen2.5-3b on a ``data=8`` mesh, computed from shapes and printed as
-    such.  No figure of more than one card exists.
+    such.  No figure of more than one card exists;
+38. the paper's example drivers (``repro_torch.examples``) as a user runs
+    them: ``quickstart`` (llama-tiny, 60 steps of 16 x 128 under Adam,
+    GWT-2 and GWT-3; K1 by plan), ``compare_optimizers`` at its defaults
+    (120 steps, nine methods; the Table II proxy with each method's
+    launches, K1 by plan for the Adam-hosted GWT rows and none elsewhere),
+    ``pretrain`` at llama-130m full width, 16 x 256, 40 steps
+    checkpointing at 20, then its step-40 checkpoint removed and the run
+    resumed from 20, bitwise to the 40 straight steps (K1 by plan in both),
+    ``serve_batched`` at its defaults (no kernel), and
+    ``optim.engine.live_update_bytes`` of one llama-60m update, fused (K1)
+    against staged (K4), A B B A.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -2541,16 +2552,17 @@ ROUTES = ("_direct_attn", "_local_block_attn", "_flash_attn",
           "_flash_attn_noncausal")
 
 
-def gwt_buckets(cfg):
-    """The GWT buckets of GWT-2 over ``cfg``'s parameters as K1 takes
-    them: ``(name, (L, rows, n))``, and the names of the other buckets."""
+def gwt_buckets(cfg, level=LEVEL):
+    """The GWT buckets of GWT-``level`` over ``cfg``'s parameters as K1
+    takes them: ``(name, (L, rows, n))``, and the names of the other
+    buckets."""
     from repro_torch.core.gwt import gwt
     from repro_torch.models import module_for
     from repro_torch.optim.base import flatten_with_paths
     params = module_for(cfg).abstract_params(cfg)
     shapes = dict(zip(*flatten_with_paths(params)))
     gwt_b, other = [], {}
-    for b in gwt(lr=0.01).engine.plan(params).buckets:
+    for b in gwt(lr=0.01, level=level).engine.plan(params).buckets:
         s = tuple(shapes[b.paths[0]].shape)
         if b.name.startswith("gwt"):
             gwt_b.append((b.name, (len(b.paths), math.prod(s[:-1]), s[-1])))
@@ -2559,17 +2571,20 @@ def gwt_buckets(cfg):
     return gwt_b, other
 
 
-def one_pass(kernel, shape, dtype, q8=False, pdtype=None) -> bool:
+def one_pass(kernel, shape, dtype, q8=False, pdtype=None,
+             level=LEVEL) -> bool:
     lib = "gwt_adam_fused_q8" if q8 else "gwt_adam_fused"
-    return kernel.one_pass_plan(lib, shape, dtype, LEVEL,
+    return kernel.one_pass_plan(lib, shape, dtype, level,
                                 pdtype=pdtype)["grid"] > 0
 
 
-def fused_plan_counts(kernel, cfg, steps, q8=False):
-    """K1's (``q8``: K2's) expected counters over ``steps`` steps of GWT-2
-    on ``cfg``, each bucket in the design the capacity rule names."""
-    buckets, _ = gwt_buckets(cfg)
-    ones = sum(one_pass(kernel, s, cfg.torch_dtype, q8) for _, s in buckets)
+def fused_plan_counts(kernel, cfg, steps, q8=False, level=LEVEL):
+    """K1's (``q8``: K2's) expected counters over ``steps`` steps of
+    GWT-``level`` on ``cfg``, each bucket in the design the capacity rule
+    names."""
+    buckets, _ = gwt_buckets(cfg, level)
+    ones = sum(one_pass(kernel, s, cfg.torch_dtype, q8, level=level)
+               for _, s in buckets)
     k = "K2" if q8 else "K1"
     return {k: len(buckets) * steps, f"{k} one-pass": ones * steps,
             f"{k} two-pass": (len(buckets) - ones) * steps}
@@ -4916,6 +4931,210 @@ def run_sharding(train, kernel, hk):
     return out
 
 
+
+# phase 38: the paper's example drivers.  ``pretrain`` runs PRETRAIN_STEPS
+# steps checkpointing at half of them, then resumes from half
+PRETRAIN_STEPS = 40
+
+
+def counted(kernel, hk, fn, *args):
+    """``fn(*args)`` with every launch count set to 0 just before and read
+    just after (the card synchronised): ``(result, counts)``."""
+    reset_counts(kernel, hk)
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, all_counts(kernel, hk)
+
+
+def expect_counts(label, counts, *wants):
+    """``counts`` must be the sum of the ``wants`` (0 where none names a
+    counter)."""
+    want = dict.fromkeys(counts, 0)
+    for w in wants:
+        for k, v in w.items():
+            want[k] += v
+    if counts != want:
+        raise AssertionError(f"{label}: launched {counts}, want {want}")
+
+
+def run_quickstart(kernel, hk):
+    """``quickstart`` as written: Adam, GWT-2, GWT-3 on llama-tiny, 60 steps
+    of 16 x 128; K1 by plan for the two GWT runs, nothing else."""
+    from repro_torch.examples import quickstart as qs
+    t0 = time.perf_counter()
+    results, counts = counted(kernel, hk, qs.main, ["--device", "cuda"])
+    expect_counts("quickstart", counts,
+                  *(fused_plan_counts(kernel, qs.CFG, qs.STEPS,
+                                      level=kw["level"])
+                    for name, kw in qs.METHODS if name == "gwt"))
+    for tag, (loss, mib) in results.items():
+        if not math.isfinite(loss):
+            raise AssertionError(f"quickstart {tag}: final loss {loss}")
+    out = {"results": {t: {"final_loss": l, "state_mib": m}
+                       for t, (l, m) in results.items()},
+           "counts": counts, "wall_s": time.perf_counter() - t0}
+    print(f"phase 38 quickstart: {out['results']}; launches {counts}; "
+          f"{out['wall_s']:.1f} s")
+    return out
+
+
+def run_compare_optimizers(kernel, hk):
+    """``compare_optimizers`` at its defaults (120 steps of 16 x 128, the
+    nine methods, the same initial parameters for each), method by method
+    with the counts read around each: K1 by plan for GWT with the Adam
+    host, nothing for the others; losses finite and falling; then its
+    table."""
+    from repro_torch.examples import compare_optimizers as co
+    steps = 120
+    rows, out = [], []
+    for name, kw in co.METHODS:
+        t0 = time.perf_counter()
+        row, counts = counted(kernel, hk, co.run_method, name, kw, steps,
+                              torch.device("cuda"))
+        fused = name == "gwt" and kw.get("host", "adam") == "adam"
+        expect_counts(row.tag, counts, fused_plan_counts(
+            kernel, co.CFG, steps, level=kw["level"]) if fused else {})
+        if not (np.all(np.isfinite(row.losses))
+                and row.final_loss < row.losses[0]):
+            raise AssertionError(f"{row.tag}: losses {row.losses[:3]} .. "
+                                 f"final {row.final_loss}")
+        rows.append(row)
+        out.append({"method": row.tag, "final_loss": row.final_loss,
+                    "state_mib": row.state_bytes / 2**20,
+                    "first_loss": row.losses[0], "k1": counts["K1"],
+                    "other_launches": sum(v for k, v in counts.items()
+                                          if not k.startswith("K1")),
+                    "wall_s": time.perf_counter() - t0})
+        print(f"phase 38 {row.tag:22s} final_loss={row.final_loss:8.4f} "
+              f"state={row.state_bytes / 2**20:7.1f}MiB K1 {counts['K1']} "
+              f"({out[-1]['wall_s']:.1f} s)")
+    co.print_table(rows)
+    return out
+
+
+def run_pretrain(kernel, hk):
+    """``pretrain`` at its default model (llama-130m, full width) and batch
+    (16 x 256): PRETRAIN_STEPS steps checkpointing at half of them; then
+    the last checkpoint removed and the same command run again, which
+    resumes from half; its losses, parameters and state bitwise to the
+    straight run's, K1 by plan in both runs."""
+    from repro_torch import configs
+    from repro_torch.examples import pretrain
+    cfg = configs.get_config("llama-130m")
+    half = PRETRAIN_STEPS // 2
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pretrain_")
+    try:
+        argv = ["--steps", str(PRETRAIN_STEPS), "--ckpt-dir", tmp,
+                "--ckpt-every", str(half)]
+        t0 = time.perf_counter()
+        straight, c1 = counted(kernel, hk, pretrain.main, argv)
+        wall = time.perf_counter() - t0
+        expect_counts("pretrain", c1, fused_plan_counts(kernel, cfg,
+                                                        PRETRAIN_STEPS))
+        shutil.rmtree(os.path.join(tmp, f"step_{PRETRAIN_STEPS:09d}"))
+        resumed, c2 = counted(kernel, hk, pretrain.main, argv)
+        expect_counts("pretrain resumed", c2,
+                      fused_plan_counts(kernel, cfg, half))
+        if resumed.start_step != half \
+                or resumed.losses != straight.losses[half:]:
+            raise AssertionError(f"pretrain resumed from "
+                                 f"{resumed.start_step}: losses "
+                                 f"{resumed.losses} vs "
+                                 f"{straight.losses[half:]}")
+        assert_bitwise(resumed.params, straight.params, "pretrain params")
+        assert_bitwise(resumed.opt_state, straight.opt_state,
+                       "pretrain optimizer state")
+        if not straight.losses[-1] < straight.losses[0]:
+            raise AssertionError(f"pretrain: losses {straight.losses}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"arch": "llama-130m", "steps": PRETRAIN_STEPS,
+           "losses": straight.losses, "step_ms": straight.step_ms,
+           "resumed_step_ms": resumed.step_ms, "wall_s": wall,
+           "k1": c1["K1"], "k1_resumed": c2["K1"]}
+    print(f"phase 38 pretrain llama-130m 16 x 256: {PRETRAIN_STEPS} steps "
+          f"in {wall:.2f} s, step {straight.step_ms} ms, losses "
+          f"{straight.losses[0]:.4f} -> {straight.losses[-1]:.4f}; resumed "
+          f"from {half} bitwise to the straight run (losses, parameters, "
+          f"state); K1 {c1['K1']} + {c2['K1']}")
+    del straight, resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def update_peaks(kernel, hk, dev):
+    """``optim.engine.live_update_bytes`` of one GWT-2 update, fused (K1)
+    against staged (K4), A B B A, each after a first update from the same
+    parameters and gradients, with what was allocated just before each
+    call: llama-60m at full width, and its GWT leaves alone (without the
+    embedding, whose plain Adam update is common to both flows)."""
+    from repro_torch import configs
+    from repro_torch.core.gwt import gwt
+    from repro_torch.models import lm
+    from repro_torch.optim import engine
+    from repro_torch.optim.base import flatten_with_paths, tree_map, \
+        unflatten
+    cfg = configs.get_config("llama-60m")
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(5),
+                     dev).tree()
+    flat = dict(zip(*flatten_with_paths(params)))
+    gwt_paths = [p for b in gwt(lr=0.01).engine.plan(params).buckets
+                 if b.name.startswith("gwt") for p in b.paths]
+    trees = {"llama-60m": params,
+             "llama-60m GWT leaves": unflatten(
+                 gwt_paths, [flat[p] for p in gwt_paths])}
+    out = {}
+    for label, tree in trees.items():
+        ggen = torch.Generator(device=dev).manual_seed(7)
+        grads = tree_map(lambda p: (torch.randn(
+            p.shape, generator=ggen, device=dev) * 1e-2).to(p.dtype), tree)
+        row = out[label] = {"fused": [], "staged": []}
+        for flow in ("fused", "staged", "staged", "fused"):
+            opt = gwt_opt(100, fused_write=flow == "fused")
+            copy = tree_map(torch.clone, tree)
+            state = opt.init(copy)
+            copy, state = opt.update(grads, state, copy)
+            gc.collect()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            peak, counts = counted(kernel, hk, engine.live_update_bytes,
+                                   opt.update, grads, state, copy)
+            expect_counts(f"{label} update {flow}", counts,
+                          fused_plan_counts(kernel, cfg, 1)
+                          if flow == "fused" else {"K4": len(gwt_paths)})
+            row[flow].append({"peak_bytes": peak, "base_bytes": base,
+                              "above_base_bytes": peak - base})
+            del copy, state
+            gc.collect()
+            torch.cuda.empty_cache()
+        del grads
+        print(f"phase 38 live_update_bytes, one {label} GWT-2 update (peak "
+              f"with the arguments resident; base: allocated before the "
+              f"call), A B B A: fused {row['fused']}, staged "
+              f"{row['staged']}")
+    return out
+
+
+def run_examples(kernel, hk, dev):
+    """Phase 38: the four example drivers on the card, and the update's
+    peak by ``live_update_bytes``."""
+    from repro_torch.examples import serve_batched
+    t0 = time.perf_counter()
+    out = {"quickstart": run_quickstart(kernel, hk),
+           "compare_optimizers": run_compare_optimizers(kernel, hk),
+           "pretrain": run_pretrain(kernel, hk)}
+    match, counts = counted(kernel, hk, serve_batched.main,
+                            ["--device", "cuda"])
+    expect_counts("serve_batched", counts)
+    out["serve_batched"] = {"arch": "gemma2-9b", "agreement": match}
+    out["update_peaks"] = update_peaks(kernel, hk, dev)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase 38: the examples ran on the card, serve_batched "
+          f"agreement {match}; {out['phase_s']:.1f} s; card {smi()}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA "
@@ -5042,6 +5261,8 @@ def main() -> int:
     print(f"phase 36: the script so far {time.perf_counter() - t0:.1f} s")
     shard = run_sharding(train, kernel, hk)
     print(f"phase 37: the script so far {time.perf_counter() - t0:.1f} s")
+    examples = run_examples(kernel, hk, dev)
+    print(f"phase 38: the script so far {time.perf_counter() - t0:.1f} s")
     print(f"staged step vs fused step (same call): launcher-equivalent "
           f"loop {staged32['step_ms']:.2f} vs {res32.step_ms:.2f} ms; "
           f"profiled {prof_staged['step_ms']:.2f} vs "
@@ -5085,7 +5306,8 @@ def main() -> int:
                                        not in k}},
                     sharded_params=shard["qwen2.5-3b"],
                     sharded_rank_bytes_computed=shard[
-                        "qwen2.5-3b data=8 rank bytes (computed)"]),
+                        "qwen2.5-3b data=8 rank bytes (computed)"],
+                    examples=examples),
         fused_entry("gwt_adam_fused_q8",
                     "gwt_adam/csrc/gwt_adam_fused_q8.cu",
                     "src/repro/kernels/gwt_adam/kernel.py:554",

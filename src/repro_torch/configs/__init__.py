@@ -9,7 +9,8 @@ from repro_torch.configs import (deepseek_67b, gemma2_9b, gemma3_27b,
                                  qwen2_moe_a2_7b, qwen2_vl_72b,
                                  qwen3_moe_30b_a3b, seamless_m4t_large_v2,
                                  xlstm_350m)
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
+                                      input_specs, skip_reason)
 
 _MODULES = {
     "jamba-v0.1-52b": jamba_v0_1_52b,
@@ -53,4 +54,5 @@ def get_smoke(name: str) -> ModelConfig:
                      f"{ARCH_IDS + list(LLAMA)}")
 
 
-__all__ = ["ModelConfig", "get_config", "get_smoke", "ARCH_IDS", "LLAMA"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "input_specs",
+           "skip_reason", "get_config", "get_smoke", "ARCH_IDS", "LLAMA"]

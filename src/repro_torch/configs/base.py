@@ -1,13 +1,16 @@
 """``ModelConfig``: the architecture dataclass (counterpart of
 ``repro/configs/base.py``, whose module imports JAX), every field with the
 reference's default: the dense decoders, the MoE, M-RoPE, the SSM (mamba)
-widths and the encoder-decoder split."""
+widths and the encoder-decoder split.  ``ShapeConfig`` is a workload cell;
+``SHAPES`` holds the four assigned input shapes, ``input_specs`` their
+model inputs as ``meta`` tensors (nothing allocated) and ``skip_reason``
+the assignment's skip rule."""
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -79,3 +82,60 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str             # "train" | "prefill" | "decode"
+    accum_steps: int = 1  # gradient-accumulation microbatches (train only)
+
+
+# The four assigned LM shapes; ``accum_steps`` is a default
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k", 4096, 256, "train", accum_steps=16),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k":   ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def _meta(shape, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig
+                ) -> Dict[str, torch.Tensor]:
+    """Every model input of ``shape`` as a ``meta`` tensor: tokens (and,
+    to train, labels) ``int32`` ``(B, S)``; an encoder-decoder's
+    ``enc_embeds`` bf16 ``(B, S // 4, d_model)``; M-RoPE's
+    ``mrope_positions`` ``(3, B, S)``.  A decode step feeds one token
+    against a ``seq_len``-deep cache."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind == "decode":
+        batch = {"tokens": _meta((B, 1), i32)}
+        if cfg.mrope_sections:
+            batch["mrope_positions"] = _meta((3, B, 1), i32)
+        return batch
+    batch = {"tokens": _meta((B, S), i32)}
+    if shape.kind == "train":
+        batch["labels"] = _meta((B, S), i32)
+    if cfg.arch_class == "encdec":
+        # the audio front end's stub: precomputed frame embeddings
+        batch["enc_embeds"] = _meta((B, S // 4, cfg.d_model),
+                                    torch.bfloat16)
+    if cfg.mrope_sections:
+        batch["mrope_positions"] = _meta((3, B, S), i32)
+    return batch
+
+
+def skip_reason(cfg: ModelConfig, shape: ShapeConfig) -> Optional[str]:
+    """The assignment's skip rule (DESIGN.md §6), None where the cell
+    runs."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return ("pure full-attention arch: long_500k needs sub-quadratic "
+                "attention (assignment rule)")
+    return None

@@ -47,14 +47,15 @@ does).
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
 from repro_torch.core import haar, limiter
 from repro_torch.kernels.gwt_adam import ops as gwt_ops
 from repro_torch.optim import codec as codec_lib, engine, hosts as hosts_lib
-from repro_torch.optim.base import Optimizer, default_eligible
+from repro_torch.optim.base import (Optimizer, default_eligible,
+                                    flatten_with_paths)
 from repro_torch.optim.schedules import Schedule, constant
 
 
@@ -258,3 +259,54 @@ def gwt(lr: Schedule | float,
     return engine.build(
         lambda path, leaf: rules[_leaf_mode(path, leaf, level, elig)],
         bucketed=bucketed, codec=cdc, state_shardings=state_shardings)
+
+
+# ---------------------------------------------------------------------------
+# Memory accounting (the paper's Table I / Table XI): optimizer-state bytes
+# ---------------------------------------------------------------------------
+
+def _host_elements(shape, host: str) -> int:
+    """State elements a host keeps for one tensor of ``shape``: Adam 2x
+    (M and V), MUON 1x (M), Adam-mini a full M and one V per row."""
+    size = 1
+    for s in shape:
+        size *= s
+    if host == "muon":
+        return size
+    if host == "adam_mini":
+        rows = size // shape[-1] if len(shape) >= 2 else 1
+        return size + rows
+    return 2 * size
+
+
+def state_memory_bytes(params, level: int,
+                       eligible: Optional[Callable[[str, torch.Tensor],
+                                                   bool]] = None,
+                       bytes_per_el: int = 2, host: str = "adam"
+                       ) -> Dict[str, int]:
+    """Analytic optimizer-state memory of GWT over a parameter tree (real or
+    ``meta`` tensors): a GWT leaf keeps host states on its ``A_l`` band
+    (``size / 2^l`` elements), a plain leaf on the whole tensor; Adam 2x,
+    MUON 1x (its plain leaves run Adam), Adam-mini 1x plus one per row.
+    ``bytes_per_el`` prices an element (2: bf16 states, the paper's
+    accounting).  The exact bytes of a built state are
+    ``optim.engine.state_bytes(opt.init(params))``."""
+    elig = eligible or default_eligible
+    acc = {"gwt_bytes": 0, "plain_bytes": 0, "gwt_params": 0,
+           "plain_params": 0}
+    plain_host = "adam" if host == "muon" else host
+    paths, leaves = flatten_with_paths(params)
+    for path, p in zip(paths, leaves):
+        mode = _leaf_mode(path, p, level, elig)
+        if mode == _Mode.PLAIN:
+            acc["plain_bytes"] += _host_elements(tuple(p.shape),
+                                                 plain_host) * bytes_per_el
+            acc["plain_params"] += p.numel()
+        else:
+            width = (p.shape[-1] if mode == _Mode.LAST
+                     else p.shape[-2]) >> level
+            a_shape = (p.numel() // (width << level), width)
+            acc["gwt_bytes"] += _host_elements(a_shape, host) * bytes_per_el
+            acc["gwt_params"] += p.numel()
+    acc["total_bytes"] = acc["gwt_bytes"] + acc["plain_bytes"]
+    return acc

@@ -1,9 +1,12 @@
 """Multi-level discrete wavelet transforms along the last axis
-(counterpart of ``repro/core/haar.py``): the Haar butterfly, and the
-periodic Daubechies-4 (db2) transform, the beyond-paper wavelet option.
+(counterpart of ``repro/core/haar.py``): the Haar butterfly, its packed
+form, the explicit orthonormal matrix ``H`` of the paper's Eq. (3), the
+low-pass operator ``P_l`` of Theorem 1, and the periodic Daubechies-4 (db2)
+transform, the beyond-paper wavelet option.
 
 Layout: level ``l`` on width ``n`` gives ``A_l`` (width ``n/2^l``) and the
-detail bands ``[D_l, ..., D_1]`` (band ``D_k`` has width ``n/2^k``).
+detail bands ``[D_l, ..., D_1]`` (band ``D_k`` has width ``n/2^k``); packed,
+``[A_l | D_l | ... | D_1]`` has the input's shape.
 
 Scalars are rounded to the tensor's dtype before they multiply it, as the
 JAX package's weakly typed Python constants are, so a bf16 transform rounds
@@ -12,9 +15,11 @@ where the reference rounds.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 INV_SQRT2 = 0.7071067811865476
@@ -70,6 +75,70 @@ def haar_inverse(a: torch.Tensor, details: Sequence[torch.Tensor]
         x = torch.stack([even, odd], dim=-1).reshape(*x.shape[:-1],
                                                      x.shape[-1] * 2)
     return x
+
+
+def pack(a: torch.Tensor, details: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``(A_l, [D_l, ..., D_1]) -> [A_l | D_l | ... | D_1]``."""
+    return torch.cat([a, *details], dim=-1)
+
+
+def unpack(packed: torch.Tensor, level: int
+           ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Inverse of :func:`pack`: ``(A_l, [D_l, ..., D_1])`` (views)."""
+    n = packed.shape[-1]
+    _check(n, level)
+    widths = [n >> level] + [n >> k for k in range(level, 0, -1)]
+    a, *details = torch.split(packed, widths, dim=-1)
+    return a, details
+
+
+def haar_forward_packed(g: torch.Tensor, level: int) -> torch.Tensor:
+    return pack(*haar_forward(g, level))
+
+
+def haar_inverse_packed(packed: torch.Tensor, level: int) -> torch.Tensor:
+    return haar_inverse(*unpack(packed, level))
+
+
+@functools.lru_cache(maxsize=64)
+def _haar_matrix_np(n: int, level: int) -> np.ndarray:
+    """The level-``level`` orthonormal DHT matrix ``H`` (f64), ``G @ H =
+    packed``: level 1 is the paper's Eq. (3), each further level a level-1
+    transform of the approximation half."""
+    _check(n, level)
+    h = np.eye(n)
+    width = n
+    for _ in range(level):
+        h1 = np.zeros((width, width))
+        half = width // 2
+        for i in range(half):
+            h1[2 * i, i] = INV_SQRT2         # approx
+            h1[2 * i + 1, i] = INV_SQRT2
+            h1[2 * i, half + i] = INV_SQRT2  # detail
+            h1[2 * i + 1, half + i] = -INV_SQRT2
+        step = np.eye(n)
+        step[:width, :width] = h1
+        h = h @ step
+        width //= 2
+    return h
+
+
+def haar_matrix(n: int, level: int, dtype: torch.dtype = torch.float32
+                ) -> torch.Tensor:
+    """:func:`_haar_matrix_np` rounded once to ``dtype``: a CPU tensor of
+    its own (the cached array is never shared)."""
+    return torch.tensor(_haar_matrix_np(n, level), dtype=dtype)
+
+
+def lowpass(g: torch.Tensor, level: int) -> torch.Tensor:
+    """``P_l(G)`` of Theorem 1: each block of ``2^l`` columns replaced by
+    the block's mean."""
+    n = g.shape[-1]
+    _check(n, level)
+    b = 1 << level
+    blocks = g.reshape(*g.shape[:-1], n // b, b)
+    mean = blocks.mean(dim=-1, keepdim=True)
+    return mean.expand(blocks.shape).reshape(g.shape)
 
 
 # Daubechies-4 (db2): periodic (circular) boundary, so the transform stays

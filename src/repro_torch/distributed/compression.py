@@ -32,9 +32,10 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels.haar_dwt import ops
 from repro_torch.kernels.haar_dwt.ref import to_wire
-from repro_torch.optim.base import flatten_with_paths, tree_map
+from repro_torch.optim.base import flatten_with_paths, tree_map, unflatten
 
 WIRE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
                "float8_e4m3fn": torch.float8_e4m3fn}
@@ -245,6 +246,32 @@ def ef_init(tree):
     (checkpoints hold every rank's row)."""
     return tree_map(lambda p: torch.zeros((1, *p.shape), dtype=torch.float32,
                                           device=p.device), tree)
+
+
+def ef_state_shardings(ef_tree, mesh: sharding.Mesh,
+                       dp_axis_names: Optional[Sequence[str]] = None):
+    """The ``NamedSharding`` tree of a residue tree: each leaf's leading
+    per-rank axis over the data axes of ``mesh`` (``dp_axis_names``, by
+    default ``("pod", "data")`` or ``("data",)``), the rest replicated.
+    Each rank holds its own row ``(1, *shape)`` (:func:`ef_init`)."""
+    names = tuple(dp_axis_names or sharding.dp_axes(mesh))
+    axis = names if len(names) > 1 else names[0]
+    return tree_map(lambda e: sharding.NamedSharding(
+        mesh, sharding.Spec(axis, *([None] * (e.ndim - 1)))), ef_tree)
+
+
+def make_compressed_grad_reducer(dp, level: int = 2,
+                                 detail_dtype: Optional[torch.dtype]
+                                 = torch.bfloat16):
+    """A tree -> tree reducer: each rank's gradient tree to its mean over
+    the ranks of ``dp`` (a ``launch.mesh.DPContext``; None is one rank),
+    through :func:`compressed_means`: every compressible leaf split in one
+    grouped K3 launch, ``detail_dtype=None`` the exact f32 mean."""
+    def reduce_tree(grads):
+        paths, leaves = flatten_with_paths(grads)
+        return unflatten(paths, compressed_means(leaves, dp, level,
+                                                 detail_dtype))
+    return reduce_tree
 
 
 def split_ef(opt_state) -> Tuple[Any, Optional[Any]]:

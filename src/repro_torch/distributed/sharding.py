@@ -96,14 +96,15 @@ def _names(entry: Candidate) -> Tuple[str, ...]:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
-def _dp_axes(mesh: Mesh) -> Tuple[str, ...]:
+def dp_axes(mesh: Mesh) -> Tuple[str, ...]:
+    """The mesh's data-parallel axes: ``("pod", "data")`` or ``("data",)``."""
     return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
 
 
 def train_rules(mesh: Mesh) -> Rules:
     """FSDP(data) x TP/EP(model); the batch over (pod x) data.  Parameters
     are not sharded over the pod axis: it carries pure data parallelism."""
-    dp = _dp_axes(mesh)
+    dp = dp_axes(mesh)
     return {
         "vocab": ("model",),
         "embed": ("data",),
@@ -122,7 +123,7 @@ def train_rules(mesh: Mesh) -> Rules:
 def decode_rules(mesh: Mesh) -> Rules:
     """Decode: the cache's sequence axis takes the model axis (SP); for
     batch-1 cells the sequence takes model x data."""
-    dp = _dp_axes(mesh)
+    dp = dp_axes(mesh)
     return {
         "vocab": ("model",),
         "embed": ("data",),
@@ -282,7 +283,7 @@ def replicated_like(tree, mesh: Mesh):
 def batch_shardings(batch_abstract: Mapping[str, Any], mesh: Mesh):
     """Input placements: the batch dimension over the DP axes (axis 1 of
     ``mrope_positions``), the rest replicated."""
-    dp = _dp_axes(mesh)
+    dp = dp_axes(mesh)
     dp_size = math.prod(mesh.shape[a] for a in dp)
     out = {}
     for k, v in batch_abstract.items():

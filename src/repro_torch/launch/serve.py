@@ -41,7 +41,7 @@ import torch.nn.functional as F
 
 from repro_torch import configs, obs
 from repro_torch.launch.train import resolve_device
-from repro_torch.models import lm
+from repro_torch.models import blocks, lm
 from repro_torch.serve.engine import Engine, EngineConfig, Request
 
 
@@ -93,6 +93,26 @@ def ensure_capacity(cache, needed: int, window: int = 0):
     return cache
 
 
+def grow_for_decode(cfg, cache, max_len: int):
+    """:func:`pad_cache` block by block: a windowed block's ring buffer
+    (depth ``cfg.window``) stays, every full-attention block's K/V grows to
+    ``max_len``.  By depth alone a full-attention block whose prompt is
+    ``cfg.window`` long looks like a ring buffer; the JAX package's
+    ``generate`` leaves it at that depth, and its decode writes then clamp
+    onto the prompt's last row."""
+    out = dict(cache)
+    for group in ("layers", "rem"):
+        if group not in cache:
+            continue
+        out[group] = {}
+        for name, blk in cache[group].items():
+            local = blocks.parse_kind(cfg.pattern[int(name[1:])])[0] \
+                == "attn_local"
+            out[group][name] = pad_cache(blk, max_len,
+                                         window=cfg.window if local else 0)
+    return out
+
+
 def generate(cfg, params, tokens: torch.Tensor, gen_len: int
              ) -> torch.Tensor:
     """Greedy ``(B, gen_len)`` continuation of ``tokens`` (B, S) over dense
@@ -103,7 +123,7 @@ def generate(cfg, params, tokens: torch.Tensor, gen_len: int
     prefill = lm.make_prefill_step(cfg)
     decode = lm.make_decode_step(cfg)
     logits, cache = prefill(params, {"tokens": tokens})
-    cache = ensure_capacity(pad_cache(cache, S + gen_len, window=cfg.window),
+    cache = ensure_capacity(grow_for_decode(cfg, cache, S + gen_len),
                             S + gen_len, window=cfg.window)
     out = []
     nxt = torch.argmax(logits, -1)[:, None]

@@ -88,44 +88,47 @@ def block_apply(p, cfg, kind: str, x, cos, sin, *, mode: str = "train",
     return x, nc, aux
 
 
-def block_cache(cfg, kind: str, B: int, max_len: int, device, lead=()
+def block_cache(b: Builder, cfg, kind: str, B: int, max_len: int, lead=()
                 ) -> dict:
-    """A zeroed dense decode cache: for attention ``{"k", "v"}`` of
-    ``(*lead, B, size, KV, hd)`` in the model dtype, ``size = min(window,
-    max_len)`` for a windowed block (a ring buffer), else ``max_len``; for
-    a recurrent mixer its state (``ssm.mamba_cache``,
-    ``xlstm.mlstm_cache``, ``xlstm.slstm_cache``)."""
+    """A zeroed dense decode cache from ``b`` (zeros on its device, ``meta``
+    tensors, or each leaf's axes with ``mode="axes"``): for attention
+    ``{"k", "v"}`` of ``(*lead, B, size, KV, hd)`` in the model dtype,
+    ``size = min(window, max_len)`` for a windowed block (a ring buffer),
+    else ``max_len``; for a recurrent mixer its state
+    (``ssm.mamba_cache``, ``xlstm.mlstm_cache``, ``xlstm.slstm_cache``)."""
     base, _ = _check_kind(kind)
     if base in RECURRENT_KINDS:
-        return _CACHE[base](cfg, B, device, lead=lead)
+        return _CACHE[base](b, cfg, B, lead=lead)
     size = min(cfg.window, max_len) if base == "attn_local" and cfg.window \
         else max_len
-    shape = tuple(lead) + (B, size, cfg.n_kv_heads, cfg.head_dim)
-    return {n: torch.zeros(shape, dtype=cfg.torch_dtype, device=device)
+    return {n: b.param((B, size, cfg.n_kv_heads, cfg.head_dim),
+                       ("batch", "seq", "kv_heads", None), init="zeros",
+                       lead=lead)
             for n in ("k", "v")}
 
 
-def block_paged_cache(cfg, kind: str, num_pages: int, page_size: int,
-                      quant: Optional[str], device, lead=()) -> dict:
-    """The block's share of the serving arena: a page pool per K and V
-    (``repro_torch.serve.kv`` layout), ``(*lead, num_pages, page_size, KV,
-    hd)`` in the model dtype, or ``{"q": int8, "scale": f32}`` with
-    ``quant="int8"``.  Only full-attention blocks are served (the engine
-    checks); a recurrent block has no paged layout."""
+def block_paged_cache(b: Builder, cfg, kind: str, num_pages: int,
+                      page_size: int, quant: Optional[str], lead=()) -> dict:
+    """The block's share of the serving arena, from ``b``: a page pool per
+    K and V (``repro_torch.serve.kv`` layout), ``(*lead, num_pages,
+    page_size, KV, hd)`` in the model dtype, or ``{"q": int8, "scale":
+    f32}`` with ``quant="int8"``.  Only full-attention blocks are served
+    (the engine checks); a recurrent block has no paged layout."""
     base, _ = _check_kind(kind)
     if base not in ATTENTION_KINDS:
         raise NotImplementedError(
             f"no paged cache layout for block kind {base!r}")
-    shape = tuple(lead) + (num_pages, page_size, cfg.n_kv_heads,
-                           cfg.head_dim)
+    shape = (num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    axes = ("pages", "page", "kv_heads", None)
     if quant == "int8":
         def pool():
-            return {"q": torch.zeros(shape, dtype=torch.int8, device=device),
-                    "scale": torch.zeros(shape[:-1], dtype=torch.float32,
-                                         device=device)}
+            return {"q": b.param(shape, axes, init="zeros", lead=lead,
+                                 dtype=torch.int8),
+                    "scale": b.param(shape[:-1], axes[:3], init="zeros",
+                                     lead=lead, dtype=torch.float32)}
     elif quant is None:
         def pool():
-            return torch.zeros(shape, dtype=cfg.torch_dtype, device=device)
+            return b.param(shape, axes, init="zeros", lead=lead)
     else:
         raise ValueError(f"kv quant {quant!r}: expected None or 'int8'")
     return {"k": pool(), "v": pool()}

@@ -22,9 +22,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, lm, rope as rope_lib
-from repro_torch.models.layers import (Builder, cross_entropy, embed_apply,
-                                       embed_init, logits_apply, mlp_apply,
-                                       mlp_init, rms_norm)
+from repro_torch.models.layers import (Axes, Builder, cross_entropy,
+                                       embed_apply, embed_init, logits_apply,
+                                       mlp_apply, mlp_init, rms_norm)
 from repro_torch.optim.base import flatten_with_paths, tree_map, unflatten
 
 
@@ -255,16 +255,38 @@ def make_train_step(cfg, optimizer, accum_steps: int = 1, dp_reduce=None,
                               shardings=shardings)
 
 
+def _build_cache(cfg, b: Builder, B: int, max_len: int, enc_len: int
+                 ) -> Dict[str, Any]:
+    def kv(T):
+        return {n: b.param((B, T, cfg.n_kv_heads, cfg.head_dim),
+                           ("batch", "seq", "kv_heads", None), init="zeros",
+                           lead=(cfg.n_dec_layers,))
+                for n in ("k", "v")}
+    return {"self": kv(max_len), "cross": kv(enc_len)}
+
+
 def init_cache(cfg, B: int, max_len: int, enc_len: int, device
                ) -> Dict[str, Any]:
     """Zeroed decode caches: per decoder layer (stacked) the
     self-attention K/V ``(B, max_len, KV, hd)`` and the cross K/V ``(B,
     enc_len, KV, hd)``, in the model dtype; ``pos = 0``."""
-    def kv(T):
-        shape = (cfg.n_dec_layers, B, T, cfg.n_kv_heads, cfg.head_dim)
-        return {n: torch.zeros(shape, dtype=cfg.torch_dtype, device=device)
-                for n in ("k", "v")}
-    return {"dec": {"self": kv(max_len), "cross": kv(enc_len)}, "pos": 0}
+    return {"dec": _build_cache(cfg, Builder(None, device, cfg.torch_dtype),
+                                B, max_len, enc_len), "pos": 0}
+
+
+def abstract_cache(cfg, B: int, max_len: int, enc_len: int
+                   ) -> Dict[str, Any]:
+    """:func:`init_cache`'s tree on the ``meta`` device, ``pos`` an
+    ``int32`` scalar."""
+    return {"dec": _build_cache(cfg, Builder(None, "meta", cfg.torch_dtype),
+                                B, max_len, enc_len),
+            "pos": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def cache_axes(cfg) -> Dict[str, Any]:
+    """:func:`init_cache`'s tree of logical axes (``layers.Axes``)."""
+    b = Builder(None, "meta", cfg.torch_dtype, mode="axes")
+    return {"dec": _build_cache(cfg, b, 1, 2, 2), "pos": Axes(())}
 
 
 def make_prefill_step(cfg):

@@ -15,8 +15,6 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import prng
-
 
 class Axes:
     """The logical axis names of a parameter's dimensions (``"embed"``,
@@ -141,19 +139,24 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     return torch.mean(lse - ll)
 
 
-def lora_pair_init(key: prng.Key, shape, rank: int, device,
+# ``core.prng`` is imported inside the functions that draw: the ``core``
+# package imports GWT, whose optimizer engine imports
+# ``distributed.sharding``, which imports this module.
+
+def lora_pair_init(key, shape, rank: int, device,
                    dtype: torch.dtype = torch.float32):
     """Adapter pair for a ``(..., m, n)`` weight: ``a`` ``(..., m, r)``, a
-    ``jax.random.normal`` draw of ``key`` (``core.prng``) over ``sqrt(m)``
-    in f32, and ``b`` ``(..., r, n)`` zeros, so the delta ``a @ b`` is
-    exactly zero at init.  Leading axes (stacked layers, experts) carry
-    through.  On the ``meta`` device it draws nothing."""
+    ``jax.random.normal`` draw of ``key`` (a ``core.prng`` key) over
+    ``sqrt(m)`` in f32, and ``b`` ``(..., r, n)`` zeros, so the delta
+    ``a @ b`` is exactly zero at init.  Leading axes (stacked layers,
+    experts) carry through.  On the ``meta`` device it draws nothing."""
     m, n = shape[-2], shape[-1]
     lead = tuple(shape[:-2])
     b = torch.zeros(lead + (rank, n), dtype=dtype, device=device)
     if torch.device(device).type == "meta":
         return {"a": torch.empty(lead + (m, rank), dtype=dtype,
                                  device=device), "b": b}
+    from repro_torch.core import prng
     a = prng.normal(key, lead + (m, rank), device)
     # an element-wise f32 division by sqrt(m) rounded to f32, as
     # jnp.asarray(np.sqrt(m), f32) divides (CUDA turns a division by a
@@ -165,4 +168,5 @@ def lora_pair_init(key: prng.Key, shape, rank: int, device,
 def lora_delta(pair, alpha: float, rank: int) -> torch.Tensor:
     """The ``(..., m, n)`` update ``(a @ b) * (alpha / r)`` in the
     adapters' dtype, batched over the leading axes."""
+    from repro_torch.core import prng
     return (pair["a"] @ pair["b"]) * prng.f32(alpha / rank)

@@ -32,9 +32,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed import compression, sharding
 from repro_torch.models import blocks, rope as rope_lib
-from repro_torch.models.layers import (Builder, cross_entropy, embed_apply,
-                                       embed_init, logits_apply, rms_norm,
-                                       softcap)
+from repro_torch.models.layers import (Axes, Builder, cross_entropy,
+                                       embed_apply, embed_init, logits_apply,
+                                       rms_norm, softcap)
 from repro_torch.optim.base import flatten_with_paths, tree_map, unflatten
 
 AUX_COEF = 0.01  # MoE load-balance loss weight, as the JAX package
@@ -105,6 +105,12 @@ def init(cfg, generator: torch.Generator, device) -> LM:
 def abstract_params(cfg) -> Dict[str, Any]:
     """The parameter tree on the ``meta`` device: shapes and dtypes only."""
     return _build(cfg, None, "meta")
+
+
+def param_count(cfg) -> int:
+    """The number of parameters of ``cfg`` (counted on the ``meta``
+    device)."""
+    return sum(t.numel() for t in flatten_with_paths(abstract_params(cfg))[1])
 
 
 def param_axes(cfg) -> Dict[str, Any]:
@@ -287,22 +293,63 @@ def _serve_forward(cfg, params, tokens, mode, caches, mrope_positions):
     return logits, new
 
 
+def _build_cache(cfg, b: Builder, B: int, max_len: int) -> Dict[str, Any]:
+    """The per-block dense caches from ``b``, without ``pos``."""
+    cache: Dict[str, Any] = {}
+    if cfg.n_periods > 0:
+        cache["layers"] = {
+            f"b{i}": blocks.block_cache(b, cfg, kind, B, max_len,
+                                        lead=(cfg.n_periods,))
+            for i, kind in enumerate(cfg.pattern)}
+    if cfg.rem_layers:
+        cache["rem"] = {f"b{i}": blocks.block_cache(b, cfg, cfg.pattern[i],
+                                                    B, max_len)
+                        for i in range(cfg.rem_layers)}
+    return cache
+
+
 def init_cache(cfg, B: int, max_len: int, device) -> Dict[str, Any]:
     """Zeroed dense decode caches for ``B`` rows of ``max_len`` positions:
     per block ``{"k", "v"}`` (see ``blocks.block_cache``), the periods'
     stacked on a leading ``n_periods`` axis as ``params["layers"]`` is,
     and ``pos = 0``."""
+    cache = _build_cache(cfg, Builder(None, device, cfg.torch_dtype), B,
+                         max_len)
+    cache["pos"] = 0
+    return cache
+
+
+def abstract_cache(cfg, B: int, max_len: int) -> Dict[str, Any]:
+    """:func:`init_cache`'s tree on the ``meta`` device, ``pos`` an
+    ``int32`` scalar: shapes and dtypes only."""
+    cache = _build_cache(cfg, Builder(None, "meta", cfg.torch_dtype), B,
+                         max_len)
+    cache["pos"] = torch.empty((), dtype=torch.int32, device="meta")
+    return cache
+
+
+def cache_axes(cfg, B: int = 1, max_len: int = 2) -> Dict[str, Any]:
+    """:func:`init_cache`'s tree of logical axes (``layers.Axes``), the
+    stacked periods' leading with ``"layers"``; ``pos`` has none."""
+    cache = _build_cache(cfg, Builder(None, "meta", cfg.torch_dtype,
+                                      mode="axes"), B, max_len)
+    cache["pos"] = Axes(())
+    return cache
+
+
+def _build_paged_caches(cfg, b: Builder, num_pages: int, page_size: int,
+                        kv_quant: Optional[str]) -> Dict[str, Any]:
     cache: Dict[str, Any] = {}
     if cfg.n_periods > 0:
         cache["layers"] = {
-            f"b{i}": blocks.block_cache(cfg, kind, B, max_len, device,
-                                        lead=(cfg.n_periods,))
+            f"b{i}": blocks.block_paged_cache(b, cfg, kind, num_pages,
+                                              page_size, kv_quant,
+                                              lead=(cfg.n_periods,))
             for i, kind in enumerate(cfg.pattern)}
     if cfg.rem_layers:
-        cache["rem"] = {f"b{i}": blocks.block_cache(cfg, cfg.pattern[i], B,
-                                                    max_len, device)
-                        for i in range(cfg.rem_layers)}
-    cache["pos"] = 0
+        cache["rem"] = {f"b{i}": blocks.block_paged_cache(
+            b, cfg, cfg.pattern[i], num_pages, page_size, kv_quant)
+            for i in range(cfg.rem_layers)}
     return cache
 
 
@@ -313,18 +360,15 @@ def init_paged_caches(cfg, num_pages: int, page_size: int,
     and V per block (``{"q": int8, "scale": f32}`` with ``kv_quant=
     "int8"``), stacked over periods as the dense caches are.  No ``pos`` or
     ``page_table``: the engine owns those and passes them per call."""
-    cache: Dict[str, Any] = {}
-    if cfg.n_periods > 0:
-        cache["layers"] = {
-            f"b{i}": blocks.block_paged_cache(cfg, kind, num_pages,
-                                              page_size, kv_quant, device,
-                                              lead=(cfg.n_periods,))
-            for i, kind in enumerate(cfg.pattern)}
-    if cfg.rem_layers:
-        cache["rem"] = {f"b{i}": blocks.block_paged_cache(
-            cfg, cfg.pattern[i], num_pages, page_size, kv_quant, device)
-            for i in range(cfg.rem_layers)}
-    return cache
+    return _build_paged_caches(cfg, Builder(None, device, cfg.torch_dtype),
+                               num_pages, page_size, kv_quant)
+
+
+def abstract_paged_caches(cfg, num_pages: int, page_size: int,
+                          kv_quant: Optional[str] = None) -> Dict[str, Any]:
+    """:func:`init_paged_caches`' tree on the ``meta`` device."""
+    return _build_paged_caches(cfg, Builder(None, "meta", cfg.torch_dtype),
+                               num_pages, page_size, kv_quant)
 
 
 def make_prefill_step(cfg):

@@ -196,12 +196,12 @@ def mamba_apply(p, cfg, x: torch.Tensor, *, mode: str = "train",
     return y @ p["out_proj"], new_cache
 
 
-def mamba_cache(cfg, B: int, device, lead=()) -> dict:
-    """A zeroed decode cache: ``h`` f32 ``(*lead, B, di, st)``, ``conv``
-    ``(*lead, B, ssm_conv - 1, di)`` in the model dtype."""
+def mamba_cache(b: Builder, cfg, B: int, lead=()) -> dict:
+    """A zeroed decode cache from ``b`` (zeros, ``meta`` tensors or axes):
+    ``h`` f32 ``(*lead, B, di, st)``, ``conv`` ``(*lead, B, ssm_conv - 1,
+    di)`` in the builder's (the model's) dtype."""
     di, st, k = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
-    lead = tuple(lead)
-    return {"h": torch.zeros(lead + (B, di, st), dtype=torch.float32,
-                             device=device),
-            "conv": torch.zeros(lead + (B, k - 1, di),
-                                dtype=cfg.torch_dtype, device=device)}
+    return {"h": b.param((B, di, st), ("batch", "inner", None),
+                         init="zeros", lead=lead, dtype=torch.float32),
+            "conv": b.param((B, k - 1, di), ("batch", None, "inner"),
+                            init="zeros", lead=lead)}

@@ -191,18 +191,24 @@ def mlstm_apply(p, cfg, x: torch.Tensor, *, mode: str = "train",
     return h @ p["down_proj"], new_cache
 
 
-def mlstm_cache(cfg, B: int, device, lead=()) -> dict:
+def mlstm_cache(b: Builder, cfg, B: int, lead=()) -> dict:
+    """A zeroed decode cache from ``b``: the f32 matrix memory ``C``, its
+    normaliser ``n`` and stabiliser ``m``, and the conv window in the model
+    dtype."""
     H = cfg.n_heads
     di = 2 * cfg.d_model
     dh = di // H
-    lead = tuple(lead)
 
-    def f32(*shape):
-        return torch.zeros(lead + shape, dtype=torch.float32, device=device)
+    def f32(shape, axes):
+        return b.param(shape, axes, init="zeros", lead=lead,
+                       dtype=torch.float32)
 
-    return {"C": f32(B, H, dh, dh), "n": f32(B, H, dh), "m": f32(B, H),
-            "conv": torch.zeros(lead + (B, cfg.ssm_conv - 1, di),
-                                dtype=cfg.torch_dtype, device=device)}
+    return {"C": f32((B, H, dh, dh), ("batch", None, None, None)),
+            "n": f32((B, H, dh), ("batch", None, None)),
+            "m": f32((B, H), ("batch", None)),
+            "conv": b.param((B, cfg.ssm_conv - 1, di),
+                            ("batch", None, "inner"), init="zeros",
+                            lead=lead)}
 
 
 # ---------------------------------------------------------------------------
@@ -289,8 +295,10 @@ def slstm_apply(p, cfg, x: torch.Tensor, *, mode: str = "train",
     return y, new_cache
 
 
-def slstm_cache(cfg, B: int, device, lead=()) -> dict:
+def slstm_cache(b: Builder, cfg, B: int, lead=()) -> dict:
+    """A zeroed decode cache from ``b``: the f32 states ``c``, ``n``, ``h``
+    and ``m``, ``(*lead, B, H, d_model / H)`` each."""
     H = cfg.n_heads
-    shape = tuple(lead) + (B, H, cfg.d_model // H)
-    return {n: torch.zeros(shape, dtype=torch.float32, device=device)
+    return {n: b.param((B, H, cfg.d_model // H), ("batch", None, None),
+                       init="zeros", lead=lead, dtype=torch.float32)
             for n in "cnhm"}

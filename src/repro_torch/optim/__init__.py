@@ -7,7 +7,8 @@ Every optimizer is a rule declaration over the engine
 reference.
 """
 
-from repro_torch.optim.base import Optimizer
+from repro_torch.optim import engine, hosts, schedules
+from repro_torch.optim.base import Optimizer, default_eligible, global_norm
 from repro_torch.optim.lowrank import adarankgrad, apollo, fira, galore, rso
 from repro_torch.optim.standard import adam, adam_mini, from_host, muon, sgd
 
@@ -31,5 +32,6 @@ def make(name: str, **kw) -> Optimizer:
 
 
 __all__ = ["Optimizer", "make", "adam", "adam_mini", "muon", "sgd", "galore",
-           "apollo", "fira", "adarankgrad", "rso", "from_host", "REGISTRY",
-           "LOWRANK"]
+           "apollo", "fira", "adarankgrad", "rso", "from_host",
+           "default_eligible", "global_norm", "engine", "hosts", "schedules",
+           "REGISTRY", "LOWRANK"]

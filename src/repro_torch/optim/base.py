@@ -12,7 +12,8 @@ in place.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Mapping, NamedTuple, Tuple
+from typing import (Any, Callable, Dict, List, Mapping, NamedTuple,
+                    Sequence, Tuple)
 
 import torch
 
@@ -30,6 +31,12 @@ class Optimizer(NamedTuple):
     # "<bucket>/<metric>" (``optim.engine``; DESIGN.md §12).  None where
     # the optimizer has none; ``update`` never computes a tap.
     tapped_update: Any = None
+
+
+def path_str(path: Sequence[Any]) -> str:
+    """A key path (the dict keys from the root to a leaf) as the
+    '/'-joined string that addresses the leaf."""
+    return "/".join(str(k) for k in path)
 
 
 def flatten_with_paths(tree: Mapping) -> Tuple[List[str], List[Any]]:
@@ -66,6 +73,17 @@ def unflatten(paths: List[str], leaves: List[Any]) -> Dict[str, Any]:
     return out
 
 
+def map_with_path(fn, tree, *rest):
+    """:func:`tree_map` with the leaf's '/'-joined path as ``fn``'s first
+    argument."""
+    def walk(prefix, node, *others):
+        if not isinstance(node, Mapping):
+            return fn(path_str(prefix), node, *others)
+        return {k: walk(prefix + (k,), v, *(o[k] for o in others))
+                for k, v in node.items()}
+    return walk((), tree, *rest)
+
+
 def tree_map(fn, tree, *rest):
     """Apply ``fn`` leaf-wise over dict trees of the same structure; a tree
     that is a bare leaf (SGD's per-leaf state) is ``fn`` of it."""
@@ -94,3 +112,11 @@ def default_eligible(path: str, leaf: torch.Tensor) -> bool:
     if lname.rsplit("/", 1)[-1] in _DENY_SEGMENTS:
         return False
     return leaf.ndim >= 2
+
+
+def global_norm(tree) -> torch.Tensor:
+    """The f32 Euclidean norm of every leaf of ``tree`` together: each
+    leaf's f32 sum of squares, added in flatten order, then the root."""
+    total = sum(torch.sum(leaf.float() ** 2)
+                for leaf in flatten_with_paths(tree)[1])
+    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))

@@ -75,6 +75,7 @@ has its device step read once.  An update none of whose rules declares
 
 from __future__ import annotations
 
+import gc
 import itertools
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
@@ -579,3 +580,31 @@ def state_bytes(state) -> int:
     at its stored dtype (int8 codes, f32 scales, the uint32 key)."""
     return sum(t.numel() * t.element_size()
                for t in flatten_with_paths(state)[1])
+
+
+def live_update_bytes(fn, *args) -> Optional[int]:
+    """Peak bytes allocated on the card during one call ``fn(*args)`` (an
+    ``optimizer.update``, a train step), with the arguments resident:
+    garbage is collected, the peak counter reset, the call made and
+    synchronised, and ``torch.cuda.max_memory_allocated`` read.  None where
+    the arguments hold no CUDA tensor, as the reference returns None where
+    its backend has no memory analysis.
+
+    The reference's figure is XLA's buffer assignment of the compiled
+    executable: arguments + outputs - donated aliases + temporaries.  Here
+    the allocator is read instead: the arguments, everything else the
+    process holds on the card at the call, the outputs and the temporaries
+    live at the worst moment.  The port's update writes the parameters and
+    states in place, which is the reference's donation."""
+    tensors = [t for t in flatten_with_paths({str(i): a for i, a in
+                                              enumerate(args)})[1]
+               if isinstance(t, torch.Tensor)]
+    dev = next((t.device for t in tensors if t.device.type == "cuda"), None)
+    if dev is None:
+        return None
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn(*args)
+    torch.cuda.synchronize(dev)
+    return int(torch.cuda.max_memory_allocated(dev))
