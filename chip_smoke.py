@@ -261,7 +261,14 @@ Phases (any failure raises and the script exits non-zero):
     resumed from 20, bitwise to the 40 straight steps (K1 by plan in both),
     ``serve_batched`` at its defaults (no kernel), and
     ``optim.engine.live_update_bytes`` of one llama-60m update, fused (K1)
-    against staged (K4), A B B A.
+    against staged (K4), A B B A;
+39. the ``model`` mesh axis: two processes on the card over gloo at
+    ``--mesh 1x2`` (``tools/tp_rank.py``) against world 1 here, for
+    llama-60m (f32 and int8 moments, 5 steps at lr 1e-3) and
+    qwen3-moe-30b-a3b's 2-layer cut (2 steps): losses within 2e-3
+    relative, the whole optimizer state and parameters at the end leaf by
+    leaf, each rank's bytes equal to the rule table's, K1/K2
+    launches equal to world 1's; peaks and step times printed.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -281,6 +288,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1406,11 +1414,12 @@ def device_ms(fn, iters, launches, flush):
     ``SPIN_CYCLES``, so the call's launch is queued behind the start event
     before that event fires and the span between the events holds the
     kernel's device time and none of the host's.  ``launches()`` reads the
-    wrapper's launch counter: it must rise by exactly ``iters``."""
+    wrapper's launch counter: it must rise by exactly ``iters`` (None: a
+    library call, not counted)."""
     fn()
     torch.cuda.synchronize()
     spans = []
-    before = launches()
+    before = launches and launches()
     for _ in range(iters):
         flush.zero_()
         torch.cuda._sleep(SPIN_CYCLES)
@@ -1421,7 +1430,7 @@ def device_ms(fn, iters, launches, flush):
         stop.record()
         spans.append((start, stop))
     torch.cuda.synchronize()
-    if launches() - before != iters:
+    if launches is not None and launches() - before != iters:
         raise AssertionError(f"{launches() - before} kernel launches in "
                              f"{iters} timed calls")
     return sum(a.elapsed_time(b) for a, b in spans) / iters
@@ -1503,6 +1512,34 @@ def host_us(fn, calls=100):
     return (t1 - t0) / calls * 1e6
 
 
+def library_turn(kind, x, plain, dtype, flush):
+    """The one PyTorch call that computes K6's or K7's function: a
+    ``torch.matmul`` with the packed orthonormal Haar matrix of
+    ``core.haar_matrix`` (``G @ H`` is the packed ``[A_l | D_l ... D_1]``,
+    so K7 is ``packed @ H.T``), in the kernel's dtype (f32 with TF32 off,
+    bf16 for bf16).  Its device time (as :func:`device_ms`, L2 flushed)
+    and its largest difference from the plain version's bands."""
+    from repro_torch.core import haar
+    if kind == "K6":
+        h = haar.haar_matrix(x.shape[-1], LEVEL, dtype).to(x.device)
+        call = lambda: torch.matmul(x, h)
+        want = torch.cat(plain(x), -1)
+    else:
+        packed = torch.cat(x, -1)
+        h = haar.haar_matrix(packed.shape[-1], LEVEL, dtype).to(
+            packed.device).T.contiguous()
+        call = lambda: torch.matmul(packed, h)
+        want = plain(x)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        err = float((call().float() - want.float()).abs().max())
+        ms = min(device_ms(call, 20, None, flush) for _ in range(2))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return {"library_ms": ms, "library_max_abs_err": err}
+
+
 def time_haar(hk, dev, parent):
     """Phase 12 at level 2: per launch at each leaf shape, the kernel's
     device time (CUDA events around each launch, L2 flushed before it; the
@@ -1565,6 +1602,8 @@ def time_haar(hk, dev, parent):
                    "parent_ms": min(t_parent) if old else None,
                    "plain_ms": min(t_plain), "bound_ms": b_ms,
                    "bound_by": b_by, "bytes": nbytes}
+            if kind in ("K6", "K7"):
+                row.update(library_turn(kind, x, plain, dtype, flush))
             print(f"{name} time {shape}: kernel {row['ms']:.4f} ms on the "
                   f"device (runs {t_dev}), {b_ms / row['ms']:.1%} of bound; "
                   f"parent's "
@@ -1572,7 +1611,11 @@ def time_haar(hk, dev, parent):
                      else "not built (tools/parent_kernels.py not run)")
                   + f"; {row['call_ms']:.4f} ms per call (runs {t_call}), "
                   f"plain {row['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by "
-                  f"{b_by} ({nbytes / 1e6:.2f} MB)")
+                  f"{b_by} ({nbytes / 1e6:.2f} MB)"
+                  + (f"; torch.matmul with core.haar_matrix "
+                     f"{row['library_ms']:.4f} ms, largest difference from "
+                     f"the plain version {row['library_max_abs_err']:.3g}"
+                     if "library_ms" in row else ""))
             rows[name].append(row)
     groups = {}
     for name in ("K3 bf16", "K3 fp8", "K6 bf16"):
@@ -2324,7 +2367,9 @@ def step_entry(name, source, replaces, launches, max_abs_err, rows,
             "plain_ms": step("plain_ms"), "bound_ms": step("bound_ms"),
             "bound_by": "bytes" if all(r["bound_by"] == "bytes"
                                        for r in rows) else "operations",
-            "library_ms": None, "per_launch": rows, **extra}
+            "library_ms": step("library_ms") if all(
+                "library_ms" in r for r in rows) else None,
+            "per_launch": rows, **extra}
 
 
 def bf16_step(rows):
@@ -3902,8 +3947,8 @@ def moe_probe():
         seen["pairs"].append(out[2].numel())
         return out
 
-    def counted_dense(p, cfg, x):
-        y, aux = dense(p, cfg, x)
+    def counted_dense(p, cfg, x, *rest):
+        y, aux = dense(p, cfg, x, *rest)
         seen["aux"].append(aux.detach())
         return y, aux
 
@@ -5135,6 +5180,289 @@ def run_examples(kernel, hk, dev):
     return out
 
 
+# phase 39: the model mesh axis.  Two processes share the one card, joined
+# by a gloo group over CUDA tensors (NCCL refuses two ranks on one device;
+# gloo takes all_reduce, all_gather and broadcast of CUDA tensors, through
+# host memory), each running tools/tp_rank.py: the launcher at --mesh 1x2
+# (the tensor-parallel step) for each of TP_RUNS at 16 x 256 and GWT-2.
+# The same runs at world 1 in this process first, the reference they are
+# held to, while the ranks start.  The MoE cut takes 2 steps: over gloo
+# one of its steps moves ~15 GB through host memory (the update gathers
+# each bucket's parameters, gradients and state) and takes 14-19 s.
+#
+# Two checks against world 1.  The losses, each step within TP_LOSS_RTOL
+# (relative; tests/test_torch_tp_ranks.py's bound for a bf16 model against
+# one rank).  llama-60m's loss starts at 509, and at the launcher's lr 0.01
+# it falls to 77 in two steps, a trajectory that amplifies a last-bit
+# difference: world 1 against itself at --accum 2 (the same gradient
+# summed in another order) is 1.6e-2 apart at step 5.  So the dense runs
+# take TP_DENSE_LR, where they are not chaotic (tools/tp_phase.py --spread
+# measures world 1's own spread there: 9.6e-6).  And, since a loss curve
+# hides a gradient of the wrong scale (Adam's update is invariant to it),
+# the whole optimizer state and parameters at the end of each run
+# (gathered over model, as a checkpoint holds them), through a sketch of
+# each leaf (tree_sketch): each state leaf within TP_STATE_RTOL of world
+# 1's norm, each parameter leaf within TP_MOVE_RTOL of world 1's move from
+# the init.  A gradient with one rank's share missing, or counted twice,
+# is O(1) off in the moments; one of another direction, in both.  (The
+# schedule's first lr is 0: a run's parameters first move at step 2.)
+TP_DENSE_LR = "1e-3"
+# (label, arch, depth cut, steps, extra flags)
+TP_RUNS = [("llama-60m f32", "llama-60m", None, 5, ["--lr", TP_DENSE_LR]),
+           ("llama-60m int8", "llama-60m", None, 5,
+            ["--lr", TP_DENSE_LR, "--state-codec", "int8"]),
+           ("qwen3-moe-30b-a3b 2 layers", "qwen3-moe-30b-a3b", 2, 2, [])]
+TP_LOSS_RTOL = 2e-3
+TP_STATE_RTOL = 5e-2
+TP_MOVE_RTOL = 0.3
+TP_SKETCH = 64
+TP_TIMEOUT_S = 240
+
+
+def tp_argv(arch, steps, extra):
+    return ["--arch", arch, "--steps", str(steps), "--batch", "16",
+            "--seq", "256", "--log-every", "1", "--seed", "0", *extra]
+
+
+def tree_sketch(tree):
+    """``{path: (sketch, norm)}`` of every leaf: the leaf flattened
+    in f32, times a normal draw seeded by its path, summed into
+    ``TP_SKETCH`` buckets in f64.  The sketches of two trees differ by a
+    vector whose norm estimates that of their difference (within ~20% at
+    64 buckets); ``norm`` is the leaf's own, exact."""
+    from repro_torch.optim.base import flatten_with_paths
+    out = {}
+    for path, leaf in zip(*flatten_with_paths(tree)):
+        x = leaf.detach().flatten().float()
+        g = torch.Generator(device=x.device).manual_seed(
+            zlib.crc32(path.encode()))
+        y = x * torch.randn(x.numel(), generator=g, device=x.device)
+        y = torch.nn.functional.pad(y, (0, (-y.numel()) % TP_SKETCH))
+        out[path] = (y.view(-1, TP_SKETCH).sum(0, dtype=torch.float64)
+                     .tolist(),
+                     float(torch.linalg.vector_norm(x, dtype=torch.float64)))
+        del x, y
+    return out
+
+
+def sketch_gap(a, b) -> float:
+    return float(np.linalg.norm(np.subtract(a, b)))
+
+
+def state_check(got, ref):
+    """A rank's ``{"params", "opt"}`` sketches against world 1's, leaf by
+    leaf: the optimizer state relative to world 1's leaf norm, the
+    parameters relative to world 1's move from the init.  Returns the
+    largest of each with its leaf, and the failures."""
+    worst = {"opt": (0.0, None), "params": (0.0, None)}
+    failed = []
+    for part, bound in (("opt", TP_STATE_RTOL), ("params", TP_MOVE_RTOL)):
+        if set(got[part]) != set(ref[part]):
+            failed.append(f"{part} leaves "
+                          f"{sorted(set(got[part]) ^ set(ref[part]))[:4]} "
+                          f"differ from world 1's")
+            continue
+        for path, (sk, _) in got[part].items():
+            want, norm = ref[part][path]
+            scale = norm if part == "opt" else sketch_gap(
+                want, ref["init"][path][0])
+            gap = sketch_gap(sk, want)
+            rel = 0.0 if gap == 0.0 else (gap / scale if scale else math.inf)
+            if rel > worst[part][0]:
+                worst[part] = (rel, path)
+            if rel > bound:
+                failed.append(f"{part} {path} {rel:.3g} off (bound {bound})")
+    return worst, failed
+
+
+def tp_table_bytes(cfg, codec):
+    """The rule table's bytes of one rank at ``model=2``: parameters and
+    GWT-2 state, computed from shapes."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models import lm
+    from repro_torch.optim import make
+    sh = sharding.tp_step_shardings(
+        cfg, lm, {"tokens": torch.empty((16, 256), device="meta")},
+        sharding.Mesh((1, 2), ("data", "model")), state_codec=codec)
+    abs_p = lm.abstract_params(cfg)
+    st = make("gwt", lr=0.0, level=LEVEL, state_codec=codec).init(abs_p)
+    return {"params": sharding.shard_bytes(abs_p, sh.params),
+            "state": sharding.shard_bytes(st, sh.opt),
+            "params_whole": sharding.shard_bytes(abs_p, None),
+            "state_whole": sharding.shard_bytes(st, None)}
+
+
+def start_tp_ranks(runs, out):
+    """Start the two ranks of tools/tp_rank.py on the card, their output
+    to ``out``; each makes ``runs`` once ``out/go`` exists."""
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
+                   LOCAL_RANK="0", MASTER_ADDR="localhost",
+                   PYTHONPATH=os.path.join(REPO, "src"))
+        with open(os.path.join(out, f"log{rank}"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(REPO, "tools", "tp_rank.py"),
+                 out, json.dumps(runs)], cwd=REPO, env=env, stdout=log,
+                stderr=subprocess.STDOUT))
+    return procs
+
+
+def finish_tp_ranks(procs, out):
+    """Let the ranks run, wait for both (killing both at ``TP_TIMEOUT_S``
+    or when one fails); return each rank's run summaries and its log."""
+    Path(out, "go").touch()
+    deadline = time.perf_counter() + TP_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.perf_counter() > deadline or any(
+                    p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    logs = [Path(out, f"log{r}").read_text() for r in range(2)]
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 39 rank {rank} exited "
+                                 f"{p.returncode}:\n{log[-6000:]}")
+    return [json.loads(Path(out, f"rank{r}.json").read_text())
+            for r in range(2)], logs
+
+
+def run_tp(train, kernel, hk):
+    """Phase 39 (the model mesh axis): each of ``TP_RUNS`` at world 1
+    here, then at ``--mesh 1x2`` on two processes sharing the card.  Each
+    rank's losses within ``TP_LOSS_RTOL`` of world 1's, its state and
+    parameters at the end within ``TP_STATE_RTOL`` and ``TP_MOVE_RTOL``
+    (``state_check``), its K1/K2 launches (by design)
+    equal to world 1's and to the plan's, its parameter and state bytes
+    equal to the rule table's; prints each rank's peak memory and step
+    time beside world 1's.  Every run is checked before a failure
+    raises."""
+    t0 = time.perf_counter()
+    runs = [{"label": label, "arch": arch, "layers": layers,
+             "argv": tp_argv(arch, steps, extra), "steps": steps,
+             "q8": "int8" in extra}
+            for label, arch, layers, steps, extra in TP_RUNS]
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    procs = []
+    try:
+        procs = start_tp_ranks(runs, out_dir)
+        refs = [tp_world1(train, kernel, hk, run) for run in runs]
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_ranks = time.perf_counter()
+        ranks, logs = finish_tp_ranks(procs, out_dir)
+        t_ranks = time.perf_counter() - t_ranks
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    out, failed = {}, []
+    for i, (run, ref) in enumerate(zip(runs, refs)):
+        label = run["label"]
+        got = [r[i] for r in ranks]
+        for rank, g in enumerate(got):
+            if g["label"] != label:
+                raise AssertionError(f"phase 39 rank {rank}: run {i} is "
+                                     f"{g['label']}, want {label}")
+            diff = [abs(a - b) for a, b in zip(g["losses"], ref["losses"])]
+            rel = max(d / abs(b) for d, b in zip(diff, ref["losses"]))
+            g["loss_rel_vs_world1"] = rel
+            if len(g["losses"]) != run["steps"] or rel > TP_LOSS_RTOL \
+                    or not np.all(np.isfinite(g["losses"])):
+                failed.append(f"{label} rank {rank}: losses {g['losses']} "
+                              f"vs world 1 {ref['losses']}, {rel:.3g} "
+                              f"relative (bound {TP_LOSS_RTOL})")
+            if g["counts"] != ref["counts"]:
+                failed.append(f"{label} rank {rank}: launched "
+                              f"{g['counts']}, world 1 {ref['counts']}")
+            table = ref["table"]
+            if (g["params_bytes"], g["state_bytes"]) != (table["params"],
+                                                         table["state"]):
+                failed.append(f"{label} rank {rank}: holds "
+                              f"{g['params_bytes']} parameter and "
+                              f"{g['state_bytes']} state bytes, the table "
+                              f"says {table}")
+            worst, bad = state_check(g.pop("sketch"), ref["sketch"])
+            failed += [f"{label} rank {rank}: {b}" for b in bad]
+            g["state_rel_vs_world1"] = worst["opt"]
+            g["move_rel_vs_world1"] = worst["params"]
+            print(f"phase 39 {label} rank {rank}: losses {g['losses']} "
+                  f"(differences to world 1 {diff}, largest relative "
+                  f"{rel:.3g}); after step {run['steps']} the optimizer "
+                  f"state within {worst['opt'][0]:.3g} of world 1's norm "
+                  f"(largest at {worst['opt'][1]}; bound {TP_STATE_RTOL}), "
+                  f"the parameters within {worst['params'][0]:.3g} of world "
+                  f"1's move (largest at {worst['params'][1]}; bound "
+                  f"{TP_MOVE_RTOL}); parameters {g['params_bytes']} "
+                  f"and state {g['state_bytes']} bytes = the table's (of "
+                  f"{table['params_whole']} and {table['state_whole']} "
+                  f"whole); peak {g['peak_mib']:.1f} MiB (world 1 "
+                  f"{ref['peak_mib']:.1f}); launches {g['counts']} = world "
+                  f"1's; step {g['step_ms']} ms (world 1 {ref['step_ms']} "
+                  f"ms; gloo over host memory, two processes on one card)")
+        ref.pop("sketch")
+        out[label] = {"world1": ref, "ranks": got}
+    for line in logs[0].splitlines():
+        if "tensor_parallel=model" in line:
+            print(f"phase 39 rank 0 logged: {line}")
+    out["phase_s"] = time.perf_counter() - t0
+    out["ranks_s"] = t_ranks
+    print(f"phase 39: {out['phase_s']:.1f} s (the two ranks "
+          f"{t_ranks:.1f} s after world 1's runs); card {smi()}")
+    if failed:
+        raise AssertionError("phase 39: " + "; ".join(failed))
+    return out
+
+
+def tp_world1(train, kernel, hk, run):
+    """One of ``TP_RUNS`` at world 1, counts set to 0 just before and
+    read just after, and the sketches of its whole state and parameters at
+    the end and of the init (``state_check``)."""
+    from repro_torch import configs
+    from repro_torch.models import module_for
+    cut = depth_cut(run["arch"], run["layers"]) if run["layers"] \
+        else contextlib.nullcontext()
+    with cut:
+        cfg = configs.get_config(run["arch"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernel, hk)
+        res = train.main(run["argv"])
+        torch.cuda.synchronize()
+        counts = all_counts(kernel, hk)
+        peak = torch.cuda.max_memory_allocated()
+        ref = {"losses": list(res.losses), "counts": counts,
+               "peak_mib": peak / 2**20, "step_ms": res.step_ms,
+               "table": tp_table_bytes(cfg, "int8" if run["q8"] else "f32"),
+               "sketch": {"params": tree_sketch(res.params),
+                          "opt": tree_sketch(res.opt_state)}}
+        del res
+        # the launcher's init: the same seed on the card's generator
+        init = module_for(cfg).init(
+            cfg, torch.Generator(device="cuda").manual_seed(0),
+            torch.device("cuda")).tree()
+        ref["sketch"]["init"] = tree_sketch(init)
+        del init
+    label = run["label"]
+    want = fused_plan_counts(kernel, cfg, run["steps"], q8=run["q8"])
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"phase 39 {label} world 1: launched "
+                             f"{counts}, the plan says {want}")
+    print(f"phase 39 {label} world 1: losses {ref['losses']}, step "
+          f"{ref['step_ms']} ms, peak {ref['peak_mib']:.1f} MiB, launches "
+          f"{counts}")
+    return ref
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA "
@@ -5263,6 +5591,8 @@ def main() -> int:
     print(f"phase 37: the script so far {time.perf_counter() - t0:.1f} s")
     examples = run_examples(kernel, hk, dev)
     print(f"phase 38: the script so far {time.perf_counter() - t0:.1f} s")
+    tp = run_tp(train, kernel, hk)
+    print(f"phase 39: the script so far {time.perf_counter() - t0:.1f} s")
     print(f"staged step vs fused step (same call): launcher-equivalent "
           f"loop {staged32['step_ms']:.2f} vs {res32.step_ms:.2f} ms; "
           f"profiled {prof_staged['step_ms']:.2f} vs "
@@ -5307,7 +5637,9 @@ def main() -> int:
                     sharded_params=shard["qwen2.5-3b"],
                     sharded_rank_bytes_computed=shard[
                         "qwen2.5-3b data=8 rank bytes (computed)"],
-                    examples=examples),
+                    examples=examples,
+                    tensor_parallel={k: v for k, v in tp.items()
+                                     if k != "llama-60m int8"}),
         fused_entry("gwt_adam_fused_q8",
                     "gwt_adam/csrc/gwt_adam_fused_q8.cu",
                     "src/repro/kernels/gwt_adam/kernel.py:554",
@@ -5331,7 +5663,8 @@ def main() -> int:
                         "engine": observability["engine"][
                             "llama-60m int8 (K2)"],
                         "metrics_dir": observability["metrics_dir"]["int8"]},
-                    sharded_params=shard["llama-60m int8 compressed"]),
+                    sharded_params=shard["llama-60m int8 compressed"],
+                    tensor_parallel=tp["llama-60m int8"]),
         group_entry("haar_dwt_fwd_q",
                     "src/repro/kernels/haar_dwt/kernel.py:124",
                     dp_counts["K3"], err_haar, rows_haar["K3 bf16"],

@@ -13,14 +13,18 @@ The pieces, as pure functions of shapes and names (no process group, no
 device; ``meta`` tensors will do):
 
 * :class:`Mesh` — axis names and sizes (``jax.sharding.AbstractMesh``), and
-  at run time this process's coordinates and its ``DeviceMesh``;
+  at run time this process's coordinates and its process group along each
+  axis;
 * :class:`Spec` — the ``PartitionSpec`` counterpart: per dimension None,
   one mesh axis, or a tuple of them, trailing Nones dropped;
 * :class:`NamedSharding` — a mesh and a spec;
 * :func:`train_rules`, :func:`decode_rules`, :func:`spec_for`,
   :func:`tree_shardings`, :func:`gwt_state_shardings` (mirrors the port's
   own GWT bucket plan), :func:`batch_shardings`, :func:`replicated_like`,
-  :func:`train_step_shardings` and :class:`StepShardings`.
+  :func:`train_step_shardings` and :class:`StepShardings`;
+* the ``model`` axis's tensor-parallel placement (:func:`tp_rules`,
+  :func:`tp_step_shardings`): the table's model entries, split at head
+  granularity, which ``distributed/tensor_parallel.py`` computes on.
 
 Placement.  A placed tensor is stored as the rank's *local shard*, a plain
 contiguous tensor, beside its :class:`NamedSharding`; it is not kept as a
@@ -30,9 +34,10 @@ accounting walk plain tensors, and a shard over mesh axes of size 1 is the
 full tensor itself: :func:`shard` and :func:`gather` return their input
 there, with no copy and no collective, so at world size 1 the placed layout
 holds no byte more than the replicated one.  :func:`gather` builds the
-whole tensor through ``DTensor.from_local(...).full_tensor()`` over the
-run's ``DeviceMesh``; :func:`shard` is a local slice (every rank holds the
-whole tensor when it shards, so no collective is needed).
+whole tensor with list ``all_gather``s over the process group of each split
+mesh axis (the minor axis first), which gloo also takes on CUDA tensors;
+:func:`shard` is a local slice (every rank holds the whole tensor when it
+shards, so no collective is needed).
 """
 
 from __future__ import annotations
@@ -53,12 +58,15 @@ Rules = Dict[str, Tuple[Candidate, ...]]
 class Mesh:
     """A device mesh's axis names and sizes (``shape``, an ordered dict as
     the JAX mesh's).  At run time it also holds this process's coordinate
-    along each axis (``coords``) and the ``torch.distributed``
-    ``DeviceMesh`` that gathers placed tensors; a mesh without one is
-    abstract (the rule table's input), or one process."""
+    along each axis (``coords``) and, for each axis of size > 1, the
+    ``torch.distributed`` group of the ranks that differ from this one only
+    along it (``groups``, built by ``launch.mesh.init_mesh``), over which
+    placed tensors are gathered; a mesh without them is abstract (the rule
+    table's input), or one process."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
-                 coords: Optional[Sequence[int]] = None, device_mesh=None):
+                 coords: Optional[Sequence[int]] = None,
+                 groups: Optional[Mapping[str, Any]] = None):
         if len(shape) != len(axis_names):
             raise ValueError(f"mesh shape {tuple(shape)} and axis names "
                              f"{tuple(axis_names)} differ in length")
@@ -67,7 +75,7 @@ class Mesh:
         self.coords = dict(zip(self.axis_names,
                                coords if coords is not None
                                else (0,) * len(self.axis_names)))
-        self.device_mesh = device_mesh
+        self.groups = dict(groups or {})
 
     def __repr__(self):
         return f"Mesh({self.shape})"
@@ -118,6 +126,28 @@ def train_rules(mesh: Mesh) -> Rules:
         "batch": (dp,),
         "seq": (),
     }
+
+
+def tp_rules(mesh: Mesh, cfg) -> Rules:
+    """The placement of the tensor-parallel step along ``model``: the model
+    entries of :func:`train_rules` (``vocab``, ``heads``, ``kv_heads``,
+    ``mlp``, ``expert``, ``expert_mlp``) and nothing over the data axes (the
+    reference places nothing there without ``--dp-reduce``).  ``inner``
+    (mamba) is left out: that family keeps the replicated step.
+
+    Heads are split whole: ``spec_for`` tests the flat ``H·hd`` dimension,
+    which may divide where the head count does not (qwen2.5-3b's two KV
+    heads at ``model=4``).  So ``heads`` is split only where ``n_heads``
+    divides the axis, and ``kv_heads`` only where both head counts do; a
+    K/V projection left whole is computed whole on every rank
+    (``models/attention.py``)."""
+    m = mesh.shape.get("model", 1)
+    heads = cfg.n_heads % m == 0
+    kv = heads and cfg.n_kv_heads % m == 0
+    model = ("model",)
+    return {"vocab": model, "heads": model if heads else (),
+            "kv_heads": model if kv else (), "mlp": model,
+            "expert": model, "expert_mlp": model}
 
 
 def decode_rules(mesh: Mesh) -> Rules:
@@ -301,17 +331,18 @@ def train_step_shardings(cfg, mod, batch_abstract, mesh: Mesh, *,
                          optimizer_name: str = "gwt", level: int = 2,
                          host: str = "adam", eligible=None,
                          shard_params: bool = True,
-                         state_codec: str = "f32") -> StepShardings:
+                         state_codec: str = "f32",
+                         rules: Optional[Rules] = None) -> StepShardings:
     """The placements of the sharded train step.  ``shard_params`` applies
-    :func:`train_rules` to the parameters and, for GWT, the bucket layout
-    to its state; False replicates everything (classic DP).  Batches are
-    always split over the DP axes."""
+    ``rules`` (default :func:`train_rules`) to the parameters and, for GWT,
+    the bucket layout to its state; False replicates everything (classic
+    DP).  Batches are always split over the DP axes."""
     params_abs = mod.abstract_params(cfg)
     batch_sh = batch_shardings(batch_abstract, mesh)
     if not shard_params:
         return StepShardings(replicated_like(params_abs, mesh), None,
                              batch_sh)
-    rules = train_rules(mesh)
+    rules = train_rules(mesh) if rules is None else rules
     params_axes = mod.param_axes(cfg)
     params_sh = tree_shardings(params_abs, params_axes, mesh, rules)
     opt_sh = None
@@ -320,6 +351,15 @@ def train_step_shardings(cfg, mod, batch_abstract, mesh: Mesh, *,
                                      level, eligible=eligible, host=host,
                                      state_codec=state_codec)
     return StepShardings(params_sh, opt_sh, batch_sh)
+
+
+def tp_step_shardings(cfg, mod, batch_abstract, mesh: Mesh,
+                      **kw) -> StepShardings:
+    """:func:`train_step_shardings` under :func:`tp_rules`: the placements
+    of the tensor-parallel step (parameters and GWT's state over
+    ``model``)."""
+    return train_step_shardings(cfg, mod, batch_abstract, mesh,
+                                rules=tp_rules(mesh, cfg), **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -388,34 +428,31 @@ def shard(full: torch.Tensor, sh: Optional[NamedSharding]) -> torch.Tensor:
 def gather(local: torch.Tensor, sh: Optional[NamedSharding]
            ) -> torch.Tensor:
     """The whole tensor of which ``local`` is this rank's shard (a
-    collective over the mesh: every rank calls it), or ``local`` itself
-    where nothing is split.  Keeps ``requires_grad``; the result has no
-    autograd history."""
+    collective over the split axes' groups: every rank calls it), or
+    ``local`` itself where nothing is split.  Keeps ``requires_grad``; the
+    result has no autograd history."""
     split = [] if sh is None else _split(sh)
     if not split:
         return local
-    dm = sh.mesh.device_mesh
-    if dm is None:
-        raise RuntimeError(f"gathering over {sh.spec} needs the run's "
-                           f"DeviceMesh; {sh.mesh} has none")
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    placements = [Replicate()] * len(sh.mesh.axis_names)
-    for d, names in split:
-        dims = [sh.mesh.axis_names.index(a) for a in names]
-        if dims != sorted(dims):
-            raise ValueError(f"spec entry {names} is not in mesh order "
-                             f"{sh.mesh.axis_names}: DTensor splits a "
-                             f"dimension over mesh axes in mesh order")
-        for m in dims:
-            placements[m] = Shard(d)
-    shape = full_shape(local.shape, sh)
-    stride = torch.empty(shape, device="meta").stride()
+    import torch.distributed as dist
+    x = local.detach().contiguous()
     with torch.no_grad():
-        dt = DTensor.from_local(local.detach().contiguous(), dm, placements,
-                                run_check=False, shape=torch.Size(shape),
-                                stride=stride)
-        out = dt.full_tensor()
-    return out.requires_grad_(local.requires_grad)
+        for d, names in split:
+            # the first name is the major: gather along the minor first
+            for a in reversed(names):
+                n = sh.mesh.shape[a]
+                if n == 1:
+                    continue
+                group = sh.mesh.groups.get(a)
+                if group is None:
+                    raise RuntimeError(
+                        f"gathering over {sh.spec} needs the run's process "
+                        f"group along {a!r}; {sh.mesh} has none "
+                        f"(launch.mesh.init_mesh builds them)")
+                parts = [torch.empty_like(x) for _ in range(n)]
+                dist.all_gather(parts, x, group=group)
+                x = torch.cat(parts, d)
+    return x.requires_grad_(local.requires_grad)
 
 
 def _tree_apply(fn, tree, shardings):
@@ -478,6 +515,16 @@ def full_meta(tree, shardings):
     paths, leaves = flatten_with_paths(tree)
     return unflatten(paths, [torch.empty(
         full_shape(t.shape, flat[p]) if p in flat else t.shape,
+        dtype=t.dtype, device="meta") for p, t in zip(paths, leaves)])
+
+
+def local_meta(tree, shardings):
+    """This rank's shard shapes of a tree of whole tensors (``meta`` will
+    do), on the ``meta`` device."""
+    flat = flat_shardings(shardings) if shardings is not None else {}
+    paths, leaves = flatten_with_paths(tree)
+    return unflatten(paths, [torch.empty(
+        local_shape(t.shape, flat[p]) if p in flat else t.shape,
         dtype=t.dtype, device="meta") for p, t in zip(paths, leaves)])
 
 

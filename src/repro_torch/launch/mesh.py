@@ -10,13 +10,21 @@ the run is one rank, and no collective is issued.
 
 :func:`init_mesh` lays the ranks out on a mesh of 1-3 axes, ``(data)``,
 ``(data, model)`` or ``(pod, data, model)`` (``--mesh 8``, ``4x2``,
-``2x4x2``), rank ``r`` at the row-major coordinate of ``r`` as
-``init_device_mesh`` places it.  The mesh's size must be ``WORLD_SIZE``.
-The :class:`DPContext` it returns is the data axes' (pod x data): its
-``rank`` and ``world`` are this process's index and the count along them,
-its ``group`` theirs; the ranks along ``model`` form separate data groups.
-The ``sharding.Mesh`` it returns carries the ``DeviceMesh`` over which
-placed tensors are gathered (none at world size 1: nothing is split).
+``2x4x2``), rank ``r`` at the row-major coordinate of ``r``.  The mesh's
+size must be ``WORLD_SIZE``.  The :class:`DPContext` it returns is the data
+axes' (pod x data): its ``rank`` and ``world`` are this process's index and
+the count along them, its ``group`` theirs; the ranks along ``model`` form
+separate data groups.  Its ``model_group`` holds this process's ranks along
+``model`` (one group per data coordinate; ``model_rank`` of
+``model_world``), over which the tensor-parallel step runs its collectives.
+The ``sharding.Mesh`` it returns carries this process's group along each
+axis of size > 1, over which placed tensors are gathered.  Every process
+creates every group in the same order.
+
+``backend`` picks the process group's backend: NCCL for CUDA and gloo for
+CPU tensors by default; ``"gloo"`` on CUDA lets several ranks share one
+card (gloo takes ``all_reduce``, ``all_gather`` and ``broadcast`` of CUDA
+tensors), with ``LOCAL_RANK`` naming the card each rank takes.
 """
 
 from __future__ import annotations
@@ -70,6 +78,10 @@ class DPContext:
     group: Optional[dist.ProcessGroup] = None   # None: one rank
     process_rank: Optional[int] = None
     processes: Optional[int] = None
+    # the ranks along ``model`` at this process's data coordinate
+    model_group: Optional[dist.ProcessGroup] = None   # None: one rank
+    model_rank: int = 0
+    model_world: int = 1
 
     def __post_init__(self):
         if self.process_rank is None:
@@ -108,9 +120,11 @@ class DPContext:
             self.group = None
 
 
-def init_dp(device: torch.device) -> DPContext:
+def init_dp(device: torch.device, backend: Optional[str] = None
+            ) -> DPContext:
     """Join the process group the environment describes, or make a
-    one-rank context on ``device``."""
+    one-rank context on ``device``.  ``backend`` None: NCCL on CUDA, gloo
+    on the CPU."""
     env = os.environ
     if "RANK" not in env or "WORLD_SIZE" not in env:
         return DPContext(device=device)
@@ -124,9 +138,7 @@ def init_dp(device: torch.device) -> DPContext:
     if device.type == "cuda":
         device = torch.device("cuda", int(env.get("LOCAL_RANK", rank)))
         torch.cuda.set_device(device)
-        backend = "nccl"
-    else:
-        backend = "gloo"
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     dist.init_process_group(backend, init_method=f"tcp://{addr}:{port}",
                             rank=rank, world_size=world)
     return DPContext(device=device, rank=rank, world=world,
@@ -142,7 +154,30 @@ def _coords(rank: int, shape: Sequence[int]) -> Tuple[int, ...]:
     return tuple(reversed(out))
 
 
-def init_mesh(device: torch.device, shape: Optional[Sequence[int]] = None
+def _axis_groups(shape: Sequence[int], axis: int, coords: Sequence[int]):
+    """Every group of ranks that differ only along ``axis`` (each created
+    by every process, in the same order); returns this process's, None
+    where it holds one rank."""
+    world = math.prod(shape)
+    mine = None
+    seen = set()
+    for r in range(world):
+        c = _coords(r, shape)
+        key = c[:axis] + c[axis + 1:]
+        if key in seen:
+            continue
+        seen.add(key)
+        ranks = [q for q in range(world)
+                 if _coords(q, shape)[:axis] + _coords(q, shape)[axis + 1:]
+                 == key]
+        g = dist.new_group(ranks) if len(ranks) > 1 else None
+        if key == tuple(coords[:axis]) + tuple(coords[axis + 1:]):
+            mine = g
+    return mine
+
+
+def init_mesh(device: torch.device, shape: Optional[Sequence[int]] = None,
+              backend: Optional[str] = None
               ) -> Tuple[DPContext, sharding.Mesh]:
     """Join the run's process group (:func:`init_dp`) and lay its ranks out
     on a mesh of ``shape`` (default: every rank over ``data``).  Returns the
@@ -157,29 +192,33 @@ def init_mesh(device: torch.device, shape: Optional[Sequence[int]] = None
             f"devices but WORLD_SIZE is {world}: launch "
             f"{math.prod(shape)} ranks (torchrun --nproc-per-node "
             f"{math.prod(shape)}) or change --mesh")
-    dp = init_dp(device)
+    dp = init_dp(device, backend)
     coords = _coords(dp.process_rank, shape)
-    device_mesh = None
+    groups = {}
     if dp.processes > 1:
-        from torch.distributed.device_mesh import init_device_mesh
-        device_mesh = init_device_mesh(dp.device.type, shape,
-                                       mesh_dim_names=names)
-    mesh = sharding.Mesh(shape, names, coords, device_mesh)
+        for i, name in enumerate(names):
+            if shape[i] > 1:
+                groups[name] = _axis_groups(shape, i, coords)
+    mesh = sharding.Mesh(shape, names, coords, groups)
     if "model" not in names:
         return dp, mesh
-    # the data axes (pod x data) of each model coordinate form one group;
-    # every process makes every group, in the same order
+    # the data axes (pod x data) of each model coordinate form one group
+    # (on a (data, model) mesh, the group along 'data'); every process
+    # makes every group, in the same order
     data_shape = shape[:-1]
     n_data = math.prod(data_shape)
-    group = None
-    for m in range(shape[-1]):
-        ranks = [r for r in range(world) if _coords(r, shape)[-1] == m]
-        g = dist.new_group(ranks) if n_data > 1 else None
-        if m == coords[-1]:
-            group = g
+    group = groups.get("data")
+    if len(data_shape) > 1:
+        for m in range(shape[-1]):
+            ranks = [r for r in range(world) if _coords(r, shape)[-1] == m]
+            g = dist.new_group(ranks) if n_data > 1 else None
+            if m == coords[-1]:
+                group = g
     data_rank = 0
     for c, n in zip(coords[:-1], data_shape):
         data_rank = data_rank * n + c
     return DPContext(device=dp.device, rank=data_rank, world=n_data,
                      group=group, process_rank=dp.process_rank,
-                     processes=dp.processes), mesh
+                     processes=dp.processes,
+                     model_group=groups.get("model"),
+                     model_rank=coords[-1], model_world=shape[-1]), mesh

@@ -83,9 +83,21 @@ count (error-feedback residues excepted).  The ``memory`` line logs the
 whole state's bytes, a ``shard`` line each rank's.
 
 A mesh of several ranks without ``--dp-reduce`` runs the exact f32 mean
-over its data axes, its parameters unplaced; the ranks along ``model``
-compute the same replicated step (the JAX launcher leaves that axis to
-GSPMD's partitioning; the numbers are the same).
+over its data axes.  Along ``model`` (``--mesh 1x2``, ``2x2``) the dense
+decoders and the MoE layers run the tensor-parallel step
+(``distributed/tensor_parallel.py``; the JAX launcher leaves that axis to
+GSPMD): each rank holds, between steps and inside them, its ``model``
+shards of the rule table (``sharding.tp_rules``: attention heads, MLP
+columns and rows, the vocab rows of the embedding and head, the experts or,
+where their count does not divide, each expert's hidden columns), and of
+GWT's state; the update gathers one bucket at a time whole over ``model``
+and runs K1/K2 on it.  The numbers are the replicated step's within
+rounding (row-parallel sums, the vocab-split loss).  The ``shard`` line
+logs each rank's bytes.  The recurrent families (mamba, xLSTM), the
+encoder-decoder stack and LoRA keep the replicated step along ``model``,
+and log it.  ``--dist-backend gloo`` runs
+several ranks on one card (with ``LOCAL_RANK=0`` for each): a check, not a
+way to train.
 
 Fault tolerance: with ``--ckpt-dir`` the loop checkpoints every
 ``--ckpt-every`` steps and at the end, in the JAX package's format;
@@ -114,7 +126,7 @@ from repro_torch.core import prng
 from repro_torch.data.eval import make_lm_evaluator
 from repro_torch.data.pipeline import WithEncoderFrames, make_source
 from repro_torch.data.store import TokenStore
-from repro_torch.distributed import compression, sharding
+from repro_torch.distributed import compression, sharding, tensor_parallel
 from repro_torch.launch.mesh import (DPContext, env_world, init_mesh,
                                      parse_mesh)
 from repro_torch.models import encoder_frames, lora, module_for
@@ -374,6 +386,11 @@ def main(argv=None) -> TrainResult:
                          "(distributed/sharding.py); 'none' keeps them "
                          "replicated (classic DP).  The numbers are the "
                          "same")
+    ap.add_argument("--dist-backend", default="auto",
+                    choices=["auto", "nccl", "gloo"],
+                    help="process-group backend: 'auto' is NCCL on CUDA and "
+                         "gloo on the CPU; 'gloo' on CUDA lets several ranks "
+                         "share one card (LOCAL_RANK=0 each)")
     ap.add_argument("--metrics-dir", default="",
                     help="telemetry directory (DESIGN.md §12): JSONL metric "
                          "records -> <dir>/metrics.jsonl, Chrome-trace spans "
@@ -420,7 +437,9 @@ def main(argv=None) -> TrainResult:
     device = resolve_device(args.device)
     dp = mesh = None
     if dp_spec is not None or mesh_shape is not None:
-        dp, mesh = init_mesh(device, mesh_shape)
+        dp, mesh = init_mesh(device, mesh_shape,
+                             None if args.dist_backend == "auto"
+                             else args.dist_backend)
     try:
         # one process writes the records and the trace: rank 0 (the JAX
         # launcher is one process); the other ranks keep the null Telemetry
@@ -493,12 +512,24 @@ def _train(args, dp_spec, dp: Optional[DPContext], mesh,
     step_spec = dp_spec
     if step_spec is None and dp is not None and dp.processes > 1:
         step_spec = compression.DPReduceSpec.parse("exact")
-    shardings = None
+    shardings = tp = None
     if dp_spec is not None and args.shard_params == "auto":
         shardings = sharding.train_step_shardings(
             cfg, mod, source.batch(0), mesh, optimizer_name=args.optimizer,
             level=args.level, host=args.host, shard_params=True,
             state_codec=args.state_codec)
+    elif dp is not None and dp.model_world > 1:
+        why = tensor_parallel.unsupported(cfg) or (
+            "--finetune lora" if args.finetune == "lora" else None)
+        if why is None:
+            tp = tensor_parallel.from_dp(dp)
+            shardings = sharding.tp_step_shardings(
+                cfg, mod, source.batch(0), mesh,
+                optimizer_name=args.optimizer, level=args.level,
+                host=args.host, state_codec=args.state_codec)
+        else:
+            log(f"model axis ({dp.model_world} ranks): the replicated step "
+                f"({why})", kind="tp_replicated", reason=why)
 
     def build_optimizer(codec: str, placed: bool = False):
         kw = {"state_codec": codec}
@@ -553,10 +584,11 @@ def _train(args, dp_spec, dp: Optional[DPContext], mesh,
         rank_p = sum(t.numel() * t.element_size()
                      for t in flatten_with_paths(params)[1])
         rank_s = engine.state_bytes(compression.split_ef(opt_state)[0])
-        log(f"shard_params=auto mesh={dict(mesh.shape)} params/rank="
-            f"{rank_p/2**20:.2f}MiB opt_state/rank={rank_s/2**20:.2f}MiB",
-            kind="shard", params_rank_bytes=rank_p,
-            opt_state_rank_bytes=rank_s)
+        log(f"shard_params=auto mesh={dict(mesh.shape)}"
+            f"{' tensor_parallel=model' if tp is not None else ''} "
+            f"params/rank={rank_p/2**20:.2f}MiB opt_state/rank="
+            f"{rank_s/2**20:.2f}MiB", kind="shard",
+            params_rank_bytes=rank_p, opt_state_rank_bytes=rank_s)
         # placements shaped like a checkpoint's tree (residues unplaced)
         ckpt_sh = {"params": shardings.params,
                    "opt": {"opt": opt_sh, "dp_ef": None} if ef_on
@@ -595,6 +627,8 @@ def _train(args, dp_spec, dp: Optional[DPContext], mesh,
     else:
         step_kw = dict(accum_steps=args.accum, dp_reduce=step_spec, dp=dp,
                        shardings=shardings)
+        if tp is not None:
+            step_kw["tp"] = tp
         train_step = mod.make_train_step(cfg, optimizer, **step_kw)
         # the tapped step runs each chunk's last step (TrainLoop); the
         # data-parallel step has no tapped channel, as in the JAX launcher

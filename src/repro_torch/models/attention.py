@@ -37,6 +37,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import tensor_parallel
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.layers import Builder, rms_norm, softcap
 from repro_torch.serve import kv as kv_lib
@@ -62,27 +63,49 @@ def attn_init(b: Builder, cfg, lead=()) -> dict:
     return p
 
 
-def _project(p, cfg, x):
+def _project(p, cfg, x, tp=None):
     """q (B,S,H,hd), k/v (B,S,KV,hd): the bias added before the reshape,
-    the QK RMSNorm over ``head_dim`` after it."""
+    the QK RMSNorm over ``head_dim`` after it.
+
+    With ``tp`` (the heads split over the model axis) q is this rank's
+    heads; k/v are its KV heads where those split too, else the range of
+    whole KV heads its query heads read, cut from the replicated
+    projection (``tensor_parallel.kv_heads_of``).  Replicated weights
+    inside the region get their gradient summed over the group."""
     B, S, _ = x.shape
-    hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.head_dim
+    wk, wv, bk, bv = p["wk"], p["wv"], p.get("bk"), p.get("bv")
+    q_norm, k_norm = p.get("q_norm"), p.get("k_norm")
+    if tp is not None:
+        x = tp.copy_in(x)
+        if cfg.n_kv_heads % tp.size:
+            lo, hi, _ = tensor_parallel.kv_heads_of(tp, cfg)
+            wk, wv = (tp.copy_in(w)[..., lo * hd:hi * hd] for w in (wk, wv))
+            if cfg.qkv_bias:
+                bk, bv = (tp.copy_in(b)[lo * hd:hi * hd] for b in (bk, bv))
+        if cfg.qk_norm:
+            q_norm, k_norm = tp.copy_in(q_norm), tp.copy_in(k_norm)
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = x @ wk
+    v = x @ wv
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+        q, k, v = q + p["bq"], k + bk, v + bv
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, q_norm, cfg.norm_eps)
+        k = rms_norm(k, k_norm, cfg.norm_eps)
     return q, k, v
 
 
-def _repeat_kv(k: torch.Tensor, H: int) -> torch.Tensor:
-    """(B,T,KV,hd) -> (B,T,H,hd): replicate each KV head over its group."""
+def _repeat_kv(k: torch.Tensor, H: int,
+               idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B,T,KV,hd) -> (B,T,H,hd): replicate each KV head over its group;
+    ``idx`` (H,) names each query head's KV head where the groups do not
+    tile the local heads evenly (a tensor-parallel rank's)."""
+    if idx is not None:
+        return k.index_select(2, idx.to(k.device))
     KV = k.shape[2]
     if KV == H:
         return k
@@ -263,7 +286,7 @@ def _decode_attn_grouped(q, k, v, kv_valid, cap: float):
 def attn_apply(p, cfg, x, cos, sin, *, local: bool = False,
                mode: str = "train", cache: Optional[dict] = None,
                pos=None, bidirectional: bool = False,
-               page_table: Optional[torch.Tensor] = None
+               page_table: Optional[torch.Tensor] = None, tp=None
                ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Causal attention of ``x`` (B,S,d); ``local`` applies ``cfg.window``.
     Returns ``(output, new_cache)``; the cache is None in train mode.
@@ -287,7 +310,18 @@ def attn_apply(p, cfg, x, cos, sin, *, local: bool = False,
 
     ``bidirectional`` (the encoder, train mode) masks nothing: the direct
     route, or past 4096 positions ``_flash_attn_noncausal``.
+
+    ``tp`` (a ``distributed.tensor_parallel.TP``, train mode; None or a
+    group that does not divide ``n_heads`` leaves the attention
+    replicated): this rank's heads of ``wq``/``wk``/``wv``/``wo`` and their
+    biases, the routes on the local heads unchanged, and the output
+    projection's partial sums reduced over the model group.
     """
+    tp, kv_split = tensor_parallel.heads_split(tp, cfg)
+    if tp is not None and mode != "train":
+        raise NotImplementedError(
+            "tensor-parallel attention is train mode only: serving keeps "
+            "the replicated layout along 'model'")
     if page_table is not None and local and cfg.window:
         raise NotImplementedError(
             "paged serving covers full-attention blocks only; the "
@@ -295,10 +329,12 @@ def attn_apply(p, cfg, x, cos, sin, *, local: bool = False,
     if mode not in ("train", "prefill", "decode", "chunk_prefill"):
         raise ValueError(f"attention mode {mode!r}")
     B, S, _ = x.shape
-    H = cfg.n_heads
     window = cfg.window if local else 0
     cap = cfg.attn_softcap
-    q, k, v = _project(p, cfg, x)
+    q, k, v = _project(p, cfg, x, tp)
+    H = q.shape[2]   # this rank's heads under tp
+    kv_idx = None if tp is None or kv_split \
+        else tensor_parallel.kv_heads_of(tp, cfg)[2]
     q = rope_lib.apply_rope(q, cos, sin)
     k = rope_lib.apply_rope(k, cos, sin)
 
@@ -346,7 +382,7 @@ def attn_apply(p, cfg, x, cos, sin, *, local: bool = False,
                                  valid.expand(B, size), cap)
         new_cache = cache
     else:
-        kr, vr = _repeat_kv(k, H), _repeat_kv(v, H)
+        kr, vr = _repeat_kv(k, H, kv_idx), _repeat_kv(v, H, kv_idx)
         if bidirectional:
             if S > 4096:
                 o = _flash_attn_noncausal(q, kr, vr, cap=cap)
@@ -373,4 +409,5 @@ def attn_apply(p, cfg, x, cos, sin, *, local: bool = False,
                 new_cache = {"k": k[:, -window:], "v": v[:, -window:]}
             else:
                 new_cache = {"k": k, "v": v}
-    return o.reshape(B, S, H * cfg.head_dim) @ p["wo"], new_cache
+    o = o.reshape(B, S, H * cfg.head_dim) @ p["wo"]
+    return (o if tp is None else tp.reduce_out(o)), new_cache

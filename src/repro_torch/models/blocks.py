@@ -13,6 +13,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import tensor_parallel
 from repro_torch.models import attention, moe as moe_lib, ssm, xlstm
 from repro_torch.models.layers import Builder, mlp_apply, mlp_init, rms_norm
 
@@ -57,12 +58,20 @@ def block_init(b: Builder, cfg, kind: str, lead=()) -> dict:
 
 
 def block_apply(p, cfg, kind: str, x, cos, sin, *, mode: str = "train",
-                cache: Optional[dict] = None, pos=None, page_table=None):
+                cache: Optional[dict] = None, pos=None, page_table=None,
+                tp=None):
     """Returns ``(x, new_mixer_cache, aux)``; the cache is None in train
     mode (see ``attention.attn_apply`` and the recurrent mixers' ``*_apply``
     for the cached modes), ``aux`` the MoE's load-balancing loss (an f32
-    scalar), None for a block without one."""
+    scalar), None for a block without one.  ``tp`` (a
+    ``distributed.tensor_parallel.TP``) splits the attention, the MLP and
+    the MoE over the model axis where the rule table splits them; the
+    recurrent mixers have no tensor-parallel layout."""
     base, use_moe = _check_kind(kind)
+    if tp is not None and base not in ATTENTION_KINDS:
+        raise NotImplementedError(
+            f"block kind {base!r} has no tensor-parallel layout: its family "
+            "keeps the replicated step along 'model'")
     if page_table is not None and base not in ATTENTION_KINDS:
         raise NotImplementedError(
             f"paged serving caches exist only for attention blocks, not "
@@ -73,7 +82,7 @@ def block_apply(p, cfg, kind: str, x, cos, sin, *, mode: str = "train",
         h, nc = attention.attn_apply(p["mixer"], cfg, h, cos, sin,
                                      local=base == "attn_local", mode=mode,
                                      cache=cache, pos=pos,
-                                     page_table=page_table)
+                                     page_table=page_table, tp=tp)
     else:
         h, nc = _APPLY[base](p["mixer"], cfg, h, mode=mode, cache=cache)
     x = x + h
@@ -81,9 +90,9 @@ def block_apply(p, cfg, kind: str, x, cos, sin, *, mode: str = "train",
     if "ffn" in p:
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
         if use_moe:
-            h, aux = moe_lib.moe_apply(p["ffn"], cfg, h)
+            h, aux = moe_lib.moe_apply(p["ffn"], cfg, h, tp)
         else:
-            h = mlp_apply(p["ffn"], h)
+            h = mlp_apply(p["ffn"], h, tensor_parallel.split(tp, cfg.d_ff))
         x = x + h
     return x, nc, aux
 

@@ -101,9 +101,16 @@ def mlp_init(b: Builder, d_model: int, d_ff: int, lead=()):
             "w_down": b.param((d_ff, d_model), ("mlp", "embed"), lead=lead)}
 
 
-def mlp_apply(p, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(p, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """SwiGLU.  With ``tp`` (a ``distributed.tensor_parallel.TP``; the
+    caller passes it only where the hidden width splits) ``w_gate``/``w_up``
+    are this rank's columns and ``w_down`` its rows, and the partial
+    outputs are summed over the model group."""
+    if tp is not None:
+        x = tp.copy_in(x)
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+    out = h @ p["w_down"]
+    return out if tp is None else tp.reduce_out(out)
 
 
 def embed_init(b: Builder, vocab: int, d_model: int, tie: bool):
@@ -116,17 +123,31 @@ def embed_init(b: Builder, vocab: int, d_model: int, tie: bool):
     return p
 
 
-def embed_apply(p, tokens: torch.Tensor, d_model: int) -> torch.Tensor:
+def embed_apply(p, tokens: torch.Tensor, d_model: int, tp=None
+                ) -> torch.Tensor:
     """Rows times ``sqrt(d)``, the scale rounded to the embedding dtype and
-    the product taken in it, as the JAX package does."""
+    the product taken in it, as the JAX package does.  With ``tp`` the
+    table is this rank's vocab rows: an id outside them gives a zero row,
+    and the scaled rows are summed over the model group (one nonzero term
+    a position, so the sum is exact)."""
     emb = p["embedding"]
-    return emb[tokens.long()] * torch.tensor(math.sqrt(d_model),
-                                             dtype=emb.dtype)
+    scale = torch.tensor(math.sqrt(d_model), dtype=emb.dtype)
+    if tp is None:
+        return emb[tokens.long()] * scale
+    n = emb.shape[0]
+    ids = tokens.long() - tp.rank * n
+    inside = ((ids >= 0) & (ids < n))[..., None]
+    x = emb[ids.clamp(0, n - 1)] * scale
+    return tp.reduce_out(torch.where(inside, x, torch.zeros_like(x)))
 
 
-def logits_apply(p, x: torch.Tensor) -> torch.Tensor:
-    """``x @ lm_head`` where the head is untied, else ``x @ embedding.T``."""
+def logits_apply(p, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """``x @ lm_head`` where the head is untied, else ``x @ embedding.T``.
+    With ``tp``: this rank's vocab columns of the logits, never gathered
+    (``distributed.tensor_parallel.vocab_cross_entropy`` takes them)."""
     w = p.get("lm_head")
+    if tp is not None:
+        x = tp.copy_in(x)
     return x @ (p["embedding"].T if w is None else w)
 
 

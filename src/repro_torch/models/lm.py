@@ -24,13 +24,14 @@ in place.  The encoder-decoder stack is ``models/encdec.py``.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Mapping, Optional
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed import compression, sharding
+from repro_torch.distributed import compression, sharding, tensor_parallel
 from repro_torch.models import blocks, rope as rope_lib
 from repro_torch.models.layers import (Axes, Builder, cross_entropy,
                                        embed_apply, embed_init, logits_apply,
@@ -102,9 +103,12 @@ def init(cfg, generator: torch.Generator, device) -> LM:
     return LM(cfg, _build(cfg, generator, device))
 
 
-def abstract_params(cfg) -> Dict[str, Any]:
-    """The parameter tree on the ``meta`` device: shapes and dtypes only."""
-    return _build(cfg, None, "meta")
+def abstract_params(cfg, shardings=None) -> Dict[str, Any]:
+    """The parameter tree on the ``meta`` device: shapes and dtypes only;
+    with ``shardings`` (a placement tree, e.g. ``sharding.
+    tp_step_shardings(...).params``) each rank's local shapes."""
+    p = _build(cfg, None, "meta")
+    return p if shardings is None else sharding.local_meta(p, shardings)
 
 
 def param_count(cfg) -> int:
@@ -120,15 +124,16 @@ def param_axes(cfg) -> Dict[str, Any]:
     return _build(cfg, None, "meta", mode="axes")
 
 
-def _block(cfg, kind: str, p, x, cos, sin):
+def _block(cfg, kind: str, p, x, cos, sin, tp=None):
     """One block: ``(x, aux)``; with ``cfg.remat`` its activations are
     recomputed in the backward instead of kept (the reference's memory
-    contract; the values are the same)."""
+    contract; the values are the same).  Under ``tp`` the recompute runs
+    the block's collectives again, in the same order on every rank."""
     if cfg.remat:
         x, _, aux = checkpoint(blocks.block_apply, p, cfg, kind, x, cos,
-                               sin, use_reentrant=False)
+                               sin, use_reentrant=False, tp=tp)
     else:
-        x, _, aux = blocks.block_apply(p, cfg, kind, x, cos, sin)
+        x, _, aux = blocks.block_apply(p, cfg, kind, x, cos, sin, tp=tp)
     return x, aux
 
 
@@ -187,10 +192,14 @@ def forward(cfg, params, tokens: torch.Tensor, *, mode: str = "train",
     return _train_forward(cfg, params, tokens, mrope_positions)[0]
 
 
-def _train_forward(cfg, params, tokens, mrope_positions=None):
-    """Train-mode logits and the summed aux loss (None without MoE)."""
+def _train_forward(cfg, params, tokens, mrope_positions=None, tp=None):
+    """Train-mode logits and the summed aux loss (None without MoE).
+    ``tp`` (a ``distributed.tensor_parallel.TP``): ``params`` are this
+    rank's shards of ``sharding.tp_rules``' placement, and the logits are
+    its vocab columns where the vocab splits."""
     B, S = tokens.shape
-    x = embed_apply(params["embed"], tokens, cfg.d_model)
+    tpv = tensor_parallel.split(tp, cfg.vocab)
+    x = embed_apply(params["embed"], tokens, cfg.d_model, tpv)
     cos, sin = _angles(cfg, torch.arange(S, device=tokens.device),
                        mrope_positions, B, S)
     aux_total = None
@@ -202,17 +211,18 @@ def _train_forward(cfg, params, tokens, mrope_positions=None):
             layer = unflatten(paths, ls)
             aux_p = None
             for i, kind in enumerate(cfg.pattern):
-                x, aux = _block(cfg, kind, layer[f"b{i}"], x, cos, sin)
+                x, aux = _block(cfg, kind, layer[f"b{i}"], x, cos, sin,
+                                tp)
                 aux_p = _add_aux(aux_p, aux)
             aux_total = _add_aux(aux_total, aux_p)
     aux_r = None
     for i in range(cfg.rem_layers):
         x, aux = _block(cfg, cfg.pattern[i], params["rem"][f"b{i}"], x, cos,
-                        sin)
+                        sin, tp)
         aux_r = _add_aux(aux_r, aux)
     aux_total = _add_aux(aux_total, aux_r)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = logits_apply(params["embed"], x)
+    logits = logits_apply(params["embed"], x, tpv)
     if cfg.final_softcap:
         logits = softcap(logits, cfg.final_softcap)
     return logits, aux_total
@@ -420,12 +430,17 @@ def make_chunk_prefill_step(cfg):
     return step
 
 
-def loss_fn(cfg, params, batch) -> torch.Tensor:
+def loss_fn(cfg, params, batch, tp=None) -> torch.Tensor:
     """Mean cross-entropy, plus ``AUX_COEF`` times the MoE blocks' summed
-    load-balancing loss where the model has MoE blocks."""
+    load-balancing loss where the model has MoE blocks.  ``tp``: the
+    tensor-parallel forward over this rank's shards (the same loss on every
+    rank of the model group)."""
     logits, aux = _train_forward(cfg, params, batch["tokens"],
-                                 batch.get("mrope_positions"))
-    loss = cross_entropy(logits, batch["labels"])
+                                 batch.get("mrope_positions"), tp)
+    tpv = tensor_parallel.split(tp, cfg.vocab)
+    loss = cross_entropy(logits, batch["labels"]) if tpv is None \
+        else tensor_parallel.vocab_cross_entropy(logits, batch["labels"],
+                                                 tpv)
     return loss if aux is None else loss + AUX_COEF * aux
 
 
@@ -507,7 +522,7 @@ def _accumulate(cfg, params, leaves, micro, accum_steps, loss=None,
 
 def make_sharded_train_step(cfg, optimizer, *, dp, dp_reduce,
                             accum_steps: int = 1, loss=None,
-                            shardings=None):
+                            shardings=None, tp=None):
     """Data-parallel train step over the ranks of ``dp`` (a
     ``launch.mesh.DPContext``; None is one rank), counterpart of the JAX
     package's ``make_sharded_train_step``.
@@ -537,8 +552,27 @@ def make_sharded_train_step(cfg, optimizer, *, dp, dp_reduce,
     ``state_shardings=shardings.opt["buckets"]`` keeps its state placed),
     and keeps this rank's slices of the new parameters.  Every rank holds
     the same reduced gradient and computes the same update, so the numbers
-    are the replicated step's, bitwise."""
+    are the replicated step's, bitwise.
+
+    ``tp`` (a ``distributed.tensor_parallel.TP`` over ``model``, with
+    ``shardings`` from ``sharding.tp_step_shardings``): the tensor-parallel
+    step.  The parameters stay this rank's shards through the forward and
+    the backward (:func:`loss_fn` under ``tp``), the data ranks' exact mean
+    reduces each shard's gradient, and the update (``optimizer.update(...,
+    param_shardings=)``) gathers each bucket's parameters, gradients and
+    state whole over ``model``, runs on them as the replicated update does,
+    and keeps this rank's slices.  Row-parallel sums and the vocab-split
+    loss reorder f32/bf16 additions, so the numbers are the replicated
+    step's within rounding, not bitwise."""
     param_sh = None if shardings is None else shardings.params
+    if tp is not None:
+        if loss is not None:
+            raise ValueError("the tensor-parallel step runs loss_fn; a "
+                             "custom loss (LoRA) keeps the replicated step")
+        if shardings is None:
+            raise ValueError("tp= needs shardings=sharding."
+                             "tp_step_shardings(...)")
+        loss = functools.partial(loss_fn, tp=tp)
     if isinstance(dp_reduce, str):
         dp_reduce = compression.DPReduceSpec.parse(dp_reduce)
     if dp_reduce is None:
@@ -565,8 +599,9 @@ def make_sharded_train_step(cfg, optimizer, *, dp, dp_reduce,
         local = {k: v[:, rank * per:(rank + 1) * per]
                  if k == "mrope_positions" else v[rank * per:(rank + 1) * per]
                  for k, v in batch.items()}
-        # the whole parameter tree lives only inside the step
-        params = sharding.gather_tree(params, param_sh)
+        if tp is None:
+            # the whole parameter tree lives only inside the step
+            params = sharding.gather_tree(params, param_sh)
         paths, leaves = flatten_with_paths(params)
         gsum, lsum = _accumulate(cfg, params, leaves,
                                  contiguous_microbatches(local, accum_steps),
@@ -589,9 +624,14 @@ def make_sharded_train_step(cfg, optimizer, *, dp, dp_reduce,
             del m
         grads = unflatten(paths, means)
         del leaves, means
-        params, opt_state = optimizer.update(grads, opt_state, params)
-        del grads
-        params = sharding.shard_tree(params, param_sh)
+        if tp is None:
+            params, opt_state = optimizer.update(grads, opt_state, params)
+            del grads
+            params = sharding.shard_tree(params, param_sh)
+        else:
+            params, opt_state = optimizer.update(
+                grads, opt_state, params, param_shardings=param_sh)
+            del grads
         if ef_on:
             opt_state = {"opt": opt_state, "dp_ef": unflatten(paths, new_ef)}
         return params, opt_state, {"loss": loss_mean}
@@ -600,7 +640,8 @@ def make_sharded_train_step(cfg, optimizer, *, dp, dp_reduce,
 
 
 def make_train_step(cfg, optimizer, accum_steps: int = 1, dp_reduce=None,
-                    dp=None, loss=None, taps: bool = False, shardings=None):
+                    dp=None, loss=None, taps: bool = False, shardings=None,
+                    tp=None):
     """Gradient-accumulated train step ``(params, opt_state, batch) ->
     (params, opt_state, {"loss": f32 scalar on the device})``.
 
@@ -615,6 +656,10 @@ def make_train_step(cfg, optimizer, accum_steps: int = 1, dp_reduce=None,
     ``dp`` (a ``launch.mesh.DPContext``; None is one rank), with the
     parameters placed by ``shardings`` there (refused without
     ``dp_reduce``, as the JAX package pins a layout only on that path).
+    ``tp`` (the model axis of ``dp``, ``distributed.tensor_parallel.
+    from_dp``) with ``shardings`` from ``sharding.tp_step_shardings`` is
+    the tensor-parallel step: without ``dp_reduce`` it reduces over the data
+    ranks by the exact f32 mean (:func:`make_sharded_train_step`).
 
     ``loss`` (``loss(cfg, params, batch) -> scalar``, default
     :func:`loss_fn`) swaps the objective, as the JAX package's ``loss=``
@@ -629,6 +674,8 @@ def make_train_step(cfg, optimizer, accum_steps: int = 1, dp_reduce=None,
     ``dp_reduce`` path, as in the JAX package."""
     if isinstance(dp_reduce, str):
         dp_reduce = compression.DPReduceSpec.parse(dp_reduce)  # 'none': None
+    if tp is not None and dp_reduce is None:
+        dp_reduce = compression.DPReduceSpec.parse("exact")
     if shardings is not None and dp_reduce is None:
         raise ValueError("shardings= places the parameters of the "
                          "dp_reduce step only: pass dp_reduce")
@@ -640,7 +687,7 @@ def make_train_step(cfg, optimizer, accum_steps: int = 1, dp_reduce=None,
         return make_sharded_train_step(cfg, optimizer, dp=dp,
                                        dp_reduce=dp_reduce,
                                        accum_steps=accum_steps, loss=loss,
-                                       shardings=shardings)
+                                       shardings=shardings, tp=tp)
     tapped = getattr(optimizer, "tapped_update", None) if taps else None
 
     def train_step(params, opt_state, batch):

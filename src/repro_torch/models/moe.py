@@ -18,6 +18,16 @@ weights are the gates rounded to the activation dtype, as the JAX
 package's ``comb``; the weighted sum over a token's kept experts runs in
 f32 and is rounded once.
 
+Along the ``model`` mesh axis (``tp``, a ``distributed.tensor_parallel.TP``):
+every rank routes identically (the router is replicated, ``route`` and the
+aux loss unchanged).  Where the axis divides ``E_pad`` each rank holds and
+runs its ``E_pad/M`` experts' rows of the dispatch buffer, and their
+outputs are all-gathered, so the combine reads the replicated step's
+``ye`` (expert parallelism); else, where it divides ``d_ff_expert``, each
+expert's MLP is split over the ranks and its partial outputs are summed
+(tensor parallelism inside the expert).  The shared experts are a
+tensor-parallel MLP.
+
 ``expert_padding`` pads the expert weights (the router stays at
 ``n_experts``): padded experts are never routed, so their buffers stay
 zero.  Above ``_MOE_CHUNK_TOKENS`` tokens the layer runs in token chunks,
@@ -34,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import tensor_parallel
 from repro_torch.models.layers import Builder, mlp_apply, mlp_init
 
 _MOE_CHUNK_TOKENS = 8192  # tokens per dispatch chunk, as the JAX package
@@ -55,9 +66,10 @@ def moe_init(b: Builder, cfg, lead=()) -> dict:
     return p
 
 
-def moe_apply(p, cfg, x: torch.Tensor
+def moe_apply(p, cfg, x: torch.Tensor, tp=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) -> (out (B, S, d), aux loss f32 scalar)."""
+    """x (B, S, d) -> (out (B, S, d), aux loss f32 scalar); ``tp`` splits
+    the experts over the model axis (the module doc)."""
     B, S, d = x.shape
     if B * S > _MOE_CHUNK_TOKENS and S % (_MOE_CHUNK_TOKENS // B or 1) == 0 \
             and _MOE_CHUNK_TOKENS >= B:
@@ -68,14 +80,14 @@ def moe_apply(p, cfg, x: torch.Tensor
             if torch.is_grad_enabled():
                 # without the recompute, every chunk's expert activations
                 # would stay alive through the backward
-                out_c, aux_c = checkpoint(_moe_dense, p, cfg, xc,
+                out_c, aux_c = checkpoint(_moe_dense, p, cfg, xc, tp,
                                           use_reentrant=False)
             else:
-                out_c, aux_c = _moe_dense(p, cfg, xc)
+                out_c, aux_c = _moe_dense(p, cfg, xc, tp)
             outs.append(out_c)
             auxs.append(aux_c)
         return torch.cat(outs, dim=1), torch.stack(auxs).mean()
-    return _moe_dense(p, cfg, x)
+    return _moe_dense(p, cfg, x, tp)
 
 
 def top_k(probs: torch.Tensor, k: int
@@ -105,7 +117,7 @@ def route(probs: torch.Tensor, cfg):
     return gate_vals, expert_idx, slot, C
 
 
-def _moe_dense(p, cfg, x: torch.Tensor
+def _moe_dense(p, cfg, x: torch.Tensor, tp=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     B, S, d = x.shape
     E = cfg.n_experts
@@ -121,11 +133,27 @@ def _moe_dense(p, cfg, x: torch.Tensor
     trash = E_pad * C
     dest = torch.where(kept, expert_idx * C + slot,
                        torch.full_like(slot, trash)).reshape(-1)
-    src = xt.repeat_interleave(cfg.top_k, dim=0)               # (T·K, d)
-    xe = xt.new_zeros((trash + 1, d)).index_put((dest,), src)
-    xe = xe[:trash].reshape(E_pad, C, d)
+    ep = tensor_parallel.split(tp, E_pad)
+    etp = None if ep is not None \
+        else tensor_parallel.split(tp, cfg.d_ff_expert)
+    xd = xt if ep is None and etp is None else tp.copy_in(xt)
+    src = xd.repeat_interleave(cfg.top_k, dim=0)               # (T·K, d)
+    if ep is None:
+        rows, local = trash, dest
+    else:
+        # this rank's experts' rows; the other pairs go to the trash row
+        rows = trash // ep.size
+        local = dest - ep.rank * rows
+        local = torch.where((local >= 0) & (local < rows), local,
+                            torch.full_like(local, rows))
+    xe = xt.new_zeros((rows + 1, d)).index_put((local,), src)
+    xe = xe[:rows].reshape(-1, C, d)
     h = F.silu(xe @ p["w_gate"]) * (xe @ p["w_up"])
-    ye = (h @ p["w_down"]).reshape(trash, d)
+    ye = (h @ p["w_down"]).reshape(rows, d)
+    if ep is not None:
+        ye = ep.gather(ye, 0)
+    elif etp is not None:
+        ye = etp.reduce_out(ye)
     ye = torch.cat([ye, ye.new_zeros((1, d))])                 # trash: 0
     w = torch.where(kept, gate_vals, torch.zeros_like(gate_vals)) \
         .to(x.dtype).float()                                   # (T, K)
@@ -138,5 +166,6 @@ def _moe_dense(p, cfg, x: torch.Tensor
     aux = E * torch.sum(f * probs.mean(0))
 
     if cfg.n_shared_experts:
-        out = out + mlp_apply(p["shared"], xt)
+        out = out + mlp_apply(p["shared"], xt, tensor_parallel.split(
+            tp, cfg.n_shared_experts * cfg.d_ff_expert))
     return out.reshape(B, S, d), aux

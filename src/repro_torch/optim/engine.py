@@ -62,6 +62,15 @@ what the rule returned (a fused kernel wrote it in place into the gathered
 copy).  The transient peak is one bucket's whole state.  Over mesh axes of
 size 1 the shards are the whole tensors and nothing is copied.
 
+**Placed parameters** (``update(..., param_shardings=...)``, the
+tensor-parallel step's layout along ``model``).  ``params`` and ``grads``
+are this rank's shards; the plan is the whole tree's.  One bucket at a time
+the engine gathers its members' parameters and gradients whole, runs the
+rule on them as above (K1/K2 over the whole stack), and writes this rank's
+slice of each new parameter back into its shard.  The numbers are those of
+the unplaced update on the gathered trees; the transient peak is one
+bucket's whole parameters, gradients and state.
+
 **The host step.**  Rules that branch on the step (the low-rank families'
 projector refresh every ``update_gap`` steps, a ``lax.cond`` in the JAX
 package) declare ``LeafRule.host_step`` and get the step as a Python int.
@@ -446,14 +455,25 @@ def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
         return out
 
     @torch.no_grad()
-    def run(grads, state, params, with_taps: bool):
+    def run(grads, state, params, with_taps: bool, param_shardings=None):
         # ``with_taps`` only adds reads: the parameters and state written
         # are the same with it as without, and without it no tap is made
         step = state["step"]
         key = state.get("codec_key")
-        plan = eng.plan(params)
         _, gleaves = flatten_with_paths(grads)
-        _, pleaves = flatten_with_paths(params)
+        ppaths, pleaves = flatten_with_paths(params)
+        psh = sharding.flat_shardings(param_shardings) \
+            if param_shardings is not None else {}
+        plan = eng.plan(sharding.full_meta(params, param_shardings)
+                        if psh else params)
+
+        def whole(leaves, i):
+            return sharding.gather(leaves[i], psh.get(ppaths[i]))
+
+        def write(i, new_p):
+            sh = psh.get(ppaths[i])
+            pleaves[i].copy_(new_p if sh is None else sharding.shard(new_p,
+                                                                     sh))
         if quant:
             salts, cols = eng.salts(plan, key, step)
         hstep = eng.host_step(step) if any(
@@ -469,21 +489,25 @@ def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
             st = sharding.gather_tree(state["buckets"][b.name], hint)
             rule = b.rule
             coded = quant and rule.slots is not None
+            # the members' whole gradients and parameters (the leaves
+            # themselves where nothing is placed)
+            gb = {i: whole(gleaves, i) for i in b.indices}
+            pb = {i: whole(pleaves, i) for i in b.indices}
             # Σ (new p - old p)², leaf by leaf before the write: on CUDA a
             # fused rule has already written the stacked p in place
             upd = []
             if bucketed and rule.vector_update is not None and (
                     rule.codec_native or not coded):
-                g_stk = torch.stack([gleaves[i] for i in b.indices])
-                p_stk = torch.stack([pleaves[i] for i in b.indices])
+                g_stk = torch.stack([gb[i] for i in b.indices])
+                p_stk = torch.stack([pb[i] for i in b.indices])
                 extra = (salts.index_select(1, cols[b.name]),) \
                     if coded else ()
                 np_stk, ns = rule.vector_update(g_stk, p_stk, st, step,
                                                 *extra)
                 for j, i in enumerate(b.indices):
                     if with_taps:
-                        upd.append(tap_ssq(np_stk[j], pleaves[i]))
-                    pleaves[i].copy_(np_stk[j])
+                        upd.append(tap_ssq(np_stk[j], pb[i]))
+                    write(i, np_stk[j])
             else:
                 per_leaf = []
                 for j, i in enumerate(b.indices):
@@ -491,20 +515,20 @@ def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
                     if coded:
                         s = codec_lib.tree_decode(cdc, rule.slots, s)
                     extra = (hstep,) if rule.host_step else ()
-                    new_p, ns_j = rule.update(gleaves[i], pleaves[i], s,
-                                              step, i, *extra)
+                    new_p, ns_j = rule.update(gb[i], pb[i], s, step, i,
+                                              *extra)
                     if coded:
                         ns_j = codec_lib.tree_encode(cdc, rule.slots, ns_j,
                                                      salts[:, i])
                     if with_taps:
-                        upd.append(tap_ssq(new_p, pleaves[i]))
-                    pleaves[i].copy_(new_p)
+                        upd.append(tap_ssq(new_p, pb[i]))
+                    write(i, new_p)
                     per_leaf.append(ns_j)
                     del new_p, ns_j
                 ns = _restack(per_leaf)
                 del per_leaf
             if with_taps:
-                gs = [gleaves[i] for i in b.indices]
+                gs = [gb[i] for i in b.indices]
                 tp = {"grad_ssq": sum_in_order(tap_ssq(g) for g in gs),
                       "update_ssq": sum_in_order(upd)}
                 if coded:
@@ -516,7 +540,7 @@ def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
             # this rank's slice of what the rule wrote; the gathered copy
             # dies here
             new_buckets[b.name] = sharding.shard_tree(ns, hint)
-            del st, ns
+            del st, ns, gb, pb
         out = {"step": step + 1, "buckets": new_buckets}
         if hstep is not None:
             eng.returned_step(out["step"], hstep + 1)
@@ -524,8 +548,9 @@ def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
             out["codec_key"] = key
         return params, out, taps
 
-    def update(grads, state, params):
-        new_params, out, _ = run(grads, state, params, False)
+    def update(grads, state, params, param_shardings=None):
+        new_params, out, _ = run(grads, state, params, False,
+                                 param_shardings)
         return new_params, out
 
     def tapped_update(grads, state, params):

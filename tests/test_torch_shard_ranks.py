@@ -12,8 +12,9 @@ three steps of llama-60m-smoke through the launcher in each scenario.
 * A checkpoint written at world 2 under ``auto`` resumes at world 1 under
   ``none`` bitwise, and the reverse; it holds whole arrays.
 * ``--mesh 2x1`` without ``--dp-reduce`` is bitwise to ``--mesh 2
-  --dp-reduce exact``; ``--mesh 1x2`` gives both ranks the whole batch,
-  bitwise to one rank with ``--dp-reduce exact``.
+  --dp-reduce exact``; ``--mesh 1x2`` gives both ranks the whole batch on
+  their ``model`` shards, one rank with ``--dp-reduce exact`` within
+  rounding.
 * The placement helpers round-trip bitwise over the group.
 """
 
@@ -226,10 +227,25 @@ def test_checkpoint_world1_none_resumes_world2_auto_bitwise(ranks):
 def test_mesh_without_dp_reduce(ranks, one_rank):
     """``2x1``: the exact mean over the data axis, parameters unplaced:
     bitwise ``--mesh 2 --dp-reduce exact``.  ``1x2``: each rank the whole
-    batch, bitwise one rank with ``--dp-reduce exact``."""
+    batch on its ``model`` shards (the tensor-parallel step), one rank with
+    ``--dp-reduce exact`` within the tolerances of
+    ``test_torch_tp_ranks.py`` (losses 1e-5 relative, the parameters' move
+    1e-4): row-parallel sums reorder f32 additions."""
     out, logs, _ = ranks
+    want = _res(one_rank["accum1"])
+    init = dict(zip(*flatten_with_paths(lm.init(
+        configs.get_smoke("llama-60m"), torch.Generator().manual_seed(0),
+        "cpu").tree())))
     for rank in range(WORLD):
         _same(_load(out, "mesh_2x1", rank), _load(out, "exact_auto", rank),
               f"2x1 rank {rank}")
-        _same(_load(out, "mesh_1x2", rank), _res(one_rank["accum1"]),
-              f"1x2 rank {rank}")
+        got = _load(out, "mesh_1x2", rank)
+        assert max(abs(a - b) / abs(b) for a, b in zip(
+            got["losses"], want["losses"])) <= 1e-5, f"1x2 rank {rank}"
+        gp = dict(zip(*flatten_with_paths(got["params"])))
+        num = den = 0.0
+        for path, w in zip(*flatten_with_paths(want["params"])):
+            w, g = w.detach().double(), gp[path].detach().double()
+            num += float(((g - w) ** 2).sum())
+            den += float(((w - init[path].detach().double()) ** 2).sum())
+        assert (num / den) ** 0.5 <= 1e-4, f"1x2 rank {rank}"

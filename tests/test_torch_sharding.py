@@ -209,7 +209,7 @@ def test_shard_slices_tile_the_tensor():
 
 def test_size_one_axes_are_free():
     """Over mesh axes of size 1 a shard is the tensor itself: no copy and
-    no collective (no DeviceMesh is needed)."""
+    no collective (no process group is needed)."""
     x = torch.randn(4, 6, requires_grad=True)
     sh = tsh.NamedSharding(tsh.Mesh((1, 1), ("data", "model")),
                            tsh.Spec("data", "model"))
@@ -217,7 +217,7 @@ def test_size_one_axes_are_free():
     split = tsh.NamedSharding(tsh.Mesh((2,), ("data",)), tsh.Spec("data"))
     s = tsh.shard(x, split)
     assert s.requires_grad and s.is_contiguous() and s.shape == (2, 6)
-    with pytest.raises(RuntimeError, match="DeviceMesh"):
+    with pytest.raises(RuntimeError, match="process group"):
         tsh.gather(s, split)
 
 

@@ -1,0 +1,381 @@
+"""The ``model`` mesh axis across ranks: processes of
+``tests/torch_tp_worker.py`` joined by a gloo process group on the CPU,
+two at ``--mesh 1x2`` and four at ``2x2`` / ``1x4``, spawned once for the
+module and run while this process computes the references.
+
+* The loss and every gradient of nine smoke configs (f32: the llama, the
+  dense family with GQA, QKV bias, softcaps, local layers, remainder blocks
+  and M-RoPE, and three MoE layouts: expert parallel, expert parallel with
+  padding and shared experts, tensor parallel inside each of 9 experts),
+  computed on each rank's shards and gathered whole, against one rank's:
+  the loss within 4 f32 spacings and each gradient within 32 of its
+  largest magnitude (measured: 2 and 10).  At ``1x4`` qwen2.5's two KV
+  heads do not divide the axis: the K/V projections stay whole and each
+  rank reads its query heads' KV head (trouble of head boundaries).
+* Three steps (six for the checkpoint scenarios) through the launcher:
+  llama-60m f32 and int8, qwen2.5 and gemma2 (bf16, as their smoke
+  configs), the two MoE layouts (f32: in bf16 a router near-tie may pick
+  another expert under the other layout's rounding), each against one
+  rank of the port and against the JAX package's train loop from the same
+  init, within :data:`LOSS_RTOL` and :data:`PARAM_TOL` (the measured
+  values beside them).
+* Each rank held the shard shapes of the rule table (``sharding.
+  tp_step_shardings``) and their bytes.
+* A checkpoint written at ``1x2`` resumes at world 1, and one written at
+  world 1 resumes at ``1x2``; both hold whole arrays.
+* ``2x2``: the exact mean over the two data ranks of two ``model`` ranks
+  each, against one rank with ``--accum 2``.
+"""
+
+import os
+import shutil
+import socket
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import flat_numpy, spacings
+
+from repro import configs as jconfigs
+from repro.models import lm as jlm
+from repro.data.pipeline import SyntheticLM as JaxSyntheticLM
+from repro.optim import make as jax_make
+from repro.optim.schedules import warmup_cosine as jax_warmup_cosine
+from repro.runtime.fault_tolerance import TrainLoop as JaxTrainLoop
+from repro_torch import optim
+from repro_torch.checkpoint import manager
+from repro_torch.distributed import sharding
+from repro_torch.launch import train
+from repro_torch.models import lm
+from repro_torch.optim import engine
+from repro_torch.optim.base import flatten_with_paths
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import torch_tp_worker as worker  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# scenario -> the one-rank launcher run it is held to
+ONE_RANK = {
+    "llama": "straight", "llama_resume": "straight",
+    "llama_int8": "llama_int8", "qwen": "qwen", "gemma": "gemma",
+    "moe_ep": "moe_ep", "moe_etp": "moe_etp", "llama_2x2": "llama_accum2",
+    "qwen_1x4": "qwen",
+}
+# losses: the largest relative difference to one rank / to the JAX loop
+# (measured worst beside them)
+LOSS_RTOL = {"f32": (1e-5, 1e-5),      # 1.3e-7 / 1.4e-7
+             "int8": (1e-5, 1e-5),     # 6.6e-7 / 1.8e-6
+             "bf16": (2e-3, 2e-3)}     # 2.7e-4 / 2.9e-4
+# parameters: |got - want| / |want - init| over the whole tree, to one rank
+# / to the JAX loop.  A bf16 weight of ~0.1 moves by one or two bf16
+# spacings a step, so a last-bit difference in the f32 update moves the
+# rounded weight by a spacing: one rank of the port against the JAX loop
+# is 0.097 apart there too.  int8: the stochastic rounding of a moment
+# that differs in its last bit may go the other way.
+PARAM_TOL = {"f32": (1e-4, 1e-4),      # 1.1e-5 / 1.3e-5
+             "int8": (2e-3, 2e-3),     # 1.6e-4 / 1.3e-4
+             "bf16": (0.25, 0.25)}     # 0.128 / 0.113
+
+
+def _free_ports(n):
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("localhost", 0))
+        return [str(s.getsockname()[1]) for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def _one(argv):
+    """One rank through the launcher (no torchrun variables)."""
+    with worker.extra_configs():
+        r = train.main(worker.SMOKE + argv)
+    return {"losses": r.losses, "params": r.params, "opt": r.opt_state}
+
+
+def _without_mesh(argv):
+    out = list(argv)
+    i = out.index("--mesh")
+    del out[i:i + 2]
+    return out
+
+
+def _spawn(out, world):
+    ports = _free_ports(len(worker.SCENARIOS[world]) + 1)
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+                   RANK=str(rank), WORLD_SIZE=str(world),
+                   MASTER_ADDR="localhost")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "tests",
+                                          "torch_tp_worker.py"),
+             out, *ports], cwd=REPO, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def _wait(procs):
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log
+    return logs
+
+
+def _jax_loop(arch, argv, steps):
+    """The JAX package's loop over the launcher's data and schedule from
+    the port's seeded init (``--seed 0``)."""
+    cfg = worker.smoke_cfg(arch)
+    get = jconfigs.get_smoke
+    jcfg = worker._EXTRA[arch](get) if arch in worker._EXTRA else get(arch)
+    tree = lm.init(cfg, torch.Generator().manual_seed(0), "cpu").tree()
+    shapes = jax.eval_shape(lambda: jlm.init(jcfg, jax.random.key(0)))
+    leaves, treedef = jax.tree_util.tree_flatten(shapes)
+    port = flatten_with_paths(tree)[1]
+    assert [tuple(l.shape) for l in leaves] == [tuple(t.shape) for t in port]
+    jp = jax.tree_util.tree_unflatten(treedef, [
+        jax.numpy.asarray(t.detach().float().numpy()).astype(l.dtype)
+        for t, l in zip(port, leaves)])
+    codec = argv[argv.index("--state-codec") + 1] \
+        if "--state-codec" in argv else "f32"
+    seq, batch = (int(argv[argv.index(k) + 1]) for k in ("--seq", "--batch"))
+    opt = jax_make("gwt", lr=jax_warmup_cosine(0.01, steps), level=2,
+                   alpha=0.25, host="adam", impl="jnp", state_codec=codec)
+    loop = JaxTrainLoop(jlm.make_train_step(jcfg, opt), None,
+                        JaxSyntheticLM(cfg.vocab, seq, batch, 0),
+                        log_every=steps, log=lambda s: None)
+    params, _, losses = loop.run(jp, opt.init(jp), num_steps=steps)
+    return {"losses": [float(x) for x in losses],
+            "params": flat_numpy(params)}
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("tp_ranks"))
+    # one rank, 6 steps, checkpointed at 3 and 6 (the straight run every
+    # llama scenario is held to); the ranks resume its step 3
+    refs = {"straight": _one([*worker.LLAMA, "--steps", "6", "--ckpt-dir",
+                              os.path.join(out, "ck_one"), "--ckpt-every",
+                              "3"])}
+    shutil.rmtree(os.path.join(out, "ck_one", "step_000000006"))
+    procs = {w: _spawn(out, w) for w in (2, 4)}
+    # the references, while the ranks run
+    for name, argv in worker.SCENARIOS[2].items():
+        if ONE_RANK[name] not in refs:
+            refs[ONE_RANK[name]] = _one(_without_mesh(argv))
+    refs["llama_accum2"] = _one([*worker.LLAMA, "--steps", "3",
+                                 "--dp-reduce", "exact", "--accum", "2"])
+    jax_refs = {}
+    for name in ("llama", "llama_int8", "qwen", "gemma", "moe_ep",
+                 "moe_etp"):
+        argv = worker.SCENARIOS[2][name]
+        jax_refs[name] = _jax_loop(argv[argv.index("--arch") + 1], argv,
+                                   int(argv[argv.index("--steps") + 1]))
+    logs = {w: _wait(p) for w, p in procs.items()}
+    return out, logs, refs, jax_refs
+
+
+def _load(out, name, rank):
+    return torch.load(os.path.join(out, f"{name}_{rank}.pt"),
+                      weights_only=False)
+
+
+def _kind(name):
+    if name in ("qwen", "gemma", "qwen_1x4"):
+        return "bf16"
+    return "int8" if name == "llama_int8" else "f32"
+
+
+def _rel(got, want):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
+def _init(arch):
+    """The launcher's init (``--seed 0``), flat."""
+    cfg = worker.smoke_cfg(arch)
+    return _flat(lm.init(cfg, torch.Generator().manual_seed(0),
+                         "cpu").tree())
+
+
+def _param_err(got, want, init):
+    """``|got - want| / |want - init|`` over the whole tree (2-norms): the
+    error of the parameters' move relative to the move itself."""
+    def f64(t):
+        return (t.detach().float() if isinstance(t, torch.Tensor) else
+                torch.from_numpy(np.array(t))).double()
+    num = den = 0.0
+    for path, w in want.items():
+        w, i = f64(w), f64(init[path])
+        num += float(((f64(got[path]) - w) ** 2).sum())
+        den += float(((w - i) ** 2).sum())
+    return (num / den) ** 0.5
+
+
+def _flat(tree):
+    return dict(zip(*flatten_with_paths(tree)))
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("arch", worker.GRAD_ARCHS)
+def test_loss_and_gradients_match_one_rank(ranks, world, arch):
+    out = ranks[0]
+    cfg = worker.smoke_cfg(arch, dtype="float32")
+    params = worker.grad_params(cfg)
+    paths, leaves = flatten_with_paths(params)
+    loss = lm.loss_fn(cfg, params, worker.grad_batch(cfg))
+    want = torch.autograd.grad(loss, leaves)
+    for rank in range(world):
+        got_loss, got = torch.load(
+            os.path.join(out, f"grads_{world}_{rank}.pt"),
+            weights_only=False)[arch]
+        assert spacings(got_loss, loss) <= 4, rank
+        gp, gl = flatten_with_paths(got)
+        assert gp == paths
+        for p, g, w in zip(paths, gl, want):
+            assert spacings(g, w) <= 32, (rank, p)
+
+
+@pytest.mark.parametrize("name", list(worker.SCENARIOS[2])
+                         + list(worker.SCENARIOS[4]))
+def test_scenario_matches_one_rank(ranks, name):
+    out, _, refs, _ = ranks
+    world = 2 if name in worker.SCENARIOS[2] else 4
+    want = refs[ONE_RANK[name]]
+    if name == "llama_resume":   # the ranks ran steps 4-6
+        want = {**want, "losses": want["losses"][3:]}
+    loss_tol, param_tol = LOSS_RTOL[_kind(name)][0], \
+        PARAM_TOL[_kind(name)][0]
+    argv = worker.SCENARIOS[world][name]
+    init = _init(argv[argv.index("--arch") + 1])
+    first = _load(out, name, 0)
+    for rank in range(world):
+        got = _load(out, name, rank)
+        # every rank reports the same loss and returns the same whole tree
+        assert got["losses"] == first["losses"]
+        assert _rel(got["losses"], want["losses"]) <= loss_tol, rank
+        assert _param_err(_flat(got["params"]), _flat(want["params"]),
+                          init) <= param_tol, rank
+
+
+@pytest.mark.parametrize("name", ["llama", "llama_int8", "qwen", "gemma",
+                                  "moe_ep", "moe_etp"])
+def test_scenario_matches_the_jax_loop(ranks, name):
+    out, _, _, jax_refs = ranks
+    got, want = _load(out, name, 0), jax_refs[name]
+    argv = worker.SCENARIOS[2][name]
+    init = _init(argv[argv.index("--arch") + 1])
+    assert _rel(got["losses"], want["losses"]) <= LOSS_RTOL[_kind(name)][1]
+    assert _param_err(_flat(got["params"]), want["params"], init) \
+        <= PARAM_TOL[_kind(name)][1]
+
+
+@pytest.mark.parametrize("name", ["llama", "llama_int8", "moe_ep",
+                                  "moe_etp", "llama_2x2", "qwen_1x4"])
+def test_each_rank_holds_the_table_shards(ranks, name):
+    """Every rank held the shard shapes ``tp_step_shardings`` gives on the
+    run's mesh, and as many bytes as the table says."""
+    out, logs, _, _ = ranks
+    world = 2 if name in worker.SCENARIOS[2] else 4
+    argv = worker.SCENARIOS[world][name]
+    arch = argv[argv.index("--arch") + 1]
+    shape = tuple(int(n) for n in argv[argv.index("--mesh") + 1].split("x"))
+    codec = "int8" if "--state-codec" in argv else "f32"
+    cfg = worker.smoke_cfg(arch)
+    mesh = sharding.Mesh(shape, ("data", "model"))
+    seq = int(argv[argv.index("--seq") + 1])
+    sh = sharding.tp_step_shardings(
+        cfg, lm, {"tokens": torch.empty((4, seq), device="meta")}, mesh,
+        state_codec=codec)
+    abs_p = lm.abstract_params(cfg)
+    st = optim.make("gwt", lr=0.0, level=2, state_codec=codec).init(abs_p)
+    want = {}
+    for key, tree, tsh in (("params", abs_p, sh.params), ("opt", st, sh.opt)):
+        local = sharding.local_meta(tree, tsh)
+        for path, t in zip(*flatten_with_paths(local)):
+            want[f"{key}/{path}"] = (tuple(t.shape), t.dtype)
+    local_p = _flat(lm.abstract_params(cfg, sh.params))
+    split = [p for p, t in _flat(abs_p).items()
+             if tuple(local_p[p].shape) != tuple(t.shape)]
+    assert split   # the model axis split something
+    for rank in range(world):
+        got = _flat(_load(out, name, rank)["local"])
+        assert got == want, f"rank {rank}"
+        held = {k: sum(int(torch.Size(s).numel()) * torch.empty(
+            (), dtype=d).element_size() for p, (s, d) in got.items()
+            if p.startswith(k + "/")) for k in ("params", "opt")}
+        assert held["params"] == sharding.shard_bytes(abs_p, sh.params)
+        assert held["opt"] == sharding.shard_bytes(st, sh.opt)
+        assert held["opt"] < engine.state_bytes(st)
+    assert "tensor_parallel=model" in logs[world][0]
+
+
+def test_expert_and_head_layouts(ranks):
+    """The rule table's choices at these meshes: the 8 experts of
+    qwen3-moe's smoke split over 2 ranks, the 9 of the odd MoE keep whole
+    and split their hidden columns; qwen2.5's K/V projections split at
+    ``1x2`` and stay whole at ``1x4``."""
+    def spec(arch, path, m):
+        cfg = worker.smoke_cfg(arch)
+        sh = sharding.tp_step_shardings(
+            cfg, lm, {"tokens": torch.empty((4, 64), device="meta")},
+            sharding.Mesh((1, m), ("data", "model"))).params
+        return sharding.flat_shardings(sh)[path].spec
+    P = sharding.Spec
+    assert spec("qwen3-moe-30b-a3b-f32", "layers/b0/ffn/w_gate", 2) \
+        == P(None, "model")
+    assert spec(worker.ODD_MOE, "layers/b0/ffn/w_gate", 2) \
+        == P(None, None, None, "model")
+    assert spec(worker.ODD_MOE, "layers/b0/ffn/w_down", 2) \
+        == P(None, None, "model")
+    assert spec("qwen2.5-3b", "layers/b0/mixer/wk", 2) == P(None, None,
+                                                              "model")
+    assert spec("qwen2.5-3b", "layers/b0/mixer/wk", 4) == P()
+    assert spec("qwen2.5-3b", "layers/b0/mixer/wq", 4) == P(None, None,
+                                                              "model")
+
+
+def test_checkpoint_1x2_resumes_at_world_1(ranks):
+    out, _, refs, _ = ranks
+    d = os.path.join(out, "ck_tp")
+    ck = manager.CheckpointManager(d)
+    assert ck.committed_steps() == [3, 6]
+    straight = refs["straight"]
+    # whole arrays, in the reference's flatten order
+    shapes = [list(t.shape) for t in flatten_with_paths(
+        {"opt": straight["opt"], "params": straight["params"]})[1]]
+    assert [m["shape"] for m in ck.manifest()["leaves"]] == shapes
+    shutil.rmtree(os.path.join(d, "step_000000006"))
+    resumed = _one([*worker.LLAMA, "--steps", "6", "--ckpt-dir", d,
+                    "--resume"])
+    got = _load(out, "llama", 0)
+    assert _rel(resumed["losses"], got["losses"][3:]) \
+        <= LOSS_RTOL["f32"][0]
+    assert _param_err(_flat(resumed["params"]), _flat(got["params"]),
+                      _init("llama-60m")) <= PARAM_TOL["f32"][0]
+
+
+def test_checkpoint_world_1_resumes_at_1x2(ranks):
+    """``llama_resume`` restored step 3 of the one-rank run and ran 4-6
+    (held to the straight run by ``test_scenario_matches_one_rank``); its
+    first loss is step 4's."""
+    out, logs, refs, _ = ranks
+    got = _load(out, "llama_resume", 0)
+    assert len(got["losses"]) == 3
+    assert "resumed from step 3" in logs[2][0]

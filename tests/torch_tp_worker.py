@@ -1,0 +1,152 @@
+"""One rank of the port's tensor-parallel checks along the ``model`` mesh
+axis (``test_torch_tp_ranks.py`` starts two or four of these; not a test
+module).
+
+    RANK=r WORLD_SIZE=W MASTER_ADDR=localhost \
+        python tests/torch_tp_worker.py OUT PORT0 PORT1 ...
+
+Imports neither JAX nor the JAX package.  First, on a ``1xW`` mesh, the
+loss and the gradients of every config of :data:`GRAD_ARCHS` (f32) from the
+port's seeded init, this rank computing on its shards and the gradients
+gathered whole (``grads_<W>_<rank>.pt``).  Then every scenario of
+:data:`SCENARIOS` ``[W]`` through the launcher, each on its own port,
+writing ``OUT/<name>_<rank>.pt``: the losses, the whole parameters and
+optimizer state the launcher returns, and this rank's shards as it held
+them (``TrainResult.local``, shapes and dtypes).
+"""
+
+import contextlib
+import os
+import sys
+
+import torch
+
+torch.set_num_threads(1)
+
+from repro_torch import configs  # noqa: E402
+from repro_torch.distributed import sharding, tensor_parallel  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
+from repro_torch.launch.mesh import init_mesh  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.optim.base import (flatten_with_paths, tree_map,  # noqa: E402
+                                    unflatten)
+
+# the MoE smokes run in f32: in bf16 a router near-tie may pick another
+# expert under the other layout's rounding, which no tolerance bounds
+ODD_MOE = "qwen2-moe-a2.7b-odd"   # E_pad 9: tensor parallelism per expert
+_EXTRA = {
+    "qwen3-moe-30b-a3b-f32": lambda get: get("qwen3-moe-30b-a3b").with_(
+        name="qwen3-moe-30b-a3b-f32", dtype="float32"),
+    "qwen2-moe-a2.7b-f32": lambda get: get("qwen2-moe-a2.7b").with_(
+        name="qwen2-moe-a2.7b-f32", dtype="float32"),
+    ODD_MOE: lambda get: get("qwen2-moe-a2.7b").with_(
+        name=ODD_MOE, expert_padding=3, dtype="float32"),
+}
+
+
+@contextlib.contextmanager
+def extra_configs():
+    """``configs.get_smoke`` also knows the ids of :data:`_EXTRA`."""
+    get = configs.get_smoke
+
+    def smoke(name):
+        return _EXTRA[name](get) if name in _EXTRA else get(name)
+    configs.get_smoke = smoke
+    try:
+        yield
+    finally:
+        configs.get_smoke = get
+
+
+def smoke_cfg(arch, **kw):
+    with extra_configs():
+        return configs.get_smoke(arch).with_(**kw)
+
+
+SMOKE = ["--smoke", "--log-every", "1", "--device", "cpu"]
+LLAMA = ["--arch", "llama-60m", "--batch", "4", "--seq", "16"]
+
+
+def _arch(arch, steps=3):
+    return ["--arch", arch, "--batch", "4", "--seq", "64", "--steps",
+            str(steps)]
+
+
+# name -> launcher arguments (the checkpoint directories under OUT)
+SCENARIOS = {
+    2: {
+        "llama": [*LLAMA, "--steps", "6", "--mesh", "1x2", "--ckpt-dir",
+                  "{out}/ck_tp", "--ckpt-every", "3"],
+        "llama_resume": [*LLAMA, "--steps", "6", "--mesh", "1x2",
+                         "--ckpt-dir", "{out}/ck_one", "--ckpt-every", "3",
+                         "--resume"],
+        "llama_int8": [*LLAMA, "--steps", "3", "--mesh", "1x2",
+                       "--state-codec", "int8"],
+        "qwen": [*_arch("qwen2.5-3b"), "--mesh", "1x2"],
+        "gemma": [*_arch("gemma2-9b"), "--mesh", "1x2"],
+        "moe_ep": [*_arch("qwen3-moe-30b-a3b-f32"), "--mesh", "1x2"],
+        "moe_etp": [*_arch(ODD_MOE), "--mesh", "1x2"],
+    },
+    4: {
+        "llama_2x2": [*LLAMA, "--steps", "3", "--mesh", "2x2"],
+        "qwen_1x4": [*_arch("qwen2.5-3b"), "--mesh", "1x4"],
+    },
+}
+
+# the configs whose loss and gradients are gathered (f32), at 1x2 and 1x4
+GRAD_ARCHS = ["llama-60m", "qwen2.5-3b", "gemma2-9b", "gemma3-27b",
+              "deepseek-67b", "qwen2-vl-72b", "qwen3-moe-30b-a3b-f32",
+              "qwen2-moe-a2.7b-f32", ODD_MOE]
+GRAD_SEQ = 64
+
+
+def grad_batch(cfg, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    return {k: torch.randint(0, cfg.vocab, (2, GRAD_SEQ), generator=g,
+                             dtype=torch.int32)
+            for k in ("tokens", "labels")}
+
+
+def grad_params(cfg):
+    return lm.init(cfg, torch.Generator().manual_seed(0), "cpu").tree()
+
+
+def grads(out, port, rank, world):
+    """Loss and whole gradients of each :data:`GRAD_ARCHS` config on a
+    ``1xW`` mesh."""
+    os.environ["MASTER_PORT"] = port
+    dp, mesh = init_mesh(torch.device("cpu"), (1, world))
+    res = {}
+    try:
+        tp = tensor_parallel.from_dp(dp)
+        for arch in GRAD_ARCHS:
+            cfg = smoke_cfg(arch, dtype="float32")
+            batch = grad_batch(cfg)
+            sh = sharding.tp_step_shardings(cfg, lm, batch, mesh).params
+            local = sharding.shard_tree(grad_params(cfg), sh)
+            paths, leaves = flatten_with_paths(local)
+            loss = lm.loss_fn(cfg, local, batch, tp=tp)
+            g = torch.autograd.grad(loss, leaves)
+            res[arch] = (loss.detach(),
+                         sharding.gather_tree(unflatten(paths, g), sh))
+    finally:
+        dp.close()
+    torch.save(res, os.path.join(out, f"grads_{world}_{rank}.pt"))
+
+
+def main(out, *ports):
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    grads(out, ports[0], rank, world)
+    with extra_configs():
+        for (name, argv), port in zip(SCENARIOS[world].items(), ports[1:]):
+            os.environ["MASTER_PORT"] = port
+            r = train.main(SMOKE + [a.format(out=out) for a in argv])
+            torch.save({"losses": r.losses, "params": r.params,
+                        "opt": r.opt_state,
+                        "local": tree_map(lambda t: (tuple(t.shape), t.dtype),
+                                          r.local)},
+                       os.path.join(out, f"{name}_{rank}.pt"))
+
+
+if __name__ == "__main__":
+    main(*sys.argv[1:])
