@@ -137,15 +137,16 @@ Phases (any failure raises and the script exits non-zero):
     the plain version bitwise equal on every output (the largest has
     1.62e9 elements and 99,072 partials a leaf);
 22. the dense main path: ``train.main`` trains qwen2.5-3b at full width
-    and depth (36 layers; GQA, QKV bias, remat) with GWT-2 for 20 steps at
-    batch 16 x seq 256, with f32 moments and with ``--state-codec int8``:
-    K1 (int8: K2) exactly 6 times a step, each bucket in the design the
-    capacity rule names, nothing else launched; the state the JAX
-    package's 8,039,764,012 (int8: 2,135,562,352) bytes; losses finite and
-    falling; step time, tokens/s, peak memory, a profile of the f32 step,
-    K1 and K2 per launch at each of the six buckets beside the bound and
-    the plain version, and the int8 wrap of the (151936, 2048) embedding's
-    moments;
+    cut to 9 of its 36 layers (GQA, QKV bias, remat; the depth cut keeps
+    the script within its time) with GWT-2 for 20 steps at batch 16 x seq
+    256, with f32 moments and with ``--state-codec int8``: K1 (int8: K2)
+    exactly 6 times a step, each bucket in the design the capacity rule
+    names, nothing else launched; the state the JAX package's
+    3,876,942,892 (int8: 1,029,812,992) bytes; losses finite and falling;
+    step time, tokens/s, peak memory, a profile of the f32 step, K1 and K2
+    per launch at each of the six buckets of the full depth beside the
+    bound and the plain version, and the int8 wrap of the (151936, 2048)
+    embedding's moments;
 23. deepseek-67b, gemma2-9b and gemma3-27b at full width, cut to 2
     layers, 5 steps each through the launcher: deepseek (untied head on
     plain Adam) at 16 x 256, gemma2 (local and global, both softcaps) at
@@ -165,16 +166,17 @@ Phases (any failure raises and the script exits non-zero):
     64); then ``Engine.from_checkpoint``, continuous and static, bf16 and
     int8 pages: none of K1-K7 launched, the arena's storage unmoved,
     memory flat over the decode ticks, the free list recovered,
-    ``kv_bytes`` exact (``KV_BYTES``); every request's tokens equal the
-    dense ``generate`` path's up to a first divergence, which must be at
-    a near tie (printed), continuous equal to static; the paged path's
-    logits, teacher-forced on the dense tokens, within
+    ``kv_bytes`` exact (``KV_BYTES_PER_LAYER``); every request's tokens
+    equal the dense ``generate`` path's up to a first divergence, which
+    must be at a near tie (printed), continuous equal to static; the paged
+    path's logits, teacher-forced on the dense tokens, within
     ``TOL_SERVE_BF16_SPACINGS`` (bf16 pages) and
     ``TOL_SERVE_INT8_SPACINGS`` (int8) of the dense path's, int8 picking
     the dense token on >= 0.9 of the steps; syncs per tick counted; the
     decode step timed and profiled (launches, device idle share, the page
     gather) beside its bound;
-27. the same at qwen2.5-3b full width and depth, seed-0 init, 16
+27. the same at qwen2.5-3b full width cut to 9 of its 36 layers, seed-0
+    init, 16
     requests (prompts <= 256, gen <= 64), continuous, bf16 and int8
     pages;
 28. serving steps of the smoke configs on the card and on the CPU from
@@ -220,7 +222,8 @@ Phases (any failure raises and the script exits non-zero):
     a profiled step; the smoke config 3 steps on the card and on the CPU
     (f32 and bf16) within ``TOL_SMOKE_LOSS``, and its prefill + cached
     decode on the card against its own train forward;
-34. xlstm-350m at full width and depth the same, with f32 and int8
+34. xlstm-350m at full width cut to one period (8 layers) the same,
+    with f32 and int8
     moments (K2 by plan, held and timed at every bucket), the sLSTM time
     loop's steps counted and one sLSTM block's launches profiled apart;
 35. seamless-m4t-large-v2 at full width and depth the same (64 frames a
@@ -243,8 +246,8 @@ Phases (any failure raises and the script exits non-zero):
     peak memory;
 37. sharded parameters (``--shard-params auto``) against ``none`` under
     a one-rank NCCL group, where every placement is over mesh axes of
-    size 1 and nothing is copied: qwen2.5-3b at full width and depth, 16 x
-    256, 3 steps of ``--mesh 1 --dp-reduce exact`` (K1 by plan in both
+    size 1 and nothing is copied: qwen2.5-3b at full width and 9 layers,
+    16 x 256, 3 steps of ``--mesh 1 --dp-reduce exact`` (K1 by plan in both
     designs, the same counts, losses, parameters and state bitwise, the
     auto peak within 1% of none's, each step time printed) and llama-60m
     10 steps of ``--state-codec int8 --dp-reduce compressed`` (K2 30, K3
@@ -254,7 +257,8 @@ Phases (any failure raises and the script exits non-zero):
 38. the paper's example drivers (``repro_torch.examples``) as a user runs
     them: ``quickstart`` (llama-tiny, 60 steps of 16 x 128 under Adam,
     GWT-2 and GWT-3; K1 by plan), ``compare_optimizers`` at its defaults
-    (120 steps, nine methods; the Table II proxy with each method's
+    but for depth (llama-tiny at 2 of its 4 layers; 120 steps, nine
+    methods; the Table II proxy with each method's
     launches, K1 by plan for the Adam-hosted GWT rows and none elsewhere),
     ``pretrain`` at llama-130m full width, 16 x 256, 40 steps
     checkpointing at 20, then its step-40 checkpoint removed and the run
@@ -264,11 +268,16 @@ Phases (any failure raises and the script exits non-zero):
     against staged (K4), A B B A;
 39. the ``model`` mesh axis: two processes on the card over gloo at
     ``--mesh 1x2`` (``tools/tp_rank.py``) against world 1 here, for
-    llama-60m (f32 and int8 moments, 5 steps at lr 1e-3) and
-    qwen3-moe-30b-a3b's 2-layer cut (2 steps): losses within 2e-3
+    llama-60m (f32 and int8 moments, 5 steps at lr 1e-3),
+    qwen3-moe-30b-a3b's 2-layer cut, jamba-v0.1-52b's first block (mamba
+    with its MLP), one period of xlstm-350m (8 layers, in f32 and in
+    bf16) and seamless-m4t-large-v2 at 2 encoder and 2 decoder layers, all
+    at full width (2 steps each): losses within 2e-3
     relative, the whole optimizer state and parameters at the end leaf by
-    leaf, each rank's bytes equal to the rule table's, K1/K2
-    launches equal to world 1's; peaks and step times printed.
+    leaf (xlstm-350m's bf16 run against its f32 run, within 1.5 times
+    world 1's own bf16 distance), each rank's bytes equal to the rule
+    table's, K1/K2 launches equal to world 1's; peaks and step times
+    printed.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -282,6 +291,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import socket
 import subprocess
@@ -2565,8 +2575,13 @@ DENSE_SHAPES = [("wk/wv, one layer", (2, 2048, 256)),
                 ("bk/bv", (2, 36, 256)), ("bq", (1, 36, 2048))]
 QWEN_ARGS = ["--arch", "qwen2.5-3b", "--steps", str(STEPS), "--batch",
              "16", "--seq", "256", "--log-every", "5", "--seed", "0"]
-# the JAX package's engine.state_bytes of GWT-2 at full width, per codec
-QWEN_STATE_BYTES = {"f32": 8_039_764_012, "int8": 2_135_562_352}
+# qwen2.5-3b's depth in phases 22, 27 and 37: 9 of its 36 layers, every
+# width published, to keep the script within its time (the kernel timings
+# and phase 21's checks keep QWEN_BUCKETS, the full depth's buckets)
+QWEN_LAYERS = 9
+# the JAX package's engine.state_bytes of GWT-2 at full width and
+# QWEN_LAYERS layers, per codec (8,039,764,012 / 2,135,562,352 B at 36)
+QWEN_STATE_BYTES = {"f32": 3_876_942_892, "int8": 1_029_812_992}
 # phase 23: (arch, layers, batch, seq, the JAX package's state bytes at
 # that depth).  Every width is the published one; only depth is cut, to
 # fit one card.  gemma2 at seq 8192 is the first length its 4096 window
@@ -2722,10 +2737,14 @@ def check_dense_fused(kernel, ref, dev):
 @contextlib.contextmanager
 def depth_cut(arch, n_layers):
     """While the block runs, ``configs.get_config(arch)`` (what the
-    launcher builds) has ``n_layers`` layers and every published width."""
+    launcher builds) has ``n_layers`` layers and every published width.
+    ``n_layers`` may be a dict of config fields instead: the
+    encoder-decoder stack's ``n_layers``, ``n_enc_layers`` and
+    ``n_dec_layers``, or a ``dtype`` beside the depth."""
     from repro_torch import configs
     full = configs.get_config
-    configs.get_config = lambda name: (full(name).with_(n_layers=n_layers)
+    cut = n_layers if isinstance(n_layers, dict) else {"n_layers": n_layers}
+    configs.get_config = lambda name: (full(name).with_(**cut)
                                        if name == arch else full(name))
     try:
         yield configs.get_config(arch)
@@ -2832,21 +2851,34 @@ def run_dense(train, kernel, hk, arch, argv, cfg, steps, state_bytes_want,
     return out
 
 
-def run_dense_main(train, kernel, hk, codec="f32"):
-    """Phase 22: qwen2.5-3b at full width and depth through the launcher,
-    GWT-2, f32 (``codec`` int8: blocked-int8) moments, synthetic data,
-    remat: K1 (int8: K2) exactly 6 times a step in the designs the plan
-    names, nothing else; the state the JAX package's bytes; losses finite
-    and falling."""
+def qwen_cut():
+    """qwen2.5-3b at ``QWEN_LAYERS`` layers, every width published."""
     from repro_torch import configs
-    cfg = configs.get_config("qwen2.5-3b")
-    buckets, _ = gwt_buckets(cfg)
-    if [s for _, s in buckets] != [s for _, s in QWEN_BUCKETS]:
-        raise AssertionError(f"qwen2.5-3b's GWT buckets are {buckets}")
-    q8 = codec == "int8"
-    out = run_dense(train, kernel, hk, "qwen2.5-3b",
-                    QWEN_ARGS + ["--state-codec", codec], cfg, STEPS,
-                    QWEN_STATE_BYTES[codec], 256, q8)
+    return configs.get_config("qwen2.5-3b").with_(n_layers=QWEN_LAYERS)
+
+
+def qwen_buckets(layers):
+    """``QWEN_BUCKETS`` at ``layers`` of the 36: each stack's rows are its
+    layers' rows."""
+    return [(name, (L, rows * layers // 36, n))
+            for name, (L, rows, n) in QWEN_BUCKETS]
+
+
+def run_dense_main(train, kernel, hk, codec="f32"):
+    """Phase 22: qwen2.5-3b at full width, ``QWEN_LAYERS`` layers, through
+    the launcher, GWT-2, f32 (``codec`` int8: blocked-int8) moments,
+    synthetic data, remat: K1 (int8: K2) exactly 6 times a step in the
+    designs the plan names, nothing else; the state the JAX package's
+    bytes; losses finite and falling."""
+    with depth_cut("qwen2.5-3b", QWEN_LAYERS) as cfg:
+        buckets, _ = gwt_buckets(cfg)
+        if [s for _, s in buckets] != [
+                s for _, s in qwen_buckets(QWEN_LAYERS)]:
+            raise AssertionError(f"qwen2.5-3b's GWT buckets are {buckets}")
+        q8 = codec == "int8"
+        out = run_dense(train, kernel, hk, "qwen2.5-3b",
+                        QWEN_ARGS + ["--state-codec", codec], cfg, STEPS,
+                        QWEN_STATE_BYTES[codec], 256, q8)
     logged = [out["losses"][i] for i in range(4, STEPS, 5)]
     if not logged[-1] < logged[0]:
         raise AssertionError(f"qwen2.5-3b {codec}: loss did not fall: "
@@ -3009,18 +3041,22 @@ def check_dense_small_training(dev):
 # ---------------------------------------------------------------------------
 
 # (a) llama-60m at full width, trained 20 steps by the launcher and served
-# from its checkpoint; (b) qwen2.5-3b at full width and depth, seed-0 init.
+# from its checkpoint; (b) qwen2.5-3b at full width cut to QWEN_LAYERS
+# of its 36 layers (to keep the script within its time; the decode tick is
+# launch-bound, so its time and launches scale with the depth), seed-0
+# init.
 # Workloads from launch.serve.build_workload (rate 0: all at t=0)
 SERVE_SPECS = {"llama-60m": {"requests": 32, "prompt": 128, "gen": 64},
                "qwen2.5-3b": {"requests": 16, "prompt": 256, "gen": 64}}
 SERVE_SLOTS, SERVE_PAGE, SERVE_CHUNK = 8, 16, 64
-# kv_bytes(): pages x 16 tokens x layers x 2 (K and V) x KV heads x (hd x 2
-# B in bf16, or hd + 4 B in int8); llama-60m 97 pages (1 + 8 x 192/16),
-# qwen2.5-3b 161 (1 + 8 x 320/16)
-KV_BYTES = {("llama-60m", None): 25_427_968,
-            ("llama-60m", "int8"): 13_508_608,
-            ("qwen2.5-3b", None): 94_961_664,
-            ("qwen2.5-3b", "int8"): 48_964_608}
+# kv_bytes() a layer: pages x 16 tokens x 2 (K and V) x KV heads x (hd x 2
+# B in bf16, or hd + 4 B in int8); llama-60m 97 pages (1 + 8 x 192/16; 8
+# layers: 25,427,968 / 13,508,608 B), qwen2.5-3b 161 (1 + 8 x 320/16; 36
+# layers: 94,961,664 / 48,964,608 B)
+KV_BYTES_PER_LAYER = {("llama-60m", None): 3_178_496,
+                      ("llama-60m", "int8"): 1_688_576,
+                      ("qwen2.5-3b", None): 2_637_824,
+                      ("qwen2.5-3b", "int8"): 1_360_128}
 # The paged path against the dense path, teacher-forced on the dense
 # tokens, in bf16 spacings of the dense logits' largest magnitude.  bf16
 # pages: both compute the same function, but the chunk prefill's matmuls
@@ -3401,10 +3437,10 @@ def serve_cell(arch, cfg, params, make_engine, kernel, hk, dev, statics):
             eng, out = serve_run(f"{arch} {key}", make_engine, ecfg, reqs,
                                  static, kernel, hk,
                                  syncs=(quant is None and not static))
-            if out["kv_bytes"] != KV_BYTES[arch, quant]:
+            want_kv = KV_BYTES_PER_LAYER[arch, quant] * cfg.n_layers
+            if out["kv_bytes"] != want_kv:
                 raise AssertionError(f"{arch} {key}: kv_bytes "
-                                     f"{out['kv_bytes']} != "
-                                     f"{KV_BYTES[arch, quant]}")
+                                     f"{out['kv_bytes']} != {want_kv}")
             runs[key], outs[key] = out, [r.generated for r in reqs]
             near[key] = check_against_dense(f"{arch} {key}", reqs, dense,
                                             tol)
@@ -3477,7 +3513,8 @@ def run_serve_roundtrip(train, kernel, hk, dev, d):
           f"{time.perf_counter() - t0:.1f} s")
     if any(all_counts(kernel, hk).values()):
         raise AssertionError(f"serve.main launched {all_counts(kernel, hk)}")
-    if launcher["kv_arena_bytes"] != KV_BYTES["llama-60m", None]:
+    if launcher["kv_arena_bytes"] != KV_BYTES_PER_LAYER["llama-60m",
+                                                        None] * 8:
         raise AssertionError(f"serve.main kv bytes "
                              f"{launcher['kv_arena_bytes']}")
     cfg = configs.get_config("llama-60m")
@@ -3495,14 +3532,14 @@ def run_serve_roundtrip(train, kernel, hk, dev, d):
 
 
 def run_serve_qwen(kernel, hk, dev):
-    """Phase 27: qwen2.5-3b at full width and depth, seed-0 init, served
-    continuous with bf16 and int8 pages."""
+    """Phase 27: qwen2.5-3b at full width, ``QWEN_LAYERS`` layers,
+    seed-0 init, served continuous with bf16 and int8 pages."""
     from repro_torch import configs
     from repro_torch.models import lm
     from repro_torch.serve.engine import Engine
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = configs.get_config("qwen2.5-3b")
+    cfg = qwen_cut()
     params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0),
                      dev).tree()
     out = serve_cell("qwen2.5-3b", cfg, params,
@@ -4048,14 +4085,18 @@ def run_new_cuts(train, kernel, hk, ref, dev):
 
 # (arch, layers or None for full depth, batch, seq, the JAX package's GWT-2
 # state bytes at that depth for each codec run: tests/test_torch_ssm.py,
-# test_torch_xlstm.py, test_torch_encdec.py).  Every width is the
-# published one.  jamba is cut to the first five kinds of its period
-# (mamba, mamba+moe, mamba, mamba+moe, attn): every kind it has, no whole
-# period; seamless takes seq // 4 = 64 frames a row
+# test_torch_xlstm.py, test_torch_encdec.py; at a cut depth the JAX
+# package's engine.state_bytes on the cut config's abstract parameters).
+# Every width is the published one.  jamba is cut to the first five kinds
+# of its period (mamba, mamba+moe, mamba, mamba+moe, attn): every kind it
+# has, no whole period; xlstm-350m to one period of its three (seven mLSTM
+# blocks and an sLSTM: 1,286,170,084 / 341,639,144 B at full depth), to
+# keep the script within its time; seamless takes seq // 4 = 64 frames a
+# row
 SUBSTRATE_RUNS = [
     ("jamba-v0.1-52b", 5, 16, 256, {"f32": 17_665_458_288}),
-    ("xlstm-350m", None, 16, 256, {"f32": 1_286_170_084,
-                                   "int8": 341_639_144}),
+    ("xlstm-350m", 8, 16, 256, {"f32": 703_455_844,
+                                "int8": 186_855_688}),
     ("seamless-m4t-large-v2", None, 16, 256, {"f32": 3_609_296_972}),
 ]
 SUBSTRATE_STEPS = 5
@@ -4826,8 +4867,9 @@ def run_observability(train, kernel, hk, dev, res32, res8, prof32):
 
 # phase 37: the sharded-parameter layout (--shard-params auto) against the
 # replicated one under a one-rank NCCL group: qwen2.5-3b at full width and
-# depth, 16 x 256, SHARD_QWEN_STEPS steps with exact f32 means, and
-# llama-60m SHARD_Q8_STEPS steps of int8 moments with compressed means
+# QWEN_LAYERS layers, 16 x 256, SHARD_QWEN_STEPS steps with exact f32
+# means, and llama-60m SHARD_Q8_STEPS steps of int8 moments with
+# compressed means
 SHARD_QWEN_STEPS = 3
 SHARD_Q8_STEPS = 10
 SHARD_QWEN_ARGS = ["--arch", "qwen2.5-3b", "--steps", str(SHARD_QWEN_STEPS),
@@ -4922,7 +4964,8 @@ def run_sharding(train, kernel, hk):
     """Phase 37 (the sharded-parameter slice): ``--shard-params auto``
     against ``none`` at world size 1 under a one-rank NCCL group, where
     every placement is over mesh axes of size 1 and nothing is copied.
-    qwen2.5-3b at full width and depth with exact means, none auto auto
+    qwen2.5-3b at full width and ``QWEN_LAYERS`` layers with exact means,
+    none auto auto
     none (K1 by plan in both designs in every run, losses, parameters and
     state bitwise, the auto peaks within ``SHARD_PEAK_SHARE`` of none's,
     each step time) and llama-60m with int8 moments and compressed means
@@ -4935,9 +4978,11 @@ def run_sharding(train, kernel, hk):
     from repro_torch.optim import engine, make
     t0 = time.perf_counter()
     cfg = configs.get_config("qwen2.5-3b")
-    qwen = run_layouts(train, kernel, hk, SHARD_QWEN_ARGS,
-                       "qwen2.5-3b exact", ("none", "auto", "auto", "none"),
-                       fused_plan_counts(kernel, cfg, SHARD_QWEN_STEPS))
+    with depth_cut("qwen2.5-3b", QWEN_LAYERS) as cut:
+        qwen = run_layouts(train, kernel, hk, SHARD_QWEN_ARGS,
+                           f"qwen2.5-3b {QWEN_LAYERS} layers exact",
+                           ("none", "auto", "auto", "none"),
+                           fused_plan_counts(kernel, cut, SHARD_QWEN_STEPS))
     peaks = {k: [r["peak_mib"] for r in rs] for k, rs in qwen.items()}
     if max(peaks["auto"]) > min(peaks["none"]) * (1 + SHARD_PEAK_SHARE):
         raise AssertionError(f"qwen2.5-3b: auto peaks {peaks['auto']} MiB "
@@ -4964,7 +5009,8 @@ def run_sharding(train, kernel, hk):
            "qwen2.5-3b data=8 rank bytes (computed)": rank8,
            "phase_s": time.perf_counter() - t0}
     c = qwen["auto"][0]["counts"]
-    print(f"phase 37: qwen2.5-3b exact none/auto/auto/none bitwise, K1 "
+    print(f"phase 37: qwen2.5-3b ({QWEN_LAYERS} layers) exact "
+          f"none/auto/auto/none bitwise, K1 "
           f"{c['K1']} ({c['K1 one-pass']} one pass, {c['K1 two-pass']} "
           f"two) in each; step ms none {steps['none']} auto "
           f"{steps['auto']}; peak MiB none {peaks['none']} auto "
@@ -4980,6 +5026,8 @@ def run_sharding(train, kernel, hk):
 # phase 38: the paper's example drivers.  ``pretrain`` runs PRETRAIN_STEPS
 # steps checkpointing at half of them, then resumes from half
 PRETRAIN_STEPS = 40
+# compare_optimizers' depth on the card (its llama-tiny has 4 layers)
+COMPARE_LAYERS = 2
 
 
 def counted(kernel, hk, fn, *args):
@@ -5023,12 +5071,33 @@ def run_quickstart(kernel, hk):
     return out
 
 
+@contextlib.contextmanager
+def tiny_cut(n_layers):
+    """While the block runs, the examples' llama-tiny (``quickstart.CFG``,
+    which ``compare_optimizers`` shares) has ``n_layers`` layers, every
+    width its own."""
+    from repro_torch.examples import compare_optimizers as co
+    from repro_torch.examples import quickstart as qs
+    full = qs.CFG
+    qs.CFG = co.CFG = full.with_(n_layers=n_layers)
+    try:
+        yield qs.CFG
+    finally:
+        qs.CFG = co.CFG = full
+
+
 def run_compare_optimizers(kernel, hk):
     """``compare_optimizers`` at its defaults (120 steps of 16 x 128, the
-    nine methods, the same initial parameters for each), method by method
-    with the counts read around each: K1 by plan for GWT with the Adam
-    host, nothing for the others; losses finite and falling; then its
-    table."""
+    nine methods, the same initial parameters for each) but for depth
+    (llama-tiny cut from 4 layers to ``COMPARE_LAYERS``, to keep the script
+    within its time), method by method with the counts read around each:
+    K1 by plan for GWT with the Adam host, nothing for the others; losses
+    finite and falling; then its table."""
+    with tiny_cut(COMPARE_LAYERS):
+        return _compare_optimizers(kernel, hk)
+
+
+def _compare_optimizers(kernel, hk):
     from repro_torch.examples import compare_optimizers as co
     steps = 120
     rows, out = [], []
@@ -5206,17 +5275,48 @@ def run_examples(kernel, hk, dev):
 # the init.  A gradient with one rank's share missing, or counted twice,
 # is O(1) off in the moments; one of another direction, in both.  (The
 # schedule's first lr is 0: a run's parameters first move at step 2.)
+#
+# The recurrent and encoder-decoder families split along model too: jamba
+# cut to its first block (mamba with its dense MLP; jamba's attention and
+# MoE blocks are the runs above's code), xlstm-350m to one period (seven
+# mLSTM blocks and an sLSTM), seamless to two encoder and two decoder
+# layers, each at full width.  jamba's 5-layer cut peaks at 67.5 GB at
+# world 1, too much for two processes on one card.
+#
+# xlstm-350m runs twice, in f32 and in its config's bf16.  In bf16 its gate
+# weights' and biases' gradients are rounding noise at the 10% level, so
+# its rank is more than the bounds above from world 1's bf16 run without
+# a fault: world 1's own bf16 state is that far from its f32 state.  So
+# the f32 run is held to world 1 under the bounds above (a gradient share
+# missing or counted twice is O(1) off there, a right one 1e-5), and the
+# bf16 run, beside its losses, launches and bytes against world 1's bf16
+# run, is held to the f32 run at world 1 (TP_NOISE_REF): each kind of
+# leaf (one leaf, or one leaf of each block of the period pooled: a gate
+# bias has 4 elements, and one leaf's distance is a coin flip of Adam's
+# first step) no further from it than TP_BF16_NOISE times world 1's bf16
+# run is, or within the bounds above (noise_check).
 TP_DENSE_LR = "1e-3"
+SEAMLESS_CUT = {"n_layers": 4, "n_enc_layers": 2, "n_dec_layers": 2}
+XLSTM_CUT = {"n_layers": 8, "dtype": "float32"}
 # (label, arch, depth cut, steps, extra flags)
 TP_RUNS = [("llama-60m f32", "llama-60m", None, 5, ["--lr", TP_DENSE_LR]),
            ("llama-60m int8", "llama-60m", None, 5,
             ["--lr", TP_DENSE_LR, "--state-codec", "int8"]),
-           ("qwen3-moe-30b-a3b 2 layers", "qwen3-moe-30b-a3b", 2, 2, [])]
+           ("qwen3-moe-30b-a3b 2 layers", "qwen3-moe-30b-a3b", 2, 2, []),
+           ("jamba-v0.1-52b 1 layer", "jamba-v0.1-52b", 1, 2, []),
+           ("xlstm-350m 8 layers f32", "xlstm-350m", XLSTM_CUT, 2, []),
+           ("xlstm-350m 8 layers bf16", "xlstm-350m", 8, 2, []),
+           ("seamless-m4t-large-v2 2+2 layers", "seamless-m4t-large-v2",
+            SEAMLESS_CUT, 2, [])]
 TP_LOSS_RTOL = 2e-3
 TP_STATE_RTOL = 5e-2
 TP_MOVE_RTOL = 0.3
+# a bf16 run's state and parameters against the f32 run at world 1
+TP_NOISE_REF = {"xlstm-350m 8 layers bf16": "xlstm-350m 8 layers f32"}
+TP_BF16_NOISE = 1.5
 TP_SKETCH = 64
-TP_TIMEOUT_S = 240
+# the rank processes' wall limit (not a numerical bound)
+TP_TIMEOUT_S = 600
 
 
 def tp_argv(arch, steps, extra):
@@ -5275,16 +5375,63 @@ def state_check(got, ref):
     return worst, failed
 
 
+def leaf_kind(path: str) -> str:
+    """``path`` with its block's index in the period made ``b*``: the
+    leaves of one kind across the period's blocks."""
+    return re.sub(r"(?<=layers[./])b\d+(?=[./])", "b*", path)
+
+
+def noise_check(got, ref, f32):
+    """A bf16 rank's ``{"params", "opt"}`` sketches against the f32 run at
+    world 1 (``f32``), beside world 1's bf16 run (``ref``), pooled over
+    each kind of leaf (``leaf_kind``: xLSTM's gate biases have one element
+    a head, too few for one leaf's distance to measure rounding): each
+    kind's distance from ``f32`` within ``TP_BF16_NOISE`` times world 1's,
+    or within ``state_check``'s bound (relative as there, to the f32 run's
+    norm and move, summed in squares over the kind).  Returns the kinds'
+    ratios to world 1's distance, largest first, and the failures."""
+    sums, failed = {}, []
+    for part in ("opt", "params"):
+        if set(got[part]) != set(f32[part]):
+            failed.append(f"{part} leaves "
+                          f"{sorted(set(got[part]) ^ set(f32[part]))[:4]} "
+                          f"differ from the f32 run's")
+            continue
+        for path, (sk, _) in got[part].items():
+            want, norm = f32[part][path]
+            scale = norm if part == "opt" else sketch_gap(
+                want, f32["init"][path][0])
+            acc = sums.setdefault((part, leaf_kind(path)), [0.0, 0.0, 0.0])
+            for j, x in enumerate((sketch_gap(sk, want),
+                                   sketch_gap(ref[part][path][0], want),
+                                   scale)):
+                acc[j] += x * x
+    ratios = []
+    for (part, kind), sq in sums.items():
+        gap, own, scale = (math.sqrt(x) for x in sq)
+        bound = TP_STATE_RTOL if part == "opt" else TP_MOVE_RTOL
+        ratios.append((gap / own if own else (0.0 if gap == 0.0 else
+                                              math.inf), f"{part} {kind}"))
+        if gap > max(TP_BF16_NOISE * own, bound * scale):
+            failed.append(
+                f"{part} {kind} {gap / scale if scale else math.inf:.3g} "
+                f"from f32, world 1's bf16 run "
+                f"{own / scale if scale else math.inf:.3g} (bound "
+                f"{TP_BF16_NOISE}x that, or {bound})")
+    return sorted(ratios, reverse=True), failed
+
+
 def tp_table_bytes(cfg, codec):
     """The rule table's bytes of one rank at ``model=2``: parameters and
     GWT-2 state, computed from shapes."""
     from repro_torch.distributed import sharding
-    from repro_torch.models import lm
+    from repro_torch.models import module_for
     from repro_torch.optim import make
+    mod = module_for(cfg)
     sh = sharding.tp_step_shardings(
-        cfg, lm, {"tokens": torch.empty((16, 256), device="meta")},
+        cfg, mod, {"tokens": torch.empty((16, 256), device="meta")},
         sharding.Mesh((1, 2), ("data", "model")), state_codec=codec)
-    abs_p = lm.abstract_params(cfg)
+    abs_p = mod.abstract_params(cfg)
     st = make("gwt", lr=0.0, level=LEVEL, state_codec=codec).init(abs_p)
     return {"params": sharding.shard_bytes(abs_p, sh.params),
             "state": sharding.shard_bytes(st, sh.opt),
@@ -5333,21 +5480,28 @@ def finish_tp_ranks(procs, out):
             for r in range(2)], logs
 
 
-def run_tp(train, kernel, hk):
-    """Phase 39 (the model mesh axis): each of ``TP_RUNS`` at world 1
-    here, then at ``--mesh 1x2`` on two processes sharing the card.  Each
+def run_tp(train, kernel, hk, only=None):
+    """Phase 39 (the model mesh axis): each of ``TP_RUNS`` (``only``: the
+    runs of those indices) at world 1 here, then at ``--mesh 1x2`` on two
+    processes sharing the card.  Each
     rank's losses within ``TP_LOSS_RTOL`` of world 1's, its state and
     parameters at the end within ``TP_STATE_RTOL`` and ``TP_MOVE_RTOL``
-    (``state_check``), its K1/K2 launches (by design)
+    (``state_check``; a run of ``TP_NOISE_REF`` by ``noise_check``
+    instead), its K1/K2 launches (by design)
     equal to world 1's and to the plan's, its parameter and state bytes
     equal to the rule table's; prints each rank's peak memory and step
     time beside world 1's.  Every run is checked before a failure
     raises."""
     t0 = time.perf_counter()
+    labels = [r[0] for r in TP_RUNS]
+    if only is not None:    # with the f32 runs the bf16 ones are held to
+        only = set(only) | {labels.index(TP_NOISE_REF[labels[i]])
+                            for i in only if labels[i] in TP_NOISE_REF}
     runs = [{"label": label, "arch": arch, "layers": layers,
              "argv": tp_argv(arch, steps, extra), "steps": steps,
              "q8": "int8" in extra}
-            for label, arch, layers, steps, extra in TP_RUNS]
+            for i, (label, arch, layers, steps, extra) in enumerate(TP_RUNS)
+            if only is None or i in only]
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
     procs = []
     try:
@@ -5390,7 +5544,22 @@ def run_tp(train, kernel, hk):
                               f"{g['params_bytes']} parameter and "
                               f"{g['state_bytes']} state bytes, the table "
                               f"says {table}")
-            worst, bad = state_check(g.pop("sketch"), ref["sketch"])
+            sketch = g.pop("sketch")
+            worst, bad = state_check(sketch, ref["sketch"])
+            if label in TP_NOISE_REF:
+                f32 = refs[[r["label"] for r in runs].index(
+                    TP_NOISE_REF[label])]["sketch"]
+                ratios, bad = noise_check(sketch, ref["sketch"], f32)
+                g["noise_ratio_vs_world1"] = ratios[:5]
+                top = ", ".join(f"{r:.3g} {leaf}" for r, leaf in ratios[:5])
+                print(f"phase 39 {label} rank {rank}: each kind of leaf's "
+                      f"distance from the f32 run at world 1 over world 1's "
+                      f"bf16 run's: largest {top}; median "
+                      f"{ratios[len(ratios) // 2][0]:.3g} of {len(ratios)} "
+                      f"kinds (bound {TP_BF16_NOISE}, or {TP_STATE_RTOL} "
+                      f"and {TP_MOVE_RTOL} from f32; the state and move "
+                      f"against world 1's bf16 run below are shown, not "
+                      f"held)")
             failed += [f"{label} rank {rank}: {b}" for b in bad]
             g["state_rel_vs_world1"] = worst["opt"]
             g["move_rel_vs_world1"] = worst["params"]
@@ -5408,8 +5577,9 @@ def run_tp(train, kernel, hk):
                   f"{ref['peak_mib']:.1f}); launches {g['counts']} = world "
                   f"1's; step {g['step_ms']} ms (world 1 {ref['step_ms']} "
                   f"ms; gloo over host memory, two processes on one card)")
-        ref.pop("sketch")
         out[label] = {"world1": ref, "ranks": got}
+    for ref in refs:
+        ref.pop("sketch")
     for line in logs[0].splitlines():
         if "tensor_parallel=model" in line:
             print(f"phase 39 rank 0 logged: {line}")
@@ -5463,6 +5633,22 @@ def tp_world1(train, kernel, hk, run):
     return ref
 
 
+class Laps:
+    """Each phase group's seconds, printed as the group ends, with the
+    script's seconds so far (``groups``: all of them, in order)."""
+
+    def __init__(self):
+        self.t0 = self.last = time.perf_counter()
+        self.groups = {}
+
+    def __call__(self, name):
+        now = time.perf_counter()
+        self.groups[name] = now - self.last
+        self.last = now
+        print(f"{name}: {self.groups[name]:.1f} s; the script so far "
+              f"{now - self.t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA "
@@ -5479,7 +5665,7 @@ def main() -> int:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}; card: {card}")
 
-    t0 = time.perf_counter()
+    lap = Laps()
     parent = register_parent(build)
     parent_haar = register_parent(build, "haar_dwt")
     if parent or parent_haar:
@@ -5487,15 +5673,17 @@ def main() -> int:
               f"phase 12: {parent_haar}): revision "
               f"{(PARENT_DIR / 'REVISION').read_text().strip()}")
     libs = build.build_all(tuple(build.SOURCES), verbose=True)
-    print(f"build: {time.perf_counter() - t0:.1f} s -> "
+    print(f"build: {time.perf_counter() - lap.t0:.1f} s -> "
           f"{[os.path.relpath(p, REPO) for p in libs.values()]}")
     print_plans(kernel)
+    lap("phase 1 (the build)")
 
     err_k1, designs_k1 = check_fused(kernel, ref, dev, q8=False)
     err_k2, designs_k2 = check_fused(kernel, ref, dev, q8=True)
     err_haar = check_haar(hk, dev)
     tile_cases_run = check_tile(kernel, ref, dev)
     check_small_training(dev)
+    lap("phases 2-4, 10, 13 (the kernels against their plain versions)")
 
     res32, launches_k1, peak32 = run_main_path(train, kernel, hk, "f32")
     res8, launches_k2, peak8 = run_main_path(train, kernel, hk, "int8")
@@ -5518,6 +5706,7 @@ def main() -> int:
     check_unrolled()
     memory = check_update_memory(dev)
     choices = run_choices(train, kernel, hk)
+    lap("phases 5-7, 11, 14-16 (llama-60m's paths)")
 
     rows_k1 = time_fused(kernel, ref, dev, q8=False)
     rows_k2 = time_fused(kernel, ref, dev, q8=True)
@@ -5532,9 +5721,13 @@ def main() -> int:
     bf16_state = run_bf16_state(kernel, hk, res32)
     refresh = run_refresh(kernel, hk)
     refresh["prng_card_vs_cpu"] = check_prng_card(dev)
+    lap("phases 8-9, 12, 17-20 (timing, profiles, corpus, bf16 state, "
+        "low-rank)")
     dense_fused = check_dense_fused(kernel, ref, dev)
+    lap("phase 21 (K1/K2 at qwen2.5-3b's bucket widths)")
     qwen = run_dense_main(train, kernel, hk)
-    qwen["profile"] = profile_step(dev, "f32", arch="qwen2.5-3b")
+    qwen["profile"] = profile_step(dev, "f32", arch="qwen2.5-3b",
+                                   cfg=qwen_cut())
     rows_qwen = time_dense_fused(kernel, ref, dev)
     qwen8 = run_dense_main(train, kernel, hk, "int8")
     rows_qwen8 = time_dense_fused(kernel, ref, dev, q8=True)
@@ -5547,20 +5740,21 @@ def main() -> int:
             r["bound_ms"] * r["per_step"] for r in rows)
         run[f"{k.lower()}_write_pass_ms_per_step"] = sum(
             r.get("write_pass_ms", 0.0) for r in rows)
-        print(f"qwen2.5-3b {run['codec']}: {k} "
+        print(f"qwen2.5-3b {run['codec']}: {k} at the full depth's buckets "
               f"{run[f'{k.lower()}_ms_per_step']:.3f} ms a step on the "
               f"device (timed per launch; bound "
               f"{run[f'{k.lower()}_bound_ms_per_step']:.3f} ms; the two-pass "
               f"buckets' write passes alone "
-              f"{run[f'{k.lower()}_write_pass_ms_per_step']:.3f} ms) = "
-              f"{run[f'{k.lower()}_ms_per_step'] / run['step_ms']:.2%} of "
-              f"the launcher's step")
-    print(f"qwen2.5-3b f32: profiled GWT kernels "
+              f"{run[f'{k.lower()}_write_pass_ms_per_step']:.3f} ms)")
+    print(f"qwen2.5-3b f32, {QWEN_LAYERS} layers: profiled GWT kernels "
           f"{qwen['profile']['gwt_kernel_ms']:.3f} of "
           f"{qwen['profile']['device_busy_ms']:.2f} ms device time a step")
+    lap(f"phase 22 (qwen2.5-3b at {QWEN_LAYERS} layers f32 and int8, "
+        "profiled; K1/K2 timed)")
     cuts = run_dense_cuts(train, kernel, hk)
     flash = check_flash(train, kernel, hk, dev)
     dense_small = check_dense_small_training(dev)
+    lap("phases 23-25 (the dense cuts, the chunked route, the smokes)")
     t_serve = time.perf_counter()
     base_ckpt = tempfile.mkdtemp(prefix="chip_smoke_base_")
     serving = {"llama-60m": run_serve_roundtrip(train, kernel, hk, dev,
@@ -5568,9 +5762,7 @@ def main() -> int:
                "qwen2.5-3b": run_serve_qwen(kernel, hk, dev),
                "smoke_card_vs_cpu_spacings": serve_smoke_card_vs_cpu(dev),
                "phases_s": time.perf_counter() - t_serve}
-    print(f"serving phases 26-28: {serving['phases_s']:.1f} s; the script "
-          f"so far {time.perf_counter() - t0:.1f} s")
-    t_new = time.perf_counter()
+    lap("phases 26-28 (serving)")
     try:
         lora_llama = run_lora_roundtrip(train, kernel, hk, ref, dev,
                                         base_ckpt)
@@ -5578,21 +5770,19 @@ def main() -> int:
         shutil.rmtree(base_ckpt, ignore_errors=True)
     lora_qwen = run_lora_qwen(train, kernel, hk, ref, dev)
     new_cuts = run_new_cuts(train, kernel, hk, ref, dev)
-    print(f"phases 29-32: {time.perf_counter() - t_new:.1f} s; the script "
-          f"so far {time.perf_counter() - t0:.1f} s")
-    t_sub = time.perf_counter()
+    lap("phases 29-32 (LoRA, M-RoPE, MoE)")
     substrates = run_substrates(train, kernel, hk, ref, dev)
-    print(f"phases 33-35: {time.perf_counter() - t_sub:.1f} s; the script "
-          f"so far {time.perf_counter() - t0:.1f} s")
+    lap("phases 33-35 (jamba, xlstm-350m, seamless)")
     observability = run_observability(train, kernel, hk, dev, res32, res8,
                                       prof32)
-    print(f"phase 36: the script so far {time.perf_counter() - t0:.1f} s")
+    lap("phase 36 (observability)")
     shard = run_sharding(train, kernel, hk)
-    print(f"phase 37: the script so far {time.perf_counter() - t0:.1f} s")
+    lap("phase 37 (sharded parameters)")
     examples = run_examples(kernel, hk, dev)
-    print(f"phase 38: the script so far {time.perf_counter() - t0:.1f} s")
+    lap("phase 38 (the examples)")
     tp = run_tp(train, kernel, hk)
-    print(f"phase 39: the script so far {time.perf_counter() - t0:.1f} s")
+    lap("phase 39 (the model axis)")
+    print(f"phase groups' seconds: {json.dumps(lap.groups)}")
     print(f"staged step vs fused step (same call): launcher-equivalent "
           f"loop {staged32['step_ms']:.2f} vs {res32.step_ms:.2f} ms; "
           f"profiled {prof_staged['step_ms']:.2f} vs "

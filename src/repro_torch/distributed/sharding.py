@@ -17,7 +17,8 @@ device; ``meta`` tensors will do):
   axis;
 * :class:`Spec` — the ``PartitionSpec`` counterpart: per dimension None,
   one mesh axis, or a tuple of them, trailing Nones dropped;
-* :class:`NamedSharding` — a mesh and a spec;
+* :class:`NamedSharding` — a mesh and a spec (and the paired-halves
+  layout of a leaf whose ``Axes.blocks`` > 1);
 * :func:`train_rules`, :func:`decode_rules`, :func:`spec_for`,
   :func:`tree_shardings`, :func:`gwt_state_shardings` (mirrors the port's
   own GWT bucket plan), :func:`batch_shardings`, :func:`replicated_like`,
@@ -37,7 +38,13 @@ holds no byte more than the replicated one.  :func:`gather` builds the
 whole tensor with list ``all_gather``s over the process group of each split
 mesh axis (the minor axis first), which gloo also takes on CUDA tensors;
 :func:`shard` is a local slice (every rank holds the whole tensor when it
-shards, so no collective is needed).
+shards, so no collective is needed).  A leaf whose last dimension is
+paired halves (``NamedSharding.blocks``) is cut and rebuilt block by block,
+so that :func:`gather` of it, or of its gradient, gives the whole
+tensor's column order: GWT's DWT pairs neighbouring columns, and a
+checkpoint holds whole arrays in the reference's order.  The GWT state
+keeps the contiguous split (:func:`gwt_state_shardings`): the forward
+never reads it.
 """
 
 from __future__ import annotations
@@ -94,10 +101,18 @@ class Spec(tuple):
 
 
 class NamedSharding(NamedTuple):
-    """A placement: ``spec`` over ``mesh``."""
+    """A placement: ``spec`` over ``mesh``.  ``blocks`` > 1 (from the
+    leaf's ``Axes.blocks``): the last dimension is that many equal
+    contiguous blocks, each split over its mesh axes on its own, so that a
+    rank's shard is its slice of every block, in block order (mamba's
+    ``in_proj`` ``[xm | z]`` gives the rank ``[xm_r | z_r]``, and a
+    column-parallel matmul its own channels of both halves).  The shard's
+    shape and bytes are the contiguous split's; :func:`gather` returns the
+    columns in the whole tensor's order."""
 
     mesh: Mesh
     spec: Spec
+    blocks: int = 1
 
 
 def _names(entry: Candidate) -> Tuple[str, ...]:
@@ -132,8 +147,9 @@ def tp_rules(mesh: Mesh, cfg) -> Rules:
     """The placement of the tensor-parallel step along ``model``: the model
     entries of :func:`train_rules` (``vocab``, ``heads``, ``kv_heads``,
     ``mlp``, ``expert``, ``expert_mlp``) and nothing over the data axes (the
-    reference places nothing there without ``--dp-reduce``).  ``inner``
-    (mamba) is left out: that family keeps the replicated step.
+    reference places nothing there without ``--dp-reduce``), and
+    ``inner``: mamba's channels, and xLSTM's up-projection, conv, gates
+    and sLSTM recurrence (``models/ssm.py``, ``models/xlstm.py``).
 
     Heads are split whole: ``spec_for`` tests the flat ``H·hd`` dimension,
     which may divide where the head count does not (qwen2.5-3b's two KV
@@ -147,7 +163,7 @@ def tp_rules(mesh: Mesh, cfg) -> Rules:
     model = ("model",)
     return {"vocab": model, "heads": model if heads else (),
             "kv_heads": model if kv else (), "mlp": model,
-            "expert": model, "expert_mlp": model}
+            "expert": model, "expert_mlp": model, "inner": model}
 
 
 def decode_rules(mesh: Mesh) -> Rules:
@@ -223,7 +239,8 @@ def tree_shardings(abstract: Any, axes_tree: Any, mesh: Mesh,
     def one(t, ax):
         if ax is None:
             return NamedSharding(mesh, Spec())
-        return NamedSharding(mesh, spec_for(t.shape, ax, mesh, rules))
+        return NamedSharding(mesh, spec_for(t.shape, ax, mesh, rules),
+                             ax.blocks)
     return _map2(one, abstract, axes_tree)
 
 
@@ -379,14 +396,20 @@ def _split(sh: NamedSharding):
     return out
 
 
+def _blocks(sh: NamedSharding, d: int, ndim: int) -> int:
+    """How many blocks dimension ``d`` of an ``ndim``-d tensor splits as
+    (``NamedSharding.blocks``: the last dimension only)."""
+    return sh.blocks if d == ndim - 1 else 1
+
+
 def local_shape(shape: Sequence[int], sh: NamedSharding) -> Tuple[int, ...]:
     """The shard shape of a tensor of ``shape``."""
     out = list(shape)
     for d, names in _split(sh):
-        n = _axis_size(sh.mesh, names)
-        if out[d] % n:
+        n, k = _axis_size(sh.mesh, names), _blocks(sh, d, len(out))
+        if out[d] % (n * k):
             raise ValueError(f"dimension {d} of {tuple(shape)} does not "
-                             f"divide over {names} ({n})")
+                             f"divide over {names} ({n}) x {k} blocks")
         out[d] //= n
     return tuple(out)
 
@@ -413,14 +436,18 @@ def shard(full: torch.Tensor, sh: Optional[NamedSharding]) -> torch.Tensor:
         x = full.detach()
         for d, names in split:
             n = _axis_size(sh.mesh, names)
-            if x.shape[d] % n:
+            k = _blocks(sh, d, x.ndim)
+            if x.shape[d] % (n * k):
                 raise ValueError(f"dimension {d} of {tuple(full.shape)} "
-                                 f"does not divide over {names} ({n})")
+                                 f"does not divide over {names} ({n}) "
+                                 f"x {k} blocks")
             idx = 0
             for a in names:   # the first name is the major
                 idx = idx * sh.mesh.shape[a] + sh.mesh.coords[a]
-            size = x.shape[d] // n
-            x = x.narrow(d, idx * size, size)
+            # this rank's slice of each of the k blocks
+            xb = x.unflatten(d, (k, x.shape[d] // k))
+            size = xb.shape[d + 1] // n
+            x = xb.narrow(d + 1, idx * size, size).flatten(d, d + 1)
         out = x.clone(memory_format=torch.contiguous_format)
     return out.requires_grad_(full.requires_grad)
 
@@ -451,7 +478,10 @@ def gather(local: torch.Tensor, sh: Optional[NamedSharding]
                         f"(launch.mesh.init_mesh builds them)")
                 parts = [torch.empty_like(x) for _ in range(n)]
                 dist.all_gather(parts, x, group=group)
-                x = torch.cat(parts, d)
+                # block by block: each part holds its slice of every block
+                k = _blocks(sh, d, x.ndim)
+                x = torch.cat([q.unflatten(d, (k, q.shape[d] // k))
+                               for q in parts], d + 1).flatten(d, d + 1)
     return x.requires_grad_(local.requires_grad)
 
 

@@ -1,6 +1,9 @@
-"""The ``model`` mesh axis: tensor and expert parallelism of the dense
-decoders and the MoE layers (the reference leaves this axis to GSPMD; the
-port writes its collectives out, Megatron's way).
+"""The ``model`` mesh axis: tensor and expert parallelism of every model
+family's train step (the reference leaves this axis to GSPMD; the port
+writes its collectives out, Megatron's way): the attention and MLP blocks
+of the dense decoders and the encoder-decoder stack, the MoE layers,
+mamba's channels and xLSTM's mLSTM and sLSTM heads.  Only ``--finetune
+lora`` keeps the replicated step along ``model`` (the launcher checks it).
 
 The collectives are ``torch.autograd.Function``s over the model group:
 
@@ -9,8 +12,17 @@ The collectives are ``torch.autograd.Function``s over the model group:
   gradient comes from its own heads, columns or experts);
 * :meth:`TP.reduce_out` — out of it: an all-reduce forward (the partial
   products of a row-parallel weight), the identity backward;
+* :meth:`TP.reduce_split` — an all-reduce forward into a region where each
+  rank uses its own part of the sum (mamba's ``x_proj`` product, xLSTM's
+  ``[q|k|v|i|f]``, a channel-split RMSNorm's sum of squares): the gradient
+  is all-reduced too;
 * :meth:`TP.gather` — an all-gather along one dimension forward, this
-  rank's slice of the gradient backward (the experts' outputs).
+  rank's slice of the gradient backward (every rank then computes the same
+  thing: the experts' outputs, sLSTM's hidden states);
+* :meth:`TP.gather_reduce` — a weight gathered whole and used by each rank
+  for its own part (sLSTM's recurrent ``r``, split by gates, used by
+  heads): an all-gather forward, and backward an all-reduce of the
+  gradient over the group, then this rank's slice.
 
 On a one-rank group each is the identity and issues no collective.
 
@@ -18,13 +30,17 @@ Which layers split is the rule table's (``distributed.sharding.tp_rules``):
 a dimension splits where the axis divides it, heads only at head
 granularity.  The model code asks :func:`split` with the dimension's whole
 size and computes replicated where it gets None.  A replicated weight used
-inside a region (a K/V projection left whole, the QK norms) gets a partial
-gradient on each rank and is passed through :meth:`TP.copy_in` too, so that
-its gradient is summed over the group.
+inside a region (a K/V projection left whole, the QK norms, mLSTM's gate
+biases) gets a partial gradient on each rank and is passed through
+:meth:`TP.copy_in` too, so that its gradient is summed over the group.
 
 The loss over a vocab-split head (:func:`vocab_cross_entropy`) reduces the
 f32 log-sum-exp terms and the label's logit over the group: the logits are
-never gathered whole.
+never gathered whole.  ``models.layers.rms_norm(..., tp=)`` normalises a
+channel-split last dimension with one all-reduce of the sum of squares.
+
+Only train mode splits: a cached serving mode given a ``TP`` raises
+(:func:`train_only`).
 """
 
 from __future__ import annotations
@@ -63,7 +79,7 @@ class _ReduceOut(torch.autograd.Function):
 class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group, rank, size):
-        ctx.dim, ctx.rank, ctx.n = dim, rank, x.shape[dim]
+        ctx.dim, ctx.rank, ctx.n, ctx.group = dim, rank, x.shape[dim], group
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(size)]
         dist.all_gather(parts, x, group=group)
@@ -71,6 +87,15 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None, None,
+                None)
+
+
+class _GatherReduce(_Gather):
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
         return (g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None, None,
                 None)
 
@@ -103,6 +128,20 @@ class TP:
         return _Gather.apply(x, dim % x.ndim, self.group, self.rank,
                              self.size)
 
+    def reduce_split(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the group of partial products, into a region where
+        each rank uses its own part of it: all-reduce forward and
+        backward."""
+        return self.copy_in(self.reduce_out(x))
+
+    def gather_reduce(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``x``'s whole tensor along ``dim`` for a rank that uses its own
+        part of it: its gradient is summed over the group, then sliced."""
+        if self.size == 1:
+            return x
+        return _GatherReduce.apply(x, dim % x.ndim, self.group, self.rank,
+                                   self.size)
+
     def all_max(self, x: torch.Tensor) -> torch.Tensor:
         """The element-wise maximum over the group, without a gradient."""
         x = x.detach().contiguous().clone()
@@ -119,17 +158,15 @@ def from_dp(dp) -> Optional[TP]:
     return TP(dp.model_group, dp.model_rank, dp.model_world)
 
 
-def unsupported(cfg) -> Optional[str]:
-    """Why ``cfg`` has no tensor-parallel layout (its family keeps the
-    replicated step along ``model``), or None: the decoder-only stacks of
-    attention blocks, with MLPs or MoE, have one."""
-    if cfg.arch_class != "decoder":
-        return f"arch class {cfg.arch_class!r}"
-    kinds = sorted({k.split("+")[0] for k in cfg.pattern}
-                   - {"attn", "attn_local"})
-    if kinds:
-        return f"block kinds {kinds}"
-    return None
+def train_only(tp: Optional[TP], mode: str, what: str) -> None:
+    """Raise where a cached serving mode is given a ``TP``: serving keeps
+    the replicated layout along ``model`` (its ``decode_rules``, the
+    cache's sequence over ``model``, are ROADMAP Queue 1 item 7.4.5)."""
+    if tp is not None and mode != "train":
+        raise NotImplementedError(
+            f"tensor-parallel {what} is train mode only, not {mode!r}: "
+            "serving keeps the replicated layout along 'model' (its "
+            "decode_rules are ROADMAP Queue 1 item 7.4.5)")
 
 
 def split(tp: Optional[TP], n: int) -> Optional[TP]:
@@ -176,3 +213,4 @@ def vocab_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     ll = torch.where(inside, ll, torch.zeros_like(ll))
     sumexp, ll = tp.reduce_out(torch.stack([sumexp, ll])).unbind(0)
     return torch.mean(torch.log(sumexp) + m - ll)
+

@@ -83,19 +83,20 @@ count (error-feedback residues excepted).  The ``memory`` line logs the
 whole state's bytes, a ``shard`` line each rank's.
 
 A mesh of several ranks without ``--dp-reduce`` runs the exact f32 mean
-over its data axes.  Along ``model`` (``--mesh 1x2``, ``2x2``) the dense
-decoders and the MoE layers run the tensor-parallel step
-(``distributed/tensor_parallel.py``; the JAX launcher leaves that axis to
-GSPMD): each rank holds, between steps and inside them, its ``model``
-shards of the rule table (``sharding.tp_rules``: attention heads, MLP
-columns and rows, the vocab rows of the embedding and head, the experts or,
-where their count does not divide, each expert's hidden columns), and of
-GWT's state; the update gathers one bucket at a time whole over ``model``
-and runs K1/K2 on it.  The numbers are the replicated step's within
-rounding (row-parallel sums, the vocab-split loss).  The ``shard`` line
-logs each rank's bytes.  The recurrent families (mamba, xLSTM), the
-encoder-decoder stack and LoRA keep the replicated step along ``model``,
-and log it.  ``--dist-backend gloo`` runs
+over its data axes.  Along ``model`` (``--mesh 1x2``, ``2x2``) every model
+family runs the tensor-parallel step (``distributed/tensor_parallel.py``;
+the JAX launcher leaves that axis to GSPMD): each rank holds, between steps
+and inside them, its ``model`` shards of the rule table
+(``sharding.tp_rules``: attention heads, self- and cross-attention alike,
+MLP columns and rows, the vocab rows of the embedding and head, the
+experts or, where their count does not divide, each expert's hidden
+columns, and the ``inner`` channels of mamba and of xLSTM's mLSTM and
+sLSTM blocks), and of GWT's state; the update gathers one bucket at a time
+whole over ``model`` and runs K1/K2 on it.  The numbers are the replicated
+step's within rounding (row-parallel sums, split norms, the vocab-split
+loss).  The ``shard`` line logs each rank's bytes.  Only ``--finetune
+lora`` keeps the replicated step along ``model``, and logs it
+(``tp_replicated``).  ``--dist-backend gloo`` runs
 several ranks on one card (with ``LOCAL_RANK=0`` for each): a check, not a
 way to train.
 
@@ -519,8 +520,7 @@ def _train(args, dp_spec, dp: Optional[DPContext], mesh,
             level=args.level, host=args.host, shard_params=True,
             state_codec=args.state_codec)
     elif dp is not None and dp.model_world > 1:
-        why = tensor_parallel.unsupported(cfg) or (
-            "--finetune lora" if args.finetune == "lora" else None)
+        why = "--finetune lora" if args.finetune == "lora" else None
         if why is None:
             tp = tensor_parallel.from_dp(dp)
             shardings = sharding.tp_step_shardings(

@@ -317,11 +317,8 @@ def attn_apply(p, cfg, x, cos, sin, *, local: bool = False,
     biases, the routes on the local heads unchanged, and the output
     projection's partial sums reduced over the model group.
     """
+    tensor_parallel.train_only(tp, mode, "attention")
     tp, kv_split = tensor_parallel.heads_split(tp, cfg)
-    if tp is not None and mode != "train":
-        raise NotImplementedError(
-            "tensor-parallel attention is train mode only: serving keeps "
-            "the replicated layout along 'model'")
     if page_table is not None and local and cfg.window:
         raise NotImplementedError(
             "paged serving covers full-attention blocks only; the "

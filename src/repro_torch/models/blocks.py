@@ -64,14 +64,10 @@ def block_apply(p, cfg, kind: str, x, cos, sin, *, mode: str = "train",
     mode (see ``attention.attn_apply`` and the recurrent mixers' ``*_apply``
     for the cached modes), ``aux`` the MoE's load-balancing loss (an f32
     scalar), None for a block without one.  ``tp`` (a
-    ``distributed.tensor_parallel.TP``) splits the attention, the MLP and
-    the MoE over the model axis where the rule table splits them; the
-    recurrent mixers have no tensor-parallel layout."""
+    ``distributed.tensor_parallel.TP``, train mode) splits every mixer
+    (attention heads, mamba's channels, mLSTM's and sLSTM's heads), the MLP
+    and the MoE over the model axis where the rule table splits them."""
     base, use_moe = _check_kind(kind)
-    if tp is not None and base not in ATTENTION_KINDS:
-        raise NotImplementedError(
-            f"block kind {base!r} has no tensor-parallel layout: its family "
-            "keeps the replicated step along 'model'")
     if page_table is not None and base not in ATTENTION_KINDS:
         raise NotImplementedError(
             f"paged serving caches exist only for attention blocks, not "
@@ -84,7 +80,8 @@ def block_apply(p, cfg, kind: str, x, cos, sin, *, mode: str = "train",
                                      cache=cache, pos=pos,
                                      page_table=page_table, tp=tp)
     else:
-        h, nc = _APPLY[base](p["mixer"], cfg, h, mode=mode, cache=cache)
+        h, nc = _APPLY[base](p["mixer"], cfg, h, mode=mode, cache=cache,
+                             tp=tp)
     x = x + h
     aux = None
     if "ffn" in p:

@@ -19,21 +19,32 @@ import torch.nn.functional as F
 class Axes:
     """The logical axis names of a parameter's dimensions (``"embed"``,
     ``"heads"``, ``"layers"``, ... or None), as the JAX package's ``Axes``:
-    what ``distributed.sharding`` maps to mesh axes."""
+    what ``distributed.sharding`` maps to mesh axes.
 
-    __slots__ = ("names",)
+    ``blocks`` > 1 marks a last dimension made of that many equal
+    contiguous blocks that the model splits apart (mamba's ``in_proj``
+    columns ``[xm | z]``, mLSTM's ``up_proj``): where the rule table splits
+    that dimension, a rank holds its slice of each block, in block order
+    (``distributed.sharding.NamedSharding.blocks``).  The reference's
+    ``Axes`` has no such field: its GSPMD layout is contiguous."""
 
-    def __init__(self, names: Tuple[Optional[str], ...]):
+    __slots__ = ("names", "blocks")
+
+    def __init__(self, names: Tuple[Optional[str], ...], blocks: int = 1):
         self.names = tuple(names)
+        self.blocks = int(blocks)
 
     def __repr__(self):
+        if self.blocks > 1:
+            return f"Axes({self.names}, blocks={self.blocks})"
         return f"Axes{self.names}"
 
     def __eq__(self, other):
-        return isinstance(other, Axes) and self.names == other.names
+        return isinstance(other, Axes) and self.names == other.names \
+            and self.blocks == other.blocks
 
     def __hash__(self):
-        return hash(self.names)
+        return hash((self.names, self.blocks))
 
 
 class Builder:
@@ -57,15 +68,16 @@ class Builder:
     def param(self, shape: Tuple[int, ...], axes: Tuple[Optional[str], ...],
               init: str = "normal", scale: Optional[float] = None,
               lead: Tuple[int, ...] = (),
-              dtype: Optional[torch.dtype] = None):
+              dtype: Optional[torch.dtype] = None, blocks: int = 1):
         """``axes`` names each dimension of ``shape``; ``lead`` prepends
         stacked-layer axes, named ``"layers"``, and the fan-in is the
         per-layer shape's.  ``dtype`` overrides the builder's (the f32 MoE
-        router)."""
+        router); ``blocks`` is the :class:`Axes`' (the last dimension's
+        paired halves)."""
         if len(shape) != len(axes):
             raise ValueError(f"shape {shape} and axes {axes} differ in rank")
         if self.mode == "axes":
-            return Axes(("layers",) * len(lead) + tuple(axes))
+            return Axes(("layers",) * len(lead) + tuple(axes), blocks)
         full = tuple(lead) + tuple(shape)
         dtype = dtype or self.dtype
         if self.device.type == "meta":
@@ -82,10 +94,18 @@ class Builder:
         return (x * scale).to(dtype)
 
 
-def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6
-             ) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6,
+             tp=None) -> torch.Tensor:
+    """``tp`` (a ``distributed.tensor_parallel.TP``): ``x``'s last dimension
+    and ``gamma`` are this rank's channels of a width split over the group;
+    the f32 sum of squares is all-reduced once, so the norm is the whole
+    width's up to the sum's order."""
     x32 = x.float()
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    if tp is None:
+        var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    else:
+        var = tp.reduce_split((x32 * x32).sum(-1, keepdim=True)) \
+            / (x.shape[-1] * tp.size)
     out = x32 * torch.rsqrt(var + eps) * (1.0 + gamma.float())
     return out.to(x.dtype)
 

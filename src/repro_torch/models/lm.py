@@ -20,11 +20,17 @@ A period may mix attention and recurrent blocks (jamba's mamba, xLSTM's
 mLSTM and sLSTM): the dense serving caches then hold K/V beside each
 recurrent block's state (``blocks.block_cache``), and decode updates both
 in place.  The encoder-decoder stack is ``models/encdec.py``.
+
+The train forward and the loss take ``tp`` (the ``model`` mesh axis,
+``distributed.tensor_parallel``): every block kind of a period (jamba's
+attention, mamba and MoE blocks side by side), a tied or untied head over
+its vocab rows, as ``sharding.tp_rules`` places them.
 """
 
 from __future__ import annotations
 
 import functools
+import inspect
 from typing import Any, Dict, Mapping, Optional
 
 import torch
@@ -557,7 +563,9 @@ def make_sharded_train_step(cfg, optimizer, *, dp, dp_reduce,
     ``tp`` (a ``distributed.tensor_parallel.TP`` over ``model``, with
     ``shardings`` from ``sharding.tp_step_shardings``): the tensor-parallel
     step.  The parameters stay this rank's shards through the forward and
-    the backward (:func:`loss_fn` under ``tp``), the data ranks' exact mean
+    the backward (:func:`loss_fn`, or ``loss``, called with ``tp=``; a loss
+    without that keyword, LoRA's, has no tensor-parallel form), the data
+    ranks' exact mean
     reduces each shard's gradient, and the update (``optimizer.update(...,
     param_shardings=)``) gathers each bucket's parameters, gradients and
     state whole over ``model``, runs on them as the replicated update does,
@@ -566,13 +574,17 @@ def make_sharded_train_step(cfg, optimizer, *, dp, dp_reduce,
     step's within rounding, not bitwise."""
     param_sh = None if shardings is None else shardings.params
     if tp is not None:
-        if loss is not None:
-            raise ValueError("the tensor-parallel step runs loss_fn; a "
-                             "custom loss (LoRA) keeps the replicated step")
         if shardings is None:
             raise ValueError("tp= needs shardings=sharding."
                              "tp_step_shardings(...)")
-        loss = functools.partial(loss_fn, tp=tp)
+        if loss is not None and "tp" not in inspect.signature(
+                loss).parameters:
+            raise ValueError("the tensor-parallel step calls its loss with "
+                             "tp=; a loss without it (LoRA's) keeps the "
+                             "replicated step")
+        # the objective's tensor-parallel form: this module's loss_fn, or
+        # the one passed (encdec.loss_fn), each taking tp=
+        loss = functools.partial(loss or loss_fn, tp=tp)
     if isinstance(dp_reduce, str):
         dp_reduce = compression.DPReduceSpec.parse(dp_reduce)
     if dp_reduce is None:

@@ -11,6 +11,14 @@ reference wraps it in ``jax.checkpoint``).  Decode carries ``{"h", "conv"}``
 (the state and the last ``ssm_conv - 1`` inputs of the causal conv) and
 writes it in place, one token a step.
 
+Along the ``model`` mesh axis (train mode, ``tp=``) a rank holds and
+computes its block of the ``d_inner`` channels: ``in_proj`` column-parallel
+by halves (``[xm_r | z_r]``, ``Axes.blocks``), the conv, ``dt_bias``,
+``a_log``, ``d_skip`` and the scan on its channels with no collective,
+``x_proj`` row-parallel (its small ``(B, T, dt_rank + 2·state)`` partial
+product all-reduced once), ``dt_proj`` column-parallel, ``out_proj``
+row-parallel.
+
 No kernel here: the reference writes none for this block (stock ops)."""
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import tensor_parallel
 from repro_torch.models.layers import Builder
 
 
@@ -33,7 +42,8 @@ def mamba_init(b: Builder, cfg, lead=()) -> dict:
     d, di, st, k = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
     dtr = _dt_rank(d)
     return {
-        "in_proj": b.param((d, 2 * di), ("embed", "inner"), lead=lead),
+        "in_proj": b.param((d, 2 * di), ("embed", "inner"), lead=lead,
+                           blocks=2),
         "conv_w": b.param((k, di), (None, "inner"), scale=0.5, lead=lead),
         "conv_b": b.param((di,), ("inner",), init="zeros", lead=lead),
         "x_proj": b.param((di, dtr + 2 * st), ("inner", None), lead=lead),
@@ -67,12 +77,16 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def _ssm_params(p, cfg, x):
+def _ssm_params(p, cfg, x, tp=None):
     """x (B,T,di) -> (dA (B,T,di,st), dBx (B,T,di,st), C (B,T,st)); dA
-    and dBx in f32."""
+    and dBx in f32.  Under ``tp`` x and the per-channel leaves are this
+    rank's channels, and ``x_proj``'s partial product is summed over the
+    group."""
     st = cfg.ssm_state
     dtr = _dt_rank(cfg.d_model)
     proj = x @ p["x_proj"]
+    if tp is not None:
+        proj = tp.reduce_split(proj)
     dt_in, Bm, Cm = torch.split(proj, [dtr, st, st], dim=-1)
     dt = softplus(dt_in @ p["dt_proj"] + p["dt_bias"])          # (B,T,di)
     A = -torch.exp(p["a_log"].float())                           # (di,st)
@@ -119,11 +133,11 @@ def associative_scan(a: torch.Tensor, b: torch.Tensor
 _SCAN_CHUNK = 1024
 
 
-def _chunk_step(p, cfg, h0, xc):
+def _chunk_step(p, cfg, h0, xc, tp=None):
     """One chunk: the carried state ``h0`` (B,di,st) folded into the first
     element (``b'_1 = dA_1 h0 + b_1``), the scan, the readout.  Returns
     ``(h_last, y)``."""
-    dA, dBx, Cm = _ssm_params(p, cfg, xc)
+    dA, dBx, Cm = _ssm_params(p, cfg, xc, tp)
     dBx = torch.cat([(dBx[:, 0] + dA[:, 0] * h0)[:, None], dBx[:, 1:]],
                     dim=1)
     _, hs = associative_scan(dA, dBx)
@@ -131,13 +145,14 @@ def _chunk_step(p, cfg, h0, xc):
     return hs[:, -1], yc
 
 
-def selective_scan_chunked(p, cfg, xm_c: torch.Tensor
+def selective_scan_chunked(p, cfg, xm_c: torch.Tensor, tp=None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The selective scan of the conv output ``xm_c`` (B,T,di) in chunks
     of ``_SCAN_CHUNK`` (one chunk where that does not divide ``T``), the
     state carried from chunk to chunk; exact, since the recurrence is
     linear, and it bounds the f32 ``(B, chunk, di, st)`` buffers.  Each
-    chunk is recomputed in the backward where gradients are taken.
+    chunk is recomputed in the backward where gradients are taken (under
+    ``tp`` with its one collective, in the same order on every rank).
     Returns ``(y (B,T,di) f32, h_last (B,di,st) f32)``."""
     B, T, di = xm_c.shape
     chunk = min(_SCAN_CHUNK, T)
@@ -149,22 +164,30 @@ def selective_scan_chunked(p, cfg, xm_c: torch.Tensor
     for c in range(T // chunk):
         xc = xm_c[:, c * chunk:(c + 1) * chunk]
         if torch.is_grad_enabled():
-            h, yc = checkpoint(_chunk_step, p, cfg, h, xc,
+            h, yc = checkpoint(_chunk_step, p, cfg, h, xc, tp,
                                use_reentrant=False)
         else:
-            h, yc = _chunk_step(p, cfg, h, xc)
+            h, yc = _chunk_step(p, cfg, h, xc, tp)
         ys.append(yc)
     y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
     return y, h
 
 
 def mamba_apply(p, cfg, x: torch.Tensor, *, mode: str = "train",
-                cache: Optional[dict] = None
+                cache: Optional[dict] = None, tp=None
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """``(output, new_cache)``.  ``"train"``: no cache; ``"prefill"``:
     the state after the prompt and its last ``ssm_conv - 1`` inputs;
-    ``"decode"`` (T = 1): one step from ``cache``, written in place."""
+    ``"decode"`` (T = 1): one step from ``cache``, written in place.
+
+    ``tp`` (a ``distributed.tensor_parallel.TP``, train mode): ``p`` holds
+    this rank's channels (``sharding.tp_rules``), and the row-parallel
+    ``out_proj``'s partial outputs are summed over the model group."""
+    tensor_parallel.train_only(tp, mode, "mamba")
+    tp = tensor_parallel.split(tp, cfg.d_inner)
     B, T, _ = x.shape
+    if tp is not None:
+        x = tp.copy_in(x)
     xz = x @ p["in_proj"]
     xm, z = xz.chunk(2, dim=-1)
 
@@ -183,7 +206,7 @@ def mamba_apply(p, cfg, x: torch.Tensor, *, mode: str = "train",
         new_cache = cache
     elif mode in ("train", "prefill"):
         xm_c = F.silu(causal_conv(xm, p["conv_w"], p["conv_b"]))
-        y, h_last = selective_scan_chunked(p, cfg, xm_c)
+        y, h_last = selective_scan_chunked(p, cfg, xm_c, tp)
         if mode == "prefill":
             new_cache = {"h": h_last.clone(),
                          "conv": xm[:, -(cfg.ssm_conv - 1):].clone()}
@@ -193,7 +216,8 @@ def mamba_apply(p, cfg, x: torch.Tensor, *, mode: str = "train",
 
     y = y + xm_c.float() * p["d_skip"].float()
     y = y.to(x.dtype) * F.silu(z)
-    return y @ p["out_proj"], new_cache
+    out = y @ p["out_proj"]
+    return (out if tp is None else tp.reduce_out(out)), new_cache
 
 
 def mamba_cache(b: Builder, cfg, B: int, lead=()) -> dict:

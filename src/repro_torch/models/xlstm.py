@@ -8,6 +8,24 @@ recurrent matrix-memory update.  sLSTM is a loop over time
 (:func:`slstm_step` each position), as the reference's ``lax.scan``.
 Decode writes each block's cache in place.
 
+Along the ``model`` mesh axis (train mode, ``tp=``; the rule table sends
+``inner`` to ``model``):
+
+* mLSTM: ``up_proj`` column-parallel by halves (``[xm_r | z_r]``), the
+  conv local; ``wq``/``wk``/``wv`` and the gate weights row-parallel (their
+  ``inner`` rows take ``model``, so ``heads`` finds it used), their partial
+  products summed in one all-reduce of ``[q|k|v|i|f]``; the chunkwise form
+  on the rank's heads (its channel block: heads are contiguous columns),
+  or on all heads where the axis does not divide them, keeping the rank's
+  channels; ``out_norm`` over the split channels; ``down_proj``
+  row-parallel.
+* sLSTM: ``w``/``b`` by columns (a contiguous block is whole heads), the
+  recurrent ``r`` (split by gates) gathered whole once a block and cut to
+  the rank's heads, the time loop on those heads with no collective inside
+  it, the hidden states gathered for ``out_norm``, the post-MLP column-
+  then row-parallel.  Where the axis does not divide the heads, ``w``,
+  ``b`` and ``r`` are gathered whole and the recurrence runs replicated.
+
 No kernel here: the reference writes none for these blocks (stock ops)."""
 
 from __future__ import annotations
@@ -18,7 +36,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import Builder, rms_norm
+from repro_torch.distributed import tensor_parallel
+from repro_torch.models.layers import Builder, mlp_apply, rms_norm
 from repro_torch.models.ssm import causal_conv
 
 
@@ -31,7 +50,8 @@ def mlstm_init(b: Builder, cfg, lead=()) -> dict:
     di = 2 * d                       # xLSTM up-projection factor 2
     k = cfg.ssm_conv
     return {
-        "up_proj": b.param((d, 2 * di), ("embed", "inner"), lead=lead),
+        "up_proj": b.param((d, 2 * di), ("embed", "inner"), lead=lead,
+                           blocks=2),
         "conv_w": b.param((k, di), (None, "inner"), scale=0.5, lead=lead),
         "conv_b": b.param((di,), ("inner",), init="zeros", lead=lead),
         "wq": b.param((di, di), ("inner", "heads"), lead=lead),
@@ -129,14 +149,23 @@ def mlstm_chunkwise(q, k, v, log_i, log_f, chunk: int = _MLSTM_CHUNK):
 
 
 def mlstm_apply(p, cfg, x: torch.Tensor, *, mode: str = "train",
-                cache: Optional[dict] = None
+                cache: Optional[dict] = None, tp=None
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """``(output, new_cache)``; ``"decode"`` (T = 1) updates ``cache``
-    ``{"C", "n", "m", "conv"}`` in place, ``"prefill"`` returns it."""
+    ``{"C", "n", "m", "conv"}`` in place, ``"prefill"`` returns it.
+
+    ``tp`` (a ``distributed.tensor_parallel.TP``, train mode): ``p`` holds
+    this rank's shards of ``sharding.tp_rules`` (see the module's
+    docstring), and ``down_proj``'s partial outputs are summed over the
+    model group."""
+    tensor_parallel.train_only(tp, mode, "mLSTM")
     B, T, d = x.shape
     H = cfg.n_heads
     di = 2 * d
     dh = di // H
+    tp = tensor_parallel.split(tp, di)
+    if tp is not None:
+        x = tp.copy_in(x)
     xz = x @ p["up_proj"]
     xm, z = xz.chunk(2, dim=-1)
 
@@ -170,16 +199,37 @@ def mlstm_apply(p, cfg, x: torch.Tensor, *, mode: str = "train",
         new_cache = cache
     elif mode in ("train", "prefill"):
         xc = F.silu(causal_conv(xm, p["conv_w"], p["conv_b"]))
-        q = (xc @ p["wq"]).reshape(B, T, H, dh)
-        k = (xc @ p["wk"]).reshape(B, T, H, dh)   # raw; forms scale inside
-        v = (xc @ p["wv"]).reshape(B, T, H, dh)
-        log_i = xc @ p["w_igate"] + p["b_igate"]
-        log_f = xc @ p["w_fgate"] + p["b_fgate"]
+        ws = [p[w] for w in ("wq", "wk", "wv", "w_igate", "w_fgate")]
+        b_i, b_f = p["b_igate"], p["b_fgate"]
+        if tp is None:
+            q, k, v, log_i, log_f = (xc @ w for w in ws)
+        else:
+            # the row-parallel products, summed in one all-reduce; the
+            # replicated gate biases inside the region (their gradient is
+            # summed over the group)
+            q, k, v, log_i, log_f = torch.split(
+                tp.reduce_split(torch.cat([xc @ w for w in ws], dim=-1)),
+                [di, di, di, H, H], dim=-1)
+            b_i, b_f = tp.copy_in(b_i), tp.copy_in(b_f)
+        log_i, log_f = log_i + b_i, log_f + b_f
+        hl = H
+        if tp is not None and H % tp.size == 0:
+            # the rank's heads are its channel block
+            hl = H // tp.size
+            h0 = tp.rank * hl
+            q, k, v = (t[..., h0 * dh:(h0 + hl) * dh] for t in (q, k, v))
+            log_i, log_f = log_i[..., h0:h0 + hl], log_f[..., h0:h0 + hl]
+        # k raw; the forms scale inside
+        q, k, v = (t.reshape(B, T, hl, dh) for t in (q, k, v))
         chunk = min(_MLSTM_CHUNK, T)
         if T % chunk:
             chunk = T
         h, (C, n, m) = mlstm_chunkwise(q, k, v, log_i, log_f, chunk=chunk)
-        h = h.reshape(B, T, di)
+        h = h.reshape(B, T, hl * dh)
+        if tp is not None and hl == H:
+            # every rank ran all heads: it keeps its channels
+            dl = di // tp.size
+            h = h[..., tp.rank * dl:(tp.rank + 1) * dl]
         if mode == "prefill":
             new_cache = {"C": C, "n": n, "m": m,
                          "conv": xm[:, -(cfg.ssm_conv - 1):].clone()}
@@ -187,8 +237,9 @@ def mlstm_apply(p, cfg, x: torch.Tensor, *, mode: str = "train",
         raise ValueError(f"mLSTM mode {mode!r}: the paged serving modes "
                          f"have no recurrent-state layout")
 
-    h = rms_norm(h, p["out_norm"], cfg.norm_eps) * F.silu(z)
-    return h @ p["down_proj"], new_cache
+    h = rms_norm(h, p["out_norm"], cfg.norm_eps, tp) * F.silu(z)
+    out = h @ p["down_proj"]
+    return (out if tp is None else tp.reduce_out(out)), new_cache
 
 
 def mlstm_cache(b: Builder, cfg, B: int, lead=()) -> dict:
@@ -239,10 +290,11 @@ def slstm_init(b: Builder, cfg, lead=()) -> dict:
 
 def slstm_step(p, cfg, xt, state):
     """One sLSTM step.  xt (B,d); state ``(c, n, h, m)``, each f32
-    (B,H,dh).  Returns ``(new state, h_new)``."""
-    B, d = xt.shape
-    H = cfg.n_heads
-    dh = d // H
+    (B,H,dh); ``H`` and ``dh`` are ``p["r"]``'s (H, dh, 4·dh): a
+    tensor-parallel rank passes its heads' ``w``, ``r`` and ``b``.  Returns
+    ``(new state, h_new)``."""
+    B = xt.shape[0]
+    H, dh = p["r"].shape[0], p["r"].shape[1]
     c, n, h, m = state
     wx = (xt @ p["w"]).reshape(B, H, 4 * dh)
     rh = torch.einsum("bhd,hde->bhe", h, p["r"].to(h.dtype))
@@ -257,19 +309,43 @@ def slstm_step(p, cfg, xt, state):
     return (c, n, h_new.float(), m_new), h_new
 
 
+def _slstm_tp_cell(p, cfg, x, tp):
+    """The recurrence's weights for a rank of ``tp`` and its input:
+    ``(cell, x, tp of the heads or None)``.  Where the axis divides the
+    heads, its heads' ``w``/``b`` columns, ``r`` gathered whole and cut to
+    them, and ``x`` into the region; else everything whole (replicated
+    compute: every rank runs the same recurrence)."""
+    H = cfg.n_heads
+    tph = tensor_parallel.split(tp, H)
+    if tph is None:
+        return ({"w": tp.gather(p["w"], -1), "b": tp.gather(p["b"], -1),
+                 "r": tp.gather(p["r"], -1)}, x, None)
+    hl = H // tp.size
+    r = tp.gather_reduce(p["r"], -1)[tp.rank * hl:(tp.rank + 1) * hl]
+    return {"w": p["w"], "b": p["b"], "r": r}, tp.copy_in(x), tph
+
+
 def slstm_apply(p, cfg, x: torch.Tensor, *, mode: str = "train",
-                cache: Optional[dict] = None
+                cache: Optional[dict] = None, tp=None
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """``(output, new_cache)``: :func:`slstm_step` over each position in
     turn, from ``cache`` (``{"c", "n", "h", "m"}``) where given, else from
     zeros and a ``-1e30`` stabiliser; the serving modes return the final
-    state (``"decode"``: written into ``cache`` in place)."""
+    state (``"decode"``: written into ``cache`` in place).
+
+    ``tp`` (a ``distributed.tensor_parallel.TP``, train mode): ``p`` holds
+    this rank's shards of ``sharding.tp_rules``; the time loop runs the
+    rank's heads with no collective inside it (see the module's
+    docstring)."""
+    tensor_parallel.train_only(tp, mode, "sLSTM")
     B, T, d = x.shape
-    H = cfg.n_heads
-    dh = d // H
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"sLSTM mode {mode!r}: the paged serving modes "
                          f"have no recurrent-state layout")
+    cell, tph = p, None
+    if tp is not None:
+        cell, x, tph = _slstm_tp_cell(p, cfg, x, tp)
+    H, dh = cell["r"].shape[0], cell["r"].shape[1]
     if cache is not None:
         state = (cache["c"], cache["n"], cache["h"], cache["m"])
     else:
@@ -278,13 +354,17 @@ def slstm_apply(p, cfg, x: torch.Tensor, *, mode: str = "train",
                                      device=x.device))
     hs = []
     for t in range(T):
-        state, h = slstm_step(p, cfg, x[:, t], state)
+        state, h = slstm_step(cell, cfg, x[:, t], state)
         hs.append(h)
     hs = torch.stack(hs, dim=1)                                   # (B,T,H,dh)
+    hs = hs.reshape(B, T, H * dh).to(x.dtype)
+    if tph is not None:
+        hs = tph.gather(hs, -1)     # the whole hidden state, for out_norm
 
-    y = rms_norm(hs.reshape(B, T, d).to(x.dtype), p["out_norm"],
-                 cfg.norm_eps)
-    y = (F.silu(y @ p["up_gate"]) * (y @ p["up"])) @ p["down"]
+    y = rms_norm(hs, p["out_norm"], cfg.norm_eps)
+    y = mlp_apply({"w_gate": p["up_gate"], "w_up": p["up"],
+                   "w_down": p["down"]}, y,
+                  tensor_parallel.split(tp, slstm_ff(d)))
     new_cache = None
     if mode == "decode" and cache is not None:
         for name, val in zip("cnhm", state):

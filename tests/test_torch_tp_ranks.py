@@ -3,33 +3,40 @@
 two at ``--mesh 1x2`` and four at ``2x2`` / ``1x4``, spawned once for the
 module and run while this process computes the references.
 
-* The loss and every gradient of nine smoke configs (f32: the llama, the
+* The loss and every gradient of twelve smoke configs (f32: the llama, the
   dense family with GQA, QKV bias, softcaps, local layers, remainder blocks
-  and M-RoPE, and three MoE layouts: expert parallel, expert parallel with
-  padding and shared experts, tensor parallel inside each of 9 experts),
-  computed on each rank's shards and gathered whole, against one rank's:
-  the loss within 4 f32 spacings and each gradient within 32 of its
-  largest magnitude (measured: 2 and 10).  At ``1x4`` qwen2.5's two KV
-  heads do not divide the axis: the K/V projections stay whole and each
-  rank reads its query heads' KV head (trouble of head boundaries).
-* Three steps (six for the checkpoint scenarios) through the launcher:
-  llama-60m f32 and int8, qwen2.5 and gemma2 (bf16, as their smoke
-  configs), the two MoE layouts (f32: in bf16 a router near-tie may pick
-  another expert under the other layout's rounding), each against one
-  rank of the port and against the JAX package's train loop from the same
-  init, within :data:`LOSS_RTOL` and :data:`PARAM_TOL` (the measured
-  values beside them).
+  and M-RoPE, three MoE layouts: expert parallel, expert parallel with
+  padding and shared experts, tensor parallel inside each of 9 experts;
+  jamba's mamba, attention and MoE blocks, xLSTM's mLSTM and sLSTM blocks,
+  the encoder-decoder stack), computed on each rank's shards and gathered
+  whole, against one rank's: the loss within 4 f32 spacings and each
+  gradient within :data:`GRAD_SPACINGS` of its largest magnitude.  At
+  ``1x4`` qwen2.5's two KV heads do not divide the axis: the K/V
+  projections stay whole and each rank reads its query heads' KV head
+  (trouble of head boundaries); xLSTM's two heads do not either: mLSTM
+  computes every head and keeps its channels, sLSTM runs replicated.  The
+  2-rank loss of jamba, xLSTM and seamless equals the JAX package's on the
+  same weights within their world-1 parity bound (4 f32 spacings).
+* Three steps (four or six for the checkpoint scenarios) through the
+  launcher: llama-60m f32 and int8, qwen2.5 and gemma2 (bf16, as their
+  smoke configs), the two MoE layouts, jamba, xLSTM and seamless (f32: in
+  bf16 a router near-tie may pick another expert under the other layout's
+  rounding), each against one rank of the port, the first six also against
+  the JAX package's train loop from the same init, within
+  :data:`LOSS_RTOL` and :data:`PARAM_TOL` (the measured values beside
+  them).
 * Each rank held the shard shapes of the rule table (``sharding.
   tp_step_shardings``) and their bytes.
 * A checkpoint written at ``1x2`` resumes at world 1, and one written at
-  world 1 resumes at ``1x2``; both hold whole arrays.
+  world 1 resumes at ``1x2``; both hold whole arrays.  jamba's (its
+  ``in_proj`` in the paired-halves layout) round-trip bitwise both ways.
 * ``2x2``: the exact mean over the two data ranks of two ``model`` ranks
-  each, against one rank with ``--accum 2``.
+  each, against one rank with ``--accum 2`` (llama, jamba).
+* ``--finetune lora`` on ``1x2`` keeps the replicated step and logs it.
 """
 
 import os
 import shutil
-import socket
 import subprocess
 import sys
 
@@ -41,7 +48,7 @@ import torch
 from torch_parity import flat_numpy, spacings
 
 from repro import configs as jconfigs
-from repro.models import lm as jlm
+from repro.models import encdec as jencdec, lm as jlm
 from repro.data.pipeline import SyntheticLM as JaxSyntheticLM
 from repro.optim import make as jax_make
 from repro.optim.schedules import warmup_cosine as jax_warmup_cosine
@@ -50,7 +57,7 @@ from repro_torch import optim
 from repro_torch.checkpoint import manager
 from repro_torch.distributed import sharding
 from repro_torch.launch import train
-from repro_torch.models import lm
+from repro_torch.models import lm, module_for
 from repro_torch.optim import engine
 from repro_torch.optim.base import flatten_with_paths
 
@@ -64,8 +71,19 @@ ONE_RANK = {
     "llama": "straight", "llama_resume": "straight",
     "llama_int8": "llama_int8", "qwen": "qwen", "gemma": "gemma",
     "moe_ep": "moe_ep", "moe_etp": "moe_etp", "llama_2x2": "llama_accum2",
-    "qwen_1x4": "qwen",
+    "qwen_1x4": "qwen", "jamba": "jamba", "xlstm": "xlstm",
+    "seamless": "seamless", "xlstm_1x4": "xlstm",
+    "jamba_2x2": "jamba_accum2",
 }
+# the scenarios held to one rank's run (the others: their own tests)
+HELD = [n for w in (2, 4) for n in worker.SCENARIOS[w] if n in ONE_RANK]
+# gathered gradients against one rank's, in f32 spacings of each leaf's
+# largest magnitude (measured worst beside each)
+GRAD_SPACINGS = {"default": 32,          # 18.5 (jamba), 10 (the others)
+                 # xLSTM's stabilised gates: 49 at 1x2, 87 at 1x4 (every
+                 # head computed on each rank); the port itself is up to
+                 # 184 from the reference (ROADMAP Queue 3)
+                 worker.XLSTM: 128}
 # losses: the largest relative difference to one rank / to the JAX loop
 # (measured worst beside them)
 LOSS_RTOL = {"f32": (1e-5, 1e-5),      # 1.3e-7 / 1.4e-7
@@ -80,17 +98,6 @@ LOSS_RTOL = {"f32": (1e-5, 1e-5),      # 1.3e-7 / 1.4e-7
 PARAM_TOL = {"f32": (1e-4, 1e-4),      # 1.1e-5 / 1.3e-5
              "int8": (2e-3, 2e-3),     # 1.6e-4 / 1.3e-4
              "bf16": (0.25, 0.25)}     # 0.128 / 0.113
-
-
-def _free_ports(n):
-    socks = [socket.socket() for _ in range(n)]
-    try:
-        for s in socks:
-            s.bind(("localhost", 0))
-        return [str(s.getsockname()[1]) for s in socks]
-    finally:
-        for s in socks:
-            s.close()
 
 
 def _one(argv):
@@ -108,7 +115,6 @@ def _without_mesh(argv):
 
 
 def _spawn(out, world):
-    ports = _free_ports(len(worker.SCENARIOS[world]) + 1)
     procs = []
     for rank in range(world):
         env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
@@ -117,7 +123,7 @@ def _spawn(out, world):
         procs.append(subprocess.Popen(
             [sys.executable, os.path.join(REPO, "tests",
                                           "torch_tp_worker.py"),
-             out, *ports], cwd=REPO, env=env, stdout=subprocess.PIPE,
+             out], cwd=REPO, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     return procs
 
@@ -173,13 +179,23 @@ def ranks(tmp_path_factory):
                               os.path.join(out, "ck_one"), "--ckpt-every",
                               "3"])}
     shutil.rmtree(os.path.join(out, "ck_one", "step_000000006"))
+    # jamba at one rank, checkpointed at 2 and 4; the ranks restore step 2
+    jamba_ck = os.path.join(out, "ck_jamba_one")
+    refs["jamba"] = _one([*worker._arch(worker.JAMBA, 4), "--ckpt-dir",
+                          jamba_ck, "--ckpt-every", "2"])
+    shutil.rmtree(os.path.join(jamba_ck, "step_000000004"))
     procs = {w: _spawn(out, w) for w in (2, 4)}
     # the references, while the ranks run
     for name, argv in worker.SCENARIOS[2].items():
-        if ONE_RANK[name] not in refs:
+        if name in ONE_RANK and ONE_RANK[name] not in refs:
             refs[ONE_RANK[name]] = _one(_without_mesh(argv))
     refs["llama_accum2"] = _one([*worker.LLAMA, "--steps", "3",
                                  "--dp-reduce", "exact", "--accum", "2"])
+    refs["jamba_accum2"] = _one([*worker._arch(worker.JAMBA), "--dp-reduce",
+                                 "exact", "--accum", "2"])
+    # one rank's step-2 trees, as its checkpoint holds them (no step run)
+    refs["jamba_step2"] = _one([*worker._arch(worker.JAMBA, 2),
+                                "--ckpt-dir", jamba_ck, "--resume"])
     jax_refs = {}
     for name in ("llama", "llama_int8", "qwen", "gemma", "moe_ep",
                  "moe_etp"):
@@ -210,8 +226,8 @@ def _rel(got, want):
 def _init(arch):
     """The launcher's init (``--seed 0``), flat."""
     cfg = worker.smoke_cfg(arch)
-    return _flat(lm.init(cfg, torch.Generator().manual_seed(0),
-                         "cpu").tree())
+    return _flat(module_for(cfg).init(cfg, torch.Generator().manual_seed(0),
+                                      "cpu").tree())
 
 
 def _param_err(got, want, init):
@@ -239,8 +255,9 @@ def test_loss_and_gradients_match_one_rank(ranks, world, arch):
     cfg = worker.smoke_cfg(arch, dtype="float32")
     params = worker.grad_params(cfg)
     paths, leaves = flatten_with_paths(params)
-    loss = lm.loss_fn(cfg, params, worker.grad_batch(cfg))
+    loss = module_for(cfg).loss_fn(cfg, params, worker.grad_batch(cfg))
     want = torch.autograd.grad(loss, leaves)
+    bound = GRAD_SPACINGS.get(arch, GRAD_SPACINGS["default"])
     for rank in range(world):
         got_loss, got = torch.load(
             os.path.join(out, f"grads_{world}_{rank}.pt"),
@@ -249,11 +266,43 @@ def test_loss_and_gradients_match_one_rank(ranks, world, arch):
         gp, gl = flatten_with_paths(got)
         assert gp == paths
         for p, g, w in zip(paths, gl, want):
-            assert spacings(g, w) <= 32, (rank, p)
+            assert spacings(g, w) <= bound, (rank, p)
 
 
-@pytest.mark.parametrize("name", list(worker.SCENARIOS[2])
-                         + list(worker.SCENARIOS[4]))
+def _jax_loss(arch, cfg, params, batch):
+    """The JAX package's loss on the port's weights (numpy, in the flatten
+    order both packages share) and batch."""
+    get = jconfigs.get_smoke
+    jcfg = worker._EXTRA[arch](get) if arch in worker._EXTRA else get(arch)
+    jmod = jencdec if cfg.arch_class == "encdec" else jlm
+    shapes = jax.eval_shape(lambda: jmod.init(jcfg, jax.random.key(0)))
+    leaves, treedef = jax.tree_util.tree_flatten(shapes)
+    port = flatten_with_paths(params)[1]
+    assert [tuple(l.shape) for l in leaves] == [tuple(t.shape) for t in port]
+    jp = jax.tree_util.tree_unflatten(treedef, [
+        jax.numpy.asarray(t.detach().numpy()) for t in port])
+    jb = {k: jax.numpy.asarray(v.numpy()) for k, v in batch.items()}
+    return float(jmod.loss_fn(jcfg, jp, jb))
+
+
+@pytest.mark.parametrize("arch", [worker.JAMBA, worker.XLSTM,
+                                  worker.SEAMLESS])
+def test_two_rank_loss_matches_the_jax_package(ranks, arch):
+    """The 2-rank loss on the port's seeded init (each rank on its shards)
+    against the JAX package's loss on the same weights and batch, within
+    the family's world-1 parity bound (``tests/test_torch_ssm.py``,
+    ``test_torch_xlstm.py``, ``test_torch_encdec.py``: 4 f32 spacings)."""
+    out = ranks[0]
+    cfg = worker.smoke_cfg(arch, dtype="float32")
+    want = _jax_loss(arch, cfg, worker.grad_params(cfg),
+                     worker.grad_batch(cfg))
+    for rank in range(2):
+        got, _ = torch.load(os.path.join(out, f"grads_2_{rank}.pt"),
+                            weights_only=False)[arch]
+        assert spacings(got, np.float32(want)) <= 4, rank
+
+
+@pytest.mark.parametrize("name", HELD)
 def test_scenario_matches_one_rank(ranks, name):
     out, _, refs, _ = ranks
     world = 2 if name in worker.SCENARIOS[2] else 4
@@ -287,7 +336,8 @@ def test_scenario_matches_the_jax_loop(ranks, name):
 
 
 @pytest.mark.parametrize("name", ["llama", "llama_int8", "moe_ep",
-                                  "moe_etp", "llama_2x2", "qwen_1x4"])
+                                  "moe_etp", "llama_2x2", "qwen_1x4",
+                                  "jamba", "xlstm", "seamless", "xlstm_1x4"])
 def test_each_rank_holds_the_table_shards(ranks, name):
     """Every rank held the shard shapes ``tp_step_shardings`` gives on the
     run's mesh, and as many bytes as the table says."""
@@ -298,19 +348,20 @@ def test_each_rank_holds_the_table_shards(ranks, name):
     shape = tuple(int(n) for n in argv[argv.index("--mesh") + 1].split("x"))
     codec = "int8" if "--state-codec" in argv else "f32"
     cfg = worker.smoke_cfg(arch)
+    mod = module_for(cfg)
     mesh = sharding.Mesh(shape, ("data", "model"))
     seq = int(argv[argv.index("--seq") + 1])
     sh = sharding.tp_step_shardings(
-        cfg, lm, {"tokens": torch.empty((4, seq), device="meta")}, mesh,
+        cfg, mod, {"tokens": torch.empty((4, seq), device="meta")}, mesh,
         state_codec=codec)
-    abs_p = lm.abstract_params(cfg)
+    abs_p = mod.abstract_params(cfg)
     st = optim.make("gwt", lr=0.0, level=2, state_codec=codec).init(abs_p)
     want = {}
     for key, tree, tsh in (("params", abs_p, sh.params), ("opt", st, sh.opt)):
         local = sharding.local_meta(tree, tsh)
         for path, t in zip(*flatten_with_paths(local)):
             want[f"{key}/{path}"] = (tuple(t.shape), t.dtype)
-    local_p = _flat(lm.abstract_params(cfg, sh.params))
+    local_p = _flat(mod.abstract_params(cfg, sh.params))
     split = [p for p, t in _flat(abs_p).items()
              if tuple(local_p[p].shape) != tuple(t.shape)]
     assert split   # the model axis split something
@@ -379,3 +430,55 @@ def test_checkpoint_world_1_resumes_at_1x2(ranks):
     got = _load(out, "llama_resume", 0)
     assert len(got["losses"]) == 3
     assert "resumed from step 3" in logs[2][0]
+
+
+def _bitwise(got, want):
+    gp, gl = flatten_with_paths(got)
+    wp, wl = flatten_with_paths(want)
+    assert gp == wp
+    for p, a, b in zip(gp, gl, wl):
+        assert a.dtype == b.dtype and torch.equal(a, b), p
+
+
+def test_jamba_checkpoint_1x2_resumes_at_world_1_bitwise(ranks):
+    """The ``1x2`` run's checkpoint (whole arrays, ``in_proj`` columns in
+    the reference's order) restored at world 1 is bitwise the whole trees
+    the ranks returned at that step (no step run after the restore)."""
+    out, _, refs, _ = ranks
+    d = os.path.join(out, "ck_jamba_tp")
+    ck = manager.CheckpointManager(d)
+    assert ck.committed_steps() == [2, 4]
+    shapes = [list(t.shape) for t in flatten_with_paths(
+        {"opt": refs["jamba"]["opt"], "params": refs["jamba"]["params"]})[1]]
+    assert [m["shape"] for m in ck.manifest()["leaves"]] == shapes
+    restored = _one([*worker._arch(worker.JAMBA, 4), "--ckpt-dir", d,
+                     "--resume"])
+    assert restored["losses"] == []
+    for rank in range(2):
+        got = _load(out, "jamba", rank)
+        _bitwise(restored["params"], got["params"])
+        _bitwise(restored["opt"], got["opt"])
+
+
+def test_jamba_checkpoint_world_1_resumes_at_1x2_bitwise(ranks):
+    """One rank's step-2 checkpoint restored at ``1x2`` (each rank cutting
+    its shards, ``in_proj`` by halves) and gathered back at the end, with
+    no step in between: bitwise the checkpoint's trees."""
+    out, logs, refs, _ = ranks
+    assert "resumed from step 2" in logs[2][0]
+    for rank in range(2):
+        got = _load(out, "jamba_resume", rank)
+        assert got["losses"] == []
+        _bitwise(got["params"], refs["jamba_step2"]["params"])
+        _bitwise(got["opt"], refs["jamba_step2"]["opt"])
+
+
+def test_lora_keeps_the_replicated_step(ranks):
+    """``--finetune lora`` on a ``model`` axis logs ``tp_replicated`` and
+    runs the replicated step; no other scenario does."""
+    _, logs, _, _ = ranks
+    for world, log in ((2, logs[2][0]), (4, logs[4][0])):
+        n = log.count("the replicated step (--finetune lora)")
+        assert n == (1 if world == 2 else 0), world
+    assert logs[2][0].count("tensor_parallel=model") == \
+        len(worker.SCENARIOS[2]) - 1

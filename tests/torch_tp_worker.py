@@ -3,21 +3,28 @@ axis (``test_torch_tp_ranks.py`` starts two or four of these; not a test
 module).
 
     RANK=r WORLD_SIZE=W MASTER_ADDR=localhost \
-        python tests/torch_tp_worker.py OUT PORT0 PORT1 ...
+        python tests/torch_tp_worker.py OUT
 
 Imports neither JAX nor the JAX package.  First, on a ``1xW`` mesh, the
 loss and the gradients of every config of :data:`GRAD_ARCHS` (f32) from the
 port's seeded init, this rank computing on its shards and the gradients
-gathered whole (``grads_<W>_<rank>.pt``).  Then every scenario of
+gathered whole (``grads_<W>_<rank>.pt``): the dense and MoE decoders,
+jamba (mamba, attention and MoE blocks), xLSTM (mLSTM and sLSTM) and the
+encoder-decoder stack.  Then every scenario of
 :data:`SCENARIOS` ``[W]`` through the launcher, each on its own port,
 writing ``OUT/<name>_<rank>.pt``: the losses, the whole parameters and
 optimizer state the launcher returns, and this rank's shards as it held
-them (``TrainResult.local``, shapes and dtypes).
+them (``TrainResult.local``, shapes and dtypes).  Rank 0 takes each
+group's rendezvous port just before the group forms (a port taken when
+the processes start may be another test's by then) and hands it to the
+other ranks through ``OUT/port_<W>_<i>``.
 """
 
 import contextlib
 import os
+import socket
 import sys
+import time
 
 import torch
 
@@ -27,7 +34,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.distributed import sharding, tensor_parallel  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.mesh import init_mesh  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import module_for  # noqa: E402
 from repro_torch.optim.base import (flatten_with_paths, tree_map,  # noqa: E402
                                     unflatten)
 
@@ -42,6 +49,12 @@ _EXTRA = {
     ODD_MOE: lambda get: get("qwen2-moe-a2.7b").with_(
         name=ODD_MOE, expert_padding=3, dtype="float32"),
 }
+# the recurrent and encoder-decoder smokes, f32 (jamba's MoE routes)
+for _a in ("jamba-v0.1-52b", "xlstm-350m", "seamless-m4t-large-v2"):
+    _EXTRA[f"{_a}-f32"] = lambda get, a=_a: get(a).with_(
+        name=f"{a}-f32", dtype="float32")
+JAMBA, XLSTM, SEAMLESS = ("jamba-v0.1-52b-f32", "xlstm-350m-f32",
+                          "seamless-m4t-large-v2-f32")
 
 
 @contextlib.contextmanager
@@ -86,46 +99,94 @@ SCENARIOS = {
         "gemma": [*_arch("gemma2-9b"), "--mesh", "1x2"],
         "moe_ep": [*_arch("qwen3-moe-30b-a3b-f32"), "--mesh", "1x2"],
         "moe_etp": [*_arch(ODD_MOE), "--mesh", "1x2"],
+        # checkpoints at steps 2 and 4 (held to one rank's, and restored
+        # at world 1 bitwise); the resume restores one rank's step 2 and
+        # runs no step (its whole trees are the checkpoint's, bitwise)
+        "jamba": [*_arch(JAMBA, 4), "--mesh", "1x2", "--ckpt-dir",
+                  "{out}/ck_jamba_tp", "--ckpt-every", "2"],
+        "jamba_resume": [*_arch(JAMBA, 2), "--mesh", "1x2", "--ckpt-dir",
+                         "{out}/ck_jamba_one", "--resume"],
+        "xlstm": [*_arch(XLSTM), "--mesh", "1x2"],
+        "seamless": [*_arch(SEAMLESS), "--mesh", "1x2"],
+        # LoRA keeps the replicated step along 'model' (logged)
+        "lora": [*LLAMA, "--steps", "1", "--mesh", "1x2", "--finetune",
+                 "lora"],
     },
     4: {
         "llama_2x2": [*LLAMA, "--steps", "3", "--mesh", "2x2"],
         "qwen_1x4": [*_arch("qwen2.5-3b"), "--mesh", "1x4"],
+        # 2 heads over 4 ranks: mLSTM computes every head and keeps its
+        # channels, sLSTM's recurrence runs replicated
+        "xlstm_1x4": [*_arch(XLSTM), "--mesh", "1x4"],
+        "jamba_2x2": [*_arch(JAMBA), "--mesh", "2x2"],
     },
 }
 
 # the configs whose loss and gradients are gathered (f32), at 1x2 and 1x4
 GRAD_ARCHS = ["llama-60m", "qwen2.5-3b", "gemma2-9b", "gemma3-27b",
               "deepseek-67b", "qwen2-vl-72b", "qwen3-moe-30b-a3b-f32",
-              "qwen2-moe-a2.7b-f32", ODD_MOE]
+              "qwen2-moe-a2.7b-f32", ODD_MOE, JAMBA, XLSTM, SEAMLESS]
 GRAD_SEQ = 64
 
 
 def grad_batch(cfg, seed=1):
+    """Tokens and labels (2, GRAD_SEQ), and for the encoder-decoder stack
+    the frames' stub (2, GRAD_SEQ // 4, d_model)."""
     g = torch.Generator().manual_seed(seed)
-    return {k: torch.randint(0, cfg.vocab, (2, GRAD_SEQ), generator=g,
-                             dtype=torch.int32)
-            for k in ("tokens", "labels")}
+    out = {k: torch.randint(0, cfg.vocab, (2, GRAD_SEQ), generator=g,
+                            dtype=torch.int32)
+           for k in ("tokens", "labels")}
+    if cfg.arch_class == "encdec":
+        out["enc_embeds"] = torch.randn(2, GRAD_SEQ // 4, cfg.d_model,
+                                        generator=g)
+    return out
 
 
 def grad_params(cfg):
-    return lm.init(cfg, torch.Generator().manual_seed(0), "cpu").tree()
+    return module_for(cfg).init(cfg, torch.Generator().manual_seed(0),
+                                "cpu").tree()
 
 
-def grads(out, port, rank, world):
+PORT_TIMEOUT_S = 600
+
+
+def rendezvous_port(out, world, rank, i):
+    """Group ``i``'s port, taken by rank 0 just before the group forms and
+    read by the others from ``OUT/port_<world>_<i>``."""
+    path = os.path.join(out, f"port_{world}_{i}")
+    if rank == 0:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = str(s.getsockname()[1])
+        with open(path + ".tmp", "w") as f:
+            f.write(port)
+        os.replace(path + ".tmp", path)
+        return port
+    deadline = time.monotonic() + PORT_TIMEOUT_S
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no {path} within {PORT_TIMEOUT_S} s")
+        time.sleep(0.05)
+    with open(path) as f:
+        return f.read()
+
+
+def grads(out, rank, world):
     """Loss and whole gradients of each :data:`GRAD_ARCHS` config on a
     ``1xW`` mesh."""
-    os.environ["MASTER_PORT"] = port
+    os.environ["MASTER_PORT"] = rendezvous_port(out, world, rank, 0)
     dp, mesh = init_mesh(torch.device("cpu"), (1, world))
     res = {}
     try:
         tp = tensor_parallel.from_dp(dp)
         for arch in GRAD_ARCHS:
             cfg = smoke_cfg(arch, dtype="float32")
+            mod = module_for(cfg)
             batch = grad_batch(cfg)
-            sh = sharding.tp_step_shardings(cfg, lm, batch, mesh).params
+            sh = sharding.tp_step_shardings(cfg, mod, batch, mesh).params
             local = sharding.shard_tree(grad_params(cfg), sh)
             paths, leaves = flatten_with_paths(local)
-            loss = lm.loss_fn(cfg, local, batch, tp=tp)
+            loss = mod.loss_fn(cfg, local, batch, tp=tp)
             g = torch.autograd.grad(loss, leaves)
             res[arch] = (loss.detach(),
                          sharding.gather_tree(unflatten(paths, g), sh))
@@ -134,12 +195,12 @@ def grads(out, port, rank, world):
     torch.save(res, os.path.join(out, f"grads_{world}_{rank}.pt"))
 
 
-def main(out, *ports):
+def main(out):
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
-    grads(out, ports[0], rank, world)
+    grads(out, rank, world)
     with extra_configs():
-        for (name, argv), port in zip(SCENARIOS[world].items(), ports[1:]):
-            os.environ["MASTER_PORT"] = port
+        for i, (name, argv) in enumerate(SCENARIOS[world].items(), 1):
+            os.environ["MASTER_PORT"] = rendezvous_port(out, world, rank, i)
             r = train.main(SMOKE + [a.format(out=out) for a in argv])
             torch.save({"losses": r.losses, "params": r.params,
                         "opt": r.opt_state,

@@ -1,12 +1,17 @@
 """``chip_smoke.py``'s phase 39 (the ``model`` mesh axis) alone, on the
-card: the kernels' build, then llama-60m (f32 and int8 moments) and
-qwen3-moe-30b-a3b's 2-layer cut at world 1 and at ``--mesh 1x2`` on two
-processes sharing the card (``tools/tp_rank.py``).  Prints the phase's
-lines, then its summary as one JSON line.
+card: the kernels' build, then each run of ``chip_smoke.TP_RUNS``
+(llama-60m with f32 and int8 moments, qwen3-moe-30b-a3b's 2-layer cut,
+jamba-v0.1-52b's first block, one period of xlstm-350m in f32 and in
+bf16, seamless at 2+2 layers) at world 1 and at ``--mesh 1x2`` on two processes sharing the card
+(``tools/tp_rank.py``).  Prints the phase's lines, then its summary as one
+JSON line.
 
     python tools/tp_phase.py            # the phase
     python tools/tp_phase.py --spread   # and, first, world 1 against
                                         # itself at --accum 2
+    python tools/tp_phase.py --runs 3,4,5   # only those runs of TP_RUNS
+                                            # (and the f32 runs a bf16
+                                            # one is held to)
 
 ``--spread`` runs each dense run of ``chip_smoke.TP_RUNS`` at world 1
 twice, at ``--accum 1`` and ``--accum 2`` (the same gradient summed in
@@ -51,7 +56,10 @@ def main(argv) -> int:
     print(f"build {time.perf_counter() - t0:.1f} s")
     if "--spread" in argv:
         spread(train)
-    out = cs.run_tp(train, kernel, hk)
+    only = None
+    if "--runs" in argv:
+        only = [int(i) for i in argv[argv.index("--runs") + 1].split(",")]
+    out = cs.run_tp(train, kernel, hk, only=only)
     print(json.dumps(out, default=str))
     return 0
 

@@ -8,9 +8,10 @@ run by hand: ``chip_smoke.run_tp`` starts two of these on one card with
 Joins the card, waits for ``OUT/go`` (its parent runs the world-1
 references meanwhile), then makes each run through the launcher at
 ``--mesh 1x2 --dist-backend gloo`` (``layers``: the config cut to that
-depth, ``chip_smoke.depth_cut``), the kernels' launch counts set to 0 just
-before and read just after.  Rank 0 takes a free port for each run just
-before it and writes it to ``OUT/port<i>``, where rank 1 reads it.  Writes
+depth, or the config fields of a dict, ``chip_smoke.depth_cut``), the
+kernels' launch counts set to 0 just before and read just after.  Rank 0
+takes a free port for each run just before it and writes it to
+``OUT/port<i>``, where rank 1 reads it.  Writes
 ``OUT/rank<RANK>.json``: per run its losses, counts, peak
 ``max_memory_allocated``, step time, the bytes of the parameters and state
 this rank held, and the sketches of the whole parameters and optimizer
