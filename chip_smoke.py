@@ -3677,9 +3677,10 @@ def lora_argv(base, codec, ckpt=None, arch="llama-60m", steps=STEPS):
     return argv
 
 
-def lora_plan(kernel, arch, q8):
+def lora_plan(kernel, arch, q8, check=True):
     """The adapter buckets of the launcher's LoRA tree on ``arch`` (checked
-    against LORA_BUCKETS) and K1's (``q8``: K2's) counters a step."""
+    against LORA_BUCKETS unless ``check`` is False: a depth cut's) and
+    K1's (``q8``: K2's) counters a step."""
     from repro_torch import configs, optim
     from repro_torch.models import lm, lora
     from repro_torch.optim.base import flatten_with_paths
@@ -3694,7 +3695,7 @@ def lora_plan(kernel, arch, q8):
             got.append((len(b.paths), math.prod(s[:-1]), s[-1]))
         elif not b.name.startswith("frozen__base."):
             raise AssertionError(f"{arch} LoRA: bucket {b.name}")
-    if got != LORA_BUCKETS[arch]:
+    if check and got != LORA_BUCKETS[arch]:
         raise AssertionError(f"{arch} LoRA buckets {got}")
     ones = sum(one_pass(kernel, s, configs.get_config(arch).torch_dtype, q8,
                         pdtype=torch.float32) for s in got)
@@ -5295,7 +5296,35 @@ def run_examples(kernel, hk, dev):
 # bias has 4 elements, and one leaf's distance is a coin flip of Adam's
 # first step) no further from it than TP_BF16_NOISE times world 1's bf16
 # run is, or within the bounds above (noise_check).
+#
+# LoRA runs the tensor-parallel step too: llama-60m with f32 and with int8
+# moments, and qwen2.5-3b cut to 2 layers in its bf16 (at model=2 its 16
+# query heads and 2 KV heads both split), rank 8, at TP_DENSE_LR.  Each
+# rank holds its shards of the frozen base and the adapters split with
+# their weights; the update gathers each adapter bucket whole for K1/K2.
+# They take 4-5 steps: b starts at zero and the schedule's first lr is 0,
+# so b first moves at step 2 and a first gets a nonzero gradient at step 3
+# (its gradient is b's product); with fewer than four steps a's moments
+# would be zero at the end, and a missing all-reduce of the replicated
+# factor's gradient would pass unseen.  Beside the checks above, the base
+# after the run is world 1's bitwise (its sketches equal: the base does
+# not move, so state_check's bound is 0 there), and no rank logs a
+# replicated step.
+#
+# The int8 LoRA run's own rounding spread is over TP_STATE_RTOL: world 1
+# against itself at --accum 2 (the same gradients summed in another
+# order) is 0.119 of the norm apart in a's int8 moments after 5 steps
+# (a's moments start at step 3 from b's first moves; an int8 code at the
+# stochastic-rounding threshold follows the last bit of its value), and
+# the rank 0.116 (tools/tp_phase.py --spread).  So that run
+# (TP_SPREAD_RUNS) also runs at world 1 at --accum 2, and its rank is
+# held, leaf by leaf, within TP_SPREAD_FACTOR times the largest distance
+# world 1 shows from itself there (state and move apart), or within the
+# bounds above.  Without the all-reduce of the replicated factor's
+# gradient the rank is 1.16 of the norm off (the f32 run 0.929: O(1)).
 TP_DENSE_LR = "1e-3"
+TP_LORA = ["--finetune", "lora", "--lora-rank", str(LORA_RANK),
+           "--lora-alpha", str(LORA_ALPHA)]
 SEAMLESS_CUT = {"n_layers": 4, "n_enc_layers": 2, "n_dec_layers": 2}
 XLSTM_CUT = {"n_layers": 8, "dtype": "float32"}
 # (label, arch, depth cut, steps, extra flags)
@@ -5307,12 +5336,21 @@ TP_RUNS = [("llama-60m f32", "llama-60m", None, 5, ["--lr", TP_DENSE_LR]),
            ("xlstm-350m 8 layers f32", "xlstm-350m", XLSTM_CUT, 2, []),
            ("xlstm-350m 8 layers bf16", "xlstm-350m", 8, 2, []),
            ("seamless-m4t-large-v2 2+2 layers", "seamless-m4t-large-v2",
-            SEAMLESS_CUT, 2, [])]
+            SEAMLESS_CUT, 2, []),
+           ("llama-60m LoRA f32", "llama-60m", None, 5,
+            ["--lr", TP_DENSE_LR, *TP_LORA]),
+           ("llama-60m LoRA int8", "llama-60m", None, 5,
+            ["--lr", TP_DENSE_LR, "--state-codec", "int8", *TP_LORA]),
+           ("qwen2.5-3b 2 layers LoRA", "qwen2.5-3b", 2, 4,
+            ["--lr", TP_DENSE_LR, *TP_LORA])]
 TP_LOSS_RTOL = 2e-3
 TP_STATE_RTOL = 5e-2
 TP_MOVE_RTOL = 0.3
 # a bf16 run's state and parameters against the f32 run at world 1
 TP_NOISE_REF = {"xlstm-350m 8 layers bf16": "xlstm-350m 8 layers f32"}
+# runs held to world 1's own spread (world 1 at --accum 2 against world 1)
+TP_SPREAD_RUNS = {"llama-60m LoRA int8"}
+TP_SPREAD_FACTOR = 2.0
 TP_BF16_NOISE = 1.5
 TP_SKETCH = 64
 # the rank processes' wall limit (not a numerical bound)
@@ -5349,14 +5387,15 @@ def sketch_gap(a, b) -> float:
     return float(np.linalg.norm(np.subtract(a, b)))
 
 
-def state_check(got, ref):
+def state_check(got, ref, bounds=(TP_STATE_RTOL, TP_MOVE_RTOL)):
     """A rank's ``{"params", "opt"}`` sketches against world 1's, leaf by
     leaf: the optimizer state relative to world 1's leaf norm, the
-    parameters relative to world 1's move from the init.  Returns the
-    largest of each with its leaf, and the failures."""
+    parameters relative to world 1's move from the init, within
+    ``bounds``.  Returns the largest of each with its leaf, and the
+    failures."""
     worst = {"opt": (0.0, None), "params": (0.0, None)}
     failed = []
-    for part, bound in (("opt", TP_STATE_RTOL), ("params", TP_MOVE_RTOL)):
+    for part, bound in zip(("opt", "params"), bounds):
         if set(got[part]) != set(ref[part]):
             failed.append(f"{part} leaves "
                           f"{sorted(set(got[part]) ^ set(ref[part]))[:4]} "
@@ -5421,22 +5460,32 @@ def noise_check(got, ref, f32):
     return sorted(ratios, reverse=True), failed
 
 
-def tp_table_bytes(cfg, codec):
+def tp_table_bytes(cfg, codec, lora_rank=None):
     """The rule table's bytes of one rank at ``model=2``: parameters and
-    GWT-2 state, computed from shapes."""
+    GWT-2 state, computed from shapes; with ``lora_rank`` of the
+    ``{"base", "lora"}`` tree (and the base's own)."""
     from repro_torch.distributed import sharding
-    from repro_torch.models import module_for
+    from repro_torch.models import lora, module_for
     from repro_torch.optim import make
     mod = module_for(cfg)
     sh = sharding.tp_step_shardings(
         cfg, mod, {"tokens": torch.empty((16, 256), device="meta")},
-        sharding.Mesh((1, 2), ("data", "model")), state_codec=codec)
+        sharding.Mesh((1, 2), ("data", "model")), lora_rank=lora_rank,
+        state_codec=codec)
     abs_p = mod.abstract_params(cfg)
-    st = make("gwt", lr=0.0, level=LEVEL, state_codec=codec).init(abs_p)
+    opt = make("gwt", lr=0.0, level=LEVEL, state_codec=codec)
+    out = {}
+    if lora_rank is not None:
+        abs_p = lora.inject(abs_p, lora_rank, (0, 0))
+        opt = lora.wrap_optimizer(opt)
+        out = {"base": sharding.shard_bytes(abs_p["base"],
+                                            sh.params["base"]),
+               "base_whole": sharding.shard_bytes(abs_p["base"], None)}
+    st = opt.init(abs_p)
     return {"params": sharding.shard_bytes(abs_p, sh.params),
             "state": sharding.shard_bytes(st, sh.opt),
             "params_whole": sharding.shard_bytes(abs_p, None),
-            "state_whole": sharding.shard_bytes(st, None)}
+            "state_whole": sharding.shard_bytes(st, None), **out}
 
 
 def start_tp_ranks(runs, out):
@@ -5499,7 +5548,7 @@ def run_tp(train, kernel, hk, only=None):
                             for i in only if labels[i] in TP_NOISE_REF}
     runs = [{"label": label, "arch": arch, "layers": layers,
              "argv": tp_argv(arch, steps, extra), "steps": steps,
-             "q8": "int8" in extra}
+             "q8": "int8" in extra, "lora": "lora" in extra}
             for i, (label, arch, layers, steps, extra) in enumerate(TP_RUNS)
             if only is None or i in only]
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
@@ -5507,6 +5556,9 @@ def run_tp(train, kernel, hk, only=None):
     try:
         procs = start_tp_ranks(runs, out_dir)
         refs = [tp_world1(train, kernel, hk, run) for run in runs]
+        twins = {run["label"]: tp_world1(train, kernel, hk, {
+            **run, "argv": run["argv"] + ["--accum", "2"]})
+            for run in runs if run["label"] in TP_SPREAD_RUNS}
         gc.collect()
         torch.cuda.empty_cache()
         t_ranks = time.perf_counter()
@@ -5545,7 +5597,20 @@ def run_tp(train, kernel, hk, only=None):
                               f"{g['state_bytes']} state bytes, the table "
                               f"says {table}")
             sketch = g.pop("sketch")
-            worst, bad = state_check(sketch, ref["sketch"])
+            bounds = (TP_STATE_RTOL, TP_MOVE_RTOL)
+            if label in TP_SPREAD_RUNS:
+                own, _ = state_check(twins[label]["sketch"], ref["sketch"])
+                bounds = (max(TP_STATE_RTOL,
+                              TP_SPREAD_FACTOR * own["opt"][0]),
+                          max(TP_MOVE_RTOL,
+                              TP_SPREAD_FACTOR * own["params"][0]))
+                g["world1_spread"] = own
+                print(f"phase 39 {label} rank {rank}: world 1 at --accum 2 "
+                      f"against world 1: state {own['opt'][0]:.3g} (at "
+                      f"{own['opt'][1]}), move {own['params'][0]:.3g} (at "
+                      f"{own['params'][1]}); the rank's bounds "
+                      f"{bounds[0]:.3g} and {bounds[1]:.3g}")
+            worst, bad = state_check(sketch, ref["sketch"], bounds)
             if label in TP_NOISE_REF:
                 f32 = refs[[r["label"] for r in runs].index(
                     TP_NOISE_REF[label])]["sketch"]
@@ -5561,16 +5626,36 @@ def run_tp(train, kernel, hk, only=None):
                       f"against world 1's bf16 run below are shown, not "
                       f"held)")
             failed += [f"{label} rank {rank}: {b}" for b in bad]
+            if run["lora"]:
+                base = [p for p in ref["sketch"]["params"]
+                        if p.startswith("base/")]
+                # the rank's sketches came through JSON: lists, not tuples
+                moved = [p for p in base if list(sketch["params"][p])
+                         != list(ref["sketch"]["params"][p])]
+                g["base_bitwise"] = not moved and bool(base)
+                if not g["base_bitwise"]:
+                    failed.append(f"{label} rank {rank}: the base differs "
+                                  f"from world 1's at {moved[:4]}")
+                if g["base_bytes"] != table["base"]:
+                    failed.append(f"{label} rank {rank}: holds "
+                                  f"{g['base_bytes']} base bytes, the "
+                                  f"table says {table['base']}")
+                print(f"phase 39 {label} rank {rank}: the base "
+                      f"({len(base)} leaves) "
+                      f"{'bitwise' if g['base_bitwise'] else 'NOT bitwise'}"
+                      f" world 1's; base {g['base_bytes']} of "
+                      f"{table['base_whole']} bytes whole, adapters "
+                      f"{g['params_bytes'] - g['base_bytes']} bytes")
             g["state_rel_vs_world1"] = worst["opt"]
             g["move_rel_vs_world1"] = worst["params"]
             print(f"phase 39 {label} rank {rank}: losses {g['losses']} "
                   f"(differences to world 1 {diff}, largest relative "
                   f"{rel:.3g}); after step {run['steps']} the optimizer "
                   f"state within {worst['opt'][0]:.3g} of world 1's norm "
-                  f"(largest at {worst['opt'][1]}; bound {TP_STATE_RTOL}), "
+                  f"(largest at {worst['opt'][1]}; bound {bounds[0]:.3g}), "
                   f"the parameters within {worst['params'][0]:.3g} of world "
                   f"1's move (largest at {worst['params'][1]}; bound "
-                  f"{TP_MOVE_RTOL}); parameters {g['params_bytes']} "
+                  f"{bounds[1]:.3g}); parameters {g['params_bytes']} "
                   f"and state {g['state_bytes']} bytes = the table's (of "
                   f"{table['params_whole']} and {table['state_whole']} "
                   f"whole); peak {g['peak_mib']:.1f} MiB (world 1 "
@@ -5578,11 +5663,17 @@ def run_tp(train, kernel, hk, only=None):
                   f"1's; step {g['step_ms']} ms (world 1 {ref['step_ms']} "
                   f"ms; gloo over host memory, two processes on one card)")
         out[label] = {"world1": ref, "ranks": got}
+        if label in twins:
+            out[label]["world1_accum2"] = {
+                k: v for k, v in twins[label].items() if k != "sketch"}
     for ref in refs:
         ref.pop("sketch")
     for line in logs[0].splitlines():
         if "tensor_parallel=model" in line:
             print(f"phase 39 rank 0 logged: {line}")
+    if any("tp_replicated" in log or "replicated step" in log
+           for log in logs):
+        failed.append("a rank logged a replicated step")
     out["phase_s"] = time.perf_counter() - t0
     out["ranks_s"] = t_ranks
     print(f"phase 39: {out['phase_s']:.1f} s (the two ranks "
@@ -5597,7 +5688,8 @@ def tp_world1(train, kernel, hk, run):
     read just after, and the sketches of its whole state and parameters at
     the end and of the init (``state_check``)."""
     from repro_torch import configs
-    from repro_torch.models import module_for
+    from repro_torch.core import prng
+    from repro_torch.models import lora, module_for
     cut = depth_cut(run["arch"], run["layers"]) if run["layers"] \
         else contextlib.nullcontext()
     with cut:
@@ -5612,7 +5704,8 @@ def tp_world1(train, kernel, hk, run):
         peak = torch.cuda.max_memory_allocated()
         ref = {"losses": list(res.losses), "counts": counts,
                "peak_mib": peak / 2**20, "step_ms": res.step_ms,
-               "table": tp_table_bytes(cfg, "int8" if run["q8"] else "f32"),
+               "table": tp_table_bytes(cfg, "int8" if run["q8"] else "f32",
+                                       LORA_RANK if run["lora"] else None),
                "sketch": {"params": tree_sketch(res.params),
                           "opt": tree_sketch(res.opt_state)}}
         del res
@@ -5620,10 +5713,19 @@ def tp_world1(train, kernel, hk, run):
         init = module_for(cfg).init(
             cfg, torch.Generator(device="cuda").manual_seed(0),
             torch.device("cuda")).tree()
+        if run["lora"]:   # the launcher's adapters: b zero, a drawn
+            init = lora.inject(init, LORA_RANK,
+                               prng.fold_in(prng.key(0), 777))
         ref["sketch"]["init"] = tree_sketch(init)
         del init
+        if run["lora"]:
+            want = {k: v * run["steps"] for k, v in lora_plan(
+                kernel, run["arch"], run["q8"],
+                check=not run["layers"]).items()}
+        else:
+            want = fused_plan_counts(kernel, cfg, run["steps"],
+                                     q8=run["q8"])
     label = run["label"]
-    want = fused_plan_counts(kernel, cfg, run["steps"], q8=run["q8"])
     if {k: counts[k] for k in want} != want:
         raise AssertionError(f"phase 39 {label} world 1: launched "
                              f"{counts}, the plan says {want}")

@@ -25,7 +25,10 @@ device; ``meta`` tensors will do):
   :func:`train_step_shardings` and :class:`StepShardings`;
 * the ``model`` axis's tensor-parallel placement (:func:`tp_rules`,
   :func:`tp_step_shardings`): the table's model entries, split at head
-  granularity, which ``distributed/tensor_parallel.py`` computes on.
+  granularity, which ``distributed/tensor_parallel.py`` computes on; and
+  LoRA's adapters placed from their weights' placements
+  (:func:`lora_pair_shardings`, :func:`lora_shardings`,
+  :func:`lora_state_shardings`).
 
 Placement.  A placed tensor is stored as the rank's *local shard*, a plain
 contiguous tensor, beside its :class:`NamedSharding`; it is not kept as a
@@ -267,13 +270,9 @@ def gwt_state_shardings(params_abstract, params_axes, mesh: Mesh,
     ``prev_norm``.  Adam-mini's ``v`` is replicated; a MUON host keeps only
     ``m`` (its plain leaves run Adam: ``m`` and ``v``)."""
     from repro_torch.core.gwt import _Mode, gwt as gwt_optimizer
-    from repro_torch.optim import codec as codec_lib
-    quant = not codec_lib.get_codec(state_codec).passthrough
     opt = gwt_optimizer(lr=0.0, level=level, host=host, eligible=eligible)
-    plan = opt.engine.plan(params_abstract)
     _, pleaves = flatten_with_paths(params_abstract)
     _, aleaves = flatten_with_paths(params_axes)
-    rep = NamedSharding(mesh, Spec())
 
     def member_spec(kind: str, i: int) -> Spec:
         shape, ax = tuple(pleaves[i].shape), aleaves[i]
@@ -287,11 +286,29 @@ def gwt_state_shardings(params_abstract, params_axes, mesh: Mesh,
         a_shape = shape[:-1] + (shape[-1] >> level,)
         return spec_for(a_shape, Axes(names), mesh, rules)
 
+    return _bucket_shardings(opt.engine.plan(params_abstract), member_spec,
+                             mesh, host, state_codec)
+
+
+def _bucket_shardings(plan, member_spec, mesh: Mesh, host: str,
+                      state_codec: str):
+    """The state placements of ``plan``'s buckets, each member's A band
+    placed by ``member_spec(kind, leaf index)`` (:func:`gwt_state_shardings`'
+    rule); a frozen bucket (no state) gets ``{}``."""
+    from repro_torch.core.gwt import _Mode
+    from repro_torch.optim import codec as codec_lib
+    from repro_torch.optim.engine import FROZEN
+    quant = not codec_lib.get_codec(state_codec).passthrough
+    rep = NamedSharding(mesh, Spec())
+
     def slot(sh):
         return {"q": sh, "scale": rep} if quant else sh
 
     buckets = {}
     for b in plan.buckets:
+        if b.rule is FROZEN:
+            buckets[b.name] = {}
+            continue
         specs = {member_spec(b.rule.kind, i) for i in b.indices}
         sh = _stacked(mesh, specs.pop()) if len(specs) == 1 else rep
         host_sh = {"m": slot(sh), "v": slot(sh)}
@@ -307,6 +324,104 @@ def gwt_state_shardings(params_abstract, params_axes, mesh: Mesh,
     if quant:
         out["codec_key"] = rep
     return out
+
+
+# ---------------------------------------------------------------------------
+# LoRA adapters along 'model': each pair placed from its weight's placement
+# ---------------------------------------------------------------------------
+
+def lora_pair_shardings(weight: NamedSharding, ndim: int
+                        ) -> Dict[str, NamedSharding]:
+    """The placements of the adapter pair ``{"a": (..., m, r), "b": (...,
+    r, n)}`` of an ``ndim``-d weight ``(..., m, n)`` placed by ``weight``.
+
+    Read off the dimensions the weight's resolved spec split, never off
+    axis names the factors would inherit (xLSTM's ``wq`` carries
+    ``("inner", "heads")``, both on ``model``: split on both names, ``a_r @
+    b_r`` would be a diagonal block, not the rank's rows):
+
+    * a leading dimension (stacked experts under EP): both factors split
+      on it;
+    * ``m`` (row-parallel: ``wo``, ``w_down``, xLSTM's ``wq``/``wk``/``wv``
+      over ``inner``): ``a`` splits on it, ``b`` is replicated;
+    * ``n`` (column-parallel: ``wq``, ``w_gate``, an expert's hidden
+      columns): ``b`` splits on it, in the weight's ``blocks`` layout, and
+      ``a`` is replicated;
+    * a weight left whole: both factors whole.
+
+    The rank dimension ``r`` is never split, so a rank's ``a_local @
+    b_local`` is its own slice of the whole delta."""
+    e = list(weight.spec) + [None] * (ndim - len(weight.spec))
+
+    def place(entries, blocks=1):
+        while entries and entries[-1] is None:
+            entries.pop()
+        return NamedSharding(weight.mesh, Spec(*entries), blocks)
+
+    return {"a": place(e[:-2] + [e[-2], None]),
+            "b": place(e[:-2] + [None, e[-1]],
+                       weight.blocks if e[-1] is not None else 1)}
+
+
+def lora_shardings(base_shardings, lora_abstract):
+    """The placements of a ``{"base", "lora"}`` tree: the base's own, and
+    each adapter pair of ``lora_abstract`` (``models.lora.inject``'s
+    mirror tree) by :func:`lora_pair_shardings` of its weight's."""
+    def pairs(sh, tree):
+        return {k: (lora_pair_shardings(sh[k], v["a"].ndim)
+                    if "a" in v and not isinstance(v["a"], Mapping)
+                    else pairs(sh[k], v)) for k, v in tree.items()}
+    return {"base": base_shardings, "lora": pairs(base_shardings,
+                                                  lora_abstract)}
+
+
+def split_dims(sh: Optional[NamedSharding]) -> Tuple[int, ...]:
+    """The dimensions ``sh`` splits over mesh axes of size > 1."""
+    return () if sh is None else tuple(d for d, _ in _split(sh))
+
+
+def _band_spec(shape: Sequence[int], spec: Spec, kind: str, level: int,
+               mesh: Mesh) -> Spec:
+    """A GWT member's A-band placement from the member's resolved
+    ``spec``: transposed for a FIRST-mode member, and the band's last
+    dimension (``>> level``) kept split only where the axis still divides
+    it."""
+    from repro_torch.core.gwt import _Mode
+    e = list(spec) + [None] * (len(shape) - len(spec))
+    if kind == _Mode.PLAIN:
+        return spec
+    shape = list(shape)
+    if kind == _Mode.FIRST:
+        e[-2], e[-1] = e[-1], e[-2]
+        shape[-2], shape[-1] = shape[-1], shape[-2]
+    if e[-1] is not None and (shape[-1] >> level) % _axis_size(
+            mesh, e[-1]):
+        e[-1] = None
+    while e and e[-1] is None:
+        e.pop()
+    return Spec(*e)
+
+
+def lora_state_shardings(tree_abstract, tree_shardings, mesh: Mesh,
+                         level: int, host: str = "adam",
+                         state_codec: str = "f32"):
+    """The GWT state placements of a ``{"base", "lora"}`` tree under
+    ``models.lora.wrap_optimizer``: the frozen base's buckets hold nothing
+    (``{}``), each adapter bucket's moments take the A-band placement its
+    members' resolved specs (``tree_shardings``) share, as
+    :func:`gwt_state_shardings` places a whole model's."""
+    from repro_torch.core.gwt import gwt as gwt_optimizer
+    from repro_torch.models import lora
+    opt = lora.wrap_optimizer(gwt_optimizer(lr=0.0, level=level, host=host))
+    paths, leaves = flatten_with_paths(tree_abstract)
+    flat = flat_shardings(tree_shardings)
+
+    def member_spec(kind: str, i: int) -> Spec:
+        return _band_spec(tuple(leaves[i].shape), flat[paths[i]].spec, kind,
+                          level, mesh)
+
+    return _bucket_shardings(opt.engine.plan(tree_abstract), member_spec,
+                             mesh, host, state_codec)
 
 
 class StepShardings(NamedTuple):
@@ -371,12 +486,29 @@ def train_step_shardings(cfg, mod, batch_abstract, mesh: Mesh, *,
 
 
 def tp_step_shardings(cfg, mod, batch_abstract, mesh: Mesh,
+                      lora_rank: Optional[int] = None,
                       **kw) -> StepShardings:
     """:func:`train_step_shardings` under :func:`tp_rules`: the placements
     of the tensor-parallel step (parameters and GWT's state over
-    ``model``)."""
-    return train_step_shardings(cfg, mod, batch_abstract, mesh,
-                                rules=tp_rules(mesh, cfg), **kw)
+    ``model``).
+
+    ``lora_rank`` (``--finetune lora``): the ``{"base", "lora"}`` form.
+    The frozen base is placed as the whole model's parameters are, each
+    adapter pair of that rank by :func:`lora_shardings`, and GWT's adapter
+    state by :func:`lora_state_shardings` (the base keeps none)."""
+    sh = train_step_shardings(cfg, mod, batch_abstract, mesh,
+                              rules=tp_rules(mesh, cfg), **kw)
+    if lora_rank is None:
+        return sh
+    from repro_torch.models import lora
+    tree = lora.inject(mod.abstract_params(cfg), lora_rank, (0, 0))
+    params = lora_shardings(sh.params, tree["lora"])
+    opt = None
+    if kw.get("optimizer_name", "gwt") == "gwt":
+        opt = lora_state_shardings(tree, params, mesh, kw.get("level", 2),
+                                   host=kw.get("host", "adam"),
+                                   state_codec=kw.get("state_codec", "f32"))
+    return StepShardings(params, opt, sh.batch)
 
 
 # ---------------------------------------------------------------------------

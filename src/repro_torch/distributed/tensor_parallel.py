@@ -2,8 +2,8 @@
 family's train step (the reference leaves this axis to GSPMD; the port
 writes its collectives out, Megatron's way): the attention and MLP blocks
 of the dense decoders and the encoder-decoder stack, the MoE layers,
-mamba's channels and xLSTM's mLSTM and sLSTM heads.  Only ``--finetune
-lora`` keeps the replicated step along ``model`` (the launcher checks it).
+mamba's channels and xLSTM's mLSTM and sLSTM heads, and LoRA's adapters
+split with their base weights (``models.lora.merge(..., tp=)``).
 
 The collectives are ``torch.autograd.Function``s over the model group:
 

@@ -94,9 +94,16 @@ columns, and the ``inner`` channels of mamba and of xLSTM's mLSTM and
 sLSTM blocks), and of GWT's state; the update gathers one bucket at a time
 whole over ``model`` and runs K1/K2 on it.  The numbers are the replicated
 step's within rounding (row-parallel sums, split norms, the vocab-split
-loss).  The ``shard`` line logs each rank's bytes.  Only ``--finetune
-lora`` keeps the replicated step along ``model``, and logs it
-(``tp_replicated``).  ``--dist-backend gloo`` runs
+loss).  The ``shard`` line logs each rank's bytes.  ``--finetune lora``
+takes the same step: the frozen base is placed as the whole model's
+parameters are, each adapter pair from its weight's placement
+(``sharding.lora_pair_shardings``: ``b`` split with a column-parallel
+weight, ``a`` with a row-parallel one, both with the experts), each rank
+merges its base shard with its slice of the delta (``lora.merge(...,
+tp=)``), and the update gathers each adapter bucket whole for K1/K2 and
+never touches the base; the ``shard`` line then gives the base's and the
+adapters' bytes apart.  ``--base-ckpt`` restores the whole base, and each
+rank cuts its shards.  ``--dist-backend gloo`` runs
 several ranks on one card (with ``LOCAL_RANK=0`` for each): a check, not a
 way to train.
 
@@ -169,6 +176,11 @@ def resolve_device(name: str) -> torch.device:
 def _meta(tree):
     """The shapes and dtypes of a tensor tree, on the ``meta`` device."""
     return tree_map(lambda t: torch.empty_like(t, device="meta"), tree)
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in flatten_with_paths(tree)[1])
 
 
 def _check_ef_world(ckpt: CheckpointManager, ef, world: int) -> None:
@@ -520,27 +532,31 @@ def _train(args, dp_spec, dp: Optional[DPContext], mesh,
             level=args.level, host=args.host, shard_params=True,
             state_codec=args.state_codec)
     elif dp is not None and dp.model_world > 1:
-        why = "--finetune lora" if args.finetune == "lora" else None
-        if why is None:
-            tp = tensor_parallel.from_dp(dp)
-            shardings = sharding.tp_step_shardings(
-                cfg, mod, source.batch(0), mesh,
-                optimizer_name=args.optimizer, level=args.level,
-                host=args.host, state_codec=args.state_codec)
-        else:
-            log(f"model axis ({dp.model_world} ranks): the replicated step "
-                f"({why})", kind="tp_replicated", reason=why)
+        # every family; under LoRA the {"base", "lora"} form: the base
+        # placed as the whole model's parameters, each adapter pair from
+        # its weight's
+        tp = tensor_parallel.from_dp(dp)
+        shardings = sharding.tp_step_shardings(
+            cfg, mod, source.batch(0), mesh,
+            lora_rank=args.lora_rank if finetune else None,
+            optimizer_name=args.optimizer, level=args.level,
+            host=args.host, state_codec=args.state_codec)
 
     def build_optimizer(codec: str, placed: bool = False):
         kw = {"state_codec": codec}
+        state_sh = None
         if args.optimizer == "gwt":
             kw.update(level=args.level, alpha=args.alpha, host=args.host)
             if placed and shardings is not None:
-                kw["state_shardings"] = shardings.opt["buckets"]
+                state_sh = shardings.opt["buckets"]
         elif args.optimizer in optim.LOWRANK:
             kw.update(rank_frac=0.25, alpha=args.alpha)
-        opt = make_optimizer(args.optimizer, args.lr, args.steps, **kw)
-        return lora.wrap_optimizer(opt) if finetune else opt
+        if finetune:
+            opt = make_optimizer(args.optimizer, args.lr, args.steps, **kw)
+            return lora.wrap_optimizer(opt, state_shardings=state_sh)
+        if state_sh is not None:
+            kw["state_shardings"] = state_sh
+        return make_optimizer(args.optimizer, args.lr, args.steps, **kw)
 
     if finetune:
         params = lora.inject(params, args.lora_rank,
@@ -569,8 +585,10 @@ def _train(args, dp_spec, dp: Optional[DPContext], mesh,
         adam_f32_bytes=adam_f32_bytes)
     wire = None
     if step_spec is not None:
-        wire = (compression.tree_wire_bytes(params, step_spec),
-                compression.tree_wire_bytes(params, None))
+        # only the adapters' gradients are reduced under LoRA
+        grad_tree = params["lora"] if finetune else params
+        wire = (compression.tree_wire_bytes(grad_tree, step_spec),
+                compression.tree_wire_bytes(grad_tree, None))
         log(f"dp_reduce={args.dp_reduce if dp_spec else 'exact'} "
             f"dp={dp.world} wire={wire[0]/2**20:.1f}MiB/step vs exact "
             f"{wire[1]/2**20:.1f}MiB ({wire[1]/wire[0]:.2f}x)",
@@ -581,14 +599,21 @@ def _train(args, dp_spec, dp: Optional[DPContext], mesh,
     ckpt_sh = None
     if shardings is not None:
         params = sharding.shard_tree(params, shardings.params)
-        rank_p = sum(t.numel() * t.element_size()
-                     for t in flatten_with_paths(params)[1])
+        rank_p = _nbytes(params)
         rank_s = engine.state_bytes(compression.split_ef(opt_state)[0])
+        lora_kw, lora_msg = {}, ""
+        if finetune:
+            lora_kw = {"base_rank_bytes": _nbytes(params["base"]),
+                       "lora_rank_bytes": _nbytes(params["lora"])}
+            lora_msg = (f" (base {lora_kw['base_rank_bytes']/2**20:.2f}MiB"
+                        f" + adapters {lora_kw['lora_rank_bytes']/2**20:.2f}"
+                        f"MiB)")
         log(f"shard_params=auto mesh={dict(mesh.shape)}"
             f"{' tensor_parallel=model' if tp is not None else ''} "
-            f"params/rank={rank_p/2**20:.2f}MiB opt_state/rank="
+            f"params/rank={rank_p/2**20:.2f}MiB{lora_msg} opt_state/rank="
             f"{rank_s/2**20:.2f}MiB", kind="shard",
-            params_rank_bytes=rank_p, opt_state_rank_bytes=rank_s)
+            params_rank_bytes=rank_p, opt_state_rank_bytes=rank_s,
+            **lora_kw)
         # placements shaped like a checkpoint's tree (residues unplaced)
         ckpt_sh = {"params": shardings.params,
                    "opt": {"opt": opt_sh, "dp_ef": None} if ef_on
@@ -619,16 +644,13 @@ def _train(args, dp_spec, dp: Optional[DPContext], mesh,
         log(f"resumed from step {start}", kind="resume", step=start)
 
     tap_step = None
+    step_kw = dict(accum_steps=args.accum, dp_reduce=step_spec, dp=dp,
+                   shardings=shardings, tp=tp)
     if finetune:
         train_step = lora.make_train_step(mod, cfg, optimizer,
                                           rank=args.lora_rank,
-                                          alpha=args.lora_alpha,
-                                          accum_steps=args.accum)
+                                          alpha=args.lora_alpha, **step_kw)
     else:
-        step_kw = dict(accum_steps=args.accum, dp_reduce=step_spec, dp=dp,
-                       shardings=shardings)
-        if tp is not None:
-            step_kw["tp"] = tp
         train_step = mod.make_train_step(cfg, optimizer, **step_kw)
         # the tapped step runs each chunk's last step (TrainLoop); the
         # data-parallel step has no tapped channel, as in the JAX launcher

@@ -564,7 +564,8 @@ def make_sharded_train_step(cfg, optimizer, *, dp, dp_reduce,
     ``shardings`` from ``sharding.tp_step_shardings``): the tensor-parallel
     step.  The parameters stay this rank's shards through the forward and
     the backward (:func:`loss_fn`, or ``loss``, called with ``tp=``; a loss
-    without that keyword, LoRA's, has no tensor-parallel form), the data
+    without that keyword is refused: it has no tensor-parallel form; LoRA's
+    ``models.lora.loss_module`` merges each rank's shards), the data
     ranks' exact mean
     reduces each shard's gradient, and the update (``optimizer.update(...,
     param_shardings=)``) gathers each bucket's parameters, gradients and
@@ -580,8 +581,8 @@ def make_sharded_train_step(cfg, optimizer, *, dp, dp_reduce,
         if loss is not None and "tp" not in inspect.signature(
                 loss).parameters:
             raise ValueError("the tensor-parallel step calls its loss with "
-                             "tp=; a loss without it (LoRA's) keeps the "
-                             "replicated step")
+                             "tp=; a loss without it has no "
+                             "tensor-parallel form")
         # the objective's tensor-parallel form: this module's loss_fn, or
         # the one passed (encdec.loss_fn), each taking tp=
         loss = functools.partial(loss or loss_fn, tp=tp)
@@ -619,8 +620,11 @@ def make_sharded_train_step(cfg, optimizer, *, dp, dp_reduce,
                                  contiguous_microbatches(local, accum_steps),
                                  accum_steps, loss)
         loss_mean = compression.exact_mean(lsum / accum_steps, dp)
+        # the leaves without a gradient (LoRA's frozen base) take no
+        # reduction and keep a None gradient
+        trained = [i for i, s in enumerate(gsum) if s is not None]
         # the means in place: the f32 sums are not needed again
-        gmean = [s.div_(accum_steps) for s in gsum]
+        gmean = [gsum[i].div_(accum_steps) for i in trained]
         del gsum
         if ef_on:
             means, errs = compression.compressed_means_ef(
@@ -634,8 +638,11 @@ def make_sharded_train_step(cfg, optimizer, *, dp, dp_reduce,
             means[i] = None
             means[i] = m.to(cfg.torch_dtype)
             del m
-        grads = unflatten(paths, means)
-        del leaves, means
+        full = [None] * len(paths)
+        for i, m in zip(trained, means):
+            full[i] = m
+        grads = unflatten(paths, full)
+        del leaves, means, full
         if tp is None:
             params, opt_state = optimizer.update(grads, opt_state, params)
             del grads

@@ -28,6 +28,7 @@ import zlib
 from types import SimpleNamespace
 
 from repro_torch.core import prng
+from repro_torch.distributed import sharding
 from repro_torch.models.layers import lora_delta, lora_pair_init
 from repro_torch.optim import engine
 from repro_torch.optim.base import flatten_with_paths
@@ -70,24 +71,50 @@ def inject(params, rank: int, key: prng.Key):
     return {"base": params, "lora": mirror(params, "")}
 
 
-def merge(tree, alpha: float, rank: int):
+def merge(tree, alpha: float, rank: int, tp=None, shardings=None):
     """Plain params: each target is ``base + delta``, added in f32 and
-    cast back to the base dtype; the other leaves are the base's own."""
+    cast back to the base dtype; the other leaves are the base's own.
 
-    def walk(base, lora):
+    Under ``tp`` (the tensor-parallel step along ``model``; ``shardings``
+    the ``"lora"`` placements of ``sharding.lora_shardings``) ``tree``
+    holds this rank's shards, and each target is the rank's base shard
+    plus ``a_local @ b_local * α/r``, its own slice of the delta.  The
+    factor a split weight keeps whole (``a`` of a column-parallel weight,
+    ``b`` of a row-parallel one) goes through ``tp.copy_in`` first: each
+    rank's product gives it only its own columns' (rows') share of the
+    gradient, which the all-reduce backward sums.  A weight left whole
+    needs no collective here (its model code sums its gradient, or every
+    rank computes the whole of it)."""
+    if tp is not None and shardings is None:
+        raise ValueError("a tensor-parallel merge needs the adapters' "
+                         "shardings (sharding.lora_shardings)")
+
+    def pair(sub, sh):
+        if tp is None:
+            return sub
+        nd = sub["a"].ndim
+        a, b = sub["a"], sub["b"]
+        if nd - 1 in sharding.split_dims(sh["b"]):
+            a = tp.copy_in(a)
+        if nd - 2 in sharding.split_dims(sh["a"]):
+            b = tp.copy_in(b)
+        return {"a": a, "b": b}
+
+    def walk(base, lora, sh):
         out = {}
         for k, v in base.items():
             sub = lora.get(k) if isinstance(lora, dict) else None
+            ssh = sh.get(k) if isinstance(sh, dict) else None
             if isinstance(v, dict):
-                out[k] = walk(v, sub or {})
+                out[k] = walk(v, sub or {}, ssh or {})
             elif sub is not None:
-                d = lora_delta(sub, alpha, rank)
+                d = lora_delta(pair(sub, ssh), alpha, rank)
                 out[k] = (v.float() + d.float()).to(v.dtype)
             else:
                 out[k] = v
         return out
 
-    return walk(tree["base"], tree["lora"])
+    return walk(tree["base"], tree["lora"], shardings or {})
 
 
 def split_base(tree):
@@ -95,11 +122,13 @@ def split_base(tree):
     return tree["base"]
 
 
-def wrap_optimizer(inner) -> engine.Optimizer:
+def wrap_optimizer(inner, state_shardings=None) -> engine.Optimizer:
     """Route ``base/...`` leaves to ``FROZEN``; every other leaf (the
     adapters' ``a``/``b``) keeps the inner optimizer's own rule, codec and
     codec seed, so ``--state-codec int8`` quantizes the adapters' moments as
-    it would a whole model's."""
+    it would a whole model's.  ``state_shardings`` (the ``"buckets"`` of
+    ``sharding.lora_state_shardings``) keeps the adapter buckets' state
+    placed, as ``engine.build`` does."""
     eng = inner.engine
     if eng is None:
         raise ValueError("LoRA wrapping needs an engine-built optimizer")
@@ -110,16 +139,22 @@ def wrap_optimizer(inner) -> engine.Optimizer:
         return eng.assign(path, leaf)
 
     return engine.build(assign, bucketed=eng.bucketed, codec=eng.codec,
-                        codec_seed=eng.codec_seed)
+                        codec_seed=eng.codec_seed,
+                        state_shardings=state_shardings)
 
 
-def loss_module(mod, alpha: float, rank: int):
+def loss_module(mod, alpha: float, rank: int, shardings=None):
     """A ``loss_fn``-shaped shim over ``mod`` that merges before the
     forward: for ``data.eval.make_lm_evaluator`` and the train step's
-    ``loss=``."""
+    ``loss=``.  Its ``tp=`` (the tensor-parallel step binds it) merges
+    each rank's shards under ``shardings`` (the adapters' placements) and
+    runs ``mod``'s tensor-parallel loss."""
 
-    def loss_fn(cfg, tree, batch):
-        return mod.loss_fn(cfg, merge(tree, alpha, rank), batch)
+    def loss_fn(cfg, tree, batch, tp=None):
+        if tp is None:
+            return mod.loss_fn(cfg, merge(tree, alpha, rank), batch)
+        return mod.loss_fn(cfg, merge(tree, alpha, rank, tp, shardings),
+                           batch, tp=tp)
 
     return SimpleNamespace(loss_fn=loss_fn)
 
@@ -134,13 +169,27 @@ def freeze(tree) -> None:
 
 
 def make_train_step(mod, cfg, optimizer, *, rank: int, alpha: float,
-                    accum_steps: int = 1):
+                    accum_steps: int = 1, dp=None, dp_reduce=None,
+                    shardings=None, tp=None):
     """``mod.make_train_step`` over the merged forward.  Only the adapters
     get gradients; the ``FROZEN`` rule leaves the base bitwise as it
-    was."""
-    shim = loss_module(mod, alpha, rank)
+    was.
+
+    ``dp``, ``dp_reduce``, ``shardings`` and ``tp`` are the sharded
+    step's (``models.lm.make_sharded_train_step``): over several data
+    ranks the adapters' gradients take the exact mean, and with ``tp``
+    (``shardings`` from ``sharding.tp_step_shardings(...,
+    lora_rank=)``) each rank holds its shards of the base and the
+    adapters, merges them (:func:`merge`) and runs the model's
+    tensor-parallel loss; the update gathers each adapter bucket whole
+    over ``model``.  The numbers are the replicated step's within
+    rounding, the base bitwise."""
+    lora_sh = None if shardings is None else shardings.params["lora"]
+    shim = loss_module(mod, alpha, rank, lora_sh)
     inner = mod.make_train_step(cfg, optimizer, accum_steps=accum_steps,
-                                loss=shim.loss_fn)
+                                dp_reduce=dp_reduce, dp=dp,
+                                loss=shim.loss_fn, shardings=shardings,
+                                tp=tp)
 
     def train_step(tree, opt_state, batch):
         freeze(tree)

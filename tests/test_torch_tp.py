@@ -27,6 +27,7 @@
 The processes that run the step across ranks are
 ``test_torch_tp_ranks.py``."""
 
+import inspect
 import math
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -50,6 +51,7 @@ from repro_torch.models import (attention, encdec, layers, lm, lora,
 from repro_torch.optim.base import flatten_with_paths
 
 from test_torch_sharding import _amesh
+import torch_tp_worker as worker
 
 ALL_IDS = list(configs.ARCH_IDS) + list(configs.LLAMA)
 # every family: no config keeps the replicated step along 'model'
@@ -57,11 +59,12 @@ SLICE = ALL_IDS
 FAMILIES = ["jamba-v0.1-52b", "xlstm-350m", "seamless-m4t-large-v2"]
 
 
-def _tp_sh(cfg, m):
+def _tp_sh(cfg, m, **kw):
     mesh = sharding.Mesh((1, m), ("data", "model"))
     return sharding.tp_step_shardings(
         cfg, module_for(cfg), {"tokens": torch.empty((4, 64),
-                                                     device="meta")}, mesh)
+                                                     device="meta")}, mesh,
+        **kw)
 
 
 def _want_local(cfg, shape, names, m):
@@ -488,14 +491,19 @@ def test_cached_modes_refuse_a_tp():
 
 
 def test_a_loss_without_tp_keeps_the_replicated_step():
-    """The tensor-parallel step calls its loss with ``tp=``: LoRA's loss
-    takes none, and the step refuses it by name before it runs."""
+    """The tensor-parallel step calls its loss with ``tp=``: a loss that
+    takes none has no tensor-parallel form, and the step refuses it before
+    it runs; LoRA's shim takes ``tp=``."""
     cfg = configs.get_smoke("llama-60m").with_(dtype="float32")
-    shim = lora.loss_module(lm, 16.0, 4)
-    with pytest.raises(ValueError, match="LoRA"):
+
+    def plain(cfg, params, batch):
+        return lm.loss_fn(cfg, params, batch)
+
+    with pytest.raises(ValueError, match="no tensor-parallel form"):
         lm.make_train_step(cfg, optim.make("gwt", lr=1e-2, level=2),
-                           tp=TP(), shardings=_tp_sh(cfg, 1),
-                           loss=shim.loss_fn)
+                           tp=TP(), shardings=_tp_sh(cfg, 1), loss=plain)
+    assert "tp" in inspect.signature(
+        lora.loss_module(lm, 16.0, 4).loss_fn).parameters
 
 
 def test_collectives_are_the_identity_on_one_rank():
@@ -552,3 +560,134 @@ def test_loss_and_step_at_one_rank(arch):
                      .sum())
         den += float(((w - init[path].detach().double()) ** 2).sum())
     assert (num / den) ** 0.5 <= 2e-4
+
+
+# ---------------------------------------------------------------------------
+# LoRA adapters along 'model'
+# ---------------------------------------------------------------------------
+
+# every family's smoke config (f32), its adapters' b nonzero: qwen2.5's
+# K/V projections split at model=2 and stay whole at 4, llama's attention
+# stays whole at 4 (2 heads), qwen3-moe's 8 experts split (EP), the odd
+# MoE's 9 keep whole and split inside each expert, xLSTM's wq/wk/wv split
+# by rows over inner
+LORA_ARCHS = ["llama-60m", "qwen2.5-3b", "qwen3-moe-30b-a3b", worker.ODD_MOE,
+              "jamba-v0.1-52b", "xlstm-350m", "seamless-m4t-large-v2"]
+# the kinds of split each config's targets show, at model=2 / model=4
+LORA_KINDS = {
+    "llama-60m": ({"column", "row"}, {"column", "row", "whole"}),
+    "qwen2.5-3b": ({"column", "row"}, {"column", "row", "whole"}),
+    "qwen3-moe-30b-a3b": ({"column", "row", "leading"},) * 2,
+    worker.ODD_MOE: ({"column", "row"},) * 2,
+    "jamba-v0.1-52b": ({"column", "row", "leading"},) * 2,
+    "xlstm-350m": ({"row"},) * 2,
+    "seamless-m4t-large-v2": ({"column", "row"},) * 2,
+}
+
+
+def _lora_case(arch, m):
+    cfg = worker.smoke_cfg(arch, dtype="float32")
+    return cfg, _tp_sh(cfg, m, lora_rank=worker.LORA_RANK), \
+        worker.lora_tree(cfg)
+
+
+def _splits(sh):
+    return {d: names for d, names in sharding._split(sh)}
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("arch", LORA_ARCHS)
+def test_lora_adapter_placements(arch, m):
+    """Each target's pair is placed from the dimension its weight's spec
+    split: a leading one (experts under EP) splits both factors, ``m``
+    (row-parallel) splits ``a``, ``n`` (column-parallel) splits ``b``, a
+    weight left whole leaves both whole; ``r`` never splits, and no target
+    is a paired-halves leaf.  xLSTM's ``wq`` (``("inner", "heads")``, both
+    names on ``model``) splits by rows only."""
+    cfg, sh, tree = _lora_case(arch, m)
+    flat_w = sharding.flat_shardings(sh.params["base"])
+    flat_l = sharding.flat_shardings(sh.params["lora"])
+    whole = dict(zip(*flatten_with_paths(tree["base"])))
+    pairs = [p[:-2] for p in flat_l if p.endswith("/a")]
+    assert pairs and len(flat_l) == 2 * len(pairs)
+    kinds = {}
+    for path in pairs:
+        w, a, b = flat_w[path], flat_l[path + "/a"], flat_l[path + "/b"]
+        nd = whole[path].ndim
+        assert w.blocks == 1 and a.blocks == 1 and b.blocks == 1, path
+        ws, as_, bs = _splits(w), _splits(a), _splits(b)
+        assert nd - 1 not in as_ and nd - 2 not in bs, path   # r whole
+        if not ws:
+            kind, want_a, want_b = "whole", {}, {}
+        else:
+            (d, names), = ws.items()
+            if d == nd - 1:
+                kind, want_a, want_b = "column", {}, {d: names}
+            elif d == nd - 2:
+                kind, want_a, want_b = "row", {d: names}, {}
+            else:
+                kind, want_a, want_b = "leading", {d: names}, {d: names}
+        assert (as_, bs) == (want_a, want_b), path
+        kinds[path] = kind
+    assert set(kinds.values()) >= LORA_KINDS[arch][m // 4], kinds
+    if arch == "xlstm-350m":
+        assert kinds["layers/b0/mixer/wq"] == "row"
+    if arch == "qwen2.5-3b":
+        assert kinds["layers/b0/mixer/wk"] == ("whole" if m == 4
+                                               else "column")
+
+
+def _on_rank(tree, mesh):
+    """A sharding tree's placements over ``mesh`` (a rank's coords)."""
+    if isinstance(tree, sharding.NamedSharding):
+        return sharding.NamedSharding(mesh, tree.spec, tree.blocks)
+    return {k: _on_rank(v, mesh) for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("arch", LORA_ARCHS)
+def test_lora_split_merge_is_the_rank_slice(arch, m, monkeypatch):
+    """Each rank's ``lora.merge(..., tp=)`` of its shards (base shard plus
+    ``a_local @ b_local * α/r``) equals its slice of the whole merge
+    within 1 f32 spacing of each leaf's largest magnitude (measured 0 on
+    the CPU; the rank-8 products of a column slice may round apart from
+    the whole product's), the base leaves that are not targets bitwise; the
+    factors gathered from the ranks' shards are world 1's bitwise, and so
+    is ``a @ b`` rebuilt from them."""
+    cfg, sh, tree = _lora_case(arch, m)
+    merged = lora.merge(tree, worker.LORA_ALPHA, worker.LORA_RANK)
+    targets = {p[:-2] for p in flatten_with_paths(tree["lora"])[0]}
+    locals_ = []
+    for r in range(m):
+        mesh = sharding.Mesh((1, m), ("data", "model"), coords=(0, r),
+                             groups={"model": object()})
+        sh_r = _on_rank(sh.params, mesh)
+        local = sharding.shard_tree(tree, sh_r)
+        got = dict(zip(*flatten_with_paths(lora.merge(
+            local, worker.LORA_ALPHA, worker.LORA_RANK,
+            tp=_ByHand(None, r, m), shardings=sh_r["lora"]))))
+        want = dict(zip(*flatten_with_paths(sharding.shard_tree(
+            merged, sh_r["base"]))))
+        for p, w in want.items():
+            if p in targets:
+                assert spacings(got[p], w) <= 1, (r, p)
+            else:
+                assert torch.equal(got[p], w), (r, p)
+        locals_.append((sh_r["lora"], dict(zip(*flatten_with_paths(
+            local["lora"])))))
+    whole = dict(zip(*flatten_with_paths(tree["lora"])))
+    flat_sh = [sharding.flat_shardings(s) for s, _ in locals_]
+    rebuilt = {}
+    for path, full in whole.items():
+        parts = [leaves[path] for _, leaves in locals_]
+        monkeypatch.setattr(dist, "all_gather", _fake_gather([parts] * m))
+        for r in range(m):
+            rebuilt[path] = sharding.gather(parts[r], flat_sh[r][path])
+            assert torch.equal(rebuilt[path], full), (r, path)
+    for path in targets:
+        delta = {}
+        for key, src in (("rebuilt", rebuilt), ("whole", whole)):
+            delta[key] = layers.lora_delta(
+                {k: src[f"{path}/{k}"] for k in ("a", "b")},
+                worker.LORA_ALPHA, worker.LORA_RANK)
+        assert torch.equal(delta["rebuilt"], delta["whole"]), path

@@ -32,7 +32,19 @@ module and run while this process computes the references.
   ``in_proj`` in the paired-halves layout) round-trip bitwise both ways.
 * ``2x2``: the exact mean over the two data ranks of two ``model`` ranks
   each, against one rank with ``--accum 2`` (llama, jamba).
-* ``--finetune lora`` on ``1x2`` keeps the replicated step and logs it.
+* LoRA along ``model``, every run from adapters with a nonzero ``b``
+  (``torch_tp_worker.nonzero_b``; ``inject`` draws zeros, which would leave
+  ``a``'s gradient zero at first): the loss and the adapters' gradients of
+  seven smoke configs at ``1x2`` and ``1x4`` (each kind of split weight and
+  a weight left whole) against one rank; the launcher at ``1x2`` (f32,
+  int8), ``1x4`` (qwen2.5 f32 with its K/V whole, llama int8) and
+  ``2x2`` (against one rank at ``--accum 2``) against one rank: losses, parameters and optimizer state within the dense
+  bounds, the frozen base bitwise, each rank's base and adapter shards the
+  table's; a LoRA checkpoint written at ``1x2`` resumes at world 1 and one
+  written at world 1 resumes at ``1x2``, and the JAX package's
+  ``Engine.from_checkpoint`` merges it as the port's does; the 2-rank LoRA
+  loss against the JAX package's ``lora.make_train_step``.  Every
+  scenario logs ``tensor_parallel=model``, none a replicated step.
 """
 
 import os
@@ -48,7 +60,9 @@ import torch
 from torch_parity import flat_numpy, spacings
 
 from repro import configs as jconfigs
-from repro.models import encdec as jencdec, lm as jlm
+from repro.models import encdec as jencdec, lm as jlm, lora as jlora
+from repro.serve.engine import Engine as JaxEngine, \
+    EngineConfig as JaxEngineConfig
 from repro.data.pipeline import SyntheticLM as JaxSyntheticLM
 from repro.optim import make as jax_make
 from repro.optim.schedules import warmup_cosine as jax_warmup_cosine
@@ -57,9 +71,10 @@ from repro_torch import optim
 from repro_torch.checkpoint import manager
 from repro_torch.distributed import sharding
 from repro_torch.launch import train
-from repro_torch.models import lm, module_for
+from repro_torch.models import lm, lora, module_for
 from repro_torch.optim import engine
 from repro_torch.optim.base import flatten_with_paths
+from repro_torch.serve.engine import Engine, EngineConfig
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_tp_worker as worker  # noqa: E402
@@ -73,8 +88,13 @@ ONE_RANK = {
     "moe_ep": "moe_ep", "moe_etp": "moe_etp", "llama_2x2": "llama_accum2",
     "qwen_1x4": "qwen", "jamba": "jamba", "xlstm": "xlstm",
     "seamless": "seamless", "xlstm_1x4": "xlstm",
-    "jamba_2x2": "jamba_accum2",
+    "jamba_2x2": "jamba_accum2", "lora": "lora_straight",
+    "lora_resume": "lora_straight", "lora_int8": "lora_int8",
+    "lora_qwen_1x4": "lora_qwen", "lora_int8_1x4": "lora_int8",
+    "lora_2x2": "lora_accum2",
 }
+LORA_RUNS = [n for w in (2, 4) for n in worker.SCENARIOS[w]
+             if n.startswith("lora")]
 # the scenarios held to one rank's run (the others: their own tests)
 HELD = [n for w in (2, 4) for n in worker.SCENARIOS[w] if n in ONE_RANK]
 # gathered gradients against one rank's, in f32 spacings of each leaf's
@@ -101,8 +121,9 @@ PARAM_TOL = {"f32": (1e-4, 1e-4),      # 1.1e-5 / 1.3e-5
 
 
 def _one(argv):
-    """One rank through the launcher (no torchrun variables)."""
-    with worker.extra_configs():
+    """One rank through the launcher (no torchrun variables); a LoRA run
+    from the ranks' nonzero ``b``."""
+    with worker.extra_configs(), worker.nonzero_b():
         r = train.main(worker.SMOKE + argv)
     return {"losses": r.losses, "params": r.params, "opt": r.opt_state}
 
@@ -184,15 +205,26 @@ def ranks(tmp_path_factory):
     refs["jamba"] = _one([*worker._arch(worker.JAMBA, 4), "--ckpt-dir",
                           jamba_ck, "--ckpt-every", "2"])
     shutil.rmtree(os.path.join(jamba_ck, "step_000000004"))
+    # LoRA at one rank, 4 steps checkpointed at 2 and 4; the ranks resume
+    # its step 2
+    lora_ck = os.path.join(out, "ck_lora_one")
+    refs["lora_straight"] = _one([*worker.LLAMA, "--steps", "4",
+                                  *worker.LORA, "--ckpt-dir", lora_ck,
+                                  "--ckpt-every", "2"])
+    shutil.rmtree(os.path.join(lora_ck, "step_000000004"))
     procs = {w: _spawn(out, w) for w in (2, 4)}
     # the references, while the ranks run
-    for name, argv in worker.SCENARIOS[2].items():
-        if name in ONE_RANK and ONE_RANK[name] not in refs:
-            refs[ONE_RANK[name]] = _one(_without_mesh(argv))
     refs["llama_accum2"] = _one([*worker.LLAMA, "--steps", "3",
                                  "--dp-reduce", "exact", "--accum", "2"])
     refs["jamba_accum2"] = _one([*worker._arch(worker.JAMBA), "--dp-reduce",
                                  "exact", "--accum", "2"])
+    # LoRA refuses --dp-reduce: one rank's plain step at --accum 2
+    refs["lora_accum2"] = _one([*worker.LLAMA, "--steps", "3", *worker.LORA,
+                                "--accum", "2"])
+    for w in (2, 4):
+        for name, argv in worker.SCENARIOS[w].items():
+            if name in ONE_RANK and ONE_RANK[name] not in refs:
+                refs[ONE_RANK[name]] = _one(_without_mesh(argv))
     # one rank's step-2 trees, as its checkpoint holds them (no step run)
     refs["jamba_step2"] = _one([*worker._arch(worker.JAMBA, 2),
                                 "--ckpt-dir", jamba_ck, "--resume"])
@@ -214,7 +246,7 @@ def _load(out, name, rank):
 def _kind(name):
     if name in ("qwen", "gemma", "qwen_1x4"):
         return "bf16"
-    return "int8" if name == "llama_int8" else "f32"
+    return "int8" if "int8" in name else "f32"
 
 
 def _rel(got, want):
@@ -223,9 +255,12 @@ def _rel(got, want):
     return float(np.max(np.abs(got - want) / np.abs(want)))
 
 
-def _init(arch):
-    """The launcher's init (``--seed 0``), flat."""
+def _init(arch, finetune=False):
+    """The launcher's init (``--seed 0``), flat; ``finetune``: with the
+    LoRA runs' adapters."""
     cfg = worker.smoke_cfg(arch)
+    if finetune:
+        return _flat(worker.lora_tree(cfg))
     return _flat(module_for(cfg).init(cfg, torch.Generator().manual_seed(0),
                                       "cpu").tree())
 
@@ -309,10 +344,12 @@ def test_scenario_matches_one_rank(ranks, name):
     want = refs[ONE_RANK[name]]
     if name == "llama_resume":   # the ranks ran steps 4-6
         want = {**want, "losses": want["losses"][3:]}
+    if name == "lora_resume":    # the ranks ran steps 3-4
+        want = {**want, "losses": want["losses"][2:]}
     loss_tol, param_tol = LOSS_RTOL[_kind(name)][0], \
         PARAM_TOL[_kind(name)][0]
     argv = worker.SCENARIOS[world][name]
-    init = _init(argv[argv.index("--arch") + 1])
+    init = _init(argv[argv.index("--arch") + 1], "--finetune" in argv)
     first = _load(out, name, 0)
     for rank in range(world):
         got = _load(out, name, rank)
@@ -473,12 +510,224 @@ def test_jamba_checkpoint_world_1_resumes_at_1x2_bitwise(ranks):
         _bitwise(got["opt"], refs["jamba_step2"]["opt"])
 
 
-def test_lora_keeps_the_replicated_step(ranks):
-    """``--finetune lora`` on a ``model`` axis logs ``tp_replicated`` and
-    runs the replicated step; no other scenario does."""
+def test_lora_runs_the_tensor_parallel_step(ranks):
+    """Every scenario, the LoRA ones included, runs the tensor-parallel
+    step: each rank logs ``tensor_parallel=model`` once a run, and no
+    run logs a replicated step; the LoRA runs' ``shard`` lines give the
+    base's and the adapters' bytes apart."""
     _, logs, _, _ = ranks
-    for world, log in ((2, logs[2][0]), (4, logs[4][0])):
-        n = log.count("the replicated step (--finetune lora)")
-        assert n == (1 if world == 2 else 0), world
-    assert logs[2][0].count("tensor_parallel=model") == \
-        len(worker.SCENARIOS[2]) - 1
+    for world in (2, 4):
+        log = logs[world][0]
+        assert "tp_replicated" not in log and "replicated step" not in log
+        assert log.count("tensor_parallel=model") == \
+            len(worker.SCENARIOS[world]), world
+        lines = [ln for ln in log.splitlines()
+                 if "tensor_parallel=model" in ln and "adapters" in ln]
+        assert len(lines) == sum(n.startswith("lora")
+                                 for n in worker.SCENARIOS[world]), world
+
+
+# ---------------------------------------------------------------------------
+# LoRA along 'model'
+# ---------------------------------------------------------------------------
+
+# the optimizer state against one rank's: |got - want| / |want| over the
+# whole state tree (2-norms; int8 codes as numbers), measured worst beside
+LORA_STATE_TOL = {"f32": 1e-4,     # 2.8e-6
+                  "int8": 2e-3}    # 5.5e-10
+
+
+def _lora_one_rank(arch):
+    """One rank's LoRA loss and adapter gradients on the seeded init with
+    the ranks' nonzero ``b`` (f32)."""
+    cfg = worker.smoke_cfg(arch, dtype="float32")
+    tree = worker.lora_tree(cfg)
+    lora.freeze(tree)
+    paths, leaves = flatten_with_paths(tree["lora"])
+    loss = lora.loss_module(module_for(cfg), worker.LORA_ALPHA,
+                            worker.LORA_RANK).loss_fn(
+        cfg, tree, worker.grad_batch(cfg))
+    return cfg, tree, loss, paths, torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("arch", worker.LORA_GRAD_ARCHS)
+def test_lora_loss_and_adapter_gradients_match_one_rank(ranks, world, arch):
+    """Each rank merges its base shards with its slices of the deltas and
+    runs the tensor-parallel loss; the adapters' gradients, gathered whole,
+    equal one rank's within the bounds of the full model's gradients
+    (:data:`GRAD_SPACINGS`; measured 14, xLSTM 97), the loss within 4 f32
+    spacings (measured 2).  A missing
+    all-reduce of the replicated factor's gradient would leave it one
+    rank's share."""
+    out = ranks[0]
+    _, _, loss, paths, want = _lora_one_rank(arch)
+    bound = GRAD_SPACINGS.get(arch, GRAD_SPACINGS["default"])
+    for rank in range(world):
+        got_loss, got = torch.load(
+            os.path.join(out, f"grads_{world}_{rank}.pt"),
+            weights_only=False)[f"lora {arch}"]
+        assert spacings(got_loss, loss) <= 4, rank
+        gp, gl = flatten_with_paths(got)
+        assert gp == paths
+        for p, g, w in zip(paths, gl, want):
+            assert float(w.abs().max()) > 0, p
+            assert spacings(g, w) <= bound, (rank, p)
+
+
+def test_two_rank_lora_loss_matches_the_jax_package(ranks):
+    """The 2-rank LoRA loss of llama-60m's smoke (base and adapters the
+    ranks', ``b`` nonzero) against the loss the JAX package's
+    ``lora.make_train_step`` reports on the same tree and batch, within
+    4 f32 spacings (measured 1)."""
+    out = ranks[0]
+    cfg = worker.smoke_cfg("llama-60m", dtype="float32")
+    tree = worker.lora_tree(cfg)
+    jcfg = jconfigs.get_smoke("llama-60m")
+    like = jax.eval_shape(lambda: jlora.inject(
+        jlm.init(jcfg, jax.random.key(0)), worker.LORA_RANK,
+        jax.random.key(0)))
+    leaves, treedef = jax.tree_util.tree_flatten(like)
+    port = flatten_with_paths(tree)[1]
+    assert [tuple(l.shape) for l in leaves] == [tuple(t.shape) for t in port]
+    jtree = jax.tree_util.tree_unflatten(treedef, [
+        jax.numpy.asarray(t.detach().numpy()) for t in port])
+    jopt = jlora.wrap_optimizer(jax_make("sgd", lr=0.0))
+    step = jlora.make_train_step(jlm, jcfg, jopt, rank=worker.LORA_RANK,
+                                 alpha=worker.LORA_ALPHA)
+    batch = {k: jax.numpy.asarray(v.numpy())
+             for k, v in worker.grad_batch(cfg).items()}
+    _, _, metrics = step(jtree, jopt.init(jtree), batch)
+    want = np.float32(metrics["loss"])
+    for rank in range(2):
+        got, _ = torch.load(os.path.join(out, f"grads_2_{rank}.pt"),
+                            weights_only=False)["lora llama-60m"]
+        assert spacings(got, want) <= 4, rank
+
+
+def _state_err(got, want):
+    num = den = 0.0
+    for path, w in _flat(want).items():
+        w = w.double()
+        num += float(((_flat(got)[path].double() - w) ** 2).sum())
+        den += float((w ** 2).sum())
+    return (num / den) ** 0.5
+
+
+@pytest.mark.parametrize("name", LORA_RUNS)
+def test_lora_state_and_base_match_one_rank(ranks, name):
+    """A LoRA run's whole optimizer state at the end within
+    :data:`LORA_STATE_TOL` of one rank's (its losses and parameters are
+    ``test_scenario_matches_one_rank``'s), and its frozen base bitwise the
+    init's, as one rank's is."""
+    out, _, refs, _ = ranks
+    world = 2 if name in worker.SCENARIOS[2] else 4
+    want = refs[ONE_RANK[name]]
+    argv = worker.SCENARIOS[world][name]
+    init = _init(argv[argv.index("--arch") + 1], True)
+    for p, t in _flat(want["params"]["base"]).items():
+        assert torch.equal(t, init[f"base/{p}"]), p
+    for rank in range(world):
+        got = _load(out, name, rank)
+        _bitwise(got["params"]["base"], want["params"]["base"])
+        assert _state_err(got["opt"], want["opt"]) \
+            <= LORA_STATE_TOL["int8" if "int8" in name else "f32"], rank
+
+
+@pytest.mark.parametrize("name", ["lora", "lora_int8", "lora_qwen_1x4",
+                                  "lora_int8_1x4", "lora_2x2"])
+def test_lora_rank_holds_the_table_shards(ranks, name):
+    """Each rank held the shard shapes of ``tp_step_shardings(...,
+    lora_rank=)``: the base's the whole model's, the adapters' from their
+    weights', the adapters' state from theirs; so about 1/m of the base's
+    bytes."""
+    out, _, _, _ = ranks
+    world = 2 if name in worker.SCENARIOS[2] else 4
+    argv = worker.SCENARIOS[world][name]
+    arch = argv[argv.index("--arch") + 1]
+    shape = tuple(int(n) for n in argv[argv.index("--mesh") + 1].split("x"))
+    codec = "int8" if "--state-codec" in argv else "f32"
+    cfg = worker.smoke_cfg(arch)
+    mod = module_for(cfg)
+    seq = int(argv[argv.index("--seq") + 1])
+    sh = sharding.tp_step_shardings(
+        cfg, mod, {"tokens": torch.empty((4, seq), device="meta")},
+        sharding.Mesh(shape, ("data", "model")),
+        lora_rank=worker.LORA_RANK, state_codec=codec)
+    tree = lora.inject(mod.abstract_params(cfg), worker.LORA_RANK, (0, 0))
+    st = lora.wrap_optimizer(optim.make(
+        "gwt", lr=0.0, level=2, state_codec=codec)).init(tree)
+    want = {}
+    for key, t, tsh in (("params", tree, sh.params), ("opt", st, sh.opt)):
+        for path, m in zip(*flatten_with_paths(sharding.local_meta(t, tsh))):
+            want[f"{key}/{path}"] = (tuple(m.shape), m.dtype)
+    whole_base = sharding.shard_bytes(tree["base"], None)
+    rank_base = sharding.shard_bytes(tree["base"], sh.params["base"])
+    assert rank_base < whole_base / 2 + whole_base / 4
+    assert sharding.shard_bytes(st, sh.opt) < engine.state_bytes(st)
+    for rank in range(world):
+        got = _flat(_load(out, name, rank)["local"])
+        assert got == want, f"rank {rank}"
+
+
+def test_lora_checkpoint_1x2_resumes_at_world_1(ranks, tmp_path):
+    """The ``1x2`` LoRA run's checkpoint holds the whole ``{"base",
+    "lora"}`` tree in the reference's order with the ``finetune`` stamp;
+    its step 2 restored at world 1 runs steps 3-4 as the ranks did."""
+    out, _, refs, _ = ranks
+    d = os.path.join(out, "ck_lora_tp")
+    ck = manager.CheckpointManager(d)
+    assert ck.committed_steps() == [2, 4]
+    assert ck.saved_run()["finetune"] == {"mode": "lora",
+                                         "rank": worker.LORA_RANK,
+                                         "alpha": worker.LORA_ALPHA}
+    straight = refs["lora_straight"]
+    shapes = [list(t.shape) for t in flatten_with_paths(
+        {"opt": straight["opt"], "params": straight["params"]})[1]]
+    assert [m["shape"] for m in ck.manifest()["leaves"]] == shapes
+    copy = str(tmp_path / "ck")
+    shutil.copytree(d, copy)
+    shutil.rmtree(os.path.join(copy, "step_000000004"))
+    resumed = _one([*worker.LLAMA, "--steps", "4", *worker.LORA,
+                    "--ckpt-dir", copy, "--resume"])
+    got = _load(out, "lora", 0)
+    assert _rel(resumed["losses"], got["losses"][2:]) \
+        <= LOSS_RTOL["f32"][0]
+    assert _param_err(_flat(resumed["params"]), _flat(got["params"]),
+                      _init("llama-60m", True)) <= PARAM_TOL["f32"][0]
+    _bitwise(resumed["params"]["base"], got["params"]["base"])
+
+
+def test_lora_checkpoint_world_1_resumes_at_1x2(ranks):
+    """``lora_resume`` restored one rank's step 2 at ``1x2``, each rank
+    cutting its shards of the base and the adapters, and ran steps 3-4
+    (held to the straight run by ``test_scenario_matches_one_rank``)."""
+    out, logs, _, _ = ranks
+    assert len(_load(out, "lora_resume", 0)["losses"]) == 2
+    assert "resumed from step 2" in logs[2][0]
+
+
+def test_lora_checkpoint_merged_by_the_jax_engine(ranks):
+    """The ``1x2`` run's last checkpoint served: the JAX package's
+    ``Engine.from_checkpoint`` on the CPU merges its adapters (read off the
+    ``finetune`` stamp) within 2 f32 spacings of each leaf's largest
+    magnitude (measured 0.5) of the port's ``Engine.from_checkpoint`` (what ``launch.serve
+    --merge-lora`` builds), which holds ``lora.merge`` of the tree the
+    ranks returned, bitwise."""
+    out, _, _, _ = ranks
+    d = os.path.join(out, "ck_lora_tp")
+    tcfg = worker.smoke_cfg("llama-60m")
+    port = Engine.from_checkpoint(
+        tcfg, d, EngineConfig(num_slots=2, page_size=4, max_ctx=24,
+                              prefill_chunk=8), device="cpu").params
+    merged = lora.merge(_load(out, "lora", 0)["params"], worker.LORA_ALPHA,
+                        worker.LORA_RANK)
+    _bitwise(port, merged)
+    jeng = JaxEngine.from_checkpoint(
+        jconfigs.get_smoke("llama-60m"), d, JaxEngineConfig(
+            num_slots=2, page_size=4, max_ctx=24, prefill_chunk=8))
+    got = flat_numpy(jeng.params)
+    want = _flat(port)
+    assert set(got) == set(want)
+    for p, w in want.items():
+        assert spacings(got[p], w) <= 2, p

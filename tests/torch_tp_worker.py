@@ -10,7 +10,9 @@ loss and the gradients of every config of :data:`GRAD_ARCHS` (f32) from the
 port's seeded init, this rank computing on its shards and the gradients
 gathered whole (``grads_<W>_<rank>.pt``): the dense and MoE decoders,
 jamba (mamba, attention and MoE blocks), xLSTM (mLSTM and sLSTM) and the
-encoder-decoder stack.  Then every scenario of
+encoder-decoder stack; and of :data:`LORA_GRAD_ARCHS` the LoRA loss and
+the adapters' gradients (``"lora <arch>"``), from adapters with a nonzero
+``b``.  Then every scenario of
 :data:`SCENARIOS` ``[W]`` through the launcher, each on its own port,
 writing ``OUT/<name>_<rank>.pt``: the losses, the whole parameters and
 optimizer state the launcher returns, and this rank's shards as it held
@@ -34,7 +36,8 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.distributed import sharding, tensor_parallel  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.mesh import init_mesh  # noqa: E402
-from repro_torch.models import module_for  # noqa: E402
+from repro_torch.core import prng  # noqa: E402
+from repro_torch.models import lora, module_for  # noqa: E402
 from repro_torch.optim.base import (flatten_with_paths, tree_map,  # noqa: E402
                                     unflatten)
 
@@ -55,6 +58,50 @@ for _a in ("jamba-v0.1-52b", "xlstm-350m", "seamless-m4t-large-v2"):
         name=f"{a}-f32", dtype="float32")
 JAMBA, XLSTM, SEAMLESS = ("jamba-v0.1-52b-f32", "xlstm-350m-f32",
                           "seamless-m4t-large-v2-f32")
+# qwen2.5's smoke in f32: at 1x4 its 4 query heads split and its 2 KV
+# heads do not (the K/V projections and their adapters stay whole)
+QWEN_F32 = "qwen2.5-3b-f32"
+_EXTRA[QWEN_F32] = lambda get: get("qwen2.5-3b").with_(name=QWEN_F32,
+                                                       dtype="float32")
+
+# LoRA: the launcher's rank and alpha.  inject draws b as zeros; the LoRA
+# runs here start from a nonzero b (nonzero_b), so that a's gradient, the
+# one a missing all-reduce would leave partial on a column-parallel
+# weight, is nonzero from the first step
+LORA_RANK, LORA_ALPHA = 8, 16.0
+LORA = ["--finetune", "lora"]
+B_SCALE = 0.02
+
+
+def _b_drawn(inject):
+    def drawn(params, rank, key):
+        tree = inject(params, rank, key)
+        g = torch.Generator().manual_seed(5)
+        with torch.no_grad():
+            for path, t in zip(*flatten_with_paths(tree["lora"])):
+                if path.endswith("/b") and t.device.type != "meta":
+                    t.copy_(B_SCALE * torch.randn(t.shape, generator=g))
+        return tree
+    return drawn
+
+
+@contextlib.contextmanager
+def nonzero_b():
+    """``lora.inject`` (what the launcher calls) draws each ``b`` from a
+    seeded normal of scale :data:`B_SCALE`, in flatten order."""
+    inject = lora.inject
+    lora.inject = _b_drawn(inject)
+    try:
+        yield
+    finally:
+        lora.inject = inject
+
+
+def lora_tree(cfg):
+    """The seeded init with adapters (:func:`nonzero_b`'s ``b``), drawn
+    from the launcher's key (``--seed 0``)."""
+    return _b_drawn(lora.inject)(grad_params(cfg), LORA_RANK,
+                                 prng.fold_in(prng.key(0), 777))
 
 
 @contextlib.contextmanager
@@ -108,9 +155,14 @@ SCENARIOS = {
                          "{out}/ck_jamba_one", "--resume"],
         "xlstm": [*_arch(XLSTM), "--mesh", "1x2"],
         "seamless": [*_arch(SEAMLESS), "--mesh", "1x2"],
-        # LoRA keeps the replicated step along 'model' (logged)
-        "lora": [*LLAMA, "--steps", "1", "--mesh", "1x2", "--finetune",
-                 "lora"],
+        # LoRA: checkpoints at steps 2 and 4 (restored at world 1); the
+        # resume restores one rank's step 2 and runs steps 3-4
+        "lora": [*LLAMA, "--steps", "4", "--mesh", "1x2", *LORA,
+                 "--ckpt-dir", "{out}/ck_lora_tp", "--ckpt-every", "2"],
+        "lora_resume": [*LLAMA, "--steps", "4", "--mesh", "1x2", *LORA,
+                        "--ckpt-dir", "{out}/ck_lora_one", "--resume"],
+        "lora_int8": [*LLAMA, "--steps", "3", "--mesh", "1x2", *LORA,
+                      "--state-codec", "int8"],
     },
     4: {
         "llama_2x2": [*LLAMA, "--steps", "3", "--mesh", "2x2"],
@@ -119,6 +171,13 @@ SCENARIOS = {
         # channels, sLSTM's recurrence runs replicated
         "xlstm_1x4": [*_arch(XLSTM), "--mesh", "1x4"],
         "jamba_2x2": [*_arch(JAMBA), "--mesh", "2x2"],
+        # LoRA where the K/V projections stay whole (qwen2.5) and where
+        # the attention does (llama's 2 heads), int8
+        "lora_qwen_1x4": [*_arch(QWEN_F32), "--mesh", "1x4", *LORA],
+        "lora_int8_1x4": [*LLAMA, "--steps", "3", "--mesh", "1x4", *LORA,
+                          "--state-codec", "int8"],
+        # the exact mean of the adapters' gradients over two data ranks
+        "lora_2x2": [*LLAMA, "--steps", "3", "--mesh", "2x2", *LORA],
     },
 }
 
@@ -127,6 +186,13 @@ GRAD_ARCHS = ["llama-60m", "qwen2.5-3b", "gemma2-9b", "gemma3-27b",
               "deepseek-67b", "qwen2-vl-72b", "qwen3-moe-30b-a3b-f32",
               "qwen2-moe-a2.7b-f32", ODD_MOE, JAMBA, XLSTM, SEAMLESS]
 GRAD_SEQ = 64
+# the configs whose LoRA loss and adapter gradients are gathered (f32): a
+# weight split by columns, by rows (xLSTM's wq over inner), by experts
+# (qwen3-moe under EP), inside each expert (the odd MoE), left whole
+# (qwen2.5's K/V at 1x4, llama's attention at 1x4), and the
+# encoder-decoder stack's self- and cross-attention
+LORA_GRAD_ARCHS = ["llama-60m", QWEN_F32, "qwen3-moe-30b-a3b-f32", ODD_MOE,
+                   JAMBA, XLSTM, SEAMLESS]
 
 
 def grad_batch(cfg, seed=1):
@@ -190,6 +256,21 @@ def grads(out, rank, world):
             g = torch.autograd.grad(loss, leaves)
             res[arch] = (loss.detach(),
                          sharding.gather_tree(unflatten(paths, g), sh))
+        for arch in LORA_GRAD_ARCHS:
+            cfg = smoke_cfg(arch, dtype="float32")
+            mod = module_for(cfg)
+            batch = grad_batch(cfg)
+            sh = sharding.tp_step_shardings(cfg, mod, batch, mesh,
+                                            lora_rank=LORA_RANK).params
+            local = sharding.shard_tree(lora_tree(cfg), sh)
+            lora.freeze(local)
+            paths, leaves = flatten_with_paths(local["lora"])
+            loss = lora.loss_module(mod, LORA_ALPHA, LORA_RANK,
+                                    sh["lora"]).loss_fn(cfg, local, batch,
+                                                        tp=tp)
+            g = torch.autograd.grad(loss, leaves)
+            res[f"lora {arch}"] = (loss.detach(), sharding.gather_tree(
+                unflatten(paths, g), sh["lora"]))
     finally:
         dp.close()
     torch.save(res, os.path.join(out, f"grads_{world}_{rank}.pt"))
@@ -201,7 +282,9 @@ def main(out):
     with extra_configs():
         for i, (name, argv) in enumerate(SCENARIOS[world].items(), 1):
             os.environ["MASTER_PORT"] = rendezvous_port(out, world, rank, i)
-            r = train.main(SMOKE + [a.format(out=out) for a in argv])
+            with nonzero_b() if name.startswith("lora") \
+                    else contextlib.nullcontext():
+                r = train.main(SMOKE + [a.format(out=out) for a in argv])
             torch.save({"losses": r.losses, "params": r.params,
                         "opt": r.opt_state,
                         "local": tree_map(lambda t: (tuple(t.shape), t.dtype),

@@ -13,8 +13,8 @@ kernels' launch counts set to 0 just before and read just after.  Rank 0
 takes a free port for each run just before it and writes it to
 ``OUT/port<i>``, where rank 1 reads it.  Writes
 ``OUT/rank<RANK>.json``: per run its losses, counts, peak
-``max_memory_allocated``, step time, the bytes of the parameters and state
-this rank held, and the sketches of the whole parameters and optimizer
+``max_memory_allocated``, step time, the bytes of the parameters (and of a
+LoRA run's frozen base) and state this rank held, and the sketches of the whole parameters and optimizer
 state at the end (``chip_smoke.tree_sketch``).
 """
 
@@ -91,6 +91,8 @@ def main(out: str, runs: str) -> int:
                   "counts": counts, "peak_mib": peak / 2**20,
                   "step_ms": res.step_ms,
                   "params_bytes": held_bytes(res.local["params"]),
+                  "base_bytes": held_bytes(res.local["params"]["base"])
+                  if "base" in res.local["params"] else None,
                   "state_bytes": held_bytes(res.local["opt"]),
                   "sketch": {"params": cs.tree_sketch(res.params),
                              "opt": cs.tree_sketch(res.opt_state)}}
