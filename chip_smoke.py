@@ -226,9 +226,9 @@ Phases (any failure raises and the script exits non-zero):
     with f32 and int8
     moments (K2 by plan, held and timed at every bucket), the sLSTM time
     loop's steps counted and one sLSTM block's launches profiled apart;
-35. seamless-m4t-large-v2 at full width and depth the same (64 frames a
-    row), its smoke config's ``decode_stack`` decode against teacher
-    forcing on the card;
+35. seamless-m4t-large-v2 at full width cut to 6 encoder and 6 decoder
+    layers of its 12 + 12 the same (64 frames a row), its smoke config's
+    ``decode_stack`` decode against teacher forcing on the card;
 36. observability: ``tapped_update`` and ``update`` from two copies of
     the same parameters and state, 3 steps with the same gradients (the
     limiter clipping on the third), at llama-60m's buckets with K1 (f32
@@ -269,7 +269,7 @@ Phases (any failure raises and the script exits non-zero):
 39. the ``model`` mesh axis: two processes on the card over gloo at
     ``--mesh 1x2`` (``tools/tp_rank.py``) against world 1 here, for
     llama-60m (f32 and int8 moments, 5 steps at lr 1e-3),
-    qwen3-moe-30b-a3b's 2-layer cut, jamba-v0.1-52b's first block (mamba
+    qwen3-moe-30b-a3b's 1-layer cut, jamba-v0.1-52b's first block (mamba
     with its MLP), one period of xlstm-350m (8 layers, in f32 and in
     bf16) and seamless-m4t-large-v2 at 2 encoder and 2 decoder layers, all
     at full width (2 steps each): losses within 2e-3
@@ -277,7 +277,15 @@ Phases (any failure raises and the script exits non-zero):
     leaf (xlstm-350m's bf16 run against its f32 run, within 1.5 times
     world 1's own bf16 distance), each rank's bytes equal to the rule
     table's, K1/K2 launches equal to world 1's; peaks and step times
-    printed.
+    printed; every run but LoRA's with ``--metrics-dir``: rank 0's
+    optimizer taps on every step with world 1's keys in world 1's order,
+    each kind within ``TP_TAPS_RTOL`` of world 1's (the int8 run also
+    within twice world 1's own spread at ``--accum 2``, xLSTM's bf16 run
+    within 1.5 times its distance from the f32 run), the counts exactly;
+    and llama-60m (f32 moments, 5 steps) at ``--mesh 2`` without
+    ``--dp-reduce`` (the data axis alone: each rank half the rows, the
+    exact mean) against world 1 at ``--accum 2``, the same checks with
+    each rank holding the whole trees.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -4094,11 +4102,16 @@ def run_new_cuts(train, kernel, hk, ref, dev):
 # blocks and an sLSTM: 1,286,170,084 / 341,639,144 B at full depth), to
 # keep the script within its time; seamless takes seq // 4 = 64 frames a
 # row
+# phase 35's seamless at 6 + 6 of its 12 + 12 layers (PR 31 cut it for
+# time; every width and kernel design kept; 3,609,296,972 state bytes at
+# the full depth)
+SEAMLESS_PHASE_CUT = {"n_layers": 12, "n_enc_layers": 6, "n_dec_layers": 6}
 SUBSTRATE_RUNS = [
     ("jamba-v0.1-52b", 5, 16, 256, {"f32": 17_665_458_288}),
     ("xlstm-350m", 8, 16, 256, {"f32": 703_455_844,
                                 "int8": 186_855_688}),
-    ("seamless-m4t-large-v2", None, 16, 256, {"f32": 3_609_296_972}),
+    ("seamless-m4t-large-v2", SEAMLESS_PHASE_CUT, 16, 256,
+     {"f32": 2_854_076_492}),
 ]
 SUBSTRATE_STEPS = 5
 # a bucket past this many elements is held leaf by leaf: the plain
@@ -5257,8 +5270,10 @@ def run_examples(kernel, hk, dev):
 # (the tensor-parallel step) for each of TP_RUNS at 16 x 256 and GWT-2.
 # The same runs at world 1 in this process first, the reference they are
 # held to, while the ranks start.  The MoE cut takes 2 steps: over gloo
-# one of its steps moves ~15 GB through host memory (the update gathers
-# each bucket's parameters, gradients and state) and takes 14-19 s.
+# one of its steps moves ~15 GB through host memory at 2 layers (the
+# update gathers each bucket's parameters, gradients and state) and takes
+# 14-24 s; PR 31 cut it to 1 layer for time (every layer of it is
+# attn+moe, every width and kernel design kept).
 #
 # Two checks against world 1.  The losses, each step within TP_LOSS_RTOL
 # (relative; tests/test_torch_tp_ranks.py's bound for a bf16 model against
@@ -5322,6 +5337,28 @@ def run_examples(kernel, hk, dev):
 # world 1 shows from itself there (state and move apart), or within the
 # bounds above.  Without the all-reduce of the replicated factor's
 # gradient the rank is 1.16 of the norm off (the f32 run 0.929: O(1)).
+#
+# The optimizer taps.  Every run but LoRA's (which builds no tapped step,
+# as in the JAX launcher) takes --metrics-dir, at world 1 and on the ranks,
+# each in its own directory: with --log-every 1 every step is a chunk's
+# last and runs the tapped step (on the ranks the update gathers each
+# bucket whole, and the taps are read off it).  Rank 0's train_step
+# records must hold world 1's steps and, on each, world 1's tap keys in
+# world 1's order; each kind of tap (tap_kind) within TP_TAPS_RTOL of
+# world 1's, relative, and the counts (clip_count, clip_rate,
+# q8_sat_rate) exactly.  The int8 run's moments may round to another code
+# from a last-bit difference, so its taps (TP_TAPS_SPREAD_RUNS) are also
+# held within TP_SPREAD_FACTOR times world 1's own distance at --accum 2;
+# xLSTM's bf16 run's within TP_BF16_NOISE times world 1's bf16 run's
+# distance from its f32 run (TP_NOISE_REF).
+#
+# One run is on the data axis alone: llama-60m at --mesh 2 without
+# --dp-reduce (TP_DATA_RUNS), each rank 8 of the 16 rows and the exact
+# mean of the gradients, held to world 1 at --accum 2 as above (losses,
+# state, move, launches, taps; its parameters and state whole on each
+# rank).  Not bitwise: world 1's microbatches take the JAX package's
+# strided rows, a rank its contiguous block (tests/test_torch_shard_ranks
+# .py measures the taps 4.3e-7 apart on the CPU).
 TP_DENSE_LR = "1e-3"
 TP_LORA = ["--finetune", "lora", "--lora-rank", str(LORA_RANK),
            "--lora-alpha", str(LORA_ALPHA)]
@@ -5331,7 +5368,7 @@ XLSTM_CUT = {"n_layers": 8, "dtype": "float32"}
 TP_RUNS = [("llama-60m f32", "llama-60m", None, 5, ["--lr", TP_DENSE_LR]),
            ("llama-60m int8", "llama-60m", None, 5,
             ["--lr", TP_DENSE_LR, "--state-codec", "int8"]),
-           ("qwen3-moe-30b-a3b 2 layers", "qwen3-moe-30b-a3b", 2, 2, []),
+           ("qwen3-moe-30b-a3b 1 layer", "qwen3-moe-30b-a3b", 1, 2, []),
            ("jamba-v0.1-52b 1 layer", "jamba-v0.1-52b", 1, 2, []),
            ("xlstm-350m 8 layers f32", "xlstm-350m", XLSTM_CUT, 2, []),
            ("xlstm-350m 8 layers bf16", "xlstm-350m", 8, 2, []),
@@ -5342,7 +5379,11 @@ TP_RUNS = [("llama-60m f32", "llama-60m", None, 5, ["--lr", TP_DENSE_LR]),
            ("llama-60m LoRA int8", "llama-60m", None, 5,
             ["--lr", TP_DENSE_LR, "--state-codec", "int8", *TP_LORA]),
            ("qwen2.5-3b 2 layers LoRA", "qwen2.5-3b", 2, 4,
-            ["--lr", TP_DENSE_LR, *TP_LORA])]
+            ["--lr", TP_DENSE_LR, *TP_LORA]),
+           ("llama-60m f32 --mesh 2", "llama-60m", None, 5,
+            ["--lr", TP_DENSE_LR])]
+# the runs along the data axis alone: --mesh 2 (the others: --mesh 1x2)
+TP_DATA_RUNS = {"llama-60m f32 --mesh 2"}
 TP_LOSS_RTOL = 2e-3
 TP_STATE_RTOL = 5e-2
 TP_MOVE_RTOL = 0.3
@@ -5352,6 +5393,15 @@ TP_NOISE_REF = {"xlstm-350m 8 layers bf16": "xlstm-350m 8 layers f32"}
 TP_SPREAD_RUNS = {"llama-60m LoRA int8"}
 TP_SPREAD_FACTOR = 2.0
 TP_BF16_NOISE = 1.5
+# the taps: the largest relative difference of each kind (tap_kind) to
+# world 1's over the run's steps, measured worst beside (my chip calls 1-2
+# of PR 31; a tap read off one rank's shard alone is ~0.5 off); the counts
+# exactly.  The int8 run's update 5.24e-2 and q8_sat_rate 1.14e-2 sit
+# under twice world 1's own spread (3.13e-2, 0.158)
+TP_TAPS_RTOL = {"grad": 5e-3,        # 2.16e-3 (int8), 1.26e-3 (MoE)
+                "update": 1e-2,      # 3.21e-3 (jamba), 1.47e-3 (--mesh 2)
+                "q8_absmax": 1e-2}   # 4.18e-3
+TP_TAPS_SPREAD_RUNS = {"llama-60m int8"}
 TP_SKETCH = 64
 # the rank processes' wall limit (not a numerical bound)
 TP_TIMEOUT_S = 600
@@ -5360,6 +5410,90 @@ TP_TIMEOUT_S = 600
 def tp_argv(arch, steps, extra):
     return ["--arch", arch, "--steps", str(steps), "--batch", "16",
             "--seq", "256", "--log-every", "1", "--seed", "0", *extra]
+
+
+def tp_run(label, arch, layers, steps, extra):
+    """One of ``TP_RUNS`` as the phase and the ranks take it: ``mesh`` the
+    ranks' ``--mesh``, ``taps`` whether it records them (not LoRA)."""
+    return {"label": label, "arch": arch, "layers": layers,
+            "argv": tp_argv(arch, steps, extra), "steps": steps,
+            "q8": "int8" in extra, "lora": "lora" in extra,
+            "mesh": "2" if label in TP_DATA_RUNS else "1x2",
+            "taps": "lora" not in extra}
+
+
+def tap_records(d):
+    """``(step, [(tap key, value), ...])`` of every ``train_step`` record
+    of ``d/metrics.jsonl``, in file order."""
+    out = []
+    with open(os.path.join(d, "metrics.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec["kind"] == "train_step":
+                out.append((rec["step"], [(k, v) for k, v in rec.items()
+                                          if "/" in k]))
+    return out
+
+
+def tap_kind(key):
+    """``grad`` (Σ g² and its bands), ``update`` (Σ (Δp)², the limiter's
+    Σ norm²), else the tap's own name."""
+    tap = key.rsplit("/", 1)[1]
+    if tap in ("grad_ssq", "band_a_ssq", "band_d_ssq"):
+        return "grad"
+    if tap in ("update_ssq", "gnorm_ssq"):
+        return "update"
+    return tap
+
+
+def taps_gap(got, want):
+    """The largest relative difference of each kind of tap between two
+    runs' records, and the failures of their steps and keys (each step
+    tapped, world 1's keys in world 1's order)."""
+    gap, failed = {}, []
+    if [s for s, _ in got] != [s for s, _ in want]:
+        return gap, [f"steps {[s for s, _ in got]}, world 1's "
+                     f"{[s for s, _ in want]}"]
+    for step, ((_, g), (_, w)) in enumerate(zip(got, want), 1):
+        if not w or [k for k, _ in g] != [k for k, _ in w]:
+            failed.append(f"step {step}: {len(g)} tap keys, world 1's "
+                          f"{len(w)}, not the same list")
+            continue
+        for (k, a), (_, b) in zip(g, w):
+            kind = tap_kind(k)
+            d = abs(a - b) / abs(b) if b else abs(a)
+            gap[kind] = max(gap.get(kind, 0.0), d)
+    return gap, failed
+
+
+def tp_taps_check(label, got, want, spread=None, noise=None):
+    """Rank 0's taps records against world 1's: ``taps_gap`` within
+    ``TP_TAPS_RTOL`` (the counts exactly), or within ``TP_SPREAD_FACTOR``
+    times ``spread`` (world 1 at --accum 2 against world 1) or
+    ``TP_BF16_NOISE`` times ``noise`` (world 1's bf16 run against its
+    f32 run), per kind.  Prints the gaps; returns them and the
+    failures."""
+    gap, failed = taps_gap(got, want)
+    bounds = {k: TP_TAPS_RTOL.get(k, 0.0) for k in gap}
+    for factor, own in ((TP_SPREAD_FACTOR, spread), (TP_BF16_NOISE, noise)):
+        if own is not None:
+            bounds = {k: max(b, factor * own.get(k, 0.0))
+                      for k, b in bounds.items()}
+    failed += [f"{k} {d:.3g} off (bound {bounds[k]:.3g})"
+               for k, d in gap.items() if d > bounds[k]]
+    extra = "" if spread is None else \
+        f"; world 1 at --accum 2 against world 1 {fmt_gap(spread)}"
+    if noise is not None:
+        extra += f"; world 1's bf16 run against its f32 run {fmt_gap(noise)}"
+    print(f"phase 39 taps {label}: rank 0's records against world 1's, "
+          f"{len(got)} steps x {len(got[0][1]) if got else 0} taps, the "
+          f"largest relative difference per kind {fmt_gap(gap)} (bounds "
+          f"{fmt_gap(bounds)}){extra}")
+    return {"gap": gap, "bounds": bounds}, failed
+
+
+def fmt_gap(gap):
+    return ", ".join(f"{k} {v:.3g}" for k, v in sorted(gap.items()))
 
 
 def tree_sketch(tree):
@@ -5546,24 +5680,36 @@ def run_tp(train, kernel, hk, only=None):
     if only is not None:    # with the f32 runs the bf16 ones are held to
         only = set(only) | {labels.index(TP_NOISE_REF[labels[i]])
                             for i in only if labels[i] in TP_NOISE_REF}
-    runs = [{"label": label, "arch": arch, "layers": layers,
-             "argv": tp_argv(arch, steps, extra), "steps": steps,
-             "q8": "int8" in extra, "lora": "lora" in extra}
-            for i, (label, arch, layers, steps, extra) in enumerate(TP_RUNS)
+    runs = [tp_run(*r) for i, r in enumerate(TP_RUNS)
             if only is None or i in only]
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+
+    def taps_dir(run, i, who):
+        return {"metrics_dir": os.path.join(out_dir, f"{who}_{i}")} \
+            if run["taps"] else {}
     procs = []
     try:
         procs = start_tp_ranks(runs, out_dir)
-        refs = [tp_world1(train, kernel, hk, run) for run in runs]
+        # a data-axis run's reference: world 1 at --accum 2 (its rows)
+        refs = [tp_world1(train, kernel, hk, {
+            **run, **taps_dir(run, i, "w1"),
+            "argv": run["argv"] + (["--accum", "2"]
+                                   if run["mesh"] != "1x2" else [])})
+            for i, run in enumerate(runs)]
         twins = {run["label"]: tp_world1(train, kernel, hk, {
-            **run, "argv": run["argv"] + ["--accum", "2"]})
-            for run in runs if run["label"] in TP_SPREAD_RUNS}
+            **run, **taps_dir(run, i, "w1_accum2"),
+            "argv": run["argv"] + ["--accum", "2"]})
+            for i, run in enumerate(runs)
+            if run["label"] in TP_SPREAD_RUNS | TP_TAPS_SPREAD_RUNS}
         gc.collect()
         torch.cuda.empty_cache()
         t_ranks = time.perf_counter()
         ranks, logs = finish_tp_ranks(procs, out_dir)
         t_ranks = time.perf_counter() - t_ranks
+        taps = {run["label"]: {who: tap_records(os.path.join(
+            out_dir, f"{who}_{i}")) for who in ("w1", "tp", "w1_accum2")
+            if os.path.exists(os.path.join(out_dir, f"{who}_{i}"))}
+            for i, run in enumerate(runs) if run["taps"]}
     finally:
         for p in procs:
             if p.poll() is None:
@@ -5590,8 +5736,10 @@ def run_tp(train, kernel, hk, only=None):
                 failed.append(f"{label} rank {rank}: launched "
                               f"{g['counts']}, world 1 {ref['counts']}")
             table = ref["table"]
-            if (g["params_bytes"], g["state_bytes"]) != (table["params"],
-                                                         table["state"]):
+            held = (table["params"], table["state"]) \
+                if run["mesh"] == "1x2" else (table["params_whole"],
+                                              table["state_whole"])
+            if (g["params_bytes"], g["state_bytes"]) != held:
                 failed.append(f"{label} rank {rank}: holds "
                               f"{g['params_bytes']} parameter and "
                               f"{g['state_bytes']} state bytes, the table "
@@ -5663,6 +5811,23 @@ def run_tp(train, kernel, hk, only=None):
                   f"1's; step {g['step_ms']} ms (world 1 {ref['step_ms']} "
                   f"ms; gloo over host memory, two processes on one card)")
         out[label] = {"world1": ref, "ranks": got}
+        if label in taps:
+            t = taps[label]
+            spread = noise = None
+            if label in TP_TAPS_SPREAD_RUNS:
+                spread, bad = taps_gap(t["w1_accum2"], t["w1"])
+                failed += [f"{label} taps of world 1 at --accum 2: {b}"
+                           for b in bad]
+            if label in TP_NOISE_REF:
+                noise, bad = taps_gap(t["w1"],
+                                      taps[TP_NOISE_REF[label]]["w1"])
+                failed += [f"{label} taps of world 1 against its f32 run: "
+                           f"{b}" for b in bad]
+            out[label]["taps"], bad = tp_taps_check(
+                label, t.get("tp", []), t["w1"], spread, noise)
+            if len(t["w1"]) != run["steps"]:
+                bad.append(f"world 1 recorded {len(t['w1'])} steps")
+            failed += [f"{label} taps: {b}" for b in bad]
         if label in twins:
             out[label]["world1_accum2"] = {
                 k: v for k, v in twins[label].items() if k != "sketch"}
@@ -5686,7 +5851,8 @@ def run_tp(train, kernel, hk, only=None):
 def tp_world1(train, kernel, hk, run):
     """One of ``TP_RUNS`` at world 1, counts set to 0 just before and
     read just after, and the sketches of its whole state and parameters at
-    the end and of the init (``state_check``)."""
+    the end and of the init (``state_check``); with ``metrics_dir`` the
+    run records its taps there."""
     from repro_torch import configs
     from repro_torch.core import prng
     from repro_torch.models import lora, module_for
@@ -5698,7 +5864,9 @@ def tp_world1(train, kernel, hk, run):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset_counts(kernel, hk)
-        res = train.main(run["argv"])
+        res = train.main(run["argv"] + (
+            ["--metrics-dir", run["metrics_dir"]]
+            if run.get("metrics_dir") else []))
         torch.cuda.synchronize()
         counts = all_counts(kernel, hk)
         peak = torch.cuda.max_memory_allocated()

@@ -644,7 +644,9 @@ def _train(args, dp_spec, dp: Optional[DPContext], mesh,
         log(f"resumed from step {start}", kind="resume", step=start)
 
     tap_step = None
-    step_kw = dict(accum_steps=args.accum, dp_reduce=step_spec, dp=dp,
+    # the user's --dp-reduce: without it the step takes the exact mean
+    # over several ranks by itself (lm.make_train_step)
+    step_kw = dict(accum_steps=args.accum, dp_reduce=dp_spec, dp=dp,
                    shardings=shardings, tp=tp)
     if finetune:
         train_step = lora.make_train_step(mod, cfg, optimizer,
@@ -652,9 +654,10 @@ def _train(args, dp_spec, dp: Optional[DPContext], mesh,
                                           alpha=args.lora_alpha, **step_kw)
     else:
         train_step = mod.make_train_step(cfg, optimizer, **step_kw)
-        # the tapped step runs each chunk's last step (TrainLoop); the
-        # data-parallel step has no tapped channel, as in the JAX launcher
-        if args.metrics_dir and step_spec is None \
+        # the tapped step runs each chunk's last step (TrainLoop), on any
+        # mesh; the --dp-reduce step has no tapped channel, as in the JAX
+        # launcher
+        if args.metrics_dir and dp_spec is None \
                 and optimizer.tapped_update is not None:
             tap_step = mod.make_train_step(cfg, optimizer, taps=True,
                                            **step_kw)

@@ -528,7 +528,7 @@ def _accumulate(cfg, params, leaves, micro, accum_steps, loss=None,
 
 def make_sharded_train_step(cfg, optimizer, *, dp, dp_reduce,
                             accum_steps: int = 1, loss=None,
-                            shardings=None, tp=None):
+                            shardings=None, tp=None, taps: bool = False):
     """Data-parallel train step over the ranks of ``dp`` (a
     ``launch.mesh.DPContext``; None is one rank), counterpart of the JAX
     package's ``make_sharded_train_step``.
@@ -572,7 +572,15 @@ def make_sharded_train_step(cfg, optimizer, *, dp, dp_reduce,
     state whole over ``model``, runs on them as the replicated update does,
     and keeps this rank's slices.  Row-parallel sums and the vocab-split
     loss reorder f32/bf16 additions, so the numbers are the replicated
-    step's within rounding, not bitwise."""
+    step's within rounding, not bitwise.
+
+    ``taps=True`` updates through the optimizer's ``tapped_update`` (with
+    ``param_shardings=`` under ``tp``) and returns its per-bucket scalars
+    as ``metrics["taps"]``, as :func:`make_train_step` does: read off the
+    reduced gradient and the whole buckets, so every rank holds the same
+    taps and their keys are one rank's.  Ignored when the optimizer has no
+    tapped channel; refused with error feedback (the residues are not
+    tapped)."""
     param_sh = None if shardings is None else shardings.params
     if tp is not None:
         if shardings is None:
@@ -592,6 +600,10 @@ def make_sharded_train_step(cfg, optimizer, *, dp, dp_reduce,
         raise ValueError("dp_reduce None/'none' is the plain step: call "
                          "make_train_step")
     ef_on = dp_reduce.error_feedback and not dp_reduce.exact
+    if taps and ef_on:
+        raise ValueError("taps=True is not supported with error feedback: "
+                         "run taps-off or drop --dp-error-feedback")
+    tapped = getattr(optimizer, "tapped_update", None) if taps else None
     level, wire = dp_reduce.level, dp_reduce.detail_dtype
     rank, world = (0, 1) if dp is None else (dp.rank, dp.world)
 
@@ -643,17 +655,21 @@ def make_sharded_train_step(cfg, optimizer, *, dp, dp_reduce,
             full[i] = m
         grads = unflatten(paths, full)
         del leaves, means, full
-        if tp is None:
-            params, opt_state = optimizer.update(grads, opt_state, params)
-            del grads
-            params = sharding.shard_tree(params, param_sh)
+        metrics = {"loss": loss_mean}
+        # under tp the update gathers each bucket whole over 'model'
+        kw = {} if tp is None else {"param_shardings": param_sh}
+        if tapped is not None:
+            params, opt_state, metrics["taps"] = tapped(grads, opt_state,
+                                                        params, **kw)
         else:
-            params, opt_state = optimizer.update(
-                grads, opt_state, params, param_shardings=param_sh)
-            del grads
+            params, opt_state = optimizer.update(grads, opt_state, params,
+                                                 **kw)
+        del grads
+        if tp is None:
+            params = sharding.shard_tree(params, param_sh)
         if ef_on:
             opt_state = {"opt": opt_state, "dp_ef": unflatten(paths, new_ef)}
-        return params, opt_state, {"loss": loss_mean}
+        return params, opt_state, metrics
 
     return train_step
 
@@ -670,15 +686,19 @@ def make_train_step(cfg, optimizer, accum_steps: int = 1, dp_reduce=None,
     sums: :func:`_accumulate`).  The optimizer writes the parameters in
     place.
 
-    ``dp_reduce`` (a ``distributed.compression.DPReduceSpec`` or ``'exact'``
-    / ``'compressed'``) routes to :func:`make_sharded_train_step` over
-    ``dp`` (a ``launch.mesh.DPContext``; None is one rank), with the
+    ``dp_reduce`` is the caller's reduction (the launcher's
+    ``--dp-reduce``): a ``distributed.compression.DPReduceSpec`` or
+    ``'exact'`` / ``'compressed'`` routes to :func:`make_sharded_train_step`
+    over ``dp`` (a ``launch.mesh.DPContext``; None is one rank), with the
     parameters placed by ``shardings`` there (refused without
-    ``dp_reduce``, as the JAX package pins a layout only on that path).
-    ``tp`` (the model axis of ``dp``, ``distributed.tensor_parallel.
-    from_dp``) with ``shardings`` from ``sharding.tp_step_shardings`` is
-    the tensor-parallel step: without ``dp_reduce`` it reduces over the data
-    ranks by the exact f32 mean (:func:`make_sharded_train_step`).
+    ``dp_reduce`` or ``tp``, as the JAX package pins a layout only on that
+    path).  Left None, the exact f32 mean is implicit wherever there is
+    more than one rank to reduce over, as GSPMD's mean is in the JAX
+    package: ``dp`` of several data ranks (``dp.world > 1``, a ``--mesh D``
+    run) or ``tp`` (the model axis of ``dp``, ``distributed.
+    tensor_parallel.from_dp``, with ``shardings`` from
+    ``sharding.tp_step_shardings``: the tensor-parallel step) routes to
+    :func:`make_sharded_train_step` with ``'exact'``.
 
     ``loss`` (``loss(cfg, params, batch) -> scalar``, default
     :func:`loss_fn`) swaps the objective, as the JAX package's ``loss=``
@@ -689,24 +709,28 @@ def make_train_step(cfg, optimizer, accum_steps: int = 1, dp_reduce=None,
     ``taps=True`` routes the update through the optimizer's
     ``tapped_update`` and adds its per-bucket scalars to the metrics as
     ``metrics["taps"]`` (device tensors; DESIGN.md §12).  It is ignored
-    when the optimizer has no tapped channel, and refused on the
-    ``dp_reduce`` path, as in the JAX package."""
+    when the optimizer has no tapped channel, and refused with the
+    caller's ``dp_reduce``, as in the JAX package; with the implicit exact
+    mean the sharded step carries them (one rank's keys and numbers up to
+    the reduction's rounding)."""
     if isinstance(dp_reduce, str):
         dp_reduce = compression.DPReduceSpec.parse(dp_reduce)  # 'none': None
-    if tp is not None and dp_reduce is None:
-        dp_reduce = compression.DPReduceSpec.parse("exact")
-    if shardings is not None and dp_reduce is None:
-        raise ValueError("shardings= places the parameters of the "
-                         "dp_reduce step only: pass dp_reduce")
     if dp_reduce is not None:
         if taps:
             raise ValueError("taps=True is not supported on the sharded "
                              "dp_reduce path: run taps-off or drop "
                              "dp_reduce")
+    elif shardings is not None and tp is None:
+        raise ValueError("shardings= places the parameters of the "
+                         "dp_reduce step only: pass dp_reduce")
+    elif tp is not None or (dp is not None and dp.world > 1):
+        dp_reduce = compression.DPReduceSpec.parse("exact")
+    if dp_reduce is not None:
         return make_sharded_train_step(cfg, optimizer, dp=dp,
                                        dp_reduce=dp_reduce,
                                        accum_steps=accum_steps, loss=loss,
-                                       shardings=shardings, tp=tp)
+                                       shardings=shardings, tp=tp,
+                                       taps=taps)
     tapped = getattr(optimizer, "tapped_update", None) if taps else None
 
     def train_step(params, opt_state, batch):

@@ -553,14 +553,21 @@ def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
                                  param_shardings)
         return new_params, out
 
-    def tapped_update(grads, state, params):
+    def tapped_update(grads, state, params, param_shardings=None):
         """``update`` plus the per-bucket taps (DESIGN.md §12): for every
         bucket but a frozen one ``grad_ssq`` (Σ g²) and ``update_ssq``
         (Σ (p_new - p_old)²), under a quantizing codec ``q8_sat_rate`` and
         ``q8_absmax`` read off the state just written, and the rule's own
         taps; keys ``"<bucket>/<tap>"``, f32 device scalars.  The
-        parameters and state are bitwise ``update``'s."""
-        return run(grads, state, params, True)
+        parameters and state are bitwise ``update``'s, with
+        ``param_shardings`` as there.
+
+        With ``param_shardings`` the taps are read off each bucket's whole
+        gathered gradients, parameters and state, as one rank reads them:
+        the plan and its keys are the whole tree's
+        (``sharding.full_meta``), and every rank computes the same taps
+        from the same whole buckets."""
+        return run(grads, state, params, True, param_shardings)
 
     # the unrolled reference engine has no tapped channel, as the JAX
     # package's (its taps read the stacked buckets)

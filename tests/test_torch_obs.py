@@ -429,6 +429,25 @@ def _shape(recs):
     return kinds, keys
 
 
+@pytest.mark.parametrize("flags", [["--dp-reduce", "exact"],
+                                   ["--dp-reduce", "compressed"],
+                                   ["--finetune", "lora"]],
+                         ids=["exact", "compressed", "lora"])
+def test_launcher_builds_no_tapped_step(tmp_path, flags):
+    """``--metrics-dir`` with the user's ``--dp-reduce`` or with
+    ``--finetune lora`` builds no tapped step, as the JAX launcher
+    (``src/repro/launch/train.py``): the step records carry the loss and
+    no tap.  Without either, on any mesh, the records carry taps
+    (``test_torch_tp_ranks.py``, ``test_torch_shard_ranks.py``)."""
+    train.main(["--smoke", "--steps", "2", "--batch", "2", "--seq", "16",
+                "--log-every", "1", "--device", "cpu", "--metrics-dir",
+                str(tmp_path), *flags])
+    steps = [r for r in _records(tmp_path / "metrics.jsonl")
+             if r["kind"] == "train_step"]
+    assert [r["step"] for r in steps] == [1, 2]
+    assert not any("/" in k for r in steps for k in r)
+
+
 def test_launcher_metrics_dir_matches_reference(tmp_path):
     argv = ["--smoke", "--steps", "4", "--batch", "2", "--seq", "16",
             "--log-every", "2", "--state-codec", "int8", "--eval-every",

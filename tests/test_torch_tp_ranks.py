@@ -45,6 +45,13 @@ module and run while this process computes the references.
   ``Engine.from_checkpoint`` merges it as the port's does; the 2-rank LoRA
   loss against the JAX package's ``lora.make_train_step``.  Every
   scenario logs ``tensor_parallel=model``, none a replicated step.
+* The optimizer taps under ``--metrics-dir`` without ``--dp-reduce``
+  (llama f32 and int8, qwen3-moe, jamba, xLSTM and seamless at ``1x2``,
+  llama at ``2x2``): rank 0's records hold one rank's keys in one rank's
+  order on every step, the values within :data:`TAPS_RTOL` of one rank's.
+  The engine's ``tapped_update(..., param_shardings=)`` on the ``1x2`` and
+  ``1x4`` layouts writes ``update``'s parameters and state bitwise, and
+  its taps are bitwise on every rank and one rank's on the whole trees.
 """
 
 import os
@@ -57,7 +64,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import flat_numpy, spacings
+from torch_parity import flat_numpy, spacings, tap_records, taps_gap
 
 from repro import configs as jconfigs
 from repro.models import encdec as jencdec, lm as jlm, lora as jlora
@@ -128,11 +135,14 @@ def _one(argv):
     return {"losses": r.losses, "params": r.params, "opt": r.opt_state}
 
 
-def _without_mesh(argv):
-    out = list(argv)
-    i = out.index("--mesh")
-    del out[i:i + 2]
-    return out
+def _without_mesh(argv, out):
+    """A scenario's arguments at one rank: no ``--mesh``, and its
+    directories under ``OUT/one`` (a tapped scenario's records apart from
+    the ranks')."""
+    argv = [a.format(out=os.path.join(out, "one")) for a in argv]
+    i = argv.index("--mesh")
+    del argv[i:i + 2]
+    return argv
 
 
 def _spawn(out, world):
@@ -191,6 +201,10 @@ def _jax_loop(arch, argv, steps):
             "params": flat_numpy(params)}
 
 
+def _one_taps(out, name):
+    return ["--metrics-dir", os.path.join(out, "one", "taps_" + name)]
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("tp_ranks"))
@@ -198,12 +212,13 @@ def ranks(tmp_path_factory):
     # llama scenario is held to); the ranks resume its step 3
     refs = {"straight": _one([*worker.LLAMA, "--steps", "6", "--ckpt-dir",
                               os.path.join(out, "ck_one"), "--ckpt-every",
-                              "3"])}
+                              "3", *_one_taps(out, "llama")])}
     shutil.rmtree(os.path.join(out, "ck_one", "step_000000006"))
     # jamba at one rank, checkpointed at 2 and 4; the ranks restore step 2
     jamba_ck = os.path.join(out, "ck_jamba_one")
     refs["jamba"] = _one([*worker._arch(worker.JAMBA, 4), "--ckpt-dir",
-                          jamba_ck, "--ckpt-every", "2"])
+                          jamba_ck, "--ckpt-every", "2",
+                          *_one_taps(out, "jamba")])
     shutil.rmtree(os.path.join(jamba_ck, "step_000000004"))
     # LoRA at one rank, 4 steps checkpointed at 2 and 4; the ranks resume
     # its step 2
@@ -218,13 +233,17 @@ def ranks(tmp_path_factory):
                                  "--dp-reduce", "exact", "--accum", "2"])
     refs["jamba_accum2"] = _one([*worker._arch(worker.JAMBA), "--dp-reduce",
                                  "exact", "--accum", "2"])
+    # --dp-reduce builds no tapped step: the taps of llama_2x2 are held to
+    # one rank's plain step at --accum 2
+    _one([*worker.LLAMA, "--steps", "3", "--accum", "2",
+          *_one_taps(out, "llama_2x2")])
     # LoRA refuses --dp-reduce: one rank's plain step at --accum 2
     refs["lora_accum2"] = _one([*worker.LLAMA, "--steps", "3", *worker.LORA,
                                 "--accum", "2"])
     for w in (2, 4):
         for name, argv in worker.SCENARIOS[w].items():
             if name in ONE_RANK and ONE_RANK[name] not in refs:
-                refs[ONE_RANK[name]] = _one(_without_mesh(argv))
+                refs[ONE_RANK[name]] = _one(_without_mesh(argv, out))
     # one rank's step-2 trees, as its checkpoint holds them (no step run)
     refs["jamba_step2"] = _one([*worker._arch(worker.JAMBA, 2),
                                 "--ckpt-dir", jamba_ck, "--resume"])
@@ -731,3 +750,91 @@ def test_lora_checkpoint_merged_by_the_jax_engine(ranks):
     assert set(got) == set(want)
     for p, w in want.items():
         assert spacings(got[p], w) <= 2, p
+
+
+# ---------------------------------------------------------------------------
+# the optimizer taps along 'model' (--metrics-dir without --dp-reduce)
+# ---------------------------------------------------------------------------
+
+TAPPED = [n for w in (2, 4) for n, argv in worker.SCENARIOS[w].items()
+          if "--metrics-dir" in argv]
+
+
+# the taps against one rank's, the largest relative difference of each
+# kind of tap over every step (measured worst beside it); the counts
+# (clip_count, clip_rate, q8_sat_rate) exactly.  f32: the tolerances of
+# tests/test_torch_obs.py (the port against the JAX package), the gradient
+# within the TP rounding of the gradients, the update moved by Adam's step
+# on near-zero gradients; llama_2x2 is held to one rank's plain step at
+# --accum 2, whose microbatches take other rows (the JAX package's
+# strided split).  xLSTM: its stabilised gates (GRAD_SPACINGS).  int8: a
+# moment that differs in its last bit may round to another code, and the
+# parameters then part; world 1 against itself at --accum 2 is as far
+# apart (grad 5.1e-5, update 1.3e-3, q8_absmax 2.5e-5 over llama's three
+# steps)
+TAPS_RTOL = {
+    "f32": {"grad": 1e-5,        # 3.8e-6 (seamless)
+            "update": 2e-4},     # 1.0e-4 (llama_2x2), 2.3e-5 (llama)
+    "xlstm": {"grad": 4e-4,      # 8.3e-5
+              "update": 2e-4},   # 3.1e-5
+    "int8": {"grad": 4e-4,       # 7.7e-5
+             "update": 3e-3,     # 6.3e-4
+             "q8_absmax": 5e-4},  # 9.8e-5
+}
+
+
+def _taps_kind(name):
+    return "xlstm" if name.startswith("xlstm") else _kind(name)
+
+
+@pytest.mark.parametrize("name", TAPPED)
+def test_taps_match_one_rank(ranks, name):
+    """Rank 0's taps records, on every step, hold one rank's keys
+    (``"<bucket>/<tap>"``, the whole tree's plan) in one rank's order, and
+    their values within :data:`TAPS_RTOL` of one rank's."""
+    out = ranks[0]
+    got = tap_records(os.path.join(out, "taps_" + name))
+    want = tap_records(os.path.join(out, "one", "taps_" + name))
+    assert got and all(t for _, t in got)
+    rtol = TAPS_RTOL[_taps_kind(name)]
+    for kind, d in taps_gap(got, want).items():
+        assert d <= rtol.get(kind, 0.0), (kind, d)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("codec", worker.ENGINE_CODECS)
+def test_tapped_update_on_a_tp_layout(ranks, world, codec):
+    """``tapped_update(..., param_shardings=)`` on each rank's shards of the
+    ``1xW`` layout (``torch_tp_worker.engine_runs``): its parameters and
+    state bitwise ``update(..., param_shardings=)``'s, its taps bitwise on
+    every rank, and bitwise one rank's ``tapped_update`` on the whole trees
+    (the gathered parameters and state too): the taps are read off the
+    whole gathered buckets."""
+    out = ranks[0]
+    cfg = worker.smoke_cfg(worker.ENGINE_ARCH, dtype="float32")
+    opt = worker.engine_optimizer(codec)
+    params = worker.grad_params(cfg)
+    state = opt.init(params)
+    want = []
+    for k in range(worker.ENGINE_STEPS):
+        params, state, t = opt.tapped_update(worker.engine_grads(cfg, k),
+                                             state, params)
+        want.append(t)
+    first = None
+    for rank in range(world):
+        run = torch.load(os.path.join(out, f"engine_{world}_{rank}.pt"),
+                         weights_only=False)[codec]
+        tapped, plain = run["tapped"], run["update"]
+        _bitwise(tapped["params"], plain["params"])
+        _bitwise(tapped["opt"], plain["opt"])
+        _bitwise(tapped["whole"]["params"], params)
+        _bitwise(tapped["whole"]["opt"], state)
+        assert len(tapped["taps"]) == len(want)
+        for got, w in zip(tapped["taps"], want):
+            assert list(got) == list(w) and w
+            for key in w:
+                assert torch.equal(got[key], w[key]), (rank, key)
+        first = first or tapped["taps"]
+        for got, w in zip(tapped["taps"], first):
+            for key in w:
+                assert torch.equal(got[key], w[key]), (rank, key)

@@ -9,6 +9,8 @@ two threads so the tests stay cheap under ``pytest -n 6``.
 from __future__ import annotations
 
 import functools
+import json
+import os
 from typing import Dict
 
 import jax
@@ -119,3 +121,43 @@ def jax_legacy_checkpoint(d, steps=2):
                     "opt": jopt.engine.to_legacy(state, jparams)},
             blocking=True)
     return jparams, jopt, state
+
+
+# the optimizer taps of two runs' --metrics-dir records
+
+def tap_records(d):
+    """``(step, [(tap key, value), ...])`` of every ``train_step`` record
+    of ``d/metrics.jsonl`` in file order, the taps in the record's
+    order."""
+    out = []
+    with open(os.path.join(d, "metrics.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec["kind"] == "train_step":
+                out.append((rec["step"], [(k, v) for k, v in rec.items()
+                                          if "/" in k]))
+    return out
+
+
+def tap_kind(key):
+    tap = key.rsplit("/", 1)[1]
+    if tap in ("grad_ssq", "band_a_ssq", "band_d_ssq"):
+        return "grad"
+    if tap in ("update_ssq", "gnorm_ssq"):
+        return "update"
+    return tap
+
+
+def taps_gap(got, want):
+    """The largest relative difference of each kind of tap (:func:`tap_kind`)
+    between two runs' records; both must hold the same steps and, on each,
+    the same keys in the same order."""
+    assert [s for s, _ in got] == [s for s, _ in want]
+    gap = {}
+    for (_, g), (_, w) in zip(got, want):
+        assert [k for k, _ in g] == [k for k, _ in w]
+        for (k, a), (_, b) in zip(g, w):
+            kind = tap_kind(k)
+            d = abs(a - b) / abs(b) if b else abs(a)
+            gap[kind] = max(gap.get(kind, 0.0), d)
+    return gap

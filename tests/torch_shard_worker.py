@@ -39,7 +39,9 @@ SCENARIOS = {
     "q8_none": ["--steps", "3", *INT8, "--shard-params", "none"],
     "resume_auto": ["--steps", "6", "--dp-reduce", "exact", "--ckpt-dir",
                     "{out}/ck_none1", "--ckpt-every", "3", "--resume"],
-    "mesh_2x1": ["--steps", "3", "--mesh", "2x1"],
+    # the taps on the data axis (rank 0 writes the records)
+    "mesh_2x1": ["--steps", "3", "--mesh", "2x1", "--metrics-dir",
+                 "{out}/taps_2x1"],
     "mesh_1x2": ["--steps", "3", "--mesh", "1x2"],
 }
 

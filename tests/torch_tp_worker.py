@@ -16,7 +16,12 @@ the adapters' gradients (``"lora <arch>"``), from adapters with a nonzero
 :data:`SCENARIOS` ``[W]`` through the launcher, each on its own port,
 writing ``OUT/<name>_<rank>.pt``: the losses, the whole parameters and
 optimizer state the launcher returns, and this rank's shards as it held
-them (``TrainResult.local``, shapes and dtypes).  Rank 0 takes each
+them (``TrainResult.local``, shapes and dtypes); the tapped scenarios
+(:func:`taps_dir`) also leave rank 0's records with the optimizer taps
+under ``OUT/taps_<name>``.  With the gradients, on the same ``1xW``
+mesh, :func:`engine_runs` drives the engine's ``tapped_update`` and
+``update`` with ``param_shardings=`` (``engine_<W>_<rank>.pt``).  Rank 0
+takes each
 group's rendezvous port just before the group forms (a port taken when
 the processes start may be another test's by then) and hands it to the
 other ranks through ``OUT/port_<W>_<i>``.
@@ -32,7 +37,7 @@ import torch
 
 torch.set_num_threads(1)
 
-from repro_torch import configs  # noqa: E402
+from repro_torch import configs, optim  # noqa: E402
 from repro_torch.distributed import sharding, tensor_parallel  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.mesh import init_mesh  # noqa: E402
@@ -132,29 +137,40 @@ def _arch(arch, steps=3):
             str(steps)]
 
 
-# name -> launcher arguments (the checkpoint directories under OUT)
+def taps_dir(name):
+    """``--metrics-dir`` of a tapped scenario: rank 0 writes the records,
+    the optimizer taps on every step (``--log-every 1``) among them."""
+    return ["--metrics-dir", "{out}/taps_" + name]
+
+
+# name -> launcher arguments (the checkpoint and metrics directories under
+# OUT)
 SCENARIOS = {
     2: {
         "llama": [*LLAMA, "--steps", "6", "--mesh", "1x2", "--ckpt-dir",
-                  "{out}/ck_tp", "--ckpt-every", "3"],
+                  "{out}/ck_tp", "--ckpt-every", "3",
+                  *taps_dir("llama")],
         "llama_resume": [*LLAMA, "--steps", "6", "--mesh", "1x2",
                          "--ckpt-dir", "{out}/ck_one", "--ckpt-every", "3",
                          "--resume"],
         "llama_int8": [*LLAMA, "--steps", "3", "--mesh", "1x2",
-                       "--state-codec", "int8"],
+                       "--state-codec", "int8", *taps_dir("llama_int8")],
         "qwen": [*_arch("qwen2.5-3b"), "--mesh", "1x2"],
         "gemma": [*_arch("gemma2-9b"), "--mesh", "1x2"],
-        "moe_ep": [*_arch("qwen3-moe-30b-a3b-f32"), "--mesh", "1x2"],
+        "moe_ep": [*_arch("qwen3-moe-30b-a3b-f32"), "--mesh", "1x2",
+                   *taps_dir("moe_ep")],
         "moe_etp": [*_arch(ODD_MOE), "--mesh", "1x2"],
         # checkpoints at steps 2 and 4 (held to one rank's, and restored
         # at world 1 bitwise); the resume restores one rank's step 2 and
         # runs no step (its whole trees are the checkpoint's, bitwise)
         "jamba": [*_arch(JAMBA, 4), "--mesh", "1x2", "--ckpt-dir",
-                  "{out}/ck_jamba_tp", "--ckpt-every", "2"],
+                  "{out}/ck_jamba_tp", "--ckpt-every", "2",
+                  *taps_dir("jamba")],
         "jamba_resume": [*_arch(JAMBA, 2), "--mesh", "1x2", "--ckpt-dir",
                          "{out}/ck_jamba_one", "--resume"],
-        "xlstm": [*_arch(XLSTM), "--mesh", "1x2"],
-        "seamless": [*_arch(SEAMLESS), "--mesh", "1x2"],
+        "xlstm": [*_arch(XLSTM), "--mesh", "1x2", *taps_dir("xlstm")],
+        "seamless": [*_arch(SEAMLESS), "--mesh", "1x2",
+                     *taps_dir("seamless")],
         # LoRA: checkpoints at steps 2 and 4 (restored at world 1); the
         # resume restores one rank's step 2 and runs steps 3-4
         "lora": [*LLAMA, "--steps", "4", "--mesh", "1x2", *LORA,
@@ -165,7 +181,8 @@ SCENARIOS = {
                       "--state-codec", "int8"],
     },
     4: {
-        "llama_2x2": [*LLAMA, "--steps", "3", "--mesh", "2x2"],
+        "llama_2x2": [*LLAMA, "--steps", "3", "--mesh", "2x2",
+                      *taps_dir("llama_2x2")],
         "qwen_1x4": [*_arch("qwen2.5-3b"), "--mesh", "1x4"],
         # 2 heads over 4 ranks: mLSTM computes every head and keeps its
         # channels, sLSTM's recurrence runs replicated
@@ -271,9 +288,63 @@ def grads(out, rank, world):
             g = torch.autograd.grad(loss, leaves)
             res[f"lora {arch}"] = (loss.detach(), sharding.gather_tree(
                 unflatten(paths, g), sh["lora"]))
+        eng = {codec: engine_runs(mesh, codec) for codec in ENGINE_CODECS}
     finally:
         dp.close()
     torch.save(res, os.path.join(out, f"grads_{world}_{rank}.pt"))
+    torch.save(eng, os.path.join(out, f"engine_{world}_{rank}.pt"))
+
+
+# the engine's tapped update on a tensor-parallel layout: llama-60m's
+# smoke (f32), two steps of seeded gradients, each codec
+ENGINE_ARCH, ENGINE_STEPS, ENGINE_CODECS = "llama-60m", 2, ("f32", "int8")
+
+
+def engine_optimizer(codec, state_shardings=None):
+    return optim.make("gwt", lr=1e-2, level=2, state_codec=codec,
+                      state_shardings=state_shardings)
+
+
+def engine_grads(cfg, k):
+    """Step ``k``'s whole f32 gradients, seeded, of the parameters'
+    shapes."""
+    g = torch.Generator().manual_seed(100 + k)
+    return tree_map(lambda t: 1e-2 * torch.randn(t.shape, generator=g),
+                    grad_params(cfg))
+
+
+def engine_runs(mesh, codec):
+    """:data:`ENGINE_STEPS` steps of ``tapped_update(...,
+    param_shardings=)`` and of ``update(..., param_shardings=)`` from the
+    seeded init, this rank holding its shards of ``tp_step_shardings``'s
+    layout (the state placed by the optimizer): each run's local
+    parameters and state, its whole trees gathered at the end, and the
+    tapped run's taps of every step."""
+    cfg = smoke_cfg(ENGINE_ARCH, dtype="float32")
+    sh = sharding.tp_step_shardings(cfg, module_for(cfg), grad_batch(cfg),
+                                    mesh, state_codec=codec)
+    runs = {}
+    for key in ("tapped", "update"):
+        opt = engine_optimizer(codec, sh.opt["buckets"])
+        whole = grad_params(cfg)
+        state = opt.init(whole)
+        params = sharding.shard_tree(whole, sh.params)
+        del whole
+        taps = []
+        for k in range(ENGINE_STEPS):
+            g = sharding.shard_tree(engine_grads(cfg, k), sh.params)
+            if key == "tapped":
+                params, state, t = opt.tapped_update(
+                    g, state, params, param_shardings=sh.params)
+                taps.append(t)
+            else:
+                params, state = opt.update(g, state, params,
+                                           param_shardings=sh.params)
+        runs[key] = {"params": params, "opt": state, "taps": taps,
+                     "whole": sharding.gather_tree(
+                         {"params": params, "opt": state},
+                         {"params": sh.params, "opt": sh.opt})}
+    return runs
 
 
 def main(out):

@@ -6,7 +6,9 @@ speed swings by a third between calls, so only one call compares them).
     python tools/depth_cuts.py --only 34    # phase 34's alone
 
 The cuts, each run at the old depth and then at the new one: phase 34,
-xlstm-350m 24 -> 8 layers (``chip_smoke.SUBSTRATE_RUNS``); qwen2.5-3b 36
+xlstm-350m 24 -> 8 layers, and phase 35, seamless-m4t-large-v2 12 + 12 ->
+6 + 6 layers (``chip_smoke.SUBSTRATE_RUNS``); phase 39's qwen3-moe-30b-a3b
+at ``--mesh 1x2``, 2 -> 1 layers (``chip_smoke.TP_RUNS``); qwen2.5-3b 36
 -> 9 layers (``QWEN_LAYERS``) in phase 22 (its two runs through the
 launcher and its profile; the kernel timings keep the full depth's
 buckets), phase 27 (serving) and phase 37 (sharded parameters); phase
@@ -30,7 +32,9 @@ CUTS = [(34, "xlstm-350m layers", 24, 8),
         (22, "qwen2.5-3b layers", 36, 9),
         (27, "serving qwen2.5-3b layers", 36, 9),
         (37, "sharded qwen2.5-3b layers", 36, 9),
-        (38, "compare_optimizers llama-tiny layers", 4, 2)]
+        (38, "compare_optimizers llama-tiny layers", 4, 2),
+        (35, "seamless-m4t-large-v2 layers", 24, 12),
+        (39, "qwen3-moe-30b-a3b layers (1x2)", 2, 1)]
 
 
 def full_state_bytes(cs, arch, codecs):
@@ -50,10 +54,12 @@ def full_state_bytes(cs, arch, codecs):
 def run_phase(cs, phase, depth, train, kernel, ref, hk, dev):
     """One of the cut phases at ``depth`` (chip_smoke's constants set for
     the call and restored)."""
-    if phase == 34:
+    if phase in (34, 35):
         saved = cs.SUBSTRATE_RUNS
-        entry = next(r for r in saved if r[0] == "xlstm-350m")
-        if depth != entry[1]:
+        entry = next(r for r in saved if r[0] == (
+            "xlstm-350m" if phase == 34 else "seamless-m4t-large-v2"))
+        cut = entry[1] if phase == 34 else entry[1]["n_layers"]
+        if depth != cut:
             entry = (entry[0], None, entry[2], entry[3],
                      full_state_bytes(cs, entry[0], entry[4]))
         cs.SUBSTRATE_RUNS = [entry]
@@ -79,6 +85,17 @@ def run_phase(cs, phase, depth, train, kernel, ref, hk, dev):
                 cs.run_sharding(train, kernel, hk)
         finally:
             cs.QWEN_LAYERS, cs.QWEN_STATE_BYTES = saved
+    elif phase == 39:
+        saved = cs.TP_RUNS
+        i = next(i for i, r in enumerate(saved)
+                 if r[1] == "qwen3-moe-30b-a3b")
+        cs.TP_RUNS = [*saved[:i], (f"qwen3-moe-30b-a3b {depth} layers",
+                                   *saved[i][1:2], depth, *saved[i][3:]),
+                      *saved[i + 1:]]
+        try:
+            cs.run_tp(train, kernel, hk, only=[i])
+        finally:
+            cs.TP_RUNS = saved
     else:
         saved = cs.COMPARE_LAYERS
         cs.COMPARE_LAYERS = depth

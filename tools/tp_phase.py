@@ -1,12 +1,14 @@
 """``chip_smoke.py``'s phase 39 (the ``model`` mesh axis) alone, on the
 card: the kernels' build, then each run of ``chip_smoke.TP_RUNS``
-(llama-60m with f32 and int8 moments, qwen3-moe-30b-a3b's 2-layer cut,
+(llama-60m with f32 and int8 moments, qwen3-moe-30b-a3b's 1-layer cut,
 jamba-v0.1-52b's first block, one period of xlstm-350m in f32 and in
 bf16, seamless at 2+2 layers, and three ``--finetune lora`` runs:
 llama-60m f32 and int8 for 5 steps, qwen2.5-3b's 2-layer cut in bf16 for
 4) at world 1 and at ``--mesh 1x2`` on two processes sharing the card
-(``tools/tp_rank.py``).  Prints the phase's lines, then its summary as one
-JSON line.
+(``tools/tp_rank.py``), and llama-60m f32 at ``--mesh 2`` (the data axis
+alone) against world 1 at ``--accum 2``.  Every run but LoRA's records
+its optimizer taps (``--metrics-dir``), rank 0's held to world 1's.
+Prints the phase's lines, then its summary as one JSON line.
 
 The LoRA runs take 4-5 steps because ``b`` starts at zero and the
 schedule's first learning rate is 0: ``b`` first moves at step 2 and
@@ -21,6 +23,8 @@ replicated factor's gradient would not show.
                                             # (and the f32 runs a bf16
                                             # one is held to)
     python tools/tp_phase.py --runs 7,8,9   # the three LoRA runs
+    python tools/tp_phase.py --runs 0,1,10  # llama-60m f32 and int8 at
+                                            # 1x2 and f32 at --mesh 2
 
 ``--spread`` first runs each run of ``chip_smoke.TP_RUNS`` (of
 ``--runs``) at world 1 twice, at ``--accum 1`` and ``--accum 2`` (the same
@@ -47,12 +51,11 @@ def spread(train, kernel, hk, only) -> None:
     to the first as phase 39 holds a rank: losses, and the state and
     parameters' move leaf by leaf (``chip_smoke.state_check``)."""
     import chip_smoke as cs
-    for i, (label, arch, layers, steps, extra) in enumerate(cs.TP_RUNS):
+    for i, spec in enumerate(cs.TP_RUNS):
         if only is not None and i not in only:
             continue
-        run = {"label": label, "arch": arch, "layers": layers,
-               "argv": cs.tp_argv(arch, steps, extra), "steps": steps,
-               "q8": "int8" in extra, "lora": "lora" in extra}
+        run = cs.tp_run(*spec)
+        label = run["label"]
         one = cs.tp_world1(train, kernel, hk, run)
         two = cs.tp_world1(train, kernel, hk, {
             **run, "argv": run["argv"] + ["--accum", "2"]})

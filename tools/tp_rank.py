@@ -2,13 +2,15 @@
 run by hand: ``chip_smoke.run_tp`` starts two of these on one card with
 ``RANK``, ``WORLD_SIZE=2``, ``LOCAL_RANK=0``, ``MASTER_ADDR`` set.
 
-    python tools/tp_rank.py OUT '[{"label", "arch", "layers", "argv"},
-                                  ...]'
+    python tools/tp_rank.py OUT '[{"label", "arch", "layers", "argv",
+                                   "mesh", "taps"}, ...]'
 
 Joins the card, waits for ``OUT/go`` (its parent runs the world-1
 references meanwhile), then makes each run through the launcher at
-``--mesh 1x2 --dist-backend gloo`` (``layers``: the config cut to that
-depth, or the config fields of a dict, ``chip_smoke.depth_cut``), the
+``--mesh <mesh> --dist-backend gloo`` (``mesh``: ``1x2``, or ``2`` for a
+run on the data axis alone; ``layers``: the config cut to that depth, or
+the config fields of a dict, ``chip_smoke.depth_cut``; ``taps``: with
+``--metrics-dir OUT/tp_<i>``, where rank 0 writes the records), the
 kernels' launch counts set to 0 just before and read just after.  Rank 0
 takes a free port for each run just before it and writes it to
 ``OUT/port<i>``, where rank 1 reads it.  Writes
@@ -82,8 +84,11 @@ def main(out: str, runs: str) -> int:
             torch.cuda.reset_peak_memory_stats()
             os.environ["MASTER_PORT"] = run_port(out, i, rank)
             cs.reset_counts(kernel, hk)
-            res = train.main(run["argv"] + ["--mesh", "1x2",
-                                            "--dist-backend", "gloo"])
+            taps = ["--metrics-dir", os.path.join(out, f"tp_{i}")] \
+                if run["taps"] else []
+            res = train.main(run["argv"] + ["--mesh", run["mesh"],
+                                            "--dist-backend", "gloo",
+                                            *taps])
             torch.cuda.synchronize()
             counts = cs.all_counts(kernel, hk)
             peak = torch.cuda.max_memory_allocated()
