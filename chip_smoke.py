@@ -140,8 +140,9 @@ Phases (any failure raises and the script exits non-zero):
     cut to 9 of its 36 layers (GQA, QKV bias, remat; the depth cut keeps
     the script within its time) with GWT-2 for 20 steps at batch 16 x seq
     256, with f32 moments and with ``--state-codec int8``: K1 (int8: K2)
-    exactly 6 times a step, each bucket in the design the capacity rule
-    names, nothing else launched; the state the JAX package's
+    4 times a step (``PINNED_GROUPS``: the three one-pass buckets, the
+    bias buckets and wk/wv, in one grouped launch; the three two-pass
+    buckets alone), nothing else launched; the state the JAX package's
     3,876,942,892 (int8: 1,029,812,992) bytes; losses finite and falling;
     step time, tokens/s, peak memory, a profile of the f32 step, K1 and K2
     per launch at each of the six buckets of the full depth beside the
@@ -187,17 +188,22 @@ Phases (any failure raises and the script exits non-zero):
     phase 25 also trains the qwen2-vl-72b and MoE smoke configs;
 29. LoRA at full-width llama-60m on phase 26's checkpoint:
     ``train.main --finetune lora --lora-rank 8 --base-ckpt``, 20 steps
-    GWT-2, f32 then int8 moments: K1 (int8: K2) exactly 4 a step at the
-    adapter buckets (``LORA_BUCKETS``: f32 adapters under the bf16
-    model's gradient, which the step casts to bf16), the base bitwise the
-    checkpoint's, the adapter state the JAX package's bytes; each adapter
+    GWT-2, f32 then int8 moments: K1 (int8: K2) once a step, one grouped
+    launch over the four adapter buckets (``LORA_BUCKETS``: f32 adapters
+    under the bf16 model's gradient, which the step casts to bf16), the
+    base bitwise the checkpoint's, the adapter state the JAX package's
+    bytes; each run bitwise (parameters, state, losses) to the same run
+    with every bucket alone (4 launches a step; ``buckets_alone``), and
+    the two timed A B B A (``PHASE29_ROUNDS`` rounds: each run's steady
+    step time, the mean and spread of each side); each adapter
     bucket whole, K1 and K2 in every CASE, bitwise to the plain version;
     ``launch.serve.main --ckpt`` on the fine-tune (merged at load from its
     run metadata), and the engine's tokens equal dense ``generate`` on
     ``lora.merge``'s weights up to a near tie; K1/K2 timed per adapter
     bucket beside the bound;
 30. LoRA at qwen2.5-3b full width and depth from a random base, 5 steps:
-    K1 5 a step, step time, peak memory, adapter state bytes, the merge's
+    K1 once a step (one grouped launch over the five adapter buckets, by
+    ``PINNED_GROUPS``), step time, peak memory, adapter state bytes, the merge's
     share of the step; the five adapter buckets held whole and timed;
 31. qwen2-vl-72b cut to 1 layer (every width published), 16 x 256, 5
     steps through the launcher: K1's launches and designs, the attention
@@ -285,7 +291,27 @@ Phases (any failure raises and the script exits non-zero):
     and llama-60m (f32 moments, 5 steps) at ``--mesh 2`` without
     ``--dp-reduce`` (the data axis alone: each rank half the rows, the
     exact mean) against world 1 at ``--accum 2``, the same checks with
-    each rank holding the whole trees.
+    each rank holding the whole trees;
+40. the grouped K1 and K2 (``kernel.gwt_adam_fused_group``,
+    ``gwt_adam_fused_q8_group``: one launch over several one-pass
+    buckets): every set a main path groups (``PINNED_GROUPS``: the LoRA
+    adapters of llama-60m and qwen2.5-3b, qwen2.5-3b's 9-layer cut,
+    qwen2-vl-72b's and qwen3-moe's 1-layer cuts, xlstm-350m's 8 layers in
+    bf16 and f32, the examples' llama-tiny at GWT-2 and GWT-3),
+    qwen2.5-3b's two bias buckets and a FIRST-mode bucket with two
+    LAST-mode ones, in every CASE, K1 over f32 and bf16 moments and K2,
+    each pinned launch one grouped call: every output bitwise the
+    per-bucket launches and the grouped plain version, each call counted
+    once by launch and by its buckets, the card's ``group_plan`` the
+    pinned launches; a FIRST-mode bucket and a bucket of another level
+    split by the plan and refused by both wrappers; three sets timed as
+    their grouped launches beside their per-bucket launches in the same
+    call (A B B A, CUDA events, L2 flushed), the bounds, the grouped plain
+    version and each wrapper's host us a call.  Since the engine groups,
+    K1/K2 count a step as ``PINNED_GROUPS`` names, written out at the
+    H100's figures (``plan_counts`` holds the card's plan to them):
+    llama-60m's three buckets still 3 (no two fit one launch), its LoRA 1,
+    qwen2.5-3b's 9-layer cut 4, its LoRA 1 (K2 2).
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -487,7 +513,8 @@ def check_fused(kernel, ref, dev, q8, shapes=FUSED_SHAPES,
     the norm) bitwise equal to the plain version, two runs bitwise, the
     designs as ``check_designs`` holds them; phase 21 takes K1 at the
     dense configs' widths.  Returns the worst absolute error over the
-    outputs (0) and how many buckets took each design."""
+    outputs (measured: 0 where it returns) and how many buckets took each
+    design."""
     name = "K2" if q8 else "K1"
     lib = "gwt_adam_fused_q8" if q8 else "gwt_adam_fused"
     counter = ((lambda: (kernel.launches_q8_one_pass,
@@ -498,7 +525,7 @@ def check_fused(kernel, ref, dev, q8, shapes=FUSED_SHAPES,
         else ("p", "m", "v", "norm")
     taken = {"one": 0, "two": 0}
     step_size = torch.tensor(1e-3, device=dev)
-    cases = 0
+    cases, err = 0, 0.0
     for label, shape, level, dtype, mdtype in fused_buckets(q8, shapes,
                                                             levels):
         L, m, n = shape
@@ -543,9 +570,9 @@ def check_fused(kernel, ref, dev, q8, shapes=FUSED_SHAPES,
                 check_designs(kernel, name, label, shape, level, dtype,
                               runs, two, (after[0] - before[0],
                                           after[1] - before[1]), one)
-                check_bands(f"{name} {label} {shape} l={level} {dtype} "
-                            f"{moments} / {case} / seed set {seed_set}",
-                            runs, want, outputs)
+                err = max(err, check_bands(
+                    f"{name} {label} {shape} l={level} {dtype} {moments} / "
+                    f"{case} / seed set {seed_set}", runs, want, outputs))
                 if use_lim and prev == 1.0 and not torch.allclose(
                         runs[0][-1], torch.full_like(runs[0][-1], 1.01)):
                     raise AssertionError(
@@ -561,9 +588,9 @@ def check_fused(kernel, ref, dev, q8, shapes=FUSED_SHAPES,
               f"equal to the plain version; two runs bitwise; "
               + ("bitwise equal to the two-pass kernel" if one else
                  "beyond one-pass capacity: the one-pass entry refuses it"))
-    print(f"{name} vs plain: {cases} cases, {', '.join(outputs)} bitwise; "
-          f"buckets by design {taken}")
-    return 0.0, taken
+    print(f"{name} vs plain: {cases} cases, {', '.join(outputs)} bitwise "
+          f"(max |diff| {err}); buckets by design {taken}")
+    return err, taken
 
 
 def print_plans(kernel):
@@ -636,8 +663,9 @@ def check_tile(kernel, ref, dev):
     ``tile_cases()``, f32 and bf16 gradients, both seed sets, K4 with f32
     and with bf16 moments: G̃, m', v' (K5: G̃, codes, scales) and the ‖G̃‖²
     partials (``ref.chunk_ssq`` of the plain G̃) bitwise, two runs bitwise.
-    Returns the number of cases K5 ran (K4 ran one per moment dtype)."""
-    n = 0
+    Returns the number of cases K5 ran (K4 ran one per moment dtype) and
+    the worst absolute error measured of K4 and of K5."""
+    n, err = 0, {"K4": 0.0, "K5": 0.0}
     for label, shape, level in tile_cases():
         for dtype in (torch.float32, torch.bfloat16):
             for seed_set in SEED_SETS:
@@ -652,9 +680,10 @@ def check_tile(kernel, ref, dev):
                     runs = [kernel.gwt_adam_tile(g, m_in, v_in, level=level)
                             for _ in range(2)]
                     torch.cuda.synchronize()
-                    check_bands(f"K4 {what} {mdtype} moments", runs,
-                                want[:3] + (ref.chunk_ssq(want[0], level),),
-                                ("G̃", "m'", "v'", "partials"))
+                    err["K4"] = max(err["K4"], check_bands(
+                        f"K4 {what} {mdtype} moments", runs,
+                        want[:3] + (ref.chunk_ssq(want[0], level),),
+                        ("G̃", "m'", "v'", "partials")))
                 args, salts = tile_q8_inputs(shape, level, dtype, sd, dev)
                 kw = dict(level=level, block=QBLOCK)
                 want = ref.gwt_adam_tile_q8(*args, *salts, **kw)
@@ -662,14 +691,15 @@ def check_tile(kernel, ref, dev):
                 runs = [kernel.gwt_adam_tile_q8(*args, *usalts, **kw)
                         for _ in range(2)]
                 torch.cuda.synchronize()
-                check_bands(f"K5 {what}", runs,
-                            want[:5] + (ref.chunk_ssq(want[0], level),),
-                            ("G̃", "qm'", "sm'", "qv'", "sv'", "partials"))
+                err["K5"] = max(err["K5"], check_bands(
+                    f"K5 {what}", runs,
+                    want[:5] + (ref.chunk_ssq(want[0], level),),
+                    ("G̃", "qm'", "sm'", "qv'", "sv'", "partials")))
                 n += 1
     print(f"K4/K5 vs plain: {n} cases each (K4 with f32 and with bf16 "
           f"moments in each), G̃, m', v' (K5: G̃, codes, scales) and the "
-          f"‖G̃‖² partials bitwise, two runs bitwise")
-    return n
+          f"‖G̃‖² partials bitwise, two runs bitwise (max |diff| {err})")
+    return n, err
 
 
 def synthetic(cfg, seq, batch, seed):
@@ -997,19 +1027,27 @@ def reset_counts(kernel, hk):
     kernel.launches = kernel.launches_q8 = 0
     kernel.launches_one_pass = kernel.launches_two_pass = 0
     kernel.launches_q8_one_pass = kernel.launches_q8_two_pass = 0
+    kernel.launches_group = kernel.buckets_group = 0
+    kernel.launches_q8_group = kernel.buckets_q8_group = 0
     kernel.launches_tile = kernel.launches_tile_q8 = 0
     hk.launches_fwd = hk.launches_fwd_q = hk.launches_inv = 0
     hk.leaves_fwd = hk.leaves_fwd_q = 0
 
 
 def all_counts(kernel, hk):
-    """Every wrapper's launch count; K1 and K2 also by design, K3 and K6
-    also the leaves their grouped launches covered."""
+    """Every wrapper's launch count; K1 and K2 also by design and their
+    grouped launches (of two or more buckets, as the engine makes them)
+    with the buckets those covered, K3 and K6 also the leaves their grouped
+    launches covered."""
     return {"K1": kernel.launches, "K2": kernel.launches_q8,
             "K1 one-pass": kernel.launches_one_pass,
             "K1 two-pass": kernel.launches_two_pass,
             "K2 one-pass": kernel.launches_q8_one_pass,
             "K2 two-pass": kernel.launches_q8_two_pass,
+            "K1 group": kernel.launches_group,
+            "K1 group buckets": kernel.buckets_group,
+            "K2 group": kernel.launches_q8_group,
+            "K2 group buckets": kernel.buckets_q8_group,
             "K3": hk.launches_fwd_q, "K4": kernel.launches_tile,
             "K5": kernel.launches_tile_q8, "K6": hk.launches_fwd,
             "K7": hk.launches_inv, "K3 leaves": hk.leaves_fwd_q,
@@ -1017,9 +1055,12 @@ def all_counts(kernel, hk):
 
 
 def fused_counts(k1=0, k2=0):
-    """K1's and K2's counters when every bucket took the one-pass design."""
+    """K1's and K2's counters when every bucket took the one-pass design
+    alone (no grouped launch: llama-60m's three buckets, in plan order,
+    never fit one launch two together)."""
     return {"K1": k1, "K2": k2, "K1 one-pass": k1, "K1 two-pass": 0,
-            "K2 one-pass": k2, "K2 two-pass": 0}
+            "K2 one-pass": k2, "K2 two-pass": 0, "K1 group": 0,
+            "K1 group buckets": 0, "K2 group": 0, "K2 group buckets": 0}
 
 
 def run_main_path(train, kernel, hk, codec, extra=()):
@@ -1110,10 +1151,22 @@ def haar_input(shape, seed, dev, scale, edges):
     return g
 
 
+def abs_err(a, b) -> float:
+    """The largest |a - b| over the elements (f64, NaN against NaN 0), in
+    pieces so that a whole bucket needs no f64 copy of itself."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    worst, step = 0.0, 1 << 26
+    for i in range(0, a.numel(), step):
+        d = (a[i:i + step].double() - b[i:i + step].double()).abs()
+        worst = max(worst, torch.nan_to_num(d, nan=0.0).max().item())
+    return worst
+
+
 def check_bands(what, got_runs, want, names=None):
     """A kernel's outputs (bands, moments, norms, ...; ``names``, else
     numbered) against the plain version's: bitwise (NaN codes included),
-    and the two kernel runs bitwise."""
+    and the two kernel runs bitwise.  Returns the largest absolute error
+    measured against the plain version (0 where it returns)."""
     for a, b in zip(*got_runs):
         if not torch.equal(raw_bits(a), raw_bits(b)):
             raise AssertionError(f"{what}: two kernel runs differ")
@@ -1127,10 +1180,11 @@ def check_bands(what, got_runs, want, names=None):
                                  f"plain {b.dtype} {b.shape}")
         differ = int((raw_bits(a) != raw_bits(b)).sum())
         if differ:
-            worst = (a.double() - b.double()).abs().max().item()
             raise AssertionError(f"{what} {name}: {differ} of {a.numel()} "
                                  f"elements differ from the plain version "
-                                 f"(max |diff| {worst:.3g})")
+                                 f"(max |diff| {abs_err(a, b):.3g})")
+    return max((abs_err(a, b) for a, b in zip(got_runs[0], want)),
+               default=0.0)
 
 
 def check_fp8_rule(hk, dev):
@@ -1160,11 +1214,11 @@ def check_fp8_rule(hk, dev):
 
 def check_haar(hk, dev):
     """Phase 10: K3, K6, K7 against their plain versions, bitwise.  Returns
-    the worst absolute error, 0 (any difference raises)."""
+    the worst absolute error measured (0: any difference raises)."""
     from repro_torch.kernels.haar_dwt import ref as href
     check_fp8_rule(hk, dev)
     wires = (torch.bfloat16, torch.float16, torch.float8_e4m3fn)
-    n_checks = 0
+    n_checks, err = 0, 0.0
     for shape in [s for s, _ in DP_SHAPES] + [ODD_SHAPE]:
         for level in (1, 2, 3):
             for wire in wires:
@@ -1172,24 +1226,27 @@ def check_haar(hk, dev):
                 g = haar_input(shape, level + shape[0], dev, scale, True)
                 want = href.haar_dwt_fwd_q(g, level, wire)
                 runs = [hk.haar_dwt_fwd_q(g, level, wire) for _ in range(2)]
-                check_bands(f"K3 {shape} l={level} {wire}", runs, want)
+                err = max(err, check_bands(f"K3 {shape} l={level} {wire}",
+                                           runs, want))
                 n_checks += 1
             for dtype in (torch.float32, torch.bfloat16):
                 g = haar_input(shape, 7 + level, dev, 1.0, False).to(dtype)
                 want = href.haar_dwt_fwd(g, level)
                 runs = [hk.haar_dwt_fwd(g, level) for _ in range(2)]
-                check_bands(f"K6 {shape} l={level} {dtype}", runs, want)
+                err = max(err, check_bands(f"K6 {shape} l={level} {dtype}",
+                                           runs, want))
                 bands = runs[0]
                 want = [href.haar_dwt_inv(bands[0], bands[1:])]
                 runs = [[hk.haar_dwt_inv(bands[0], bands[1:])]
                         for _ in range(2)]
-                check_bands(f"K7 {shape} l={level} {dtype}", runs, want)
+                err = max(err, check_bands(f"K7 {shape} l={level} {dtype}",
+                                           runs, want))
                 n_checks += 2
     torch.cuda.synchronize()
     print(f"K3/K6/K7 vs plain: {n_checks} cases bitwise (every band, NaN "
           f"codes included), two runs bitwise")
     check_haar_groups(hk, dev)
-    return 0.0
+    return err
 
 
 def unaligned(x):
@@ -2339,7 +2396,7 @@ def time_tile_bf16(kernel, g, mm, vv, shape, flush):
     return out
 
 
-def tile_entry(name, launches, rows, **extra):
+def tile_entry(name, launches, max_abs_err, rows, **extra):
     """K4's or K5's line: one step's worth, with the parent's design and
     the same-byte copy timed in the same call."""
     parent = None if rows[0]["parent_ms"] is None else \
@@ -2347,7 +2404,7 @@ def tile_entry(name, launches, rows, **extra):
     return step_entry(name, "gwt_adam/csrc/gwt_adam_tile.cu",
                       "src/repro/kernels/gwt_adam/kernel.py:"
                       + ("214" if name.endswith("q8") else "261"),
-                      launches, 0.0, rows, parent_ms=parent,
+                      launches, max_abs_err, rows, parent_ms=parent,
                       copy_ms=sum(r["copy_ms"] * r["per_step"] for r in rows),
                       **extra)
 
@@ -2394,6 +2451,28 @@ def bf16_step(rows):
     """One step's worth of K1's or K4's launches with bf16 moments."""
     return {k: sum(r["bf16_moments"][k] * r["per_step"] for r in rows)
             for k in ("ms", "call_ms", "bound_ms")}
+
+
+def grouped_entry(name, source, replaces, launches, groups, klabel):
+    """A grouped K1's or K2's line (phase 40): one step's grouped launches
+    at llama-60m's LoRA adapter buckets (``ms``, ``bound_ms``,
+    ``plain_ms``, ``host_us``) beside the same buckets' per-bucket
+    launches in the same call; ``launches``: phase 29's grouped launches
+    (20 steps); ``max_abs_err``: phase 40's largest |grouped - plain| and
+    |grouped - per-bucket| over every set, CASE and kernel; every set's row
+    under ``sets``."""
+    rows = [r for r in groups["times"] if r["kernel"] == klabel]
+    row = rows[0]
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/" + source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": groups["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "per_bucket_ms": row["per_bucket_ms"],
+            "host_us": row["host_us"],
+            "per_bucket_host_us": row["per_bucket_host_us"], "sets": rows,
+            "checked": groups["launches"], "phase_s": groups["phase_s"]}
 
 
 def fused_entry(name, source, replaces, launches, max_abs_err, rows,
@@ -2646,16 +2725,54 @@ def one_pass(kernel, shape, dtype, q8=False, pdtype=None,
                                 pdtype=pdtype)["grid"] > 0
 
 
+def pinned_sets(shapes, dtype, pdtype, level, q8):
+    """The PINNED_GROUPS row of these buckets, and its K1 (``q8``: K2)
+    sets; ``(None, [])`` where no row names them."""
+    key = ([tuple(s) for s in shapes], dtype, pdtype or dtype, level)
+    for label, bs, dt, pdt, lv, k1, k2 in PINNED_GROUPS:
+        if ([tuple(s) for s in bs], dt, pdt or dt, lv) == key:
+            return label, k2 if q8 else k1
+    return None, []
+
+
+def plan_counts(kernel, shapes, dtype, q8=False, pdtype=None,
+                mdtype=torch.float32, level=LEVEL, alone=False):
+    """K1's (``q8``: K2's) counters a step when the engine updates GWT
+    buckets of ``shapes`` in plan order: each set PINNED_GROUPS names one
+    grouped launch (one pass), every other bucket its own launch in the
+    design the capacity rule names (``alone``: no set, every bucket alone,
+    as under :func:`buckets_alone`).  Raises where the card's
+    ``kernel.group_plan`` (the engine's) is not the pinned launches."""
+    name = "gwt_adam_fused_q8" if q8 else "gwt_adam_fused"
+    sms, smem = kernel.capacity(name, dtype, level, mdtype, pdtype or dtype)
+    label, sets = pinned_sets(shapes, dtype, pdtype, level, q8)
+    if alone:
+        sets = []
+    else:
+        want = sorted(sets + [[i] for i in range(len(shapes))
+                              if not any(i in x for x in sets)])
+        got = kernel.group_plan([(s, dtype, level, None) for s in shapes],
+                                sms, smem)
+        if got != want:
+            raise AssertionError(f"{label or shapes}: group_plan on this "
+                                 f"card gives {got}, pinned {want}")
+    single = [i for i in range(len(shapes)) if not any(i in x for x in sets)]
+    two = sum(not kernel.one_pass_fits(shapes[i], dtype, level, sms, smem)
+              for i in single)
+    k = "K2" if q8 else "K1"
+    n = len(sets) + len(single)
+    return {k: n, f"{k} one-pass": n - two, f"{k} two-pass": two,
+            f"{k} group": len(sets),
+            f"{k} group buckets": sum(map(len, sets))}
+
+
 def fused_plan_counts(kernel, cfg, steps, q8=False, level=LEVEL):
     """K1's (``q8``: K2's) expected counters over ``steps`` steps of
-    GWT-``level`` on ``cfg``, each bucket in the design the capacity rule
-    names."""
+    GWT-``level`` on ``cfg`` (:func:`plan_counts`)."""
     buckets, _ = gwt_buckets(cfg, level)
-    ones = sum(one_pass(kernel, s, cfg.torch_dtype, q8, level=level)
-               for _, s in buckets)
-    k = "K2" if q8 else "K1"
-    return {k: len(buckets) * steps, f"{k} one-pass": ones * steps,
-            f"{k} two-pass": (len(buckets) - ones) * steps}
+    return {k: v * steps for k, v in plan_counts(
+        kernel, [s for _, s in buckets], cfg.torch_dtype, q8,
+        level=level).items()}
 
 
 # phase 21's whole-bucket kernels: (label, K2?, moment dtype)
@@ -2875,8 +2992,8 @@ def qwen_buckets(layers):
 def run_dense_main(train, kernel, hk, codec="f32"):
     """Phase 22: qwen2.5-3b at full width, ``QWEN_LAYERS`` layers, through
     the launcher, GWT-2, f32 (``codec`` int8: blocked-int8) moments,
-    synthetic data, remat: K1 (int8: K2) exactly 6 times a step in the
-    designs the plan names, nothing else; the state the JAX package's
+    synthetic data, remat: K1 (int8: K2) as ``plan_counts`` names (4 a
+    step: one grouped launch and three two-pass), nothing else; the state the JAX package's
     bytes; losses finite and falling."""
     with depth_cut("qwen2.5-3b", QWEN_LAYERS) as cfg:
         buckets, _ = gwt_buckets(cfg)
@@ -3653,6 +3770,74 @@ LORA_BUCKETS = {"llama-60m": [(1, 11008, 8), (5, 64, 512), (6, 4096, 8),
                                (6, 73728, 8), (2, 288, 11008),
                                (2, 288, 256)]}
 LORA_SERVE = {"requests": 8, "prompt": 128, "gen": 32}
+# phase 29's rounds of A B B A, the LoRA step grouped (A) and with every
+# adapter bucket alone (B)
+PHASE29_ROUNDS = 1
+
+# The grouped launches the engine makes a step on the H100 (132 SMs; a
+# block's 14 chunk slots of 16 KB for K1 and 13 for K2 at bf16 and level
+# 2, tests/test_torch_fused_group.py): per configuration, its GWT buckets
+# as K1 takes them in plan order, g's and p's dtypes (None: g's), the level,
+# and K1's and K2's sets of buckets that share a launch (indices into the
+# buckets).  Written out, not taken from kernel.group_plan, which the engine
+# calls itself: plan_counts holds the card's plan to these, the counters to
+# both.  Bucket lists no row names group nothing (llama-60m's, the 2-layer
+# MoE, deepseek, gemma, jamba and seamless cuts: no two neighbouring
+# one-pass buckets).
+LLAMA_TINY_BUCKETS = [(1, 2752, 256), (2, 1024, 688), (4, 1024, 256)]
+# the same cut to COMPARE_LAYERS (2) layers
+LLAMA_TINY_2_BUCKETS = [(1, 1376, 256), (2, 512, 688), (4, 512, 256)]
+XLSTM_8_BUCKETS = [(7, 2048, 1024), (8, 1024, 4096), (21, 2048, 2048),
+                   (1, 1, 4096), (1, 1408, 1024), (2, 1024, 1408)]
+PINNED_GROUPS = [
+    # 11 + 20 + 24 + 22 = 77 chunks: one launch
+    ("llama-60m LoRA adapters", LORA_BUCKETS["llama-60m"], torch.bfloat16,
+     torch.float32, 2, [[0, 1, 2, 3]], [[0, 1, 2, 3]]),
+    # 387 + 216 + 432 + 774 + 18 = 1827 chunks: K1's 14 x 132 = 1848 holds
+    # them; K2's 1716 takes the first three, then the last two
+    ("qwen2.5-3b LoRA adapters", LORA_BUCKETS["qwen2.5-3b"], torch.bfloat16,
+     torch.float32, 2, [[0, 1, 2, 3, 4]], [[0, 1, 2], [3, 4]]),
+    # phase 39's cut: 22 + 12 + 24 + 44 + 2 chunks
+    ("qwen2.5-3b 2 layers LoRA adapters",
+     [(1, 22016, 8), (3, 16, 2048), (6, 4096, 8), (2, 16, 11008),
+      (2, 16, 256)], torch.bfloat16, torch.float32, 2,
+     [[0, 1, 2, 3, 4]], [[0, 1, 2, 3, 4]]),
+    # phases 22 and 37: bk/bv, bq and wk/wv, 2 + 3 + 1152 chunks; the rest
+    # two-pass
+    ("qwen2.5-3b 9 layers",
+     [(1, 99072, 2048), (2, 18432, 11008), (2, 9, 256), (1, 9, 2048),
+      (2, 18432, 256), (2, 18432, 2048)], torch.bfloat16, None, 2,
+     [[2, 3, 4]], [[2, 3, 4]]),
+    # phase 24's cut: the same three, 2 + 1 + 256 chunks
+    ("qwen2.5-3b 2 layers",
+     [(1, 22016, 2048), (2, 4096, 11008), (2, 2, 256), (1, 2, 2048),
+      (2, 4096, 256), (2, 4096, 2048)], torch.bfloat16, None, 2,
+     [[2, 3, 4]], [[2, 3, 4]]),
+    # phase 31: the bias buckets, 2 + 1 chunks
+    ("qwen2-vl-72b 1 layer",
+     [(1, 29568, 8192), (2, 8192, 29568), (2, 1, 1024), (1, 1, 8192),
+      (2, 8192, 1024), (2, 8192, 8192)], torch.bfloat16, None, 2,
+     [[2, 3]], [[2, 3]]),
+    # phase 39: two attention buckets, 256 + 1024 chunks
+    ("qwen3-moe-30b-a3b 1 layer",
+     [(1, 98304, 2048), (2, 262144, 768), (2, 2048, 512), (1, 4096, 2048),
+      (1, 2048, 4096)], torch.bfloat16, None, 2, [[2, 3]], [[2, 3]]),
+    # phases 34 and 39: the three one-pass buckets, 1 + 176 + 352 chunks
+    ("xlstm-350m 8 layers", XLSTM_8_BUCKETS, torch.bfloat16, None, 2,
+     [[3, 4, 5]], [[3, 4, 5]]),
+    ("xlstm-350m 8 layers f32", XLSTM_8_BUCKETS, torch.float32, None, 2,
+     [[3, 4, 5]], [[3, 4, 5]]),
+    # phase 38: the examples' llama-tiny, 86 + 172 + 128 chunks at GWT-2
+    ("llama-tiny (the examples) GWT-2", LLAMA_TINY_BUCKETS, torch.bfloat16,
+     None, 2, [[0, 1, 2]], [[0, 1, 2]]),
+    ("llama-tiny (the examples) GWT-3", LLAMA_TINY_BUCKETS, torch.bfloat16,
+     None, 3, [[0, 1, 2]], [[0, 1, 2]]),
+    # compare_optimizers at 2 layers: 43 + 86 + 64 chunks at GWT-2
+    ("llama-tiny 2 layers GWT-2", LLAMA_TINY_2_BUCKETS, torch.bfloat16,
+     None, 2, [[0, 1, 2]], [[0, 1, 2]]),
+    ("llama-tiny 2 layers GWT-3", LLAMA_TINY_2_BUCKETS, torch.bfloat16,
+     None, 3, [[0, 1, 2]], [[0, 1, 2]]),
+]
 # phases 31-32: (arch, layers, batch, seq, the JAX package's GWT-2 state
 # bytes at that depth).  Every width is the published one; only depth is
 # cut, to fit one card: qwen2-vl-72b's 8192 width, 29,568 d_ff and untied
@@ -3685,10 +3870,10 @@ def lora_argv(base, codec, ckpt=None, arch="llama-60m", steps=STEPS):
     return argv
 
 
-def lora_plan(kernel, arch, q8, check=True):
+def lora_plan(kernel, arch, q8, check=True, alone=False):
     """The adapter buckets of the launcher's LoRA tree on ``arch`` (checked
     against LORA_BUCKETS unless ``check`` is False: a depth cut's) and
-    K1's (``q8``: K2's) counters a step."""
+    K1's (``q8``: K2's) counters a step (:func:`plan_counts`)."""
     from repro_torch import configs, optim
     from repro_torch.models import lm, lora
     from repro_torch.optim.base import flatten_with_paths
@@ -3705,11 +3890,22 @@ def lora_plan(kernel, arch, q8, check=True):
             raise AssertionError(f"{arch} LoRA: bucket {b.name}")
     if check and got != LORA_BUCKETS[arch]:
         raise AssertionError(f"{arch} LoRA buckets {got}")
-    ones = sum(one_pass(kernel, s, configs.get_config(arch).torch_dtype, q8,
-                        pdtype=torch.float32) for s in got)
-    k = "K2" if q8 else "K1"
-    return {k: len(got), f"{k} one-pass": ones,
-            f"{k} two-pass": len(got) - ones}
+    return plan_counts(kernel, got, configs.get_config(arch).torch_dtype, q8,
+                       pdtype=torch.float32, alone=alone)
+
+
+@contextlib.contextmanager
+def buckets_alone():
+    """The engine with every GWT bucket alone, as before grouped launches:
+    the ops grouping function replaced, inside this script only."""
+    from repro_torch.kernels.gwt_adam import ops
+    grouping = ops.fused_write_groups
+    ops.fused_write_groups = lambda buckets, **kw: [
+        [i] for i in range(len(buckets))]
+    try:
+        yield
+    finally:
+        ops.fused_write_groups = grouping
 
 
 def check_buckets_whole(kernel, ref, dev, label, shapes, dtype, kernels,
@@ -3819,20 +4015,22 @@ def time_buckets(kernel, ref, dev, label, shapes, dtype, q8=False,
     return rows
 
 
-def lora_finetune(train, kernel, hk, label, argv, arch, codec, steps):
+def lora_finetune(train, kernel, hk, label, argv, arch, codec, steps,
+                  alone=False):
     """One ``--finetune lora`` run of the launcher, the counts set to 0
-    just before and read just after: K1 (int8: K2) exactly once per
-    adapter bucket a step, in the designs the plan names; the state the
-    JAX package's bytes; the base bitwise as restored (or as drawn)."""
+    just before and read just after: K1 (int8: K2) as the plan groups the
+    adapter buckets each step (``alone``: every bucket alone), in the
+    designs it names; the state the JAX package's bytes."""
     from repro_torch.optim.engine import state_bytes
     q8 = codec == "int8"
-    per_step = lora_plan(kernel, arch, q8)
+    per_step = lora_plan(kernel, arch, q8, alone=alone)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(kernel, hk)
     t0 = time.perf_counter()
-    res = train.main(argv)
+    with buckets_alone() if alone else contextlib.nullcontext():
+        res = train.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = all_counts(kernel, hk)
@@ -3880,6 +4078,15 @@ def run_lora_roundtrip(train, kernel, hk, ref, dev, base):
     ft = tempfile.mkdtemp(prefix="chip_smoke_lora_")
     try:
         for codec in ("f32", "int8"):
+            # the rule at the H100's capacity: one grouped launch a step
+            # over the four adapter buckets
+            k = "K2" if codec == "int8" else "K1"
+            per_step = lora_plan(kernel, "llama-60m", codec == "int8")
+            if (per_step[k], per_step[f"{k} group"],
+                    per_step[f"{k} group buckets"]) != (1, 1, 4):
+                raise AssertionError(f"LoRA {codec}: the plan gives "
+                                     f"{per_step}, want one grouped launch "
+                                     f"over 4 buckets a step")
             res, summary = lora_finetune(
                 train, kernel, hk, f"phase 29 llama-60m LoRA {codec}",
                 lora_argv(base, codec, ft if codec == "f32" else None),
@@ -3888,8 +4095,45 @@ def run_lora_roundtrip(train, kernel, hk, ref, dev, base):
                                  flatten_with_paths(base_params)[1]):
                 if not torch.equal(a, b):
                     raise AssertionError(f"LoRA {codec}: base {p} moved")
+            # the same run with every adapter bucket alone (4 launches a
+            # step): bitwise the grouped run's
+            alone, summary["alone"] = lora_finetune(
+                train, kernel, hk, f"phase 29 llama-60m LoRA {codec}, "
+                f"every bucket alone", lora_argv(base, codec), "llama-60m",
+                codec, STEPS, alone=True)
+            if alone.losses != res.losses:
+                raise AssertionError(f"LoRA {codec}: losses grouped "
+                                     f"{res.losses}, alone {alone.losses}")
+            assert_bitwise(res.params, alone.params,
+                           f"LoRA {codec} grouped vs alone, parameters")
+            assert_bitwise(res.opt_state, alone.opt_state,
+                           f"LoRA {codec} grouped vs alone, state")
+            del res, alone
+            # the step grouped (A) and alone (B), A B B A, PHASE29_ROUNDS
+            # times over: the runs above are the first A B
+            runs = {"grouped": [summary["step_ms"]],
+                    "alone": [summary["alone"]["step_ms"]]}
+            order = ["alone", "grouped"] + ["grouped", "alone", "alone",
+                                            "grouped"] * (PHASE29_ROUNDS - 1)
+            for side in order:
+                res, more = lora_finetune(
+                    train, kernel, hk, f"phase 29 llama-60m LoRA {codec}, "
+                    f"{side} (timed)", lora_argv(base, codec), "llama-60m",
+                    codec, STEPS, alone=side == "alone")
+                runs[side].append(more["step_ms"])
+                del res
+            summary["step_ms_runs"] = runs
+            spread = {k: (float(np.mean(v)), min(v), max(v))
+                      for k, v in runs.items()}
+            summary["step_ms_mean_min_max"] = spread
+            print(f"phase 29 llama-60m LoRA {codec}: {STEPS} steps grouped "
+                  f"({summary['launches']}) bitwise to every bucket alone "
+                  f"({summary['alone']['launches']}): parameters, state, "
+                  f"losses; steady step A B B A x {PHASE29_ROUNDS}: grouped "
+                  f"{runs['grouped']} ms (mean {spread['grouped'][0]}), "
+                  f"alone {runs['alone']} ms (mean {spread['alone'][0]}); "
+                  f"card {smi()}")
             out[codec] = summary
-            del res
         check_buckets_whole(kernel, ref, dev, "LoRA llama-60m",
                             LORA_BUCKETS["llama-60m"], cfg.torch_dtype,
                             (torch.float32, None), pdtype=torch.float32)
@@ -3976,6 +4220,288 @@ def run_lora_qwen(train, kernel, hk, ref, dev):
     out["k1_adapter_buckets"] = time_buckets(
         kernel, ref, dev, "LoRA qwen2.5-3b", LORA_BUCKETS["qwen2.5-3b"],
         torch.bfloat16, pdtype=torch.float32)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 40: the grouped K1 and K2 (kernel.gwt_adam_fused_group,
+# gwt_adam_fused_q8_group), one launch over several one-pass buckets.
+# Each set is held in every CASE with K1 over f32 and bf16 moments and
+# with K2: every output bitwise the same buckets' per-bucket launches and
+# the grouped plain version; each bucket has its own step size and weight
+# decay, so a bucket's scalars reaching another shows.  Then each set is
+# timed as grouped launches beside its per-bucket launches, A B B A.
+def grouped_set(row):
+    """A PINNED_GROUPS row as a GROUP_SETS set: the buckets its launches
+    take, and the launches as indices into them."""
+    label, shapes, dtype, pdtype, level, k1, k2 = row
+    members = sorted({i for x in k1 + k2 for i in x})
+    at = {i: j for j, i in enumerate(members)}
+    return (label, [shapes[i] for i in members], dtype, pdtype, level,
+            [[at[i] for i in x] for x in k1], [[at[i] for i in x] for x in k2])
+
+
+# (label, shapes, g dtype, p dtype (None: g's), level, K1's launches, K2's)
+GROUP_SETS = [grouped_set(row) for row in PINNED_GROUPS] + [
+    # qwen2.5-3b's one-pass buckets at full depth: the stacked QKV biases
+    ("qwen2.5-3b bias buckets", [(2, 36, 256), (1, 36, 2048)],
+     torch.bfloat16, None, LEVEL, [[0, 1]], [[0, 1]]),
+    # a FIRST-mode leaf's transposed stack with two LAST-mode buckets of
+    # other widths (the bias buckets), bf16 p: the GWT rules share a group
+    ("FIRST-mode with LAST-mode", [FIRST_SHAPE[1], (2, 36, 256),
+                                   (1, 36, 2048)], torch.bfloat16, None,
+     LEVEL, [[0, 1, 2]], [[0, 1, 2]]),
+]
+# the sets time_groups times, in this order
+TIMED_GROUP_SETS = ("llama-60m LoRA adapters", "qwen2.5-3b LoRA adapters",
+                    "qwen2.5-3b bias buckets")
+# a FIRST-mode bucket and a bucket of another level: group_plan splits
+# them, the grouped wrappers refuse them
+GROUP_MIXED_LEVELS = [(FIRST_SHAPE[1], LEVEL), ((2, 36, 256), LEVEL + 1)]
+# grouped K1's and K2's kernels: (label, K2?, moment dtype)
+GROUP_KERNELS = WHOLE_KERNELS
+
+
+def grouped_calls(shapes, dtype, pdtype, mdtype, case, dev, ci,
+                  level=LEVEL):
+    """One CASE's per-bucket calls over ``shapes`` (K2 where ``mdtype`` is
+    None): the kernel's ``(args, kw)`` each (fresh copies of the inputs
+    each time it is called: ``calls()``) and the plain version's."""
+    _, use_lim, prev, wd = case
+    kw = dict(level=level, gamma=1.01, use_limiter=use_lim,
+              weight_decay=wd != 0)
+    plain, inputs = [], []
+    for k, shape in enumerate(shapes):
+        L = shape[0]
+        sd = seed(ci, shape[2], level, 1) + 31 * k
+        pn = torch.full((L,), prev, device=dev)
+        ss = torch.tensor(1e-3 * (k + 1), device=dev)
+        wd_coef = torch.tensor(wd * (k + 1), device=dev)
+        if mdtype is None:
+            g, *st = make_q8_inputs(shape, sd, dev, level, dtype=dtype,
+                                    pdtype=pdtype)
+            salts = q8_salts(L, dev, step=3 + k)
+            us = [t.to(torch.uint32) for t in salts]
+            plain.append(((g, *st, *salts, pn, ss, wd_coef),
+                          dict(kw, block=QBLOCK)))
+            inputs.append((g, st, us, pn, ss, wd_coef))
+        else:
+            g, *st = make_inputs(shape, sd, dev, level, dtype=dtype,
+                                 mdtype=mdtype, pdtype=pdtype)
+            plain.append(((g, *st, pn, ss, wd_coef), kw))
+            inputs.append((g, st, [], pn, ss, wd_coef))
+
+    def calls():
+        return [((g, *(t.clone() for t in st), *us, pn, ss, wd_coef),
+                 dict(kw, block=QBLOCK) if us else kw)
+                for g, st, us, pn, ss, wd_coef in inputs]
+    return calls, plain
+
+
+def group_launches(kernel, name, shapes, dtype, pdtype, mdtype,
+                   level=LEVEL):
+    """``kernel.group_plan``'s launches of ``shapes`` at the card's
+    capacity for these dtypes."""
+    sms, smem = kernel.capacity(name, dtype, level, mdtype or torch.float32,
+                                pdtype or dtype)
+    return kernel.group_plan([(s, dtype, level, None) for s in shapes], sms,
+                             smem)
+
+
+def launch_sets(grouped, launches, calls):
+    """Each of ``launches`` (index lists into ``calls``) as one grouped
+    call; the results in the calls' order."""
+    out = [None] * len(calls)
+    for launch in launches:
+        for i, r in zip(launch, grouped([calls[i] for i in launch])):
+            out[i] = r
+    return out
+
+
+def check_groups(kernel, ref, dev):
+    """Phase 40's checks: every GROUP_SETS set in every CASE with each of
+    GROUP_KERNELS, each pinned launch one grouped call: grouped ==
+    per-bucket == grouped plain on every output, each call counted once
+    by launch and by its buckets, the card's ``group_plan`` the pinned
+    launches; the mixed-level set split by the plan and refused by both
+    wrappers.  Returns each set's launches per kernel and the largest
+    |grouped - plain| and |grouped - per-bucket| measured."""
+    t0 = time.perf_counter()
+    out, err = {}, 0.0
+    for label, shapes, dtype, pdtype, level, k1, k2 in GROUP_SETS:
+        out[label] = {}
+        for klabel, q8, mdtype in GROUP_KERNELS:
+            name = "gwt_adam_fused_q8" if q8 else "gwt_adam_fused"
+            launches = k2 if q8 else k1
+            planned = group_launches(kernel, name, shapes, dtype, pdtype,
+                                     mdtype, level)
+            if planned != launches or sorted(
+                    i for x in launches for i in x) != list(range(
+                        len(shapes))):
+                raise AssertionError(f"{label} {klabel}: group_plan on "
+                                     f"this card gives {planned}, pinned "
+                                     f"{launches}")
+            grouped = kernel.gwt_adam_fused_q8_group if q8 \
+                else kernel.gwt_adam_fused_group
+            single = kernel.gwt_adam_fused_q8 if q8 \
+                else kernel.gwt_adam_fused
+            plain = ref.gwt_adam_fused_q8_group if q8 \
+                else ref.gwt_adam_fused_group
+            names = ("p", "qm", "sm", "qv", "sv", "norm") if q8 \
+                else ("p", "m", "v", "norm")
+            for ci, case in enumerate(CASES):
+                calls, plain_calls = grouped_calls(
+                    shapes, dtype, pdtype, mdtype, case, dev, ci, level)
+                want = plain(plain_calls)
+                per = [single(*a, **kw) for a, kw in calls()]
+                fresh = calls()
+                before = all_group_counts(kernel)
+                got = launch_sets(grouped, launches, fresh)
+                torch.cuda.synchronize()
+                counts = {k: v - before[k]
+                          for k, v in all_group_counts(kernel).items()}
+                k = "K2" if q8 else "K1"
+                wcounts = {k: len(launches), f"{k} group": len(launches),
+                           f"{k} group buckets": len(shapes)}
+                if {c: counts[c] for c in wcounts} != wcounts:
+                    raise AssertionError(f"{label} {klabel} {case[0]}: "
+                                         f"counted {counts}, want {wcounts}")
+                for shape, a, b, w in zip(shapes, got, per, want):
+                    err = max(err, check_bands(
+                        f"grouped {klabel} {label} {shape} / {case[0]}",
+                        [a, b], w, names),
+                        max(abs_err(x, y) for x, y in zip(a, b)))
+                del got, per, want, fresh
+            out[label][klabel] = launches
+            for launch in launches:
+                plan = kernel.group_launch_plan(
+                    name, [shapes[i] for i in launch], dtype, level,
+                    mdtype or torch.float32, pdtype)
+                print(f"phase 40 group plan {name} {label} {launch} "
+                      f"({klabel}): {plan['regs']} registers/thread, "
+                      f"{plan['local_bytes']} B local, "
+                      f"{plan['blocks_per_sm']} blocks/SM x "
+                      f"{plan['slots']} chunk slots, grid {plan['grid']}")
+        print(f"phase 40 {label} {shapes} {dtype} l={level}: grouped K1 "
+              f"(f32 and bf16 moments) and K2 in {len(CASES)} cases "
+              f"bitwise to the per-bucket launches and the grouped plain "
+              f"version; launches {out[label]}")
+    # mixed levels: split by the plan, refused by the wrappers
+    (s0, l0), (s1, l1) = GROUP_MIXED_LEVELS
+    dtype = torch.bfloat16
+    sms, smem = kernel.capacity("gwt_adam_fused", dtype, l0)
+    split = kernel.group_plan([(s0, dtype, l0, None), (s1, dtype, l1, None)],
+                              sms, smem)
+    if split != [[0], [1]]:
+        raise AssertionError(f"mixed levels planned as {split}")
+    for q8 in (False, True):
+        calls = []
+        for shape, level in GROUP_MIXED_LEVELS:
+            c, _ = grouped_calls([shape], dtype, None,
+                                 None if q8 else torch.float32, CASES[0],
+                                 dev, 0, level)
+            calls += c()
+        before = all_group_counts(kernel)
+        try:
+            (kernel.gwt_adam_fused_q8_group if q8
+             else kernel.gwt_adam_fused_group)(calls)
+        except ValueError as e:
+            if "level" not in str(e):
+                raise
+        else:
+            raise AssertionError("a group of two levels was launched")
+        if all_group_counts(kernel) != before:
+            raise AssertionError("a refused group counted launches")
+    print(f"phase 40: a FIRST-mode bucket and a level-{l1} bucket planned "
+          f"as {split}, refused by both grouped wrappers; max |diff| {err}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, err
+
+
+def all_group_counts(kernel):
+    return {"K1": kernel.launches, "K1 group": kernel.launches_group,
+            "K1 group buckets": kernel.buckets_group,
+            "K2": kernel.launches_q8, "K2 group": kernel.launches_q8_group,
+            "K2 group buckets": kernel.buckets_q8_group}
+
+
+def time_groups(kernel, ref, dev):
+    """Phase 40's times: per set and kernel (K1 f32 moments, K2), one
+    step's grouped launches beside the same buckets' per-bucket launches
+    in the same call, A B B A (device ms: CUDA events around each call, L2
+    flushed before it, the best of each side's runs of 10), the bounds
+    (``bound``, ``bound_q8``), the grouped plain version, and each
+    wrapper's host µs a call."""
+    flush = torch.empty(64 << 20, device=dev)
+    rows = []
+    sets = {row[0]: row for row in GROUP_SETS}
+    for label, shapes, dtype, pdtype, level, k1, k2 in (
+            sets[t] for t in TIMED_GROUP_SETS):
+        for klabel, q8, mdtype in (GROUP_KERNELS[0], GROUP_KERNELS[2]):
+            launches = k2 if q8 else k1
+            calls, plain_calls = grouped_calls(
+                shapes, dtype, pdtype, mdtype, CASES[1], dev, 1, level)
+            fixed = calls()    # timed in place, as the step updates them
+            grouped = kernel.gwt_adam_fused_q8_group if q8 \
+                else kernel.gwt_adam_fused_group
+            single = kernel.gwt_adam_fused_q8 if q8 \
+                else kernel.gwt_adam_fused
+            plain = ref.gwt_adam_fused_q8_group if q8 \
+                else ref.gwt_adam_fused_group
+            n, m = len(launches), len(shapes)
+            fn = {"group": lambda: launch_sets(grouped, launches, fixed),
+                  "single": lambda: [single(*a, **kw) for a, kw in fixed]}
+            ctr = {"group": (lambda: kernel.launches_q8_group // n) if q8
+                   else (lambda: kernel.launches_group // n),
+                   "single": (lambda: (kernel.launches_q8 -
+                                       kernel.launches_q8_group) // m)
+                   if q8 else (lambda: (kernel.launches -
+                                        kernel.launches_group) // m)}
+            t = {"group": [], "single": []}
+            for side in ("group", "single", "single", "group"):
+                t[side].append(device_ms(fn[side], 10, ctr[side], flush))
+            t_plain = time_ms(lambda: plain(plain_calls), 1)
+            host = {side: host_us(fn[side]) for side in fn}
+            esize = dtype.itemsize
+            psize = (pdtype or dtype).itemsize
+            b = [bound_q8(s, esize, psize) if q8 else bound(s, esize,
+                                                             psize=psize)
+                 for s in shapes]
+            b_ms = sum(x[0] for x in b)
+            row = {"set": label, "kernel": klabel,
+                   "shapes": [list(s) for s in shapes],
+                   "launches": launches, "ms": min(t["group"]),
+                   "per_bucket_ms": min(t["single"]), "runs": t,
+                   "plain_ms": t_plain, "bound_ms": b_ms,
+                   "bound_by": "bytes" if all(x[1] == "bytes" for x in b)
+                   else "operations", "bytes": sum(x[2] for x in b),
+                   "host_us": host["group"],
+                   "per_bucket_host_us": host["single"]}
+            print(f"phase 40 time {klabel} {label}: grouped "
+                  f"{row['ms']:.4f} ms a step on the device in {n} "
+                  f"launch(es) ({b_ms / row['ms']:.1%} of bound "
+                  f"{b_ms:.4f} ms by {row['bound_by']}), per-bucket "
+                  f"{row['per_bucket_ms']:.4f} ms in {m} launches "
+                  f"({b_ms / row['per_bucket_ms']:.1%}); runs A B B A "
+                  f"{t['group'][0]:.4f} / {t['single'][0]:.4f} / "
+                  f"{t['single'][1]:.4f} / {t['group'][1]:.4f}; host "
+                  f"{host['group']:.1f} vs {host['single']:.1f} us a call; "
+                  f"plain {t_plain:.3f} ms; card {smi()}")
+            rows.append(row)
+            del fixed, calls, plain_calls
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_groups(kernel, ref, dev):
+    """Phase 40: :func:`check_groups`, then :func:`time_groups`."""
+    t0 = time.perf_counter()
+    launches, err = check_groups(kernel, ref, dev)
+    out = {"launches": launches, "max_abs_err": err,
+           "times": time_groups(kernel, ref, dev)}
+    out["phase_s"] = time.perf_counter() - t0
     return out
 
 
@@ -5951,9 +6477,11 @@ def main() -> int:
     err_k1, designs_k1 = check_fused(kernel, ref, dev, q8=False)
     err_k2, designs_k2 = check_fused(kernel, ref, dev, q8=True)
     err_haar = check_haar(hk, dev)
-    tile_cases_run = check_tile(kernel, ref, dev)
+    tile_cases_run, err_tile = check_tile(kernel, ref, dev)
     check_small_training(dev)
-    lap("phases 2-4, 10, 13 (the kernels against their plain versions)")
+    groups = run_groups(kernel, ref, dev)
+    lap("phases 2-4, 10, 13, 40 (the kernels against their plain versions;"
+        " the grouped K1/K2 checked and timed)")
 
     res32, launches_k1, peak32 = run_main_path(train, kernel, hk, "f32")
     res8, launches_k2, peak8 = run_main_path(train, kernel, hk, "int8")
@@ -6125,6 +6653,16 @@ def main() -> int:
                         "metrics_dir": observability["metrics_dir"]["int8"]},
                     sharded_params=shard["llama-60m int8 compressed"],
                     tensor_parallel=tp["llama-60m int8"]),
+        grouped_entry("gwt_adam_fused_group",
+                      "gwt_adam/csrc/gwt_adam_fused.cu",
+                      "src/repro/kernels/gwt_adam/kernel.py:404",
+                      lora_llama["f32"]["launches"].get("K1 group", 0),
+                      groups, "K1 f32 moments"),
+        grouped_entry("gwt_adam_fused_q8_group",
+                      "gwt_adam/csrc/gwt_adam_fused_q8.cu",
+                      "src/repro/kernels/gwt_adam/kernel.py:554",
+                      lora_llama["int8"]["launches"].get("K2 group", 0),
+                      groups, "K2 int8 moments"),
         group_entry("haar_dwt_fwd_q",
                     "src/repro/kernels/haar_dwt/kernel.py:124",
                     dp_counts["K3"], err_haar, rows_haar["K3 bf16"],
@@ -6145,7 +6683,8 @@ def main() -> int:
                        r["parent_ms"] * r["per_step"]
                        for r in rows_haar["K7 f32"])),
         tile_entry("gwt_adam_tile", staged32["launches"]["K4"],
-                   rows_tile["K4"], phase_13_cases=tile_cases_run,
+                   err_tile["K4"], rows_tile["K4"],
+                   phase_13_cases=tile_cases_run,
                    staged_f32=staged32, staged_int8=staged8,
                    profile=prof_staged, update_memory=memory,
                    launcher_choices=choices, moment_dtypes=MOMENT_NAMES,
@@ -6154,7 +6693,7 @@ def main() -> int:
                    observability=observability["engine"][
                        "llama-60m staged f32 (K4)"]),
         tile_entry("gwt_adam_tile_q8", staged32["launches"]["K5"],
-                   rows_tile["K5"], phase_13_cases=tile_cases_run),
+                   err_tile["K5"], rows_tile["K5"], phase_13_cases=tile_cases_run),
     ]
     print(json.dumps({"kernels": entries}))
     print(smi())

@@ -25,7 +25,10 @@ With the Adam host and the Haar wavelet (``use_fused``):
   ``kernels.gwt_adam.ops.fused_write_update`` call (K1, f32 or bf16
   moments), or under int8 one
   ``fused_write_update_q8`` call (K2) that dequantizes and requantizes the
-  moments inside the launch;
+  moments inside the launch; the LAST and FIRST rules share an
+  ``engine.Group``, through which the buckets the card holds together
+  (``ops.fused_write_groups``) go in one ``fused_write_update_group`` (int8:
+  ``fused_write_update_q8_group``) call, one launch;
 * ``fused_write=False``, the staged path: no bucket call; each leaf's
   ``update`` runs ``ops.fused_update`` (K4: DWT, Adam, inverse, G̃ in the
   gradient's dtype, f32 or bf16 moments), then the limiter, the step and
@@ -47,6 +50,7 @@ does).
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Optional
 
 import torch
@@ -155,6 +159,58 @@ def gwt(lr: Schedule | float,
         update=plain_update, slots={"host": plain.slots})
 
     # -- GWT rules: DWT along axis -1 (LAST) or -2 (FIRST) ------------------
+    def write_call(swap, g_stk, p_stk, state, step, salts=None, lr_t=None):
+        # one bucket's fused-write call (K1; with salts K2): FIRST-mode
+        # leaves go in as contiguous transposed copies.  A LoRA adapter of a
+        # bf16 model is f32 under a bf16 gradient (the step casts it to the
+        # model dtype, as the JAX package's does): the kernel rounds G~ and
+        # the limited step to bf16, as the reference's.  Under int8 the
+        # launch dequantizes the blocked moments, updates, requantizes with
+        # the (m=0, v=1) slot salts of codec.map_slots and writes the
+        # parameters
+        gt = g_stk.transpose(-1, -2).contiguous() if swap else g_stk
+        pt = p_stk.transpose(-1, -2).contiguous() if swap else p_stk
+        kw = dict(lr_t=lr(step) if lr_t is None else lr_t, alpha=alpha,
+                  weight_decay=weight_decay, gamma=gamma,
+                  use_limiter=use_limiter, level=level, **adam_kw)
+        if salts is None:
+            return (gt, pt, state["host"], step, state["prev_norm"]), kw
+        return (gt, pt, state["host"], step, salts, state["prev_norm"]), \
+            dict(kw, block=cdc.block)
+
+    def write_result(swap, out):
+        new_p, new_norm, hstate = out
+        if swap:
+            new_p = new_p.transpose(-1, -2)
+        return new_p, {"host": hstate, "prev_norm": new_norm}
+
+    def group_launches(members, device):
+        # the buckets' fused-write calls as the kernel takes them: a
+        # FIRST-mode stack transposed, rows merged
+        buckets = []
+        for kind, shape, g_dtype, p_dtype, st in members:
+            if kind == _Mode.FIRST:
+                shape = shape[:-2] + (shape[-1], shape[-2])
+            buckets.append(((shape[0], math.prod(shape[1:-1]), shape[-1]),
+                            g_dtype, p_dtype,
+                            None if quant else st["host"]["m"].dtype))
+        return gwt_ops.fused_write_groups(buckets, q8=quant, level=level,
+                                          device=device)
+
+    def group_update(members, step):
+        lr_t = lr(step)
+        swaps = [kind == _Mode.FIRST for kind, *_ in members]
+        calls = [write_call(swap, g_stk, p_stk, st, step, *salts, lr_t=lr_t)
+                 for swap, (_, g_stk, p_stk, st, *salts) in zip(swaps,
+                                                                members)]
+        fn = gwt_ops.fused_write_update_q8_group if quant \
+            else gwt_ops.fused_write_update_group
+        return [write_result(swap, out) for swap, out in zip(swaps,
+                                                             fn(calls))]
+
+    group = engine.Group(launches=group_launches, update=group_update) \
+        if use_fused and fused_write else None
+
     def make_gwt_rule(mode: str) -> engine.LeafRule:
         swap = mode == _Mode.FIRST
 
@@ -188,35 +244,16 @@ def gwt(lr: Schedule | float,
             return _apply(p, g_tilde, lr(step), lr_mult, alpha), out
 
         def vector_update(g_stk, p_stk, state, step):
-            # one fused-write call for the whole (L, m, n) bucket; FIRST-mode
-            # leaves go in as contiguous transposed copies.  A LoRA adapter
-            # of a bf16 model is f32 under a bf16 gradient (the step casts
-            # it to the model dtype, as the JAX package's does): the kernel
-            # rounds G~ and the limited step to bf16, as the reference's
-            gt = g_stk.transpose(-1, -2).contiguous() if swap else g_stk
-            pt = p_stk.transpose(-1, -2).contiguous() if swap else p_stk
-            new_p, new_norm, hstate = gwt_ops.fused_write_update(
-                gt, pt, state["host"], step, state["prev_norm"],
-                lr_t=lr(step), alpha=alpha, weight_decay=weight_decay,
-                gamma=gamma, use_limiter=use_limiter, level=level, **adam_kw)
-            if swap:
-                new_p = new_p.transpose(-1, -2)
-            return new_p, {"host": hstate, "prev_norm": new_norm}
+            # one fused-write call for the whole (L, m, n) bucket
+            args, kw = write_call(swap, g_stk, p_stk, state, step)
+            return write_result(swap, gwt_ops.fused_write_update(*args,
+                                                                 **kw))
 
         def vector_update_q8(g_stk, p_stk, state, step, salts):
-            # codec-native: the launch dequantizes the blocked moments,
-            # updates, requantizes with the (m=0, v=1) slot salts of
-            # codec.map_slots and writes the parameters
-            gt = g_stk.transpose(-1, -2).contiguous() if swap else g_stk
-            pt = p_stk.transpose(-1, -2).contiguous() if swap else p_stk
-            new_p, new_norm, hstate = gwt_ops.fused_write_update_q8(
-                gt, pt, state["host"], step, salts, state["prev_norm"],
-                lr_t=lr(step), alpha=alpha, weight_decay=weight_decay,
-                gamma=gamma, use_limiter=use_limiter, level=level,
-                block=cdc.block, **adam_kw)
-            if swap:
-                new_p = new_p.transpose(-1, -2)
-            return new_p, {"host": hstate, "prev_norm": new_norm}
+            # codec-native: K2 on the encoded bucket
+            args, kw = write_call(swap, g_stk, p_stk, state, step, salts)
+            return write_result(swap, gwt_ops.fused_write_update_q8(*args,
+                                                                    **kw))
 
         def taps(gs, old_st, new_st):
             # the band energies of the transformed gradient (a FIRST-mode
@@ -252,7 +289,7 @@ def gwt(lr: Schedule | float,
         return engine.LeafRule(
             kind=mode, init=init, update=update, vector_update=vu,
             slots={"host": h.slots, "prev_norm": False},
-            codec_native=vu is not None and quant, taps=taps)
+            codec_native=vu is not None and quant, taps=taps, group=group)
 
     rules = {_Mode.PLAIN: plain_rule, _Mode.LAST: make_gwt_rule(_Mode.LAST),
              _Mode.FIRST: make_gwt_rule(_Mode.FIRST)}

@@ -4,7 +4,10 @@ Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface on first use, and loaded with ``ctypes``.  The
 libraries go to ``build/torch_kernels/`` at the repository root, named by
 the hash of their sources (shared headers included), so an edited source is
-rebuilt.  :func:`build_all` starts one ``nvcc`` per source at once.
+rebuilt.  :func:`build_all` starts one ``nvcc`` per library at once.  K1's
+and K2's sources each build two libraries: the per-bucket entries, and the
+grouped ones under ``-DGWT_ADAM_GROUPED`` (``DEFINES``), so the two table
+sizes of their one-pass kernel compile side by side.
 Nothing is compiled when this module is imported.
 """
 
@@ -30,13 +33,24 @@ _HAAR = KERNELS / "haar_dwt" / "csrc"
 SOURCES: Dict[str, Tuple[Path, Tuple[Path, ...]]] = {
     "gwt_adam_fused": (_GWT / "gwt_adam_fused.cu",
                        (_GWT / "gwt_adam_common.cuh",)),
+    "gwt_adam_fused_group": (_GWT / "gwt_adam_fused.cu",
+                             (_GWT / "gwt_adam_common.cuh",)),
     "gwt_adam_fused_q8": (_GWT / "gwt_adam_fused_q8.cu",
                           (_GWT / "gwt_adam_common.cuh",
                            _GWT / "gwt_adam_q8.cuh")),
+    "gwt_adam_fused_q8_group": (_GWT / "gwt_adam_fused_q8.cu",
+                                (_GWT / "gwt_adam_common.cuh",
+                                 _GWT / "gwt_adam_q8.cuh")),
     "gwt_adam_tile": (_GWT / "gwt_adam_tile.cu",
                       (_GWT / "gwt_adam_common.cuh",
                        _GWT / "gwt_adam_q8.cuh")),
     "haar_dwt": (_HAAR / "haar_dwt.cu", ()),
+}
+
+# library name (before any "@") -> the macros its source is built with
+DEFINES: Dict[str, Tuple[str, ...]] = {
+    "gwt_adam_fused_group": ("-DGWT_ADAM_GROUPED",),
+    "gwt_adam_fused_q8_group": ("-DGWT_ADAM_GROUPED",),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -75,7 +89,7 @@ def build_all(names=tuple(SOURCES), verbose: bool = False) -> Dict[str, Path]:
         for name in todo:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS,
+            cmd = [_nvcc(), *NVCC_FLAGS, *DEFINES.get(name.split("@")[0], ()),
                    *(["-Xptxas", "-v"] if verbose else []), "-o", tmp,
                    str(SOURCES[name][0])]
             jobs.append((name, tmp, subprocess.Popen(

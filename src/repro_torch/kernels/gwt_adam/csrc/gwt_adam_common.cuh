@@ -245,14 +245,28 @@ cudaError_t with_level(int level, F f) {
 }
 
 // ---------------------------------------------------------------------------
-// The one-pass design of K1 and K2: one cooperative launch per bucket that
-// reads every input once.
+// The one-pass design of K1 and K2: one cooperative launch over a group of
+// buckets (one bucket or several) that reads every input once.
 //
+//  * The group: up to kGroupBuckets buckets that share the template codes
+//    (T, P, the moments' format Mo, LEVEL) and the scalar hyperparameters
+//    (Adam's coefficients, gamma, the limiter and weight-decay switches),
+//    each with its own pointers, step-size and weight-decay scalars and
+//    sizes, passed as one __grid_constant__ table (OnePassGroup).  The
+//    buckets' chunks are numbered one after the other in table order
+//    (OnePassBucket::first); a per-bucket launch is a group of one, with
+//    a table of one (OnePassGroup's N; kTable: a library compiles one
+//    size).
 //  * The grid holds as many blocks of kThreads as are co-resident on the
-//    card (occupancy x SM count, cached per kernel).  The bucket's L*S
-//    chunks of kChunk coefficients (leaf-major, the two-pass kernels'
-//    chunks) are dealt out in contiguous, balanced runs; a block keeps a
-//    slot of shared memory for each chunk it owns.
+//    card (occupancy x SM count, cached per kernel).  The group's chunks of
+//    kChunk coefficients (leaf-major within a bucket, the two-pass
+//    kernels' chunks) are dealt out in contiguous, balanced runs, which may
+//    cross from one bucket into the next; a block finds a chunk's bucket
+//    by scanning the table's first chunks, and keeps a slot of shared
+//    memory for each chunk it owns.  A chunk never crosses a leaf, and a
+//    leaf's norm sums its own chunk partials in a fixed order, so where a
+//    chunk runs changes no bit: a group writes bitwise what its buckets'
+//    own launches write.
 //  * Phase A, for each chunk of the block: its moments are loaded into
 //    registers (K1: 8-byte loads of m and v) and the next chunk's g is
 //    staged into its slot by 16-byte cp.async (K2: with its codes and
@@ -263,9 +277,10 @@ cudaError_t with_level(int level, F f) {
 //    memory at once, and writes G~ rounded to T back over the chunk's g.
 //    The chunk's ||G~||^2 partial is then summed from shared memory in the
 //    two-pass kernels' order (thread t takes coefficients t + 256k,
-//    k = 0..7, each one's 2^l squares in order, then block_sum) into the
-//    same (L, S) partials.
-//  * One grid barrier (cooperative_groups::this_grid().sync()).
+//    k = 0..7, each one's 2^l squares in order, then block_sum) into its
+//    bucket's (L, S) partials.
+//  * One grid barrier for the whole group
+//    (cooperative_groups::this_grid().sync()).
 //  * Phase B: each block computes the limiter scale of each leaf it holds
 //    with leaf_scale_at (the fixed order of the two-pass scale pass;
 //    the block owning chunk 0 of a leaf writes its new norm), then reads p
@@ -274,14 +289,15 @@ cudaError_t with_level(int level, F f) {
 //    bitwise the two-pass kernels'.
 //  * Without the limiter there is nothing to wait for: p is written in
 //    phase A and there is no barrier.
-//  * Capacity: a bucket takes this design only if its G~ fits the
+//  * Capacity: a group takes this design only if its G~ fits the
 //    co-resident shared memory at one block per SM,
-//    ceil(L*S / SMs) * kChunk * 2^l * sizeof(T) <= the opt-in shared
+//    ceil(sum of L*S / SMs) * kChunk * 2^l * sizeof(T) <= the opt-in shared
 //    memory per block less the kernel's static shared memory and its ring
 //    (K1: none; K2: 2 x 4416 bytes).  On an H100 that is 14 chunks of
 //    16 KB per SM for K1 and 13 for K2 (bf16, level 2).  The caller
-//    (kernel.py, one_pass_fits) decides before the launch; a bucket that
-//    does not fit takes the two-pass kernels.
+//    (kernel.py: one_pass_fits for a bucket, group_plan for a group)
+//    decides before the launch; a bucket that does not fit alone takes the
+//    two-pass kernels.
 //  * Alignment: a leaf's base and a ragged last chunk need not be 16-byte
 //    aligned (na * 2^l * sizeof(T) is only a multiple of 4).  The staging
 //    copy of g then falls back to 4-byte cp.async (K2's codes and scales:
@@ -301,6 +317,9 @@ cudaError_t with_level(int level, F f) {
 constexpr int kRounds = kChunk / (2 * kThreads);  // 2 coefficients a thread
 constexpr int kLookahead = 1;  // chunks staged ahead of the compute
 constexpr int kMaxBlocksPerSM = 2048 / kThreads;
+// buckets a one-pass launch takes (the table stays under the 4 KB of
+// kernel parameters: K2's 16 records are 2688 bytes)
+constexpr int kGroupBuckets = 16;
 
 __device__ __forceinline__ bool aligned(const void* p, int bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
@@ -550,24 +569,6 @@ __device__ __forceinline__ const T* staged(const unsigned char* dst,
       dst + (reinterpret_cast<uintptr_t>(src) & 15));
 }
 
-template <typename T, typename P>
-struct OnePassArgs {
-  const T* g;
-  P* p;
-  float* partials;  // (L, S)
-  const float* prev_norm;
-  float* new_norm;
-  const float* step_size;
-  const float* wd_coef;
-  long long na;     // coefficients per leaf
-  long long S;      // chunks per leaf
-  long long total;  // L * S
-  int slots;        // G~ slots per block (the ring of Mo's stages follows)
-  Coeffs c;
-  float gamma;
-  int use_limiter, weight_decay;
-};
-
 // A thread's pair of coefficients' values of T, as stored (no conversion):
 // one vector access where the address allows it.
 template <typename T, int B>
@@ -682,9 +683,60 @@ struct FloatMoments {
 // together (K2's and K5's absmax is a warp shuffle).  FloatMoments here
 // and Q8Moments (gwt_adam_q8.cuh) serve the one-pass kernel below and the
 // staged kernels of gwt_adam_tile.cu alike.
-template <typename T, typename P, int LEVEL, class Mo>
+// One bucket of a one-pass group.
+template <typename T, typename P, class Mo>
+struct OnePassBucket {
+  const T* g;
+  P* p;
+  float* partials;  // (L, S)
+  const float* prev_norm;
+  float* new_norm;
+  const float* step_size;
+  const float* wd_coef;
+  long long na;     // coefficients per leaf
+  long long S;      // chunks per leaf
+  long long first;  // the bucket's first chunk in the group
+  Mo mo;            // its moments
+};
+
+// A one-pass launch's table: the shared scalars, then room for N buckets.
+// A launch of one bucket takes N = 1 and the kernel without the bucket
+// scan: its fields are constant operands, and its parameters as small as
+// one bucket's.  Through the 16-bucket table (2,688 bytes of parameters
+// for K2) K2's per-bucket launch at llama-60m's buckets ran 6% slower than
+// the earlier kernel of one bucket with the scan, 2-3% without it (H100
+// 80GB HBM3, 700 W; tools/fused_variants.py --parent).
+template <typename T, typename P, class Mo, int N>
+struct OnePassGroup {
+  int n;            // buckets
+  int slots;        // G~ slots per block (the ring of Mo's stages follows)
+  long long total;  // chunks of the group
+  Coeffs c;
+  float gamma;
+  int use_limiter, weight_decay;
+  OnePassBucket<T, P, Mo> b[N];
+};
+
+// Appends an (L, na) bucket to the group a; cudaErrorInvalidValue for a
+// full table or an empty bucket.
+template <typename T, typename P, class Mo, int N>
+cudaError_t add_bucket(OnePassGroup<T, P, Mo, N>& a, const T* g, P* p,
+                       const Mo& mo, float* partials, const float* prev_norm,
+                       float* new_norm, const float* step_size,
+                       const float* wd_coef, long long L, long long na) {
+  if (a.n >= N || L < 1 || na < 1) return cudaErrorInvalidValue;
+  const long long S = (na + kChunk - 1) / kChunk;
+  a.b[a.n] = {g, p, partials, prev_norm, new_norm, step_size, wd_coef,
+              na, S, a.total, mo};
+  a.total += L * S;
+  ++a.n;
+  return cudaSuccess;
+}
+
+template <typename T, typename P, int LEVEL, class Mo, int N>
 __global__ void __launch_bounds__(kThreads)
-one_pass(const OnePassArgs<T, P> a, const Mo mo) {
+one_pass(const __grid_constant__ OnePassGroup<T, P, Mo, N> a) {
+  using Bucket = OnePassBucket<T, P, Mo>;
   constexpr int B = 1 << LEVEL;
   constexpr int kSlot = kChunk * B * static_cast<int>(sizeof(T));
   // rounds whose p phase B loads before it computes any: up to 64 bytes
@@ -699,13 +751,25 @@ one_pass(const OnePassArgs<T, P> a, const Mo mo) {
   const long long first = b * per + (b < extra ? b : extra);
   const int count = static_cast<int>(per + (b < extra ? 1 : 0));
   const int t = threadIdx.x;
-  // chunk i: its leaf, its first coefficient j0 and its coefficient count
-  auto where = [&](int i, long long& leaf, long long& s, int& n) {
+  // chunk i of the run: its bucket k, its leaf, its index s in the leaf and
+  // its coefficient count n
+  struct Where {
+    int k, n;
+    long long leaf, s;
+  };
+  auto where = [&](int i) {
     const long long ch = first + i;
-    leaf = ch / a.S;
-    s = ch % a.S;
-    const long long left = a.na - s * kChunk;
-    n = static_cast<int>(left < kChunk ? left : kChunk);
+    Where w;
+    w.k = 0;
+    if constexpr (N > 1)
+      while (w.k + 1 < a.n && ch >= a.b[w.k + 1].first) ++w.k;
+    const Bucket& e = a.b[w.k];
+    const long long local = ch - e.first;
+    w.leaf = local / e.S;
+    w.s = local % e.S;
+    const long long left = e.na - w.s * kChunk;
+    w.n = static_cast<int>(left < kChunk ? left : kChunk);
+    return w;
   };
   // chunk i's g into slot i and Mo's stage into ring entry i % kRing,
   // kLookahead chunks ahead of the compute; every thread commits one group
@@ -716,36 +780,51 @@ one_pass(const OnePassArgs<T, P> a, const Mo mo) {
   auto entry = [&](int i) { return ring + (i % kRing) * Mo::kRingBytes; };
   auto stage = [&](int i) {
     if (i < count) {
-      long long leaf, s;
-      int n;
-      where(i, leaf, s, n);
-      const long long j0 = s * kChunk;
+      const Where w = where(i);
+      const Bucket& e = a.b[w.k];
+      const long long j0 = w.s * kChunk;
       stage_async(slots + i * kSlot,
                   reinterpret_cast<const unsigned char*>(
-                      a.g + (leaf * a.na + j0) * B),
-                  n * B * static_cast<int>(sizeof(T)));
-      if constexpr (Mo::kRingBytes > 0) mo.stage(entry(i), leaf, a.na, j0, n);
+                      e.g + (w.leaf * e.na + j0) * B),
+                  w.n * B * static_cast<int>(sizeof(T)));
+      if constexpr (Mo::kRingBytes > 0)
+        e.mo.stage(entry(i), w.leaf, e.na, j0, w.n);
     }
     cp_async_commit();
   };
   for (int i = 0; i < kLookahead; ++i) stage(i);
-  const float ss = *a.step_size, wd = *a.wd_coef;
+  // the step size and weight-decay coefficient of bucket kss: the run's
+  // first bucket's loaded now, while the first chunk stages, not after
+  // the grid barrier; a later bucket's when its first chunk comes
+  int kss = -1;
+  float ss = 0.0f, wd = 0.0f;
+  auto scalars = [&](int k) {
+    if (k != kss) {
+      ss = *a.b[k].step_size;
+      wd = *a.b[k].wd_coef;
+      kss = k;
+    }
+  };
+  if (count > 0) scalars(where(0).k);
   // phase A
   for (int i = 0; i < count; ++i) {
-    long long leaf, s;
-    int n;
-    where(i, leaf, s, n);
+    const Where w = where(i);
+    const Bucket& e = a.b[w.k];
+    const long long leaf = w.leaf, s = w.s;
+    const int n = w.n;
     const long long j0 = s * kChunk;
     T* gt = reinterpret_cast<T*>(slots + i * kSlot);
-    P* pc = a.p + (leaf * a.na + j0) * B;  // the chunk's p
-    if (!a.use_limiter && s == 0 && t == 0)
-      a.new_norm[leaf] = a.prev_norm[leaf];
-    const typename Mo::Chunk ck = mo.chunk(entry(i), leaf, a.na, j0);
+    P* pc = e.p + (leaf * e.na + j0) * B;  // the chunk's p
+    if (!a.use_limiter) {
+      scalars(w.k);
+      if (s == 0 && t == 0) e.new_norm[leaf] = e.prev_norm[leaf];
+    }
+    const typename Mo::Chunk ck = e.mo.chunk(entry(i), leaf, e.na, j0);
     typename Mo::Regs regs[kRounds];
 #pragma unroll
     for (int r = 0; r < kRounds; ++r) {
       const int cl = 2 * (t + r * kThreads);
-      mo.load(ck, cl, cl < n, cl + 1 < n, regs[r]);
+      e.mo.load(ck, cl, cl < n, cl + 1 < n, regs[r]);
     }
     stage(i + kLookahead);
     cp_async_wait<kLookahead>();
@@ -756,13 +835,13 @@ one_pass(const OnePassArgs<T, P> a, const Mo mo) {
       const bool v0 = cl < n, v1 = cl + 1 < n;
       float x[2 * B];
       vload<T, 2 * B>(gt + cl * B, x);  // past the leaf's end: unused
-      mo.template update<LEVEL>(ck, cl, n, v0, v1, x, regs[r], a.c);
+      e.mo.template update<LEVEL>(ck, cl, n, v0, v1, x, regs[r], a.c);
       if (!v0) continue;
-      T e[2 * B];
+      T el[2 * B];
 #pragma unroll
-      for (int k = 0; k < 2 * B; ++k) e[k] = from_f32<T>(x[k]);
+      for (int k = 0; k < 2 * B; ++k) el[k] = from_f32<T>(x[k]);
       if (a.use_limiter) {
-        vstore<T, 2 * B>(gt + cl * B, e);
+        vstore<T, 2 * B>(gt + cl * B, el);
       } else {
         P pe[2 * B];
         load_pair_raw<P, B>(pc + cl * B, pe, v1);
@@ -776,22 +855,25 @@ one_pass(const OnePassArgs<T, P> a, const Mo mo) {
     if (a.use_limiter) {
       __syncthreads();
       const float total = chunk_partial<T, B>(gt, n);
-      if (t == 0) a.partials[leaf * a.S + s] = total;
+      if (t == 0) e.partials[leaf * e.S + s] = total;
     } else {
       __syncthreads();  // the next stage overwrites this chunk's ring entry
     }
   }
   if (!a.use_limiter) return;
   cooperative_groups::this_grid().sync();
-  // phase B: p for kDepth rounds in flight, then their writes
+  // phase B: p for kDepth rounds in flight, then their writes.  cur: the
+  // group's index of the chunk 0 of the leaf whose scale is scale_t
   long long cur = -1;
   float scale_t = 1.0f;
   for (int i = 0; i < count; ++i) {
-    long long leaf, s;
-    int n;
-    where(i, leaf, s, n);
+    const Where w = where(i);
+    const Bucket& e = a.b[w.k];
+    const long long leaf = w.leaf, s = w.s;
+    const int n = w.n;
     const T* gt = reinterpret_cast<const T*>(slots + i * kSlot);
-    P* pc = a.p + (leaf * a.na + s * kChunk) * B;
+    P* pc = e.p + (leaf * e.na + s * kChunk) * B;
+    scalars(w.k);
 #pragma unroll
     for (int r0 = 0; r0 < kRounds; r0 += kDepth) {
       P pe[kDepth][2 * B];
@@ -800,12 +882,13 @@ one_pass(const OnePassArgs<T, P> a, const Mo mo) {
         const int cl = 2 * (t + (r0 + d) * kThreads);
         if (cl < n) load_pair_raw<P, B>(pc + cl * B, pe[d], cl + 1 < n);
       }
-      if (r0 == 0 && leaf != cur) {
+      const long long key = e.first + leaf * e.S;
+      if (r0 == 0 && key != cur) {
         // runs are contiguous, so chunk 0 of a leaf starts its run here
-        scale_t = round_to<T>(leaf_scale_at(a.partials, a.prev_norm,
-                                            a.new_norm, a.gamma, leaf, a.S,
+        scale_t = round_to<T>(leaf_scale_at(e.partials, e.prev_norm,
+                                            e.new_norm, a.gamma, leaf, e.S,
                                             s == 0));
-        cur = leaf;
+        cur = key;
       }
 #pragma unroll
       for (int d = 0; d < kDepth; ++d) {
@@ -911,10 +994,20 @@ inline cudaError_t plan_one_pass(const void* kern, long long slot,
   return cudaErrorInvalidConfiguration;
 }
 
-template <typename T, typename P, int LEVEL, class Mo>
+template <typename T, typename P, int LEVEL, class Mo, int N>
 const void* one_pass_kernel() {
-  return reinterpret_cast<const void*>(&one_pass<T, P, LEVEL, Mo>);
+  return reinterpret_cast<const void*>(&one_pass<T, P, LEVEL, Mo, N>);
 }
+
+// The table size of the one-pass kernels a library instantiates: one
+// bucket, or kGroupBuckets where its source is built with
+// -DGWT_ADAM_GROUPED (kernels/build.py: the *_group libraries).  Each
+// library compiles one size, so nvcc builds the two at once.
+#ifdef GWT_ADAM_GROUPED
+constexpr int kTable = kGroupBuckets;
+#else
+constexpr int kTable = 1;
+#endif
 
 template <typename T, int LEVEL>
 constexpr long long one_pass_slot() {
@@ -927,20 +1020,43 @@ constexpr long long one_pass_ring() {
   return static_cast<long long>(kLookahead + 1) * Mo::kRingBytes;
 }
 
-template <typename T, typename P, int LEVEL, class Mo>
-cudaError_t launch_one_pass(const OnePassArgs<T, P>& a, const Mo& mo,
+template <int LEVEL, typename T, typename P, class Mo, int N>
+cudaError_t launch_one_pass(OnePassGroup<T, P, Mo, N>& a,
                             cudaStream_t stream) {
-  const void* kern = one_pass_kernel<T, P, LEVEL, Mo>();
+  const void* kern = one_pass_kernel<T, P, LEVEL, Mo, N>();
   OnePassPlan plan;
   cudaError_t err = plan_one_pass(kern, one_pass_slot<T, LEVEL>(),
                                   one_pass_ring<Mo>(), a.total, &plan);
   if (err != cudaSuccess) return err;
-  OnePassArgs<T, P> args = a;
-  args.slots = plan.slots;
-  Mo moments = mo;
-  void* params[] = {&args, &moments};
+  a.slots = plan.slots;
+  void* params[] = {&a};
   return cudaLaunchCooperativeKernel(kern, dim3(plan.grid), dim3(kThreads),
                                      params, plan.smem, stream);
+}
+
+// A group's table with its shared scalars and no bucket yet.
+template <typename T, typename P, class Mo, int N>
+OnePassGroup<T, P, Mo, N> one_pass_group(const Coeffs& c, float gamma,
+                                         int use_limiter, int weight_decay) {
+  OnePassGroup<T, P, Mo, N> a{};
+  a.c = c;
+  a.gamma = gamma;
+  a.use_limiter = use_limiter;
+  a.weight_decay = weight_decay;
+  return a;
+}
+
+// The chunks of the group of n (L, na) buckets whose sizes are
+// sizes[2k], sizes[2k + 1]; 0 for an empty bucket or more than
+// kGroupBuckets of them.
+inline long long group_chunks(const long long* sizes, int n) {
+  if (n < 1 || n > kGroupBuckets) return 0;
+  long long total = 0;
+  for (int k = 0; k < n; ++k) {
+    if (sizes[2 * k] < 1 || sizes[2 * k + 1] < 1) return 0;
+    total += sizes[2 * k] * ((sizes[2 * k + 1] + kChunk - 1) / kChunk);
+  }
+  return total;
 }
 
 // Fills out[0..8] with the plan's fields, in OnePassPlan's order.

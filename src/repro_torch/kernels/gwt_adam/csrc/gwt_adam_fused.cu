@@ -40,6 +40,21 @@
 //    recomputes the tile and writes p, m, v.  Recomputing costs one more
 //    read of g, m and v: 14 bytes per element against the 10-byte bound.
 //
+// This source builds two libraries (kernels/build.py): gwt_adam_fused, the
+// per-bucket entries, and, with -DGWT_ADAM_GROUPED, gwt_adam_fused_group,
+// the grouped ones; each compiles one table size (kTable), and the two
+// compile at once.
+//
+// Grouped (gwt_adam_fused_group): the one-pass design over up to
+// kGroupBuckets buckets in one cooperative launch, each bucket what
+// gwt_adam_tile_fused computes for it alone, bitwise.  At a LoRA
+// fine-tune's adapter buckets a launch is bound by its latency, not by
+// the 10 bytes an element (8 with bf16 moments, 14 with f32 p under a
+// bf16 g): llama-60m's four adapter buckets took 0.0137-0.0145 ms a
+// launch against a bound of 0.0026 ms for all four (H100 80GB HBM3,
+// 700 W).  One launch over the step's buckets pays the latency once; the
+// chunks of all of them share the grid.
+//
 // Both designs put one A_l coefficient's chain in one thread: at level l,
 // approximation coefficient j of a row depends only on the 2^l gradient
 // values [j*2^l, (j+1)*2^l); rows are contiguous and have n = na*2^l
@@ -114,23 +129,20 @@ cudaError_t launch(int level, const void* g, void* p, void* m, void* v,
   });
 }
 
-template <typename T, typename P, typename M>
-cudaError_t launch_one(int level, const OnePassArgs<T, P>& a, void* m,
-                       void* v, cudaStream_t stream) {
-  M* mm = static_cast<M*>(m);
-  M* vv = static_cast<M*>(v);
+template <class Group>
+cudaError_t launch_one(int level, Group& a, cudaStream_t stream) {
   return with_level(level, [&](auto lv) {
-    return launch_one_pass<T, P, decltype(lv)::value>(
-        a, FloatMoments<M>{mm, vv, mm, vv}, stream);
+    return launch_one_pass<decltype(lv)::value>(a, stream);
   });
 }
 
+// The plan of this library's one-pass kernel (a table of kTable buckets).
 template <typename T, typename P, typename M>
 cudaError_t plan_one(int level, long long total, int* out) {
   return with_level(level, [&](auto lv) {
     constexpr int LEVEL = decltype(lv)::value;
     using Mo = FloatMoments<M>;
-    return export_plan(one_pass_kernel<T, P, LEVEL, Mo>(),
+    return export_plan(one_pass_kernel<T, P, LEVEL, Mo, kTable>(),
                        one_pass_slot<T, LEVEL>(), one_pass_ring<Mo>(), total,
                        out);
   });
@@ -146,6 +158,9 @@ cudaError_t with_fused_dtypes(int dtype, int mdtype, F f) {
   });
 }
 
+// int64 fields of a bucket's record in a grouped launch's table
+constexpr int kRecord = 12;
+
 }  // namespace
 
 extern "C" {
@@ -153,6 +168,8 @@ extern "C" {
 // Coefficients per block: the wrapper sizes the partials buffer (L, S) with
 // S = ceil(na / chunk).
 int gwt_adam_fused_chunk() { return kChunk; }
+
+#ifndef GWT_ADAM_GROUPED
 
 // The two-pass design.  dtype: 0 = float32 g and p, 1 = bfloat16 g and p,
 // 2 = bfloat16 g with float32 p (with_params); mdtype, 0 = float32 or
@@ -179,10 +196,11 @@ int gwt_adam_fused(int dtype, int mdtype, int level, const void* g, void* p,
   });
 }
 
-// The one-pass design, the same arguments but the scale.  The caller has
-// checked that the bucket fits (one_pass_fits); otherwise the plan fails
-// with cudaErrorInvalidConfiguration before anything is launched.  A
-// refused cooperative launch returns its error.
+// The one-pass design, the same arguments but the scale: a group of one
+// bucket (gwt_adam_fused_group).  The caller has checked that the bucket
+// fits (one_pass_fits); otherwise the plan fails with
+// cudaErrorInvalidConfiguration before anything is launched.  A refused
+// cooperative launch returns its error.
 int gwt_adam_fused_one_pass(int dtype, int mdtype, int level, const void* g,
                             void* p, void* m, void* v,
                             const float* prev_norm, float* new_norm,
@@ -192,17 +210,21 @@ int gwt_adam_fused_one_pass(int dtype, int mdtype, int level, const void* g,
                             float c2, float eps, int use_limiter,
                             int weight_decay, void* stream) {
   const Coeffs c{b1, c1, b2, c2, eps};
-  const long long S = (na + kChunk - 1) / kChunk;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_fused_dtypes(dtype, mdtype, [&](auto t, auto pt, auto mt) {
     using T = typename decltype(t)::type;
     using P = typename decltype(pt)::type;
     using M = typename decltype(mt)::type;
-    const OnePassArgs<T, P> a{static_cast<const T*>(g), static_cast<P*>(p),
-                              partials, prev_norm, new_norm, step_size,
-                              wd_coef, na, S, L * S, 0, c, gamma,
-                              use_limiter, weight_decay};
-    return launch_one<T, P, M>(level, a, m, v, s);
+    using Mo = FloatMoments<M>;
+    auto a = one_pass_group<T, P, Mo, kTable>(c, gamma, use_limiter,
+                                              weight_decay);
+    M* mm = static_cast<M*>(m);
+    M* vv = static_cast<M*>(v);
+    const cudaError_t err = add_bucket(
+        a, static_cast<const T*>(g), static_cast<P*>(p), Mo{mm, vv, mm, vv},
+        partials, prev_norm, new_norm, step_size, wd_coef, L, na);
+    if (err != cudaSuccess) return err;
+    return launch_one(level, a, s);
   });
 }
 
@@ -218,5 +240,65 @@ int gwt_adam_fused_one_pass_plan(int dtype, int mdtype, int level,
                     typename decltype(mt)::type>(level, total, out);
   });
 }
+
+#else  // GWT_ADAM_GROUPED
+
+// The one-pass design over a group of n buckets (1..gwt_adam_fused_group_
+// buckets()) that share the codes and the scalars, in one cooperative
+// launch through the table of kGroupBuckets (a group of one too).  table:
+// n records of kRecord int64 fields, bucket k's at table + k * kRecord: g, p, m, v, prev_norm, new_norm, partials (its (L,
+// S) chunk partials), step_size, wd_coef (device addresses), L, na and its
+// first chunk in the group (the chunks of the buckets before it;
+// cudaErrorInvalidValue otherwise).  Each bucket's p, m, v are updated in
+// place, as by its own gwt_adam_fused_one_pass, bitwise.  The caller has
+// checked that the group fits (kernel.py: group_plan).
+int gwt_adam_fused_group(int dtype, int mdtype, int level,
+                         const long long* table, int n, float gamma,
+                         float b1, float c1, float b2, float c2, float eps,
+                         int use_limiter, int weight_decay, void* stream) {
+  if (n < 1 || n > kGroupBuckets) return cudaErrorInvalidValue;
+  const Coeffs c{b1, c1, b2, c2, eps};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_fused_dtypes(dtype, mdtype, [&](auto t, auto pt, auto mt) {
+    using T = typename decltype(t)::type;
+    using P = typename decltype(pt)::type;
+    using M = typename decltype(mt)::type;
+    using Mo = FloatMoments<M>;
+    auto a = one_pass_group<T, P, Mo, kTable>(c, gamma, use_limiter,
+                                              weight_decay);
+    for (int k = 0; k < n; ++k) {
+      const long long* r = table + k * kRecord;
+      auto at = [&](int f) { return reinterpret_cast<void*>(r[f]); };
+      M* mm = static_cast<M*>(at(2));
+      M* vv = static_cast<M*>(at(3));
+      if (r[11] != a.total) return cudaErrorInvalidValue;
+      const cudaError_t err = add_bucket(
+          a, static_cast<const T*>(at(0)), static_cast<P*>(at(1)),
+          Mo{mm, vv, mm, vv}, static_cast<float*>(at(6)),
+          static_cast<const float*>(at(4)), static_cast<float*>(at(5)),
+          static_cast<const float*>(at(7)), static_cast<const float*>(at(8)),
+          r[9], r[10]);
+      if (err != cudaSuccess) return err;
+    }
+    return launch_one(level, a, s);
+  });
+}
+
+// Buckets a grouped launch takes.
+int gwt_adam_fused_group_buckets() { return kGroupBuckets; }
+
+// The one-pass plan of a group of n (L, na) buckets, sizes = L0, na0, L1,
+// na1, ...: out[0..8] as gwt_adam_fused_one_pass_plan's.
+int gwt_adam_fused_group_plan(int dtype, int mdtype, int level,
+                              const long long* sizes, int n, int* out) {
+  const long long total = group_chunks(sizes, n);
+  if (total == 0) return cudaErrorInvalidValue;
+  return with_fused_dtypes(dtype, mdtype, [&](auto t, auto pt, auto mt) {
+    return plan_one<typename decltype(t)::type, typename decltype(pt)::type,
+                    typename decltype(mt)::type>(level, total, out);
+  });
+}
+
+#endif  // GWT_ADAM_GROUPED
 
 }  // extern "C"

@@ -39,6 +39,18 @@
 //    kernel's (Q8Moments: a warp is one quantization block, the codes and
 //    scales staged into shared memory with g and p).
 //
+// This source builds two libraries, as gwt_adam_fused.cu does:
+// gwt_adam_fused_q8 (per bucket) and, with -DGWT_ADAM_GROUPED,
+// gwt_adam_fused_q8_group (grouped).
+//
+// Grouped (gwt_adam_fused_q8_group): the one-pass design over up to
+// kGroupBuckets buckets in one cooperative launch, each bucket what
+// gwt_adam_tile_fused_q8 computes for it alone, bitwise.  At adapter
+// sizes a launch is bound by its latency, not by the 7.06 bytes an
+// element: llama-60m's four LoRA adapter buckets took 0.0155-0.0162 ms a
+// launch against a bound of 0.0021 ms for all four (H100 80GB HBM3,
+// 700 W); one launch over the step's buckets pays the latency once.
+//
 // Common to both:
 //  * One A_l coefficient's chain per thread over the leaf's flat
 //    coefficient index j (coefficient j covers gradient elements
@@ -123,23 +135,26 @@ cudaError_t launch(int level, const void* g, void* p, const Q8Moments& mo,
   });
 }
 
-template <typename T, typename P>
-cudaError_t launch_one(int level, const OnePassArgs<T, P>& a,
-                       const Q8Moments& mo, cudaStream_t stream) {
+template <class Group>
+cudaError_t launch_one(int level, Group& a, cudaStream_t stream) {
   return with_level(level, [&](auto lv) {
-    return launch_one_pass<T, P, decltype(lv)::value>(a, mo, stream);
+    return launch_one_pass<decltype(lv)::value>(a, stream);
   });
 }
 
+// The plan of this library's one-pass kernel (a table of kTable buckets).
 template <typename T, typename P>
 cudaError_t plan_one(int level, long long total, int* out) {
   return with_level(level, [&](auto lv) {
     constexpr int LEVEL = decltype(lv)::value;
-    return export_plan(one_pass_kernel<T, P, LEVEL, Q8Moments>(),
-                       one_pass_slot<T, LEVEL>(), one_pass_ring<Q8Moments>(), total,
-                       out);
+    return export_plan(
+        one_pass_kernel<T, P, LEVEL, Q8Moments, kTable>(),
+        one_pass_slot<T, LEVEL>(), one_pass_ring<Q8Moments>(), total, out);
   });
 }
+
+// int64 fields of a bucket's record in a grouped launch's table
+constexpr int kRecord = 16;
 
 }  // namespace
 
@@ -149,6 +164,8 @@ extern "C" {
 // and per quantization block (the scales are (L, ceil(na/qblock))).
 int gwt_adam_fused_q8_chunk() { return kChunk; }
 int gwt_adam_fused_q8_qblock() { return kQBlock; }
+
+#ifndef GWT_ADAM_GROUPED
 
 // The two-pass design.  dtype: 0 = float32 g and p, 1 = bfloat16 g and p,
 // 2 = bfloat16 g with float32 p (with_params); qm, qv int8 (L, na); sm, sv f32 (L, nb); salt_m, salt_v uint32
@@ -175,10 +192,11 @@ int gwt_adam_fused_q8(int dtype, int level, const void* g, void* p,
   });
 }
 
-// The one-pass design, the same arguments but the scale.  The caller has
-// checked that the bucket fits (one_pass_fits); otherwise the plan fails
-// with cudaErrorInvalidConfiguration before anything is launched.  A
-// refused cooperative launch returns its error.
+// The one-pass design, the same arguments but the scale: a group of one
+// bucket (gwt_adam_fused_q8_group).  The caller has checked that the
+// bucket fits (one_pass_fits); otherwise the plan fails with
+// cudaErrorInvalidConfiguration before anything is launched.  A refused
+// cooperative launch returns its error.
 int gwt_adam_fused_q8_one_pass(int dtype, int level, const void* g, void* p,
                                signed char* qm, float* sm, signed char* qv,
                                float* sv, const unsigned* salt_m,
@@ -191,18 +209,19 @@ int gwt_adam_fused_q8_one_pass(int dtype, int level, const void* g, void* p,
                                int use_limiter, int weight_decay,
                                void* stream) {
   const Coeffs c{b1, c1, b2, c2, eps};
-  const long long S = (na + kChunk - 1) / kChunk;
   const Q8Moments mo{qm, sm, qv, sv, salt_m, salt_v, qm, sm, qv, sv,
                      (na + kQBlock - 1) / kQBlock};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_params(dtype, [&](auto t, auto pt) {
     using T = typename decltype(t)::type;
     using P = typename decltype(pt)::type;
-    const OnePassArgs<T, P> a{static_cast<const T*>(g), static_cast<P*>(p),
-                              partials, prev_norm, new_norm, step_size,
-                              wd_coef, na, S, L * S, 0, c, gamma,
-                              use_limiter, weight_decay};
-    return launch_one<T, P>(level, a, mo, s);
+    auto a = one_pass_group<T, P, Q8Moments, kTable>(c, gamma, use_limiter,
+                                                     weight_decay);
+    const cudaError_t err = add_bucket(
+        a, static_cast<const T*>(g), static_cast<P*>(p), mo, partials,
+        prev_norm, new_norm, step_size, wd_coef, L, na);
+    if (err != cudaSuccess) return err;
+    return launch_one(level, a, s);
   });
 }
 
@@ -215,5 +234,68 @@ int gwt_adam_fused_q8_one_pass_plan(int dtype, int level, long long L,
         level, total, out);
   });
 }
+
+#else  // GWT_ADAM_GROUPED
+
+// The one-pass design over a group of n buckets (1..gwt_adam_fused_q8_
+// group_buckets()) that share the codes and the scalars, in one
+// cooperative launch through the table of kGroupBuckets (a group of one
+// too).  table: n records of kRecord int64 fields, bucket
+// k's at table + k * kRecord: g, p, qm, sm, qv, sv, salt_m, salt_v,
+// prev_norm, new_norm, partials, step_size, wd_coef (device addresses), L,
+// na and its first chunk in the group (cudaErrorInvalidValue otherwise).
+// Each bucket's p, codes and scales are updated in place, as by its own
+// gwt_adam_fused_q8_one_pass, bitwise.
+int gwt_adam_fused_q8_group(int dtype, int level, const long long* table,
+                            int n, float gamma, float b1, float c1, float b2,
+                            float c2, float eps, int use_limiter,
+                            int weight_decay, void* stream) {
+  if (n < 1 || n > kGroupBuckets) return cudaErrorInvalidValue;
+  const Coeffs c{b1, c1, b2, c2, eps};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_params(dtype, [&](auto t, auto pt) {
+    using T = typename decltype(t)::type;
+    using P = typename decltype(pt)::type;
+    auto a = one_pass_group<T, P, Q8Moments, kTable>(c, gamma, use_limiter,
+                                                     weight_decay);
+    for (int k = 0; k < n; ++k) {
+      const long long* r = table + k * kRecord;
+      auto at = [&](int f) { return reinterpret_cast<void*>(r[f]); };
+      signed char* qm = static_cast<signed char*>(at(2));
+      float* sm = static_cast<float*>(at(3));
+      signed char* qv = static_cast<signed char*>(at(4));
+      float* sv = static_cast<float*>(at(5));
+      const Q8Moments mo{
+          qm, sm, qv, sv, static_cast<const unsigned*>(at(6)),
+          static_cast<const unsigned*>(at(7)), qm, sm, qv, sv,
+          (r[14] + kQBlock - 1) / kQBlock};
+      if (r[15] != a.total) return cudaErrorInvalidValue;
+      const cudaError_t err = add_bucket(
+          a, static_cast<const T*>(at(0)), static_cast<P*>(at(1)), mo,
+          static_cast<float*>(at(10)), static_cast<const float*>(at(8)),
+          static_cast<float*>(at(9)), static_cast<const float*>(at(11)),
+          static_cast<const float*>(at(12)), r[13], r[14]);
+      if (err != cudaSuccess) return err;
+    }
+    return launch_one(level, a, s);
+  });
+}
+
+// Buckets a grouped launch takes.
+int gwt_adam_fused_q8_group_buckets() { return kGroupBuckets; }
+
+// The one-pass plan of a group of n (L, na) buckets, as
+// gwt_adam_fused_group_plan's.
+int gwt_adam_fused_q8_group_plan(int dtype, int level,
+                                 const long long* sizes, int n, int* out) {
+  const long long total = group_chunks(sizes, n);
+  if (total == 0) return cudaErrorInvalidValue;
+  return with_params(dtype, [&](auto t, auto pt) {
+    return plan_one<typename decltype(t)::type, typename decltype(pt)::type>(
+        level, total, out);
+  });
+}
+
+#endif  // GWT_ADAM_GROUPED
 
 }  // extern "C"

@@ -8,7 +8,9 @@ input moments' dtype: the JAX package's ``m_ref[...].astype(f32)`` in and
 ``m.astype(m_out_ref.dtype)`` out.
 
 The CPU path runs them, and ``chip_smoke.py`` holds the CUDA kernels against
-them on the card, bitwise.  They round where the kernels round (the square
+them on the card, bitwise.  The grouped forms (:func:`gwt_adam_fused_group`,
+:func:`gwt_adam_fused_q8_group`) take the buckets one by one: the plain
+version has no launch to share.  They round where the kernels round (the square
 root included: :func:`_sqrt`), and the only sums whose order matters, the
 per-leaf ``‖G̃‖²``, are added in the kernels' order (:func:`chunk_ssq`,
 :func:`leaf_ssq`) with element-wise tensor adds only, so the CPU and the
@@ -207,3 +209,16 @@ def gwt_adam_fused_q8(g: torch.Tensor, p: torch.Tensor, qm: torch.Tensor,
         gt, p, prev_norm, step_size, wd_coef, gamma=gamma,
         level=level, use_limiter=use_limiter, weight_decay=weight_decay)
     return new_p, qm2, sm2, qv2, sv2, new_norm
+
+
+def gwt_adam_fused_group(calls):
+    """The plain version of the grouped K1: ``calls`` holds per bucket the
+    ``(args, kwargs)`` of a :func:`gwt_adam_fused` call; returns their
+    results in order."""
+    return [gwt_adam_fused(*args, **kw) for args, kw in calls]
+
+
+def gwt_adam_fused_q8_group(calls):
+    """The plain version of the grouped K2, bucket by bucket as
+    :func:`gwt_adam_fused_group`."""
+    return [gwt_adam_fused_q8(*args, **kw) for args, kw in calls]

@@ -34,6 +34,20 @@ a per-leaf encode its leaf's column.  The ``f32`` codec skips all of it.
 place.  Stacking a bucket copies its gradients and parameters into one
 contiguous ``(L, ...)`` tensor per call.
 
+**Grouped calls.**  Rules that share a :class:`Group` (the LAST and FIRST
+rules of one GWT optimizer) let several buckets go through one call, one
+kernel launch on the card.  The engine hands the group its buckets in
+plan order and takes back the sets to call together (``Group.launches``:
+on CUDA the card's capacity, elsewhere every bucket alone), once per plan,
+device and gradient dtypes (the sets are cached on them); each update it
+then walks the plan, and at a set's first bucket gathers and
+stacks every member, makes the one call, and does each member's taps,
+writes and state as for a bucket alone.  A bucket in no set takes the
+per-bucket flow.  The transient peak grows by the other members' stacked
+gradients and parameters, which one launch's capacity bounds (about 30 MB
+of bf16 gradients on an H100).  Nothing chooses the grouping but the
+group: the parameters, state and taps are bitwise the per-bucket flow's.
+
 **Frozen leaves.**  :data:`FROZEN` (the LoRA base, ``models/lora.py``)
 keeps an empty state: zero bytes in :func:`state_bytes`, nothing to
 encode.  The engine never stacks, copies or writes a frozen leaf, and its
@@ -125,6 +139,13 @@ class LeafRule(NamedTuple):
       overwritten the old state's moments in place, so a tap reads only
       what the update replaced with new tensors (``prev_norm``).  Runs only
       inside ``Optimizer.tapped_update`` (DESIGN.md §12).
+    * ``group`` — optional :class:`Group`, the grouped form of
+      ``vector_update`` (one kernel launch over several buckets).  Rules
+      that hold the same ``Group`` object may share a call: a bucketed
+      engine asks ``group.launches`` which of those buckets go together
+      and runs each set of two or more through ``group.update``; a bucket
+      alone takes ``vector_update``.  The parameters and state written are
+      bitwise the per-bucket calls'.
     """
 
     kind: str
@@ -136,6 +157,26 @@ class LeafRule(NamedTuple):
     codec_native: bool = False
     host_step: bool = False
     taps: Optional[Callable[..., Dict[str, torch.Tensor]]] = None
+    group: Optional["Group"] = None
+
+
+class Group(NamedTuple):
+    """The grouped form of the ``vector_update`` of the rules that hold it.
+
+    * ``launches(members, device) -> [[index, ...], ...]`` — which buckets
+      share a call, in the order they are updated: the one place that
+      decides it (``update`` takes each set as it is given).  ``members``: per bucket
+      ``(kind, shape, g dtype, p dtype, state)``, ``shape`` the stacked
+      ``(L, ...)`` whole parameter, ``state`` the stored one, in plan order;
+      ``device`` the gradients'.
+    * ``update(members, step) -> [(new_p_stk, new_state_stk), ...]`` —
+      ``vector_update`` of every bucket of one set in one call: per bucket
+      ``(kind, g_stk, p_stk, state_stk[, salts])`` as ``vector_update``
+      takes them (``salts`` where the rule is ``codec_native``).
+    """
+
+    launches: Callable[..., list]
+    update: Callable[..., list]
 
 
 # Zero-state rule of a frozen leaf (the JAX package's ``lora.FROZEN``): an
@@ -429,6 +470,41 @@ def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
     cdc = eng.codec
     quant = not cdc.passthrough
     hints = dict(state_shardings or {})
+    # (id(plan), device, the grouped buckets' gradient dtypes) -> {bucket
+    # name: the buckets of its grouped call}; plans live in eng._plans
+    sets_cache: Dict[tuple, Dict[str, list]] = {}
+
+    def coded(rule):
+        return quant and rule.slots is not None
+
+    def vector(rule):
+        return bucketed and rule.vector_update is not None and (
+            rule.codec_native or not coded(rule))
+
+    def group_sets(plan, gleaves, mleaves, state, device):
+        # the buckets each group's grouped calls take, two or more a call:
+        # they depend only on the plan, the device and the dtypes
+        grouped = [b for b in plan.buckets
+                   if b.rule.group is not None and vector(b.rule)]
+        ck = (id(plan), str(device),
+              tuple(gleaves[b.indices[0]].dtype for b in grouped))
+        if ck in sets_cache:
+            return sets_cache[ck]
+        sets: Dict[str, list] = {}
+        for grp in {id(b.rule.group): b.rule.group
+                    for b in grouped}.values():
+            bs = [b for b in grouped if b.rule.group is grp]
+            for launch in grp.launches(
+                    [(b.rule.kind, (len(b.indices),)
+                      + tuple(mleaves[b.indices[0]].shape),
+                      gleaves[b.indices[0]].dtype,
+                      mleaves[b.indices[0]].dtype,
+                      state["buckets"][b.name]) for b in bs], device):
+                if len(launch) > 1:
+                    for k in launch:
+                        sets[bs[k].name] = [bs[j] for j in launch]
+        sets_cache[ck] = sets
+        return sets
 
     def init(params):
         plan = eng.plan(params)
@@ -464,8 +540,11 @@ def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
         ppaths, pleaves = flatten_with_paths(params)
         psh = sharding.flat_shardings(param_shardings) \
             if param_shardings is not None else {}
-        plan = eng.plan(sharding.full_meta(params, param_shardings)
-                        if psh else params)
+        meta = sharding.full_meta(params, param_shardings) if psh \
+            else params
+        plan = eng.plan(meta)
+        # the whole parameters' shapes and dtypes (meta where placed)
+        _, mleaves = flatten_with_paths(meta)
 
         def whole(leaves, i):
             return sharding.gather(leaves[i], psh.get(ppaths[i]))
@@ -478,46 +557,67 @@ def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
             salts, cols = eng.salts(plan, key, step)
         hstep = eng.host_step(step) if any(
             b.rule.host_step for b in plan.buckets) else None
-        new_buckets = {}
-        taps: Dict[str, torch.Tensor] = {}
-        for b in plan.buckets:
-            if b.rule is FROZEN:
-                new_buckets[b.name] = {}
-                continue
-            # a placed bucket's state, gathered whole for the rule
-            hint = _hint(hints, b, state["buckets"][b.name])
-            st = sharding.gather_tree(state["buckets"][b.name], hint)
-            rule = b.rule
-            coded = quant and rule.slots is not None
-            # the members' whole gradients and parameters (the leaves
+        new_buckets: Dict[str, Any] = {}
+        bucket_taps: Dict[str, Dict[str, torch.Tensor]] = {}
+
+        def gathered(b):
+            # a placed bucket's state, gathered whole for the rule, and its
+            # members' whole gradients and parameters (the leaves
             # themselves where nothing is placed)
-            gb = {i: whole(gleaves, i) for i in b.indices}
-            pb = {i: whole(pleaves, i) for i in b.indices}
+            hint = _hint(hints, b, state["buckets"][b.name])
+            return (hint, sharding.gather_tree(state["buckets"][b.name],
+                                               hint),
+                    {i: whole(gleaves, i) for i in b.indices},
+                    {i: whole(pleaves, i) for i in b.indices})
+
+        def stacked(b, gb, pb):
+            extra = (salts.index_select(1, cols[b.name]),) \
+                if coded(b.rule) else ()
+            return (torch.stack([gb[i] for i in b.indices]),
+                    torch.stack([pb[i] for i in b.indices])) + extra
+
+        def written(b, np_stk, pb):
             # Σ (new p - old p)², leaf by leaf before the write: on CUDA a
             # fused rule has already written the stacked p in place
             upd = []
-            if bucketed and rule.vector_update is not None and (
-                    rule.codec_native or not coded):
-                g_stk = torch.stack([gb[i] for i in b.indices])
-                p_stk = torch.stack([pb[i] for i in b.indices])
-                extra = (salts.index_select(1, cols[b.name]),) \
-                    if coded else ()
+            for j, i in enumerate(b.indices):
+                if with_taps:
+                    upd.append(tap_ssq(np_stk[j], pb[i]))
+                write(i, np_stk[j])
+            return upd
+
+        def finish(b, hint, st, ns, gb, upd):
+            if with_taps:
+                gs = [gb[i] for i in b.indices]
+                tp = {"grad_ssq": sum_in_order(tap_ssq(g) for g in gs),
+                      "update_ssq": sum_in_order(upd)}
+                if coded(b.rule):
+                    tp.update(_codec_taps(ns))
+                if b.rule.taps is not None:
+                    tp.update(b.rule.taps(gs, st, ns))
+                bucket_taps[b.name] = tp
+            # this rank's slice of what the rule wrote; the gathered copy
+            # dies with the caller's references
+            new_buckets[b.name] = sharding.shard_tree(ns, hint)
+
+        def one(b):
+            hint, st, gb, pb = gathered(b)
+            rule = b.rule
+            if vector(rule):
+                g_stk, p_stk, *extra = stacked(b, gb, pb)
                 np_stk, ns = rule.vector_update(g_stk, p_stk, st, step,
                                                 *extra)
-                for j, i in enumerate(b.indices):
-                    if with_taps:
-                        upd.append(tap_ssq(np_stk[j], pb[i]))
-                    write(i, np_stk[j])
+                upd = written(b, np_stk, pb)
             else:
-                per_leaf = []
+                per_leaf, upd = [], []
                 for j, i in enumerate(b.indices):
                     s = _slice_state(st, j)
-                    if coded:
+                    if coded(rule):
                         s = codec_lib.tree_decode(cdc, rule.slots, s)
                     extra = (hstep,) if rule.host_step else ()
                     new_p, ns_j = rule.update(gb[i], pb[i], s, step, i,
                                               *extra)
-                    if coded:
+                    if coded(rule):
                         ns_j = codec_lib.tree_encode(cdc, rule.slots, ns_j,
                                                      salts[:, i])
                     if with_taps:
@@ -527,20 +627,38 @@ def build(assign: Callable[[str, Any], LeafRule], bucketed: bool = True,
                     del new_p, ns_j
                 ns = _restack(per_leaf)
                 del per_leaf
-            if with_taps:
-                gs = [gb[i] for i in b.indices]
-                tp = {"grad_ssq": sum_in_order(tap_ssq(g) for g in gs),
-                      "update_ssq": sum_in_order(upd)}
-                if coded:
-                    tp.update(_codec_taps(ns))
-                if rule.taps is not None:
-                    tp.update(rule.taps(gs, st, ns))
-                for k, v in tp.items():
-                    taps[f"{b.name}/{k}"] = v.to(torch.float32)
-            # this rank's slice of what the rule wrote; the gathered copy
-            # dies here
-            new_buckets[b.name] = sharding.shard_tree(ns, hint)
-            del st, ns, gb, pb
+            finish(b, hint, st, ns, gb, upd)
+
+        def together(bs):
+            # one grouped call over the buckets bs; then, bucket by bucket,
+            # the taps, the writes and the state as one() does them
+            got = [gathered(b) for b in bs]
+            members = []
+            for b, (_, st, gb, pb) in zip(bs, got):
+                g_stk, p_stk, *extra = stacked(b, gb, pb)
+                members.append((b.rule.kind, g_stk, p_stk, st, *extra))
+            outs = bs[0].rule.group.update(members, step)
+            del members
+            for b, (hint, st, gb, pb), (np_stk, ns) in zip(bs, got, outs):
+                finish(b, hint, st, ns, gb, written(b, np_stk, pb))
+
+        sets = group_sets(plan, gleaves, mleaves, state, step.device)
+        for b in plan.buckets:
+            if b.name in new_buckets:
+                continue
+            if b.rule is FROZEN:
+                new_buckets[b.name] = {}
+            elif b.name in sets:
+                together(sets[b.name])
+            else:
+                one(b)
+        # the state and the taps in plan order, whatever order the grouped
+        # calls wrote them in
+        new_buckets = {b.name: new_buckets[b.name] for b in plan.buckets}
+        taps: Dict[str, torch.Tensor] = {
+            f"{b.name}/{k}": v.to(torch.float32)
+            for b in plan.buckets for k, v in bucket_taps.get(
+                b.name, {}).items()}
         out = {"step": step + 1, "buckets": new_buckets}
         if hstep is not None:
             eng.returned_step(out["step"], hstep + 1)

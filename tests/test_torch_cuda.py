@@ -103,8 +103,10 @@ def test_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         kernel.gwt_adam_fused(g.transpose(1, 2).contiguous().transpose(1, 2),
                               p, m, v, *scalars, **kw)
+    # f32 p is taken under a bf16 g (a LoRA adapter's, dtype code 2); f16
+    # is not
     with pytest.raises(ValueError, match="dtype"):
-        kernel.gwt_adam_fused(g, p.float(), m, v, *scalars, **kw)
+        kernel.gwt_adam_fused(g, p.half(), m, v, *scalars, **kw)
     with pytest.raises(ValueError, match="contiguous"):
         ops.fused_write_update(
             g, p.transpose(1, 2).contiguous().transpose(1, 2),

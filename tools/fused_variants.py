@@ -15,7 +15,8 @@ and writes as many bytes as K1's bound counts.  A variant that stops
 before the grid barrier (``phase_a_only``) times phase A alone; its
 parameters are not written, so only its time means anything.  With
 ``--parent`` the sources ``tools/parent_kernels.py`` wrote are timed too,
-as the variant ``parent``, and K1's and K2's two-pass designs, as built
+as the variant ``parent`` (its one-pass entries called through that
+revision's C interface, which has no grouped entries), and K1's and K2's two-pass designs, as built
 and the parent's (through the parent's C interface), at qwen2.5-3b's four
 two-pass buckets, in the order parent, new, new, parent (best of each;
 CUDA events as above, 5 launches a run), beside the bounds.
@@ -75,8 +76,12 @@ def make(name: str, edits, csrc: Path = CSRC) -> Path:
     return out
 
 
-def one_pass_ms(lib: str, shape, flush, dev) -> float:
-    L = shape[0]
+def one_pass_ms(lib: str, shape, flush, dev, parent=None) -> float:
+    """K1's or K2's one-pass device time per launch at ``shape`` (bf16,
+    level 2, limiter on), through the wrappers, or with ``parent``
+    (a :class:`ParentTwoPass`) through the parent's C entry."""
+    L, rows, n = shape
+    na = rows * (n >> cs.LEVEL)
     pn = torch.full((L,), 1e9, device=dev)
     ss, wd = torch.tensor(1e-3, device=dev), torch.tensor(0.0, device=dev)
     kw = dict(level=cs.LEVEL, gamma=1.01, use_limiter=True,
@@ -84,21 +89,31 @@ def one_pass_ms(lib: str, shape, flush, dev) -> float:
     if lib == "gwt_adam_fused_q8":
         inputs = cs.make_q8_inputs(shape, 7, dev)
         salts = [s.to(torch.uint32) for s in cs.q8_salts(L, dev)]
+        tensors, codes = (*inputs, *salts), (1, cs.LEVEL)
         fn = lambda: kernel.gwt_adam_fused_q8_one_pass(
             *inputs, *salts, pn, ss, wd, block=cs.QBLOCK, **kw)
         count = lambda: kernel.launches_q8_one_pass
     else:
-        args = cs.make_inputs(shape, 7, dev)
-        fn = lambda: kernel.gwt_adam_fused_one_pass(*args, pn, ss, wd, **kw)
+        tensors, codes = cs.make_inputs(shape, 7, dev), (1, 0, cs.LEVEL)
+        fn = lambda: kernel.gwt_adam_fused_one_pass(*tensors, pn, ss, wd,
+                                                    **kw)
         count = lambda: kernel.launches_one_pass
+    if parent is not None:
+        new_norm = torch.empty(L, device=dev)
+        partials = torch.empty((L, -(-na // kernel.CHUNK)), device=dev)
+        ptrs = tuple(t.data_ptr() for t in (*tensors, pn, new_norm, ss, wd))
+        fn = lambda: parent.one_pass(lib, codes, ptrs, partials, L, na)
+        count = lambda: parent.launches
     return min(cs.device_ms(fn, 20, count, flush) for _ in range(2))
 
 
 class ParentTwoPass:
-    """The parent revision's K1/K2 two-pass entries (``gwt_adam_fused@parent``,
-    ``gwt_adam_fused_q8@parent``), called through that revision's C
-    interface: the partials buffer and no scale buffer, unless the parent
-    already takes one."""
+    """The parent revision's K1/K2 two-pass and one-pass entries
+    (``gwt_adam_fused@parent``, ``gwt_adam_fused_q8@parent``), called
+    through that revision's C interface: the partials buffer and no scale
+    buffer, unless the parent already takes one (the one-pass entry takes
+    the partials alone).  The wrappers of ``kernel.py`` need entries a
+    parent may lack (the grouped ones), so the parent is timed here."""
 
     def __init__(self):
         vp, ll, f, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float, \
@@ -111,12 +126,36 @@ class ParentTwoPass:
             scale = "float* partials, float* scale" in src
             n = n_ptrs + scale
 
-            def declare(l, lib=lib, n=n, codes=codes):
-                fn = getattr(l, lib)
-                fn.argtypes = list(codes) + [vp] * n + [ll, ll] + [f] * 6 \
-                    + [i, i, vp]
+            def declare(l, lib=lib, n=n, codes=codes, n_ptrs=n_ptrs):
+                tail = [ll, ll] + [f] * 6 + [i, i, vp]
+                for name, k in ((lib, n), (lib + "_one_pass", n_ptrs)):
+                    fn = getattr(l, name)
+                    fn.argtypes = list(codes) + [vp] * k + tail
+                    fn.restype = i
+                fn = getattr(l, lib + "_one_pass_plan")
+                fn.argtypes = list(codes) + [ll, ll, vp]
                 fn.restype = i
             self.libs[lib] = (build.load(f"{lib}@parent", declare), scale)
+
+    def plan(self, lib, codes, L, na):
+        """The parent's one-pass plan (``kernel.PLAN_FIELDS``)."""
+        out = (ctypes.c_int * len(kernel.PLAN_FIELDS))()
+        err = getattr(self.libs[lib][0], lib + "_one_pass_plan")(
+            *codes, L, na, ctypes.cast(out, ctypes.c_void_p))
+        if err:
+            raise RuntimeError(f"parent {lib} plan: CUDA error {err}")
+        return dict(zip(kernel.PLAN_FIELDS, out))
+
+    def one_pass(self, lib, codes, ptrs, partials, L, na):
+        handle, _ = self.libs[lib]
+        head, tail = ptrs[:-2], ptrs[-2:]   # ..., new_norm | step, wd
+        err = getattr(handle, lib + "_one_pass")(
+            *codes, *head, partials.data_ptr(), *tail, L, na, 1.01, 0.9,
+            1 - 0.9, 0.999, 1 - 0.999, 1e-6, 1, 0,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent {lib} one pass: CUDA error {err}")
+        self.launches += 1
 
     def __call__(self, lib, codes, ptrs, partials, scale, L, na):
         handle, takes_scale = self.libs[lib]
@@ -131,10 +170,9 @@ class ParentTwoPass:
         self.launches += 1
 
 
-def dense_two_pass(flush, dev) -> None:
+def dense_two_pass(flush, dev, parent) -> None:
     """K1's and K2's two-pass designs, as built and the parent's, at
     qwen2.5-3b's two-pass buckets (bf16, level 2, limiter on)."""
-    parent = ParentTwoPass()
     ss, wd = torch.tensor(1e-3, device=dev), torch.tensor(0.0, device=dev)
     kw = dict(level=cs.LEVEL, gamma=1.01, use_limiter=True,
               weight_decay=False)
@@ -216,6 +254,7 @@ def main() -> int:
             raise SystemExit("no parent sources: run tools/parent_kernels.py")
         names.append("parent")
     build.build_all(tuple(f"{lib}@{n}" for n in names for lib in LIBS))
+    parent = ParentTwoPass() if args.parent else None
     flush = torch.empty(64 << 20, device=dev)   # 256 MB, past the L2
     for label, shape in cs.MAIN_SHAPES:
         nbytes = cs.bound(shape)[2]
@@ -225,6 +264,15 @@ def main() -> int:
         for name in names:
             row = []
             for lib in LIBS:
+                if name == "parent":
+                    ms = one_pass_ms(lib, shape, flush, dev, parent)
+                    L, rows, n = shape
+                    plan = parent.plan(lib, (1, cs.LEVEL) if lib.endswith(
+                        "q8") else (1, 0, cs.LEVEL), L, rows * (n >> cs.LEVEL))
+                    row.append(f"{'K2' if lib.endswith('q8') else 'K1'} "
+                               f"{ms:.4f} ms ({plan['regs']} registers, "
+                               f"{plan['blocks_per_sm']} blocks/SM)")
+                    continue
                 build.SOURCES[lib] = build.SOURCES[f"{lib}@{name}"]
                 build._libs.pop(lib, None)
                 kernel._plans.clear()
@@ -240,7 +288,7 @@ def main() -> int:
         build._libs.pop(lib, None)
     kernel._plans.clear()
     if args.parent:
-        dense_two_pass(flush, dev)
+        dense_two_pass(flush, dev, parent)
     return 0
 
 
